@@ -1,0 +1,344 @@
+"""The lowering pass for the sampled mini-batch path (DESIGN.md §3, §7).
+
+Counterpart of ``repro/core/lowering.py:lower_sampled``: a GNN spec becomes
+a ``SampledModelPlan`` of per-layer ``LayerPlan`` records naming the feature
+path, the backend primitives and the epilogue binding, with the same
+Algorithm-1 decisions as the JAX package (measured on a template batch's
+gathered frontier for layer 0, post-activation estimates for hidden
+layers). ``describe()`` prints the same plan dump, with the port's backend
+names (``cuda`` for ``pallas``, ``torch`` for ``xla``).
+
+This slice covers the matmul aggregations (GCN, SAGE mean/sum/gcn, GIN).
+Attention archs and ``max`` wait for ROADMAP.md Queue 1, item 3; the
+full-batch ``lower`` and the distributed lowering come with their slices;
+the plan-contract verifier (``check_plan``) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.backends import Backend, select_backend
+from repro_torch.backends.registry import ATTENTION_ITEM, not_ported
+from repro_torch.core.aggregate import _weighted_graph
+from repro_torch.core.layout import LayoutPlan, _select_order
+from repro_torch.core.sparsity import (
+    PAPER_GAMMA_DEFAULT,
+    SparsityDecision,
+    decide_execution_path_from_stats,
+    estimate_activation_sparsity,
+)
+from repro_torch.graph.csr import CSRGraph, permute_graph
+from repro_torch.graph.sampling import NeighborSampler
+
+
+@dataclasses.dataclass(frozen=True)
+class EpiloguePlan:
+    """One layer's fused-epilogue record (DESIGN.md §8): which epilogue
+    operands the layer's aggregation takes — ``alpha * self_term + bias``
+    then an optional activation. ``apply_layer`` owns the per-arch
+    algebra; this record is the plan's visible commitment."""
+
+    self_term: bool         # fuse alpha * self_term into the aggregation
+    bias: bool              # fuse the bias add
+    activation: str         # "relu" | "none"
+    formula: str            # human-readable algebra, for plan dumps
+
+    def describe(self) -> str:
+        return self.formula
+
+
+def is_attention_arch(kind: str) -> bool:
+    """Archs whose aggregation is the edge-softmax attention primitive."""
+    return kind in ("GAT", "GT")
+
+
+@dataclasses.dataclass
+class LayerPlan:
+    """One layer's synthesized execution record."""
+
+    index: int
+    op_kind: str            # GCN | SAGE | GIN
+    d_in: int
+    d_out: int
+    feature_path: str       # "sparse" | "dense" — the path that will execute
+    primitive: str          # backend primitive for the feature transform
+    agg_primitive: str      # backend primitive for neighbour aggregation
+    decision: SparsityDecision  # this layer's Alg-1 decision
+    note: str = ""
+    # epilogue binding; None = unfused aggregation + separate ops
+    epilogue: Optional[EpiloguePlan] = None
+    # the layout the layer's sparse operands were built at
+    layout: Optional[LayoutPlan] = None
+
+    def describe(self) -> str:
+        d = self.decision
+        line = (
+            f"layer {self.index}: {self.op_kind:4s} [{self.d_in} -> {self.d_out}]  "
+            f"path={self.feature_path:6s} primitive={self.primitive}  "
+            f"agg={self.agg_primitive}  "
+            f"s={d.sparsity:.3f} tau={d.threshold:.2f} mode={d.mode}"
+        )
+        if self.epilogue is not None:
+            line += f"  epilogue[{self.epilogue.describe()}]"
+        if self.layout is not None:
+            line += f"  layout[{self.layout.describe()}]"
+        if self.note:
+            line += f"  ({self.note})"
+        return line
+
+
+@dataclasses.dataclass
+class SampledModelPlan:
+    """The synthesized mini-batch program (DESIGN.md §7): per-layer plans
+    whose aggregation primitives run on the sampler's bucketed
+    ``SampledBlock`` operands, plus the template-batch Alg-1 decision."""
+
+    layers: list[LayerPlan]
+    backend: str
+    gamma: float
+    arch: str
+    aggregation: str
+    feature_sparsity: float   # measured on the template batch's frontier
+    fanouts: tuple[int, ...]
+    batch_size: int
+    n_buckets: int
+    sampler: NeighborSampler = dataclasses.field(repr=False)
+    # full-graph order the sampler's CSR was renumbered with (the trainer
+    # maps user node ids through inv_perm) + the sampler's block tile
+    layout: Optional[LayoutPlan] = None
+    # serving plans: the trainer never builds loss/grad closures
+    infer_only: bool = False
+
+    def describe(self) -> str:
+        head = (
+            f"SampledModelPlan: arch={self.arch} backend={self.backend} "
+            f"aggregation={self.aggregation} gamma={self.gamma:.2f} "
+            f"fanouts={list(self.fanouts)} batch={self.batch_size} "
+            f"buckets={self.n_buckets} "
+            f"frontier_sparsity={self.feature_sparsity:.3f} "
+            f"layers={len(self.layers)}"
+            + (" infer_only" if self.infer_only else "")
+        )
+        lines = [head] + ["  " + l.describe() for l in self.layers]
+        for b in self.sampler.buckets:
+            lines.append(
+                f"  bucket[seed_cap={b.seed_cap}]: node_caps={list(b.node_caps)} "
+                f"nnz_caps={list(b.nnz_caps)} feat_nnz_cap={b.feat_nnz_cap}")
+        return "\n".join(lines)
+
+
+def lower_sampled(
+    config,
+    graph: CSRGraph,
+    features: np.ndarray,
+    *,
+    fanouts,
+    batch_size: int = 256,
+    n_buckets: int = 2,
+    gamma: float = PAPER_GAMMA_DEFAULT,
+    engine: "str | Backend | None" = None,
+    br: int = 8,
+    bc: int = 8,
+    seed: int = 0,
+    use_sparse_input: bool = True,
+    feat_slack: float = 2.0,
+    fuse_epilogue: bool = True,
+    layout: "LayoutPlan | str | None" = None,
+    infer_only: bool = False,
+) -> SampledModelPlan:
+    """Lower a GNN spec onto the neighbour-sampled mini-batch path.
+
+    The graph is pre-weighted for the spec's aggregation and handed to a
+    ``NeighborSampler`` whose bucketed shape caps bound the distinct shape
+    signatures to one per bucket. Alg 1 runs on the gathered frontier
+    features of a template batch; a sparse layer-0 decision binds
+    ``gather.feature_matmul_sparse`` over per-batch COO operands capped at
+    ``feat_slack`` times the template's density. ``layout`` renumbers the
+    full graph before the sampler is built (the trainer maps user ids
+    through ``inv_perm``). ``infer_only=True`` marks a serving plan.
+    """
+    backend = select_backend(engine)
+    kind = config.kind
+    if is_attention_arch(kind):
+        raise not_ported(f"{kind} (attention aggregation)", ATTENTION_ITEM)
+    dims = list(config.layer_dims)
+    features = np.asarray(features)
+    if features.shape[-1] != dims[0]:
+        raise ValueError(
+            f"layer_dims[0]={dims[0]} != feature dim {features.shape[-1]}")
+    if isinstance(fanouts, int):
+        fanouts = (fanouts,) * config.n_layers
+    fanouts = tuple(int(f) for f in fanouts)
+    if len(fanouts) != config.n_layers:
+        raise ValueError(
+            f"need one fanout per layer ({config.n_layers}), got {fanouts!r}")
+    agg = effective_aggregation(config)
+    if agg == "max":
+        raise not_ported("max aggregation", ATTENTION_ITEM)
+
+    if isinstance(layout, LayoutPlan):
+        lp = dataclasses.replace(layout, br=int(br), bc=int(bc), bf=0,
+                                 source="sampled")
+    else:
+        if layout is None:
+            mode, g_r, perm, inv = "none", graph, None, None
+        else:
+            mode, g_r, perm, inv = _select_order(graph, layout)
+        lp = LayoutPlan(order=mode, br=int(br), bc=int(bc), perm=perm,
+                        inv_perm=inv, source="sampled",
+                        reordered_graph=g_r if mode != "none" else None)
+    if lp.permutes:
+        graph = (lp.reordered_graph if lp.reordered_graph is not None
+                 else permute_graph(graph, lp.inv_perm))
+        features = features[lp.perm]
+    if lp.reordered_graph is not None:  # sampler holds its own weighted copy
+        lp = dataclasses.replace(lp, reordered_graph=None)
+
+    weighted = _weighted_graph(graph, agg)
+    emit_bsr = backend.name in ("cuda", "torch")
+    sampler = NeighborSampler(
+        weighted, fanouts, batch_size, n_buckets=n_buckets, br=br, bc=bc,
+        seed=seed, emit_bsr=emit_bsr)
+
+    # template batch: Alg-1 input statistics on a gathered frontier
+    t_rng = np.random.default_rng(seed ^ 0x5EED)
+    t_seeds = t_rng.choice(
+        graph.n_rows, size=min(batch_size, graph.n_rows), replace=False)
+    template = sampler.sample_batch(t_seeds, rng=t_rng)
+    frontier0 = template.blocks[0].src_nodes
+    rows = features[frontier0]
+    s_frontier = 1.0 - np.count_nonzero(rows) / max(rows.size, 1)
+
+    emit_epilogue = fuse_epilogue and epilogue_fusable(config, agg)
+    if emit_epilogue:
+        agg_primitive = f"{backend.name}.spmm_fused_epilogue"
+    elif backend.name == "gather":
+        agg_primitive = "gather.segment_sum_baseline"
+    else:
+        agg_primitive = f"{backend.name}.spmm_transposed_vjp"
+
+    layers: list[LayerPlan] = []
+    for i in range(config.n_layers):
+        d_in, d_out = dims[i], dims[i + 1]
+        if i == 0:
+            decision = decide_execution_path_from_stats(
+                s_frontier, int(frontier0.shape[0]), d_in, d_out, gamma=gamma)
+        else:
+            s_est = estimate_activation_sparsity(config.activation)
+            decision = decide_execution_path_from_stats(
+                s_est, int(frontier0.shape[0]), d_in, d_out, gamma=gamma)
+
+        path, primitive, note = "dense", f"{backend.name}.feature_matmul_dense", ""
+        if i == 0 and decision.mode == "sparse":
+            expressible, expr_note = _sparse_expressible(kind)
+            if not use_sparse_input:
+                note = "sparse profitable but disabled (use_sparse_input=False)"
+            elif not expressible:
+                note = expr_note
+            else:
+                # per-batch feature matrices are runtime values: the sampler
+                # streams COO operands in the gather backend's edge-list
+                # layout, capped by the template's measured density
+                f_dim = dims[0]
+                caps = [
+                    max(min(int(np.ceil(b.node_caps[0] * f_dim
+                                        * (1.0 - s_frontier) * feat_slack)),
+                            b.node_caps[0] * f_dim), 1)
+                    for b in sampler.buckets
+                ]
+                sampler.set_feature_caps(caps)
+                path = "sparse"
+                primitive = "gather.feature_matmul_sparse"
+                note = (f"per-batch COO operand streamed by the sampler "
+                        f"(slack={feat_slack:g})")
+                if expr_note:
+                    note += f"; {expr_note}"
+        elif decision.mode == "sparse":
+            note = ("sparse profitable but activations are runtime values; "
+                    "no pre-built operand — dense fallback")
+
+        epilogue = None
+        if emit_epilogue:
+            epilogue = _epilogue_binding(
+                config, is_last=(i == config.n_layers - 1),
+                sparse_path=(path == "sparse"))
+
+        layers.append(LayerPlan(
+            index=i, op_kind=kind, d_in=d_in, d_out=d_out,
+            feature_path=path, primitive=primitive,
+            agg_primitive=agg_primitive, decision=decision, note=note,
+            epilogue=epilogue, layout=lp,
+        ))
+
+    return SampledModelPlan(
+        layers=layers, backend=backend.name, gamma=gamma, arch=kind,
+        aggregation=agg, feature_sparsity=float(s_frontier), fanouts=fanouts,
+        batch_size=int(batch_size), n_buckets=int(n_buckets), sampler=sampler,
+        layout=lp, infer_only=bool(infer_only),
+    )
+
+
+def effective_aggregation(config) -> str:
+    """The aggregation the spec lowers to: GCN always uses symmetric
+    normalisation, GIN's sum is fixed by the arch, everything else takes
+    ``config.aggregation``."""
+    if config.kind == "GCN":
+        return "gcn"
+    if config.kind == "GIN":
+        return "sum"
+    return config.aggregation
+
+
+def epilogue_fusable(config, aggregation: str) -> bool:
+    """Can this spec's aggregate layers take a fused epilogue at all?
+    Attention archs and ``max`` keep the unfused sequence."""
+    return not is_attention_arch(config.kind) and aggregation != "max"
+
+
+def _epilogue_binding(config, is_last: bool,
+                      sparse_path: bool) -> Optional[EpiloguePlan]:
+    """The per-layer epilogue record (DESIGN.md §8 grammar).
+
+    Only ReLU — the port's own ``torch.relu`` — lowers into the epilogue;
+    any other ``config.activation`` fuses self-term/bias and leaves the
+    activation outside. Per arch:
+
+    * GCN  — ``relu(A·(X·W) + b)``.
+    * SAGE — ``relu(A·(X·Wn) + X·Ws + b)`` (``A(X)·Wn == A(X·Wn)``).
+    * GIN  — sparse layers ``act(A·u + (1+eps)·u + b1), u = X·W1``; dense
+      layers the self-term combine ``A·x + (1+eps)·x``.
+    """
+    kind = config.kind
+    relu_ok = config.activation is torch.relu
+    post = "relu" if (relu_ok and not is_last) else "none"
+    if kind == "GCN":
+        f = "A·(X·W) + b"
+        return EpiloguePlan(self_term=False, bias=True, activation=post,
+                            formula=f"relu({f})" if post == "relu" else f)
+    if kind == "SAGE":
+        f = "A·(X·Wn) + X·Ws + b"
+        return EpiloguePlan(self_term=True, bias=True, activation=post,
+                            formula=f"relu({f})" if post == "relu" else f)
+    if kind == "GIN":
+        if sparse_path:
+            act = "relu" if relu_ok else "none"
+            f = "A·u + (1+eps)·u + b1, u = X·W1"
+            return EpiloguePlan(self_term=True, bias=True, activation=act,
+                                formula=f"relu({f})" if act == "relu" else f)
+        return EpiloguePlan(self_term=True, bias=False, activation="none",
+                            formula="A·x + (1+eps)·x")
+    return None
+
+
+def _sparse_expressible(kind: str) -> tuple[bool, str]:
+    """Can the layer-0 X @ W be served by ``feature_matmul_sparse``?
+    GIN re-associates z @ W1 = (1+eps)·(X@W1) + A·(X@W1)."""
+    if kind in ("GCN", "SAGE", "GAT", "GT"):
+        return True, ""
+    if kind == "GIN":
+        return True, "reassociated: z@W1 = (1+eps)(X@W1) + A(X@W1)"
+    return False, f"no sparse lowering for {kind}"

@@ -1,0 +1,155 @@
+"""GNN layers — GCN, GraphSAGE, GIN (paper §III-A).
+
+Counterpart of ``repro/models/gnn.py``. Parameters are a plain dictionary
+``{"layers": [dict of tensors, ...]}`` with the JAX package's names and
+layouts, so ``params_from_jax`` carries the JAX package's weights over
+unchanged (``jax.random`` and ``torch.Generator`` never draw the same
+numbers, so parity tests load one set of weights into both).
+``apply_layer`` is the single definition of each arch's per-layer algebra,
+bound to execution primitives through ``LayerOps``.
+
+GAT and GT wait for the attention slice (ROADMAP.md Queue 1, item 3).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Literal, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.backends.registry import ATTENTION_ITEM, not_ported
+
+GNNKind = Literal["GCN", "SAGE", "GIN", "GAT", "GT"]
+
+
+@dataclasses.dataclass
+class GNNConfig:
+    kind: GNNKind
+    layer_dims: Sequence[int]  # [in, hidden..., out]
+    aggregation: str = "gcn"  # sum | mean | gcn | max
+    activation: Callable = torch.relu
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.layer_dims) - 1
+
+
+def _xavier(shape, generator: torch.Generator) -> torch.Tensor:
+    scale = math.sqrt(2.0 / (shape[0] + shape[-1]))
+    return torch.randn(shape, generator=generator, dtype=torch.float32) * scale
+
+
+def init_params(config: GNNConfig, generator: torch.Generator,
+                device="cpu") -> dict:
+    """Xavier-normal parameters for GCN/SAGE/GIN, drawn on the CPU from
+    ``generator`` and moved to ``device``."""
+    layers = []
+    for i in range(config.n_layers):
+        d_in, d_out = config.layer_dims[i], config.layer_dims[i + 1]
+        if config.kind == "GCN":
+            layer = {"w": _xavier((d_in, d_out), generator),
+                     "b": torch.zeros(d_out)}
+        elif config.kind == "SAGE":
+            layer = {"w_self": _xavier((d_in, d_out), generator),
+                     "w_neigh": _xavier((d_in, d_out), generator),
+                     "b": torch.zeros(d_out)}
+        elif config.kind == "GIN":
+            layer = {"eps": torch.zeros(()),
+                     "w1": _xavier((d_in, d_out), generator),
+                     "b1": torch.zeros(d_out),
+                     "w2": _xavier((d_out, d_out), generator),
+                     "b2": torch.zeros(d_out)}
+        elif config.kind in ("GAT", "GT"):
+            raise not_ported(f"{config.kind} parameters", ATTENTION_ITEM)
+        else:
+            raise ValueError(config.kind)
+        layers.append({k: v.to(device) for k, v in layer.items()})
+    return {"layers": layers}
+
+
+def params_from_jax(tree: dict, device="cpu") -> dict:
+    """The port's params from the JAX package's params pytree, given as
+    numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``): same
+    names, same layouts, float32."""
+    return {"layers": [
+        {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+         for k, v in layer.items()}
+        for layer in tree["layers"]]}
+
+
+@dataclasses.dataclass
+class LayerOps:
+    """The execution primitives one layer's algebra runs on."""
+
+    aggregate: Callable[[torch.Tensor], torch.Tensor]  # u -> A @ u
+    # layer-0 Alg-1 sparse binding: w -> X @ w; None = dense path (x @ w)
+    xw: Optional[Callable] = None
+    # bipartite mini-batch blocks: maps a src-frontier tensor onto the dst
+    # frontier (a leading-row slice). None = src set == dst set.
+    restrict: Optional[Callable] = None
+    # (u, self_term=None, bias=None, alpha=None, activation="none") ->
+    # act(A·u + alpha·self_term + bias); bound iff the layer's plan carries
+    # an ``EpiloguePlan``
+    fused_epilogue: Optional[Callable] = None
+
+
+def apply_layer(config: GNNConfig, layer: dict, x: torch.Tensor,
+                ops: LayerOps, is_last: bool) -> torch.Tensor:
+    """One layer of any ported arch, on the given primitives — the same
+    algebra, in the same order, as ``repro/models/gnn.py:apply_layer``.
+
+    With ``ops.fused_epilogue`` bound, bias / self-term / ReLU run inside
+    the aggregation primitive: GCN ``relu(A·(X·W) + b)``; SAGE
+    ``relu(A·(X·Wn) + X·Ws + b)``; GIN sparse ``act(A·u + (1+eps)·u + b1)``,
+    dense ``A·x + (1+eps)·x``. Only the port's own ``torch.relu`` lowers
+    into the primitive (``core/lowering.py:_epilogue_binding`` keys on the
+    same test).
+    """
+    kind = config.kind
+    xw = ops.xw
+    mm = xw if xw is not None else (lambda w: x @ w)
+    res = ops.restrict if ops.restrict is not None else (lambda u: u)
+    fe = ops.fused_epilogue
+    relu_ok = config.activation is torch.relu
+    post = "relu" if (relu_ok and not is_last) else "none"
+    if kind == "GCN":
+        # transform-then-aggregate (standard GCN ordering A (X W))
+        if fe is not None:
+            y = fe(mm(layer["w"]), bias=layer["b"], activation=post)
+            return y if (is_last or post == "relu") else config.activation(y)
+        y = ops.aggregate(mm(layer["w"])) + layer["b"]
+    elif kind == "SAGE":
+        if fe is not None:
+            y = fe(mm(layer["w_neigh"]), self_term=res(mm(layer["w_self"])),
+                   bias=layer["b"], activation=post)
+            return y if (is_last or post == "relu") else config.activation(y)
+        y = res(mm(layer["w_self"])) + ops.aggregate(x) @ layer["w_neigh"] + layer["b"]
+    elif kind == "GIN":
+        if xw is not None:
+            # "sum" aggregation is linear, so z@W1 re-associates to
+            # (1+eps)(X@W1) + A(X@W1)
+            u = xw(layer["w1"])
+            if fe is not None:
+                act = "relu" if relu_ok else "none"
+                h = fe(u, self_term=res(u), bias=layer["b1"],
+                       alpha=1.0 + layer["eps"], activation=act)
+                if act == "none":
+                    h = config.activation(h)
+            else:
+                z1 = (1.0 + layer["eps"]) * res(u) + ops.aggregate(u) + layer["b1"]
+                h = config.activation(z1)
+            y = h @ layer["w2"] + layer["b2"]
+        else:
+            if fe is not None:
+                z = fe(x, self_term=res(x), alpha=1.0 + layer["eps"])
+            else:
+                z = (1.0 + layer["eps"]) * res(x) + ops.aggregate(x)
+            z1 = z @ layer["w1"] + layer["b1"]
+            y = config.activation(z1) @ layer["w2"] + layer["b2"]
+    elif kind in ("GAT", "GT"):
+        raise not_ported(f"{kind} layers", ATTENTION_ITEM)
+    else:
+        raise ValueError(kind)
+    return y if is_last else config.activation(y)
