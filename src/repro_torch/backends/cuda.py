@@ -1,14 +1,40 @@
 """CUDA backend — counterpart of ``repro/backends/pallas.py``.
 
-Names the Hopper kernels as the executor of a plan's sparse primitives:
-the sampled path runs ``kernels/ops.py:bsr_spmm_pair`` with ``inner="cuda"``
-(``kernels/csrc/bsr_spmm.cu`` for CUDA tensors, its plain version for CPU
-tensors). Full-batch operands come with the full-batch slice.
+BSR operands (CSR -> BSR once, ``kernels/ops.py:BSRDevice``) consumed by
+the Hopper kernels: ``spmm`` runs ``kernels/csrc/bsr_spmm.cu``, and the
+native ``spmm_fused_epilogue`` runs ``bsr_spmm_fused.cu`` forward and
+``bsr_spmm_masked.cu`` (or ``bsr_spmm.cu``) on Aᵀ backward. The kernel
+wrappers run their plain versions for CPU tensors, so the same plans run
+in the CPU tests. The sampled path runs ``kernels/ops.py:bsr_spmm_pair``
+with ``inner="cuda"``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from repro_torch.backends.registry import Backend
+from repro_torch.graph.csr import CSRGraph, csr_to_bsr
+from repro_torch.kernels import ops as kops
 
 
 class CudaBackend(Backend):
     name = "cuda"
+    inner = "cuda"  # the executor of kernels/ops.py this backend binds
+
+    def build_spmm_operand(self, csr: CSRGraph, br: int = 8,
+                           bc: Optional[int] = None, device=None):
+        return kops.BSRDevice.from_bsr(csr_to_bsr(csr, br=br, bc=bc), device)
+
+    def operand_bytes(self, operand) -> int:
+        return operand.nbytes
+
+    def spmm(self, operand, x: torch.Tensor) -> torch.Tensor:
+        return operand.matmul(x, self.inner)
+
+    def spmm_fused_epilogue(self, fwd_operand, bwd_operand):
+        """The native fused kernel: the epilogue applied where each row's
+        sum finishes; the backward folds the ReLU mask into the transposed
+        SpMM (``kernels/ops.py:bsr_spmm_fused_pair``)."""
+        return kops.build_fused_epilogue(fwd_operand, bwd_operand, self.inner)

@@ -1,6 +1,7 @@
 """Gather-scatter backend — counterpart of ``repro/backends/gather.py``.
 
-Edge-list operands, per-edge gather + ``index_add_`` (paper §II, Eq. 12).
+Edge-list operands, per-edge gather + ``index_add_`` (paper §II, Eq. 12);
+its full-batch ``spmm_fused_epilogue`` is the registry's composition.
 The sampled path binds its ``spmm`` as ``gather.feature_matmul_sparse``:
 the per-batch COO feature operand is an edge list with W as the gathered
 matrix. ``index_add_`` uses atomics on CUDA, so this path is not bitwise
@@ -12,7 +13,9 @@ import dataclasses
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.backends.registry import Backend
+from repro_torch.graph.csr import CSRGraph
 
 
 @dataclasses.dataclass
@@ -27,6 +30,19 @@ class EdgeListOperand:
 
 class GatherBackend(Backend):
     name = "gather"
+
+    def build_spmm_operand(self, csr: CSRGraph, br: int = 8, bc=None,
+                           device=None) -> EdgeListOperand:
+        # br/bc are BSR tile hints; the edge-list layout has no blocks
+        dev = resolve_device(device)
+        src, dst = csr.edge_list()
+        return EdgeListOperand(
+            src=torch.from_numpy(src).to(dev), dst=torch.from_numpy(dst).to(dev),
+            weights=torch.from_numpy(csr.data).to(dev), n_rows=csr.n_rows)
+
+    def operand_bytes(self, operand: EdgeListOperand) -> int:
+        return int(sum(t.numel() * t.element_size()
+                       for t in (operand.src, operand.dst, operand.weights)))
 
     def spmm(self, operand: EdgeListOperand, x: torch.Tensor) -> torch.Tensor:
         msgs = x[operand.src.long()] * operand.weights[:, None]  # [E, F]

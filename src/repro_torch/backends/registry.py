@@ -10,15 +10,19 @@ Each backend is a registered object serving the shared op vocabulary
 * ``gather`` — edge-list gather + ``index_add_`` (the PyG/DGL baseline)
 
 Unlike the JAX registry there is no platform auto-selection: ``None``
-selects ``cuda``, and the device a trainer runs on is the caller's choice
-(``repro_torch.resolve_device``). Primitives of later slices raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+selects ``cuda``, and the device operands are built on is the caller's
+choice (``repro_torch.resolve_device``: CUDA unless asked). The attention
+primitives raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+
+from repro_torch.graph.csr import CSRGraph, csr_from_dense
 
 #: the op vocabulary every backend serves (DESIGN.md §2)
 OP_VOCABULARY = (
@@ -32,8 +36,11 @@ OP_VOCABULARY = (
     "feature_matmul_dense",
 )
 
-FULL_BATCH_ITEM = "ROADMAP.md Queue 1, item 2 (full-batch training)"
+TRAINING_ITEM = "ROADMAP.md Queue 1, item 2 (sampled training)"
 ATTENTION_ITEM = "ROADMAP.md Queue 1, item 3 (attention)"
+LAYOUT_ITEM = "ROADMAP.md Queue 1, item 5 (layout autotuner)"
+RUNTIME_ITEM = "ROADMAP.md Queue 1, item 6 (runtime)"
+VERIFY_ITEM = "ROADMAP.md Queue 1, item 8 (verifier)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -71,30 +78,89 @@ def compose_epilogue(agg: Callable) -> Callable:
     return fused
 
 
+class _TransposedVJP(torch.autograd.Function):
+    """``x -> spmm(fwd, x)`` whose backward is ``spmm(bwd, dy)``."""
+
+    @staticmethod
+    def forward(ctx, x, spmm, fwd_operand, bwd_operand):
+        ctx.spmm, ctx.bwd_operand = spmm, bwd_operand
+        return spmm(fwd_operand, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = ctx.spmm(ctx.bwd_operand, dy.float().contiguous())
+        return dx, None, None, None
+
+
 class Backend:
-    """Base class: operand construction + the op vocabulary."""
+    """Base class: operand construction + the op vocabulary.
+
+    Subclasses implement ``build_spmm_operand`` / ``spmm`` /
+    ``operand_bytes`` for their sparse layout; the differentiable
+    compositions (``spmm_transposed_vjp``, the composed
+    ``spmm_fused_epilogue``, ``feature_matmul_sparse``) are shared.
+    """
 
     name: str = "abstract"
 
-    def build_spmm_operand(self, csr, br: int = 8, bc: Optional[int] = None,
-                           device=None):
-        raise not_ported(f"{self.name}.build_spmm_operand", FULL_BATCH_ITEM)
+    # -- operand construction (one-time lowering, O(nnz)) --------------------
+
+    def build_spmm_operand(self, csr: CSRGraph, br: int = 8,
+                           bc: Optional[int] = None, device=None):
+        """This backend's operand of ``csr`` on ``device`` (CUDA unless
+        asked). ``bc=None`` is the adaptive width (``adaptive_bc``)."""
+        raise NotImplementedError
+
+    def operand_bytes(self, operand) -> int:
+        raise NotImplementedError
+
+    # -- primitives ----------------------------------------------------------
 
     def spmm(self, operand, x: torch.Tensor) -> torch.Tensor:
-        raise not_ported(f"{self.name}.spmm", FULL_BATCH_ITEM)
+        """Y = A @ X (not differentiable through the operand)."""
+        raise NotImplementedError
 
     def feature_matmul_dense(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Dense X·W: ``torch.matmul`` in full float32 on every backend."""
         return x @ w
 
-    def spmm_transposed_vjp(self, fwd_operand, bwd_operand):
-        raise not_ported(f"{self.name}.spmm_transposed_vjp", FULL_BATCH_ITEM)
+    # -- differentiable compositions ----------------------------------------
 
-    def spmm_fused_epilogue(self, fwd_operand, bwd_operand, bf=None):
-        raise not_ported(f"{self.name}.spmm_fused_epilogue", FULL_BATCH_ITEM)
+    def spmm_transposed_vjp(self, fwd_operand, bwd_operand
+                            ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Differentiable ``x -> A @ x`` whose backward multiplies by the
+        pre-built transposed operand (dX = Aᵀ @ dY): conflict-free, no
+        autograd through the sparse layout."""
 
-    def feature_matmul_sparse(self, x_np, br: int = 8, bc=None):
-        raise not_ported(f"{self.name}.feature_matmul_sparse", FULL_BATCH_ITEM)
+        def mm(x):
+            return _TransposedVJP.apply(x, self.spmm, fwd_operand, bwd_operand)
+
+        return mm
+
+    def spmm_fused_epilogue(self, fwd_operand, bwd_operand) -> Callable:
+        """Differentiable ``(u, self_term, bias, alpha, activation) ->
+        act(A @ u + alpha * self_term + bias)`` over the pre-built pair.
+        Base: the transposed-VJP spmm composed with ``apply_epilogue`` (the
+        edge-list lowering); ``cuda`` and ``torch`` override it with the
+        fused kernel and its plain version."""
+        return compose_epilogue(
+            self.spmm_transposed_vjp(fwd_operand, bwd_operand))
+
+    def feature_matmul_sparse(self, x_np: np.ndarray, br: int = 8,
+                              bc: Optional[int] = None, device=None
+                              ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Differentiable ``w -> X @ w`` with X (the feature matrix) held in
+        this backend's sparse layout: forward on the operand of X, backward
+        dW = Xᵀ @ dY on the pre-transposed operand (dX is never formed, X is
+        the input). Both O(nnz) conversions happen here, once (Alg 1
+        'DenseToCSR')."""
+        x_csr = csr_from_dense(np.asarray(x_np))
+        fwd = self.build_spmm_operand(x_csr, br=br, bc=bc, device=device)
+        bwd = self.build_spmm_operand(x_csr.transpose(), br=br, bc=bc,
+                                      device=device)
+        return self.spmm_transposed_vjp(fwd, bwd)
+
+    # -- attention (ROADMAP.md Queue 1, item 3) -------------------------------
 
     def segment_softmax_aggregate(self, z, a_src, a_dst, src, dst, n_nodes):
         raise not_ported(f"{self.name}.segment_softmax_aggregate",

@@ -1,33 +1,46 @@
-"""The lowering pass for the sampled mini-batch path (DESIGN.md §3, §7).
+"""The lowering pass: GNN spec -> per-layer plans (DESIGN.md §3, §7).
 
-Counterpart of ``repro/core/lowering.py:lower_sampled``: a GNN spec becomes
-a ``SampledModelPlan`` of per-layer ``LayerPlan`` records naming the feature
-path, the backend primitives and the epilogue binding, with the same
-Algorithm-1 decisions as the JAX package (measured on a template batch's
-gathered frontier for layer 0, post-activation estimates for hidden
-layers). ``describe()`` prints the same plan dump, with the port's backend
-names (``cuda`` for ``pallas``, ``torch`` for ``xla``).
+Counterpart of ``repro/core/lowering.py``'s ``lower`` (full batch: a
+``ModelPlan``) and ``lower_sampled`` (mini-batch: a ``SampledModelPlan``).
+A spec becomes per-layer ``LayerPlan`` records naming the feature path,
+the backend primitives and the epilogue binding, with the same
+Algorithm-1 decisions as the JAX package (measured input sparsity for
+layer 0, post-activation estimates for hidden layers). ``describe()``
+prints the same plan dump, with the port's backend names (``cuda`` for
+``pallas``, ``torch`` for ``xla``).
 
-This slice covers the matmul aggregations (GCN, SAGE mean/sum/gcn, GIN).
-Attention archs and ``max`` wait for ROADMAP.md Queue 1, item 3; the
-full-batch ``lower`` and the distributed lowering come with their slices;
-the plan-contract verifier (``check_plan``) is not ported yet.
+The matmul aggregations are ported (GCN, SAGE mean/sum/gcn, GIN).
+Attention archs and ``max`` wait for ROADMAP.md Queue 1, item 3;
+``layout="auto"`` for item 5; the distributed lowering for item 7; the
+plan-contract verifier (``check_plan``) for item 8, and a full-batch
+plan's ``describe()`` says so.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.backends import Backend, select_backend
-from repro_torch.backends.registry import ATTENTION_ITEM, not_ported
-from repro_torch.core.aggregate import _weighted_graph
-from repro_torch.core.layout import LayoutPlan, _select_order
+from repro_torch.backends.registry import (
+    ATTENTION_ITEM,
+    LAYOUT_ITEM,
+    VERIFY_ITEM,
+    not_ported,
+)
+from repro_torch.core.aggregate import (
+    FusedGraphOp,
+    _weighted_graph,
+    make_fused_aggregate,
+)
+from repro_torch.core.layout import LayoutPlan, _select_order, default_layout
 from repro_torch.core.sparsity import (
     PAPER_GAMMA_DEFAULT,
     SparsityDecision,
+    decide_execution_path,
     decide_execution_path_from_stats,
     estimate_activation_sparsity,
 )
@@ -73,6 +86,10 @@ class LayerPlan:
     epilogue: Optional[EpiloguePlan] = None
     # the layout the layer's sparse operands were built at
     layout: Optional[LayoutPlan] = None
+    # differentiable w -> X @ w over pre-built BSR(X)/BSR(Xᵀ); only set on
+    # a full-batch plan's sparse layer 0 (its feature matrix is known)
+    sparse_xw: Optional[Callable] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def describe(self) -> str:
         d = self.decision
@@ -89,6 +106,39 @@ class LayerPlan:
         if self.note:
             line += f"  ({self.note})"
         return line
+
+
+@dataclasses.dataclass
+class ModelPlan:
+    """The synthesized full-batch program, made visible: per-layer plans +
+    the shared graph operator, its operands on ``device``."""
+
+    layers: list[LayerPlan]
+    backend: str            # registry name of the chosen backend
+    gamma: float
+    arch: str
+    aggregation: str        # effective aggregation ("gcn", "sum", ...)
+    feature_sparsity: float  # measured input sparsity (0.0 if unknown)
+    graph_op: FusedGraphOp = dataclasses.field(repr=False)
+    # the node order + BSR tile the operands were built at; carries
+    # perm/inv_perm when the order permutes
+    layout: Optional[LayoutPlan] = None
+    device: Optional[torch.device] = None
+
+    @property
+    def input_decision(self) -> SparsityDecision:
+        """Layer 0's Alg-1 decision."""
+        return self.layers[0].decision
+
+    def describe(self) -> str:
+        head = (
+            f"ModelPlan: arch={self.arch} backend={self.backend} "
+            f"aggregation={self.aggregation} gamma={self.gamma:.2f} "
+            f"input_sparsity={self.feature_sparsity:.3f} "
+            f"layers={len(self.layers)}"
+        )
+        return "\n".join([head] + ["  " + l.describe() for l in self.layers]
+                         + [f"  (check_plan not ported: {VERIFY_ITEM})"])
 
 
 @dataclasses.dataclass
@@ -182,6 +232,7 @@ def lower_sampled(
 
     if isinstance(layout, LayoutPlan):
         lp = dataclasses.replace(layout, br=int(br), bc=int(bc), bf=0,
+                                 n_blocks=0, padding_waste=0.0,
                                  source="sampled")
     else:
         if layout is None:
@@ -342,3 +393,154 @@ def _sparse_expressible(kind: str) -> tuple[bool, str]:
     if kind == "GIN":
         return True, "reassociated: z@W1 = (1+eps)(X@W1) + A(X@W1)"
     return False, f"no sparse lowering for {kind}"
+
+
+def _resolve_layout(graph: CSRGraph, layout: "LayoutPlan | str | None",
+                    br: Optional[int], bc: Optional[int]) -> LayoutPlan:
+    """Turn a ``layout=`` argument into a concrete ``LayoutPlan``.
+
+    * ``None`` / ``"none"`` — identity order, explicit ``br``/``bc`` when
+      given, the adaptive ``bc`` otherwise;
+    * ``"degree"`` / ``"rcm"`` — that order with the same tile;
+    * a ``LayoutPlan`` — passes through untouched;
+    * ``"auto"`` (order selection + tile autotuning) is not ported.
+
+    Explicit ``br``/``bc`` with a ``LayoutPlan`` is a conflict (the layout
+    carries the tile) and raises.
+    """
+    if layout == "auto":
+        raise not_ported("layout='auto' (the tile autotuner)", LAYOUT_ITEM)
+    if isinstance(layout, LayoutPlan):
+        if br is not None or bc is not None:
+            raise ValueError(
+                f"explicit br/bc conflict with layout={layout!r}: the "
+                f"layout carries the tile — pass one or the other")
+        return layout
+    if layout is None or layout == "none":
+        lp = default_layout(graph, br=br, bc=bc)
+        if br is not None or bc is not None:
+            lp.source = "explicit"
+        return lp
+    mode, g_r, perm, inv = _select_order(graph, layout)  # validates mode
+    lp = default_layout(g_r, br=br, bc=bc)
+    return dataclasses.replace(lp, order=mode, perm=perm, inv_perm=inv,
+                               source="requested", reordered_graph=g_r)
+
+
+def lower(
+    config,
+    graph: CSRGraph,
+    features: Optional[np.ndarray] = None,
+    *,
+    gamma: float = PAPER_GAMMA_DEFAULT,
+    engine: "str | Backend | None" = None,
+    use_fused: bool = True,
+    fuse_epilogue: bool = True,
+    br: Optional[int] = None,
+    bc: Optional[int] = None,
+    layout: "LayoutPlan | str | None" = None,
+    device=None,
+) -> ModelPlan:
+    """Lower a GNN spec onto backend primitives for full-batch execution:
+    the synthesis step, as ``repro/core/lowering.py:lower``.
+
+    ``features=None`` means the input matrix is unknown at lowering time;
+    every layer then takes the dense path. ``use_fused=False`` keeps the
+    plan but aggregates on the gather-scatter baseline and binds no sparse
+    feature operand. ``fuse_epilogue=False`` keeps the fused aggregation
+    but unbinds the per-layer epilogue (bias / self-term / activation as
+    separate ops). ``layout`` takes ``None | "none" | "degree" | "rcm"`` or
+    a ``LayoutPlan``; a reordered plan carries ``perm``/``inv_perm`` and
+    ``GNNModel.apply`` permutes features in and logits back. Operands are
+    built on ``device``: CUDA unless asked.
+    """
+    backend = select_backend(engine)
+    dev = resolve_device(device)
+    kind = config.kind
+    if is_attention_arch(kind):
+        raise not_ported(f"{kind} (attention aggregation)", ATTENTION_ITEM)
+    dims = list(config.layer_dims)
+    agg = effective_aggregation(config)
+    if agg == "max":
+        raise not_ported("max aggregation", ATTENTION_ITEM)
+
+    emit_epilogue = (use_fused and fuse_epilogue
+                     and epilogue_fusable(config, agg))
+    lp = _resolve_layout(graph, layout, br, bc)
+    if lp.permutes:
+        graph_exec = (lp.reordered_graph if lp.reordered_graph is not None
+                      else permute_graph(graph, lp.inv_perm))
+        features_exec = (None if features is None
+                         else np.asarray(features)[lp.perm])
+    else:
+        graph_exec = graph
+        features_exec = None if features is None else np.asarray(features)
+    n_nodes = graph_exec.n_rows
+
+    graph_op = make_fused_aggregate(graph_exec, agg, br=lp.br, bc=lp.bc,
+                                    engine=backend, device=dev)
+    # operands are built: drop the layout's host-side copy of the graph
+    if lp.reordered_graph is not None:
+        lp = dataclasses.replace(lp, reordered_graph=None)
+
+    if not use_fused:
+        agg_primitive = "gather.segment_sum_baseline"
+    elif emit_epilogue:
+        agg_primitive = f"{backend.name}.spmm_fused_epilogue"
+    else:
+        agg_primitive = f"{backend.name}.spmm_transposed_vjp"
+
+    s_input = 0.0
+    layers: list[LayerPlan] = []
+    for i in range(config.n_layers):
+        d_in, d_out = dims[i], dims[i + 1]
+        if i == 0 and features is not None:
+            decision = decide_execution_path(features, gamma=gamma,
+                                             n_hidden=d_out)
+            s_input = decision.sparsity
+        else:
+            s_est = (estimate_activation_sparsity(config.activation)
+                     if i > 0 else 0.0)
+            decision = decide_execution_path_from_stats(
+                s_est, n_nodes, d_in, d_out, gamma=gamma)
+
+        sparse_xw = None
+        path, primitive, note = "dense", f"{backend.name}.feature_matmul_dense", ""
+        if decision.mode == "sparse":
+            expressible, expr_note = _sparse_expressible(kind)
+            if i == 0 and features is not None and use_fused and expressible:
+                # X's columns are features, not graph nodes: bc adapts to
+                # the feature dim, the adjacency tile does not apply
+                sparse_xw = backend.feature_matmul_sparse(
+                    features_exec, br=lp.br, bc=None, device=dev)
+                path = "sparse"
+                primitive = f"{backend.name}.feature_matmul_sparse"
+                note = expr_note
+            elif not use_fused:
+                note = "sparse profitable but fusion disabled (use_fused=False)"
+            elif i > 0:
+                note = ("sparse profitable but activations are runtime "
+                        "values; no pre-built operand — dense fallback")
+            elif features is None:
+                note = "feature matrix unknown at lowering time"
+            else:
+                note = expr_note
+
+        epilogue = None
+        if emit_epilogue:
+            epilogue = _epilogue_binding(
+                config, is_last=(i == config.n_layers - 1),
+                sparse_path=sparse_xw is not None)
+
+        layers.append(LayerPlan(
+            index=i, op_kind=kind, d_in=d_in, d_out=d_out,
+            feature_path=path, primitive=primitive,
+            agg_primitive=agg_primitive, decision=decision, note=note,
+            epilogue=epilogue, layout=lp, sparse_xw=sparse_xw,
+        ))
+
+    return ModelPlan(
+        layers=layers, backend=backend.name, gamma=gamma, arch=kind,
+        aggregation=agg, feature_sparsity=s_input, graph_op=graph_op,
+        layout=lp, device=dev,
+    )

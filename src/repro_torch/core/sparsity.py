@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
+import numpy as np
 import torch
 
 PAPER_GAMMA_DEFAULT = 0.20  # §IV-B.a: SpMM sustains ≈20% of dense throughput
@@ -25,6 +26,12 @@ class SparsityDecision:
     # modelled times (arbitrary units, work/η) for reporting
     t_dense: float
     t_sparse: float
+
+
+def feature_sparsity(x: np.ndarray) -> float:
+    """s = 1 - nnz(X) / (N·F). Host-side, once at load (Alg 1 Phase 1)."""
+    x = np.asarray(x)
+    return float(1.0 - np.count_nonzero(x) / max(x.size, 1))
 
 
 def efficiency_ratio_threshold(gamma: float) -> float:
@@ -55,6 +62,19 @@ def decide_execution_path_from_stats(
         mode=mode, sparsity=sparsity, gamma=gamma, threshold=tau,
         t_dense=t_dense, t_sparse=t_sparse,
     )
+
+
+def decide_execution_path(
+    x: np.ndarray,
+    gamma: float = PAPER_GAMMA_DEFAULT,
+    n_hidden: int | None = None,
+) -> SparsityDecision:
+    """Alg 1, Phase 1: runtime analysis & lowering decision for a concrete
+    feature matrix (measures s, then applies the stats-based decision)."""
+    s = feature_sparsity(x)
+    n, f = np.asarray(x).shape[-2], np.asarray(x).shape[-1]
+    h = n_hidden if n_hidden is not None else f
+    return decide_execution_path_from_stats(s, n, f, h, gamma=gamma)
 
 
 #: expected zero fraction of a post-ReLU activation with roughly centred

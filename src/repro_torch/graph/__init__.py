@@ -3,6 +3,7 @@ from repro_torch.graph.csr import (
     CSRGraph,
     adaptive_bc,
     bsr_block_count,
+    csr_from_dense,
     csr_from_edges,
     csr_to_bsr,
     degree_order,

@@ -199,6 +199,14 @@ def csr_from_edges(
     )
 
 
+def csr_from_dense(mat: np.ndarray) -> CSRGraph:
+    rows, cols = np.nonzero(mat)
+    return csr_from_edges(
+        src=cols, dst=rows, n_rows=mat.shape[0], n_cols=mat.shape[1],
+        data=mat[rows, cols], dedupe=False,
+    )
+
+
 # --------------------------------------------------------------------------
 # Locality-aware node reordering (layout-optimization stage, DESIGN.md §9).
 #

@@ -1,4 +1,4 @@
-"""GNN layers — GCN, GraphSAGE, GIN (paper §III-A).
+"""GNN layers and the full-batch model — GCN, GraphSAGE, GIN (paper §III-A).
 
 Counterpart of ``repro/models/gnn.py``. Parameters are a plain dictionary
 ``{"layers": [dict of tensors, ...]}`` with the JAX package's names and
@@ -6,7 +6,9 @@ layouts, so ``params_from_jax`` carries the JAX package's weights over
 unchanged (``jax.random`` and ``torch.Generator`` never draw the same
 numbers, so parity tests load one set of weights into both).
 ``apply_layer`` is the single definition of each arch's per-layer algebra,
-bound to execution primitives through ``LayerOps``.
+bound to execution primitives through ``LayerOps``; ``GNNModel`` executes
+a full-batch ``ModelPlan`` with it. Parameters are made on the card unless
+the caller asks for another device.
 
 GAT and GT wait for the attention slice (ROADMAP.md Queue 1, item 3).
 """
@@ -19,7 +21,10 @@ from typing import Callable, Literal, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.backends.registry import ATTENTION_ITEM, not_ported
+from repro_torch.core.lowering import LayerPlan, ModelPlan, lower
+from repro_torch.graph.csr import CSRGraph
 
 GNNKind = Literal["GCN", "SAGE", "GIN", "GAT", "GT"]
 
@@ -42,9 +47,11 @@ def _xavier(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def init_params(config: GNNConfig, generator: torch.Generator,
-                device="cpu") -> dict:
+                device=None) -> dict:
     """Xavier-normal parameters for GCN/SAGE/GIN, drawn on the CPU from
-    ``generator`` and moved to ``device``."""
+    ``generator`` and moved to ``device`` (CUDA unless asked; raises
+    without a card)."""
+    device = resolve_device(device)
     layers = []
     for i in range(config.n_layers):
         d_in, d_out = config.layer_dims[i], config.layer_dims[i + 1]
@@ -69,10 +76,11 @@ def init_params(config: GNNConfig, generator: torch.Generator,
     return {"layers": layers}
 
 
-def params_from_jax(tree: dict, device="cpu") -> dict:
+def params_from_jax(tree: dict, device=None) -> dict:
     """The port's params from the JAX package's params pytree, given as
     numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``): same
-    names, same layouts, float32."""
+    names, same layouts, float32, on ``device`` (CUDA unless asked)."""
+    device = resolve_device(device)
     return {"layers": [
         {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
          for k, v in layer.items()}
@@ -153,3 +161,82 @@ def apply_layer(config: GNNConfig, layer: dict, x: torch.Tensor,
     else:
         raise ValueError(kind)
     return y if is_last else config.activation(y)
+
+
+class GNNModel:
+    """A GNN executing a full-batch ``ModelPlan`` — counterpart of
+    ``repro/models/gnn.py:GNNModel``.
+
+    Each layer runs ``apply_layer`` on the plan's primitives: the sparse
+    layer-0 X·W when the plan bound one, the fused-epilogue aggregation
+    where the plan carries an ``EpiloguePlan``, the gather-scatter
+    baseline under ``use_fused=False``. A reordered plan's operands live
+    in the renumbered space: ``apply`` gathers features in through
+    ``perm`` and un-permutes logits through ``inv_perm``, so callers only
+    see the original node order.
+    """
+
+    def __init__(self, config: GNNConfig, graph: CSRGraph,
+                 use_fused: bool = True, engine: "str | None" = None,
+                 plan: Optional[ModelPlan] = None, device=None):
+        self.config = config
+        self.graph = graph
+        self.use_fused = use_fused
+        if plan is None:
+            plan = lower(config, graph, None, engine=engine,
+                         use_fused=use_fused, device=device)
+        self.plan = plan
+        self.device = plan.device
+        self.op = plan.graph_op
+        lp = plan.layout
+        if lp is not None and lp.permutes:
+            self._perm = torch.from_numpy(np.asarray(lp.perm, np.int64)).to(self.device)
+            self._inv_perm = torch.from_numpy(
+                np.asarray(lp.inv_perm, np.int64)).to(self.device)
+        else:
+            self._perm = self._inv_perm = None
+
+    def init(self, generator: torch.Generator) -> dict:
+        return init_params(self.config, generator, self.device)
+
+    def _aggregate(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_fused:
+            return self.op.aggregate(x)
+        return self.op.baseline(x)
+
+    def _layer_ops(self, plan_layer: Optional[LayerPlan]) -> LayerOps:
+        sparse_xw = None
+        if plan_layer is not None and plan_layer.feature_path == "sparse":
+            sparse_xw = plan_layer.sparse_xw
+        fe = None
+        if (self.use_fused and plan_layer is not None
+                and plan_layer.epilogue is not None):
+            fe = self.op.aggregate_epilogue
+        return LayerOps(aggregate=self._aggregate, xw=sparse_xw,
+                        fused_epilogue=fe)
+
+    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        n = self.config.n_layers
+        if self._perm is not None:
+            x = x[self._perm]
+        for i, layer in enumerate(params["layers"]):
+            plan_layer = self.plan.layers[i] if i < len(self.plan.layers) else None
+            x = apply_layer(self.config, layer, x, self._layer_ops(plan_layer),
+                            is_last=(i == n - 1))
+        if self._inv_perm is not None:
+            x = x[self._inv_perm]
+        return x
+
+    def loss_fn(self, params: dict, x: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        """Mean cross-entropy over the masked nodes (0 when none are)."""
+        logp = torch.log_softmax(self.apply(params, x), dim=-1)
+        nll = -logp.gather(1, labels.long()[:, None])[:, 0]
+        denom = mask.sum().clamp(min=1)
+        return torch.where(mask, nll, 0.0).sum() / denom
+
+    def accuracy(self, params: dict, x, labels, mask) -> torch.Tensor:
+        with torch.no_grad():
+            pred = torch.argmax(self.apply(params, x), dim=-1)
+        denom = mask.sum().clamp(min=1)
+        return torch.where(mask, pred == labels.long(), False).sum() / denom

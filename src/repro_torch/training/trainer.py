@@ -1,14 +1,19 @@
-"""The inference half of the neighbour-sampled mini-batch trainer.
+"""Training loops — counterpart of ``repro/training/trainer.py``.
 
-Counterpart of ``repro/training/trainer.py:MiniBatchTrainer`` as the
-serving path uses it: per batch, the sampler's bucketed block stack goes to
-the device and every layer runs ``models/gnn.py:apply_layer`` with
-``LayerOps`` bound to the batch's bipartite operands — matmul aggregations
-through ``kernels/ops.py:bsr_spmm_pair`` (the Hopper kernel on the ``cuda``
-backend), the Alg-1 sparse input path through the gather backend's
-edge-list ``spmm``. Training (optimizer, loss, guarded steps, checkpoints)
-is the next slice (ROADMAP.md Queue 1, item 2); ``FullBatchTrainer`` and
-the distributed trainer come with their slices.
+* ``FullBatchTrainer`` — single-device full-batch training (paper §V-C
+  protocol: per-epoch forward + backward + optimizer) over a
+  ``GNNModel``; ``train_step`` is the one step it and ``core/dsl.py``
+  share. Checkpoints, guarded steps and fault injection wait for
+  ROADMAP.md Queue 1, item 6.
+* ``MiniBatchTrainer`` — the inference half of the neighbour-sampled
+  trainer, as the serving path uses it: per batch, the sampler's bucketed
+  block stack goes to the device and every layer runs
+  ``models/gnn.py:apply_layer`` with ``LayerOps`` bound to the batch's
+  bipartite operands — matmul aggregations through
+  ``kernels/ops.py:bsr_spmm_pair`` (the Hopper kernel on the ``cuda``
+  backend), the Alg-1 sparse input path through the gather backend's
+  edge-list ``spmm``. Its training half is ROADMAP.md Queue 1, item 2;
+  the distributed trainer is item 7.
 
 PyTorch runs eagerly, so nothing is traced. ``n_infer_traces`` counts the
 distinct shape signatures the infer path has seen — the JAX package's jit
@@ -17,6 +22,8 @@ after warmup" keeps its meaning.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -25,14 +32,30 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.backends import compose_epilogue, get_backend
 from repro_torch.backends.gather import EdgeListOperand
-from repro_torch.backends.registry import FULL_BATCH_ITEM, not_ported
+from repro_torch.backends.registry import (
+    RUNTIME_ITEM,
+    TRAINING_ITEM,
+    not_ported,
+)
 from repro_torch.core.aggregate import gather_scatter_aggregate
 from repro_torch.core.lowering import SampledModelPlan, lower_sampled
 from repro_torch.core.sparsity import PAPER_GAMMA_DEFAULT
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.sampling import SampledBatch
 from repro_torch.kernels import ops as kops
-from repro_torch.models.gnn import GNNConfig, LayerOps, apply_layer, init_params
+from repro_torch.models.gnn import (
+    GNNConfig,
+    GNNModel,
+    LayerOps,
+    apply_layer,
+    init_params,
+)
+from repro_torch.training.optimizer import (
+    Optimizer,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 
 def _leaves(tree, path=()):
@@ -48,6 +71,70 @@ def _leaves(tree, path=()):
 
 def _signature(data: dict) -> tuple:
     return tuple((p, tuple(t.shape), t.dtype) for p, t in _leaves(data))
+
+
+@dataclasses.dataclass
+class TrainResult:
+    losses: list
+    epoch_times: list
+    final_params: dict
+
+
+def value_and_grad(loss_fn, params, *args):
+    """(loss, grads): ``loss_fn(params, *args)`` and its gradient tree,
+    shaped like ``params`` (zeros for a leaf the loss does not reach)."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss = loss_fn(tree_unflatten(params, leaves), *args)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def train_step(model: GNNModel, opt: Optimizer, params, opt_state, x,
+               labels, mask):
+    """One full-batch step: loss and gradients, then the optimizer update.
+    Returns ``(params, opt_state, loss)`` with ``loss`` on the device: the
+    step itself reads nothing back from the card."""
+    loss, grads = value_and_grad(model.loss_fn, params, x, labels, mask)
+    with torch.no_grad():
+        params, opt_state = opt.update(grads, opt_state, params)
+    return tree_map(torch.Tensor.detach, params), opt_state, loss
+
+
+class FullBatchTrainer:
+    """Single-device full-batch training over a ``GNNModel``.
+
+    ``ckpt_dir``, ``guard`` and ``injector`` (checkpoints, the guarded
+    step's resilience ladder, fault injection) are the runtime's and raise
+    until it is ported.
+    """
+
+    def __init__(self, model: GNNModel, opt: Optimizer,
+                 ckpt_dir: Optional[str] = None, guard=None, injector=None):
+        for name, value in (("ckpt_dir", ckpt_dir), ("guard", guard),
+                            ("injector", injector)):
+            if value is not None:
+                raise not_ported(f"FullBatchTrainer({name}=...)", RUNTIME_ITEM)
+        self.model = model
+        self.opt = opt
+
+    def fit(self, params, x, labels, mask, epochs: int) -> TrainResult:
+        """``epochs`` steps on the model's device; per epoch the loss and
+        the wall time of the step, synchronised."""
+        dev = self.model.device
+        opt_state = self.opt.init(params)
+        x, labels, mask = (torch.as_tensor(a, device=dev)
+                           for a in (x, labels, mask))
+        losses, times = [], []
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            params, opt_state, loss = train_step(self.model, self.opt, params,
+                                                 opt_state, x, labels, mask)
+            losses.append(float(loss))  # synchronises with the card
+            times.append(time.perf_counter() - t0)
+        return TrainResult(losses=losses, epoch_times=times,
+                           final_params=params)
 
 
 class MiniBatchTrainer:
@@ -83,7 +170,7 @@ class MiniBatchTrainer:
         self.device = resolve_device(device)
         if opt is not None:
             raise not_ported("mini-batch training (an optimizer)",
-                             FULL_BATCH_ITEM)
+                             TRAINING_ITEM)
         if plan is None:
             if graph is None or fanouts is None:
                 raise ValueError("need either a plan or (graph, fanouts)")

@@ -108,7 +108,7 @@ def test_later_slices_raise_not_implemented():
             lower_sampled(cfg, ds.graph, ds.features, fanouts=(4, 3))
     cuda = get_backend("cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cuda.spmm_fused_epilogue(None, None)
+        cuda.spmm_attention(None, None)
     with pytest.raises(NotImplementedError, match="attention"):
         cuda.sparse_mha(None, None)
 

@@ -169,11 +169,15 @@ def test_port_imports_without_jax_or_repro():
         for m in mods:
             importlib.import_module(m)
         import chip_smoke
-        print(len(mods))
+        print(" ".join(mods))
     """)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(REPO, "src"), REPO]))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    mods = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(mods) >= 25
+    assert {"repro_torch.core.dsl", "repro_torch.training.optimizer",
+            "repro_torch.kernels.fused_adam", "repro_torch.kernels.ops",
+            "repro_torch.core.aggregate", "repro_torch.core.lowering"} <= mods
