@@ -53,6 +53,34 @@ is printed:
    rows, 19,840 columns), cuda against torch; ``bsr_spmm`` on BSR(X) and
    BSR(Xᵀ) at F=32 against its plain version.
 
+7. GAT training, the attention path's main run: the arxiv analog, GAT
+   [128, 750, 750, 40] with 3 heads (DGL's ogbn-arxiv GAT widths: 250 per
+   head, the last layer's 13 projected to 40) and that example's Adam (lr
+   0.002), ``compile(engine="cuda", fused_optimizer=True)`` against the
+   ``torch`` program from the same weights, 10 epochs with phase 4's
+   checks (at 5 the loss has not yet come back below its first value)
+   and exactly 3 / 3 / 3 attention launches (forward, row pass, column
+   pass) and 15 Adam launches per epoch, no BSR SpMM; every layer bound
+   to ``cuda.spmm_attention``.
+8. The three attention kernels against their plain versions on phase 7's
+   real A and Aᵀ with the layers' real inputs (z, a_src, a_dst and the
+   loss's cotangent dy, captured in one training step): Dh 250, 250 and
+   13 at 3 heads, out / m / l / dc / dzv / dd within 1e-4, a repeat launch
+   bitwise equal; edge cases (a block-row without blocks, a padding tail,
+   a row whose max lies in its second block, H·Dh not a multiple of 32);
+   per call CUDA-event ms, plain ms, the bounds (``attention_bound``) and
+   the segment path's ms (``segment_softmax_aggregate`` forward and
+   backward: gather, ``scatter_reduce``, ``index_add_``; a composition of
+   library calls, no single one computes edge-softmax attention, so
+   ``library_ms`` is null); the hub row's cost against a mean row's.
+9. GT on the quickstart at full scale: GT [8710, 32, 70], 4 heads, layer 0
+   on ``cuda.feature_matmul_sparse``; 10 epochs cuda against torch with
+   the same checks and exactly 2 / 2 / 2 attention, 2 ``bsr_spmm`` and 12
+   Adam launches per epoch; the attention pair's forward and backward on
+   corafull's unequal paddings, cuda against torch; one epoch of the
+   program compiled with ``fuse_attention=False`` (the segment path on the
+   card), its loss within 2e-4 of the fused first epoch's.
+
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go
 to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
@@ -83,6 +111,11 @@ from repro_torch.graph.datasets import generate_dataset  # noqa: E402
 from repro_torch.graph.sampling import _pad_bsr  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels.bsr_attention import (  # noqa: E402
+    bsr_attention_bwd_col,
+    bsr_attention_bwd_row,
+    bsr_attention_fwd,
+)
 from repro_torch.kernels.bsr_spmm import (  # noqa: E402
     bsr_spmm,
     bsr_spmm_fused_epilogue,
@@ -90,6 +123,9 @@ from repro_torch.kernels.bsr_spmm import (  # noqa: E402
 )
 from repro_torch.kernels.fused_adam import fused_adam  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
+    bsr_attention_bwd_col_ref,
+    bsr_attention_bwd_row_ref,
+    bsr_attention_fwd_ref,
     bsr_spmm_fused_ref,
     bsr_spmm_masked_ref,
     bsr_spmm_ref,
@@ -116,14 +152,29 @@ MASK_MARGIN = 1e-5
 GRAD_RTOL = 1e-3
 PARAM_RTOL = 5e-2
 ADAM = ("adam", 0.01, 0.9, 0.999)
+#: DGL's ogbn-arxiv GAT example's optimizer (its widths are phase 7's). At
+#: lr 0.01 Adam's first steps move every weight of the 750-wide layers by
+#: about 0.01 and the loss leaps from 3.70 to 25-35 (an H100 run): in that
+#: chaos the two programs' 1e-7 differences grow past 1e-3 by epoch 5
+GAT_ADAM = ("adam", 0.002, 0.9, 0.999)
 
 #: every kernel wrapper of the port, by the name the kernels line uses
 KERNELS = {"bsr_spmm": bsr_spmm,
            "bsr_spmm_fused_epilogue": bsr_spmm_fused_epilogue,
            "bsr_spmm_masked": bsr_spmm_masked,
-           "fused_adam": fused_adam}
+           "fused_adam": fused_adam,
+           "bsr_attention_fwd": bsr_attention_fwd,
+           "bsr_attention_bwd_row": bsr_attention_bwd_row,
+           "bsr_attention_bwd_col": bsr_attention_bwd_col}
+#: the attention kernels and their plain versions, by pass
+ATTENTION = {"fwd": ("bsr_attention_fwd", bsr_attention_fwd, bsr_attention_fwd_ref),
+             "row": ("bsr_attention_bwd_row", bsr_attention_bwd_row,
+                     bsr_attention_bwd_row_ref),
+             "col": ("bsr_attention_bwd_col", bsr_attention_bwd_col,
+                     bsr_attention_bwd_col_ref)}
 #: the CUDA sources (kernels/csrc/<name>.cu) the kernels are built from
-LIBRARIES = ["bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "fused_adam"]
+LIBRARIES = ["bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "fused_adam",
+             "bsr_attention"]
 SOURCES = {
     "bsr_spmm": ("src/repro_torch/kernels/csrc/bsr_spmm.cu",
                  "src/repro/kernels/bsr_spmm.py:105"),
@@ -133,6 +184,12 @@ SOURCES = {
                         "src/repro/kernels/bsr_spmm.py:312"),
     "fused_adam": ("src/repro_torch/kernels/csrc/fused_adam.cu",
                    "src/repro/kernels/fused_adam.py:86"),
+    "bsr_attention_fwd": ("src/repro_torch/kernels/csrc/bsr_attention.cu",
+                          "src/repro/kernels/bsr_attention.py:133"),
+    "bsr_attention_bwd_row": ("src/repro_torch/kernels/csrc/bsr_attention.cu",
+                              "src/repro/kernels/bsr_attention.py:190"),
+    "bsr_attention_bwd_col": ("src/repro_torch/kernels/csrc/bsr_attention.cu",
+                              "src/repro/kernels/bsr_attention.py:267"),
 }
 
 #: the epilogue specs the lowering emits: (self_term, bias, activation)
@@ -164,6 +221,11 @@ class Sizes:
     quick_dataset: str = "corafull"
     quick_scale: float = 1.0
     quick_hidden: tuple = (32,)
+    # attention: GAT [F, gat_hidden..., C] on `dataset`, GT [F,
+    # quick_hidden..., C] on `quick_dataset`
+    gat_hidden: tuple = (750, 750)
+    gat_heads: int = 3
+    gt_heads: int = 4
 
 
 def zero_counts() -> None:
@@ -771,6 +833,9 @@ def classify(name: str) -> str:
         return "bsr_spmm_fused_epilogue" if any(epilogue) else "bsr_spmm"
     if "fused_adam_kernel" in name:
         return "fused_adam"
+    for kind in ("fwd", "bwd_row", "bwd_col"):
+        if f"attn_{kind}_kernel" in name:
+            return f"bsr_attention_{kind}"
     low = name.lower()
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "matmul"
@@ -825,11 +890,12 @@ def mask_flips(prog, params) -> dict:
             "max_abs_pre": float(pre[differ].abs().max()) if differ.any() else 0.0}
 
 
-def train_path(name, gnn, device, epochs: int, expected: tuple) -> dict:
+def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
     """One training path: the ``cuda`` program (fused Adam) and the
     ``torch`` program (plain versions, plain Adam) from the same weights,
     ``epochs`` epochs each; counts zeroed just before the cuda run and read
-    after every epoch."""
+    after every epoch, each epoch's launches exactly ``expected`` (kernel
+    name -> launches; every other kernel 0)."""
     t0 = time.perf_counter()
     prog = gnn.compile(engine="cuda", device=device, fused_optimizer=True)
     sync(device)
@@ -844,10 +910,10 @@ def train_path(name, gnn, device, epochs: int, expected: tuple) -> dict:
     print(f"[{name}] plan (operands built in {build_s:.1f}s + {ref_build_s:.1f}s "
           f"on the host and copied):\n{prog.describe_plan()}")
     on_card = device.type == "cuda"
-    # expected: (fused, masked, bsr_spmm, adam) launches per epoch on the
-    # card; CPU tensors run the plain versions and launch nothing
-    want = dict(zip(("bsr_spmm_fused_epilogue", "bsr_spmm_masked", "bsr_spmm",
-                     "fused_adam"), expected if on_card else (0, 0, 0, 0)))
+    # per epoch on the card; CPU tensors run the plain versions and launch
+    # nothing
+    want = {k: expected.get(k, 0) if on_card else 0 for k in KERNELS}
+    epilogue = prog.plan.layers[0].epilogue is not None
 
     def grad_check(when: str, params) -> dict:
         """Both programs' gradients at the same parameters, leaf by leaf:
@@ -855,7 +921,9 @@ def train_path(name, gnn, device, epochs: int, expected: tuple) -> dict:
         pass a backward that is off by a constant factor."""
         grads = [value_and_grad(p.model.loss_fn, params, p.x, p.labels,
                                 p.train_mask)[1] for p in (prog, ref)]
-        out = {"grads": leaf_diffs(*grads), "layer0_mask_flips": mask_flips(prog, params)}
+        out = {"grads": leaf_diffs(*grads)}
+        if epilogue:
+            out["layer0_mask_flips"] = mask_flips(prog, params)
         print(f"[{name}] gradients {when}: {json.dumps(out)}")
         if not max(out["grads"].values()) <= GRAD_RTOL:
             raise AssertionError(f"[{name}] gradients {when} differ: {out}")
@@ -906,7 +974,7 @@ def train_path(name, gnn, device, epochs: int, expected: tuple) -> dict:
     out["profile"] = epoch_profile(prog, device, epoch_s, want)
     print(f"[{name}] " + json.dumps({k: v for k, v in out.items()
                                      if k not in ("epoch_ms",)}))
-    return {"summary": out, "prog": prog, "ref": ref}
+    return {"summary": out, "prog": prog, "ref": ref, "weights": weights}
 
 
 def pair_unequal_paddings(prog, device) -> float:
@@ -963,28 +1031,381 @@ def feature_operand_checks(qds, prog, device) -> float:
     return err
 
 
+def capture_attention(prog) -> list:
+    """One training step of ``prog`` at its current parameters, recording
+    each attention layer's real inputs: z [N, H*Dh], a_src, a_dst, the
+    head count and the loss's cotangent of the layer's output, dy [N, H,
+    Dh]. Measurement only: the plan's operator is wrapped for this step."""
+    op = prog.plan.graph_op
+    inner = op.aggregate_attention
+    layers = []
+
+    def spy(z, a_src, a_dst, heads):
+        out = inner(z, a_src, a_dst, heads)
+        rec = {"z": z.detach(), "a_src": a_src.detach(),
+               "a_dst": a_dst.detach(), "heads": heads}
+        layers.append(rec)
+        out.register_hook(lambda g: rec.__setitem__("dy", g.detach()))
+        return out
+
+    op.aggregate_attention = spy
+    try:
+        value_and_grad(prog.model.loss_fn, prog.params, prog.x, prog.labels,
+                       prog.train_mask)
+    finally:
+        op.aggregate_attention = inner
+    return layers
+
+
+def attention_operands(fwd, bwd, rec) -> dict:
+    """The three passes' arguments for one captured layer, built as
+    ``kernels/ops.py:_SparseMHAPair`` builds them: the statistics (m, l)
+    and the output from the plain forward, r = Σ_d dy·out. The loss's
+    cotangent is a mean over the training nodes (~1e-5 at the last layer,
+    less below), so dy is rescaled to unit variance, as
+    ``feature_operand_checks`` scales its dense operand: otherwise dc,
+    dzv and dd would lie below the check's absolute tolerance."""
+    fit = kops._fit_rows
+    h = rec["heads"]
+    n, hd = rec["z"].shape
+    dy3 = rec["dy"] / rec["dy"].std()
+    z3 = rec["z"].reshape(n, h, hd // h)
+    asrc = torch.einsum("nhd,hd->nh", z3, rec["a_src"])
+    adst = torch.einsum("nhd,hd->nh", z3, rec["a_dst"])
+    nr, nc, ntr, ntc = (fwd.n_rows_padded, fwd.n_cols_padded,
+                        bwd.n_rows_padded, bwd.n_cols_padded)
+    a = (fwd.block_rows, fwd.block_cols, fwd.blocks)
+    at = (bwd.block_rows, bwd.block_cols, bwd.blocks)
+    fargs = (*a, fit(adst, nr).contiguous(), fit(asrc, nc).contiguous(),
+             fit(rec["z"], nc).contiguous(), nr, h)
+    out, m, l = bsr_attention_fwd_ref(*fargs)
+    dy = dy3.reshape(n, hd)
+    r = torch.einsum("nhd,nhd->nh", dy3, out[:n].reshape(n, h, hd // h))
+    m, l = m[:n], l[:n]
+    rargs = (*a, fargs[3], fargs[4], fargs[5], fit(dy, nr).contiguous(),
+             fit(r, nr).contiguous(), fit(m, nr).contiguous(),
+             fit(l, nr).contiguous(), nr, h)
+    cargs = (*at, fit(asrc, ntr).contiguous(), fit(adst, ntc).contiguous(),
+             fit(rec["z"], ntr).contiguous(), fit(dy, ntc).contiguous(),
+             fit(r, ntc).contiguous(), fit(m, ntc).contiguous(),
+             fit(l, ntc).contiguous(), ntr, h)
+    return {"fwd": fargs, "row": rargs, "col": cargs}
+
+
+def attention_bound(rows, cols, blocks, heads: int, hd: int,
+                    n_rows_padded: int, kind: str) -> dict:
+    """Least time for one attention pass on these inputs, counted two ways,
+    as ``spmm_bound`` does. Row-side inputs are indexed by the stream's
+    block rows, column-side ones by its block columns, per row in floats:
+    forward z + asrc (columns), adst (rows), writes out + m + l; row pass
+    z + asrc (columns), adst + dy + r + m + l (rows), writes dc; column
+    pass over Aᵀ adst + dy + r + m + l (columns: destinations), asrc + z
+    (rows: sources), writes dzv + dd. ``bound_ms``, the layout's: each
+    block that holds a nonzero, whole, and its two indices, the column-side
+    rows of its block-column and the row-side rows of its block-row, once.
+    ``nnz_bound_ms``, any layout's: each nonzero's column index and a row
+    pointer per row, the rows the nonzeros reference on each side, once.
+    Both write every output row once. Operations: fp32 on the nonzeros x
+    heads (score, exp and the 2·Dh-long product per pass; the column pass
+    two products)."""
+    col_w, row_w, out_w = {
+        "fwd": (hd + heads, heads, hd + 2 * heads),
+        "row": (hd + heads, hd + 4 * heads, heads),
+        "col": (hd + 4 * heads, hd + heads, hd + heads)}[kind]
+    nb, br, bc = blocks.shape
+    nz = blocks.ne(0)
+    used = nz.reshape(nb, -1).any(dim=1)
+    n_used = int(used.sum())
+    col_rows = int(torch.unique(cols[used]).numel()) * bc
+    row_rows = int(torch.unique(rows[used]).numel()) * br
+    out_bytes = 4 * n_rows_padded * out_w
+    nbytes = (4 * (2 * n_used + n_used * br * bc + col_rows * col_w
+                   + row_rows * row_w) + out_bytes)
+    b_idx, i, j = torch.nonzero(nz, as_tuple=True)
+    nnz = int(b_idx.numel())
+    nnz_cols = int(torch.unique(cols[b_idx].long() * bc + j).numel())
+    nnz_rows = int(torch.unique(rows[b_idx].long() * br + i).numel())
+    nnz_bytes = (4 * (nnz + n_rows_padded + 1 + nnz_cols * col_w
+                      + nnz_rows * row_w) + out_bytes)
+    dh = hd // heads
+    per = {"fwd": 2 * dh + 6, "row": 2 * dh + 10, "col": 4 * dh + 10}[kind]
+    flop = float(nnz) * heads * per
+    out = {"blocks_used": n_used, "nnz": nnz, "bytes": nbytes,
+           "nnz_bytes": nnz_bytes, "flop": flop}
+    out["bound_ms"], out["bound_by"] = _bound(nbytes, flop)
+    out["nnz_bound_ms"], _ = _bound(nnz_bytes, flop)
+    return out
+
+
+def check_attention(label, kind, args, device) -> float:
+    """One attention kernel against its plain version on the same device
+    tensors, every output within the JAX suite's tolerance (|got - want| <=
+    1e-4 + 1e-4·|want|: the softmax denominator l of a row with 17k
+    nonzeros is ~1e4, summed in another order) and within 1e-4 of its
+    norm (||got - want|| <= 1e-4·||want||, which holds small outputs to
+    their own scale), and a repeat launch bitwise equal. Returns the
+    largest absolute error."""
+    name, kernel, plain = ATTENTION[kind]
+    got = kernel(*args)
+    again = kernel(*args)
+    want = plain(*args)
+    sync(device)
+    got, again, want = ((t,) if isinstance(t, torch.Tensor) else t
+                        for t in (got, again, want))
+    errs = []
+    for a, w in zip(got, want):
+        if not a.numel():
+            errs.append((0.0, 0.0, 0.0))
+            continue
+        diff = (a - w).abs()
+        gap, scale = float(diff.norm()), float(w.norm())
+        errs.append((float(diff.max()), float((diff - TOL * w.abs()).max()),
+                     gap / scale if scale else (0.0 if gap == 0 else float("inf"))))
+    if not all(excess <= TOL and rel <= TOL for _, excess, rel in errs):
+        raise AssertionError(f"{name} {label}: (max abs error, max excess over "
+                             f"the relative part, error norm over the output's) "
+                             f"per output {errs} > {TOL}")
+    if device.type == "cuda" and not all(torch.equal(a, b)
+                                         for a, b in zip(got, again)):
+        raise AssertionError(f"{name} {label}: a repeat launch is not bitwise equal")
+    print(f"[kernel] {name} {label}: max abs error per output "
+          f"{[e for e, _, _ in errs]}, relative norm error {[r for _, _, r in errs]}")
+    return max(e for e, _, _ in errs)
+
+
+def attention_edge_cases(device) -> float:
+    """The three passes on small operands: a padding tail, a block-row
+    without blocks, H·Dh not a multiple of 32 (2 x 5, 4 x 17), and a row
+    whose max lies in its second block."""
+    err = 0.0
+    gen = torch.Generator().manual_seed(23)
+    for heads, dh in ((2, 5), (4, 17)):
+        r = np.random.default_rng(heads)
+        g = csr_from_edges(r.integers(0, 150, 700), r.integers(0, 150, 700), 150)
+        a, at = csr_to_bsr(g, br=8, bc=8), csr_to_bsr(g.transpose(), br=8, bc=8)
+        arrays = _pad_bsr(a, a.n_blocks + 9)
+        keep = arrays["rows"] != 3  # block-row 3 loses its blocks
+        t = on_device({k: v[keep] for k, v in arrays.items()}, device)
+        tt = on_device({"rows": at.block_rows, "cols": at.block_cols,
+                        "blocks": at.blocks}, device)
+        nr, nc, hd = a.padded_rows, a.padded_cols, heads * dh
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen).to(device)
+
+        z, dy = rnd(nc, hd), rnd(nr, hd)
+        adst, asrc, rr = rnd(nr, heads), rnd(nc, heads), rnd(nr, heads)
+        fargs = (t["rows"], t["cols"], t["blocks"], adst, asrc, z, nr, heads)
+        label = f"edge cases H={heads} Dh={dh}"
+        err = max(err, check_attention(label, "fwd", fargs, device))
+        out, m, l = bsr_attention_fwd(*fargs)
+        if not (torch.all(out[24:32] == 0) and torch.all(m[24:32] == 0)
+                and torch.all(l[24:32] == 0)):
+            raise AssertionError("a block-row without blocks must give out, m, l = 0")
+        err = max(err, check_attention(label, "row", (
+            *fargs[:3], adst, asrc, z, dy, rr, m, l, nr, heads), device))
+        src_side = [kops._fit_rows(x, at.padded_rows).contiguous()
+                    for x in (asrc, z)]
+        dst_side = [kops._fit_rows(x, at.padded_cols).contiguous()
+                    for x in (adst, dy, rr, m, l + 1.0)]
+        err = max(err, check_attention(label, "col", (
+            tt["rows"], tt["cols"], tt["blocks"], src_side[0], dst_side[0],
+            src_side[1], *dst_side[1:], at.padded_rows, heads), device))
+    # row 0 attends sources {0, 1} in block-column 0 and {14, 15} in
+    # block-column 1, whose scores are the larger: the running max rises
+    blocks = torch.zeros((2, 8, 8))
+    blocks[0, 0, :2] = 1.0
+    blocks[1, 0, 6:] = 1.0
+    asrc = torch.zeros((16, 1))
+    asrc[:2, 0] = torch.tensor([-1.0, 0.5])
+    asrc[14:, 0] = torch.tensor([4.0, 6.0])
+    adst = torch.full((8, 1), 0.3)
+    z = torch.randn((16, 3), generator=gen)
+    fargs = tuple(x.to(device) for x in (torch.zeros(2, dtype=torch.int32),
+                                          torch.tensor([0, 1], dtype=torch.int32),
+                                          blocks, adst, asrc, z)) + (8, 1)
+    err = max(err, check_attention("max in the second block", "fwd", fargs, device))
+    _, m, _ = bsr_attention_fwd(*fargs)
+    if abs(float(m[0, 0]) - 6.3) > 1e-5:
+        raise AssertionError(f"row max {float(m[0, 0])}, expected 6.3")
+    return err
+
+
+def attention_row_cost(kind, args, device, reps: int) -> dict:
+    """One attention pass on a stream holding only its longest block-row
+    (A's in-degree hub, or Aᵀ's out-degree hub: one CTA walks it) against
+    one holding only a row of about the mean length, at these inputs'
+    width."""
+    _, kernel, _ = ATTENTION[kind]
+    rows, cols, blocks, *rest = args
+    per_row = torch.bincount(rows.long())
+    hub = int(torch.argmax(per_row))
+    mean = float(per_row[per_row > 0].float().mean())
+    typical = int(torch.argmin((per_row.float() - mean).abs()))
+    out = {"hub_blocks": int(per_row[hub]), "mean_blocks": mean,
+           "typical_blocks": int(per_row[typical])}
+    for label, row in (("hub", hub), ("typical", typical)):
+        sel = rows == row
+        out[f"{label}_nnz"] = int(blocks[sel].ne(0).sum())
+        sub = (rows[sel].contiguous(), cols[sel].contiguous(),
+               blocks[sel].contiguous(), *rest)
+        out.update({f"{label}_{k}": v for k, v in timings(
+            {"": lambda: kernel(*sub)}, device, reps).items()})
+    return out
+
+
+def segment_ms(rec, op, device, reps: int) -> dict:
+    """The port's segment path (``segment_softmax_aggregate``: gather,
+    ``scatter_reduce`` amax, ``index_add_``) on the same graph and inputs,
+    the PyG-style composition of library calls the fused kernels replace:
+    ``fwd`` the forward, ``bwd`` its autograd backward with the captured
+    cotangent (the graph kept between calls)."""
+    h = rec["heads"]
+    n, hd = rec["z"].shape
+    backend = get_backend("cuda")
+    z = rec["z"].reshape(n, h, hd // h).clone().requires_grad_(True)
+    a_src = rec["a_src"].clone().requires_grad_(True)
+    a_dst = rec["a_dst"].clone().requires_grad_(True)
+
+    def forward():
+        return backend.segment_softmax_aggregate(z, a_src, a_dst, op.src,
+                                                 op.dst, n)
+
+    with torch.no_grad():
+        fwd = time_ms(forward, device, reps, warmup=1)
+    out = forward()
+    bwd = time_ms(lambda: torch.autograd.grad(out, (z, a_src, a_dst), rec["dy"],
+                                              retain_graph=True),
+                  device, reps, warmup=1)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def attention_phase(prog, device, reps: int) -> dict:
+    """Phase 8 on phase 7's operands: A (forward, row pass) and Aᵀ (column
+    pass), each layer's real inputs."""
+    op = prog.plan.graph_op
+    fwd, bwd = op.fwd_operand, op.bwd_operand
+    captured = capture_attention(prog)
+    sync(device)
+    err = {k: 0.0 for k in ATTENTION}
+    rows = {}
+    hub = None
+    for layer, rec in enumerate(captured):
+        args = attention_operands(fwd, bwd, rec)
+        h = rec["heads"]
+        hd = rec["z"].shape[1]
+        label = f"layer {layer} H={h} Dh={hd // h}"
+        for kind, a in args.items():
+            err[kind] = max(err[kind], check_attention(label, kind, a, device))
+        seg = segment_ms(rec, op, device, reps)
+        for kind, a in args.items():
+            name, kernel, plain = ATTENTION[kind]
+            stream = bwd if kind == "col" else fwd
+            row = {"kernel": name, "operand": "A^T" if kind == "col" else "A",
+                   "layer": layer, "heads": h, "Dh": hd // h,
+                   "n_blocks": int(stream.blocks.shape[0])}
+            row.update(timings({"": lambda: kernel(*a), "plain_": lambda: plain(*a)},
+                               device, reps))
+            row.update(attention_bound(stream.block_rows, stream.block_cols,
+                                       stream.blocks, h, hd, stream.n_rows_padded,
+                                       kind))
+            row["library_ms"] = None
+            # the segment path's forward beside ours, its whole backward
+            # beside each of our two backward passes
+            row["segment_ms"] = seg["fwd" if kind == "fwd" else "bwd"]
+            rows[(kind, layer)] = row
+            print("[kernel] " + json.dumps(row))
+        if layer == 0:
+            hub = {kind: attention_row_cost(kind, a, device, reps)
+                   for kind, a in args.items()}
+            print("[kernel] attention hub rows: " + json.dumps(hub))
+        del args
+    err["edge"] = attention_edge_cases(device)
+    return {"rows": rows, "err": err, "hub": hub, "layers": len(captured)}
+
+
+def attention_pair_unequal(prog, device) -> float:
+    """The attention pair's forward and backward on the quickstart's A and
+    Aᵀ (19,800 rows against 19,840 columns), cuda against torch: out and
+    dz within 1e-4, da_src / da_dst within 1e-4 of their norm (sums over
+    every node)."""
+    op = prog.plan.graph_op
+    fwd, bwd = op.fwd_operand, op.bwd_operand
+    print(f"[gt] A padded {fwd.n_rows_padded} x {fwd.n_cols_padded}, "
+          f"Aᵀ padded {bwd.n_rows_padded} x {bwd.n_cols_padded}")
+    gen = torch.Generator().manual_seed(29)
+    err = 0.0
+    for heads, dh in ((4, 8), (4, 17)):
+        z = torch.randn((fwd.n_cols, heads, dh), generator=gen).to(device)
+        a_src, a_dst = (torch.randn((heads, dh), generator=gen).to(device) / dh ** 0.5
+                        for _ in range(2))
+        dy = torch.randn((fwd.n_rows, heads, dh), generator=gen).to(device)
+        got = {}
+        for inner in ("cuda", "torch"):
+            zt, st, dt = (t.clone().requires_grad_(True) for t in (z, a_src, a_dst))
+            out = kops.build_sparse_mha(fwd, bwd, inner)(zt, st, dt)
+            out.backward(dy)
+            got[inner] = (out.detach(), zt.grad, st.grad, dt.grad)
+        c, t = got["cuda"], got["torch"]
+        for label, a, b in (("out", c[0], t[0]), ("dz", c[1], t[1])):
+            err = max(err, check_close(f"attention pair H={heads} Dh={dh} {label}", a, b))
+        for label, a, b in (("da_src", c[2], t[2]), ("da_dst", c[3], t[3])):
+            rel = float((a - b).norm() / b.norm())
+            if not rel <= TOL:
+                raise AssertionError(f"attention pair {label}: relative {rel}")
+    print(f"[gt] attention pair, unequal paddings: max_abs_err={err:.3g}")
+    return err
+
+
 def sum_rows(rows: list) -> dict:
     """Timed or bounded calls summed: times, bounds, bytes and operations;
     ``ms_by`` and ``bound_by`` of the sum."""
-    keys = ("ms", "wall_ms", "plain_ms", "library_ms", "bound_ms",
-            "nnz_bound_ms", "bytes", "nnz_bytes", "flop")
-    total = {k: sum(r[k] for r in rows) for k in keys}
+    keys = ("ms", "wall_ms", "plain_ms", "library_ms", "segment_ms",
+            "bound_ms", "nnz_bound_ms", "bytes", "nnz_bytes", "flop")
+    total = {k: None if any(r.get(k) is None for r in rows)
+             else sum(r[k] for r in rows) for k in keys}
     total["ms_by"] = "/".join(sorted({r["ms_by"] for r in rows}))
     _, total["bound_by"] = _bound(total["bytes"], total["flop"])
     return total
 
 
-def kernel_entries(serving_entry, launches_by_path, fk, errs, dims,
-                   epoch: dict) -> list:
+def epoch_entry(name: str, calls: list, err: float, epoch: dict) -> dict:
+    """One training kernel's entry: ``ms`` its device time in the profiled
+    epoch ``epoch`` where the window held every launch, else ``calls_ms``
+    (``ms_by`` says which); ``calls_ms``, ``wall_ms``, ``plain_ms``,
+    ``library_ms``, the bounds (and ``segment_ms``) each layer's call timed
+    or bounded alone at its width, summed."""
+    total = sum_rows(calls)
+    entry = {
+        "name": name, "route": "cuda", "source": SOURCES[name][0],
+        "replaces": SOURCES[name][1], "launches": 0, "max_abs_err": err,
+        "ms": epoch["device_ms"][name] if epoch["complete"] else total["ms"],
+        "ms_by": ("profiled epoch" if epoch["complete"] else
+                  "calls_ms: no profiler window held every launch of an epoch"),
+        "calls_ms": total["ms"], "calls_ms_by": total["ms_by"],
+        "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+        "bound_by": total["bound_by"], "nnz_bound_ms": total["nnz_bound_ms"],
+        "library_ms": total["library_ms"], "wall_ms": total["wall_ms"],
+        "shape": "one epoch of the path at full width: ms as ms_by says; the "
+                 "other times and the bounds each layer's call alone, summed",
+    }
+    if total["segment_ms"] is not None:
+        entry["segment_ms"] = total["segment_ms"]
+        entry["segment_ms_is"] = (
+            "segment_softmax_aggregate per layer, summed: the forward beside "
+            "the forward kernel, its whole autograd backward beside each "
+            "backward pass; a composition of library calls (gather, "
+            "scatter_reduce, index_add_), not one library kernel")
+    return entry
+
+
+def kernel_entries(serving_entry, launches_by_path, fk, ak, errs, dims,
+                   epoch: dict, gat_epoch: dict) -> list:
     """The kernels line: one entry per kernel. ``launches`` sums every
-    driven path (``launches_by_path`` splits it). For the three training
-    kernels the numbers are one epoch of the main path: ``ms`` the
-    kernel's device time in the profiled epoch (``epoch_profile``) where
-    its window held every launch, else ``calls_ms`` (``ms_by`` says
-    which); ``calls_ms``, ``wall_ms``, ``plain_ms``, ``library_ms``,
-    ``bound_ms`` and ``nnz_bound_ms`` each layer's call timed or bounded
-    alone in phase 5 at its width and spec, summed. ``bsr_spmm`` keeps its
-    serving batch."""
+    driven path (``launches_by_path`` splits it). The three GCN training
+    kernels report one epoch of phase 4 (calls from phase 5), the three
+    attention kernels one epoch of phase 7 (calls from phase 8), through
+    ``epoch_entry``. ``bsr_spmm`` keeps its serving batch."""
     rows = fk["rows"]
     n = len(dims) - 1
     per_epoch = {
@@ -995,23 +1416,11 @@ def kernel_entries(serving_entry, launches_by_path, fk, errs, dims,
         "fused_adam": [rows["adam"]],
     }
     entries = [dict(serving_entry)]
-    for name, calls in per_epoch.items():
-        total = sum_rows(calls)
-        entries.append({
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": 0,
-            "max_abs_err": errs[name],
-            "ms": epoch["device_ms"][name] if epoch["complete"] else total["ms"],
-            "ms_by": ("profiled epoch" if epoch["complete"] else
-                      "calls_ms: no profiler window held every launch of an epoch"),
-            "calls_ms": total["ms"], "calls_ms_by": total["ms_by"],
-            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": total["bound_by"], "nnz_bound_ms": total["nnz_bound_ms"],
-            "library_ms": total["library_ms"], "wall_ms": total["wall_ms"],
-            "shape": "one epoch of the main path at full width: ms as ms_by "
-                     "says; the other times and the bounds each layer's call "
-                     "alone, summed",
-        })
+    entries += [epoch_entry(name, calls, errs[name], epoch)
+                for name, calls in per_epoch.items()]
+    for kind, (name, _, _) in ATTENTION.items():
+        calls = [ak["rows"][(kind, l)] for l in range(ak["layers"])]
+        entries.append(epoch_entry(name, calls, errs[name], gat_epoch))
     entries[0]["max_abs_err"] = errs["bsr_spmm"]
     entries[0]["training_aT"] = rows[("spmm", dims[-1])]
     for e in entries:
@@ -1022,9 +1431,9 @@ def kernel_entries(serving_entry, launches_by_path, fk, errs, dims,
 
 
 def run(sizes: Sizes, device) -> dict:
-    """Phases 2 and 3 at ``sizes`` on ``device``; returns the kernels line
+    """Phases 2 to 9 at ``sizes`` on ``device``; returns the kernels line
     and the details."""
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     ds = generate_dataset(sizes.dataset, scale=sizes.scale, seed=0)
     print(f"[data] {ds.name}: {ds.graph.n_rows} nodes, {ds.graph.nnz} nonzeros, "
           f"{ds.features.shape[1]} features in {time.perf_counter() - t0:.2f}s")
@@ -1060,7 +1469,9 @@ def run(sizes: Sizes, device) -> dict:
     n = len(dims) - 1
     gnn = (GNNProgram.load(ds, arch="GCN", aggregation="gcn")
            .initialize_layers(dims, "xavier", seed=0).set_optimizer(*ADAM))
-    train = train_path("train", gnn, device, sizes.epochs, (n, n - 1, 1, 2 * n))
+    train = train_path("train", gnn, device, sizes.epochs, {
+        "bsr_spmm_fused_epilogue": n, "bsr_spmm_masked": n - 1, "bsr_spmm": 1,
+        "fused_adam": 2 * n})
     if any(l.feature_path != "dense" for l in train["prog"].plan.layers):
         raise AssertionError("the main path's features are dense")
     # phase 5: the training kernels on the main path's operands
@@ -1082,30 +1493,93 @@ def run(sizes: Sizes, device) -> dict:
     qn = len(qdims) - 1
     qgnn = (GNNProgram.load(qds, arch="GCN", aggregation="gcn")
             .initialize_layers(qdims, "xavier", seed=0).set_optimizer(*ADAM))
-    quick = train_path("quickstart", qgnn, device, sizes.epochs,
-                       (qn, qn - 1, 3, 2 * qn))
+    quick = train_path("quickstart", qgnn, device, sizes.epochs, {
+        "bsr_spmm_fused_epilogue": qn, "bsr_spmm_masked": qn - 1,
+        "bsr_spmm": 3, "fused_adam": 2 * qn})
     if quick["prog"].plan.layers[0].primitive != "cuda.feature_matmul_sparse":
         raise AssertionError("the quickstart's layer 0 must bind "
                              "cuda.feature_matmul_sparse")
     pair_err = pair_unequal_paddings(quick["prog"], device)
     feature_err = feature_operand_checks(qds, quick["prog"], device)
+    del quick["prog"], quick["ref"]
+    phase_s = {"2-6": time.perf_counter() - t_start}
 
+    # phase 7: GAT training on the arxiv analog, the attention main path
+    t0 = time.perf_counter()
+    gdims = [ds.features.shape[1], *sizes.gat_hidden, ds.n_classes]
+    gn = len(gdims) - 1
+    ggnn = (GNNProgram.load(ds, arch="GAT", aggregation="gcn",
+                            gat_heads=sizes.gat_heads)
+            .initialize_layers(gdims, "xavier", seed=0).set_optimizer(*GAT_ADAM))
+    gat = train_path("gat", ggnn, device, sizes.epochs, {
+        "bsr_attention_fwd": gn, "bsr_attention_bwd_row": gn,
+        "bsr_attention_bwd_col": gn, "fused_adam": 5 * gn})
+    if any(l.agg_primitive != "cuda.spmm_attention" for l in gat["prog"].plan.layers):
+        raise AssertionError("every GAT layer must bind cuda.spmm_attention")
+    phase_s["7"] = time.perf_counter() - t0
+    # phase 8: the attention kernels on phase 7's operands and inputs
+    t0 = time.perf_counter()
+    ak = attention_phase(gat["prog"], device, reps=2)
+    phase_s["8"] = time.perf_counter() - t0
+    del gat["prog"], gat["ref"]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # phase 9: GT on the quickstart at full scale
+    t0 = time.perf_counter()
+    tgnn = (GNNProgram.load(qds, arch="GT", aggregation="gcn",
+                            gat_heads=sizes.gt_heads)
+            .initialize_layers(qdims, "xavier", seed=0).set_optimizer(*ADAM))
+    gt = train_path("gt", tgnn, device, sizes.epochs, {
+        "bsr_attention_fwd": qn, "bsr_attention_bwd_row": qn,
+        "bsr_attention_bwd_col": qn, "bsr_spmm": 2, "fused_adam": 6 * qn})
+    gplan = gt["prog"].plan
+    if gplan.layers[0].primitive != "cuda.feature_matmul_sparse":
+        raise AssertionError("GT's layer 0 must bind cuda.feature_matmul_sparse")
+    if any(l.agg_primitive != "cuda.spmm_attention" for l in gplan.layers):
+        raise AssertionError("every GT layer must bind cuda.spmm_attention")
+    attn_pair_err = attention_pair_unequal(gt["prog"], device)
+    seg = tgnn.compile(engine="cuda", device=device, fused_optimizer=True,
+                       fuse_attention=False, params=gt["weights"])
+    if any(l.agg_primitive != "cuda.segment_softmax_aggregate"
+           for l in seg.plan.layers):
+        raise AssertionError("fuse_attention=False must bind the segment path")
+    seg_loss = seg.train_epoch()["loss"]
+    fused_loss = gt["summary"]["losses"][0]
+    seg_rel = abs(seg_loss - fused_loss) / abs(fused_loss)
+    print(f"[gt] segment path, one epoch: loss {seg_loss} against the fused "
+          f"{fused_loss} (relative {seg_rel:.2e})")
+    if not seg_rel <= 2e-4:
+        raise AssertionError(f"segment epoch loss {seg_loss} vs fused {fused_loss}")
+    gt["summary"]["segment_epoch"] = {"loss": seg_loss, "rel_diff": seg_rel}
+    del gt["prog"], gt["ref"], seg
+    phase_s["9"] = time.perf_counter() - t0
+
+    attn_err = max(ak["err"]["edge"], attn_pair_err)
     errs = {"bsr_spmm": max(kern["max_abs_err"], fk["err"]["spmm"], pair_err,
                             feature_err),
             "bsr_spmm_fused_epilogue": max(fk["err"]["fused"], edge["fused"], pair_err),
             "bsr_spmm_masked": max(fk["err"]["masked"], edge["masked"], pair_err),
-            "fused_adam": fk["err"]["adam"]}
+            "fused_adam": fk["err"]["adam"],
+            **{name: max(ak["err"][kind], attn_err)
+               for kind, (name, _, _) in ATTENTION.items()}}
     serving_counts = {k: 0 for k in KERNELS}
     serving_counts["bsr_spmm"] = serve["launches"]
     by_path = {"serving": serving_counts,
                "train": train["summary"]["launches"],
-               "quickstart": quick["summary"]["launches"]}
-    entries = kernel_entries(serving_entry, by_path, fk, errs, dims,
-                             train["summary"]["profile"])
+               "quickstart": quick["summary"]["launches"],
+               "gat": gat["summary"]["launches"],
+               "gt": gt["summary"]["launches"]}
+    entries = kernel_entries(serving_entry, by_path, fk, ak, errs, dims,
+                             train["summary"]["profile"],
+                             gat["summary"]["profile"])
     return {"kernels": entries, "layers": layers, "serve": serve,
             "sample_s": kern["sample_s"], "train": train["summary"],
-            "quickstart": quick["summary"],
-            "kernel_rows": {str(k): v for k, v in fk["rows"].items()}}
+            "quickstart": quick["summary"], "gat": gat["summary"],
+            "gt": gt["summary"], "phase_s": phase_s,
+            "attention_hub": ak["hub"],
+            "kernel_rows": {str(k): v for k, v in fk["rows"].items()},
+            "attention_rows": {str(k): v for k, v in ak["rows"].items()}}
 
 
 def main() -> int:
@@ -1137,14 +1611,15 @@ def main() -> int:
           f"p50 {serve['p50_ms']:.2f} ms, p99 {serve['p99_ms']:.2f} ms, "
           f"warmup {serve['warmup_s']:.2f}s, sample one 256-seed batch "
           f"{result['sample_s']:.3f}s on {card}")
-    for path in ("train", "quickstart"):
+    for path in ("train", "quickstart", "gat", "gt"):
         r = result[path]
         print(f"[{path}] {len(r['losses'])} epochs, median epoch "
               f"{r['epoch_ms_median']:.1f} ms (torch reference "
               f"{r['ref_epoch_ms_median']:.1f} ms), loss {r['losses'][0]:.4f} -> "
               f"{r['losses'][-1]:.4f}, max rel diff {r['max_rel_diff']:.2e}, "
               f"peak {r['peak_mem_bytes'] / 2**30:.2f} GiB on {card}")
-    print(f"[done] phases 2-6 in {time.perf_counter() - t_all:.1f}s")
+    print(f"[done] phases 2-9 in {time.perf_counter() - t_all:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

@@ -3,10 +3,11 @@
 BSR operands (CSR -> BSR once, ``kernels/ops.py:BSRDevice``) consumed by
 the Hopper kernels: ``spmm`` runs ``kernels/csrc/bsr_spmm.cu``, and the
 native ``spmm_fused_epilogue`` runs ``bsr_spmm_fused.cu`` forward and
-``bsr_spmm_masked.cu`` (or ``bsr_spmm.cu``) on Aᵀ backward. The kernel
-wrappers run their plain versions for CPU tensors, so the same plans run
-in the CPU tests. The sampled path runs ``kernels/ops.py:bsr_spmm_pair``
-with ``inner="cuda"``.
+``bsr_spmm_masked.cu`` (or ``bsr_spmm.cu``) on Aᵀ backward, and
+``sparse_mha`` runs ``bsr_attention.cu`` (the forward and the row pass on
+A, the column pass on Aᵀ). The kernel wrappers run their plain versions
+for CPU tensors, so the same plans run in the CPU tests. The sampled path
+runs ``kernels/ops.py:bsr_spmm_pair`` with ``inner="cuda"``.
 """
 from __future__ import annotations
 
@@ -38,3 +39,9 @@ class CudaBackend(Backend):
         sum finishes; the backward folds the ReLU mask into the transposed
         SpMM (``kernels/ops.py:bsr_spmm_fused_pair``)."""
         return kops.build_fused_epilogue(fwd_operand, bwd_operand, self.inner)
+
+    def sparse_mha(self, fwd_operand, bwd_operand):
+        """The fused attention kernels: edge softmax and aggregation in one
+        pass, the recompute VJP from the saved (max, denominator) row
+        statistics (``kernels/ops.py:sparse_mha_pair``)."""
+        return kops.build_sparse_mha(fwd_operand, bwd_operand, self.inner)

@@ -1,7 +1,8 @@
 """Gather-scatter backend — counterpart of ``repro/backends/gather.py``.
 
 Edge-list operands, per-edge gather + ``index_add_`` (paper §II, Eq. 12);
-its full-batch ``spmm_fused_epilogue`` is the registry's composition.
+its full-batch ``spmm_fused_epilogue`` is the registry's composition, and
+its attention is the segment path (``edge_softmax_aggregate``).
 The sampled path binds its ``spmm`` as ``gather.feature_matmul_sparse``:
 the per-batch COO feature operand is an edge list with W as the gathered
 matrix. ``index_add_`` uses atomics on CUDA, so this path is not bitwise
@@ -14,7 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.backends.registry import Backend
+from repro_torch.backends.registry import Backend, edge_softmax_aggregate
 from repro_torch.graph.csr import CSRGraph
 
 
@@ -49,3 +50,16 @@ class GatherBackend(Backend):
         out = torch.zeros((operand.n_rows, x.shape[-1]), dtype=msgs.dtype,
                           device=x.device)
         return out.index_add_(0, operand.dst.long(), msgs)
+
+    def sparse_mha(self, fwd_operand: EdgeListOperand, bwd_operand):
+        """Attention on this backend is the gather path: the ``sparse_mha``
+        contract served over the edge-list operand, so the vocabulary stays
+        complete, while plans that bind ``gather`` name the segment
+        primitive."""
+        op = fwd_operand
+
+        def mha(z, a_src, a_dst):
+            return edge_softmax_aggregate(z, a_src, a_dst, op.src, op.dst,
+                                          op.n_rows)
+
+        return mha

@@ -11,9 +11,8 @@ Each backend is a registered object serving the shared op vocabulary
 
 Unlike the JAX registry there is no platform auto-selection: ``None``
 selects ``cuda``, and the device operands are built on is the caller's
-choice (``repro_torch.resolve_device``: CUDA unless asked). The attention
-primitives raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
+choice (``repro_torch.resolve_device``: CUDA unless asked). Parts still
+to be ported raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -37,7 +36,8 @@ OP_VOCABULARY = (
 )
 
 TRAINING_ITEM = "ROADMAP.md Queue 1, item 2 (sampled training)"
-ATTENTION_ITEM = "ROADMAP.md Queue 1, item 3 (attention)"
+SAMPLED_ATTENTION_ITEM = ("ROADMAP.md Queue 1, item 11 (attention and max "
+                          "on the sampled path)")
 LAYOUT_ITEM = "ROADMAP.md Queue 1, item 5 (layout autotuner)"
 RUNTIME_ITEM = "ROADMAP.md Queue 1, item 6 (runtime)"
 VERIFY_ITEM = "ROADMAP.md Queue 1, item 8 (verifier)"
@@ -65,6 +65,55 @@ def apply_epilogue(
     elif activation != "none":
         raise ValueError(f"unsupported fused activation {activation!r}")
     return y
+
+
+def edge_softmax_aggregate(
+    z: torch.Tensor,      # [N, H, Dh] projected features (source index space)
+    a_src: torch.Tensor,  # [H, Dh]
+    a_dst: torch.Tensor,  # [H, Dh]
+    src: torch.Tensor,    # [E] int
+    dst: torch.Tensor,    # [E] int
+    n_out: int,
+    valid: Optional[torch.Tensor] = None,  # [E] bool; None = all edges real
+) -> torch.Tensor:
+    """GAT edge-softmax aggregation on the segment (gather) path, [n_out,
+    H, Dh] — counterpart of ``repro/backends/registry.py:
+    edge_softmax_aggregate``, which every backend's
+    ``segment_softmax_aggregate`` calls.
+
+    The true segment max is subtracted before ``exp``, as a constant
+    (detached: softmax is shift-invariant), and segments without an edge,
+    whose max is -inf, shift by 0. ``valid`` handles padded edge lists:
+    invalid edges go to a dump segment past ``n_out`` and are zeroed, so
+    they contribute nothing, value or gradient."""
+    if valid is None:
+        seg, n_seg, src_c, dst_c = dst.long(), n_out, src.long(), dst.long()
+    else:
+        src_c = torch.where(valid, src, 0).long()
+        dst_c = torch.where(valid, dst, 0).long()
+        seg = torch.where(valid, dst, n_out).long()  # dump slot for padding
+        n_seg = n_out + 1
+    alpha_src = torch.einsum("nhd,hd->nh", z, a_src)
+    alpha_dst = torch.einsum("nhd,hd->nh", z, a_dst)
+    pre = alpha_src[src_c] + alpha_dst[dst_c]  # [E, H]
+    e = torch.where(pre >= 0, pre, 0.2 * pre)
+    with torch.no_grad():
+        e_max = torch.full((n_seg, e.shape[1]), -torch.inf, dtype=e.dtype,
+                           device=e.device).scatter_reduce_(
+            0, seg[:, None].expand_as(e), e, "amax")
+        e_max = torch.where(torch.isfinite(e_max), e_max, 0.0)
+    ee = torch.exp(e - e_max[seg])
+    if valid is not None:
+        ee = torch.where(valid[:, None], ee, 0.0)
+    denom = torch.zeros((n_seg, e.shape[1]), dtype=ee.dtype,
+                        device=ee.device).index_add(0, seg, ee)
+    att = ee / (denom[seg] + 1e-9)
+    msgs = z[src_c] * att[..., None]  # [E, H, Dh]
+    if valid is not None:
+        msgs = torch.where(valid[:, None, None], msgs, 0.0)
+    out = torch.zeros((n_seg, *z.shape[1:]), dtype=msgs.dtype,
+                      device=msgs.device).index_add(0, seg, msgs)
+    return out[:n_out] if valid is not None else out
 
 
 def compose_epilogue(agg: Callable) -> Callable:
@@ -160,17 +209,33 @@ class Backend:
                                       device=device)
         return self.spmm_transposed_vjp(fwd, bwd)
 
-    # -- attention (ROADMAP.md Queue 1, item 3) -------------------------------
+    # -- attention (DESIGN.md §10) -------------------------------------------
 
-    def segment_softmax_aggregate(self, z, a_src, a_dst, src, dst, n_nodes):
-        raise not_ported(f"{self.name}.segment_softmax_aggregate",
-                         ATTENTION_ITEM)
+    def segment_softmax_aggregate(self, z, a_src, a_dst, src, dst,
+                                  n_nodes: int) -> torch.Tensor:
+        """GAT edge-softmax aggregation, [N, H, Dh] out, on the segment
+        (gather) path: the universal attention lowering."""
+        return edge_softmax_aggregate(z, a_src, a_dst, src, dst, n_nodes)
 
-    def sparse_mha(self, fwd_operand, bwd_operand, bf=None):
-        raise not_ported(f"{self.name}.sparse_mha", ATTENTION_ITEM)
+    def sparse_mha(self, fwd_operand, bwd_operand) -> Optional[Callable]:
+        """Differentiable fused attention ``(z [N, H, Dh], a_src, a_dst) ->
+        [n_dst, H, Dh]`` over a pre-built operand pair, or ``None`` where
+        this backend has no fused lowering (the plan then binds the
+        segment primitive)."""
+        return None
 
-    def spmm_attention(self, fwd_operand, bwd_operand, bf=None):
-        raise not_ported(f"{self.name}.spmm_attention", ATTENTION_ITEM)
+    def spmm_attention(self, fwd_operand, bwd_operand) -> Optional[Callable]:
+        """``sparse_mha`` in the models' calling convention:
+        ``(z [N, H*Dh], a_src, a_dst, heads) -> [n_dst, H, Dh]``."""
+        mha = self.sparse_mha(fwd_operand, bwd_operand)
+        if mha is None:
+            return None
+
+        def attention(z, a_src, a_dst, heads):
+            return mha(z.reshape(z.shape[0], heads, z.shape[-1] // heads),
+                       a_src, a_dst)
+
+        return attention
 
 
 _REGISTRY: dict[str, Backend] = {}

@@ -78,7 +78,8 @@ class GNNProgram:
 
     def __init__(self, graph: CSRGraph, features: np.ndarray,
                  labels: np.ndarray, train_mask: np.ndarray, n_classes: int,
-                 arch: str = "GCN", aggregation: str = "gcn"):
+                 arch: str = "GCN", aggregation: str = "gcn",
+                 gat_heads: int = 4):
         self.graph = graph
         self.features = np.asarray(features, dtype=np.float32)
         self.labels = np.asarray(labels)
@@ -86,6 +87,7 @@ class GNNProgram:
         self.n_classes = int(n_classes)
         self.arch = arch
         self.aggregation = aggregation
+        self.gat_heads = int(gat_heads)
         self._layer_dims: Optional[Sequence[int]] = None
         self._seed = 0
         self._opt_spec = ("adam", 0.01, 0.9, 0.999)
@@ -94,12 +96,13 @@ class GNNProgram:
 
     # -- gnn.load -----------------------------------------------------------
     @classmethod
-    def load(cls, dataset, arch: str = "GCN",
-             aggregation: str = "gcn") -> "GNNProgram":
+    def load(cls, dataset, arch: str = "GCN", aggregation: str = "gcn",
+             gat_heads: int = 4) -> "GNNProgram":
         return cls(
             graph=dataset.graph, features=dataset.features,
             labels=dataset.labels, train_mask=dataset.train_mask,
             n_classes=dataset.n_classes, arch=arch, aggregation=aggregation,
+            gat_heads=gat_heads,
         )
 
     # -- gnn.initializeLayers -------------------------------------------------
@@ -126,6 +129,7 @@ class GNNProgram:
     def compile(self, engine: Optional[str] = None, device=None,
                 use_fused: bool = True, fused_optimizer: bool = False,
                 layout: "str | None" = None,
+                fuse_attention: bool = True,
                 params: Optional[dict] = None) -> CompiledProgram:
         """Lower the spec to per-layer plans with operands on ``device``.
 
@@ -133,7 +137,9 @@ class GNNProgram:
         "gather"``; ``None`` is ``cuda``); ``device`` is CUDA unless asked
         (``"cpu"`` runs the plain versions, as the tests do).
         ``fused_optimizer=True`` runs Adam through the fused kernel.
-        ``layout`` takes ``None | "none" | "degree" | "rcm"``. ``params``
+        ``layout`` takes ``None | "none" | "degree" | "rcm"``.
+        ``fuse_attention=False`` keeps GAT / GT on the segment-softmax
+        gather path instead of the fused BSR attention. ``params``
         takes the JAX package's parameters as a numpy tree
         (``params_from_jax``), so one set of weights drives both packages;
         without it, Xavier weights are drawn from the program's seed.
@@ -142,11 +148,12 @@ class GNNProgram:
             raise RuntimeError("call initialize_layers first")
         dev = resolve_device(device)
         config = GNNConfig(kind=self.arch, layer_dims=self._layer_dims,
-                           aggregation=self.aggregation.lower())
+                           aggregation=self.aggregation.lower(),
+                           gat_heads=self.gat_heads)
         # Alg 1 Phase 1, per layer: runtime analysis & lowering
         plan = lower(config, self.graph, self.features, gamma=self.gamma,
                      engine=engine, use_fused=use_fused, layout=layout,
-                     device=dev)
+                     fuse_attention=fuse_attention, device=dev)
         model = GNNModel(config, self.graph, use_fused=use_fused, plan=plan)
         if params is None:
             p = init_params(config, torch.Generator().manual_seed(self._seed),

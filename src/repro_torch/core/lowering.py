@@ -9,11 +9,13 @@ layer 0, post-activation estimates for hidden layers). ``describe()``
 prints the same plan dump, with the port's backend names (``cuda`` for
 ``pallas``, ``torch`` for ``xla``).
 
-The matmul aggregations are ported (GCN, SAGE mean/sum/gcn, GIN).
-Attention archs and ``max`` wait for ROADMAP.md Queue 1, item 3;
-``layout="auto"`` for item 5; the distributed lowering for item 7; the
-plan-contract verifier (``check_plan``) for item 8, and a full-batch
-plan's ``describe()`` says so.
+Full batch runs every arch (GCN, SAGE mean/sum/gcn/max, GIN, GAT, GT);
+attention archs bind the fused ``spmm_attention`` on ``cuda``/``torch``
+(an ``AttentionPlan`` per layer). The sampled path runs the matmul
+aggregations; attention and ``max`` there wait for ROADMAP.md Queue 1,
+item 11. ``layout="auto"`` waits for item 5; the distributed lowering for
+item 7; the plan-contract verifier (``check_plan``) for item 8, and a
+full-batch plan's ``describe()`` says so.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.backends import Backend, select_backend
 from repro_torch.backends.registry import (
-    ATTENTION_ITEM,
     LAYOUT_ITEM,
+    SAMPLED_ATTENTION_ITEM,
     VERIFY_ITEM,
     not_ported,
 )
@@ -64,6 +66,34 @@ class EpiloguePlan:
         return self.formula
 
 
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """One layer's attention record (DESIGN.md §10), the sibling of
+    ``EpiloguePlan``: how a GAT / GT layer's edge-softmax aggregation runs.
+    ``fused`` is the BSR attention kernel (online segment softmax and
+    aggregation in one pass, per-edge scores never stored) with the
+    recompute VJP from the saved per-row (max, denominator); unfused is the
+    segment (gather) path with autograd through the per-edge tensors."""
+
+    heads: int
+    head_dim: int
+    fused: bool
+    vjp: str                # "recompute(m,l)" | "autodiff"
+    formula: str            # human-readable algebra, for plan dumps
+
+    def describe(self) -> str:
+        mode = "fused-bsr" if self.fused else "segment"
+        return (f"{self.heads}h x {self.head_dim} {mode} vjp={self.vjp} "
+                f"{self.formula}")
+
+
+def _attention_binding(heads: int, d_out: int, fused: bool) -> AttentionPlan:
+    return AttentionPlan(
+        heads=heads, head_dim=max(d_out // heads, 1), fused=fused,
+        vjp="recompute(m,l)" if fused else "autodiff",
+        formula="softmax_j(leaky_relu(a_dst·z_i + a_src·z_j))·z_j")
+
+
 def is_attention_arch(kind: str) -> bool:
     """Archs whose aggregation is the edge-softmax attention primitive."""
     return kind in ("GAT", "GT")
@@ -74,7 +104,7 @@ class LayerPlan:
     """One layer's synthesized execution record."""
 
     index: int
-    op_kind: str            # GCN | SAGE | GIN
+    op_kind: str            # GCN | SAGE | GIN | GAT | GT
     d_in: int
     d_out: int
     feature_path: str       # "sparse" | "dense" — the path that will execute
@@ -84,6 +114,8 @@ class LayerPlan:
     note: str = ""
     # epilogue binding; None = unfused aggregation + separate ops
     epilogue: Optional[EpiloguePlan] = None
+    # attention binding (GAT / GT layers); None for the other archs
+    attention: Optional[AttentionPlan] = None
     # the layout the layer's sparse operands were built at
     layout: Optional[LayoutPlan] = None
     # differentiable w -> X @ w over pre-built BSR(X)/BSR(Xᵀ); only set on
@@ -101,6 +133,8 @@ class LayerPlan:
         )
         if self.epilogue is not None:
             line += f"  epilogue[{self.epilogue.describe()}]"
+        if self.attention is not None:
+            line += f"  attention[{self.attention.describe()}]"
         if self.layout is not None:
             line += f"  layout[{self.layout.describe()}]"
         if self.note:
@@ -214,7 +248,8 @@ def lower_sampled(
     backend = select_backend(engine)
     kind = config.kind
     if is_attention_arch(kind):
-        raise not_ported(f"{kind} (attention aggregation)", ATTENTION_ITEM)
+        raise not_ported(f"{kind} (attention aggregation) on the sampled path",
+                         SAMPLED_ATTENTION_ITEM)
     dims = list(config.layer_dims)
     features = np.asarray(features)
     if features.shape[-1] != dims[0]:
@@ -228,7 +263,8 @@ def lower_sampled(
             f"need one fanout per layer ({config.n_layers}), got {fanouts!r}")
     agg = effective_aggregation(config)
     if agg == "max":
-        raise not_ported("max aggregation", ATTENTION_ITEM)
+        raise not_ported("max aggregation on the sampled path",
+                         SAMPLED_ATTENTION_ITEM)
 
     if isinstance(layout, LayoutPlan):
         lp = dataclasses.replace(layout, br=int(br), bc=int(bc), bf=0,
@@ -436,6 +472,7 @@ def lower(
     engine: "str | Backend | None" = None,
     use_fused: bool = True,
     fuse_epilogue: bool = True,
+    fuse_attention: bool = True,
     br: Optional[int] = None,
     bc: Optional[int] = None,
     layout: "LayoutPlan | str | None" = None,
@@ -449,23 +486,25 @@ def lower(
     plan but aggregates on the gather-scatter baseline and binds no sparse
     feature operand. ``fuse_epilogue=False`` keeps the fused aggregation
     but unbinds the per-layer epilogue (bias / self-term / activation as
-    separate ops). ``layout`` takes ``None | "none" | "degree" | "rcm"`` or
-    a ``LayoutPlan``; a reordered plan carries ``perm``/``inv_perm`` and
+    separate ops). ``fuse_attention=False`` keeps GAT / GT on the
+    segment-softmax gather path; by default they bind the fused BSR
+    attention kernels on ``cuda`` and their plain versions on ``torch``.
+    ``layout`` takes ``None | "none" | "degree" | "rcm"`` or a
+    ``LayoutPlan``; a reordered plan carries ``perm``/``inv_perm`` and
     ``GNNModel.apply`` permutes features in and logits back. Operands are
     built on ``device``: CUDA unless asked.
     """
     backend = select_backend(engine)
     dev = resolve_device(device)
     kind = config.kind
-    if is_attention_arch(kind):
-        raise not_ported(f"{kind} (attention aggregation)", ATTENTION_ITEM)
     dims = list(config.layer_dims)
     agg = effective_aggregation(config)
-    if agg == "max":
-        raise not_ported("max aggregation", ATTENTION_ITEM)
 
     emit_epilogue = (use_fused and fuse_epilogue
                      and epilogue_fusable(config, agg))
+    is_attn = is_attention_arch(kind)
+    emit_attn = (use_fused and fuse_attention and is_attn
+                 and backend.name in ("cuda", "torch"))
     lp = _resolve_layout(graph, layout, br, bc)
     if lp.permutes:
         graph_exec = (lp.reordered_graph if lp.reordered_graph is not None
@@ -478,12 +517,19 @@ def lower(
     n_nodes = graph_exec.n_rows
 
     graph_op = make_fused_aggregate(graph_exec, agg, br=lp.br, bc=lp.bc,
-                                    engine=backend, device=dev)
+                                    engine=backend, device=dev,
+                                    build_attention=emit_attn)
     # operands are built: drop the layout's host-side copy of the graph
     if lp.reordered_graph is not None:
         lp = dataclasses.replace(lp, reordered_graph=None)
 
-    if not use_fused:
+    attn_bound = emit_attn and graph_op.aggregate_attention is not None
+    if is_attn:
+        agg_primitive = (f"{backend.name}.spmm_attention" if attn_bound
+                         else f"{backend.name}.segment_softmax_aggregate")
+    elif agg == "max":
+        agg_primitive = "gather.segment_max"  # not a matmul on any backend
+    elif not use_fused:
         agg_primitive = "gather.segment_sum_baseline"
     elif emit_epilogue:
         agg_primitive = f"{backend.name}.spmm_fused_epilogue"
@@ -531,12 +577,17 @@ def lower(
             epilogue = _epilogue_binding(
                 config, is_last=(i == config.n_layers - 1),
                 sparse_path=sparse_xw is not None)
+        attention = None
+        if is_attn:
+            attention = _attention_binding(config.gat_heads, d_out,
+                                           attn_bound)
 
         layers.append(LayerPlan(
             index=i, op_kind=kind, d_in=d_in, d_out=d_out,
             feature_path=path, primitive=primitive,
             agg_primitive=agg_primitive, decision=decision, note=note,
-            epilogue=epilogue, layout=lp, sparse_xw=sparse_xw,
+            epilogue=epilogue, attention=attention, layout=lp,
+            sparse_xw=sparse_xw,
         ))
 
     return ModelPlan(

@@ -4,8 +4,8 @@ Counterpart of ``repro/kernels/ops.py``: ``feature_tile``, the device
 operand ``BSRDevice`` and ``build_bsr_pair``, ``bsr_spmm_pair`` (the
 sampled path's SpMM with its Aᵀ backward) and the fused-epilogue pair
 ``bsr_spmm_fused_pair`` / ``build_fused_epilogue`` (the full-batch path's
-aggregation). The attention pairs come with their kernels (ROADMAP.md
-Queue 1, item 3).
+aggregation), and the fused attention pair ``sparse_mha_pair`` /
+``build_sparse_mha`` (GAT and GT, DESIGN.md §10).
 
 ``inner`` picks the executor everywhere: ``"cuda"`` the kernel wrappers
 (which run their plain versions for CPU tensors), ``"torch"`` the plain
@@ -21,12 +21,20 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.graph.csr import BSRMatrix, CSRGraph, csr_to_bsr
+from repro_torch.kernels.bsr_attention import (
+    bsr_attention_bwd_col,
+    bsr_attention_bwd_row,
+    bsr_attention_fwd,
+)
 from repro_torch.kernels.bsr_spmm import (
     bsr_spmm,
     bsr_spmm_fused_epilogue,
     bsr_spmm_masked,
 )
 from repro_torch.kernels.ref import (
+    bsr_attention_bwd_col_ref,
+    bsr_attention_bwd_row_ref,
+    bsr_attention_fwd_ref,
     bsr_spmm_fused_ref,
     bsr_spmm_masked_ref,
     bsr_spmm_ref,
@@ -34,9 +42,13 @@ from repro_torch.kernels.ref import (
 
 _EXECUTORS = {
     "cuda": {"spmm": bsr_spmm, "fused": bsr_spmm_fused_epilogue,
-             "masked": bsr_spmm_masked},
+             "masked": bsr_spmm_masked, "attn_fwd": bsr_attention_fwd,
+             "attn_row": bsr_attention_bwd_row,
+             "attn_col": bsr_attention_bwd_col},
     "torch": {"spmm": bsr_spmm_ref, "fused": bsr_spmm_fused_ref,
-              "masked": bsr_spmm_masked_ref},
+              "masked": bsr_spmm_masked_ref, "attn_fwd": bsr_attention_fwd_ref,
+              "attn_row": bsr_attention_bwd_row_ref,
+              "attn_col": bsr_attention_bwd_col_ref},
 }
 
 
@@ -63,7 +75,7 @@ def _fit_rows(x: torch.Tensor, n: int) -> torch.Tensor:
         return x
     if x.shape[0] > n:
         return x[:n]
-    return F.pad(x, (0, 0, 0, n - x.shape[0]))
+    return F.pad(x, (0, 0) * (x.dim() - 1) + (0, n - x.shape[0]))
 
 
 @dataclasses.dataclass
@@ -250,3 +262,105 @@ def build_fused_epilogue(fwd: BSRDevice, bwd: BSRDevice, inner: str):
         return y[: fwd.n_rows] if fwd.n_rows != fwd.n_rows_padded else y
 
     return fused
+
+
+# ---------------------------------------------------------------------------
+# Fused sparse multi-head attention pair (DESIGN.md §10): edge softmax and
+# aggregation in one kernel, the VJP recomputing the weights from the saved
+# per-row (max, denominator) statistics
+# ---------------------------------------------------------------------------
+
+def _c(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous()
+
+
+class _SparseMHAPair(torch.autograd.Function):
+    """The counterpart of ``repro/kernels/ops.py:sparse_mha_pair`` and its
+    ``_mha_fwd`` / ``_mha_bwd``. ``geom = (n_dst, n_src, n_rows_padded,
+    n_cols_padded, nT_rows_padded, nT_cols_padded)``; destinations are the
+    leading ``n_dst`` rows of the source ordering. Every operand is
+    re-tiled to the padding of the stream that reads it (``_fit_rows``), so
+    A and Aᵀ may pad differently. The Hopper kernels mask the ragged head
+    width, so heads are never padded (the JAX package pads them to its
+    lane tile, which only adds zero columns)."""
+
+    @staticmethod
+    def forward(ctx, z, a_src, a_dst, fwd, bwd, geom, inner):
+        n_dst, n_src, nr_pad, nc_pad, _, _ = geom
+        h, dh = z.shape[1], z.shape[2]
+        z32 = z.float()
+        asrc = torch.einsum("nhd,hd->nh", z32, a_src.float())
+        adst = torch.einsum("nhd,hd->nh", z32, a_dst.float())
+        out, m, l = _executor(inner, "attn_fwd")(
+            fwd.block_rows, fwd.block_cols, fwd.blocks,
+            _c(_fit_rows(adst[:n_dst], nr_pad)), _c(_fit_rows(asrc, nc_pad)),
+            _c(_fit_rows(z32, nc_pad).reshape(nc_pad, h * dh)), nr_pad, h)
+        out = out.reshape(nr_pad, h, dh)[:n_dst]
+        m, l = m[:n_dst], l[:n_dst]
+        ctx.save_for_backward(z32, a_src, a_dst, out, m, l, asrc, adst)
+        ctx.fwd, ctx.bwd, ctx.geom, ctx.inner = fwd, bwd, geom, inner
+        ctx.dtypes = (z.dtype, a_src.dtype, a_dst.dtype)
+        return out.to(z.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        z32, a_src, a_dst, out, m, l, asrc, adst = ctx.saved_tensors
+        fwd, bwd, inner = ctx.fwd, ctx.bwd, ctx.inner
+        n_dst, n_src, nr_pad, nc_pad, nt_r, nt_c = ctx.geom
+        h, dh = z32.shape[1], z32.shape[2]
+        hd = h * dh
+        dy = dy.float()
+        r = torch.einsum("nhd,nhd->nh", dy, out)
+        adst_d = adst[:n_dst]
+        dc = _executor(inner, "attn_row")(
+            fwd.block_rows, fwd.block_cols, fwd.blocks,
+            _c(_fit_rows(adst_d, nr_pad)), _c(_fit_rows(asrc, nc_pad)),
+            _c(_fit_rows(z32, nc_pad).reshape(nc_pad, hd)),
+            _c(_fit_rows(dy, nr_pad).reshape(nr_pad, hd)),
+            _c(_fit_rows(r, nr_pad)), _c(_fit_rows(m, nr_pad)),
+            _c(_fit_rows(l, nr_pad)), nr_pad, h)[:n_dst]
+        dzv, dd = _executor(inner, "attn_col")(
+            bwd.block_rows, bwd.block_cols, bwd.blocks,
+            _c(_fit_rows(asrc, nt_r)), _c(_fit_rows(adst_d, nt_c)),
+            _c(_fit_rows(z32, nt_r).reshape(nt_r, hd)),
+            _c(_fit_rows(dy, nt_c).reshape(nt_c, hd)),
+            _c(_fit_rows(r, nt_c)), _c(_fit_rows(m, nt_c)),
+            _c(_fit_rows(l, nt_c)), nt_r, h)
+        dzv = dzv.reshape(nt_r, h, dh)[:n_src]
+        dd = dd[:n_src]
+        a_src32, a_dst32 = a_src.float(), a_dst.float()
+        # dz = value path + score path: dd (source side) rides a_src, dc
+        # (destination side) a_dst on the leading n_dst rows
+        dz = (dzv + dd[..., None] * a_src32[None]
+              + _fit_rows(dc, n_src)[..., None] * a_dst32[None])
+        da_src = torch.einsum("nh,nhd->hd", dd, z32)
+        da_dst = torch.einsum("nh,nhd->hd", dc, z32[:n_dst])
+        zt, st, dt = ctx.dtypes
+        return (dz.to(zt), da_src.to(st), da_dst.to(dt), None, None, None,
+                None)
+
+
+def sparse_mha_pair(fwd: BSRDevice, bwd: BSRDevice, z: torch.Tensor,
+                    a_src: torch.Tensor, a_dst: torch.Tensor, geom: tuple,
+                    inner: str = "cuda") -> torch.Tensor:
+    """``out_i = Σ_j softmax_j(leaky_relu(a_dst·z_i + a_src·z_j)) z_j`` per
+    head over the nonzero pattern of A (``fwd``), with the backward's
+    column pass over Aᵀ (``bwd``). Differentiable in ``z [n_src, H, Dh]``,
+    ``a_src [H, Dh]`` and ``a_dst [H, Dh]``; returns ``[n_dst, H, Dh]``.
+    The residuals are O(N·H) row statistics, not the O(E·H) weights."""
+    return _SparseMHAPair.apply(z, a_src, a_dst, fwd, bwd, geom, inner)
+
+
+def build_sparse_mha(fwd: BSRDevice, bwd: BSRDevice, inner: str):
+    """Differentiable fused-attention closure over a (A, Aᵀ) pair — the op
+    behind the registry's ``sparse_mha`` / ``spmm_attention`` on the
+    ``cuda`` and ``torch`` backends. Returns ``mha(z, a_src, a_dst)`` on
+    unpadded ``z [n_src, H, Dh]`` -> ``[n_dst, H, Dh]``."""
+    _executor(inner, "attn_fwd")  # validates inner now, not at the first call
+    geom = (fwd.n_rows, fwd.n_cols, fwd.n_rows_padded, fwd.n_cols_padded,
+            bwd.n_rows_padded, bwd.n_cols_padded)
+
+    def mha(z, a_src, a_dst):
+        return sparse_mha_pair(fwd, bwd, z, a_src, a_dst, geom, inner)
+
+    return mha

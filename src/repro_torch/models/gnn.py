@@ -1,4 +1,5 @@
-"""GNN layers and the full-batch model — GCN, GraphSAGE, GIN (paper §III-A).
+"""GNN layers and the full-batch model — GCN, GraphSAGE, GIN, GAT and the
+GT graph-transformer layer (paper §III-A).
 
 Counterpart of ``repro/models/gnn.py``. Parameters are a plain dictionary
 ``{"layers": [dict of tensors, ...]}`` with the JAX package's names and
@@ -10,7 +11,10 @@ bound to execution primitives through ``LayerOps``; ``GNNModel`` executes
 a full-batch ``ModelPlan`` with it. Parameters are made on the card unless
 the caller asks for another device.
 
-GAT and GT wait for the attention slice (ROADMAP.md Queue 1, item 3).
+Attention archs (GAT, GT) run the fused BSR attention primitive
+``spmm_attention`` where the plan bound it (``cuda`` and ``torch``), and
+the ``segment_softmax_aggregate`` gather path under
+``fuse_attention=False`` or on the ``gather`` backend.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.backends.registry import ATTENTION_ITEM, not_ported
+from repro_torch.backends import get_backend
 from repro_torch.core.lowering import LayerPlan, ModelPlan, lower
 from repro_torch.graph.csr import CSRGraph
 
@@ -35,6 +39,7 @@ class GNNConfig:
     layer_dims: Sequence[int]  # [in, hidden..., out]
     aggregation: str = "gcn"  # sum | mean | gcn | max
     activation: Callable = torch.relu
+    gat_heads: int = 4
 
     @property
     def n_layers(self) -> int:
@@ -48,9 +53,12 @@ def _xavier(shape, generator: torch.Generator) -> torch.Tensor:
 
 def init_params(config: GNNConfig, generator: torch.Generator,
                 device=None) -> dict:
-    """Xavier-normal parameters for GCN/SAGE/GIN, drawn on the CPU from
-    ``generator`` and moved to ``device`` (CUDA unless asked; raises
-    without a card)."""
+    """Xavier-normal parameters of any arch with the JAX package's names and
+    shapes, drawn on the CPU from ``generator`` and moved to ``device``
+    (CUDA unless asked; raises without a card). GAT / GT layers hold
+    ``w [d_in, H*Dh]``, ``a_src``/``a_dst [H, Dh]``, ``b [d_out]`` and
+    ``proj [H*Dh, d_out]`` with ``Dh = d_out // H``; GT adds the residual
+    ``w_res [d_in, d_out]``."""
     device = resolve_device(device)
     layers = []
     for i in range(config.n_layers):
@@ -69,7 +77,16 @@ def init_params(config: GNNConfig, generator: torch.Generator,
                      "w2": _xavier((d_out, d_out), generator),
                      "b2": torch.zeros(d_out)}
         elif config.kind in ("GAT", "GT"):
-            raise not_ported(f"{config.kind} parameters", ATTENTION_ITEM)
+            h = config.gat_heads
+            dh = max(d_out // h, 1)
+            layer = {"w": _xavier((d_in, h * dh), generator),
+                     "a_src": _xavier((h, dh), generator),
+                     "a_dst": _xavier((h, dh), generator),
+                     "b": torch.zeros(d_out),
+                     "proj": _xavier((h * dh, d_out), generator)}
+            if config.kind == "GT":
+                # graph-transformer residual branch (pre-attention input)
+                layer["w_res"] = _xavier((d_in, d_out), generator)
         else:
             raise ValueError(config.kind)
         layers.append({k: v.to(device) for k, v in layer.items()})
@@ -94,6 +111,8 @@ class LayerOps:
     aggregate: Callable[[torch.Tensor], torch.Tensor]  # u -> A @ u
     # layer-0 Alg-1 sparse binding: w -> X @ w; None = dense path (x @ w)
     xw: Optional[Callable] = None
+    # edge softmax: (z [N, heads*dh], a_src, a_dst, heads) -> [N, heads, dh]
+    gat_attention: Optional[Callable] = None
     # bipartite mini-batch blocks: maps a src-frontier tensor onto the dst
     # frontier (a leading-row slice). None = src set == dst set.
     restrict: Optional[Callable] = None
@@ -113,7 +132,8 @@ def apply_layer(config: GNNConfig, layer: dict, x: torch.Tensor,
     ``relu(A·(X·Wn) + X·Ws + b)``; GIN sparse ``act(A·u + (1+eps)·u + b1)``,
     dense ``A·x + (1+eps)·x``. Only the port's own ``torch.relu`` lowers
     into the primitive (``core/lowering.py:_epilogue_binding`` keys on the
-    same test).
+    same test). GAT / GT: ``attention(X·W)·proj + b`` (GT ``+ X·W_res``),
+    then the activation.
     """
     kind = config.kind
     xw = ops.xw
@@ -157,7 +177,13 @@ def apply_layer(config: GNNConfig, layer: dict, x: torch.Tensor,
             z1 = z @ layer["w1"] + layer["b1"]
             y = config.activation(z1) @ layer["w2"] + layer["b2"]
     elif kind in ("GAT", "GT"):
-        raise not_ported(f"{kind} layers", ATTENTION_ITEM)
+        z = mm(layer["w"])  # [N, heads*dh]
+        out = ops.gat_attention(z, layer["a_src"], layer["a_dst"],
+                                config.gat_heads)  # [N, heads, dh]
+        y = out.reshape(out.shape[0], -1) @ layer["proj"] + layer["b"]
+        if kind == "GT":
+            # transformer-style residual around the attention block
+            y = y + res(x) @ layer["w_res"]
     else:
         raise ValueError(kind)
     return y if is_last else config.activation(y)
@@ -169,8 +195,9 @@ class GNNModel:
 
     Each layer runs ``apply_layer`` on the plan's primitives: the sparse
     layer-0 X·W when the plan bound one, the fused-epilogue aggregation
-    where the plan carries an ``EpiloguePlan``, the gather-scatter
-    baseline under ``use_fused=False``. A reordered plan's operands live
+    where the plan carries an ``EpiloguePlan``, the fused attention where
+    the plan bound ``spmm_attention`` (else the segment path), the
+    gather-scatter baseline under ``use_fused=False``. A reordered plan's operands live
     in the renumbered space: ``apply`` gathers features in through
     ``perm`` and un-permutes logits through ``inv_perm``, so callers only
     see the original node order.
@@ -187,6 +214,7 @@ class GNNModel:
                          use_fused=use_fused, device=device)
         self.plan = plan
         self.device = plan.device
+        self.backend = get_backend(plan.backend)
         self.op = plan.graph_op
         lp = plan.layout
         if lp is not None and lp.permutes:
@@ -195,6 +223,12 @@ class GNNModel:
                 np.asarray(lp.inv_perm, np.int64)).to(self.device)
         else:
             self._perm = self._inv_perm = None
+        # fused BSR attention: bound iff the plan's aggregation primitive is
+        # spmm_attention and the graph op carries the operator
+        self._fuse_attention = (
+            use_fused and self.op.aggregate_attention is not None
+            and any(l.agg_primitive.endswith("spmm_attention")
+                    for l in plan.layers))
 
     def init(self, generator: torch.Generator) -> dict:
         return init_params(self.config, generator, self.device)
@@ -203,6 +237,17 @@ class GNNModel:
         if self.use_fused:
             return self.op.aggregate(x)
         return self.op.baseline(x)
+
+    def _gat_attention(self, z: torch.Tensor, a_src, a_dst,
+                       heads: int) -> torch.Tensor:
+        """Edge-softmax attention: the fused operator where the plan bound
+        one, else the backend's segment primitive."""
+        if self._fuse_attention:
+            return self.op.aggregate_attention(z, a_src, a_dst, heads)
+        n = z.shape[0]
+        z3 = z.reshape(n, heads, z.shape[-1] // heads)
+        return self.backend.segment_softmax_aggregate(
+            z3, a_src, a_dst, self.op.src, self.op.dst, n)
 
     def _layer_ops(self, plan_layer: Optional[LayerPlan]) -> LayerOps:
         sparse_xw = None
@@ -213,7 +258,7 @@ class GNNModel:
                 and plan_layer.epilogue is not None):
             fe = self.op.aggregate_epilogue
         return LayerOps(aggregate=self._aggregate, xw=sparse_xw,
-                        fused_epilogue=fe)
+                        gat_attention=self._gat_attention, fused_epilogue=fe)
 
     def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         n = self.config.n_layers

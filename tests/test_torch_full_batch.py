@@ -18,7 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.dsl import GNNProgram  # noqa: E402
-from repro_torch.core.lowering import lower  # noqa: E402
+from repro_torch.core.lowering import lower, lower_sampled  # noqa: E402
 from repro_torch.graph.csr import csr_from_edges  # noqa: E402
 from repro_torch.graph.datasets import generate_dataset  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (  # noqa: E402
@@ -218,8 +218,9 @@ def test_unported_parts_raise_naming_roadmap():
               device="cpu")
     for cfg in (GNNConfig(kind="GAT", layer_dims=dims),
                 GNNConfig(kind="SAGE", layer_dims=dims, aggregation="max")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 3"):
-            lower(cfg, g, x, device="cpu")
+        lower(cfg, g, x, device="cpu")  # full batch: ported
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
+            lower_sampled(cfg, g, x, fanouts=(4, 3))
 
 
 def test_entry_points_run_on_the_card_unless_asked(monkeypatch):

@@ -180,4 +180,5 @@ def test_port_imports_without_jax_or_repro():
     assert len(mods) >= 25
     assert {"repro_torch.core.dsl", "repro_torch.training.optimizer",
             "repro_torch.kernels.fused_adam", "repro_torch.kernels.ops",
-            "repro_torch.core.aggregate", "repro_torch.core.lowering"} <= mods
+            "repro_torch.core.aggregate", "repro_torch.core.lowering",
+            "repro_torch.kernels.bsr_attention"} <= mods
