@@ -7,7 +7,7 @@ Phases; any failure raises, so the exit code is not 0 and no result line
 is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
-   four CUDA libraries built in parallel from
+   six CUDA libraries built in parallel from
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (build seconds and
    the ptxas report).
 2. ``bsr_spmm`` against its plain PyTorch version on the serving
@@ -80,6 +80,28 @@ is printed:
    corafull's unequal paddings, cuda against torch; one epoch of the
    program compiled with ``fuse_attention=False`` (the segment path on the
    card), its loss within 2e-4 of the fused first epoch's.
+10. LM serving at full width: llama3.2-1b (16 layers, d_model 2048, 32
+    heads with 8 KV heads of 64, vocab 128,256; 1,235,814,400 parameters,
+    random from a seeded generator on the card) through
+    ``ServingEngine(batch_slots=4, max_seq=1056)`` on the ``cuda`` model:
+    8 requests of 128-1,024 prompt tokens (seed 0, the longest 1,024), 32
+    new tokens each, two waves, after one untimed warmup run of the same
+    requests. Exactly 16 ``flash_attention`` launches a wave, none in
+    decode. The ``torch`` model (the plain version) fed the same inputs
+    call by call: last-position logits within 1e-4 at every step, greedy
+    tokens equal wherever the cuda program's top-2 margin exceeds 1e-3.
+    Prefill ms a wave, decode ms a step, tokens/s, the run's peak memory,
+    and device ms by kernel class and idle share of one prefill and one
+    decode step (profiler).
+11. The flash kernel against its plain version on each layer's real q, k,
+    v from phase 10's 1,024-token prefill (B 4, H 32, Hkv 8, T 1024, D
+    64), float32 within 2e-5 and bfloat16 copies within 5e-2, a repeat
+    bitwise equal; edge cases (Tq != Tk causal and not, T = 1, 33, 1000, D
+    = 8 and 128, K padding inside a tile, Hkv == H). Per call at layer 0's
+    inputs: the kernel's, the plain version's and
+    ``scaled_dot_product_attention``'s CUDA-event ms (on K/V repeated to
+    32 heads, and with ``enable_gqa=True``), and the bound (fp32
+    operations over 67 TFLOP/s against bytes over 3.35 TB/s).
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go
@@ -121,6 +143,8 @@ from repro_torch.kernels.bsr_spmm import (  # noqa: E402
     bsr_spmm_fused_epilogue,
     bsr_spmm_masked,
 )
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_adam import fused_adam  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     bsr_attention_bwd_col_ref,
@@ -129,9 +153,12 @@ from repro_torch.kernels.ref import (  # noqa: E402
     bsr_spmm_fused_ref,
     bsr_spmm_masked_ref,
     bsr_spmm_ref,
+    flash_attention_ref,
     fused_adam_ref,
 )
-from repro_torch.training.optimizer import bias_corrected_lr  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.training.optimizer import bias_corrected_lr, tree_leaves  # noqa: E402
 from repro_torch.training.trainer import value_and_grad  # noqa: E402
 from repro_torch.launch.serve import build_engine, drive  # noqa: E402
 from repro_torch.serving.gnn_engine import GNNServingEngine  # noqa: E402
@@ -165,7 +192,8 @@ KERNELS = {"bsr_spmm": bsr_spmm,
            "fused_adam": fused_adam,
            "bsr_attention_fwd": bsr_attention_fwd,
            "bsr_attention_bwd_row": bsr_attention_bwd_row,
-           "bsr_attention_bwd_col": bsr_attention_bwd_col}
+           "bsr_attention_bwd_col": bsr_attention_bwd_col,
+           "flash_attention": flash_attention}
 #: the attention kernels and their plain versions, by pass
 ATTENTION = {"fwd": ("bsr_attention_fwd", bsr_attention_fwd, bsr_attention_fwd_ref),
              "row": ("bsr_attention_bwd_row", bsr_attention_bwd_row,
@@ -174,7 +202,7 @@ ATTENTION = {"fwd": ("bsr_attention_fwd", bsr_attention_fwd, bsr_attention_fwd_r
                      bsr_attention_bwd_col_ref)}
 #: the CUDA sources (kernels/csrc/<name>.cu) the kernels are built from
 LIBRARIES = ["bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "fused_adam",
-             "bsr_attention"]
+             "bsr_attention", "flash_attention"]
 SOURCES = {
     "bsr_spmm": ("src/repro_torch/kernels/csrc/bsr_spmm.cu",
                  "src/repro/kernels/bsr_spmm.py:105"),
@@ -190,6 +218,8 @@ SOURCES = {
                               "src/repro/kernels/bsr_attention.py:190"),
     "bsr_attention_bwd_col": ("src/repro_torch/kernels/csrc/bsr_attention.cu",
                               "src/repro/kernels/bsr_attention.py:267"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:106"),
 }
 
 #: the epilogue specs the lowering emits: (self_term, bias, activation)
@@ -226,6 +256,15 @@ class Sizes:
     gat_hidden: tuple = (750, 750)
     gat_heads: int = 3
     gt_heads: int = 4
+    # LM serving: `lm_arch` (its reduced() variant where `lm_reduced`),
+    # `lm_requests` prompts of lm_prompts[0]..lm_prompts[1] tokens (the
+    # longest set to lm_prompts[1]), `lm_new_tokens` each, `lm_slots` slots
+    lm_arch: str = "llama3.2-1b"
+    lm_reduced: bool = False
+    lm_requests: int = 8
+    lm_prompts: tuple = (128, 1024)
+    lm_new_tokens: int = 32
+    lm_slots: int = 4
 
 
 def zero_counts() -> None:
@@ -836,6 +875,8 @@ def classify(name: str) -> str:
     for kind in ("fwd", "bwd_row", "bwd_col"):
         if f"attn_{kind}_kernel" in name:
             return f"bsr_attention_{kind}"
+    if "flash_fwd_kernel" in name:
+        return "flash_attention"
     low = name.lower()
     if "gemm" in low or "cutlass" in low or "xmma" in low:
         return "matmul"
@@ -1357,6 +1398,376 @@ def attention_pair_unequal(prog, device) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-11: LM serving at llama3.2-1B width and the flash attention kernel
+# ---------------------------------------------------------------------------
+
+#: the flash kernel against its plain version: the JAX suite's float32
+#: tolerance (test_flash_matches_ref) and its bfloat16 one (test_flash_bf16),
+#: each |got - want| <= tol + tol·|want|
+FLASH_TOL = 2e-5
+FLASH_BF16_TOL = 5e-2
+#: greedy tokens must agree where the cuda program's top-2 logit margin
+#: exceeds this (below it, float32 rounding may pick either)
+TOKEN_MARGIN = 1e-3
+
+
+class RecordingLM:
+    """The cuda model's entry points as ``ServingEngine`` calls them. Each
+    call's token input, last-position logits, synchronised host time and
+    flash launches are recorded, so that the reference program can be fed
+    the same inputs afterwards. Measurement only."""
+
+    def __init__(self, model, device):
+        self.model, self.device = model, device
+        self.calls = []  # dicts: wave, kind, tokens, logits, s, flash
+        self.wave = -1
+
+    def init_cache(self, *args, **kw):
+        return self.model.init_cache(*args, **kw)
+
+    def _call(self, kind, fn, tokens):
+        sync(self.device)
+        before = flash_attention.launches
+        t0 = time.perf_counter()
+        logits, cache = fn()
+        sync(self.device)
+        self.calls.append({"wave": self.wave, "kind": kind, "tokens": tokens.clone(),
+                           "logits": logits.clone(), "s": time.perf_counter() - t0,
+                           "flash": flash_attention.launches - before})
+        return logits, cache
+
+    def prefill(self, params, tokens, cache):
+        self.wave += 1
+        return self._call("prefill", lambda: self.model.prefill(params, tokens, cache),
+                          tokens)
+
+    def decode_step(self, params, cache, tokens):
+        return self._call("decode", lambda: self.model.decode_step(params, cache, tokens),
+                          tokens)
+
+
+def lm_requests(sizes: Sizes, vocab: int) -> list:
+    """``lm_requests`` prompts of random tokens, lengths drawn from seed 0
+    in lm_prompts[0]..lm_prompts[1], the longest set to lm_prompts[1]."""
+    rng = np.random.default_rng(0)
+    lo, hi = sizes.lm_prompts
+    lengths = rng.integers(lo, hi + 1, sizes.lm_requests)
+    lengths[int(np.argmax(lengths))] = hi
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(n)).astype(np.int32),
+                    max_new_tokens=sizes.lm_new_tokens)
+            for i, n in enumerate(lengths)]
+
+
+def lm_profile(fn, device, n_flash: int, wall_ms: float) -> dict:
+    """One call of ``fn`` under the profiler: device ms by kernel class,
+    busy total and the idle share of ``wall_ms`` (the call's synchronised
+    time in the engine's run)."""
+    if device.type != "cuda":
+        return {"complete": False}
+    prof, windows = profiled(fn, device, {"flash_attention": n_flash})
+    if prof is None:
+        return {"complete": False, "windows": windows}
+    by = defaultdict(float)
+    for name, us, _ in device_events(prof):
+        by[classify(name)] += us / 1e3
+    busy = sum(by.values())
+    return {"complete": True, "windows": windows, "device_ms": dict(by),
+            "busy_ms": busy, "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms}
+
+
+def lm_serving_phase(sizes: Sizes, device) -> dict:
+    """Phase 10, LM serving: ``ServingEngine`` over the ``cuda`` model
+    (prefill attention on the flash kernel) at the configuration's full
+    width, random weights from a seeded generator on the card; counts
+    zeroed just before ``run()`` and read after it. Then the ``torch``
+    model (the plain version) fed the same inputs call by call: its
+    logits within 1e-4 at every step, and its greedy tokens equal where
+    the cuda program's top-2 margin exceeds ``TOKEN_MARGIN``."""
+    base = get_config(sizes.lm_arch)
+    cfg = base.reduced() if sizes.lm_reduced else base
+    model, ref = build_model(cfg, inner="cuda"), build_model(cfg, inner="torch")
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV) of {cfg.resolved_head_dim}, "
+          f"vocab {cfg.vocab_size}: {n_params:,} parameters drawn in {init_s:.2f}s")
+    max_seq = sizes.lm_prompts[1] + sizes.lm_new_tokens
+    # warmup: the same requests once, untimed (the flash library's load,
+    # cuBLAS's first calls at these shapes)
+    warm = ServingEngine(model, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
+                         device=device)
+    for r in lm_requests(sizes, cfg.vocab_size):
+        warm.submit(r)
+    t0 = time.perf_counter()
+    warm.run()
+    sync(device)
+    warmup_s = time.perf_counter() - t0
+    rec = RecordingLM(model, device)
+    engine = ServingEngine(rec, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
+                           device=device)
+    reqs = lm_requests(sizes, cfg.vocab_size)
+    for r in reqs:
+        engine.submit(r)
+    mem_before = torch.cuda.memory_allocated(device) if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    t0 = time.perf_counter()
+    done = engine.run()
+    sync(device)
+    wall = time.perf_counter() - t0
+    launched = counts()
+    # the run's own peak: what earlier phases left allocated is not counted
+    peak = torch.cuda.max_memory_allocated(device) - mem_before if on_card else 0
+
+    waves = rec.wave + 1
+    per_wave = cfg.n_layers if on_card else 0
+    if [r.rid for r in done] != list(range(len(reqs))):
+        raise AssertionError("requests not answered in order")
+    for r in done:
+        if not r.done or len(r.output) != sizes.lm_new_tokens:
+            raise AssertionError(f"request {r.rid}: {len(r.output)} tokens")
+    for c in rec.calls:
+        want = per_wave if c["kind"] == "prefill" else 0
+        if c["flash"] != want:
+            raise AssertionError(f"a {c['kind']} of wave {c['wave']} launched "
+                                 f"flash_attention {c['flash']} times, expected {want}")
+    if launched["flash_attention"] != per_wave * waves or (on_card and waves == 0):
+        raise AssertionError(f"flash_attention launched {launched['flash_attention']} "
+                             f"times for {waves} waves of {cfg.n_layers} layers")
+    if sum(launched.values()) != launched["flash_attention"]:
+        raise AssertionError(f"LM serving launched other kernels: {launched}")
+
+    worst, steps, sure_steps, ref_s = 0.0, 0, 0, defaultdict(list)
+    cache = None
+    for c in rec.calls:
+        logits = c["logits"]
+        if logits.shape != (c["tokens"].shape[0], cfg.padded_vocab()) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"{c['kind']} logits {tuple(logits.shape)} not finite "
+                                 f"or of the wrong shape")
+        sync(device)
+        t0 = time.perf_counter()
+        if c["kind"] == "prefill":
+            cache = ref.init_cache(c["tokens"].shape[0], max_seq, dtype=torch.float32,
+                                   device=device)
+            want, cache = ref.prefill(params, c["tokens"], cache)
+        else:
+            want, cache = ref.decode_step(params, cache, c["tokens"])
+        sync(device)
+        ref_s[c["kind"]].append(time.perf_counter() - t0)
+        worst = max(worst, float((logits - want).abs().max()))
+        top = torch.topk(logits, 2, dim=-1).values
+        sure = (top[:, 0] - top[:, 1]) > TOKEN_MARGIN
+        steps += sure.numel()
+        sure_steps += int(sure.sum())
+        if not torch.equal(logits.argmax(-1)[sure], want.argmax(-1)[sure]):
+            raise AssertionError(f"greedy tokens differ in a {c['kind']} of wave "
+                                 f"{c['wave']} where the top-2 margin > {TOKEN_MARGIN}")
+    if not worst <= TOL:
+        raise AssertionError(f"cuda vs torch LM logits differ by {worst} > {TOL}")
+    print(f"[lm] cuda vs torch, the torch model fed the cuda program's tokens: "
+          f"logits within {worst:.3g}; greedy tokens equal at all {sure_steps} of "
+          f"{steps} (slot, step) pairs whose top-2 margin > {TOKEN_MARGIN}")
+
+    prefill_s = [c["s"] for c in rec.calls if c["kind"] == "prefill"]
+    decode_s = [c["s"] for c in rec.calls if c["kind"] == "decode"]
+    tokens = sum(len(r.output) for r in done)
+    longest = max((c for c in rec.calls if c["kind"] == "prefill"),
+                  key=lambda c: c["tokens"].shape[1])
+    b = longest["tokens"].shape[0]
+    median_ms = float(np.median(decode_s)) * 1e3 if decode_s else 0.0
+    # a cache filled by the longest prefill, for a decode step's profile
+    _, filled = model.prefill(params, longest["tokens"], model.init_cache(
+        b, max_seq, dtype=torch.float32, device=device))
+    cur = longest["logits"].argmax(-1)[:, None]
+    out = {
+        "arch": cfg.name, "n_params": n_params, "init_s": init_s, "warmup_s": warmup_s,
+        "requests": len(done),
+        "waves": waves, "slots": sizes.lm_slots, "max_seq": max_seq,
+        "prompt_lengths": [len(r.prompt) for r in reqs],
+        "wave_prompt_tokens": [int(c["tokens"].shape[1]) for c in rec.calls
+                               if c["kind"] == "prefill"],
+        "launches": launched, "flash_per_wave": per_wave,
+        "max_logit_diff": worst, "token_pairs": steps, "token_pairs_compared": sure_steps,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "prefill_ms": [x * 1e3 for x in prefill_s],
+        "decode_step_ms_median": median_ms,
+        "decode_ms_per_token": median_ms / sizes.lm_slots,
+        "ref_prefill_ms": [x * 1e3 for x in ref_s["prefill"]],
+        "ref_decode_step_ms_median": float(np.median(ref_s["decode"])) * 1e3
+        if ref_s["decode"] else 0.0,
+        "peak_mem_bytes": peak, "params_bytes": 4 * n_params,
+        "profile_prefill": lm_profile(
+            lambda: model.prefill(params, longest["tokens"], model.init_cache(
+                b, max_seq, dtype=torch.float32, device=device)),
+            device, per_wave, longest["s"] * 1e3),
+        "profile_decode": lm_profile(
+            lambda: model.decode_step(params, filled, cur), device, 0, median_ms),
+    }
+    print("[lm] " + json.dumps(out))
+    return {"summary": out, "model": model, "params": params, "tokens": longest["tokens"],
+            "max_seq": max_seq}
+
+
+def flash_bound(b, h, hkv, tq, tk, d, causal: bool, elem: int) -> dict:
+    """Least time for one flash call on these shapes: q, k, v read once and
+    the output written once, against 4·D fp32 operations (two products)
+    per visible (query, key) pair of each head — with the top-left causal
+    mask row i sees min(i + 1, Tk) keys."""
+    if causal:
+        n = min(tq, tk)
+        pairs = n * (n + 1) // 2 + (tq - n) * tk
+    else:
+        pairs = tq * tk
+    flop = 4.0 * b * h * d * pairs
+    nbytes = elem * (2 * b * h * tq * d + 2 * b * hkv * tk * d)
+    out = {"bytes": nbytes, "flop": flop}
+    out["bound_ms"], out["bound_by"] = _bound(nbytes, flop)
+    return out
+
+
+def capture_flash(model, params, tokens, max_seq: int, device) -> list:
+    """One prefill of ``tokens`` through ``model``, recording each layer's
+    flash inputs (q, k, v as the layer passes them: [B, H, T, D] views of
+    the projections and of the cache). Measurement only: the executor is
+    wrapped for this call."""
+    table = kops._EXECUTORS["cuda"]
+    inner = table["flash"]
+    layers = []
+
+    def spy(q, k, v, **kw):
+        layers.append((q, k, v))
+        return inner(q, k, v, **kw)
+
+    table["flash"] = spy
+    try:
+        model.prefill(params, tokens, model.init_cache(
+            tokens.shape[0], max_seq, dtype=torch.float32, device=device))
+    finally:
+        table["flash"] = inner
+    return layers
+
+
+def check_flash(label, q, k, v, causal: bool, device, tol: float = FLASH_TOL) -> float:
+    """The flash kernel against its plain version on the same device
+    tensors (|got - want| <= tol + tol·|want|), and a repeat launch bitwise
+    equal; returns the largest absolute error."""
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    sync(device)
+    if got.dtype != q.dtype or got.shape != want.shape:
+        raise AssertionError(f"flash_attention {label}: {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if not float((diff - tol * want.float().abs()).max()) <= tol:
+        raise AssertionError(f"flash_attention {label}: max abs error {err} > {tol} "
+                             f"(+ {tol}·|want|)")
+    if device.type == "cuda" and not torch.equal(got, again):
+        raise AssertionError(f"flash_attention {label}: a repeat launch is not "
+                             "bitwise equal")
+    print(f"[kernel] flash_attention {label}: max_abs_err={err:.3g}")
+    return err
+
+
+def flash_edge_cases(device) -> dict:
+    """Random inputs: Tq != Tk causal and not, T = 1, 33 and 1000, D = 8
+    and 128, K padding inside a tile, Hkv == H; float32 and bfloat16."""
+    gen = torch.Generator().manual_seed(31)
+    err = {"f32": 0.0, "bf16": 0.0}
+    for b, h, hkv, tq, tk, d, causal in (
+            (1, 4, 2, 40, 72, 64, True), (1, 4, 2, 72, 40, 64, True),
+            (1, 4, 2, 40, 72, 64, False), (2, 8, 2, 1, 1, 64, True),
+            (1, 4, 4, 33, 33, 64, True), (1, 8, 2, 1000, 1000, 64, True),
+            (2, 4, 4, 33, 33, 8, True), (1, 4, 1, 100, 100, 128, True),
+            (1, 4, 1, 100, 100, 128, False), (1, 2, 2, 64, 100, 32, False)):
+        q = torch.randn((b, h, tq, d), generator=gen).to(device)
+        k, v = (torch.randn((b, hkv, tk, d), generator=gen).to(device) for _ in range(2))
+        label = f"B={b} H={h} Hkv={hkv} Tq={tq} Tk={tk} D={d} causal={causal}"
+        err["f32"] = max(err["f32"], check_flash(label, q, k, v, causal, device))
+        err["bf16"] = max(err["bf16"], check_flash(
+            label + " bf16", *(x.to(torch.bfloat16) for x in (q, k, v)), causal,
+            device, FLASH_BF16_TOL))
+    return err
+
+
+def flash_phase(lm: dict, device, reps: int) -> dict:
+    """Phase 11 on phase 10's longest prefill: each layer's real q, k, v
+    (B 4, T 1024, H 32, Hkv 8, D 64 at llama3.2-1b), the kernel against its
+    plain version in float32 and on bfloat16 copies, a repeat bitwise
+    equal; edge cases; per call at layer 0's inputs the kernel's, the
+    plain version's and ``scaled_dot_product_attention``'s time (on K/V
+    repeated to H heads, and with ``enable_gqa``; SDPA's ``is_causal`` is
+    top-left too, and both are held to the plain version), the bound, and
+    the kernel's time summed over every layer of the wave."""
+    layers = capture_flash(lm["model"], lm["params"], lm["tokens"], lm["max_seq"], device)
+    err = {"f32": 0.0, "bf16": 0.0}
+    for i, (q, k, v) in enumerate(layers):
+        shape = f"layer {i} q {tuple(q.shape)} k {tuple(k.shape)}"
+        err["f32"] = max(err["f32"], check_flash(shape, q, k, v, True, device))
+        err["bf16"] = max(err["bf16"], check_flash(
+            shape + " bf16", *(x.to(torch.bfloat16) for x in (q, k, v)), True,
+            device, FLASH_BF16_TOL))
+    edge = flash_edge_cases(device)
+    q, k, v = layers[0]
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    groups = h // hkv
+    kr, vr = (x.repeat_interleave(groups, dim=1) for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    want = flash_attention_ref(q, k, v, causal=True)
+    lib_err = max(float((sdpa(q, k, v, is_causal=True, enable_gqa=True) - want).abs().max()),
+                  float((sdpa(q, kr, vr, is_causal=True) - want).abs().max()))
+    if not lib_err <= TOL:
+        raise AssertionError(f"scaled_dot_product_attention disagrees: {lib_err}")
+    row = {"B": b, "H": h, "Hkv": hkv, "Tq": tq, "Tk": tk, "D": d, "causal": True,
+           "layers": len(layers), "library_max_abs_err": lib_err}
+    # each call keeps the card busy ~0.6-2.7 ms, far longer than its launch
+    # takes: CUDA events (profiler windows over 10 back-to-back kernel
+    # launches recorded 0, 8 and 7 of them on an H100)
+    row.update(timings({
+        "": lambda: flash_attention(q, k, v, causal=True),
+        "plain_": lambda: flash_attention_ref(q, k, v, causal=True),
+        "library_": lambda: sdpa(q, kr, vr, is_causal=True),
+        "library_enable_gqa_": lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+    }, device, reps))
+    row.update(flash_bound(b, h, hkv, tq, tk, d, True, q.element_size()))
+    row["wave_ms"] = sum(time_ms(lambda a=a: flash_attention(*a, causal=True), device,
+                                 reps, warmup=1) for a in layers)
+    print("[kernel] flash_attention " + json.dumps(row))
+    return {"row": row, "err": err, "edge": edge}
+
+
+def flash_entry(fa: dict) -> dict:
+    """The kernels line's ``flash_attention`` entry: one call at the
+    captured shape (layer 0 of the longest prefill)."""
+    row = fa["row"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": SOURCES["flash_attention"][0],
+        "replaces": SOURCES["flash_attention"][1], "launches": 0,
+        "max_abs_err": max(fa["err"]["f32"], fa["edge"]["f32"]),
+        "bf16_max_abs_err": max(fa["err"]["bf16"], fa["edge"]["bf16"]),
+        "ms": row["ms"], "ms_by": row["ms_by"], "wall_ms": row["wall_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True) "
+                   "on K/V repeated to H heads beforehand",
+        "library_enable_gqa_ms": row["library_enable_gqa_ms"],
+        "wave_ms": row["wave_ms"],
+        "shape": f"one call at layer 0's prefill inputs: B {row['B']}, H {row['H']}, "
+                 f"Hkv {row['Hkv']}, T {row['Tq']}, D {row['D']}, causal, float32; "
+                 f"wave_ms the kernel over all {row['layers']} layers (CUDA events)",
+    }
+
+
 def sum_rows(rows: list) -> dict:
     """Timed or bounded calls summed: times, bounds, bytes and operations;
     ``ms_by`` and ``bound_by`` of the sum."""
@@ -1400,12 +1811,13 @@ def epoch_entry(name: str, calls: list, err: float, epoch: dict) -> dict:
 
 
 def kernel_entries(serving_entry, launches_by_path, fk, ak, errs, dims,
-                   epoch: dict, gat_epoch: dict) -> list:
+                   epoch: dict, gat_epoch: dict, flash: dict) -> list:
     """The kernels line: one entry per kernel. ``launches`` sums every
     driven path (``launches_by_path`` splits it). The three GCN training
     kernels report one epoch of phase 4 (calls from phase 5), the three
     attention kernels one epoch of phase 7 (calls from phase 8), through
-    ``epoch_entry``. ``bsr_spmm`` keeps its serving batch."""
+    ``epoch_entry``. ``bsr_spmm`` keeps its serving batch, and
+    ``flash_attention`` (``flash``) one call of phase 10's prefill."""
     rows = fk["rows"]
     n = len(dims) - 1
     per_epoch = {
@@ -1423,6 +1835,7 @@ def kernel_entries(serving_entry, launches_by_path, fk, ak, errs, dims,
         entries.append(epoch_entry(name, calls, errs[name], gat_epoch))
     entries[0]["max_abs_err"] = errs["bsr_spmm"]
     entries[0]["training_aT"] = rows[("spmm", dims[-1])]
+    entries.append(dict(flash))
     for e in entries:
         by_path = {p: c[e["name"]] for p, c in launches_by_path.items()}
         e["launches"] = sum(by_path.values())
@@ -1431,7 +1844,7 @@ def kernel_entries(serving_entry, launches_by_path, fk, ak, errs, dims,
 
 
 def run(sizes: Sizes, device) -> dict:
-    """Phases 2 to 9 at ``sizes`` on ``device``; returns the kernels line
+    """Phases 2 to 11 at ``sizes`` on ``device``; returns the kernels line
     and the details."""
     t_start = t0 = time.perf_counter()
     ds = generate_dataset(sizes.dataset, scale=sizes.scale, seed=0)
@@ -1555,6 +1968,19 @@ def run(sizes: Sizes, device) -> dict:
     del gt["prog"], gt["ref"], seg
     phase_s["9"] = time.perf_counter() - t0
 
+    # phase 10: LM serving at llama3.2-1B width, the flash kernel's main path
+    t0 = time.perf_counter()
+    lm = lm_serving_phase(sizes, device)
+    lm_summary = lm["summary"]
+    phase_s["10"] = time.perf_counter() - t0
+    # phase 11: the flash kernel on phase 10's prefill inputs
+    t0 = time.perf_counter()
+    fa = flash_phase(lm, device, reps=10)
+    phase_s["11"] = time.perf_counter() - t0
+    del lm
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
     attn_err = max(ak["err"]["edge"], attn_pair_err)
     errs = {"bsr_spmm": max(kern["max_abs_err"], fk["err"]["spmm"], pair_err,
                             feature_err),
@@ -1569,14 +1995,15 @@ def run(sizes: Sizes, device) -> dict:
                "train": train["summary"]["launches"],
                "quickstart": quick["summary"]["launches"],
                "gat": gat["summary"]["launches"],
-               "gt": gt["summary"]["launches"]}
+               "gt": gt["summary"]["launches"],
+               "lm_serving": lm_summary["launches"]}
     entries = kernel_entries(serving_entry, by_path, fk, ak, errs, dims,
                              train["summary"]["profile"],
-                             gat["summary"]["profile"])
+                             gat["summary"]["profile"], flash_entry(fa))
     return {"kernels": entries, "layers": layers, "serve": serve,
             "sample_s": kern["sample_s"], "train": train["summary"],
             "quickstart": quick["summary"], "gat": gat["summary"],
-            "gt": gt["summary"], "phase_s": phase_s,
+            "gt": gt["summary"], "lm": lm_summary, "flash": fa, "phase_s": phase_s,
             "attention_hub": ak["hub"],
             "kernel_rows": {str(k): v for k, v in fk["rows"].items()},
             "attention_rows": {str(k): v for k, v in ak["rows"].items()}}
@@ -1618,7 +2045,14 @@ def main() -> int:
               f"{r['ref_epoch_ms_median']:.1f} ms), loss {r['losses'][0]:.4f} -> "
               f"{r['losses'][-1]:.4f}, max rel diff {r['max_rel_diff']:.2e}, "
               f"peak {r['peak_mem_bytes'] / 2**30:.2f} GiB on {card}")
-    print(f"[done] phases 2-9 in {time.perf_counter() - t_all:.1f}s: "
+    lm = result["lm"]
+    print(f"[lm] {lm['arch']}: {lm['requests']} requests in {lm['waves']} waves, "
+          f"prefill {', '.join(f'{x:.1f}' for x in lm['prefill_ms'])} ms a wave "
+          f"(torch {', '.join(f'{x:.1f}' for x in lm['ref_prefill_ms'])}), decode "
+          f"{lm['decode_step_ms_median']:.2f} ms a step (torch "
+          f"{lm['ref_decode_step_ms_median']:.2f}), {lm['tokens_per_s']:.1f} tokens/s, "
+          f"peak {lm['peak_mem_bytes'] / 2**30:.2f} GiB on {card}")
+    print(f"[done] phases 2-11 in {time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

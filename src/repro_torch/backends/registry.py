@@ -41,6 +41,7 @@ SAMPLED_ATTENTION_ITEM = ("ROADMAP.md Queue 1, item 11 (attention and max "
 LAYOUT_ITEM = "ROADMAP.md Queue 1, item 5 (layout autotuner)"
 RUNTIME_ITEM = "ROADMAP.md Queue 1, item 6 (runtime)"
 VERIFY_ITEM = "ROADMAP.md Queue 1, item 8 (verifier)"
+LM_ITEM = "ROADMAP.md Queue 1, item 9 (LM substrate)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

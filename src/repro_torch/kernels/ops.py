@@ -5,7 +5,8 @@ operand ``BSRDevice`` and ``build_bsr_pair``, ``bsr_spmm_pair`` (the
 sampled path's SpMM with its Aᵀ backward) and the fused-epilogue pair
 ``bsr_spmm_fused_pair`` / ``build_fused_epilogue`` (the full-batch path's
 aggregation), and the fused attention pair ``sparse_mha_pair`` /
-``build_sparse_mha`` (GAT and GT, DESIGN.md §10).
+``build_sparse_mha`` (GAT and GT, DESIGN.md §10); and the LM's prefill
+attention, ``"flash"`` (``models/attention.py``), which needs no gradient.
 
 ``inner`` picks the executor everywhere: ``"cuda"`` the kernel wrappers
 (which run their plain versions for CPU tensors), ``"torch"`` the plain
@@ -31,6 +32,7 @@ from repro_torch.kernels.bsr_spmm import (
     bsr_spmm_fused_epilogue,
     bsr_spmm_masked,
 )
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import (
     bsr_attention_bwd_col_ref,
     bsr_attention_bwd_row_ref,
@@ -38,17 +40,19 @@ from repro_torch.kernels.ref import (
     bsr_spmm_fused_ref,
     bsr_spmm_masked_ref,
     bsr_spmm_ref,
+    flash_attention_ref,
 )
 
 _EXECUTORS = {
     "cuda": {"spmm": bsr_spmm, "fused": bsr_spmm_fused_epilogue,
              "masked": bsr_spmm_masked, "attn_fwd": bsr_attention_fwd,
              "attn_row": bsr_attention_bwd_row,
-             "attn_col": bsr_attention_bwd_col},
+             "attn_col": bsr_attention_bwd_col, "flash": flash_attention},
     "torch": {"spmm": bsr_spmm_ref, "fused": bsr_spmm_fused_ref,
               "masked": bsr_spmm_masked_ref, "attn_fwd": bsr_attention_fwd_ref,
               "attn_row": bsr_attention_bwd_row_ref,
-              "attn_col": bsr_attention_bwd_col_ref},
+              "attn_col": bsr_attention_bwd_col_ref,
+              "flash": flash_attention_ref},
 }
 
 

@@ -279,3 +279,38 @@ def bsr_attention_bwd_col_ref(
                                              dyc).permute(0, 2, 1, 3).double())
     return (dzv.float().reshape(n_rows_padded, hd),
             dd.float().reshape(n_rows_padded, h))
+
+
+#: masked logit of the flash attention kernel (``repro/kernels/flash_attention.py``)
+FLASH_NEG_INF = -1e30
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, H, Tq, D]
+    k: torch.Tensor,  # [B, Hkv, Tk, D]
+    v: torch.Tensor,  # [B, Hkv, Tk, D]
+    causal: bool = True,
+    sm_scale: "float | None" = None,
+) -> torch.Tensor:
+    """softmax(q·kᵀ·scale)·v as the Pallas kernel computes it: float32
+    logits times ``1/sqrt(D)``, ``-1e30`` where ``col > row`` if causal
+    (the mask aligned top-left: query row i sees keys 0..i whatever Tk is),
+    a float32 softmax and product with float32 v, the output in q's dtype.
+
+    Query head h reads KV head ``h // (H // Hkv)`` (the LM's grouped
+    query attention); ``Hkv == H`` is the JAX kernel's contract. Not the
+    JAX package's ``flash_attention_ref``, which aligns the causal mask
+    bottom-right and agrees with the kernel only where Tq == Tk."""
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"{hkv} KV heads do not divide {h} query heads")
+    scale = sm_scale if sm_scale is not None else 1.0 / float(d) ** 0.5
+    qg = q.float().reshape(b, hkv, h // hkv, tq, d)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
+    if causal:
+        above = torch.ones((tq, tk), dtype=torch.bool, device=q.device).triu(1)
+        logits = logits.masked_fill(above, FLASH_NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
+    return out.reshape(b, h, tq, d).to(q.dtype)

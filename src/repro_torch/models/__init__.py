@@ -1,1 +1,1 @@
-"""GNN layers and their parameters."""
+"""GNN layers and their parameters; the LM substrate (configs in ``repro_torch.configs``)."""

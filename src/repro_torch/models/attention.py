@@ -1,0 +1,142 @@
+"""Grouped query attention (GQA + RoPE) for the LM substrate.
+
+Counterpart of the GQA half of ``repro/models/attention.py``: one masked
+softmax core (``_attn_core``, the JAX package's plain attention) and the
+flash kernel where it computes the same function. A prefill of a cache
+from index 0 with no window is causal self-attention over the ``t``
+fresh keys starting at position 0, which is exactly what the flash kernel
+computes (``kernels/flash_attention.py``, causal, top-left): there the
+attention runs through the ``inner`` executor's ``"flash"`` op, the Hopper
+kernel for ``inner="cuda"`` on the card. The JAX package's mask over all
+``s_max`` cache slots gives the same result, since causality already
+hides every key at or beyond ``t``. Every other case (decode against the
+cache, a cache index past 0, the uncached forward) is ``_attn_core``.
+
+The cache's tensors are updated in place (the JAX package returns new
+arrays): a cache dict holds ``k``/``v`` ``[B, S, KV, Dh]`` and the index
+``idx`` as a Python int on the host. MLA, sliding windows and cross
+attention are not ported (ROADMAP.md Queue 1, item 9): ``gqa_apply`` has
+no ``window`` or ``kv_source``, and ``models/transformer.py:check_ported``
+refuses the configurations that need them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.kernels.ops import _executor
+from repro_torch.models.layers import apply_rope, dense_init
+
+NEG_INF = -2.0e38
+
+
+def _attn_core(q, k, v, mask) -> torch.Tensor:
+    """q:[B,Tq,H,Dh] k:[B,Tk,KV,Dh] v:[B,Tk,KV,Dv] mask:[B|1,1,Tq,Tk]
+    (additive) -> [B,Tq,H,Dv]. Logits and softmax in float32, the
+    probabilities multiplied at q's dtype, as in the JAX package."""
+    b, tq, h, dh = q.shape
+    kv = k.shape[2]
+    dv = v.shape[-1]
+    groups = h // kv
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, tq, kv, groups, dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    logits = logits + mask[:, :, None, :, :]  # broadcast over groups
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, tq, h, dv).to(q.dtype)
+
+
+def make_mask(
+    q_pos: torch.Tensor,  # [Tq] absolute positions of queries
+    k_pos: torch.Tensor,  # [Tk] absolute positions of keys
+    causal: bool,
+    k_valid: Optional[torch.Tensor] = None,  # [B, Tk] cache validity
+) -> torch.Tensor:
+    """Additive float32 mask [B|1, 1, Tq, Tk]: 0 where a query sees a key,
+    ``NEG_INF`` where it does not (``-inf`` where both rules hide it, as
+    the JAX package's float32 sum of two ``NEG_INF`` overflows)."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones_like(diff, dtype=torch.bool)
+    if causal:
+        ok = ok & (diff >= 0)
+    zero = torch.zeros((), dtype=torch.float32, device=diff.device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=diff.device)
+    mask = torch.where(ok, zero, neg)[None, None, :, :]
+    if k_valid is not None:
+        mask = mask + torch.where(k_valid, zero, neg)[:, None, None, :]
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+def gqa_init(generator: torch.Generator, cfg: LMConfig, lead: tuple = (),
+             device=None) -> dict:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return {"wq": dense_init(generator, d, h * dh, lead, device),
+            "wk": dense_init(generator, d, kv * dh, lead, device),
+            "wv": dense_init(generator, d, kv * dh, lead, device),
+            "wo": dense_init(generator, h * dh, d, lead, device)}
+
+
+def gqa_apply(
+    p: dict,
+    cfg: LMConfig,
+    x: torch.Tensor,  # [B, T, D]
+    positions: torch.Tensor,  # [T]
+    *,
+    cache: Optional[dict] = None,  # {"k": [B,S,KV,Dh], "v": ..., "idx": int}
+    inner: str = "cuda",
+):
+    """Returns ``(out [B, T, D], new_cache)``; ``new_cache`` shares the
+    input cache's (updated) tensors and holds ``idx + t``. ``inner`` picks
+    the prefill attention's executor: ``"cuda"`` the flash kernel (its
+    plain version for CPU tensors), ``"torch"`` the plain version."""
+    b, t, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, t, h, dh)
+    k = (x @ p["wk"]).reshape(b, t, kv, dh)
+    v = (x @ p["wv"]).reshape(b, t, kv, dh)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        mask = make_mask(positions, positions, causal=True)
+        out = _attn_core(q, k, v, mask)
+        return out.reshape(b, t, h * dh) @ p["wo"], None
+
+    idx = cache["idx"]
+    ck, cv = cache["k"], cache["v"]
+    s_max = ck.shape[1]
+    if idx + t > s_max:
+        raise ValueError(f"the cache holds {s_max} positions; {idx} are filled "
+                         f"and {t} more do not fit")
+    ck[:, idx:idx + t] = k.to(ck.dtype)
+    cv[:, idx:idx + t] = v.to(cv.dtype)
+    if idx == 0 and t > 1:
+        # the keys as the cache holds them, at q's dtype (as JAX reads them)
+        kc, vc = (c[:, :t].to(q.dtype) for c in (ck, cv))
+        out = _executor(inner, "flash")(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            causal=True).transpose(1, 2)
+    else:
+        k_pos = torch.arange(s_max, device=x.device)
+        k_valid = (k_pos < idx + t)[None, :].expand(b, s_max)
+        mask = make_mask(positions, k_pos, causal=True, k_valid=k_valid)
+        out = _attn_core(q, ck.to(q.dtype), cv.to(q.dtype), mask)
+    new_cache = {"k": ck, "v": cv, "idx": idx + t}
+    return out.reshape(b, t, h * dh) @ p["wo"], new_cache
+
+
+def gqa_cache_init(cfg: LMConfig, batch: int, s_max: int,
+                   dtype=torch.bfloat16, lead: tuple = (), device=None) -> dict:
+    """Zeroed ``k``/``v`` ``[*lead, B, S, KV, Dh]`` (the index lives at the
+    cache's root, ``LM.init_cache``)."""
+    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {"k": torch.zeros((*lead, batch, s_max, kv, dh), dtype=dtype, device=device),
+            "v": torch.zeros((*lead, batch, s_max, kv, dh), dtype=dtype, device=device)}

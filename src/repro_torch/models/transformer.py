@@ -1,0 +1,254 @@
+"""The LM substrate's decoder for the dense family, on PyTorch.
+
+Counterpart of ``repro/models/transformer.py`` for configurations whose
+every block is ``"attn"`` (GQA with RoPE) with a dense FFN: no window,
+MLA, MoE, encoder, frontend or multi-token prediction (llama3.2-1b,
+starcoder2-3b, granite-34b). Anything else raises ``NotImplementedError``
+naming ROADMAP.md Queue 1, item 9.
+
+Parameters keep the JAX package's tree: ``{"embed": {"table"},
+"segments": [...], "final_norm": {...}, "head"?}``, where a segment that
+``plan_segments`` scans keeps its layers stacked on a leading
+``[n_reps]`` axis (``params_from_jax`` carries the JAX tree over leaf by
+leaf) and the repetitions run in a Python loop over views of it; an
+unrolled segment is a list of per-layer dicts. ``shard_activation`` and
+``remat`` have no counterpart on one card and are dropped. The entry
+points are ``forward``, ``prefill`` (which unembeds only the last
+position: the full ``[B, T, V]`` logits of a 4 x 1024 prefill at
+llama3.2-1b width would take 2.1 GB) and ``decode_step``. Caches are
+updated in place (``models/attention.py``), the index ``idx`` a Python
+int on the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.backends.registry import LM_ITEM, not_ported
+from repro_torch.configs.base import LMConfig
+from repro_torch.kernels.ops import _executor
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    apply_mlp,
+    apply_norm,
+    embed_init,
+    embed_lookup,
+    mlp_init,
+    norm_init,
+    unembed,
+)
+from repro_torch.training.optimizer import tree_map
+
+# ---------------------------------------------------------------------------
+# Segment planning (a copy of the JAX package's)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    mode: str  # "scan" | "unroll"
+    kinds: tuple  # period pattern (scan) or explicit kinds (unroll)
+    n_reps: int  # scan repetitions (1 for unroll)
+    layer_ids: tuple  # global layer indices covered, in order
+
+
+def plan_segments(cfg: LMConfig) -> list[Segment]:
+    blocks = list(cfg.blocks)
+    ids = list(range(cfg.n_layers))
+    segs: list[Segment] = []
+    k0 = cfg.first_k_dense_layers
+    if k0:
+        segs.append(Segment("unroll", tuple(blocks[:k0]), 1, tuple(ids[:k0])))
+        blocks, ids = blocks[k0:], ids[k0:]
+    if not blocks:
+        return segs
+    # find the smallest period
+    period = len(blocks)
+    for p in range(1, min(len(blocks), 12) + 1):
+        if all(blocks[i] == blocks[i % p] for i in range(len(blocks))):
+            period = p
+            break
+        # allow a non-repeating tail: check truncated repetition
+        reps = len(blocks) // p
+        if reps >= 2 and all(
+            blocks[i] == blocks[i % p] for i in range(reps * p)
+        ):
+            period = p
+            break
+    reps = len(blocks) // period
+    main = reps * period
+    if reps >= 2:
+        segs.append(Segment("scan", tuple(blocks[:period]), reps, tuple(ids[:main])))
+        if main < len(blocks):
+            segs.append(Segment("unroll", tuple(blocks[main:]), 1, tuple(ids[main:])))
+    else:
+        segs.append(Segment("unroll", tuple(blocks), 1, tuple(ids)))
+    return segs
+
+
+def check_ported(cfg: LMConfig) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP.md Queue 1, item 9) unless
+    every block of ``cfg`` is dense GQA attention the port runs."""
+    parts = [("block kinds other than attn", any(k != "attn" for k in cfg.blocks)),
+             ("mixture of experts", cfg.moe is not None),
+             ("multi-head latent attention (MLA)", cfg.mla is not None),
+             ("sliding-window attention", bool(cfg.sliding_window)),
+             ("encoder-decoder", cfg.is_encoder_decoder),
+             (f"the {cfg.frontend} frontend", cfg.frontend != "none"),
+             ("multi-token prediction", cfg.mtp_depth > 0)]
+    missing = [what for what, present in parts if present]
+    if missing:
+        raise not_ported(f"{cfg.name}: " + ", ".join(missing), LM_ITEM)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init / apply
+# ---------------------------------------------------------------------------
+
+def _init_layer(generator, cfg: LMConfig, lead: tuple, device) -> dict:
+    d = cfg.d_model
+    return {"norm1": norm_init(cfg.norm, d, lead, device),
+            "attn": attn.gqa_init(generator, cfg, lead, device),
+            "norm2": norm_init(cfg.norm, d, lead, device),
+            "ffn": mlp_init(generator, d, cfg.d_ff, cfg.activation, lead, device)}
+
+
+def _apply_layer(p, cfg: LMConfig, x, positions, cache, inner: str):
+    """One pre-norm block: x + attn(norm1(x)), then + mlp(norm2(x))."""
+    h = apply_norm(cfg.norm, p["norm1"], x)
+    a, new_cache = attn.gqa_apply(p["attn"], cfg, h, positions, cache=cache,
+                                  inner=inner)
+    x = x + a
+    x = x + apply_mlp(p["ffn"], apply_norm(cfg.norm, p["norm2"], x), cfg.activation)
+    return x, new_cache
+
+
+def _index(tree, r: int):
+    """Repetition ``r`` of a stacked segment's dict of tensors (views)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+# ---------------------------------------------------------------------------
+# The model
+# ---------------------------------------------------------------------------
+
+class LM:
+    """The dense decoder over ``inner``'s prefill attention: ``"cuda"`` the
+    flash kernel (its plain version for CPU tensors), ``"torch"`` the
+    plain version on any device."""
+
+    def __init__(self, cfg: LMConfig, inner: str = "cuda"):
+        check_ported(cfg)
+        _executor(inner, "flash")  # validates inner now
+        self.cfg = cfg
+        self.inner = inner
+        self.segments = plan_segments(cfg)
+
+    def init(self, generator: torch.Generator, device=None) -> dict:
+        """Random weights with the JAX package's names, shapes and scales,
+        drawn from ``generator`` on its own device and placed on ``device``
+        (CUDA unless asked; raises without a card)."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        params: dict = {"embed": embed_init(generator, cfg.padded_vocab(),
+                                            cfg.d_model, device)}
+        segs = []
+        for seg in self.segments:
+            lead = () if seg.mode == "unroll" else (seg.n_reps,)
+            segs.append([_init_layer(generator, cfg, lead, device)
+                         for _ in seg.kinds])
+        params["segments"] = segs
+        params["final_norm"] = norm_init(cfg.norm, cfg.d_model, (), device)
+        if not cfg.tie_embeddings:
+            params["head"] = embed_init(generator, cfg.padded_vocab(),
+                                        cfg.d_model, device)
+        return params
+
+    def _run_segments(self, params, x, positions, cache):
+        cache_idx = None if cache is None else cache["idx"]
+        new_segs = None if cache is None else []
+        for si, seg in enumerate(self.segments):
+            seg_p = params["segments"][si]
+            seg_c = None if cache is None else cache["segments"][si]
+            reps = 1 if seg.mode == "unroll" else seg.n_reps
+            for r in range(reps):
+                for j in range(len(seg.kinds)):
+                    lp = seg_p[j] if seg.mode == "unroll" else _index(seg_p[j], r)
+                    lc = None
+                    if seg_c is not None:
+                        c = seg_c[j]["attn"]
+                        if seg.mode == "scan":
+                            c = _index(c, r)
+                        lc = {**c, "idx": cache_idx}
+                    x, _ = _apply_layer(lp, self.cfg, x, positions, lc, self.inner)
+            if new_segs is not None:
+                new_segs.append(seg_c)  # its tensors were updated in place
+        new_cache = None
+        if cache is not None:
+            new_cache = {"idx": cache_idx + x.shape[1], "segments": new_segs}
+        return x, new_cache
+
+    def _hidden(self, params, tokens, cache, positions):
+        cfg = self.cfg
+        x = embed_lookup(params["embed"], tokens) * float(np.sqrt(cfg.d_model))
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        x, new_cache = self._run_segments(params, x, positions, cache)
+        return apply_norm(cfg.norm, params["final_norm"], x), new_cache
+
+    def _head(self, params):
+        return params["embed"] if self.cfg.tie_embeddings else params["head"]
+
+    def forward(self, params, tokens: torch.Tensor,
+                cache: Optional[dict] = None,
+                positions: Optional[torch.Tensor] = None):
+        """tokens [B, T]. Returns ``(logits [B, T, Vpad], aux_loss,
+        new_cache, hidden)``; ``aux_loss`` is 0 (no MoE)."""
+        hidden, new_cache = self._hidden(params, tokens, cache, positions)
+        logits = unembed(self._head(params), hidden)
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        return logits, aux, new_cache, hidden
+
+    def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
+                   device=None) -> dict:
+        """Zeroed KV caches in the JAX package's tree (a scanned segment's
+        stacked on ``[n_reps]``) and ``idx = 0``, on ``device``."""
+        device = resolve_device(device)
+        segs = []
+        for seg in self.segments:
+            lead = () if seg.mode == "unroll" else (seg.n_reps,)
+            segs.append([{"attn": attn.gqa_cache_init(self.cfg, batch, s_max, dtype,
+                                                      lead, device)}
+                         for _ in seg.kinds])
+        return {"idx": 0, "segments": segs}
+
+    def prefill(self, params, tokens: torch.Tensor, cache: dict):
+        """Run the whole prompt [B, T] through the model, filling ``cache``
+        from its index; returns ``(last-position logits [B, Vpad],
+        new_cache)``."""
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        hidden, new_cache = self._hidden(params, tokens, cache, positions)
+        return unembed(self._head(params), hidden[:, -1]), new_cache
+
+    def decode_step(self, params, cache: dict, tokens: torch.Tensor):
+        """One decode step: tokens [B, 1] at position ``cache["idx"]``."""
+        idx = cache["idx"]
+        positions = torch.arange(idx, idx + 1, device=tokens.device)
+        hidden, new_cache = self._hidden(params, tokens, cache, positions)
+        return unembed(self._head(params), hidden[:, -1]), new_cache
+
+
+def params_from_jax(tree, device=None):
+    """The JAX package's LM parameters (numpy leaves, e.g. from
+    ``jax.device_get``) as the port's tree of float32 tensors on
+    ``device`` (CUDA unless asked): the same keys, lists and stacked
+    ``[n_reps, ...]`` segment axes."""
+    device = resolve_device(device)
+    return tree_map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device),
+                    tree)
+

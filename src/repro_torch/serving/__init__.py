@@ -1,1 +1,1 @@
-"""Online GNN serving engine."""
+"""Online GNN serving engine and the LM serving engine."""
