@@ -12,7 +12,9 @@ is printed:
    the ptxas report).
 2. ``bsr_spmm`` against its plain PyTorch version on the serving
    configuration's real layer-0/1/2 bucket operands and on edge cases
-   (padding blocks, a block-row without blocks, F=1/40/256).
+   (padding blocks, a block-row without blocks, F=1/40/256), and the
+   fused-epilogue and masked kernels on the same and on F=33/70, rows
+   misaligned for float4 and a hub row.
 3. Serving at full width: the ogbn-arxiv analog (169,343 nodes), GCN
    [128, 256, 256, 40], fanouts (15, 10, 5), 256-seed batches, through
    ``repro_torch.launch.serve``'s engine on the ``cuda`` backend and, with
@@ -24,27 +26,33 @@ is printed:
    dataset and GCN through ``GNNProgram ... compile(engine="cuda",
    fused_optimizer=True) ... train_epoch`` for 10 epochs, against the
    ``torch`` program (plain versions, plain Adam) from the same weights:
-   the first step's gradients leaf by leaf and the parameters after the
-   last epoch within 1e-5 of each leaf's largest value, finite losses
-   within 1e-3 relative at every epoch and falling, exactly fused 3 /
+   both programs' gradients at the first step and after the last epoch
+   within 1e-3 a leaf (norm of the difference over the leaf's), with
+   every ReLU decision the two part on within 1e-5 of 0 and taken from
+   the cuda program; the parameters after the last epoch within 5e-2,
+   finite losses within 1e-3 relative at every epoch and falling, exactly fused 3 /
    masked 2 / bsr_spmm 1 / Adam 6 launches per epoch; the median epoch
    time, device ms per kernel and for the matmuls from a profiled epoch
-   that recorded every launch, the idle share, peak memory and the
-   operands' host build time.
+   that recorded every launch, the idle share, peak memory, the
+   operands' host build time and the build time and size of their
+   nonzero columns (the fused-epilogue and masked kernels' operand).
 5. The fused-epilogue, masked and Adam kernels against their plain versions
-   on the main path's real operands (A and Aᵀ of the full graph): five
+   on the main path's real operands (A and Aᵀ of the full graph, the
+   fused and masked kernels through their nonzero columns): five
    epilogue specs at F=256 and F=40, a repeat launch bitwise equal, masks
    compared where |pre-activation| > 1e-5; the masked kernel on Aᵀ with a
-   real ReLU mask; ``bsr_spmm`` on Aᵀ; edge cases; Adam on the six GCN
-   leaves and on sizes 1 and 1,000,003 (1e-6). Time per call from CUDA
+   real ReLU mask; ``bsr_spmm`` on Aᵀ; edge cases (phase 2's: ragged F,
+   rows misaligned for float4, a hub row longer than a CTA's split); Adam
+   on the six GCN leaves and on sizes 1 and 1,000,003 (1e-6). Time per call from CUDA
    events (these full-graph calls keep the card busy far longer than their
    launches take; Adam's short launches from ``torch.profiler``), plain
    ms, library ms
    (``torch.sparse.mm`` + the epilogue's torch ops; ``torch.optim.Adam(
    fused=True)``), the least time the card could take (bytes over 3.35 TB/s
    or fp32 operations over 67 TFLOP/s, whichever is larger; counted over
-   the BSR layout's blocks, and over the nonzeros alone), and the hub
-   row's cost against a mean row's.
+   the BSR layout's blocks, and over the nonzeros alone, the bound the
+   fused and masked kernels answer to), and the hub row's cost against a
+   mean row's and the whole call's, on A (fused) and Aᵀ (masked).
 6. The quickstart at full scale: the corafull analog (19,793 nodes, 8,710
    features, 95% zeros), GCN [8710, 32, 70], layer 0 on
    ``cuda.feature_matmul_sparse``; 10 epochs of cuda against torch with the
@@ -109,7 +117,9 @@ to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -142,6 +152,7 @@ from repro_torch.kernels.bsr_spmm import (  # noqa: E402
     bsr_spmm,
     bsr_spmm_fused_epilogue,
     bsr_spmm_masked,
+    nonzero_columns,
 )
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -170,12 +181,16 @@ ADAM_TOL = 1e-6
 MASK_MARGIN = 1e-5
 #: cuda against torch program, per leaf, the norm of the difference over the
 #: leaf's norm: both programs' gradients at the same parameters, and each
-#: program's parameters after the last epoch. Where a layer-0 pre-activation
-#: lies within rounding of 0 (two of 43 M at the first step on ogbn-arxiv,
-#: |pre| <= 1.5e-8), the programs' ReLU masks part. The analog's labels are
-#: random, so its gradients nearly cancel: the two flips move layer 0's by
-#: 6e-5, and Adam, which normalises gradients, carries such gaps into the
-#: parameters (0.9-1e-2 after 10 epochs; the quickstart's 4e-7)
+#: program's parameters after the last epoch. Where a pre-activation lies
+#: within rounding of 0 the programs' ReLU masks may part, and the plain
+#: version's atomic adds can give such a sum either sign from run to run.
+#: The analog's labels are random, so its gradients nearly cancel: one
+#: flip moved layer 0's gradient by 6e-5 (ogbn-arxiv, the first step) and
+#: by 1.9e-3 (the quickstart after 10 epochs, |pre| ~1e-7; H100 runs). So
+#: the gradient check holds every decision the two part on to |pre| <=
+#: MASK_MARGIN and gives the torch program the cuda program's there
+#: (``decided_grads``). Adam, which normalises gradients, carries such gaps
+#: into the parameters (0.9-1e-2 after 10 epochs; the quickstart's 4e-7)
 GRAD_RTOL = 1e-3
 PARAM_RTOL = 5e-2
 ADAM = ("adam", 0.01, 0.9, 0.999)
@@ -319,7 +334,7 @@ def device_events(prof):
 
 def window_complete(prof, expect: dict) -> bool:
     """Did the window record device time, and exactly ``expect[k]``
-    launches of each kernel ``k`` (``classify``'s names)? In the
+    launches of each kernel ``k`` (``launch_key``'s names)? In the
     full-width run, windows over a few back-to-back launches of the long
     full-graph SpMM kernels recorded only some of them (three 53 ms
     launches read as 17.7 ms each), and a window once recorded nothing,
@@ -327,7 +342,7 @@ def window_complete(prof, expect: dict) -> bool:
     got = defaultdict(int)
     busy = 0.0
     for name, us, n in device_events(prof):
-        got[classify(name)] += n
+        got[launch_key(name)] += n
         busy += us
     if busy > 0 and all(got[k] == v for k, v in expect.items()):
         return True
@@ -458,15 +473,16 @@ def check_close(name, got, want, tol=TOL) -> float:
 
 
 def check_fused(name, op, x, s, b, alpha, spec, device) -> float:
-    """The fused kernel against its plain version on one operand and spec:
-    y everywhere, the mask where |pre-activation| > MASK_MARGIN, and a
-    repeat launch bitwise equal."""
+    """The fused kernel (through the operand's nonzero columns) against its
+    plain version on one operand and spec: y everywhere, the mask where
+    |pre-activation| > MASK_MARGIN, and a repeat launch bitwise equal."""
     has_self, has_bias, act = spec
     args = (op.block_rows, op.block_cols, op.blocks, x, op.n_rows_padded,
             s if has_self else None, b if has_bias else None,
             alpha if has_self else None)
-    y, mask = bsr_spmm_fused_epilogue(*args, act)
-    y2, mask2 = bsr_spmm_fused_epilogue(*args, act)
+    nzc = op.nonzero_columns()
+    y, mask = bsr_spmm_fused_epilogue(*args, act, nzc=nzc)
+    y2, mask2 = bsr_spmm_fused_epilogue(*args, act, nzc=nzc)
     y_ref, mask_ref = bsr_spmm_fused_ref(*args, act)
     sync(device)
     err = check_close(f"bsr_spmm_fused_epilogue {name}", y, y_ref)
@@ -484,8 +500,9 @@ def check_fused(name, op, x, s, b, alpha, spec, device) -> float:
 
 def check_masked(name, op, x, mask, device) -> float:
     args = (op.block_rows, op.block_cols, op.blocks, x, mask, op.n_rows_padded)
-    y = bsr_spmm_masked(*args)
-    y2 = bsr_spmm_masked(*args)
+    nzc = op.nonzero_columns()
+    y = bsr_spmm_masked(*args, nzc=nzc)
+    y2 = bsr_spmm_masked(*args, nzc=nzc)
     y_ref = bsr_spmm_masked_ref(*args)
     sync(device)
     err = check_close(f"bsr_spmm_masked {name}", y, y_ref)
@@ -510,35 +527,60 @@ def check_spmm(name, rows, cols, blocks, x, n_rows_padded, device) -> float:
     return err
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` starting one float past a 16-byte
+    boundary, so no row is aligned for float4 loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def edge_cases(device) -> dict:
     """The three SpMM kernels on padding blocks and on a block-row with no
-    blocks, F = 1, 40, 256, every epilogue spec; max abs error of each."""
+    blocks, F = 1, 40, 256 (the fused and masked kernels also F = 33, 70,
+    ragged on their scalar path), every epilogue spec; the fused and masked
+    kernels also on rows misaligned for float4 (F = 36) and on a hub row of
+    8x128 blocks whose ~5,000 nonzero columns the kernels cut into
+    segments of SPLIT_COLUMNS. Max abs error of each kernel."""
     r = np.random.default_rng(7)
     g = csr_from_edges(r.integers(0, 130, 300), r.integers(0, 150, 300), 150,
                        n_cols=130, data=r.standard_normal(300).astype(np.float32))
     bsr = csr_to_bsr(g, br=8, bc=8)
     padded = _pad_bsr(bsr, bsr.n_blocks + 9)
     no_blocks = {k: v[padded["rows"] != 4] for k, v in padded.items()}
+    hub_src = np.concatenate([r.integers(0, 16384, 6000), r.integers(0, 16384, 300)])
+    hub_dst = np.concatenate([r.integers(0, 8, 6000), r.integers(8, 48, 300)])
+    hub = csr_to_bsr(csr_from_edges(hub_src, hub_dst, 48, n_cols=16384,
+                                    data=r.standard_normal(6300).astype(np.float32)),
+                     br=8, bc=128)
+    cases = [("padding blocks", padded, bsr, f, False) for f in (1, 33, 40, 70, 256)]
+    cases += [("row without blocks", no_blocks, bsr, f, False) for f in (1, 33, 40, 70, 256)]
+    cases += [("misaligned rows", padded, bsr, 36, True)]
+    cases += [("hub row", _pad_bsr(hub, hub.n_blocks + 3), hub, f, False) for f in (40, 256)]
     err = {"spmm": 0.0, "fused": 0.0, "masked": 0.0}
-    for f in (1, 40, 256):
+    for label, arrays, op_bsr, f, shift in cases:
         gen = torch.Generator().manual_seed(f)
-        x = torch.randn((bsr.padded_cols, f), generator=gen).to(device)
-        s = torch.randn((bsr.padded_rows, f), generator=gen).to(device)
+        x = torch.randn((op_bsr.padded_cols, f), generator=gen).to(device)
+        s = torch.randn((op_bsr.padded_rows, f), generator=gen).to(device)
         b = torch.randn(f, generator=gen).to(device)
-        m = (torch.randn((bsr.padded_cols, f), generator=gen) > 0).float().to(device)
+        m = (torch.randn((op_bsr.padded_cols, f), generator=gen) > 0).float().to(device)
+        if shift:
+            x, s, m = misaligned(x), misaligned(s), misaligned(m)
         alpha = torch.full((1,), 0.7, device=device)
-        for label, arrays in (("padding blocks", padded), ("row without blocks", no_blocks)):
-            t = on_device(arrays, device)
+        t = on_device(arrays, device)
+        if f in (1, 40, 256) and not label.startswith("hub"):
             err["spmm"] = max(err["spmm"], check_spmm(
                 f"{label} F={f}", t["rows"], t["cols"], t["blocks"], x,
-                bsr.padded_rows, device))
-            op = kops.BSRDevice(t["rows"], t["cols"], t["blocks"], bsr.n_rows,
-                                bsr.n_cols, bsr.padded_rows, bsr.padded_cols, 8, 8)
-            for spec_name, spec in SPECS.items():
-                err["fused"] = max(err["fused"], check_fused(
-                    f"{label} F={f} {spec_name}", op, x, s, b, alpha, spec, device))
-            err["masked"] = max(err["masked"], check_masked(
-                f"{label} F={f}", op, x, m, device))
+                op_bsr.padded_rows, device))
+        op = kops.BSRDevice(t["rows"], t["cols"], t["blocks"], op_bsr.n_rows,
+                            op_bsr.n_cols, op_bsr.padded_rows, op_bsr.padded_cols,
+                            op_bsr.br, op_bsr.bc)
+        for spec_name, spec in SPECS.items():
+            err["fused"] = max(err["fused"], check_fused(
+                f"{label} F={f} {spec_name}", op, x, s, b, alpha, spec, device))
+        err["masked"] = max(err["masked"], check_masked(
+            f"{label} F={f}", op, x, m, device))
     return err
 
 
@@ -707,26 +749,41 @@ def fused_bound(op, f, self_term: bool, bias: bool, relu: bool,
     return out
 
 
-def row_cost(op, f, device, reps: int) -> dict:
-    """The fused kernel's time on a stream holding only the longest
-    block-row (the in-degree hub: one CTA walks it serially) against one
-    holding only a row of about the mean length; F=f, bias + ReLU."""
-    rows = op.block_rows.long()
-    per_row = torch.bincount(rows, minlength=op.n_rows_padded // op.br)
+def row_cost(op, f, device, reps: int, masked: bool = False) -> dict:
+    """The fused kernel's (bias + ReLU; with ``masked``, the masked
+    kernel's) time on a stream holding only the block-row with the most
+    nonzero columns (the hub: split into segments of SPLIT_COLUMNS, one
+    CTA each, and the ordered second pass) against one holding only a row
+    of about the mean count; F=f. Both streams keep every other block-row,
+    empty, so both calls also write those rows."""
+    per_row = op.nonzero_columns().columns_per_row()
     hub = int(torch.argmax(per_row))
     mean = float(per_row.float().mean())
     typical = int(torch.argmin((per_row.float() - mean).abs()))
-    x = torch.randn((op.n_cols_padded, f), generator=torch.Generator().manual_seed(5)).to(device)
+    blocks_per_row = torch.bincount(op.block_rows.long(),
+                                    minlength=op.n_rows_padded // op.br)
+    gen = torch.Generator().manual_seed(5)
+    n_in = op.n_cols_padded
+    x = torch.randn((n_in, f), generator=gen).to(device)
+    m = (torch.randn((n_in, f), generator=gen) > 0).float().to(device)
     b = torch.zeros(f, device=device)
-    out = {"hub_blocks": int(per_row[hub]), "mean_blocks": mean,
-           "typical_blocks": int(per_row[typical])}
+    out = {"kernel": "bsr_spmm_masked" if masked else "bsr_spmm_fused_epilogue",
+           "F": f, "hub_columns": int(per_row[hub]), "mean_columns": mean,
+           "typical_columns": int(per_row[typical]),
+           "hub_blocks": int(blocks_per_row[hub]),
+           "typical_blocks": int(blocks_per_row[typical])}
     for label, row in (("hub", hub), ("typical", typical)):
-        sel = rows == row
+        sel = op.block_rows.long() == row
         r_, c_, bl = (op.block_rows[sel].contiguous(), op.block_cols[sel].contiguous(),
                       op.blocks[sel].contiguous())
-        out.update({f"{label}_{k}": v for k, v in timings({"": lambda: bsr_spmm_fused_epilogue(
-            r_, c_, bl, x, op.n_rows_padded, bias=b, activation="relu")},
-            device, reps).items()})
+        nz = nonzero_columns(r_, c_, bl, op.n_rows_padded)
+        if masked:
+            call = lambda: bsr_spmm_masked(r_, c_, bl, x, m, op.n_rows_padded, nzc=nz)
+        else:
+            call = lambda: bsr_spmm_fused_epilogue(
+                r_, c_, bl, x, op.n_rows_padded, bias=b, activation="relu", nzc=nz)
+        out.update({f"{label}_{k}": v for k, v in timings({"": call}, device,
+                                                          reps).items()})
     return out
 
 
@@ -752,6 +809,7 @@ def fused_kernel_phase(prog, csr_a, device, reps: int) -> dict:
         plain_y, _ = bsr_spmm_fused_ref(fwd.block_rows, fwd.block_cols, fwd.blocks,
                                         x, fwd.n_rows_padded, bias=b, activation="relu")
         check_close("library yardstick (fused)", lib_y, plain_y[: fwd.n_rows])
+        nzc = fwd.nonzero_columns()
         for spec_name, act in (("bias+relu", "relu"), ("bias", "none")):
             args = (fwd.block_rows, fwd.block_cols, fwd.blocks, x, fwd.n_rows_padded)
 
@@ -763,7 +821,8 @@ def fused_kernel_phase(prog, csr_a, device, reps: int) -> dict:
                    "spec": spec_name, "n_blocks": int(fwd.blocks.shape[0]),
                    "nnz": csr_a.nnz}
             row.update(timings({
-                "": lambda: bsr_spmm_fused_epilogue(*args, bias=b, activation=act),
+                "": lambda: bsr_spmm_fused_epilogue(*args, bias=b, activation=act,
+                                                    nzc=nzc),
                 "plain_": lambda: bsr_spmm_fused_ref(*args, bias=b, activation=act),
                 "library_": library}, device, reps))
             row.update(fused_bound(fwd, f, False, True, act == "relu"))
@@ -774,7 +833,8 @@ def fused_kernel_phase(prog, csr_a, device, reps: int) -> dict:
     f = dims[1]
     u = torch.randn((fwd.n_cols_padded, f), generator=gen).to(device)
     _, mask = bsr_spmm_fused_epilogue(fwd.block_rows, fwd.block_cols, fwd.blocks,
-                                      u, fwd.n_rows_padded, activation="relu")
+                                      u, fwd.n_rows_padded, activation="relu",
+                                      nzc=fwd.nonzero_columns())
     t_in = -(-fwd.n_rows_padded // bwd.bc) * bwd.bc
     dy = kops._fit_rows(torch.randn((fwd.n_rows_padded, f), generator=gen).to(device), t_in)
     mask = kops._fit_rows(mask, t_in).contiguous()
@@ -786,7 +846,8 @@ def fused_kernel_phase(prog, csr_a, device, reps: int) -> dict:
                 bsr_spmm_masked_ref(*margs)[: bwd.n_rows])
     row = {"kernel": "bsr_spmm_masked", "operand": "A^T", "F": f,
            "mask_share": float(mask.mean()), "n_blocks": int(bwd.blocks.shape[0])}
-    row.update(timings({"": lambda: bsr_spmm_masked(*margs),
+    bwd_nzc = bwd.nonzero_columns()
+    row.update(timings({"": lambda: bsr_spmm_masked(*margs, nzc=bwd_nzc),
                         "plain_": lambda: bsr_spmm_masked_ref(*margs),
                         "library_": lambda: torch.sparse.mm(at_lib, (mask * dy)[: bwd.n_cols])},
                        device, reps))
@@ -807,8 +868,12 @@ def fused_kernel_phase(prog, csr_a, device, reps: int) -> dict:
     row.update(spmm_bound(*sargs[:3], f, bwd.n_rows_padded))
     rows[("spmm", f)] = row
     print("[kernel] " + json.dumps(row))
-    rows["hub"] = row_cost(fwd, dims[1], device, reps)
-    print("[kernel] hub row: " + json.dumps(rows["hub"]))
+    for key, op, masked in (("hub", fwd, False), ("hub_masked", bwd, True)):
+        rows[key] = row_cost(op, dims[1], device, reps, masked)
+        call = rows[("masked", dims[1])] if masked else rows[("fused", dims[1], "relu")]
+        rows[key]["full_call_ms"] = call["ms"]
+        rows[key]["hub_share_of_call"] = rows[key]["hub_ms"] / call["ms"]
+        print(f"[kernel] {key} row: " + json.dumps(rows[key]))
     rows["adam"], err["adam"] = adam_checks(prog, device, reps)
     return {"rows": rows, "err": err}
 
@@ -862,14 +927,28 @@ def adam_checks(prog, device, reps: int):
     return row, err
 
 
+#: what a kernel's second pass is counted under in a profiled window:
+#: ``nzc_split_reduce`` adds a split row's partial sums after the row pass,
+#: inside the same wrapper call, so its time is the kernel's and its
+#: launches are counted apart from the calls
+SECOND_PASS = " second pass"
+
+
+def launch_key(name: str) -> str:
+    """What a profiler event's launches are counted under: its kernel, or
+    the kernel's ``SECOND_PASS``."""
+    kernel = classify(name)
+    return kernel + SECOND_PASS if "nzc_split_reduce<" in name else kernel
+
+
 def classify(name: str) -> str:
-    """A profiler event's kernel, by its (demangled) name."""
-    m = re.search(r"bsr_kernel<\s*\d+,\s*\d+,\s*(\w+),\s*(\w+),\s*(\w+),\s*(\w+)\s*>", name)
+    """A profiler event's kernel, by its (demangled) name; both passes of
+    the nonzero-column kernels (bsr_nzc.cuh) by their MASKED flag."""
+    m = re.search(r"nzc_(?:kernel|split_reduce)<\s*\d+,\s*\d+,\s*(\w+),", name)
     if m:
-        masked, *epilogue = (v == "true" for v in m.groups())
-        if masked:
-            return "bsr_spmm_masked"
-        return "bsr_spmm_fused_epilogue" if any(epilogue) else "bsr_spmm"
+        return "bsr_spmm_masked" if m.group(1) == "true" else "bsr_spmm_fused_epilogue"
+    if "bsr_kernel<" in name:  # bsr_common.cuh: only bsr_spmm.cu builds it
+        return "bsr_spmm"
     if "fused_adam_kernel" in name:
         return "fused_adam"
     for kind in ("fwd", "bwd_row", "bwd_col"):
@@ -888,9 +967,11 @@ def classify(name: str) -> str:
 def epoch_profile(prog, device, epoch_s: float, want: dict) -> dict:
     """One more epoch under the profiler (CUDA activity, after a warmup
     epoch): device ms and launches by kernel, busy total, and the idle
-    share of the median epoch time. ``complete`` is False where none of
+    share of the median epoch time. A kernel's device ms hold both of its
+    passes; its launches count the row pass (one a call) and its
+    ``SECOND_PASS`` apart. ``complete`` is False where none of
     ``PROFILE_TRIES`` windows held exactly ``want``'s launches of the
-    port's kernels (or off the card)."""
+    port's kernels and their second passes (or off the card)."""
     if device.type != "cuda":
         return {"complete": False}
     sync(device)
@@ -900,7 +981,7 @@ def epoch_profile(prog, device, epoch_s: float, want: dict) -> dict:
     by, launched = defaultdict(float), defaultdict(int)
     for name, us, n in device_events(prof):
         by[classify(name)] += us / 1e3
-        launched[classify(name)] += n
+        launched[launch_key(name)] += n
     busy = sum(by.values())
     return {"complete": True, "windows": windows, "device_ms": dict(by),
             "launches": dict(launched),
@@ -915,20 +996,78 @@ def leaf_diffs(got: dict, want: dict) -> dict:
             for k in sorted(b)}
 
 
-def mask_flips(prog, params) -> dict:
-    """Layer 0's ReLU mask from the fused kernel against its plain version
-    on one u = X·W: how many of its elements differ, and the largest
-    |pre-activation| among them. Where a pre-activation lies within
-    rounding of 0 the two programs' masks, and so their gradients, part."""
-    op = prog.plan.graph_op.fwd_operand
-    layer = params["layers"][0]
-    u = kops._fit_rows(prog.x @ layer["w"], op.n_cols_padded)
-    args = (op.block_rows, op.block_cols, op.blocks, u, op.n_rows_padded)
-    _, mask = bsr_spmm_fused_epilogue(*args, bias=layer["b"], activation="relu")
-    pre, _ = bsr_spmm_fused_ref(*args, bias=layer["b"])
-    differ = mask != (pre > 0).float()
-    return {"elements": int(mask.numel()), "differ": int(differ.sum()),
-            "max_abs_pre": float(pre[differ].abs().max()) if differ.any() else 0.0}
+@contextlib.contextmanager
+def fused_executor(inner: str, hook):
+    """Route the ``inner`` programs' fused-epilogue calls through
+    ``hook(fn, *args, **kw)``, ``fn`` the executor they would have called."""
+    table = kops._EXECUTORS[inner]
+    fn = table["fused"]
+    table["fused"] = functools.partial(hook, fn)
+    try:
+        yield
+    finally:
+        table["fused"] = fn
+
+
+def decided_grads(prog, ref, params) -> tuple:
+    """Both programs' gradients at ``params``, the torch program's ReLU
+    decisions taken from the cuda program's where the two part within
+    MASK_MARGIN of 0: there the sign is rounding's, and one flip moves a
+    nearly cancelling gradient past GRAD_RTOL. Returns (cuda grads, torch
+    grads, per ReLU call: elements, decisions parted, those beyond the
+    margin, the largest |pre| among them)."""
+    masks, calls = [], []
+
+    def record(fn, *args, **kw):
+        y, mask = fn(*args, **kw)
+        if mask is not None:
+            masks.append(mask)
+        return y, mask
+
+    def decide(fn, rows, cols, blocks, x, n, self_term=None, bias=None,
+               alpha=None, activation="none"):
+        if activation != "relu":
+            return fn(rows, cols, blocks, x, n, self_term, bias, alpha, activation)
+        pre, _ = fn(rows, cols, blocks, x, n, self_term, bias, alpha, "none")
+        want, mask = masks[len(calls)], (pre > 0).float()
+        parted = mask != want
+        beyond = parted & (pre.abs() > MASK_MARGIN)
+        calls.append({"elements": mask.numel(), "parted": int(parted.sum()),
+                      "beyond_margin": int(beyond.sum()),
+                      "max_abs_pre": float(pre[parted].abs().max())
+                      if parted.any() else 0.0})
+        mask = torch.where(parted & ~beyond, want, mask)
+        return torch.where(mask > 0, pre, torch.zeros_like(pre)), mask
+
+    with fused_executor("cuda", record):
+        got = value_and_grad(prog.model.loss_fn, params, prog.x, prog.labels,
+                             prog.train_mask)[1]
+    with fused_executor("torch", decide):
+        want = value_and_grad(ref.model.loss_fn, params, ref.x, ref.labels,
+                              ref.train_mask)[1]
+    if len(calls) != len(masks):
+        raise AssertionError(f"{len(masks)} ReLU calls in the cuda program, "
+                             f"{len(calls)} in the torch program")
+    return got, want, calls
+
+
+def nzc_build(prog, device) -> dict:
+    """The fused-epilogue and masked kernels' operand (the nonzero columns
+    of A and Aᵀ), which ``compile`` built once on the device: its columns
+    and bytes, and its build time, taken by building it again for both
+    operands (synchronised host clock)."""
+    ops = [prog.plan.graph_op.fwd_operand, prog.plan.graph_op.bwd_operand]
+    sync(device)
+    t0 = time.perf_counter()
+    for op in ops:
+        nonzero_columns(op.block_rows, op.block_cols, op.blocks, op.n_rows_padded)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    return {"columns": [int(op.nzc.x_rows.numel()) for op in ops],
+            "blocks": [int(op.blocks.shape[0]) for op in ops],
+            "bytes": [op.nzc.nbytes for op in ops],
+            "block_bytes": [op.blocks.numel() * 4 for op in ops],
+            "build_s": build_s}
 
 
 def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
@@ -950,22 +1089,26 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
     ref_build_s = time.perf_counter() - t0
     print(f"[{name}] plan (operands built in {build_s:.1f}s + {ref_build_s:.1f}s "
           f"on the host and copied):\n{prog.describe_plan()}")
+    nzc = nzc_build(prog, device)
+    print(f"[{name}] nonzero columns of A and Aᵀ: {json.dumps(nzc)}")
     on_card = device.type == "cuda"
     # per epoch on the card; CPU tensors run the plain versions and launch
     # nothing
     want = {k: expected.get(k, 0) if on_card else 0 for k in KERNELS}
-    epilogue = prog.plan.layers[0].epilogue is not None
 
     def grad_check(when: str, params) -> dict:
         """Both programs' gradients at the same parameters, leaf by leaf:
         Adam normalises a gradient's scale away, so the losses alone would
-        pass a backward that is off by a constant factor."""
-        grads = [value_and_grad(p.model.loss_fn, params, p.x, p.labels,
-                                p.train_mask)[1] for p in (prog, ref)]
-        out = {"grads": leaf_diffs(*grads)}
-        if epilogue:
-            out["layer0_mask_flips"] = mask_flips(prog, params)
+        pass a backward that is off by a constant factor. Every ReLU
+        decision the two programs part on must lie within MASK_MARGIN of 0
+        (``decided_grads``)."""
+        cuda_grads, torch_grads, calls = decided_grads(prog, ref, params)
+        out = {"grads": leaf_diffs(cuda_grads, torch_grads),
+               "relu_decisions": calls}
         print(f"[{name}] gradients {when}: {json.dumps(out)}")
+        if any(c["beyond_margin"] for c in calls):
+            raise AssertionError(f"[{name}] ReLU masks {when} differ beyond "
+                                 f"|pre| > {MASK_MARGIN}: {calls}")
         if not max(out["grads"].values()) <= GRAD_RTOL:
             raise AssertionError(f"[{name}] gradients {when} differ: {out}")
         return out
@@ -1009,10 +1152,17 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
            float(np.median(ref_times)) * 1e3, "epoch_ms": [t * 1e3 for t in times],
            "launches": launched, "per_epoch": want, "build_s": build_s,
            "ref_build_s": ref_build_s, "operand_bytes": prog.plan.graph_op.fwd_bytes,
+           "nonzero_columns": nzc,
            "peak_mem_bytes": peak, "accuracy": prog.accuracy(),
            "grad_start": grad_start, "grad_end": grad_end,
            "param_rel_diff": param_diff}
-    out["profile"] = epoch_profile(prog, device, epoch_s, want)
+    # each fused call runs on A, each masked call on Aᵀ: a call on an
+    # operand with split rows launches its second pass once
+    split = {"bsr_spmm_fused_epilogue": prog.plan.graph_op.fwd_operand,
+             "bsr_spmm_masked": prog.plan.graph_op.bwd_operand}
+    second = {k + SECOND_PASS: want[k] if op.nzc is not None and op.nzc.splits.shape[0] else 0
+              for k, op in split.items()}
+    out["profile"] = epoch_profile(prog, device, epoch_s, {**want, **second})
     print(f"[{name}] " + json.dumps({k: v for k, v in out.items()
                                      if k not in ("epoch_ms",)}))
     return {"summary": out, "prog": prog, "ref": ref, "weights": weights}
@@ -1830,6 +1980,13 @@ def kernel_entries(serving_entry, launches_by_path, fk, ak, errs, dims,
     entries = [dict(serving_entry)]
     entries += [epoch_entry(name, calls, errs[name], epoch)
                 for name, calls in per_epoch.items()]
+    for e in entries:
+        if e["name"] in ("bsr_spmm_fused_epilogue", "bsr_spmm_masked"):
+            e["bound_is"] = ("the BSR layout's: every stored block that holds a "
+                         "nonzero read whole, which these kernels no longer "
+                             "do; nnz_bound_ms (each nonzero once, the X rows "
+                             "it references, Y) is the bound their design "
+                             "answers to")
     for kind, (name, _, _) in ATTENTION.items():
         calls = [ak["rows"][(kind, l)] for l in range(ak["layers"])]
         entries.append(epoch_entry(name, calls, errs[name], gat_epoch))
@@ -2026,10 +2183,13 @@ def main() -> int:
         if log.exists():
             text = log.read_text()
             regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", text)})
-            spills = sum(int(a) + int(b) for a, b in re.findall(
-                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text))
+            spilling = {k: int(a) + int(b) for k, a, b in re.findall(
+                r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+                if int(a) + int(b)}
             print(f"[build] ptxas {name}: registers {regs[0]}-{regs[-1]}, "
-                  f"spilled bytes {spills}")
+                  f"spilled bytes {sum(spilling.values())}"
+                  + (f" in {spilling}" if spilling else ""))
 
     t_all = time.perf_counter()
     result = run(Sizes(), device)

@@ -3,7 +3,9 @@
 BSR operands (CSR -> BSR once, ``kernels/ops.py:BSRDevice``) consumed by
 the Hopper kernels: ``spmm`` runs ``kernels/csrc/bsr_spmm.cu``, and the
 native ``spmm_fused_epilogue`` runs ``bsr_spmm_fused.cu`` forward and
-``bsr_spmm_masked.cu`` (or ``bsr_spmm.cu``) on Aᵀ backward, and
+``bsr_spmm_masked.cu`` (or ``bsr_spmm.cu``) on Aᵀ backward, the first two
+over each operand's nonzero columns (built once, when the op is bound),
+and
 ``sparse_mha`` runs ``bsr_attention.cu`` (the forward and the row pass on
 A, the column pass on Aᵀ). The kernel wrappers run their plain versions
 for CPU tensors, so the same plans run in the CPU tests. The sampled path

@@ -3,9 +3,9 @@
 // Replaces the Pallas TPU kernel repro/kernels/bsr_spmm.py:bsr_spmm
 // (_kernel at :50, pallas_call at :105). The kernel body, its translation
 // of the TPU grid and what bounds it are in bsr_common.cuh; this file
-// instantiates the plain product for every tile. The sampled serving path
-// runs it per layer; full-batch training runs it for Aᵀ·dY of a layer
-// without ReLU and for the Alg-1 sparse layer-0 X·W and its dW = Xᵀ·dY.
+// instantiates it for every tile. The sampled serving path runs it per
+// layer; full-batch training runs it for Aᵀ·dY of a layer without ReLU
+// and for the Alg-1 sparse layer-0 X·W and its dW = Xᵀ·dY.
 // At the serving configuration ~96% of layer 0's blocks are the sampler's
 // padding tail, and walking them in one CTA took ~96 ms on an H100 before
 // the kernel learned to stop there (PERF.md).
@@ -32,9 +32,8 @@ extern "C" int bsr_spmm_f32(const void* rows, const void* cols,
   a.n_block_rows = n_block_rows;
   a.f = f;
   a.stream = static_cast<cudaStream_t>(stream);
-#define BSR_SPMM_TILE(R, C)                                              \
-  if (br == R && bc == C)                                                \
-    return static_cast<int>(bsr::launch<R, C, false, false, false, false>(a));
+#define BSR_SPMM_TILE(R, C) \
+  if (br == R && bc == C) return static_cast<int>(bsr::launch<R, C>(a));
   BSR_FOR_EACH_TILE(BSR_SPMM_TILE)
 #undef BSR_SPMM_TILE
   return static_cast<int>(cudaErrorInvalidValue);

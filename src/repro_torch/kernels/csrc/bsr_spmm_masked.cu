@@ -6,36 +6,43 @@
 // (_masked_kernel at :258, pallas_call at :312). As on the TPU, the mask
 // is applied to each X value as it is loaded, so the masked cotangent
 // mask ⊙ dY is never written to device memory. The row loop is the
-// family's (bsr_common.cuh); the mask doubles the X traffic that bounds
-// it, since each X value read comes with its mask value.
+// nonzero-column loop of bsr_nzc.cuh: only the dY rows that Aᵀ's nonzero
+// columns reference are read, each with its mask row, which doubles the
+// gather traffic that bounds the kernel.
 
-#include "bsr_common.cuh"
+#include "bsr_nzc.cuh"
 
-// Y[n_block_rows*br, f] = A·(mask ⊙ X). rows, cols, blocks, x as in
-// bsr_spmm_f32; mask float32 shaped like x. Launches on `stream` and
-// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// tile that is not instantiated).
-extern "C" int bsr_spmm_masked_f32(const void* rows, const void* cols,
-                                   const void* blocks, const void* x,
-                                   const void* mask, void* y, int n_blocks,
-                                   int n_block_rows, int f, int br, int bc,
-                                   void* stream) {
-  if (n_block_rows == 0 || f == 0) return 0;
-  bsr::Args a{};
-  a.rows = static_cast<const int*>(rows);
-  a.cols = static_cast<const int*>(cols);
-  a.blocks = static_cast<const float*>(blocks);
+// Y[n_block_rows*br, f] = A·(mask ⊙ X) over A's nonzero columns: items,
+// splits, x_rows, values and partial as in bsr_spmm_fused_f32; x and mask
+// float32 [*, f] row-major. vec4: f % 4 == 0 and every feature pointer
+// 16-byte aligned. Launches the row pass, and the split rows' ordered
+// second pass where n_split > 0, on `stream`; returns cudaGetLastError()
+// after them (cudaErrorInvalidValue for a br that is not instantiated).
+extern "C" int bsr_spmm_masked_f32(const void* items, int n_items,
+                                   const void* splits, int n_split,
+                                   const void* x_rows, const void* values,
+                                   void* partial, const void* x,
+                                   const void* mask, void* y, int f, int br,
+                                   int vec4, void* stream) {
+  if (n_items == 0 || f == 0) return 0;
+  nzc::Args a{};
+  a.items = static_cast<const int4*>(items);
+  a.splits = static_cast<const int*>(splits);
+  a.x_rows = static_cast<const int*>(x_rows);
+  a.values = static_cast<const float*>(values);
+  a.partial = static_cast<float*>(partial);
   a.x = static_cast<const float*>(x);
   a.mask_in = static_cast<const float*>(mask);
   a.y = static_cast<float*>(y);
-  a.n_blocks = n_blocks;
-  a.n_block_rows = n_block_rows;
+  a.n_items = n_items;
+  a.n_split = n_split;
   a.f = f;
+  a.vec4 = vec4 != 0;
   a.stream = static_cast<cudaStream_t>(stream);
-#define BSR_MASKED_TILE(R, C)                                            \
-  if (br == R && bc == C)                                                \
-    return static_cast<int>(bsr::launch<R, C, true, false, false, false>(a));
-  BSR_FOR_EACH_TILE(BSR_MASKED_TILE)
-#undef BSR_MASKED_TILE
+#define BSR_MASKED_BR(R)                                                 \
+  if (br == R)                                                           \
+    return static_cast<int>(nzc::launch<R, true, false, false, false>(a));
+  NZC_FOR_EACH_BR(BSR_MASKED_BR)
+#undef BSR_MASKED_BR
   return static_cast<int>(cudaErrorInvalidValue);
 }

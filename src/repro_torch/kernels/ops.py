@@ -28,9 +28,11 @@ from repro_torch.kernels.bsr_attention import (
     bsr_attention_fwd,
 )
 from repro_torch.kernels.bsr_spmm import (
+    NonzeroColumns,
     bsr_spmm,
     bsr_spmm_fused_epilogue,
     bsr_spmm_masked,
+    nonzero_columns,
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import (
@@ -85,9 +87,11 @@ def _fit_rows(x: torch.Tensor, n: int) -> torch.Tensor:
 @dataclasses.dataclass
 class BSRDevice:
     """Device-resident flattened BSR + padding metadata. The kernels find
-    each row's range by a search over ``block_rows`` and apply the
-    epilogue at the row's end, so ``first_in_row``/``last_in_row`` are not
-    carried."""
+    each row's range themselves (a search over ``block_rows``, or the
+    work list ``nzc.items``) and apply the epilogue at the row's end, so
+    ``first_in_row``/``last_in_row`` are not carried. ``nzc``, the
+    operand's nonzero columns that the fused-epilogue and masked kernels
+    read, is built once by ``nonzero_columns()``."""
 
     block_rows: torch.Tensor  # [n_blocks] int32
     block_cols: torch.Tensor  # [n_blocks] int32
@@ -98,6 +102,7 @@ class BSRDevice:
     n_cols_padded: int
     br: int
     bc: int
+    nzc: Optional[NonzeroColumns] = dataclasses.field(default=None, repr=False)
 
     @classmethod
     def from_bsr(cls, bsr: BSRMatrix, device=None) -> "BSRDevice":
@@ -114,8 +119,19 @@ class BSRDevice:
 
     @property
     def nbytes(self) -> int:
+        """Bytes on the device: the blocks and their indices, and ``nzc``
+        once built."""
         return int(sum(t.numel() * t.element_size()
-                       for t in (self.block_rows, self.block_cols, self.blocks)))
+                       for t in (self.block_rows, self.block_cols, self.blocks))
+                   + (0 if self.nzc is None else self.nzc.nbytes))
+
+    def nonzero_columns(self) -> NonzeroColumns:
+        """The operand's ``NonzeroColumns``, built on its device at the
+        first call and kept."""
+        if self.nzc is None:
+            self.nzc = nonzero_columns(self.block_rows, self.block_cols,
+                                       self.blocks, self.n_rows_padded)
+        return self.nzc
 
     def matmul(self, x: torch.Tensor, inner: str = "cuda") -> torch.Tensor:
         """Y = A @ X, unpadded in and out: x is [n_cols, F], returns
@@ -174,6 +190,11 @@ def bsr_spmm_pair(fwd_arrays: tuple, bwd_arrays: Optional[tuple],
     return _BSRSpmmPair.apply(x, fwd_arrays, bwd_arrays, n_rows_padded, inner)
 
 
+def _nzc_kw(op: BSRDevice, inner: str) -> dict:
+    """The kernels' nonzero-column operand, for the ``cuda`` executor."""
+    return {"nzc": op.nonzero_columns()} if inner == "cuda" else {}
+
+
 class _BSRSpmmFusedPair(torch.autograd.Function):
     """act(A @ x + alpha * self_term + bias) on padded operands; the
     backward of ``repro/kernels/ops.py:_fused_pair_bwd``."""
@@ -182,7 +203,7 @@ class _BSRSpmmFusedPair(torch.autograd.Function):
     def forward(ctx, x, self_term, bias, alpha, fwd, bwd, inner, activation):
         y, mask = _executor(inner, "fused")(
             fwd.block_rows, fwd.block_cols, fwd.blocks, x, fwd.n_rows_padded,
-            self_term, bias, alpha, activation)
+            self_term, bias, alpha, activation, **_nzc_kw(fwd, inner))
         ctx.save_for_backward(mask, self_term, alpha)
         ctx.fwd, ctx.bwd, ctx.inner = fwd, bwd, inner
         ctx.relu = activation == "relu"
@@ -205,7 +226,7 @@ class _BSRSpmmFusedPair(torch.autograd.Function):
                 dx = _executor(inner, "masked")(
                     bwd.block_rows, bwd.block_cols, bwd.blocks,
                     _fit_rows(dy, t_in), _fit_rows(mask, t_in),
-                    bwd.n_rows_padded)
+                    bwd.n_rows_padded, **_nzc_kw(bwd, inner))
             else:
                 dx = _executor(inner, "spmm")(
                     bwd.block_rows, bwd.block_cols, bwd.blocks,
@@ -247,9 +268,14 @@ def build_fused_epilogue(fwd: BSRDevice, bwd: BSRDevice, inner: str):
     Returns ``fused(u, self_term=None, bias=None, alpha=None,
     activation="none")`` computing ``act(A @ u + alpha * self_term +
     bias)`` on unpadded [n_cols, F] -> [n_rows, F]; rows are padded and
-    sliced at this boundary, F never is.
+    sliced at this boundary, F never is. For ``cuda`` both operands'
+    nonzero columns are built here, once, so the operands' ``nbytes``
+    count them and no training step pays for them.
     """
     _executor(inner, "fused")  # validates inner now, not at the first call
+    if inner == "cuda":
+        fwd.nonzero_columns()
+        bwd.nonzero_columns()
 
     def fused(u, self_term=None, bias=None, alpha=None, activation="none"):
         u_p = _fit_rows(u.float(), fwd.n_cols_padded).contiguous()

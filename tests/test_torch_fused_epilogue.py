@@ -23,11 +23,14 @@ from repro_torch.graph.csr import csr_from_edges, csr_to_bsr  # noqa: E402
 from repro_torch.graph.sampling import _pad_bsr  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import bsr_spmm as bsr_spmm_module  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (  # noqa: E402
     TILES,
     _check_launch,
+    _vec4,
     bsr_spmm_fused_epilogue,
     bsr_spmm_masked,
+    nonzero_columns,
 )
 from repro_torch.kernels.ref import (  # noqa: E402
     bsr_spmm_fused_ref,
@@ -298,45 +301,96 @@ def test_wrappers_reject_bad_specs_and_count_no_cpu_launches():
     assert (bsr_spmm_fused_epilogue.launches, bsr_spmm_masked.launches) == before
 
 
+def _hub_operand(br, bc, n_cols=4096, seed=9):
+    """One block-row whose nonzero columns (~1,500 over 32 blocks at
+    bc=128) outnumber what one pass of the CTA's groups takes (groups x 8
+    columns, and more than one staged chunk), beside short rows."""
+    r = np.random.default_rng(seed)
+    hub_src = r.integers(0, n_cols, 2000)
+    hub_dst = r.integers(0, br, 2000)
+    src = np.concatenate([hub_src, r.integers(0, n_cols, 300)])
+    dst = np.concatenate([hub_dst, r.integers(br, 6 * br, 300)])
+    data = r.standard_normal(src.size).astype(np.float32)
+    g = csr_from_edges(src, dst, 6 * br, n_cols=n_cols, data=data)
+    bsr = csr_to_bsr(g, br=br, bc=bc)
+    return _pad_bsr(bsr, bsr.n_blocks + 3), bsr.padded_rows, bsr.padded_cols
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose storage starts one float past a
+    16-byte boundary: every row is misaligned for float4 loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _cuda_case(arrays, nrp, ncp, f, seed, misalign=False):
+    """Both kernels against their plain versions on one operand: every
+    epilogue spec and the masked product, each launched twice (bitwise
+    equal, counted once each), the nonzero columns built once (rows past
+    ``SPLIT_COLUMNS`` cut into segments) and passed."""
+    t = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    nzc = nonzero_columns(t["rows"], t["cols"], t["blocks"], nrp)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((ncp, f), generator=g).cuda()
+    s = torch.randn((nrp, f), generator=g).cuda()
+    b = torch.randn(f, generator=g).cuda()
+    mask = (torch.randn((ncp, f), generator=g) > 0).float().cuda()
+    if misalign:
+        x, s, mask = _misaligned(x), _misaligned(s), _misaligned(mask)
+        assert not _vec4(f, x) and _vec4(f, x.clone())
+    alpha = torch.full((1,), 0.8, device="cuda")
+    for has_self, has_bias, act in SPECS.values():
+        args = (t["rows"], t["cols"], t["blocks"], x, nrp,
+                s if has_self else None, b if has_bias else None,
+                alpha if has_self else None, act)
+        before = bsr_spmm_fused_epilogue.launches
+        y, m = bsr_spmm_fused_epilogue(*args, nzc=nzc)
+        y2, m2 = bsr_spmm_fused_epilogue(*args, nzc=nzc)
+        pre, _ = bsr_spmm_fused_ref(*args[:8], "none")
+        y_ref, m_ref = bsr_spmm_fused_ref(*args)
+        torch.cuda.synchronize()
+        assert bsr_spmm_fused_epilogue.launches == before + 2
+        torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+        assert torch.equal(y, y2)
+        if act == "relu":
+            far = pre.abs() > MASK_MARGIN
+            assert torch.equal(m[far], m_ref[far]) and torch.equal(m, m2)
+    margs = (t["rows"], t["cols"], t["blocks"], x, mask, nrp)
+    before = bsr_spmm_masked.launches
+    y = bsr_spmm_masked(*margs, nzc=nzc)
+    y2 = bsr_spmm_masked(*margs, nzc=nzc)
+    torch.cuda.synchronize()
+    assert bsr_spmm_masked.launches == before + 2
+    torch.testing.assert_close(y, bsr_spmm_masked_ref(*margs), atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(y, y2)
+    # a CUDA call never builds the operand itself
+    with pytest.raises(ValueError, match="nonzero_columns"):
+        bsr_spmm_masked(*margs)
+    with pytest.raises(ValueError, match="nonzero_columns"):
+        bsr_spmm_fused_epilogue(*margs[:4], nrp)
+
+
 @pytest.mark.cuda
-def test_cuda_fused_and_masked_kernels_match_plain():
+def test_cuda_fused_and_masked_kernels_match_plain(monkeypatch):
     """On the card: both Hopper kernels against their plain versions at
-    1e-4 for every built tile, every epilogue spec, F = 1, 40, 128, 200,
-    256, over empty rows and padding blocks; bitwise repeatable; each
-    launch counted once."""
+    1e-4 for every built tile, every epilogue spec, F = 1, 33, 40, 70,
+    128, 200, 256 (ragged, scalar and float4 paths), over empty rows and
+    padding blocks; rows misaligned for float4 (scalar path); a hub row
+    longer than the CTA's split of its columns, in one CTA and cut into
+    segments (2 at the default split, 16 at 100 columns); bitwise
+    repeatable; each launch counted once."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    for (br, bc), f in itertools.product(TILES, (1, 40, 128, 200, 256)):
+    for (br, bc), f in itertools.product(TILES, (1, 33, 40, 70, 128, 200, 256)):
         arrays, nrp, ncp = _operand(f, 150, 130, 300, br, bc, pad_to=7)
-        t = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
-        g = torch.Generator().manual_seed(f)
-        x = torch.randn((ncp, f), generator=g).cuda()
-        s = torch.randn((nrp, f), generator=g).cuda()
-        b = torch.randn(f, generator=g).cuda()
-        alpha = torch.full((1,), 0.8, device="cuda")
-        for has_self, has_bias, act in SPECS.values():
-            args = (t["rows"], t["cols"], t["blocks"], x, nrp,
-                    s if has_self else None, b if has_bias else None,
-                    alpha if has_self else None, act)
-            before = bsr_spmm_fused_epilogue.launches
-            y, m = bsr_spmm_fused_epilogue(*args)
-            y2, m2 = bsr_spmm_fused_epilogue(*args)
-            pre, _ = bsr_spmm_fused_ref(*args[:8], "none")
-            y_ref, m_ref = bsr_spmm_fused_ref(*args)
-            torch.cuda.synchronize()
-            assert bsr_spmm_fused_epilogue.launches == before + 2
-            torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
-            assert torch.equal(y, y2)
-            if act == "relu":
-                far = pre.abs() > MASK_MARGIN
-                assert torch.equal(m[far], m_ref[far]) and torch.equal(m, m2)
-        mask = (torch.randn((ncp, f), generator=g) > 0).float().cuda()
-        before = bsr_spmm_masked.launches
-        y = bsr_spmm_masked(t["rows"], t["cols"], t["blocks"], x, mask, nrp)
-        y2 = bsr_spmm_masked(t["rows"], t["cols"], t["blocks"], x, mask, nrp)
-        torch.cuda.synchronize()
-        assert bsr_spmm_masked.launches == before + 2
-        torch.testing.assert_close(
-            y, bsr_spmm_masked_ref(t["rows"], t["cols"], t["blocks"], x, mask,
-                                   nrp), atol=1e-4, rtol=1e-4)
-        assert torch.equal(y, y2)
+        _cuda_case(arrays, nrp, ncp, f, seed=f)
+    for br, bc in ((8, 128), (16, 64)):
+        arrays, nrp, ncp = _operand(36, 150, 130, 300, br, bc, pad_to=7)
+        _cuda_case(arrays, nrp, ncp, 36, seed=36, misalign=True)
+        for f, split in itertools.product((40, 256), (100, 1024, 4096)):
+            monkeypatch.setattr(bsr_spmm_module, "SPLIT_COLUMNS", split)
+            arrays, nrp, ncp = _hub_operand(br, bc)
+            _cuda_case(arrays, nrp, ncp, f, seed=f + 1)
