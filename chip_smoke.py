@@ -11,10 +11,13 @@ is printed:
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (build seconds and
    the ptxas report).
 2. ``bsr_spmm`` against its plain PyTorch version on the serving
-   configuration's real layer-0/1/2 bucket operands and on edge cases
-   (padding blocks, a block-row without blocks, F=1/40/256), and the
-   fused-epilogue and masked kernels on the same and on F=33/70, rows
-   misaligned for float4 and a hub row.
+   configuration's real layer-0/1/2 bucket operands, through each
+   operand's nonzero columns built as the serving path builds them (build
+   ms and host syncs beside the kernel's ms), a repeat bitwise equal; the
+   three SpMM kernels on edge cases (padding blocks, a block-row without
+   blocks, F=1/33/40/70/256, rows misaligned for float4, a hub row cut
+   into segments) and with inf/NaN in X rows that no nonzero multiplies
+   (the sparse product, finite; the plain versions give NaN).
 3. Serving at full width: the ogbn-arxiv analog (169,343 nodes), GCN
    [128, 256, 256, 40], fanouts (15, 10, 5), 256-seed batches, through
    ``repro_torch.launch.serve``'s engine on the ``cuda`` backend and, with
@@ -41,25 +44,31 @@ is printed:
    fused and masked kernels through their nonzero columns): five
    epilogue specs at F=256 and F=40, a repeat launch bitwise equal, masks
    compared where |pre-activation| > 1e-5; the masked kernel on Aᵀ with a
-   real ReLU mask; ``bsr_spmm`` on Aᵀ; edge cases (phase 2's: ragged F,
-   rows misaligned for float4, a hub row longer than a CTA's split); Adam
+   real ReLU mask; ``bsr_spmm`` on Aᵀ at F=40 (and the non-finite case
+   there); edge cases (phase 2's: ragged F, rows misaligned for float4, a
+   hub row longer than a CTA's split); Adam
    on the six GCN leaves and on sizes 1 and 1,000,003 (1e-6). Time per call from CUDA
    events (these full-graph calls keep the card busy far longer than their
    launches take; Adam's short launches from ``torch.profiler``), plain
    ms, library ms
    (``torch.sparse.mm`` + the epilogue's torch ops; ``torch.optim.Adam(
    fused=True)``), the least time the card could take (bytes over 3.35 TB/s
-   or fp32 operations over 67 TFLOP/s, whichever is larger; counted over
-   the BSR layout's blocks, and over the nonzeros alone, the bound the
-   fused and masked kernels answer to), and the hub row's cost against a
-   mean row's and the whole call's, on A (fused) and Aᵀ (masked).
+   or fp32 operations over 67 TFLOP/s, whichever is larger; ``bound_ms``
+   counted over the nonzeros alone, the bound the three SpMM kernels
+   answer to, and ``layout_bound_ms`` over the BSR layout's blocks), and
+   the hub row's cost against a mean row's and the whole call's, on A
+   (fused) and Aᵀ (masked), each over the same clock as the call.
 6. The quickstart at full scale: the corafull analog (19,793 nodes, 8,710
    features, 95% zeros), GCN [8710, 32, 70], layer 0 on
    ``cuda.feature_matmul_sparse``; 10 epochs of cuda against torch with the
-   same checks and exactly 2 / 1 / 3 / 4 launches per epoch; the fused
-   pair's forward and backward on A and Aᵀ with unequal paddings (19,800
-   rows, 19,840 columns), cuda against torch; ``bsr_spmm`` on BSR(X) and
-   BSR(Xᵀ) at F=32 against its plain version.
+   same checks and exactly 2 / 1 / 3 / 4 launches per epoch (and a second
+   pass for each ``bsr_spmm`` call on a split operand); the fused pair's
+   forward and backward on A and Aᵀ with unequal paddings (19,800 rows,
+   19,840 columns), cuda against torch; ``bsr_spmm`` on all three of its
+   operands there, BSR(X) and BSR(Xᵀ) at F=32 and Aᵀ at F=70, as in
+   phase 5 (checked, a repeat bitwise equal, timed beside
+   ``torch.sparse.mm``, bounded), the non-finite case on BSR(X), and the
+   hub segment's cost on BSR(Xᵀ).
 
 7. GAT training, the attention path's main run: the arxiv analog, GAT
    [128, 750, 750, 40] with 3 heads (DGL's ogbn-arxiv GAT widths: 250 per
@@ -209,6 +218,9 @@ KERNELS = {"bsr_spmm": bsr_spmm,
            "bsr_attention_bwd_row": bsr_attention_bwd_row,
            "bsr_attention_bwd_col": bsr_attention_bwd_col,
            "flash_attention": flash_attention}
+#: one call's launches of each timed SpMM call (``timings``' ``expect``):
+#: the kernel, its plain version, the library yardstick
+SPMM_EXPECT = {"": {"bsr_spmm": 1}, "plain_": {}, "library_": {}}
 #: the attention kernels and their plain versions, by pass
 ATTENTION = {"fwd": ("bsr_attention_fwd", bsr_attention_fwd, bsr_attention_fwd_ref),
              "row": ("bsr_attention_bwd_row", bsr_attention_bwd_row,
@@ -398,30 +410,40 @@ def _bound(nbytes: float, flop: float) -> tuple:
 
 def spmm_bound(rows, cols, blocks, f: int, n_rows_padded: int) -> dict:
     """Least time for Y = A·X on these inputs, counted two ways; fp32
-    operations on the nonzeros in both. ``bound_ms``, the layout's: each
-    input byte this BSR product needs read once — the blocks that hold a
-    nonzero, whole, their indices and the X rows of their block-columns
-    (zero padding and empty-row blocks carry nothing) — and each output
-    byte written once. ``nnz_bound_ms``, any layout's: each nonzero's value
-    and column index and a row pointer per row read once, the X rows the
-    nonzeros reference, Y written once. ``dense_flop`` is the work on
-    every stored block."""
+    operations on the nonzeros in both. ``bound_ms`` (``bytes``), the
+    bound the three SpMM kernels answer to, since they read only nonzero
+    columns: each nonzero's value and column index and a row pointer per
+    row read once, the X rows the nonzeros reference, Y written once.
+    ``layout_bound_ms`` (``layout_bytes``), the BSR layout's: the blocks
+    that hold a nonzero, whole, their indices and the X rows of their
+    block-columns (zero padding and empty-row blocks carry nothing), Y
+    once. ``nnz_bound_ms`` is ``bound_ms``, under the key the attention
+    kernels' any-layout bound has. ``dense_flop`` is the work on every
+    stored block."""
     nb, br, bc = blocks.shape
     nz = blocks.ne(0)
     used = nz.reshape(nb, -1).any(dim=1)
     n_used = int(used.sum())
     x_rows = int(torch.unique(cols[used]).numel()) * bc
-    nbytes = 4 * (2 * n_used + n_used * br * bc + x_rows * f + n_rows_padded * f)
+    layout_bytes = 4 * (2 * n_used + n_used * br * bc + x_rows * f + n_rows_padded * f)
     b_idx, _, j = torch.nonzero(nz, as_tuple=True)
     nnz = int(b_idx.numel())
     nnz_x_rows = int(torch.unique(cols[b_idx].long() * bc + j).numel())
-    nnz_bytes = 4 * (2 * nnz + n_rows_padded + 1 + nnz_x_rows * f + n_rows_padded * f)
-    flop = 2.0 * nnz * f
+    nbytes = 4 * (2 * nnz + n_rows_padded + 1 + nnz_x_rows * f + n_rows_padded * f)
     out = {"blocks_used": n_used, "nnz": nnz, "x_rows": x_rows,
-           "nnz_x_rows": nnz_x_rows, "bytes": nbytes, "nnz_bytes": nnz_bytes,
-           "flop": flop, "dense_flop": 2.0 * nb * br * bc * f}
-    out["bound_ms"], out["bound_by"] = _bound(nbytes, flop)
-    out["nnz_bound_ms"], _ = _bound(nnz_bytes, flop)
+           "nnz_x_rows": nnz_x_rows, "bytes": nbytes, "layout_bytes": layout_bytes,
+           "flop": 2.0 * nnz * f, "dense_flop": 2.0 * nb * br * bc * f}
+    return _spmm_bounds(out)
+
+
+def _spmm_bounds(out: dict) -> dict:
+    """``bound_ms``/``bound_by``, ``nnz_bound_ms`` and ``layout_bound_ms``
+    of a ``spmm_bound`` count (``nnz_bytes`` the same count as ``bytes``,
+    as ``sum_rows`` sums it over every sparse row)."""
+    out["nnz_bytes"] = out["bytes"]
+    out["bound_ms"], out["bound_by"] = _bound(out["bytes"], out["flop"])
+    out["nnz_bound_ms"] = out["bound_ms"]
+    out["layout_bound_ms"], _ = _bound(out["layout_bytes"], out["flop"])
     return out
 
 
@@ -517,14 +539,99 @@ def on_device(arrays: dict, device) -> dict:
             for k, v in arrays.items()}
 
 
-def check_spmm(name, rows, cols, blocks, x, n_rows_padded, device) -> float:
-    """Kernel against the plain version on the same device tensors."""
-    y = bsr_spmm(rows, cols, blocks, x, n_rows_padded)
+def check_spmm(name, rows, cols, blocks, x, n_rows_padded, device, nzc) -> float:
+    """The kernel (through the operand's nonzero columns ``nzc``) against
+    the plain version on the same device tensors, and a repeat launch
+    bitwise equal."""
+    y = bsr_spmm(rows, cols, blocks, x, n_rows_padded, nzc=nzc)
+    y2 = bsr_spmm(rows, cols, blocks, x, n_rows_padded, nzc=nzc)
     y_ref = bsr_spmm_ref(rows, cols, blocks, x, n_rows_padded)
     sync(device)
     err = check_close(f"bsr_spmm {name}", y, y_ref)
+    if device.type == "cuda" and not torch.equal(y, y2):
+        raise AssertionError(f"bsr_spmm {name}: a repeat launch is not bitwise equal")
     print(f"[kernel] bsr_spmm {name}: max_abs_err={err:.3g}")
     return err
+
+
+def unread_rows(op, limit: int = 64) -> torch.Tensor:
+    """Up to ``limit`` X rows inside a stored block's columns that no
+    nonzero multiplies: the rows where the kernels and the whole-block
+    plain versions part under a non-finite X."""
+    covered = torch.zeros(op.n_cols_padded, dtype=torch.bool, device=op.blocks.device)
+    span = torch.arange(op.bc, device=covered.device)
+    covered[(op.block_cols.long()[:, None] * op.bc + span).flatten()] = True
+    covered[op.nonzero_columns().x_rows.long()] = False
+    return covered.nonzero().flatten()[:limit]
+
+
+def check_nonfinite(name, op, x, device) -> float:
+    """The three SpMM kernels with inf, -inf and NaN in X rows that no
+    nonzero of the operand multiplies (``unread_rows``): each gives the
+    sparse product (the JAX package's ``gather`` answer), finite and
+    within 1e-4 of its plain version on X with those rows zeroed, where
+    the plain version on the non-finite X (whole blocks, as the Pallas
+    kernel) gives NaN. Returns the largest error (0.0 off the card, where
+    the wrappers run the plain versions)."""
+    rows = unread_rows(op)
+    if rows.numel() == 0:
+        raise AssertionError(f"non-finite {name}: no unread X row to poison")
+    bad = x.clone()
+    bad[rows] = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                             device=x.device).repeat(rows.numel())[:rows.numel(), None]
+    zeroed = x.clone()
+    zeroed[rows] = 0.0
+    mask = (torch.arange(x.numel(), device=x.device).reshape(x.shape) % 3 > 0).float()
+    b = torch.linspace(-1.0, 1.0, x.shape[1], device=x.device)
+    a = (op.block_rows, op.block_cols, op.blocks)
+    n, nzc = op.n_rows_padded, op.nonzero_columns()
+    got = {"bsr_spmm": (bsr_spmm(*a, bad, n, nzc=nzc), bsr_spmm_ref(*a, zeroed, n)),
+           "bsr_spmm_fused_epilogue": (
+               bsr_spmm_fused_epilogue(*a, bad, n, bias=b, activation="relu", nzc=nzc)[0],
+               bsr_spmm_fused_ref(*a, zeroed, n, bias=b, activation="relu")[0]),
+           "bsr_spmm_masked": (bsr_spmm_masked(*a, bad, mask, n, nzc=nzc),
+                               bsr_spmm_masked_ref(*a, zeroed, mask, n))}
+    plain = bsr_spmm_ref(*a, bad, n)
+    sync(device)
+    if bool(torch.isfinite(plain).all()):
+        raise AssertionError(f"non-finite {name}: the plain version stayed finite")
+    if device.type != "cuda":
+        return 0.0
+    err = 0.0
+    for kernel, (y, want) in got.items():
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{kernel} non-finite {name}: a non-finite output")
+        err = max(err, check_close(f"{kernel} non-finite {name}", y, want))
+    print(f"[kernel] non-finite X {name}: {rows.numel()} unread rows poisoned, the "
+          f"three kernels finite within {err:.3g} of the plain versions on X with "
+          f"those rows zeroed")
+    return err
+
+
+def column_build(rows, cols, blocks, n_rows_padded, device, reps: int = 5) -> dict:
+    """``nonzero_columns`` on one operand: its columns and bytes, the
+    median build time of ``reps`` builds (synchronised host clock), and,
+    on the card, its host syncs, counted by CUDA's sync debug mode."""
+    times = []
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        nzc = nonzero_columns(rows, cols, blocks, n_rows_padded)
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"columns": int(nzc.x_rows.numel()), "nzc_bytes": nzc.nbytes,
+           "split_rows": int(nzc.splits.shape[0]), "build_ms": float(np.median(times)),
+           "host_syncs": None}
+    if device.type == "cuda":
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                nonzero_columns(rows, cols, blocks, n_rows_padded)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out["host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+    return out, nzc
 
 
 def misaligned(t: torch.Tensor) -> torch.Tensor:
@@ -538,11 +645,11 @@ def misaligned(t: torch.Tensor) -> torch.Tensor:
 
 def edge_cases(device) -> dict:
     """The three SpMM kernels on padding blocks and on a block-row with no
-    blocks, F = 1, 40, 256 (the fused and masked kernels also F = 33, 70,
-    ragged on their scalar path), every epilogue spec; the fused and masked
-    kernels also on rows misaligned for float4 (F = 36) and on a hub row of
-    8x128 blocks whose ~5,000 nonzero columns the kernels cut into
-    segments of SPLIT_COLUMNS. Max abs error of each kernel."""
+    blocks, F = 1, 33, 40, 70, 256 (33 and 70 ragged on the scalar path),
+    every epilogue spec; on rows misaligned for float4 (F = 36); on a hub
+    row of 8x128 blocks whose ~5,000 nonzero columns the kernels cut into
+    segments of SPLIT_COLUMNS (F = 32, 40, 256); and the non-finite case
+    (``check_nonfinite``) at F = 33, 40. Max abs error of each kernel."""
     r = np.random.default_rng(7)
     g = csr_from_edges(r.integers(0, 130, 300), r.integers(0, 150, 300), 150,
                        n_cols=130, data=r.standard_normal(300).astype(np.float32))
@@ -557,7 +664,8 @@ def edge_cases(device) -> dict:
     cases = [("padding blocks", padded, bsr, f, False) for f in (1, 33, 40, 70, 256)]
     cases += [("row without blocks", no_blocks, bsr, f, False) for f in (1, 33, 40, 70, 256)]
     cases += [("misaligned rows", padded, bsr, 36, True)]
-    cases += [("hub row", _pad_bsr(hub, hub.n_blocks + 3), hub, f, False) for f in (40, 256)]
+    cases += [("hub row", _pad_bsr(hub, hub.n_blocks + 3), hub, f, False)
+              for f in (32, 40, 256)]
     err = {"spmm": 0.0, "fused": 0.0, "masked": 0.0}
     for label, arrays, op_bsr, f, shift in cases:
         gen = torch.Generator().manual_seed(f)
@@ -569,24 +677,30 @@ def edge_cases(device) -> dict:
             x, s, m = misaligned(x), misaligned(s), misaligned(m)
         alpha = torch.full((1,), 0.7, device=device)
         t = on_device(arrays, device)
-        if f in (1, 40, 256) and not label.startswith("hub"):
-            err["spmm"] = max(err["spmm"], check_spmm(
-                f"{label} F={f}", t["rows"], t["cols"], t["blocks"], x,
-                op_bsr.padded_rows, device))
         op = kops.BSRDevice(t["rows"], t["cols"], t["blocks"], op_bsr.n_rows,
                             op_bsr.n_cols, op_bsr.padded_rows, op_bsr.padded_cols,
                             op_bsr.br, op_bsr.bc)
+        err["spmm"] = max(err["spmm"], check_spmm(
+            f"{label} F={f}", t["rows"], t["cols"], t["blocks"], x,
+            op_bsr.padded_rows, device, op.nonzero_columns()))
         for spec_name, spec in SPECS.items():
             err["fused"] = max(err["fused"], check_fused(
                 f"{label} F={f} {spec_name}", op, x, s, b, alpha, spec, device))
         err["masked"] = max(err["masked"], check_masked(
             f"{label} F={f}", op, x, m, device))
+        if label == "padding blocks" and f in (33, 40):
+            err["nonfinite"] = max(err.get("nonfinite", 0.0), check_nonfinite(
+                f"edge case F={f}", op, x, device))
     return err
 
 
 def kernel_phase(ds, eng, device, reps: int = 20) -> dict:
     """``bsr_spmm`` on one largest-bucket batch's layer operands at the
-    widths the main path gives them (u = X·W: hidden, ..., n_classes)."""
+    widths the main path gives them (u = X·W: hidden, ..., n_classes),
+    through each operand's nonzero columns, built as the serving path
+    builds them (once per batch and layer, on the device after the copy):
+    their build time and host syncs (``column_build``) beside the
+    kernel's."""
     sampler = eng.sampler
     seeds = np.random.default_rng(3).choice(ds.graph.n_rows, sampler.batch_size,
                                             replace=False)
@@ -602,9 +716,10 @@ def kernel_phase(ds, eng, device, reps: int = 20) -> dict:
         n_in = batch.bucket.node_caps[l]
         x = torch.randn((n_in, f), generator=torch.Generator().manual_seed(l)).to(device)
         t = on_device(blk.fwd_bsr, device)
+        build, nzc = column_build(t["rows"], t["cols"], t["blocks"], n_out, device)
         err = max(err, check_spmm(f"layer {l} [{n_out}x{n_in}] F={f}",
                                   t["rows"], t["cols"], t["blocks"], x, n_out,
-                                  device))
+                                  device, nzc))
         csr = blk.csr
         a_lib = csr_tensor(csr, device)
         lib_err = float((torch.sparse.mm(a_lib, x)
@@ -614,16 +729,14 @@ def kernel_phase(ds, eng, device, reps: int = 20) -> dict:
             raise AssertionError(f"library yardstick disagrees: {lib_err}")
         row = {
             "layer": l, "n_rows_padded": n_out, "n_cols_padded": n_in, "F": f,
-            "n_blocks": int(t["blocks"].shape[0]), "nnz": int(csr.nnz),
+            "n_blocks": int(t["blocks"].shape[0]), "nnz": int(csr.nnz), **build,
         }
         calls = {
-            "": lambda: bsr_spmm(t["rows"], t["cols"], t["blocks"], x, n_out),
+            "": lambda: bsr_spmm(t["rows"], t["cols"], t["blocks"], x, n_out, nzc=nzc),
             "plain_": lambda: bsr_spmm_ref(t["rows"], t["cols"], t["blocks"], x, n_out),
             "library_": lambda: torch.sparse.mm(a_lib, x),
         }
-        row.update(timings(calls, device, reps,
-                           expect={"": {"bsr_spmm": 1}, "plain_": {},
-                                   "library_": {}}))
+        row.update(timings(calls, device, reps, expect=SPMM_EXPECT))
         row.update(spmm_bound(t["rows"], t["cols"], t["blocks"], f, n_out))
         print(f"[kernel] bsr_spmm layer {l}: " + json.dumps(row))
         layers.append(row)
@@ -694,7 +807,8 @@ def serving_phase(ds, eng, ref, sizes: Sizes) -> dict:
 def breakdown(eng, device, n_ids: int, reps: int = 5) -> dict:
     """Where one wave's batch spends its time, median of ``reps`` batches
     of ``n_ids`` seeds (host clock, synchronised): sampling and CSR→BSR on
-    the host, the copy to the device, the forward pass, the logits back.
+    the host, the copy to the device, the forward pass (each layer's
+    nonzero-column build inside it), the logits back.
     On the card, one more batch runs under the profiler (after a warmup
     batch): the device's busy time in it, and the idle share of the
     batch's median wall time; both None where no window recorded the
@@ -742,20 +856,21 @@ def fused_bound(op, f, self_term: bool, bias: bool, relu: bool,
     the mask rows beside the X rows it reads."""
     out = spmm_bound(op.block_rows, op.block_cols, op.blocks, f, op.n_rows_padded)
     extra = 4 * f * (op.n_rows_padded * (int(self_term) + int(relu)) + int(bias))
-    out["bytes"] += extra + (4 * f * out["x_rows"] if masked else 0)
-    out["nnz_bytes"] += extra + (4 * f * out["nnz_x_rows"] if masked else 0)
-    out["bound_ms"], out["bound_by"] = _bound(out["bytes"], out["flop"])
-    out["nnz_bound_ms"], _ = _bound(out["nnz_bytes"], out["flop"])
-    return out
+    out["bytes"] += extra + (4 * f * out["nnz_x_rows"] if masked else 0)
+    out["layout_bytes"] += extra + (4 * f * out["x_rows"] if masked else 0)
+    return _spmm_bounds(out)
 
 
-def row_cost(op, f, device, reps: int, masked: bool = False) -> dict:
-    """The fused kernel's (bias + ReLU; with ``masked``, the masked
-    kernel's) time on a stream holding only the block-row with the most
-    nonzero columns (the hub: split into segments of SPLIT_COLUMNS, one
-    CTA each, and the ordered second pass) against one holding only a row
-    of about the mean count; F=f. Both streams keep every other block-row,
-    empty, so both calls also write those rows."""
+def row_cost(op, f, device, reps: int, kernel: str) -> dict:
+    """``kernel``'s time (the fused one with bias + ReLU) on a stream
+    holding only the block-row with the most nonzero columns (the hub:
+    split into segments of SPLIT_COLUMNS, one CTA each, and the ordered
+    second pass) against one holding only a row of about the mean count;
+    F=f. Timed as the kernel's whole call is, so that the hub's share of
+    the call divides like by like: ``bsr_spmm`` by profiler device time
+    (``SPMM_EXPECT``), the fused and masked kernels by CUDA events
+    (``timings``). Both streams keep every other block-row, empty, so both
+    calls also write those rows."""
     per_row = op.nonzero_columns().columns_per_row()
     hub = int(torch.argmax(per_row))
     mean = float(per_row.float().mean())
@@ -767,8 +882,7 @@ def row_cost(op, f, device, reps: int, masked: bool = False) -> dict:
     x = torch.randn((n_in, f), generator=gen).to(device)
     m = (torch.randn((n_in, f), generator=gen) > 0).float().to(device)
     b = torch.zeros(f, device=device)
-    out = {"kernel": "bsr_spmm_masked" if masked else "bsr_spmm_fused_epilogue",
-           "F": f, "hub_columns": int(per_row[hub]), "mean_columns": mean,
+    out = {"kernel": kernel, "F": f, "hub_columns": int(per_row[hub]), "mean_columns": mean,
            "typical_columns": int(per_row[typical]),
            "hub_blocks": int(blocks_per_row[hub]),
            "typical_blocks": int(blocks_per_row[typical])}
@@ -777,13 +891,15 @@ def row_cost(op, f, device, reps: int, masked: bool = False) -> dict:
         r_, c_, bl = (op.block_rows[sel].contiguous(), op.block_cols[sel].contiguous(),
                       op.blocks[sel].contiguous())
         nz = nonzero_columns(r_, c_, bl, op.n_rows_padded)
-        if masked:
-            call = lambda: bsr_spmm_masked(r_, c_, bl, x, m, op.n_rows_padded, nzc=nz)
-        else:
-            call = lambda: bsr_spmm_fused_epilogue(
-                r_, c_, bl, x, op.n_rows_padded, bias=b, activation="relu", nzc=nz)
-        out.update({f"{label}_{k}": v for k, v in timings({"": call}, device,
-                                                          reps).items()})
+        call = {"bsr_spmm_masked": lambda: bsr_spmm_masked(
+                    r_, c_, bl, x, m, op.n_rows_padded, nzc=nz),
+                "bsr_spmm_fused_epilogue": lambda: bsr_spmm_fused_epilogue(
+                    r_, c_, bl, x, op.n_rows_padded, bias=b, activation="relu", nzc=nz),
+                "bsr_spmm": lambda: bsr_spmm(r_, c_, bl, x, op.n_rows_padded,
+                                             nzc=nz)}[kernel]
+        expect = {"": {kernel: 1}} if kernel == "bsr_spmm" else None
+        out.update({f"{label}_{k}": v for k, v in timings(
+            {"": call}, device, reps, expect=expect).items()})
     return out
 
 
@@ -856,26 +972,47 @@ def fused_kernel_phase(prog, csr_a, device, reps: int) -> dict:
     print("[kernel] " + json.dumps(row))
     f = dims[-1]
     dy = torch.randn((t_in, f), generator=gen).to(device)
-    sargs = (bwd.block_rows, bwd.block_cols, bwd.blocks, dy, bwd.n_rows_padded)
-    y = bsr_spmm(*sargs)
-    err["spmm"] = check_close(f"bsr_spmm Aᵀ F={f}", y, bsr_spmm_ref(*sargs))
-    row = {"kernel": "bsr_spmm", "operand": "A^T", "F": f,
-           "n_blocks": int(bwd.blocks.shape[0])}
-    row.update(timings({"": lambda: bsr_spmm(*sargs),
-                        "plain_": lambda: bsr_spmm_ref(*sargs),
-                        "library_": lambda: torch.sparse.mm(at_lib, dy[: bwd.n_cols])},
-                       device, reps))
-    row.update(spmm_bound(*sargs[:3], f, bwd.n_rows_padded))
-    rows[("spmm", f)] = row
-    print("[kernel] " + json.dumps(row))
-    for key, op, masked in (("hub", fwd, False), ("hub_masked", bwd, True)):
-        rows[key] = row_cost(op, dims[1], device, reps, masked)
-        call = rows[("masked", dims[1])] if masked else rows[("fused", dims[1], "relu")]
+    rows[("spmm", f)], err["spmm"] = spmm_operand_row("A^T", bwd, at_lib, dy, device, reps)
+    err["nonfinite"] = check_nonfinite(f"Aᵀ F={f}", bwd, dy, device)
+    for key, op, kernel in (("hub", fwd, "bsr_spmm_fused_epilogue"),
+                            ("hub_masked", bwd, "bsr_spmm_masked")):
+        rows[key] = row_cost(op, dims[1], device, reps, kernel)
+        call = (rows[("masked", dims[1])] if kernel == "bsr_spmm_masked"
+                else rows[("fused", dims[1], "relu")])
         rows[key]["full_call_ms"] = call["ms"]
+        rows[key]["full_call_ms_by"] = call["ms_by"]
         rows[key]["hub_share_of_call"] = rows[key]["hub_ms"] / call["ms"]
         print(f"[kernel] {key} row: " + json.dumps(rows[key]))
     rows["adam"], err["adam"] = adam_checks(prog, device, reps)
     return {"rows": rows, "err": err}
+
+
+def spmm_operand_row(label, op, lib, x, device, reps: int):
+    """``bsr_spmm`` on one full-batch operand at the path's width, through
+    the nonzero columns its binding built: checked against its plain
+    version (a repeat bitwise equal), then timed (device time, from the
+    profiler: a call takes 0.03-0.5 ms, about what the wrapper's host
+    side takes, so CUDA events over back-to-back calls would time the
+    host; ``wall_ms`` beside) beside the plain version and
+    ``torch.sparse.mm`` on the operand's CSR (``lib``), with both bounds
+    (``spmm_bound``) and the columns' count and bytes."""
+    f = x.shape[1]
+    args = (op.block_rows, op.block_cols, op.blocks, x, op.n_rows_padded)
+    nzc = op.nonzero_columns()
+    err = check_spmm(f"{label} [{op.n_rows_padded}x{op.n_cols_padded}] F={f}",
+                     *args, device, nzc)
+    check_close(f"library yardstick ({label})", torch.sparse.mm(lib, x[: op.n_cols]),
+                bsr_spmm_ref(*args)[: op.n_rows])
+    row = {"kernel": "bsr_spmm", "operand": label, "F": f,
+           "n_blocks": int(op.blocks.shape[0]), "columns": int(nzc.x_rows.numel()),
+           "nzc_bytes": nzc.nbytes, "split_rows": int(nzc.splits.shape[0])}
+    row.update(timings({"": lambda: bsr_spmm(*args, nzc=nzc),
+                        "plain_": lambda: bsr_spmm_ref(*args),
+                        "library_": lambda: torch.sparse.mm(lib, x[: op.n_cols])},
+                       device, reps, expect=SPMM_EXPECT))
+    row.update(spmm_bound(*args[:3], f, op.n_rows_padded))
+    print("[kernel] " + json.dumps(row))
+    return row, err
 
 
 def adam_checks(prog, device, reps: int):
@@ -927,10 +1064,10 @@ def adam_checks(prog, device, reps: int):
     return row, err
 
 
-#: what a kernel's second pass is counted under in a profiled window:
-#: ``nzc_split_reduce`` adds a split row's partial sums after the row pass,
-#: inside the same wrapper call, so its time is the kernel's and its
-#: launches are counted apart from the calls
+#: what a kernel's second pass is counted under in a profiled window: the
+#: split rows' pass (``nzc_split_reduce``, ``bsr_spmm_reduce``) adds their
+#: partial sums after the row pass, inside the same wrapper call, so its
+#: time is the kernel's and its launches are counted apart from the calls
 SECOND_PASS = " second pass"
 
 
@@ -938,17 +1075,20 @@ def launch_key(name: str) -> str:
     """What a profiler event's launches are counted under: its kernel, or
     the kernel's ``SECOND_PASS``."""
     kernel = classify(name)
-    return kernel + SECOND_PASS if "nzc_split_reduce<" in name else kernel
+    second = "nzc_split_reduce<" in name or "bsr_spmm_reduce<" in name
+    return kernel + SECOND_PASS if second else kernel
 
 
 def classify(name: str) -> str:
-    """A profiler event's kernel, by its (demangled) name; both passes of
-    the nonzero-column kernels (bsr_nzc.cuh) by their MASKED flag."""
+    """A profiler event's kernel, by its (demangled) name: the three SpMM
+    kernels' two passes over the nonzero-column loop (bsr_nzc.cuh) by
+    their names, bsr_spmm.cu's own or the fused and masked kernels' (by
+    their MASKED flag)."""
+    if "bsr_spmm_kernel<" in name or "bsr_spmm_reduce<" in name:
+        return "bsr_spmm"
     m = re.search(r"nzc_(?:kernel|split_reduce)<\s*\d+,\s*\d+,\s*(\w+),", name)
     if m:
         return "bsr_spmm_masked" if m.group(1) == "true" else "bsr_spmm_fused_epilogue"
-    if "bsr_kernel<" in name:  # bsr_common.cuh: only bsr_spmm.cu builds it
-        return "bsr_spmm"
     if "fused_adam_kernel" in name:
         return "fused_adam"
     for kind in ("fwd", "bwd_row", "bwd_col"):
@@ -1009,6 +1149,28 @@ def fused_executor(inner: str, hook):
         table["fused"] = fn
 
 
+def spmm_second_passes(prog) -> int:
+    """``bsr_spmm``'s second passes in one training step: its calls on an
+    operand with split rows (the feature operands X, Xᵀ; rarely Aᵀ),
+    recorded over one step's forward and backward through the ``cuda``
+    executor."""
+    table = kops._EXECUTORS["cuda"]
+    fn = table["spmm"]
+    split = []
+
+    def record(*args, nzc=None, **kw):
+        split.append(nzc is not None and nzc.splits.shape[0] > 0)
+        return fn(*args, nzc=nzc, **kw)
+
+    table["spmm"] = record
+    try:
+        value_and_grad(prog.model.loss_fn, prog.params, prog.x, prog.labels,
+                       prog.train_mask)
+    finally:
+        table["spmm"] = fn
+    return sum(split)
+
+
 def decided_grads(prog, ref, params) -> tuple:
     """Both programs' gradients at ``params``, the torch program's ReLU
     decisions taken from the cuda program's where the two part within
@@ -1052,22 +1214,15 @@ def decided_grads(prog, ref, params) -> tuple:
 
 
 def nzc_build(prog, device) -> dict:
-    """The fused-epilogue and masked kernels' operand (the nonzero columns
-    of A and Aᵀ), which ``compile`` built once on the device: its columns
-    and bytes, and its build time, taken by building it again for both
-    operands (synchronised host clock)."""
-    ops = [prog.plan.graph_op.fwd_operand, prog.plan.graph_op.bwd_operand]
-    sync(device)
-    t0 = time.perf_counter()
-    for op in ops:
-        nonzero_columns(op.block_rows, op.block_cols, op.blocks, op.n_rows_padded)
-    sync(device)
-    build_s = time.perf_counter() - t0
-    return {"columns": [int(op.nzc.x_rows.numel()) for op in ops],
-            "blocks": [int(op.blocks.shape[0]) for op in ops],
-            "bytes": [op.nzc.nbytes for op in ops],
-            "block_bytes": [op.blocks.numel() * 4 for op in ops],
-            "build_s": build_s}
+    """The SpMM kernels' operand (the nonzero columns of A and Aᵀ), which
+    ``compile`` built once on the device: ``column_build`` of each
+    (building it again), beside its blocks and their bytes."""
+    return {label: {**column_build(op.block_rows, op.block_cols, op.blocks,
+                                   op.n_rows_padded, device, reps=3)[0],
+                    "blocks": int(op.blocks.shape[0]),
+                    "block_bytes": op.blocks.numel() * 4}
+            for label, op in (("A", prog.plan.graph_op.fwd_operand),
+                              ("A^T", prog.plan.graph_op.bwd_operand))}
 
 
 def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
@@ -1114,6 +1269,7 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
         return out
 
     grad_start = grad_check("at the first step", prog.params)
+    spmm_second = spmm_second_passes(prog) if on_card else 0
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     losses, times = [], []
@@ -1156,12 +1312,14 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
            "peak_mem_bytes": peak, "accuracy": prog.accuracy(),
            "grad_start": grad_start, "grad_end": grad_end,
            "param_rel_diff": param_diff}
-    # each fused call runs on A, each masked call on Aᵀ: a call on an
-    # operand with split rows launches its second pass once
+    # each fused call runs on A, each masked call on Aᵀ, bsr_spmm on the
+    # operands recorded in one step: a call on an operand with split rows
+    # launches its second pass once
     split = {"bsr_spmm_fused_epilogue": prog.plan.graph_op.fwd_operand,
              "bsr_spmm_masked": prog.plan.graph_op.bwd_operand}
     second = {k + SECOND_PASS: want[k] if op.nzc is not None and op.nzc.splits.shape[0] else 0
               for k, op in split.items()}
+    second["bsr_spmm" + SECOND_PASS] = spmm_second
     out["profile"] = epoch_profile(prog, device, epoch_s, {**want, **second})
     print(f"[{name}] " + json.dumps({k: v for k, v in out.items()
                                      if k not in ("epoch_ms",)}))
@@ -1201,25 +1359,44 @@ def pair_unequal_paddings(prog, device) -> float:
     return err
 
 
-def feature_operand_checks(qds, prog, device) -> float:
-    """``bsr_spmm`` on the quickstart's Alg-1 sparse layer 0 against its
-    plain version, at the width the path gives it: X·W on BSR(X) and
-    Xᵀ·dU on BSR(Xᵀ), built as the lowering builds them. The dense operand
-    is scaled so that each output has unit variance: at N(0, 1) the
-    outputs of these ~440- and ~990-term rows reach ~150, and fp32's
+def feature_operand_checks(qds, prog, device, reps: int) -> dict:
+    """``bsr_spmm`` on the quickstart's three operands, at the widths the
+    path gives them: X·W on BSR(X) and Xᵀ·dU on BSR(Xᵀ) (the Alg-1 sparse
+    layer 0, built as the lowering builds them, F = hidden) and Aᵀ·dY on
+    corafull's Aᵀ (the plan's own, F = n_classes), each through
+    ``spmm_operand_row``; the non-finite case on BSR(X); and the hub
+    segment's cost on BSR(Xᵀ), whose every row is split. The dense
+    operand is scaled so that each output has unit variance: at N(0, 1)
+    the outputs of these ~440- and ~990-term rows reach ~150, and fp32's
     rounding with them."""
     br, f = prog.plan.layers[0].layout.br, prog.plan.layers[0].d_out
     x_csr = csr_from_dense(qds.features)
     gen = torch.Generator().manual_seed(19)
-    err = 0.0
-    for label, csr in (("X", x_csr), ("Xᵀ", x_csr.transpose())):
+    rows, err = {}, 0.0
+    for label, csr in (("X", x_csr), ("X^T", x_csr.transpose())):
         op = get_backend("cuda").build_spmm_operand(csr, br=br, device=device)
         w = torch.randn((op.n_cols_padded, f), generator=gen).to(device)
         w *= (csr.n_rows / csr.nnz) ** 0.5
-        err = max(err, check_spmm(
-            f"quickstart {label} [{op.n_rows_padded}x{op.n_cols_padded}] F={f}",
-            op.block_rows, op.block_cols, op.blocks, w, op.n_rows_padded, device))
-    return err
+        rows[label], e = spmm_operand_row(label, op, csr_tensor(csr, device), w,
+                                          device, reps)
+        err = max(err, e)
+        if label == "X":
+            err = max(err, check_nonfinite("BSR(X)", op, w, device))
+        else:
+            rows["hub X^T"] = row_cost(op, f, device, reps, "bsr_spmm")
+            rows["hub X^T"]["full_call_ms"] = rows[label]["ms"]
+            rows["hub X^T"]["full_call_ms_by"] = rows[label]["ms_by"]
+            rows["hub X^T"]["hub_share_of_call"] = (rows["hub X^T"]["hub_ms"]
+                                                    / rows[label]["ms"])
+            print("[kernel] hub row of BSR(Xᵀ): " + json.dumps(rows["hub X^T"]))
+        del op
+    bwd = prog.plan.graph_op.bwd_operand
+    c = prog.model.config.layer_dims[-1]
+    dy = torch.randn((bwd.n_cols_padded, c), generator=gen).to(device)
+    rows["A^T"], e = spmm_operand_row(
+        "A^T", bwd, csr_tensor(qds.graph.sym_normalized().transpose(), device), dy,
+        device, reps)
+    return {"rows": rows, "err": max(err, e)}
 
 
 def capture_attention(prog) -> list:
@@ -1423,18 +1600,29 @@ def attention_edge_cases(device) -> float:
 
 
 def attention_row_cost(kind, args, device, reps: int) -> dict:
-    """One attention pass on a stream holding only its longest block-row
-    (A's in-degree hub, or Aᵀ's out-degree hub: one CTA walks it) against
-    one holding only a row of about the mean length, at these inputs'
-    width."""
+    """One attention pass on a stream holding only its hub block-row (A's
+    in-degree hub, or Aᵀ's out-degree hub: one CTA walks it), the row with
+    the most nonzeros, blocks breaking a tie, as ``row_cost`` picks by
+    nonzero columns; against one holding only a row of about the mean
+    length in blocks, at these inputs' width. Also the row with the most
+    blocks (the first of a tie), with its blocks and nonzeros: several
+    rows may tie on blocks and hold very different nonzeros."""
     _, kernel, _ = ATTENTION[kind]
     rows, cols, blocks, *rest = args
     per_row = torch.bincount(rows.long())
-    hub = int(torch.argmax(per_row))
+    nnz_row = torch.zeros_like(per_row).index_add_(
+        0, rows.long(), blocks.ne(0).flatten(1).sum(1))
+    # nonzeros first, blocks second, the first row of a full tie
+    key = nnz_row * (int(per_row.max()) + 1) + per_row
+    hub = int(torch.argmax(key))
+    by_blocks = int(torch.argmax(per_row))
     mean = float(per_row[per_row > 0].float().mean())
     typical = int(torch.argmin((per_row.float() - mean).abs()))
-    out = {"hub_blocks": int(per_row[hub]), "mean_blocks": mean,
-           "typical_blocks": int(per_row[typical])}
+    out = {"hub_row": hub, "hub_blocks": int(per_row[hub]), "mean_blocks": mean,
+           "typical_blocks": int(per_row[typical]),
+           "most_blocks_row": by_blocks, "most_blocks_blocks": int(per_row[by_blocks]),
+           "most_blocks_nnz": int(nnz_row[by_blocks]),
+           "rows_with_most_blocks": int((per_row == per_row.max()).sum())}
     for label, row in (("hub", hub), ("typical", typical)):
         sel = rows == row
         out[f"{label}_nnz"] = int(blocks[sel].ne(0).sum())
@@ -1922,7 +2110,8 @@ def sum_rows(rows: list) -> dict:
     """Timed or bounded calls summed: times, bounds, bytes and operations;
     ``ms_by`` and ``bound_by`` of the sum."""
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "segment_ms",
-            "bound_ms", "nnz_bound_ms", "bytes", "nnz_bytes", "flop")
+            "bound_ms", "nnz_bound_ms", "layout_bound_ms", "bytes", "nnz_bytes",
+            "flop")
     total = {k: None if any(r.get(k) is None for r in rows)
              else sum(r[k] for r in rows) for k in keys}
     total["ms_by"] = "/".join(sorted({r["ms_by"] for r in rows}))
@@ -1950,6 +2139,8 @@ def epoch_entry(name: str, calls: list, err: float, epoch: dict) -> dict:
         "shape": "one epoch of the path at full width: ms as ms_by says; the "
                  "other times and the bounds each layer's call alone, summed",
     }
+    if total["layout_bound_ms"] is not None:
+        entry["layout_bound_ms"] = total["layout_bound_ms"]
     if total["segment_ms"] is not None:
         entry["segment_ms"] = total["segment_ms"]
         entry["segment_ms_is"] = (
@@ -1980,13 +2171,6 @@ def kernel_entries(serving_entry, launches_by_path, fk, ak, errs, dims,
     entries = [dict(serving_entry)]
     entries += [epoch_entry(name, calls, errs[name], epoch)
                 for name, calls in per_epoch.items()]
-    for e in entries:
-        if e["name"] in ("bsr_spmm_fused_epilogue", "bsr_spmm_masked"):
-            e["bound_is"] = ("the BSR layout's: every stored block that holds a "
-                         "nonzero read whole, which these kernels no longer "
-                             "do; nnz_bound_ms (each nonzero once, the X rows "
-                             "it references, Y) is the bound their design "
-                             "answers to")
     for kind, (name, _, _) in ATTENTION.items():
         calls = [ak["rows"][(kind, l)] for l in range(ak["layers"])]
         entries.append(epoch_entry(name, calls, errs[name], gat_epoch))
@@ -2027,10 +2211,15 @@ def run(sizes: Sizes, device) -> dict:
         "ms": total["ms"], "ms_by": total["ms_by"], "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
         "nnz_bound_ms": total["nnz_bound_ms"],
+        "layout_bound_ms": total["layout_bound_ms"],
         "library_ms": total["library_ms"],
         "wall_ms": total["wall_ms"],
+        "column_build_ms": sum(l["build_ms"] for l in layers),
+        "column_build_host_syncs": (None if layers[0]["host_syncs"] is None
+                                    else sum(l["host_syncs"] for l in layers)),
         "shape": "one largest-bucket serving batch: layers 0-2 summed; wall_ms "
-                 "CUDA events",
+                 "CUDA events; column_build_ms the batch's nonzero columns, "
+                 "built once per layer (synchronised host clock)",
     }
     del eng, ref
 
@@ -2070,7 +2259,7 @@ def run(sizes: Sizes, device) -> dict:
         raise AssertionError("the quickstart's layer 0 must bind "
                              "cuda.feature_matmul_sparse")
     pair_err = pair_unequal_paddings(quick["prog"], device)
-    feature_err = feature_operand_checks(qds, quick["prog"], device)
+    qk = feature_operand_checks(qds, quick["prog"], device, reps=5)
     del quick["prog"], quick["ref"]
     phase_s = {"2-6": time.perf_counter() - t_start}
 
@@ -2139,10 +2328,13 @@ def run(sizes: Sizes, device) -> dict:
         torch.cuda.empty_cache()
 
     attn_err = max(ak["err"]["edge"], attn_pair_err)
+    nonfinite = max(edge["nonfinite"], fk["err"]["nonfinite"])
     errs = {"bsr_spmm": max(kern["max_abs_err"], fk["err"]["spmm"], pair_err,
-                            feature_err),
-            "bsr_spmm_fused_epilogue": max(fk["err"]["fused"], edge["fused"], pair_err),
-            "bsr_spmm_masked": max(fk["err"]["masked"], edge["masked"], pair_err),
+                            qk["err"], nonfinite),
+            "bsr_spmm_fused_epilogue": max(fk["err"]["fused"], edge["fused"], pair_err,
+                                           nonfinite),
+            "bsr_spmm_masked": max(fk["err"]["masked"], edge["masked"], pair_err,
+                                   nonfinite),
             "fused_adam": fk["err"]["adam"],
             **{name: max(ak["err"][kind], attn_err)
                for kind, (name, _, _) in ATTENTION.items()}}
@@ -2157,11 +2349,12 @@ def run(sizes: Sizes, device) -> dict:
     entries = kernel_entries(serving_entry, by_path, fk, ak, errs, dims,
                              train["summary"]["profile"],
                              gat["summary"]["profile"], flash_entry(fa))
+    entries[0]["quickstart"] = qk["rows"]
     return {"kernels": entries, "layers": layers, "serve": serve,
             "sample_s": kern["sample_s"], "train": train["summary"],
             "quickstart": quick["summary"], "gat": gat["summary"],
             "gt": gt["summary"], "lm": lm_summary, "flash": fa, "phase_s": phase_s,
-            "attention_hub": ak["hub"],
+            "attention_hub": ak["hub"], "quickstart_spmm": qk["rows"],
             "kernel_rows": {str(k): v for k, v in fk["rows"].items()},
             "attention_rows": {str(k): v for k, v in ak["rows"].items()}}
 

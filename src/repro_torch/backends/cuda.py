@@ -3,13 +3,15 @@
 BSR operands (CSR -> BSR once, ``kernels/ops.py:BSRDevice``) consumed by
 the Hopper kernels: ``spmm`` runs ``kernels/csrc/bsr_spmm.cu``, and the
 native ``spmm_fused_epilogue`` runs ``bsr_spmm_fused.cu`` forward and
-``bsr_spmm_masked.cu`` (or ``bsr_spmm.cu``) on Aᵀ backward, the first two
-over each operand's nonzero columns (built once, when the op is bound),
-and
-``sparse_mha`` runs ``bsr_attention.cu`` (the forward and the row pass on
-A, the column pass on Aᵀ). The kernel wrappers run their plain versions
-for CPU tensors, so the same plans run in the CPU tests. The sampled path
-runs ``kernels/ops.py:bsr_spmm_pair`` with ``inner="cuda"``.
+``bsr_spmm_masked.cu`` (or ``bsr_spmm.cu``) on Aᵀ backward, all three over
+each operand's nonzero columns, built once when the op is bound
+(``spmm_transposed_vjp``, which ``feature_matmul_sparse`` binds over X
+and Xᵀ, and ``spmm_fused_epilogue``); ``sparse_mha`` runs
+``bsr_attention.cu`` (the forward and the row pass on A, the column pass
+on Aᵀ). The kernel wrappers run their plain versions for CPU tensors, so
+the same plans run in the CPU tests. The sampled path runs
+``kernels/ops.py:bsr_spmm_pair`` with ``inner="cuda"``, which builds
+each batch layer's columns where its product runs.
 """
 from __future__ import annotations
 
@@ -35,6 +37,16 @@ class CudaBackend(Backend):
 
     def spmm(self, operand, x: torch.Tensor) -> torch.Tensor:
         return operand.matmul(x, self.inner)
+
+    def spmm_transposed_vjp(self, fwd_operand, bwd_operand):
+        """The shared composition, with both operands' nonzero columns
+        built here, once, for the ``cuda`` executor (the ``torch`` one
+        reads none): no step pays for the build, and the operands'
+        ``nbytes`` count it."""
+        if self.inner == "cuda":
+            fwd_operand.nonzero_columns()
+            bwd_operand.nonzero_columns()
+        return super().spmm_transposed_vjp(fwd_operand, bwd_operand)
 
     def spmm_fused_epilogue(self, fwd_operand, bwd_operand):
         """The native fused kernel: the epilogue applied where each row's

@@ -9,15 +9,25 @@ The port of ``repro/kernels/bsr_spmm.py``'s three Pallas TPU kernels:
 * ``bsr_spmm_masked`` (:312): Y = A·(mask ⊙ X), the ReLU epilogue's VJP.
 
 For CUDA tensors each wrapper launches its hand-written Hopper kernel
-(``kernels/csrc/bsr_spmm*.cu``: one CTA per (block-row, feature tile), no
-atomics, bitwise repeatable); for CPU tensors it runs the plain version in
-``kernels/ref.py``. There is no fallback between the two: a CUDA call that
-cannot launch raises. ``bsr_spmm`` walks whole blocks (``bsr_common.cuh``);
-the fused-epilogue and masked kernels walk only the block columns that
-hold a nonzero (``bsr_nzc.cuh``), from a ``NonzeroColumns`` operand built
-once per BSR operand (``nonzero_columns``). The ``.cuh`` notes say what
-bounds the kernels; PERF.md has their times. Each wrapper counts its
-launches in ``.launches``.
+(``kernels/csrc/bsr_spmm*.cu``, no atomics, bitwise repeatable); for CPU
+tensors it runs the plain version in ``kernels/ref.py``. There is no
+fallback between the two: a CUDA call that cannot launch raises. All three
+kernels walk only the block columns that hold a nonzero (the one loop of
+``bsr_nzc.cuh``), from a ``NonzeroColumns`` operand built once per BSR
+operand (``nonzero_columns``): a CUDA call takes it as ``nzc=`` and raises
+without it; a CPU call ignores it. The ``.cuh`` notes say what bounds the
+kernels; PERF.md has their times. Each wrapper counts its launches in
+``.launches``.
+
+Non-finite X. The kernels give the sparse product, the answer of the JAX
+package's ``gather`` backend (a segment sum over the edges): an X row
+that no nonzero of A multiplies is never read, so an inf or NaN in it
+reaches no output. The Pallas kernel multiplies whole blocks, and so do
+the plain versions here: there such a row meets its block's stored zeros
+and gives NaN on every row of the block-row (0·inf = NaN). A row that a
+nonzero multiplies is read for its whole block column, on every backend
+and kernel, so its inf or NaN reaches that nonzero's row (and, through
+stored zeros, the block's other rows).
 """
 from __future__ import annotations
 
@@ -34,11 +44,13 @@ from repro_torch.kernels.ref import (
     bsr_spmm_ref,
 )
 
-#: (br, bc) tiles the kernels take: ``bsr_spmm`` instantiates each
-#: (``csrc/bsr_common.cuh:BSR_FOR_EACH_TILE``), the nonzero-column kernels
-#: each br (``csrc/bsr_nzc.cuh:NZC_FOR_EACH_BR``)
+#: the (br, bc) tiles the tests and ``chip_smoke.py`` sweep: the JAX
+#: package's tiles at br 8 and 16
 TILES = ((8, 8), (8, 16), (8, 32), (8, 64), (8, 128), (16, 16), (16, 32),
          (16, 64))
+#: the block heights the kernels are built for
+#: (``csrc/bsr_nzc.cuh:NZC_FOR_EACH_BR``); they take any bc
+BUILT_BR = (8, 16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _INDEX_NAMES = ("block_rows", "block_cols", "items", "splits", "x_rows")
@@ -53,8 +65,8 @@ SPLIT_COLUMNS = 1024
 @dataclasses.dataclass(frozen=True)
 class NonzeroColumns:
     """The block columns of a BSR operand that hold a nonzero, in stream
-    order (block, then column k within it): what the fused-epilogue and
-    masked kernels read instead of the blocks, with the CTAs' work list.
+    order (block, then column k within it): what the three SpMM kernels
+    read instead of the blocks, with the CTAs' work list.
     About 4·(br + 1) bytes a column (36 at br=8) against 4·br·bc a block;
     a full-graph 8x128 block of ogbn-arxiv's A keeps ~1.4 of its 128.
 
@@ -96,7 +108,11 @@ def nonzero_columns(block_rows: torch.Tensor, block_cols: torch.Tensor,
     an empty item, which writes its epilogue). A row of more than
     ``SPLIT_COLUMNS`` columns becomes segments of that many. Needs the blocks
     sorted by block-row, as ``csr_to_bsr`` and the sampler give them; the
-    blocks' own order within a row is kept."""
+    blocks' own order within a row is kept. Its sizes depend on the data,
+    so on the card the build waits for the device a few times
+    (``.nonzero()``, ``bincount``, ``repeat_interleave``, ``int``):
+    negligible once per full-batch operand, paid once per batch and layer
+    on the sampled path."""
     n_blocks, br, bc = blocks.shape
     n_brows = n_rows_padded // br
     dev = blocks.device
@@ -180,7 +196,7 @@ def _check(block_rows, block_cols, blocks, x, n_rows_padded):
 
 def _check_launch(**tensors):
     """What the CUDA kernels take: every operand on x's card, int32
-    indices, float32 values, contiguous; and a built tile."""
+    indices, float32 values, contiguous; and a built block height."""
     device = tensors["x"].device
     for name, t in tensors.items():
         if t is None:
@@ -192,9 +208,9 @@ def _check_launch(**tensors):
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    br, bc = tensors["blocks"].shape[1:]
-    if (br, bc) not in TILES:
-        raise ValueError(f"tile ({br}, {bc}) is not built; tiles: {TILES}")
+    br = tensors["blocks"].shape[1]
+    if br not in BUILT_BR:
+        raise ValueError(f"block height {br} is not built; built: {BUILT_BR}")
 
 
 def _nzc_tensors(nzc: NonzeroColumns) -> dict:
@@ -202,7 +218,7 @@ def _nzc_tensors(nzc: NonzeroColumns) -> dict:
             "values": nzc.values}
 
 
-#: the C types of ``_nzc_args``: both entry points take them first
+#: the C types of ``_nzc_args``: the three entry points take them first
 _NZC_ARGTYPES = (_P, _I, _P, _I, _P, _P, _P)
 
 
@@ -248,30 +264,38 @@ def bsr_spmm(
     blocks: torch.Tensor,  # [n_blocks, BR, BC] float32
     x: torch.Tensor,  # [n_cols_padded, F] float32, any F
     n_rows_padded: int,
+    nzc: Optional[NonzeroColumns] = None,
 ) -> torch.Tensor:
     """Y = A @ X with A in flattened BSR. Output is float32 [n_rows_padded, F].
 
-    Block indices must lie inside the padded operand, rows sorted and each
-    row's block-columns increasing, zero padding blocks trailing
-    (``csr_to_bsr`` and the sampler guarantee it); the kernel does not
-    re-check them on the device. CPU calls run the plain version and do
-    not count as launches.
+    Block indices must lie inside the padded operand, rows sorted (as
+    ``csr_to_bsr`` and the sampler give them); the kernel does not
+    re-check them on the device. The kernel reads the operand's ``nzc``
+    (``nonzero_columns`` of these blocks, built once per operand:
+    ``BSRDevice.nonzero_columns()``, or once per batch and layer by
+    ``kernels/ops.py:bsr_spmm_pair`` on the sampled path), not the
+    blocks; a CUDA call requires it. CPU calls run the plain version and
+    do not count as launches.
     """
     _check(block_rows, block_cols, blocks, x, n_rows_padded)
+    if nzc is not None:
+        _check_nzc(nzc, blocks.shape[1], n_rows_padded)
     if x.device.type == "cpu":
         return bsr_spmm_ref(block_rows, block_cols, blocks, x, n_rows_padded)
+    _require_nzc(nzc)
     _check_launch(block_rows=block_rows, block_cols=block_cols,
-                  blocks=blocks, x=x)
-    n_blocks, br, bc = blocks.shape
+                  blocks=blocks, x=x, **_nzc_tensors(nzc))
+    br = blocks.shape[1]
     f = x.shape[1]
     y = torch.empty((n_rows_padded, f), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
-    fn = _entry("bsr_spmm", "bsr_spmm_f32", (_P,) * 5 + (_I,) * 5 + (_P,))
+    partial = _partial(nzc, f, x.device)
+    fn = _entry("bsr_spmm", "bsr_spmm_f32",
+                _NZC_ARGTYPES + (_P,) * 2 + (_I,) * 3 + (_P,))
     with torch.cuda.device(x.device):
-        err = fn(block_rows.data_ptr(), block_cols.data_ptr(),
-                 blocks.data_ptr(), x.data_ptr(), y.data_ptr(), n_blocks,
-                 n_rows_padded // br, f, br, bc, _stream(x.device))
+        err = fn(*_nzc_args(nzc, partial), x.data_ptr(), y.data_ptr(), f, br,
+                 int(_vec4(f, x)), _stream(x.device))
     _raise_on(err, "bsr_spmm")
     bsr_spmm.launches += 1
     return y

@@ -15,10 +15,10 @@
 //   att = exp(s - m_i) / max(l_i, 1e-20), dpre = att (dy_i·z_j - r_i) lrelu'
 // z and dy are head-major [rows, H*Dh]; adst, asrc, m, l, r, dc, dd [rows, H].
 //
-// Translation of the sequential TPU grid, as in bsr_common.cuh: the Pallas
-// kernels walk the stream in order and keep a block-row's output tiles in
-// VMEM from first_in_row to last_in_row. Here each CTA owns one (block-row,
-// column tile), finds the row's blocks by a device-side binary search over
+// Translation of the sequential TPU grid: the Pallas kernels walk the
+// stream in order and keep a block-row's output tiles in VMEM from
+// first_in_row to last_in_row. Here each CTA owns one (block-row, column
+// tile), finds the row's blocks by a device-side binary search over
 // the sorted block_rows, loops over them itself, and finalises after the
 // loop; first_in_row and last_in_row are not read. It stops at the first
 // block-column that does not increase (the sampler's zero padding tail).
@@ -60,8 +60,8 @@
 // blocks, and a block's three dependent steps (values, then the active
 // columns' statistics, then their z rows) sit between three barriers, so
 // a CTA's row is a latency-bound serial chain. The longest sets a call's
-// floor: on the ogbn-arxiv analog, A's in-degree hub row (1,323 blocks,
-// 17,433 nonzeros) alone takes 12 ms of a 29 ms forward and 18 ms of a
+// floor: on the ogbn-arxiv analog, A's hub block-row (1,323 blocks,
+// 34,396 nonzeros) alone takes 17 ms of a 29 ms forward and 28 ms of a
 // 30 ms row pass (PERF.md).
 
 #include "bsr_common.cuh"

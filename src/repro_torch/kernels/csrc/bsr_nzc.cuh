@@ -1,7 +1,11 @@
-// The nonzero-column row loop for Hopper (sm_90a), shared by
-// bsr_spmm_fused.cu and bsr_spmm_masked.cu: Y = act(A·(M ⊙ X) + α·self +
-// bias) in float32 over the stream of A's block columns that hold a
-// nonzero (kernels/bsr_spmm.py:nonzero_columns), not over the blocks.
+// The nonzero-column row loop for Hopper (sm_90a), the one SpMM loop of
+// the port, shared by bsr_spmm.cu, bsr_spmm_fused.cu and
+// bsr_spmm_masked.cu: Y = act(A·(M ⊙ X) + α·self + bias) in float32 over
+// the stream of A's block columns that hold a nonzero
+// (kernels/bsr_spmm.py:nonzero_columns), not over the blocks. Each entry
+// file wraps the loop's two passes (row_pass, split_pass) in kernels of
+// its own names: nzc_kernel / nzc_split_reduce for the fused-epilogue and
+// masked kernels, bsr_spmm_kernel / bsr_spmm_reduce for the plain product.
 //
 // The operand, built once per BSR operand on the device: for each column
 // in stream order (block, then column k within it) the X row
@@ -51,10 +55,16 @@
 // arxiv calls.
 //
 // Numbers: for finite X the sum holds the same nonzero terms as the BSR
-// product over whole blocks, in another order. Where X holds an inf or a
-// NaN in a row that a block column of zeros would have multiplied, the
-// BSR product (and the Pallas dot) gives NaN there, and this kernel,
-// which never reads that row, does not (neither does cuSPARSE's CSR).
+// product over whole blocks, in another order. A non-finite X: these
+// kernels give the sparse product. An X row that no nonzero of A
+// multiplies is never read, so an inf or NaN in it reaches no output:
+// the answer of the JAX package's gather backend (a segment sum over the
+// edges, repro/backends/gather.py) and of cuSPARSE's CSR, not the Pallas
+// kernel's, whose dot multiplies the row by its block's stored zeros and
+// gives NaN there (so do the port's plain versions, kernels/ref.py). A row
+// that a nonzero multiplies is read for its whole block column, so its inf
+// or NaN reaches that nonzero's output row, as on every backend, and the
+// other rows of the block through their stored zeros (0·inf = NaN).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -133,15 +143,17 @@ __device__ __forceinline__ void finish(float (&out)[V], size_t i, float a,
   store<V>(y + i, out);
 }
 
+// The row pass over one work item, the CTA's whole body: blockIdx.x the
+// item, blockIdx.y the feature tile of 2^lanes_log2 vectors.
 template <int BR, int V, bool MASKED, bool HAS_SELF, bool HAS_BIAS,
           bool RELU>
-__global__ void __launch_bounds__(kThreads)
-nzc_kernel(const int4* __restrict__ items, const int* __restrict__ x_rows,
-           const float* __restrict__ values, float* __restrict__ partial,
-           const float* __restrict__ x, const float* __restrict__ mask_in,
-           const float* __restrict__ self, const float* __restrict__ bias,
-           const float* __restrict__ alpha, float* __restrict__ y,
-           float* __restrict__ mask_out, int f, int lanes_log2) {
+__device__ __forceinline__ void row_pass(
+    const int4* __restrict__ items, const int* __restrict__ x_rows,
+    const float* __restrict__ values, float* __restrict__ partial,
+    const float* __restrict__ x, const float* __restrict__ mask_in,
+    const float* __restrict__ self, const float* __restrict__ bias,
+    const float* __restrict__ alpha, float* __restrict__ y,
+    float* __restrict__ mask_out, int f, int lanes_log2) {
   static_assert(BR % 4 == 0, "a column's values are staged as float4");
   constexpr int kChunk = kStageFloats / BR;  // columns staged per chunk
   // the staged values during the loop, the groups' partial sums after it
@@ -259,18 +271,14 @@ nzc_kernel(const int4* __restrict__ items, const int* __restrict__ x_rows,
   }
 }
 
-// The second pass over the split rows: one CTA a row adds its segments'
-// partial sums in segment order and applies the epilogue. MASKED is not
-// read; it keeps the kernel's name apart from the fused kernel's.
-template <int BR, int V, bool MASKED, bool HAS_SELF, bool HAS_BIAS,
-          bool RELU>
-__global__ void __launch_bounds__(kThreads)
-nzc_split_reduce(const int* __restrict__ splits,
-                 const float* __restrict__ partial,
-                 const float* __restrict__ self,
-                 const float* __restrict__ bias,
-                 const float* __restrict__ alpha, float* __restrict__ y,
-                 float* __restrict__ mask_out, int f) {
+// The second pass over the split rows, one CTA a row (blockIdx.x): add
+// its segments' partial sums in segment order and apply the epilogue.
+template <int BR, int V, bool HAS_SELF, bool HAS_BIAS, bool RELU>
+__device__ __forceinline__ void split_pass(
+    const int* __restrict__ splits, const float* __restrict__ partial,
+    const float* __restrict__ self, const float* __restrict__ bias,
+    const float* __restrict__ alpha, float* __restrict__ y,
+    float* __restrict__ mask_out, int f) {
   const int brow = __ldg(splits + 3 * blockIdx.x);
   const int first = __ldg(splits + 3 * blockIdx.x + 1);
   const int n = __ldg(splits + 3 * blockIdx.x + 2);
@@ -295,18 +303,56 @@ nzc_split_reduce(const int* __restrict__ splits,
   }
 }
 
+// A group's lanes for F, as log2: the feature vectors F needs, rounded up
+// to a power of two, at most a warp; wider F takes more CTAs along y.
+inline int lanes_log2_for(int f, int v) {
+  const int vectors = (f + v - 1) / v;
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < vectors && lanes_log2 < 5) ++lanes_log2;
+  return lanes_log2;
+}
+
+inline dim3 grid_for(int n_items, int f, int v, int lanes_log2) {
+  const int vectors = (f + v - 1) / v;
+  const int lanes = 1 << lanes_log2;
+  return dim3(n_items, (vectors + lanes - 1) / lanes);
+}
+
+template <int BR, int V, bool MASKED, bool HAS_SELF, bool HAS_BIAS,
+          bool RELU>
+__global__ void __launch_bounds__(kThreads)
+nzc_kernel(const int4* __restrict__ items, const int* __restrict__ x_rows,
+           const float* __restrict__ values, float* __restrict__ partial,
+           const float* __restrict__ x, const float* __restrict__ mask_in,
+           const float* __restrict__ self, const float* __restrict__ bias,
+           const float* __restrict__ alpha, float* __restrict__ y,
+           float* __restrict__ mask_out, int f, int lanes_log2) {
+  row_pass<BR, V, MASKED, HAS_SELF, HAS_BIAS, RELU>(
+      items, x_rows, values, partial, x, mask_in, self, bias, alpha, y,
+      mask_out, f, lanes_log2);
+}
+
+// MASKED is not read; it keeps the kernel's name apart from the fused
+// kernel's.
+template <int BR, int V, bool MASKED, bool HAS_SELF, bool HAS_BIAS,
+          bool RELU>
+__global__ void __launch_bounds__(kThreads)
+nzc_split_reduce(const int* __restrict__ splits,
+                 const float* __restrict__ partial,
+                 const float* __restrict__ self,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ alpha, float* __restrict__ y,
+                 float* __restrict__ mask_out, int f) {
+  split_pass<BR, V, HAS_SELF, HAS_BIAS, RELU>(splits, partial, self, bias,
+                                             alpha, y, mask_out, f);
+}
+
 template <int BR, int V, bool MASKED, bool HAS_SELF, bool HAS_BIAS,
           bool RELU>
 cudaError_t launch_v(const Args& a) {
-  // A group's lanes: the feature vectors F needs, rounded up to a power of
-  // two, at most a warp; wider F takes more CTAs along y.
-  const int vectors = (a.f + V - 1) / V;
-  int lanes_log2 = 0;
-  while ((1 << lanes_log2) < vectors && lanes_log2 < 5) ++lanes_log2;
-  const int lanes = 1 << lanes_log2;
-  const dim3 grid(a.n_items, (vectors + lanes - 1) / lanes);
+  const int lanes_log2 = lanes_log2_for(a.f, V);
   nzc_kernel<BR, V, MASKED, HAS_SELF, HAS_BIAS, RELU>
-      <<<grid, kThreads, 0, a.stream>>>(
+      <<<grid_for(a.n_items, a.f, V, lanes_log2), kThreads, 0, a.stream>>>(
           a.items, a.x_rows, a.values, a.partial, a.x, a.mask_in, a.self,
           a.bias, a.alpha, a.y, a.mask_out, a.f, lanes_log2);
   cudaError_t err = cudaGetLastError();
@@ -326,5 +372,5 @@ cudaError_t launch(const Args& a) {
 
 }  // namespace nzc
 
-// The block heights every entry instantiates (kernels/bsr_spmm.py:TILES).
+// The block heights every entry instantiates (kernels/bsr_spmm.py:BUILT_BR).
 #define NZC_FOR_EACH_BR(X) X(8) X(16)

@@ -87,10 +87,10 @@ def _fit_rows(x: torch.Tensor, n: int) -> torch.Tensor:
 @dataclasses.dataclass
 class BSRDevice:
     """Device-resident flattened BSR + padding metadata. The kernels find
-    each row's range themselves (a search over ``block_rows``, or the
-    work list ``nzc.items``) and apply the epilogue at the row's end, so
-    ``first_in_row``/``last_in_row`` are not carried. ``nzc``, the
-    operand's nonzero columns that the fused-epilogue and masked kernels
+    each row's range themselves (the work list ``nzc.items``, or for
+    attention a search over ``block_rows``) and apply the epilogue at the
+    row's end, so ``first_in_row``/``last_in_row`` are not carried.
+    ``nzc``, the operand's nonzero columns that the three SpMM kernels
     read, is built once by ``nonzero_columns()``."""
 
     block_rows: torch.Tensor  # [n_blocks] int32
@@ -136,10 +136,13 @@ class BSRDevice:
     def matmul(self, x: torch.Tensor, inner: str = "cuda") -> torch.Tensor:
         """Y = A @ X, unpadded in and out: x is [n_cols, F], returns
         [n_rows, F]. The row pad and slice are no-ops when x is already
-        padded; F is never padded."""
+        padded; F is never padded. The ``cuda`` executor reads the
+        operand's nonzero columns (built at the first call where the op's
+        binding did not build them)."""
         x_p = _fit_rows(x.float(), self.n_cols_padded).contiguous()
         y = _executor(inner, "spmm")(self.block_rows, self.block_cols,
-                                     self.blocks, x_p, self.n_rows_padded)
+                                     self.blocks, x_p, self.n_rows_padded,
+                                     **_nzc_kw(inner, self.nonzero_columns))
         return y[: self.n_rows] if self.n_rows != self.n_rows_padded else y
 
 
@@ -154,24 +157,37 @@ def build_bsr_pair(graph: CSRGraph, br: int = 8, bc: Optional[int] = None,
     return fwd, bwd
 
 
+def _nzc_kw(inner: str, build) -> dict:
+    """``nzc=``, the operand's nonzero columns from ``build()``, for the
+    ``cuda`` executor; the ``torch`` one reads none and builds none."""
+    return {"nzc": build()} if inner == "cuda" else {}
+
+
+def _arrays_spmm(arrays: tuple, x: torch.Tensor, n_rows_padded: int,
+                 inner: str) -> torch.Tensor:
+    """Y = A @ X on a per-batch 4-tuple operand, its nonzero columns built
+    for the call (the operand is used once)."""
+    rows, cols, _first, blocks = arrays
+    return _executor(inner, "spmm")(
+        rows, cols, blocks, x, n_rows_padded, **_nzc_kw(
+            inner, lambda: nonzero_columns(rows, cols, blocks, n_rows_padded)))
+
+
 class _BSRSpmmPair(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, fwd_arrays, bwd_arrays, n_rows_padded, inner):
         ctx.bwd_arrays = bwd_arrays
         ctx.n_cols_padded = x.shape[0]
         ctx.inner = inner
-        rows, cols, _first, blocks = fwd_arrays
-        return _executor(inner, "spmm")(rows, cols, blocks, x, n_rows_padded)
+        return _arrays_spmm(fwd_arrays, x, n_rows_padded, inner)
 
     @staticmethod
     def backward(ctx, dy):
         if ctx.bwd_arrays is None:
             raise RuntimeError("bsr_spmm_pair was called without the "
                                "transposed operand; no gradient exists")
-        rows, cols, _first, blocks = ctx.bwd_arrays
-        dx = _executor(ctx.inner, "spmm")(rows, cols, blocks,
-                                          dy.float().contiguous(),
-                                          ctx.n_cols_padded)
+        dx = _arrays_spmm(ctx.bwd_arrays, dy.float().contiguous(),
+                          ctx.n_cols_padded, ctx.inner)
         return dx, None, None, None, None
 
 
@@ -186,13 +202,12 @@ def bsr_spmm_pair(fwd_arrays: tuple, bwd_arrays: Optional[tuple],
     ``x`` is [n_cols_padded, F] with any F; ``bwd_arrays`` may be ``None``
     where no gradient is taken (inference), and the backward then raises.
     Both paddings must agree (the sampler aligns its caps to lcm(br, bc)).
+    For the ``cuda`` executor each operand's ``NonzeroColumns`` is built
+    on its device where its product runs: the sampled path binds a pair
+    per batch and layer and calls it once, so once per batch and layer
+    (its host syncs included, ``nonzero_columns``).
     """
     return _BSRSpmmPair.apply(x, fwd_arrays, bwd_arrays, n_rows_padded, inner)
-
-
-def _nzc_kw(op: BSRDevice, inner: str) -> dict:
-    """The kernels' nonzero-column operand, for the ``cuda`` executor."""
-    return {"nzc": op.nonzero_columns()} if inner == "cuda" else {}
 
 
 class _BSRSpmmFusedPair(torch.autograd.Function):
@@ -203,7 +218,8 @@ class _BSRSpmmFusedPair(torch.autograd.Function):
     def forward(ctx, x, self_term, bias, alpha, fwd, bwd, inner, activation):
         y, mask = _executor(inner, "fused")(
             fwd.block_rows, fwd.block_cols, fwd.blocks, x, fwd.n_rows_padded,
-            self_term, bias, alpha, activation, **_nzc_kw(fwd, inner))
+            self_term, bias, alpha, activation,
+            **_nzc_kw(inner, fwd.nonzero_columns))
         ctx.save_for_backward(mask, self_term, alpha)
         ctx.fwd, ctx.bwd, ctx.inner = fwd, bwd, inner
         ctx.relu = activation == "relu"
@@ -226,11 +242,12 @@ class _BSRSpmmFusedPair(torch.autograd.Function):
                 dx = _executor(inner, "masked")(
                     bwd.block_rows, bwd.block_cols, bwd.blocks,
                     _fit_rows(dy, t_in), _fit_rows(mask, t_in),
-                    bwd.n_rows_padded, **_nzc_kw(bwd, inner))
+                    bwd.n_rows_padded, **_nzc_kw(inner, bwd.nonzero_columns))
             else:
                 dx = _executor(inner, "spmm")(
                     bwd.block_rows, bwd.block_cols, bwd.blocks,
-                    _fit_rows(dy, t_in), bwd.n_rows_padded)
+                    _fit_rows(dy, t_in), bwd.n_rows_padded,
+                    **_nzc_kw(inner, bwd.nonzero_columns))
             dx = _fit_rows(dx, fwd.n_cols_padded)
         if need_self or need_bias or need_alpha:
             # the epilogue's own cotangents, plain tensor ops as in JAX

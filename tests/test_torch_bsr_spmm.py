@@ -1,12 +1,16 @@
 """Port parity, kernel layer: ``repro_torch.kernels`` ``bsr_spmm`` (its plain
 version, which the wrapper runs for CPU tensors) against the JAX package's
 Pallas kernel in interpret mode and its jnp reference, and
-``bsr_spmm_pair``'s backward against ``jax.vjp``. The Hopper kernel itself
-runs only on the card: its test is marked ``cuda`` and skips here.
+``bsr_spmm_pair``'s backward against ``jax.vjp``; the sampled path's
+per-batch nonzero columns (one build per batch and layer) and its forward
+against the JAX pair's; a CUDA call without the columns raises. The
+Hopper kernel itself runs only on the card: its test is marked ``cuda``
+and skips here.
 
 Tolerance 1e-5 (absolute and relative, float32): the kernel, the plain
 version and the Pallas interpreter sum the same products in different
-orders."""
+orders; 1e-4 for the sampled path's forward, the JAX suite's SpMM
+tolerance."""
 import itertools
 import types
 
@@ -17,9 +21,19 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.graph.csr import csr_from_edges, csr_to_bsr  # noqa: E402
 from repro_torch.graph.sampling import NeighborSampler, _pad_bsr  # noqa: E402
+from repro_torch.kernels import bsr_spmm as bsr_spmm_module  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
-from repro_torch.kernels.bsr_spmm import TILES, bsr_spmm  # noqa: E402
+from repro_torch.kernels.bsr_spmm import (  # noqa: E402
+    TILES,
+    _vec4,
+    bsr_spmm,
+    bsr_spmm_fused_epilogue,
+    bsr_spmm_masked,
+    nonzero_columns,
+)
 from repro_torch.kernels.ref import bsr_spmm_ref  # noqa: E402
+from repro_torch.models.gnn import GNNConfig  # noqa: E402
+from repro_torch.training.trainer import MiniBatchTrainer  # noqa: E402
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -139,6 +153,99 @@ def test_bsr_spmm_pair_forward_and_backward_match_jax_vjp(jx, f, inner):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), **TOL)
 
 
+def test_sampled_batch_builds_one_operand_per_layer_and_matches_jax(jx, monkeypatch):
+    """The serving path on the ``cuda`` backend (device cpu): a real
+    sampler batch (8x8 buckets, the zero padding tail) gets one
+    ``NonzeroColumns`` per layer, built by ``bsr_spmm_pair`` where the
+    layer's product runs (the copy builds none); each layer's operand
+    covers its block-rows with no padding column, and ``bsr_spmm_pair``
+    matches the JAX package's ``bsr_spmm_pair`` forward (Pallas,
+    interpret mode) within 1e-4, as does the walk over the columns that
+    the kernel makes."""
+    r = np.random.default_rng(4)
+    n, f = 120, 16
+    src = np.concatenate([r.integers(0, n, 700), np.arange(n)])
+    dst = np.concatenate([r.integers(0, n, 700), np.arange(n)])
+    feats = r.random((n, f)).astype(np.float32)
+    tr = MiniBatchTrainer(GNNConfig(kind="GCN", layer_dims=[f, 12, 5]),
+                          csr_from_edges(src, dst, n), feats, None, None,
+                          None, fanouts=(5, 4), batch_size=16, n_buckets=2,
+                          infer_only=True, device="cpu")
+    built = []
+    real = tops.nonzero_columns
+
+    def counted(*args):
+        built.append((args[3], real(*args)))
+        return built[-1][1]
+
+    monkeypatch.setattr(tops, "nonzero_columns", counted)
+    batch = tr.sampler.sample_batch(np.arange(9), tr.features)
+    data = tr._batch_arrays(batch)
+    assert built == []
+    tr._infer(tr.params, data)
+    assert [b[0] for b in built] == [batch.valid[i + 1].shape[0] for i in range(2)]
+    order = ("rows", "cols", "first", "blocks")
+    for i, blk in enumerate(data["blocks"]):
+        fwd = blk["fwd"]
+        n_out, n_in = batch.valid[i + 1].shape[0], batch.valid[i].shape[0]
+        x = r.standard_normal((n_in, f)).astype(np.float32)
+        xt = torch.from_numpy(x)
+        built.clear()
+        y = tops.bsr_spmm_pair(tuple(fwd[k] for k in order), None, xt, n_out,
+                               "cuda")
+        assert len(built) == 1
+        nzc = built[0][1]
+        held = fwd["blocks"].ne(0).any(dim=1).sum()
+        assert nzc.x_rows.numel() == int(held) and nzc.n_block_rows == n_out // 8
+        padding = int((fwd["blocks"].reshape(fwd["blocks"].shape[0], -1)
+                       .ne(0).any(dim=1) == 0).sum())
+        assert padding > 0  # the bucket's padding tail, which gives no column
+        y_j = jx.ops.bsr_spmm_pair(
+            tuple(jx.jnp.asarray(fwd[k].numpy()) for k in order), None,
+            jx.jnp.asarray(x), n_out, f, True, "pallas")
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=1e-4, rtol=1e-4)
+        walk = torch.zeros((n_out // 8, 8, f))
+        for row, begin, end, slot in nzc.items.tolist():
+            assert slot == -1  # no row of a bucket is past the split
+            walk[row] = torch.einsum("nr,nf->rf", nzc.values[begin:end],
+                                     xt[nzc.x_rows[begin:end].long()])
+        np.testing.assert_allclose(walk.reshape(n_out, f).numpy(), np.asarray(y_j),
+                                   atol=1e-4, rtol=1e-4)
+    # the plain executor reads no columns, and none are built for it
+    built.clear()
+    tr._inner = "torch"
+    tr._infer(tr.params, tr._batch_arrays(batch))
+    assert built == []
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: what a wrapper does with a
+    card's tensor before its first CUDA call, on a machine without one."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("kernel", ["bsr_spmm", "fused", "masked"])
+def test_cuda_call_without_nzc_raises(kernel):
+    """A CUDA call reads the operand's nonzero columns and never builds
+    them itself: without ``nzc`` it raises before launching anything."""
+    arrays, nrp, ncp, _ = _operand(0, 16, 16, 20, 8, 8)
+    t = {k: torch.from_numpy(v).as_subclass(_OnCard) for k, v in arrays.items()}
+    x = torch.zeros((ncp, 4)).as_subclass(_OnCard)
+    assert x.device.type == "cuda"
+    call = {"bsr_spmm": lambda: bsr_spmm(t["rows"], t["cols"], t["blocks"], x, nrp),
+            "fused": lambda: bsr_spmm_fused_epilogue(t["rows"], t["cols"],
+                                                     t["blocks"], x, nrp),
+            "masked": lambda: bsr_spmm_masked(t["rows"], t["cols"], t["blocks"],
+                                              x, x, nrp)}[kernel]
+    launches = bsr_spmm.launches
+    with pytest.raises(ValueError, match="needs nzc="):
+        call()
+    assert bsr_spmm.launches == launches
+
+
 def test_bsr_spmm_pair_without_transposed_operand_has_no_gradient():
     fwd, _, n_out, n_in = _sampled_pair(3)
     tf = tuple(torch.from_numpy(fwd[k]) for k in ("rows", "cols", "first", "blocks"))
@@ -172,23 +279,58 @@ def test_wrapper_rejects_bad_shapes_and_devices():
     assert bsr_spmm.launches == launches  # CPU calls launch no kernel
 
 
+def _hub_operand(br, bc, n_cols=4096, seed=9):
+    """One block-row whose ~1,500 nonzero columns (at bc=128) outnumber
+    the split at 100 columns and one staged chunk, beside short rows."""
+    r = np.random.default_rng(seed)
+    src = np.concatenate([r.integers(0, n_cols, 2000), r.integers(0, n_cols, 300)])
+    dst = np.concatenate([r.integers(0, br, 2000), r.integers(br, 6 * br, 300)])
+    g = csr_from_edges(src, dst, 6 * br, n_cols=n_cols,
+                       data=r.standard_normal(src.size).astype(np.float32))
+    bsr = csr_to_bsr(g, br=br, bc=bc)
+    return _pad_bsr(bsr, bsr.n_blocks + 3), bsr.padded_rows, bsr.padded_cols
+
+
+def _cuda_case(arrays, nrp, ncp, f, seed, misalign=False):
+    """The kernel over the operand's nonzero columns against its plain
+    version on one operand, launched twice (bitwise equal, counted once
+    each); a call without the columns raises."""
+    t = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    nzc = nonzero_columns(t["rows"], t["cols"], t["blocks"], nrp)
+    x = torch.randn((ncp, f), generator=torch.Generator().manual_seed(seed)).cuda()
+    if misalign:
+        buf = torch.empty(x.numel() + 1, device="cuda")
+        x = buf[1:].view(x.shape).copy_(x)
+        assert not _vec4(f, x)
+    args = (t["rows"], t["cols"], t["blocks"], x, nrp)
+    before = bsr_spmm.launches
+    y = bsr_spmm(*args, nzc=nzc)
+    y2 = bsr_spmm(*args, nzc=nzc)
+    torch.cuda.synchronize()
+    assert bsr_spmm.launches == before + 2
+    torch.testing.assert_close(y, bsr_spmm_ref(*args), atol=1e-4, rtol=1e-4)
+    assert torch.equal(y, y2)
+    with pytest.raises(ValueError, match="nonzero_columns"):
+        bsr_spmm(*args)
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
-    """On the card: the Hopper kernel against its plain version at 1e-4
-    (different summation orders) for every built tile, over empty rows,
-    padding blocks and ragged feature widths; bitwise repeatable across
-    launches."""
+def test_cuda_kernel_matches_plain_version(monkeypatch):
+    """On the card: the Hopper kernel, over the operand's nonzero columns,
+    against its plain version at 1e-4 (different summation orders) for
+    every built tile, F = 1, 33, 40, 70, 128, 200, 256 (ragged, scalar and
+    float4, lanes not a power of two), over empty rows and padding blocks;
+    rows misaligned for float4; a hub row in one CTA and cut into
+    segments (16 at 100 columns); bitwise repeatable across launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    for (br, bc), f in itertools.product(TILES, (1, 40, 128, 200, 256)):
+    for (br, bc), f in itertools.product(TILES, (1, 33, 40, 70, 128, 200, 256)):
         arrays, nrp, ncp, _ = _operand(f, 150, 130, 300, br, bc, pad_to=7)
-        t = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
-        x = torch.randn((ncp, f), generator=torch.Generator().manual_seed(f)).cuda()
-        before = bsr_spmm.launches
-        y = bsr_spmm(t["rows"], t["cols"], t["blocks"], x, nrp)
-        y2 = bsr_spmm(t["rows"], t["cols"], t["blocks"], x, nrp)
-        torch.cuda.synchronize()
-        assert bsr_spmm.launches == before + 2
-        ref = bsr_spmm_ref(t["rows"], t["cols"], t["blocks"], x, nrp)
-        torch.testing.assert_close(y, ref, atol=1e-4, rtol=1e-4)
-        assert torch.equal(y, y2)
+        _cuda_case(arrays, nrp, ncp, f, seed=f)
+    for br, bc in ((8, 128), (16, 64)):
+        arrays, nrp, ncp, _ = _operand(36, 150, 130, 300, br, bc, pad_to=7)
+        _cuda_case(arrays, nrp, ncp, 36, seed=36, misalign=True)
+        for f, split in itertools.product((32, 40, 256), (100, 1024, 4096)):
+            monkeypatch.setattr(bsr_spmm_module, "SPLIT_COLUMNS", split)
+            arrays, nrp, ncp = _hub_operand(br, bc)
+            _cuda_case(arrays, nrp, ncp, f, seed=f + 1)

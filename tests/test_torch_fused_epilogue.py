@@ -291,9 +291,12 @@ def test_wrappers_reject_bad_specs_and_count_no_cpu_launches():
     with pytest.raises(ValueError, match="self_term must be contiguous"):
         _check_launch(block_rows=t["rows"], block_cols=t["cols"],
                       blocks=t["blocks"], x=x, self_term=s.t())
-    with pytest.raises(ValueError, match="tile"):
+    # the kernels are built per block height and take any block width
+    with pytest.raises(ValueError, match="block height 4 is not built"):
         _check_launch(block_rows=t["rows"], block_cols=t["cols"],
-                      blocks=t["blocks"][:, :, :4].contiguous(), x=x)
+                      blocks=t["blocks"][:, :4, :].contiguous(), x=x)
+    _check_launch(block_rows=t["rows"], block_cols=t["cols"],
+                  blocks=t["blocks"][:, :, :4].contiguous(), x=x)
     before = (bsr_spmm_fused_epilogue.launches, bsr_spmm_masked.launches)
     bsr_spmm_fused_epilogue(t["rows"], t["cols"], t["blocks"], x, nrp, s,
                             torch.ones(4), 1.0, "relu")

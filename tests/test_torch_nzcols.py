@@ -1,5 +1,5 @@
-"""Port parity, the nonzero-column operand of the fused-epilogue and masked
-kernels (``kernels/bsr_spmm.py:nonzero_columns``): its entries scatter back
+"""Port parity, the nonzero-column operand of the three SpMM kernels
+(``kernels/bsr_spmm.py:nonzero_columns``): its entries scatter back
 to the blocks exactly, come in stream order, and skip every column that
 holds no nonzero (the sampler's padding tail, an empty block-row's zero
 block, the zero columns inside a block); its work list covers every
@@ -7,14 +7,22 @@ block-row once, longest first, a long row as fixed segments with their
 partial-sum slots; a product over it, segment partials added in order,
 equals the BSR product; and that walk, and the fused pair that builds the
 operand once, match the JAX package's Pallas kernels in interpret mode,
-forward and VJP, for every built tile. The kernels that read it run only
-on the card (``test_torch_fused_epilogue.py``'s ``cuda`` test).
+forward and VJP, for every built tile; so do ``bsr_spmm`` with its
+operand and the walk over it, against the Pallas ``bsr_spmm``. Every
+binding builds each operand's columns once, when it is bound; the
+``torch`` executor builds none. The non-finite rule: an X row that no
+nonzero multiplies is never read, so the walk gives the JAX ``gather``
+backend's finite answer where the Pallas kernel gives NaN. The kernels
+that read the operand run only on the card (``cuda``-marked tests here
+and in ``test_torch_fused_epilogue.py`` and ``test_torch_bsr_spmm.py``).
 
 Tolerances: exact for the operand itself (a copy of the blocks' values);
 1e-5 for a product over it against the BSR plain version (the same
 products summed in another order, O(10) terms of unit size); 1e-4 against
-the Pallas kernels, the fused-epilogue tolerance of the JAX suite."""
+the Pallas kernels, the SpMM and fused-epilogue tolerance of the JAX
+suite, and for the kernels against the walk on the card."""
 import dataclasses
+import itertools
 import types
 
 import numpy as np
@@ -22,18 +30,24 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.graph.csr import csr_from_edges, csr_to_bsr  # noqa: E402
+from repro_torch.backends import get_backend  # noqa: E402
+from repro_torch.graph.csr import csr_from_dense, csr_from_edges, csr_to_bsr  # noqa: E402
 from repro_torch.graph.sampling import _pad_bsr  # noqa: E402
 from repro_torch.kernels import bsr_spmm as bsr_spmm_module  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (  # noqa: E402
     TILES,
     _vec4,
+    bsr_spmm,
     bsr_spmm_fused_epilogue,
     bsr_spmm_masked,
     nonzero_columns,
 )
-from repro_torch.kernels.ref import bsr_spmm_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    bsr_spmm_fused_ref,
+    bsr_spmm_masked_ref,
+    bsr_spmm_ref,
+)
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -46,11 +60,14 @@ def jx():
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
 
+    from repro.backends import get_backend as jax_backend
     from repro.graph.csr import csr_from_edges as jax_csr_from_edges
     from repro.kernels import ops
+    from repro.kernels.bsr_spmm import bsr_spmm as pallas_bsr_spmm
 
     return types.SimpleNamespace(jax=jax, jnp=jnp, ops=ops,
-                                 csr_from_edges=jax_csr_from_edges)
+                                 csr_from_edges=jax_csr_from_edges,
+                                 bsr_spmm=pallas_bsr_spmm, backend=jax_backend)
 
 
 def _stream(seed, br, bc, n_rows=90, n_cols=140, n_edges=220, pad_to=6):
@@ -97,8 +114,9 @@ def _product(nzc, x, nrp):
     partial = torch.zeros((nzc.n_slots, br, f))
     for row, begin, end, slot in nzc.items.tolist():
         cols = slice(begin, end)
-        part = torch.einsum("nr,nf->rf", nzc.values[cols],
-                            x[nzc.x_rows[cols].long()])
+        # products summed elementwise, so 0·inf gives NaN as in IEEE
+        part = (nzc.values[cols][:, :, None]
+                * x[nzc.x_rows[cols].long()][:, None, :]).sum(0)
         if slot < 0:
             y[row] = part
         else:
@@ -322,3 +340,223 @@ def test_vec4_needs_f_a_multiple_of_4_and_aligned_rows():
     assert not _vec4(6, torch.zeros((10, 6)))
     shifted = torch.zeros(81)[1:].view(10, 8)
     assert shifted.is_contiguous() and not _vec4(8, x, shifted)
+
+
+@pytest.mark.parametrize("f", [1, 13, 40, 256])
+@pytest.mark.parametrize("tile", TILES, ids=[f"{r}x{c}" for r, c in TILES])
+def test_bsr_spmm_with_its_columns_matches_pallas(jx, tile, f):
+    """``bsr_spmm`` given its operand's columns (the plain version on the
+    CPU) and the walk over them that its kernel makes, split rows and all,
+    match the Pallas ``bsr_spmm`` in interpret mode and ``bsr_spmm_ref``
+    within 1e-4: empty block-rows, the padding tail, F from 1 to 256."""
+    br, bc = tile
+    rows, cols, blocks, nrp, ncp = _stream(7 * br + bc + f, br, bc)
+    x = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (ncp, f)).astype(np.float32))
+    j = [jx.jnp.asarray(t.numpy()) for t in (rows, cols, blocks)]
+    first = jx.jnp.asarray(np.r_[1, (rows[1:] != rows[:-1]).numpy()].astype(np.int32))
+    want = np.asarray(jx.bsr_spmm(j[0], j[1], first, j[2], jx.jnp.asarray(x.numpy()),
+                                  n_rows_padded=nrp, bf=f, interpret=True))
+    np.testing.assert_allclose(bsr_spmm_ref(rows, cols, blocks, x, nrp).numpy(),
+                               want, **TOL)
+    nzc = nonzero_columns(rows, cols, blocks, nrp)
+    y = bsr_spmm(rows, cols, blocks, x, nrp, nzc=nzc)
+    np.testing.assert_allclose(y.numpy(), want, **TOL)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bsr_spmm_module, "SPLIT_COLUMNS", 3)
+        split = nonzero_columns(rows, cols, blocks, nrp)
+    assert split.n_slots > 0
+    for op in (nzc, split):
+        np.testing.assert_allclose(_product(op, x, nrp).numpy(), want, **TOL)
+
+
+def _count_builds(monkeypatch) -> list:
+    """Record every ``nonzero_columns`` build that the bindings make."""
+    built = []
+    real = tops.nonzero_columns
+
+    def counted(block_rows, block_cols, blocks, n_rows_padded):
+        built.append(n_rows_padded)
+        return real(block_rows, block_cols, blocks, n_rows_padded)
+
+    monkeypatch.setattr(tops, "nonzero_columns", counted)
+    return built
+
+
+@pytest.mark.parametrize("inner", ["cuda", "torch"])
+def test_every_binding_builds_each_operands_columns_once(monkeypatch, inner):
+    """``BSRDevice.matmul`` (at its first call, kept), the backend's
+    ``feature_matmul_sparse`` over X and Xᵀ and ``build_fused_epilogue``
+    over A and Aᵀ (both when they are bound, before any call) build each
+    operand's nonzero columns exactly once on the ``cuda`` executor
+    (device cpu); forward and backward calls build no more, and the
+    operands' bytes count them. The ``torch`` executor builds none."""
+    cuda = inner == "cuda"
+    built = _count_builds(monkeypatch)
+    r = np.random.default_rng(3)
+    g = csr_from_edges(r.integers(0, 40, 150), r.integers(0, 40, 150), 40,
+                       data=r.standard_normal(150).astype(np.float32))
+    fwd, bwd = tops.build_bsr_pair(g, br=8, bc=16, device="cpu")
+    x = torch.from_numpy(r.standard_normal((40, 6)).astype(np.float32))
+    for _ in range(2):
+        fwd.matmul(x, inner)
+    assert len(built) == int(cuda) and (fwd.nzc is not None) == cuda
+
+    built.clear()
+    fused = tops.build_fused_epilogue(fwd, bwd, inner)
+    assert len(built) == int(cuda)  # A's were built by matmul, and kept
+    u = x.clone().requires_grad_(True)
+    fused(u, bias=torch.ones(6)).sum().backward()
+    fused(u, activation="relu").sum().backward()
+    assert len(built) == int(cuda) and (bwd.nzc is not None) == cuda
+
+    built.clear()
+    feats = r.random((40, 30)).astype(np.float32)
+    feats[feats < 0.8] = 0.0
+    mm = get_backend(inner).feature_matmul_sparse(feats, br=8, device="cpu")
+    assert len(built) == 2 * int(cuda)
+    w = torch.from_numpy(r.standard_normal((30, 5)).astype(np.float32))
+    w.requires_grad_(True)
+    y = mm(w)
+    y.sum().backward()
+    mm(w).sum().backward()
+    assert len(built) == 2 * int(cuda)
+    np.testing.assert_allclose(y.detach().numpy(), feats @ w.detach().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(w.grad.numpy() / 2, feats.T @ np.ones((40, 5)),
+                               atol=1e-4, rtol=1e-5)
+    x_op = get_backend(inner).build_spmm_operand(csr_from_dense(feats), br=8,
+                                                 device="cpu")
+    blocks_only = x_op.nbytes
+    assert get_backend(inner).operand_bytes(x_op) == blocks_only
+    if cuda:
+        x_op.nonzero_columns()
+        assert x_op.nbytes == blocks_only + x_op.nzc.nbytes
+
+
+def _non_finite_case():
+    """A 16x16 graph at 8x8 tiles: (0, 0) 2, (1, 1) 3, (9, 2) 1.5, (10,
+    12) -0.5 (dst, src): blocks (0, 0), (1, 0) and (1, 1) are stored. X
+    rows 3 and 5 (inf, NaN) lie in block column 0 and row 14 (-inf) in
+    block column 1, where every stored value is 0: no nonzero multiplies
+    them. Row 12, which (10, 12) multiplies, is finite."""
+    src, dst = np.array([0, 1, 2, 12]), np.array([0, 1, 9, 10])
+    data = np.array([2.0, 3.0, 1.5, -0.5], np.float32)
+    x = np.random.default_rng(0).standard_normal((16, 4)).astype(np.float32)
+    x[3], x[5], x[14] = np.inf, np.nan, -np.inf
+    want = np.zeros((16, 4), np.float32)
+    for s_, d_, v in zip(src, dst, data):
+        want[d_] += v * x[s_]
+    return src, dst, data, x, want
+
+
+def test_non_finite_x_gives_the_gather_answer_not_the_pallas_one(jx):
+    """The JAX package disagrees with itself on an X row holding inf or
+    NaN that no nonzero multiplies: its ``gather`` backend (a segment sum
+    over the edges) gives the finite sparse product, its Pallas
+    ``bsr_spmm`` in interpret mode NaN on every row of the block-rows
+    whose stored blocks cover the row (0·inf). The port's kernels give
+    the ``gather`` answer: the walk over the nonzero columns never reads
+    such a row. The port's plain version multiplies whole blocks, as the
+    Pallas kernel does."""
+    src, dst, data, x, want = _non_finite_case()
+    jg = jx.csr_from_edges(src, dst, 16, n_cols=16, data=data)
+    gather = jx.backend("gather")
+    y_gather = np.asarray(gather.spmm(gather.build_spmm_operand(jg), jx.jnp.asarray(x)))
+    np.testing.assert_allclose(y_gather, want, atol=1e-6)
+    assert np.isfinite(y_gather).all()
+
+    g = csr_from_edges(src, dst, 16, n_cols=16, data=data)
+    bsr = csr_to_bsr(g, br=8, bc=8)
+    assert bsr.n_blocks == 3
+    t = {k: torch.from_numpy(v) for k, v in
+         (("rows", bsr.block_rows), ("cols", bsr.block_cols), ("blocks", bsr.blocks))}
+    y_pallas = np.asarray(jx.bsr_spmm(
+        *(jx.jnp.asarray(a) for a in (bsr.block_rows, bsr.block_cols,
+                                      bsr.first_in_row, bsr.blocks)),
+        jx.jnp.asarray(x), n_rows_padded=16, bf=4, interpret=True))
+    assert np.isnan(y_pallas).all()  # both block-rows' blocks cover rows 3 and 5
+    xt = torch.from_numpy(x)
+    assert torch.isnan(bsr_spmm_ref(t["rows"], t["cols"], t["blocks"], xt, 16)).all()
+
+    nzc = nonzero_columns(t["rows"], t["cols"], t["blocks"], 16)
+    assert sorted(nzc.x_rows.tolist()) == [0, 1, 2, 12]
+    walk = _product(nzc, xt, 16)
+    np.testing.assert_allclose(walk.numpy(), y_gather, atol=1e-6)
+
+
+def _non_finite_rows(rows, cols, blocks, nrp):
+    """The X rows inside a stored block's columns that no nonzero
+    multiplies, and those that one does."""
+    _, br, bc = blocks.shape
+    covered = (cols.long()[:, None] * bc + torch.arange(bc)).flatten()
+    read = set(nonzero_columns(rows, cols, blocks, nrp).x_rows.tolist())
+    unread = sorted(set(covered.tolist()) - read)
+    return unread, sorted(read)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_give_the_gather_answer_under_non_finite_x():
+    """On the card: ``bsr_spmm``, ``bsr_spmm_fused_epilogue`` (bias +
+    ReLU) and ``bsr_spmm_masked`` with inf, -inf and NaN in X rows that
+    no nonzero multiplies give the sparse product (the JAX ``gather``
+    backend's answer, ``test_non_finite_x_gives_the_gather_answer_not_the_pallas_one``):
+    finite, within 1e-4 of the walk over the columns, where the plain
+    versions (whole blocks, as Pallas) give NaN. With an inf in a row
+    that a nonzero multiplies too, every kernel's non-finite entries are
+    the walk's (the fused kernel without its ReLU there: the walk's
+    ``torch.relu`` keeps a NaN that the kernel's ``fmaxf`` maps to 0),
+    for each tile and both vector widths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    src, dst, data, x, want = _non_finite_case()
+    cases = [(csr_to_bsr(csr_from_edges(src, dst, 16, n_cols=16, data=data),
+                         br=8, bc=8), x, 4)]
+    for (br, bc), f in itertools.product(TILES, (36, 37)):
+        r = np.random.default_rng(br * bc + f)
+        g = csr_from_edges(r.integers(0, 130, 200), r.integers(0, 150, 200), 150,
+                           n_cols=130, data=r.standard_normal(200).astype(np.float32))
+        cases.append((csr_to_bsr(g, br=br, bc=bc),
+                      r.standard_normal((-(-130 // bc) * bc, f)).astype(np.float32), f))
+    for case, (bsr, x_np, f) in enumerate(cases):
+        t = {k: torch.from_numpy(v).cuda() for k, v in
+             (("rows", bsr.block_rows), ("cols", bsr.block_cols), ("blocks", bsr.blocks))}
+        nrp = bsr.padded_rows
+        nzc = nonzero_columns(t["rows"], t["cols"], t["blocks"], nrp)
+        cpu = {k: v.cpu() for k, v in t.items()}
+        walk_nzc = nonzero_columns(cpu["rows"], cpu["cols"], cpu["blocks"], nrp)
+        unread, read = _non_finite_rows(cpu["rows"], cpu["cols"], cpu["blocks"], nrp)
+        assert unread
+        x = torch.from_numpy(x_np).clone()
+        bad = torch.tensor([np.inf, -np.inf, np.nan])
+        for i, row in enumerate(unread):
+            x[row] = bad[i % 3]
+        mask = (torch.arange(x.numel()).reshape(x.shape) % 3 > 0).float()
+        b = torch.linspace(-1, 1, f)
+        for with_read in (False, True):
+            if with_read:
+                x[read[0]] = np.inf
+            xc, mc, bc_ = x.cuda(), mask.cuda(), b.cuda()
+            args = (t["rows"], t["cols"], t["blocks"], xc, nrp)
+            act = "none" if with_read else "relu"
+            pre = _product(walk_nzc, x, nrp) + b
+            got = {
+                "bsr_spmm": (bsr_spmm(*args, nzc=nzc), _product(walk_nzc, x, nrp)),
+                "fused": (bsr_spmm_fused_epilogue(*args, bias=bc_, activation=act,
+                                                  nzc=nzc)[0],
+                          pre if with_read else torch.relu(pre)),
+                "masked": (bsr_spmm_masked(t["rows"], t["cols"], t["blocks"], xc, mc,
+                                           nrp, nzc=nzc),
+                           _product(walk_nzc, x * mask, nrp)),
+            }
+            torch.cuda.synchronize()
+            for name, (y, walk) in got.items():
+                if not with_read:
+                    assert torch.isfinite(y).all(), (case, name)
+                torch.testing.assert_close(y.cpu(), walk, atol=1e-4, rtol=1e-4,
+                                           equal_nan=True, msg=f"{case} {name}")
+            if not with_read:
+                plain = (bsr_spmm_ref(*args), bsr_spmm_fused_ref(*args, bias=bc_,
+                                                                 activation="none")[0],
+                         bsr_spmm_masked_ref(*args[:4], mc, nrp))
+                assert all(not torch.isfinite(p).all() for p in plain), case
