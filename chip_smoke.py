@@ -77,19 +77,24 @@ is printed:
    ``torch`` program from the same weights, 10 epochs with phase 4's
    checks (at 5 the loss has not yet come back below its first value)
    and exactly 3 / 3 / 3 attention launches (forward, row pass, column
-   pass) and 15 Adam launches per epoch, no BSR SpMM; every layer bound
-   to ``cuda.spmm_attention``.
+   pass; the row pass over A's nonzero columns, built when the layer is
+   bound, with its split rows' second pass once a call) and 15 Adam
+   launches per epoch, no BSR SpMM; every layer bound to
+   ``cuda.spmm_attention``.
 8. The three attention kernels against their plain versions on phase 7's
    real A and Aᵀ with the layers' real inputs (z, a_src, a_dst and the
    loss's cotangent dy, captured in one training step): Dh 250, 250 and
    13 at 3 heads, out / m / l / dc / dzv / dd within 1e-4, a repeat launch
    bitwise equal; edge cases (a block-row without blocks, a padding tail,
    a row whose max lies in its second block, H·Dh not a multiple of 32);
-   per call CUDA-event ms, plain ms, the bounds (``attention_bound``) and
-   the segment path's ms (``segment_softmax_aggregate`` forward and
-   backward: gather, ``scatter_reduce``, ``index_add_``; a composition of
-   library calls, no single one computes edge-softmax attention, so
-   ``library_ms`` is null); the hub row's cost against a mean row's.
+   per call CUDA-event ms, plain ms, the bounds (``attention_bound``: the
+   row pass's the nonzeros', the others' the layout's, each with the
+   other beside it) and the segment path's ms
+   (``segment_softmax_aggregate`` forward and backward: gather,
+   ``scatter_reduce``, ``index_add_``; a composition of library calls, no
+   single one computes edge-softmax attention, so ``library_ms`` is
+   null); the hub row's cost against a mean row's, the row pass's after
+   the split (its segments and second-pass launches beside it).
 9. GT on the quickstart at full scale: GT [8710, 32, 70], 4 heads, layer 0
    on ``cuda.feature_matmul_sparse``; 10 epochs cuda against torch with
    the same checks and exactly 2 / 2 / 2 attention, 2 ``bsr_spmm`` and 12
@@ -114,14 +119,19 @@ is printed:
     v from phase 10's 1,024-token prefill (B 4, H 32, Hkv 8, T 1024, D
     64), float32 within 2e-5 and bfloat16 copies within 5e-2, a repeat
     bitwise equal; edge cases (Tq != Tk causal and not, T = 1, 33, 1000, D
-    = 8 and 128, K padding inside a tile, Hkv == H). Per call at layer 0's
-    inputs: the kernel's, the plain version's and
-    ``scaled_dot_product_attention``'s CUDA-event ms (on K/V repeated to
-    32 heads, and with ``enable_gqa=True``), and the bound (fp32
-    operations over 67 TFLOP/s against bytes over 3.35 TB/s).
+    = 8 and 128, K padding inside a tile, Hkv == H; every D and KV groups
+    of 1-8 heads on ragged tiles, strided and misaligned views bitwise
+    equal to the aligned call). Per call at layer 0's inputs: the
+    kernel's, the plain version's and ``scaled_dot_product_attention``'s
+    CUDA-event ms (on K/V repeated to 32 heads, and with
+    ``enable_gqa=True``), the kernel's over SDPA's (``vs_library``), and
+    the bound (fp32 operations over 67 TFLOP/s against bytes over 3.35
+    TB/s).
 
-The last lines are the card's name and power limit, one JSON object with
-every kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go
+The card's clocks, temperature and power draw are printed before and
+after the phases. The last lines are the card's name and power limit,
+one JSON object with every kernel's numbers, and ``{"ok": true,
+"device": {...}}``. Details go
 to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
 from __future__ import annotations
@@ -164,7 +174,10 @@ from repro_torch.kernels.bsr_spmm import (  # noqa: E402
     nonzero_columns,
 )
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS,
+    flash_attention,
+)
 from repro_torch.kernels.fused_adam import fused_adam  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     bsr_attention_bwd_col_ref,
@@ -303,11 +316,17 @@ def counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+#: the card's clocks, temperature and power, read before and after the
+#: phases: a card that runs below its clocks slows every timing of a run
+#: alike, library calls included
+CLOCKS = "clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,power.draw"
 
 
 def time_ms(fn, device, reps: int, warmup: int = 2) -> float:
@@ -565,14 +584,35 @@ def unread_rows(op, limit: int = 64) -> torch.Tensor:
     return covered.nonzero().flatten()[:limit]
 
 
+def reading_rows(op, row: int) -> torch.Tensor:
+    """Bool [n_rows_padded]: the output rows whose block-row holds a
+    nonzero in X row ``row``'s column. There the kernels (over the nonzero
+    columns) and the plain versions (over whole blocks) both read that X
+    row; elsewhere only the plain versions do."""
+    bc = op.bc
+    held = ((op.block_cols.long() == row // bc)
+            & (op.blocks[:, :, row % bc] != 0).any(dim=1))
+    out = torch.zeros(op.n_rows_padded // op.br, dtype=torch.bool,
+                      device=op.blocks.device)
+    out[op.block_rows.long()[held]] = True
+    return out.repeat_interleave(op.br)
+
+
 def check_nonfinite(name, op, x, device) -> float:
     """The three SpMM kernels with inf, -inf and NaN in X rows that no
     nonzero of the operand multiplies (``unread_rows``): each gives the
     sparse product (the JAX package's ``gather`` answer), finite and
     within 1e-4 of its plain version on X with those rows zeroed, where
     the plain version on the non-finite X (whole blocks, as the Pallas
-    kernel) gives NaN. Returns the largest error (0.0 off the card, where
-    the wrappers run the plain versions)."""
+    kernel) gives NaN. Then an inf in an X row that a nonzero multiplies,
+    in a column that also holds a stored zero (0·inf = NaN): the fused
+    kernel's ReLU keeps the NaN of its sum, as ``torch.relu`` and
+    ``jnp.maximum`` do, equal (NaN for NaN, inf for inf, within 1e-4
+    elsewhere) to the plain version with its ReLU on the rows whose
+    block-row reads that X row (``reading_rows``) and to the plain version
+    on the finite X on the others, with its mask 0 on the NaNs.
+    Returns the largest error (0.0 off the card, where the wrappers run
+    the plain versions)."""
     rows = unread_rows(op)
     if rows.numel() == 0:
         raise AssertionError(f"non-finite {name}: no unread X row to poison")
@@ -595,16 +635,38 @@ def check_nonfinite(name, op, x, device) -> float:
     sync(device)
     if bool(torch.isfinite(plain).all()):
         raise AssertionError(f"non-finite {name}: the plain version stayed finite")
+    read = int(nzc.x_rows[int((nzc.values == 0).any(dim=1).nonzero()[0])])
+    hit = x.clone()
+    hit[read] = float("inf")
+    y, y_mask = bsr_spmm_fused_epilogue(*a, hit, n, bias=b, activation="relu", nzc=nzc)
+    plain_hit = bsr_spmm_fused_ref(*a, hit, n, bias=b, activation="relu")[0]
+    # off the card the wrapper runs the plain version, whole blocks and all
+    elsewhere = (bsr_spmm_fused_ref(*a, x, n, bias=b, activation="relu")[0]
+                 if device.type == "cuda" else plain_hit)
+    want = torch.where(reading_rows(op, read)[:, None], plain_hit, elsewhere)
+    sync(device)
+    nan = torch.isnan(want)
+    if not bool(nan.any()) or not torch.equal(torch.isnan(y), nan):
+        raise AssertionError(f"fused ReLU non-finite {name}: NaN where the "
+                             f"plain version keeps one: {int(torch.isnan(y).sum())} "
+                             f"against {int(nan.sum())}")
+    if not torch.equal(torch.isinf(y), torch.isinf(want)):
+        raise AssertionError(f"fused ReLU non-finite {name}: inf where the plain "
+                             "version has none, or none where it has one")
+    if bool(y_mask[nan].any()):
+        raise AssertionError(f"fused ReLU non-finite {name}: mask 1 on a NaN")
+    err = check_close(f"fused ReLU non-finite {name}", torch.nan_to_num(y),
+                      torch.nan_to_num(want))
     if device.type != "cuda":
         return 0.0
-    err = 0.0
     for kernel, (y, want) in got.items():
         if not bool(torch.isfinite(y).all()):
             raise AssertionError(f"{kernel} non-finite {name}: a non-finite output")
         err = max(err, check_close(f"{kernel} non-finite {name}", y, want))
     print(f"[kernel] non-finite X {name}: {rows.numel()} unread rows poisoned, the "
           f"three kernels finite within {err:.3g} of the plain versions on X with "
-          f"those rows zeroed")
+          f"those rows zeroed; an inf in read row {read}: the fused ReLU keeps "
+          f"the plain version's {int(nan.sum())} NaNs")
     return err
 
 
@@ -1075,7 +1137,8 @@ def launch_key(name: str) -> str:
     """What a profiler event's launches are counted under: its kernel, or
     the kernel's ``SECOND_PASS``."""
     kernel = classify(name)
-    second = "nzc_split_reduce<" in name or "bsr_spmm_reduce<" in name
+    second = ("nzc_split_reduce<" in name or "bsr_spmm_reduce<" in name
+              or "attn_bwd_row_reduce" in name)
     return kernel + SECOND_PASS if second else kernel
 
 
@@ -1083,7 +1146,8 @@ def classify(name: str) -> str:
     """A profiler event's kernel, by its (demangled) name: the three SpMM
     kernels' two passes over the nonzero-column loop (bsr_nzc.cuh) by
     their names, bsr_spmm.cu's own or the fused and masked kernels' (by
-    their MASKED flag)."""
+    their MASKED flag); the attention row pass's two passes
+    (``attn_bwd_row_kernel``, ``attn_bwd_row_reduce``) as one kernel."""
     if "bsr_spmm_kernel<" in name or "bsr_spmm_reduce<" in name:
         return "bsr_spmm"
     m = re.search(r"nzc_(?:kernel|split_reduce)<\s*\d+,\s*\d+,\s*(\w+),", name)
@@ -1091,6 +1155,8 @@ def classify(name: str) -> str:
         return "bsr_spmm_masked" if m.group(1) == "true" else "bsr_spmm_fused_epilogue"
     if "fused_adam_kernel" in name:
         return "fused_adam"
+    if "attn_bwd_row_reduce" in name:
+        return "bsr_attention_bwd_row"
     for kind in ("fwd", "bwd_row", "bwd_col"):
         if f"attn_{kind}_kernel" in name:
             return f"bsr_attention_{kind}"
@@ -1312,11 +1378,12 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
            "peak_mem_bytes": peak, "accuracy": prog.accuracy(),
            "grad_start": grad_start, "grad_end": grad_end,
            "param_rel_diff": param_diff}
-    # each fused call runs on A, each masked call on Aᵀ, bsr_spmm on the
-    # operands recorded in one step: a call on an operand with split rows
-    # launches its second pass once
+    # each fused call and attention row pass runs on A, each masked call on
+    # Aᵀ, bsr_spmm on the operands recorded in one step: a call on an
+    # operand with split rows launches its second pass once
     split = {"bsr_spmm_fused_epilogue": prog.plan.graph_op.fwd_operand,
-             "bsr_spmm_masked": prog.plan.graph_op.bwd_operand}
+             "bsr_spmm_masked": prog.plan.graph_op.bwd_operand,
+             "bsr_attention_bwd_row": prog.plan.graph_op.fwd_operand}
     second = {k + SECOND_PASS: want[k] if op.nzc is not None and op.nzc.splits.shape[0] else 0
               for k, op in split.items()}
     second["bsr_spmm" + SECOND_PASS] = spmm_second
@@ -1468,14 +1535,17 @@ def attention_bound(rows, cols, blocks, heads: int, hd: int,
     forward z + asrc (columns), adst (rows), writes out + m + l; row pass
     z + asrc (columns), adst + dy + r + m + l (rows), writes dc; column
     pass over Aᵀ adst + dy + r + m + l (columns: destinations), asrc + z
-    (rows: sources), writes dzv + dd. ``bound_ms``, the layout's: each
-    block that holds a nonzero, whole, and its two indices, the column-side
-    rows of its block-column and the row-side rows of its block-row, once.
-    ``nnz_bound_ms``, any layout's: each nonzero's column index and a row
-    pointer per row, the rows the nonzeros reference on each side, once.
-    Both write every output row once. Operations: fp32 on the nonzeros x
-    heads (score, exp and the 2·Dh-long product per pass; the column pass
-    two products)."""
+    (rows: sources), writes dzv + dd. ``layout_bound_ms``, the layout's:
+    each block that holds a nonzero, whole, and its two indices, the
+    column-side rows of its block-column and the row-side rows of its
+    block-row, once. ``nnz_bound_ms``, any layout's: each nonzero's column
+    index and a row pointer per row, the rows the nonzeros reference on
+    each side, once. Both write every output row once. ``bound_ms`` (and
+    ``bytes``) is the one the kernel answers to: the nonzeros' for the row
+    pass, which reads A's nonzero columns and no block; the layout's for
+    the forward and the column pass, which read the blocks. Operations:
+    fp32 on the nonzeros x heads (score, exp and the 2·Dh-long product per
+    pass; the column pass two products)."""
     col_w, row_w, out_w = {
         "fwd": (hd + heads, heads, hd + 2 * heads),
         "row": (hd + heads, hd + 4 * heads, heads),
@@ -1498,24 +1568,43 @@ def attention_bound(rows, cols, blocks, heads: int, hd: int,
     dh = hd // heads
     per = {"fwd": 2 * dh + 6, "row": 2 * dh + 10, "col": 4 * dh + 10}[kind]
     flop = float(nnz) * heads * per
-    out = {"blocks_used": n_used, "nnz": nnz, "bytes": nbytes,
-           "nnz_bytes": nnz_bytes, "flop": flop}
-    out["bound_ms"], out["bound_by"] = _bound(nbytes, flop)
+    out = {"blocks_used": n_used, "nnz": nnz,
+           "bytes": nnz_bytes if kind == "row" else nbytes,
+           "layout_bytes": nbytes, "nnz_bytes": nnz_bytes, "flop": flop}
+    out["bound_ms"], out["bound_by"] = _bound(out["bytes"], flop)
     out["nnz_bound_ms"], _ = _bound(nnz_bytes, flop)
+    out["layout_bound_ms"], _ = _bound(nbytes, flop)
     return out
 
 
-def check_attention(label, kind, args, device) -> float:
+def attention_call(kind, args, nzc=None):
+    """A thunk of the ``kind`` pass's kernel on ``args``; the row pass reads
+    A's nonzero columns ``nzc`` (the stream's own)."""
+    _, kernel, _ = ATTENTION[kind]
+    if kind == "row":
+        return lambda: kernel(*args, nzc=nzc)
+    return lambda: kernel(*args)
+
+
+def stream_columns(args):
+    """The nonzero columns of a row pass's stream (``args`` as the row
+    pass takes them), built on its device."""
+    return nonzero_columns(args[0], args[1], args[2], args[10])
+
+
+def check_attention(label, kind, args, device, nzc=None) -> float:
     """One attention kernel against its plain version on the same device
     tensors, every output within the JAX suite's tolerance (|got - want| <=
     1e-4 + 1e-4·|want|: the softmax denominator l of a row with 17k
     nonzeros is ~1e4, summed in another order) and within 1e-4 of its
     norm (||got - want|| <= 1e-4·||want||, which holds small outputs to
-    their own scale), and a repeat launch bitwise equal. Returns the
-    largest absolute error."""
-    name, kernel, plain = ATTENTION[kind]
-    got = kernel(*args)
-    again = kernel(*args)
+    their own scale), and a repeat launch bitwise equal. The row pass
+    reads ``nzc``, its stream's nonzero columns. Returns the largest
+    absolute error."""
+    name, _, plain = ATTENTION[kind]
+    call = attention_call(kind, args, nzc)
+    got = call()
+    again = call()
     want = plain(*args)
     sync(device)
     got, again, want = ((t,) if isinstance(t, torch.Tensor) else t
@@ -1570,8 +1659,9 @@ def attention_edge_cases(device) -> float:
         if not (torch.all(out[24:32] == 0) and torch.all(m[24:32] == 0)
                 and torch.all(l[24:32] == 0)):
             raise AssertionError("a block-row without blocks must give out, m, l = 0")
-        err = max(err, check_attention(label, "row", (
-            *fargs[:3], adst, asrc, z, dy, rr, m, l, nr, heads), device))
+        rargs = (*fargs[:3], adst, asrc, z, dy, rr, m, l, nr, heads)
+        err = max(err, check_attention(label, "row", rargs, device,
+                                       stream_columns(rargs)))
         src_side = [kops._fit_rows(x, at.padded_rows).contiguous()
                     for x in (asrc, z)]
         dst_side = [kops._fit_rows(x, at.padded_cols).contiguous()
@@ -1606,8 +1696,11 @@ def attention_row_cost(kind, args, device, reps: int) -> dict:
     nonzero columns; against one holding only a row of about the mean
     length in blocks, at these inputs' width. Also the row with the most
     blocks (the first of a tie), with its blocks and nonzeros: several
-    rows may tie on blocks and hold very different nonzeros."""
-    _, kernel, _ = ATTENTION[kind]
+    rows may tie on blocks and hold very different nonzeros. The row pass
+    walks each sub-stream's own nonzero columns, so the hub is cut into
+    segments of SPLIT_COLUMNS columns, one CTA each, and added by one
+    second-pass launch a call: ``<row>_segments`` and
+    ``<row>_second_pass_launches`` say so."""
     rows, cols, blocks, *rest = args
     per_row = torch.bincount(rows.long())
     nnz_row = torch.zeros_like(per_row).index_add_(
@@ -1628,8 +1721,13 @@ def attention_row_cost(kind, args, device, reps: int) -> dict:
         out[f"{label}_nnz"] = int(blocks[sel].ne(0).sum())
         sub = (rows[sel].contiguous(), cols[sel].contiguous(),
                blocks[sel].contiguous(), *rest)
+        nzc = None
+        if kind == "row":
+            nzc = stream_columns(sub)
+            out[f"{label}_segments"] = nzc.n_slots
+            out[f"{label}_second_pass_launches"] = int(nzc.splits.shape[0] > 0)
         out.update({f"{label}_{k}": v for k, v in timings(
-            {"": lambda: kernel(*sub)}, device, reps).items()})
+            {"": attention_call(kind, sub, nzc)}, device, reps).items()})
     return out
 
 
@@ -1661,9 +1759,14 @@ def segment_ms(rec, op, device, reps: int) -> dict:
 
 def attention_phase(prog, device, reps: int) -> dict:
     """Phase 8 on phase 7's operands: A (forward, row pass) and Aᵀ (column
-    pass), each layer's real inputs."""
+    pass), each layer's real inputs; the row pass through A's nonzero
+    columns, which the program built when it bound the layer."""
     op = prog.plan.graph_op
     fwd, bwd = op.fwd_operand, op.bwd_operand
+    if fwd.nzc is None:
+        raise AssertionError("the cuda program must build A's nonzero columns "
+                             "when it binds the attention pair")
+    nzc = fwd.nzc
     captured = capture_attention(prog)
     sync(device)
     err = {k: 0.0 for k in ATTENTION}
@@ -1675,16 +1778,16 @@ def attention_phase(prog, device, reps: int) -> dict:
         hd = rec["z"].shape[1]
         label = f"layer {layer} H={h} Dh={hd // h}"
         for kind, a in args.items():
-            err[kind] = max(err[kind], check_attention(label, kind, a, device))
+            err[kind] = max(err[kind], check_attention(label, kind, a, device, nzc))
         seg = segment_ms(rec, op, device, reps)
         for kind, a in args.items():
-            name, kernel, plain = ATTENTION[kind]
+            name, _, plain = ATTENTION[kind]
             stream = bwd if kind == "col" else fwd
             row = {"kernel": name, "operand": "A^T" if kind == "col" else "A",
                    "layer": layer, "heads": h, "Dh": hd // h,
                    "n_blocks": int(stream.blocks.shape[0])}
-            row.update(timings({"": lambda: kernel(*a), "plain_": lambda: plain(*a)},
-                               device, reps))
+            row.update(timings({"": attention_call(kind, a, nzc),
+                                "plain_": lambda: plain(*a)}, device, reps))
             row.update(attention_bound(stream.block_rows, stream.block_cols,
                                        stream.blocks, h, hd, stream.n_rows_padded,
                                        kind))
@@ -2017,7 +2120,13 @@ def check_flash(label, q, k, v, causal: bool, device, tol: float = FLASH_TOL) ->
 
 def flash_edge_cases(device) -> dict:
     """Random inputs: Tq != Tk causal and not, T = 1, 33 and 1000, D = 8
-    and 128, K padding inside a tile, Hkv == H; float32 and bfloat16."""
+    and 128, K padding inside a tile, Hkv == H; float32 and bfloat16. Then
+    the kernel's tiles: every D in ``HEAD_DIMS`` at Tq = 150 and Tk = 97 /
+    201 (multiples of neither a query tile, 128 rows or 128/hp a head, nor
+    the 64-key tile), KV groups of 1, 2, 4 and 8 heads (1, 2, 4 and 4
+    heads a CTA); the same inputs as strided [B, T, H, D] views and
+    misaligned copies (the kernel's synchronous load path), bitwise equal
+    to the aligned call; bfloat16."""
     gen = torch.Generator().manual_seed(31)
     err = {"f32": 0.0, "bf16": 0.0}
     for b, h, hkv, tq, tk, d, causal in (
@@ -2030,6 +2139,27 @@ def flash_edge_cases(device) -> dict:
         k, v = (torch.randn((b, hkv, tk, d), generator=gen).to(device) for _ in range(2))
         label = f"B={b} H={h} Hkv={hkv} Tq={tq} Tk={tk} D={d} causal={causal}"
         err["f32"] = max(err["f32"], check_flash(label, q, k, v, causal, device))
+        err["bf16"] = max(err["bf16"], check_flash(
+            label + " bf16", *(x.to(torch.bfloat16) for x in (q, k, v)), causal,
+            device, FLASH_BF16_TOL))
+    tiles = [(d, 2, causal) for d in HEAD_DIMS for causal in (True, False)]
+    tiles += [(64, g, causal) for g in (1, 4, 8) for causal in (True, False)]
+    for d, group, causal in tiles:
+        h, tq, tk = 8, 150, 97 if causal else 201
+        q = torch.randn((2, h, tq, d), generator=gen).to(device)
+        k, v = (torch.randn((2, h // group, tk, d), generator=gen).to(device)
+                for _ in range(2))
+        label = f"tiles D={d} group={group} Tq={tq} Tk={tk} causal={causal}"
+        err["f32"] = max(err["f32"], check_flash(label, q, k, v, causal, device))
+        got = flash_attention(q, k, v, causal=causal)
+        for layout, args in (
+                ("strided", [x.transpose(1, 2).contiguous().transpose(1, 2)
+                             for x in (q, k, v)]),
+                ("misaligned", [misaligned(x) for x in (q, k, v)])):
+            if device.type == "cuda" and not torch.equal(
+                    flash_attention(*args, causal=causal), got):
+                raise AssertionError(f"flash_attention {label} {layout}: not the "
+                                     "aligned call's result")
         err["bf16"] = max(err["bf16"], check_flash(
             label + " bf16", *(x.to(torch.bfloat16) for x in (q, k, v)), causal,
             device, FLASH_BF16_TOL))
@@ -2076,6 +2206,7 @@ def flash_phase(lm: dict, device, reps: int) -> dict:
         "library_": lambda: sdpa(q, kr, vr, is_causal=True),
         "library_enable_gqa_": lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
     }, device, reps))
+    row["vs_library"] = row["ms"] / row["library_ms"]
     row.update(flash_bound(b, h, hkv, tq, tk, d, True, q.element_size()))
     row["wave_ms"] = sum(time_ms(lambda a=a: flash_attention(*a, causal=True), device,
                                  reps, warmup=1) for a in layers)
@@ -2099,6 +2230,7 @@ def flash_entry(fa: dict) -> dict:
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True) "
                    "on K/V repeated to H heads beforehand",
         "library_enable_gqa_ms": row["library_enable_gqa_ms"],
+        "vs_library": row["vs_library"],
         "wave_ms": row["wave_ms"],
         "shape": f"one call at layer 0's prefill inputs: B {row['B']}, H {row['H']}, "
                  f"Hkv {row['Hkv']}, T {row['Tq']}, D {row['D']}, causal, float32; "
@@ -2384,8 +2516,12 @@ def main() -> int:
                   f"spilled bytes {sum(spilling.values())}"
                   + (f" in {spilling}" if spilling else ""))
 
+    clocks = {"query": CLOCKS, "start": card_line(CLOCKS)}
+    print(f"[card] {CLOCKS}: {clocks['start']}")
     t_all = time.perf_counter()
     result = run(Sizes(), device)
+    clocks["end"] = card_line(CLOCKS)
+    print(f"[card] {CLOCKS} after the phases: {clocks['end']}")
     serve = result["serve"]
     print(f"[serve] {serve['requests']} requests, {serve['req_per_s']:.2f} req/s, "
           f"p50 {serve['p50_ms']:.2f} ms, p99 {serve['p99_ms']:.2f} ms, "
@@ -2410,7 +2546,8 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
-        json.dump({"card": card, "build_s": built, **result}, fh, indent=1)
+        json.dump({"card": card, "clocks": clocks, "build_s": built, **result}, fh,
+                  indent=1)
     print(card)
     print(json.dumps({"kernels": result["kernels"]}))
     print(json.dumps({"ok": True, "device": {

@@ -13,18 +13,34 @@ The port of ``repro/kernels/bsr_attention.py``'s three Pallas TPU kernels:
   ``dd_j = Σ_i dpre_ij`` over Aᵀ.
 
 For CUDA tensors each wrapper launches its hand-written Hopper kernel
-(``kernels/csrc/bsr_attention.cu``: one CTA per (block-row, column tile),
-a block's all-zero columns skipped, no atomics, bitwise repeatable); for
-CPU tensors it runs the plain version in ``kernels/ref.py``. There is no
-fallback between the two: a CUDA call that cannot launch raises. The
-block values are the adjacency mask only (value != 0). Each wrapper
-counts its launches in ``.launches``.
+(``kernels/csrc/bsr_attention.cu``, no atomics, bitwise repeatable): the
+forward and the column pass one CTA per (block-row, column tile), a
+block's all-zero columns skipped; the row pass one CTA per work item of
+A's ``NonzeroColumns`` (``kernels/bsr_spmm.py``, the SpMM kernels'
+operand, built once per operand), a hub row's segments added in order
+by a second pass. For CPU tensors each runs the plain version in
+``kernels/ref.py``. There is no fallback between the two: a CUDA call
+that cannot launch raises. The block values are the adjacency mask only
+(value != 0). Each wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels.bsr_spmm import _P, _I, _entry, _raise_on, _stream
+from repro_torch.kernels.bsr_spmm import (
+    _I,
+    _INDEX_NAMES,
+    _P,
+    NonzeroColumns,
+    _check_nzc,
+    _entry,
+    _nzc_tensors,
+    _raise_on,
+    _require_nzc,
+    _stream,
+)
 from repro_torch.kernels.ref import (
     bsr_attention_bwd_col_ref,
     bsr_attention_bwd_row_ref,
@@ -78,7 +94,7 @@ def _check_launch(heads, **tensors) -> None:
     indices, float32 values, contiguous; a built tile and head count."""
     device = tensors["z"].device
     for name, t in tensors.items():
-        dtype = torch.int32 if name in ("block_rows", "block_cols") else torch.float32
+        dtype = torch.int32 if name in _INDEX_NAMES else torch.float32
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, z on {device}")
         if t.dtype != dtype:
@@ -149,30 +165,47 @@ def bsr_attention_bwd_row(
     l: torch.Tensor,  # [n_rows_padded, H]
     n_rows_padded: int,
     heads: int,
+    nzc: Optional[NonzeroColumns] = None,
 ) -> torch.Tensor:
     """Row pass of the recompute backward over A: ``dc [n_rows_padded, H]``,
-    the destination-side score cotangent."""
+    the destination-side score cotangent.
+
+    The kernel reads A's ``nzc`` (``nonzero_columns`` of these blocks,
+    built once per operand: ``BSRDevice.nonzero_columns()``, which
+    ``kernels/ops.py:build_sparse_mha`` calls at bind time), not the
+    blocks; a CUDA call requires it, and a block-row's dy rows
+    (``br·H·Dh`` floats, staged per CTA) must fit in a CTA's shared
+    memory, else the launch fails. CPU calls run the plain version, ignore
+    ``nzc`` and do not count as launches."""
     dh = _check(block_rows, block_cols, blocks, heads,
                 {"adst": adst, "dy": dy, "r": r, "m": m, "l": l},
                 {"asrc": asrc, "z": z}, n_rows_padded)
+    if nzc is not None:
+        _check_nzc(nzc, blocks.shape[1], n_rows_padded)
     if z.device.type == "cpu":
         return bsr_attention_bwd_row_ref(block_rows, block_cols, blocks, adst,
                                          asrc, z, dy, r, m, l, n_rows_padded,
                                          heads)
+    _require_nzc(nzc)
     _check_launch(heads, block_rows=block_rows, block_cols=block_cols,
-                  blocks=blocks, adst=adst, asrc=asrc, z=z, dy=dy, r=r, m=m, l=l)
-    n_blocks, br, bc = blocks.shape
+                  blocks=blocks, adst=adst, asrc=asrc, z=z, dy=dy, r=r, m=m, l=l,
+                  **_nzc_tensors(nzc))
+    br = blocks.shape[1]
     dc = torch.empty((n_rows_padded, heads), dtype=torch.float32, device=z.device)
     if n_rows_padded == 0:
         return dc
+    partial = (None if nzc.n_slots == 0 else
+               torch.empty((nzc.n_slots, br, heads), dtype=torch.float32,
+                           device=z.device))
     fn = _entry("bsr_attention", "bsr_attention_bwd_row_f32",
-                (_P,) * 11 + (_I,) * 6 + (_P,))
+                (_P, _I, _P, _I) + (_P,) * 11 + (_I,) * 4 + (_P,))
     with torch.cuda.device(z.device):
-        err = fn(block_rows.data_ptr(), block_cols.data_ptr(), blocks.data_ptr(),
+        err = fn(nzc.items.data_ptr(), nzc.items.shape[0], nzc.splits.data_ptr(),
+                 nzc.splits.shape[0], nzc.x_rows.data_ptr(), nzc.values.data_ptr(),
+                 None if partial is None else partial.data_ptr(),
                  adst.data_ptr(), asrc.data_ptr(), z.data_ptr(), dy.data_ptr(),
                  r.data_ptr(), m.data_ptr(), l.data_ptr(), dc.data_ptr(),
-                 n_blocks, n_rows_padded // br, heads, dh, br, bc,
-                 _stream(z.device))
+                 heads, dh, br, int(dy.data_ptr() % 16 == 0), _stream(z.device))
     _raise_on(err, "bsr_attention_bwd_row")
     bsr_attention_bwd_row.launches += 1
     return dc

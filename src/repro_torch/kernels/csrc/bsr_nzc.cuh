@@ -121,7 +121,8 @@ __device__ __forceinline__ void store(float* p, const float (&v)[V]) {
 
 // The epilogue of one output element vector at y[i], in the reference's
 // order and roundings: (acc + α·self) + bias, then the ReLU and its 0/1
-// mask.
+// mask. The ReLU keeps a NaN, as jnp.maximum and torch.relu do (fmaxf
+// would map it to 0); its mask is 0 there (NaN > 0 is false).
 template <int V, bool HAS_SELF, bool HAS_BIAS, bool RELU>
 __device__ __forceinline__ void finish(float (&out)[V], size_t i, float a,
                                        const float (&b)[V],
@@ -136,7 +137,7 @@ __device__ __forceinline__ void finish(float (&out)[V], size_t i, float a,
     if (HAS_BIAS) out[v] = __fadd_rn(out[v], b[v]);
     if (RELU) {
       m[v] = out[v] > 0.0f ? 1.0f : 0.0f;
-      out[v] = fmaxf(out[v], 0.0f);
+      out[v] = out[v] > 0.0f || out[v] != out[v] ? out[v] : 0.0f;
     }
   }
   if (RELU) store<V>(mask_out + i, m);

@@ -87,11 +87,12 @@ def _fit_rows(x: torch.Tensor, n: int) -> torch.Tensor:
 @dataclasses.dataclass
 class BSRDevice:
     """Device-resident flattened BSR + padding metadata. The kernels find
-    each row's range themselves (the work list ``nzc.items``, or for
-    attention a search over ``block_rows``) and apply the epilogue at the
+    each row's range themselves (the work list ``nzc.items``, or for the
+    attention forward and column pass a search over ``block_rows``) and apply the epilogue at the
     row's end, so ``first_in_row``/``last_in_row`` are not carried.
     ``nzc``, the operand's nonzero columns that the three SpMM kernels
-    read, is built once by ``nonzero_columns()``."""
+    and the attention row pass read, is built once by
+    ``nonzero_columns()``."""
 
     block_rows: torch.Tensor  # [n_blocks] int32
     block_cols: torch.Tensor  # [n_blocks] int32
@@ -365,7 +366,8 @@ class _SparseMHAPair(torch.autograd.Function):
             _c(_fit_rows(z32, nc_pad).reshape(nc_pad, hd)),
             _c(_fit_rows(dy, nr_pad).reshape(nr_pad, hd)),
             _c(_fit_rows(r, nr_pad)), _c(_fit_rows(m, nr_pad)),
-            _c(_fit_rows(l, nr_pad)), nr_pad, h)[:n_dst]
+            _c(_fit_rows(l, nr_pad)), nr_pad, h,
+            **_nzc_kw(inner, fwd.nonzero_columns))[:n_dst]
         dzv, dd = _executor(inner, "attn_col")(
             bwd.block_rows, bwd.block_cols, bwd.blocks,
             _c(_fit_rows(asrc, nt_r)), _c(_fit_rows(adst_d, nt_c)),
@@ -402,8 +404,12 @@ def build_sparse_mha(fwd: BSRDevice, bwd: BSRDevice, inner: str):
     """Differentiable fused-attention closure over a (A, Aᵀ) pair — the op
     behind the registry's ``sparse_mha`` / ``spmm_attention`` on the
     ``cuda`` and ``torch`` backends. Returns ``mha(z, a_src, a_dst)`` on
-    unpadded ``z [n_src, H, Dh]`` -> ``[n_dst, H, Dh]``."""
+    unpadded ``z [n_src, H, Dh]`` -> ``[n_dst, H, Dh]``. For ``cuda`` A's
+    nonzero columns, which the backward's row pass reads, are built here,
+    once (shared with any SpMM on A), so no training step pays for them."""
     _executor(inner, "attn_fwd")  # validates inner now, not at the first call
+    if inner == "cuda":
+        fwd.nonzero_columns()
     geom = (fwd.n_rows, fwd.n_cols, fwd.n_rows_padded, fwd.n_cols_padded,
             bwd.n_rows_padded, bwd.n_cols_padded)
 

@@ -31,6 +31,7 @@ from repro_torch.kernels.bsr_attention import (  # noqa: E402
     bsr_attention_bwd_row,
     bsr_attention_fwd,
 )
+from repro_torch.kernels.bsr_spmm import nonzero_columns  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     bsr_attention_bwd_col_ref,
     bsr_attention_bwd_row_ref,
@@ -416,7 +417,8 @@ def test_cuda_attention_kernels_match_plain():
     """On the card: the three kernels against their plain versions on the
     same device tensors at 1e-4 (a padded tail, rows without blocks, a
     row whose max lies in its second block, H·Dh not a multiple of 32, Dh
-    250 at 3 heads), and a repeat launch bitwise equal."""
+    250 at 3 heads; the row pass through A's nonzero columns), and a
+    repeat launch bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     cases = [(60, 240, 8, 2, 5), (300, 1500, None, 3, 250),
@@ -443,7 +445,10 @@ def test_cuda_attention_kernels_match_plain():
         assert torch.all(got[0][8:16] == 0) and torch.all(m[8:16] == 0)
         rargs = (*base, v["adst"], v["asrc"], v["z"], v["dy"], v["r"], m, l,
                  nrp, heads)
-        np.testing.assert_allclose(bsr_attention_bwd_row(*rargs).cpu().numpy(),
+        nzc = nonzero_columns(*base, nrp)  # the row pass reads A's columns
+        got = bsr_attention_bwd_row(*rargs, nzc=nzc)
+        assert torch.equal(got, bsr_attention_bwd_row(*rargs, nzc=nzc))
+        np.testing.assert_allclose(got.cpu().numpy(),
                                    bsr_attention_bwd_row_ref(*rargs).cpu().numpy(),
                                    **TOL)
         # the column pass on the same stream read as Aᵀ: its rows are the

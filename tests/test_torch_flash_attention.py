@@ -25,7 +25,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops as tops  # noqa: E402
-from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS,
+    HEADS_PER_CTA,
+    _heads_per_cta,
+    flash_attention,
+)
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 
 torch.set_num_threads(1)
@@ -173,6 +178,15 @@ def test_wrapper_checks_and_executor():
     assert set(HEAD_DIMS) == {8, 16, 32, 64, 128}
 
 
+@pytest.mark.parametrize("group,want", [(1, 1), (2, 2), (3, 1), (4, 4), (6, 2),
+                                        (8, HEADS_PER_CTA), (32, HEADS_PER_CTA)])
+def test_heads_per_cta_default_divides_the_group(group, want):
+    """The query heads of a KV group a CTA serves: the largest power of two
+    up to ``HEADS_PER_CTA`` that divides the group."""
+    assert HEADS_PER_CTA == 4
+    assert _heads_per_cta(group) == want
+
+
 # ---------------------------------------------------------------------------
 # On the card: the Hopper kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -226,3 +240,47 @@ def test_cuda_kernel_reads_strided_views():
     with pytest.raises(ValueError, match="last axis"):
         flash_attention(args[0].transpose(2, 3).contiguous().transpose(2, 3),
                         *args[1:])
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` starting one element past a 16-byte
+    boundary, so no row is aligned for cp.async."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_tiles_ragged_groups_and_layouts(d, group, causal):
+    """Every built D, KV groups of 1, 2, 4 and 8 heads, Tq and Tk that are
+    multiples of neither the query tile (128, or 128/hp rows a head for
+    the group's hp = 1, 2, 4 and 4 heads a CTA) nor the 64-key tile: fp32
+    within 2e-5 of the plain version, and a repeat bitwise equal; the same
+    inputs as strided [B, T, H, D] views, and misaligned (the synchronous
+    path), equal to the aligned result bitwise; bfloat16 within 5e-2."""
+    dev = _cuda()
+    h, tq, tk = 8, 150, 97 if causal else 201
+    q, k, v = (t.to(dev) for t in _t(*_qkv(d + group, 2, h, tq, tk, d, hkv=h // group)))
+    want = flash_attention_ref(q, k, v, causal=causal)
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    torch.testing.assert_close(flash_attention(*views, causal=causal), got,
+                               rtol=0, atol=0)
+    slow = [_misaligned(x) for x in (q, k, v)]
+    assert all(x.data_ptr() % 16 for x in slow)
+    torch.testing.assert_close(flash_attention(*slow, causal=causal), got,
+                               rtol=0, atol=0)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    got_b = flash_attention(qb, kb, vb, causal=causal)
+    assert torch.equal(got_b, flash_attention(qb, kb, vb, causal=causal))
+    torch.testing.assert_close(got_b.float(),
+                               flash_attention_ref(qb, kb, vb, causal=causal).float(),
+                               **BF16_TOL)

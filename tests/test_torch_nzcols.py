@@ -495,6 +495,18 @@ def _non_finite_rows(rows, cols, blocks, nrp):
     return unread, sorted(read)
 
 
+def _fully_read_row(cols, blocks):
+    """An X row that a nonzero multiplies in every stored block whose
+    columns cover it, so the kernels (over the nonzero columns) and the
+    plain versions (over whole blocks) read it alike; None if no row is."""
+    _, br, bc = blocks.shape
+    covered = (cols.long()[:, None] * bc + torch.arange(bc)).flatten()
+    held = (blocks != 0).any(dim=1).flatten()
+    partly = set(covered[~held].tolist())
+    rows = sorted(set(covered[held].tolist()) - partly)
+    return rows[0] if rows else None
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_give_the_gather_answer_under_non_finite_x():
     """On the card: ``bsr_spmm``, ``bsr_spmm_fused_epilogue`` (bias +
@@ -504,9 +516,12 @@ def test_cuda_kernels_give_the_gather_answer_under_non_finite_x():
     finite, within 1e-4 of the walk over the columns, where the plain
     versions (whole blocks, as Pallas) give NaN. With an inf in a row
     that a nonzero multiplies too, every kernel's non-finite entries are
-    the walk's (the fused kernel without its ReLU there: the walk's
-    ``torch.relu`` keeps a NaN that the kernel's ``fmaxf`` maps to 0),
-    for each tile and both vector widths."""
+    the walk's, the fused kernel's without an activation and with its
+    ReLU, which keeps a NaN as ``torch.relu`` and ``jnp.maximum`` do
+    (the no-activation epilogue gives the pre-activation's -inf and NaN
+    as they are); and with that read row alone non-finite, the fused
+    kernel with its ReLU equals the plain version (NaN where it gives
+    NaN), for each tile and both vector widths."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     src, dst, data, x, want = _non_finite_case()
@@ -518,6 +533,7 @@ def test_cuda_kernels_give_the_gather_answer_under_non_finite_x():
                            n_cols=130, data=r.standard_normal(200).astype(np.float32))
         cases.append((csr_to_bsr(g, br=br, bc=bc),
                       r.standard_normal((-(-130 // bc) * bc, f)).astype(np.float32), f))
+    against_plain = 0
     for case, (bsr, x_np, f) in enumerate(cases):
         t = {k: torch.from_numpy(v).cuda() for k, v in
              (("rows", bsr.block_rows), ("cols", bsr.block_cols), ("blocks", bsr.blocks))}
@@ -538,13 +554,13 @@ def test_cuda_kernels_give_the_gather_answer_under_non_finite_x():
                 x[read[0]] = np.inf
             xc, mc, bc_ = x.cuda(), mask.cuda(), b.cuda()
             args = (t["rows"], t["cols"], t["blocks"], xc, nrp)
-            act = "none" if with_read else "relu"
             pre = _product(walk_nzc, x, nrp) + b
             got = {
                 "bsr_spmm": (bsr_spmm(*args, nzc=nzc), _product(walk_nzc, x, nrp)),
-                "fused": (bsr_spmm_fused_epilogue(*args, bias=bc_, activation=act,
-                                                  nzc=nzc)[0],
-                          pre if with_read else torch.relu(pre)),
+                "fused": (bsr_spmm_fused_epilogue(*args, bias=bc_, activation="relu",
+                                                  nzc=nzc)[0], torch.relu(pre)),
+                "fused, no activation": (bsr_spmm_fused_epilogue(
+                    *args, bias=bc_, activation="none", nzc=nzc)[0], pre),
                 "masked": (bsr_spmm_masked(t["rows"], t["cols"], t["blocks"], xc, mc,
                                            nrp, nzc=nzc),
                            _product(walk_nzc, x * mask, nrp)),
@@ -560,3 +576,23 @@ def test_cuda_kernels_give_the_gather_answer_under_non_finite_x():
                                                                  activation="none")[0],
                          bsr_spmm_masked_ref(*args[:4], mc, nrp))
                 assert all(not torch.isfinite(p).all() for p in plain), case
+        # a read row alone non-finite: the fused ReLU keeps the NaN the
+        # plain version (and Pallas) give, and its mask is 0 there
+        row = _fully_read_row(cpu["cols"], cpu["blocks"])
+        if row is None:
+            continue
+        against_plain += 1
+        x_read = torch.from_numpy(np.where(np.isfinite(x_np), x_np, 0.0)
+                                  .astype(np.float32))
+        x_read[row] = np.inf
+        args = (t["rows"], t["cols"], t["blocks"], x_read.cuda(), nrp)
+        y, y_mask = bsr_spmm_fused_epilogue(*args, bias=b.cuda(), activation="relu",
+                                            nzc=nzc)
+        want, _ = bsr_spmm_fused_ref(*args, bias=b.cuda(), activation="relu")
+        torch.cuda.synchronize()
+        assert torch.isnan(want).any(), case
+        torch.testing.assert_close(y, want, atol=1e-4, rtol=1e-4, equal_nan=True,
+                                   msg=f"{case} fused ReLU, a read row non-finite")
+        assert torch.equal(y_mask[torch.isnan(want)],
+                           torch.zeros_like(y_mask[torch.isnan(want)])), case
+    assert against_plain >= 1  # the first case's row 12
