@@ -77,23 +77,24 @@ is printed:
    ``torch`` program from the same weights, 10 epochs with phase 4's
    checks (at 5 the loss has not yet come back below its first value)
    and exactly 3 / 3 / 3 attention launches (forward, row pass, column
-   pass; the row pass over A's nonzero columns, built when the layer is
-   bound, with its split rows' second pass once a call) and 15 Adam
-   launches per epoch, no BSR SpMM; every layer bound to
-   ``cuda.spmm_attention``.
+   pass; the forward and the row pass over A's nonzero columns, the
+   column pass over Aᵀ's, both built when the layer is bound, each with
+   its split rows' second pass once a call) and 15 Adam launches per
+   epoch, no BSR SpMM; every layer bound to ``cuda.spmm_attention``.
 8. The three attention kernels against their plain versions on phase 7's
    real A and Aᵀ with the layers' real inputs (z, a_src, a_dst and the
-   loss's cotangent dy, captured in one training step): Dh 250, 250 and
-   13 at 3 heads, out / m / l / dc / dzv / dd within 1e-4, a repeat launch
-   bitwise equal; edge cases (a block-row without blocks, a padding tail,
-   a row whose max lies in its second block, H·Dh not a multiple of 32);
+   loss's cotangent dy, captured in one training step), each through its
+   operand's nonzero columns: Dh 250, 250 and 13 at 3 heads, out / m / l
+   / dc / dzv / dd within 1e-4, a repeat launch bitwise equal; edge cases
+   (a block-row without blocks, a padding tail, a row whose max lies in
+   its second block, H·Dh not a multiple of 32, and, with SPLIT_COLUMNS
+   lowered, a row split into segments whose max lies in a later one);
    per call CUDA-event ms, plain ms, the bounds (``attention_bound``: the
-   row pass's the nonzeros', the others' the layout's, each with the
-   other beside it) and the segment path's ms
+   nonzeros', with the layout's beside it) and the segment path's ms
    (``segment_softmax_aggregate`` forward and backward: gather,
    ``scatter_reduce``, ``index_add_``; a composition of library calls, no
    single one computes edge-softmax attention, so ``library_ms`` is
-   null); the hub row's cost against a mean row's, the row pass's after
+   null); the hub row's cost against a mean row's, each pass's after
    the split (its segments and second-pass launches beside it).
 9. GT on the quickstart at full scale: GT [8710, 32, 70], 4 heads, layer 0
    on ``cuda.feature_matmul_sparse``; 10 epochs cuda against torch with
@@ -161,6 +162,7 @@ from repro_torch.graph.csr import csr_from_dense, csr_from_edges, csr_to_bsr  # 
 from repro_torch.graph.datasets import generate_dataset  # noqa: E402
 from repro_torch.graph.sampling import _pad_bsr  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import bsr_spmm as bsr_spmm_module  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.bsr_attention import (  # noqa: E402
     bsr_attention_bwd_col,
@@ -204,8 +206,9 @@ MASK_MARGIN = 1e-5
 #: cuda against torch program, per leaf, the norm of the difference over the
 #: leaf's norm: both programs' gradients at the same parameters, and each
 #: program's parameters after the last epoch. Where a pre-activation lies
-#: within rounding of 0 the programs' ReLU masks may part, and the plain
-#: version's atomic adds can give such a sum either sign from run to run.
+#: within rounding of 0 the programs' ReLU masks may part: the kernels and
+#: the plain versions sum in other orders, so such a sum may take either
+#: sign in the two.
 #: The analog's labels are random, so its gradients nearly cancel: one
 #: flip moved layer 0's gradient by 6e-5 (ogbn-arxiv, the first step) and
 #: by 1.9e-3 (the quickstart after 10 epochs, |pre| ~1e-7; H100 runs). So
@@ -1127,9 +1130,10 @@ def adam_checks(prog, device, reps: int):
 
 
 #: what a kernel's second pass is counted under in a profiled window: the
-#: split rows' pass (``nzc_split_reduce``, ``bsr_spmm_reduce``) adds their
-#: partial sums after the row pass, inside the same wrapper call, so its
-#: time is the kernel's and its launches are counted apart from the calls
+#: split rows' pass (``nzc_split_reduce``, ``bsr_spmm_reduce``,
+#: ``attn_<pass>_reduce``) combines their partials after the first pass,
+#: inside the same wrapper call, so its time is the kernel's and its
+#: launches are counted apart from the calls
 SECOND_PASS = " second pass"
 
 
@@ -1138,7 +1142,7 @@ def launch_key(name: str) -> str:
     the kernel's ``SECOND_PASS``."""
     kernel = classify(name)
     second = ("nzc_split_reduce<" in name or "bsr_spmm_reduce<" in name
-              or "attn_bwd_row_reduce" in name)
+              or re.search(r"attn_(?:fwd|bwd_row|bwd_col)_reduce", name))
     return kernel + SECOND_PASS if second else kernel
 
 
@@ -1146,8 +1150,8 @@ def classify(name: str) -> str:
     """A profiler event's kernel, by its (demangled) name: the three SpMM
     kernels' two passes over the nonzero-column loop (bsr_nzc.cuh) by
     their names, bsr_spmm.cu's own or the fused and masked kernels' (by
-    their MASKED flag); the attention row pass's two passes
-    (``attn_bwd_row_kernel``, ``attn_bwd_row_reduce``) as one kernel."""
+    their MASKED flag); each attention pass's two kernels
+    (``attn_<pass>_kernel``, ``attn_<pass>_reduce``) as one kernel."""
     if "bsr_spmm_kernel<" in name or "bsr_spmm_reduce<" in name:
         return "bsr_spmm"
     m = re.search(r"nzc_(?:kernel|split_reduce)<\s*\d+,\s*\d+,\s*(\w+),", name)
@@ -1155,11 +1159,9 @@ def classify(name: str) -> str:
         return "bsr_spmm_masked" if m.group(1) == "true" else "bsr_spmm_fused_epilogue"
     if "fused_adam_kernel" in name:
         return "fused_adam"
-    if "attn_bwd_row_reduce" in name:
-        return "bsr_attention_bwd_row"
-    for kind in ("fwd", "bwd_row", "bwd_col"):
-        if f"attn_{kind}_kernel" in name:
-            return f"bsr_attention_{kind}"
+    m = re.search(r"attn_(fwd|bwd_row|bwd_col)_(?:kernel|reduce)", name)
+    if m:
+        return f"bsr_attention_{m.group(1)}"
     if "flash_fwd_kernel" in name:
         return "flash_attention"
     low = name.lower()
@@ -1378,12 +1380,14 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
            "peak_mem_bytes": peak, "accuracy": prog.accuracy(),
            "grad_start": grad_start, "grad_end": grad_end,
            "param_rel_diff": param_diff}
-    # each fused call and attention row pass runs on A, each masked call on
-    # Aᵀ, bsr_spmm on the operands recorded in one step: a call on an
-    # operand with split rows launches its second pass once
-    split = {"bsr_spmm_fused_epilogue": prog.plan.graph_op.fwd_operand,
-             "bsr_spmm_masked": prog.plan.graph_op.bwd_operand,
-             "bsr_attention_bwd_row": prog.plan.graph_op.fwd_operand}
+    # each fused call and attention forward and row pass runs on A, each
+    # masked call and attention column pass on Aᵀ, bsr_spmm on the
+    # operands recorded in one step: a call on an operand with split rows
+    # launches its second pass once
+    fwd_op, bwd_op = prog.plan.graph_op.fwd_operand, prog.plan.graph_op.bwd_operand
+    split = {"bsr_spmm_fused_epilogue": fwd_op, "bsr_spmm_masked": bwd_op,
+             "bsr_attention_fwd": fwd_op, "bsr_attention_bwd_row": fwd_op,
+             "bsr_attention_bwd_col": bwd_op}
     second = {k + SECOND_PASS: want[k] if op.nzc is not None and op.nzc.splits.shape[0] else 0
               for k, op in split.items()}
     second["bsr_spmm" + SECOND_PASS] = spmm_second
@@ -1541,9 +1545,8 @@ def attention_bound(rows, cols, blocks, heads: int, hd: int,
     block-row, once. ``nnz_bound_ms``, any layout's: each nonzero's column
     index and a row pointer per row, the rows the nonzeros reference on
     each side, once. Both write every output row once. ``bound_ms`` (and
-    ``bytes``) is the one the kernel answers to: the nonzeros' for the row
-    pass, which reads A's nonzero columns and no block; the layout's for
-    the forward and the column pass, which read the blocks. Operations:
+    ``bytes``) is the one the kernels answer to, the nonzeros': every pass
+    reads its operand's nonzero columns and no block. Operations:
     fp32 on the nonzeros x heads (score, exp and the 2·Dh-long product per
     pass; the column pass two products)."""
     col_w, row_w, out_w = {
@@ -1568,8 +1571,7 @@ def attention_bound(rows, cols, blocks, heads: int, hd: int,
     dh = hd // heads
     per = {"fwd": 2 * dh + 6, "row": 2 * dh + 10, "col": 4 * dh + 10}[kind]
     flop = float(nnz) * heads * per
-    out = {"blocks_used": n_used, "nnz": nnz,
-           "bytes": nnz_bytes if kind == "row" else nbytes,
+    out = {"blocks_used": n_used, "nnz": nnz, "bytes": nnz_bytes,
            "layout_bytes": nbytes, "nnz_bytes": nnz_bytes, "flop": flop}
     out["bound_ms"], out["bound_by"] = _bound(out["bytes"], flop)
     out["nnz_bound_ms"], _ = _bound(nnz_bytes, flop)
@@ -1577,30 +1579,29 @@ def attention_bound(rows, cols, blocks, heads: int, hd: int,
     return out
 
 
-def attention_call(kind, args, nzc=None):
-    """A thunk of the ``kind`` pass's kernel on ``args``; the row pass reads
-    A's nonzero columns ``nzc`` (the stream's own)."""
+def attention_call(kind, args, nzc):
+    """A thunk of the ``kind`` pass's kernel on ``args``, reading ``nzc``,
+    the nonzero columns of its stream (A's, or Aᵀ's for the column pass)."""
     _, kernel, _ = ATTENTION[kind]
-    if kind == "row":
-        return lambda: kernel(*args, nzc=nzc)
-    return lambda: kernel(*args)
+    return lambda: kernel(*args, nzc=nzc)
 
 
 def stream_columns(args):
-    """The nonzero columns of a row pass's stream (``args`` as the row
-    pass takes them), built on its device."""
-    return nonzero_columns(args[0], args[1], args[2], args[10])
+    """The nonzero columns of an attention pass's stream (``args`` as the
+    pass takes them: the stream first, its padded rows second to last),
+    built on its device."""
+    return nonzero_columns(args[0], args[1], args[2], args[-2])
 
 
-def check_attention(label, kind, args, device, nzc=None) -> float:
+def check_attention(label, kind, args, device, nzc) -> float:
     """One attention kernel against its plain version on the same device
     tensors, every output within the JAX suite's tolerance (|got - want| <=
     1e-4 + 1e-4·|want|: the softmax denominator l of a row with 17k
     nonzeros is ~1e4, summed in another order) and within 1e-4 of its
     norm (||got - want|| <= 1e-4·||want||, which holds small outputs to
-    their own scale), and a repeat launch bitwise equal. The row pass
-    reads ``nzc``, its stream's nonzero columns. Returns the largest
-    absolute error."""
+    their own scale), and a repeat launch bitwise equal. The kernel reads
+    ``nzc``, its stream's nonzero columns. Returns the largest absolute
+    error."""
     name, _, plain = ATTENTION[kind]
     call = attention_call(kind, args, nzc)
     got = call()
@@ -1630,45 +1631,64 @@ def check_attention(label, kind, args, device, nzc=None) -> float:
     return max(e for e, _, _ in errs)
 
 
+@contextlib.contextmanager
+def split_columns(n: int):
+    """Inside the ``with`` statement ``nonzero_columns`` splits rows longer
+    than ``n`` columns (``SPLIT_COLUMNS``, restored after)."""
+    saved = bsr_spmm_module.SPLIT_COLUMNS
+    bsr_spmm_module.SPLIT_COLUMNS = n
+    try:
+        yield
+    finally:
+        bsr_spmm_module.SPLIT_COLUMNS = saved
+
+
 def attention_edge_cases(device) -> float:
-    """The three passes on small operands: a padding tail, a block-row
-    without blocks, H·Dh not a multiple of 32 (2 x 5, 4 x 17), and a row
-    whose max lies in its second block."""
+    """The three passes on small operands, each through its stream's
+    nonzero columns: a padding tail, a block-row without blocks, H·Dh not
+    a multiple of 32 (2 x 5, 4 x 17), rows split into segments of 3
+    columns and whole; a row whose max lies in its second block; and,
+    split at 3 columns, a row whose max lies in its last segment beside a
+    row whose first segments hold none of its nonzeros."""
     err = 0.0
     gen = torch.Generator().manual_seed(23)
-    for heads, dh in ((2, 5), (4, 17)):
-        r = np.random.default_rng(heads)
-        g = csr_from_edges(r.integers(0, 150, 700), r.integers(0, 150, 700), 150)
-        a, at = csr_to_bsr(g, br=8, bc=8), csr_to_bsr(g.transpose(), br=8, bc=8)
-        arrays = _pad_bsr(a, a.n_blocks + 9)
-        keep = arrays["rows"] != 3  # block-row 3 loses its blocks
-        t = on_device({k: v[keep] for k, v in arrays.items()}, device)
-        tt = on_device({"rows": at.block_rows, "cols": at.block_cols,
-                        "blocks": at.blocks}, device)
-        nr, nc, hd = a.padded_rows, a.padded_cols, heads * dh
+    for split in (3, bsr_spmm_module.SPLIT_COLUMNS):
+        for heads, dh in ((2, 5), (4, 17)):
+            r = np.random.default_rng(heads)
+            g = csr_from_edges(r.integers(0, 150, 700), r.integers(0, 150, 700), 150)
+            a, at = csr_to_bsr(g, br=8, bc=8), csr_to_bsr(g.transpose(), br=8, bc=8)
+            arrays = _pad_bsr(a, a.n_blocks + 9)
+            keep = arrays["rows"] != 3  # block-row 3 loses its blocks
+            t = on_device({k: v[keep] for k, v in arrays.items()}, device)
+            tt = on_device({"rows": at.block_rows, "cols": at.block_cols,
+                            "blocks": at.blocks}, device)
+            nr, nc, hd = a.padded_rows, a.padded_cols, heads * dh
 
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen).to(device)
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen).to(device)
 
-        z, dy = rnd(nc, hd), rnd(nr, hd)
-        adst, asrc, rr = rnd(nr, heads), rnd(nc, heads), rnd(nr, heads)
-        fargs = (t["rows"], t["cols"], t["blocks"], adst, asrc, z, nr, heads)
-        label = f"edge cases H={heads} Dh={dh}"
-        err = max(err, check_attention(label, "fwd", fargs, device))
-        out, m, l = bsr_attention_fwd(*fargs)
-        if not (torch.all(out[24:32] == 0) and torch.all(m[24:32] == 0)
-                and torch.all(l[24:32] == 0)):
-            raise AssertionError("a block-row without blocks must give out, m, l = 0")
-        rargs = (*fargs[:3], adst, asrc, z, dy, rr, m, l, nr, heads)
-        err = max(err, check_attention(label, "row", rargs, device,
-                                       stream_columns(rargs)))
-        src_side = [kops._fit_rows(x, at.padded_rows).contiguous()
-                    for x in (asrc, z)]
-        dst_side = [kops._fit_rows(x, at.padded_cols).contiguous()
-                    for x in (adst, dy, rr, m, l + 1.0)]
-        err = max(err, check_attention(label, "col", (
-            tt["rows"], tt["cols"], tt["blocks"], src_side[0], dst_side[0],
-            src_side[1], *dst_side[1:], at.padded_rows, heads), device))
+            z, dy = rnd(nc, hd), rnd(nr, hd)
+            adst, asrc, rr = rnd(nr, heads), rnd(nc, heads), rnd(nr, heads)
+            fargs = (t["rows"], t["cols"], t["blocks"], adst, asrc, z, nr, heads)
+            label = f"edge cases H={heads} Dh={dh} split {split}"
+            with split_columns(split):
+                nzc = stream_columns(fargs)
+                nzc_t = nonzero_columns(tt["rows"], tt["cols"], tt["blocks"],
+                                        at.padded_rows)
+            err = max(err, check_attention(label, "fwd", fargs, device, nzc))
+            out, m, l = bsr_attention_fwd(*fargs, nzc=nzc)
+            if not (torch.all(out[24:32] == 0) and torch.all(m[24:32] == 0)
+                    and torch.all(l[24:32] == 0)):
+                raise AssertionError("a block-row without blocks must give out, m, l = 0")
+            rargs = (*fargs[:3], adst, asrc, z, dy, rr, m, l, nr, heads)
+            err = max(err, check_attention(label, "row", rargs, device, nzc))
+            src_side = [kops._fit_rows(x, at.padded_rows).contiguous()
+                        for x in (asrc, z)]
+            dst_side = [kops._fit_rows(x, at.padded_cols).contiguous()
+                        for x in (adst, dy, rr, m, l + 1.0)]
+            err = max(err, check_attention(label, "col", (
+                tt["rows"], tt["cols"], tt["blocks"], src_side[0], dst_side[0],
+                src_side[1], *dst_side[1:], at.padded_rows, heads), device, nzc_t))
     # row 0 attends sources {0, 1} in block-column 0 and {14, 15} in
     # block-column 1, whose scores are the larger: the running max rises
     blocks = torch.zeros((2, 8, 8))
@@ -1682,24 +1702,47 @@ def attention_edge_cases(device) -> float:
     fargs = tuple(x.to(device) for x in (torch.zeros(2, dtype=torch.int32),
                                           torch.tensor([0, 1], dtype=torch.int32),
                                           blocks, adst, asrc, z)) + (8, 1)
-    err = max(err, check_attention("max in the second block", "fwd", fargs, device))
-    _, m, _ = bsr_attention_fwd(*fargs)
+    nzc = stream_columns(fargs)
+    err = max(err, check_attention("max in the second block", "fwd", fargs, device, nzc))
+    _, m, _ = bsr_attention_fwd(*fargs, nzc=nzc)
     if abs(float(m[0, 0]) - 6.3) > 1e-5:
         raise AssertionError(f"row max {float(m[0, 0])}, expected 6.3")
+    # one block-row over 24 sources, 9 columns holding a nonzero: split at
+    # 3 columns, row 0's scores rise to its last segment's; row 1's
+    # nonzeros lie in the last segment only, so its first two carry no
+    # nonzero (m_s = NEG_INF, l_s = 0) and must add nothing
+    blocks = torch.zeros((3, 8, 8))
+    for b, ks in enumerate(([1, 4, 6], [0, 3, 7], [2, 5, 6])):
+        blocks[b, 0, ks] = 1.0
+    blocks[2, 1, [2, 5, 6]] = 1.0
+    asrc = torch.linspace(-2.0, 5.0, 24)[:, None]
+    fargs = tuple(x.to(device) for x in (torch.zeros(3, dtype=torch.int32),
+                                          torch.arange(3, dtype=torch.int32), blocks,
+                                          torch.full((8, 1), 0.3), asrc,
+                                          torch.randn((24, 3), generator=gen))) + (8, 1)
+    with split_columns(3):
+        nzc = stream_columns(fargs)
+    if nzc.splits.tolist() != [[0, 0, 3]]:
+        raise AssertionError(f"the late-max row must split in 3: {nzc.splits.tolist()}")
+    err = max(err, check_attention("max in the last segment", "fwd", fargs, device, nzc))
+    _, m, _ = bsr_attention_fwd(*fargs, nzc=nzc)
+    want = 0.3 + float(asrc[22, 0])
+    if abs(float(m[0, 0]) - want) > 1e-5:
+        raise AssertionError(f"row max {float(m[0, 0])}, expected {want}")
     return err
 
 
 def attention_row_cost(kind, args, device, reps: int) -> dict:
     """One attention pass on a stream holding only its hub block-row (A's
-    in-degree hub, or Aᵀ's out-degree hub: one CTA walks it), the row with
+    in-degree hub, or Aᵀ's out-degree hub), the row with
     the most nonzeros, blocks breaking a tie, as ``row_cost`` picks by
     nonzero columns; against one holding only a row of about the mean
     length in blocks, at these inputs' width. Also the row with the most
     blocks (the first of a tie), with its blocks and nonzeros: several
-    rows may tie on blocks and hold very different nonzeros. The row pass
-    walks each sub-stream's own nonzero columns, so the hub is cut into
-    segments of SPLIT_COLUMNS columns, one CTA each, and added by one
-    second-pass launch a call: ``<row>_segments`` and
+    rows may tie on blocks and hold very different nonzeros. Every pass
+    walks each sub-stream's own nonzero columns, so a row longer than
+    SPLIT_COLUMNS columns is cut into segments, one CTA each, combined by
+    one second-pass launch a call: ``<row>_segments`` and
     ``<row>_second_pass_launches`` say so."""
     rows, cols, blocks, *rest = args
     per_row = torch.bincount(rows.long())
@@ -1721,11 +1764,9 @@ def attention_row_cost(kind, args, device, reps: int) -> dict:
         out[f"{label}_nnz"] = int(blocks[sel].ne(0).sum())
         sub = (rows[sel].contiguous(), cols[sel].contiguous(),
                blocks[sel].contiguous(), *rest)
-        nzc = None
-        if kind == "row":
-            nzc = stream_columns(sub)
-            out[f"{label}_segments"] = nzc.n_slots
-            out[f"{label}_second_pass_launches"] = int(nzc.splits.shape[0] > 0)
+        nzc = stream_columns(sub)
+        out[f"{label}_segments"] = nzc.n_slots
+        out[f"{label}_second_pass_launches"] = int(nzc.splits.shape[0] > 0)
         out.update({f"{label}_{k}": v for k, v in timings(
             {"": attention_call(kind, sub, nzc)}, device, reps).items()})
     return out
@@ -1759,14 +1800,14 @@ def segment_ms(rec, op, device, reps: int) -> dict:
 
 def attention_phase(prog, device, reps: int) -> dict:
     """Phase 8 on phase 7's operands: A (forward, row pass) and Aᵀ (column
-    pass), each layer's real inputs; the row pass through A's nonzero
-    columns, which the program built when it bound the layer."""
+    pass), each layer's real inputs, each pass through its operand's
+    nonzero columns, which the program built when it bound the layer."""
     op = prog.plan.graph_op
     fwd, bwd = op.fwd_operand, op.bwd_operand
-    if fwd.nzc is None:
-        raise AssertionError("the cuda program must build A's nonzero columns "
-                             "when it binds the attention pair")
-    nzc = fwd.nzc
+    if fwd.nzc is None or bwd.nzc is None:
+        raise AssertionError("the cuda program must build A's and Aᵀ's nonzero "
+                             "columns when it binds the attention pair")
+    columns = {"fwd": fwd.nzc, "row": fwd.nzc, "col": bwd.nzc}
     captured = capture_attention(prog)
     sync(device)
     err = {k: 0.0 for k in ATTENTION}
@@ -1778,7 +1819,8 @@ def attention_phase(prog, device, reps: int) -> dict:
         hd = rec["z"].shape[1]
         label = f"layer {layer} H={h} Dh={hd // h}"
         for kind, a in args.items():
-            err[kind] = max(err[kind], check_attention(label, kind, a, device, nzc))
+            err[kind] = max(err[kind], check_attention(label, kind, a, device,
+                                                       columns[kind]))
         seg = segment_ms(rec, op, device, reps)
         for kind, a in args.items():
             name, _, plain = ATTENTION[kind]
@@ -1786,7 +1828,7 @@ def attention_phase(prog, device, reps: int) -> dict:
             row = {"kernel": name, "operand": "A^T" if kind == "col" else "A",
                    "layer": layer, "heads": h, "Dh": hd // h,
                    "n_blocks": int(stream.blocks.shape[0])}
-            row.update(timings({"": attention_call(kind, a, nzc),
+            row.update(timings({"": attention_call(kind, a, columns[kind]),
                                 "plain_": lambda: plain(*a)}, device, reps))
             row.update(attention_bound(stream.block_rows, stream.block_cols,
                                        stream.blocks, h, hd, stream.n_rows_padded,

@@ -7,8 +7,8 @@ native ``spmm_fused_epilogue`` runs ``bsr_spmm_fused.cu`` forward and
 each operand's nonzero columns, built once when the op is bound
 (``spmm_transposed_vjp``, which ``feature_matmul_sparse`` binds over X
 and Xᵀ, and ``spmm_fused_epilogue``); ``sparse_mha`` runs
-``bsr_attention.cu`` (the forward and the row pass on A, the column pass
-on Aᵀ). The kernel wrappers run their plain versions for CPU tensors, so
+``bsr_attention.cu`` (the forward and the row pass over A's nonzero
+columns, the column pass over Aᵀ's, both built when the op is bound). The kernel wrappers run their plain versions for CPU tensors, so
 the same plans run in the CPU tests. The sampled path runs
 ``kernels/ops.py:bsr_spmm_pair`` with ``inner="cuda"``, which builds
 each batch layer's columns where its product runs.

@@ -4,8 +4,8 @@ passes of its recompute backward.
 The port of ``repro/kernels/bsr_attention.py``'s three Pallas TPU kernels:
 
 * ``bsr_attention_fwd`` (``pallas_call`` at :133): per head, scores
-  ``leaky_relu(adst_i + asrc_j, 0.2)`` over each block's nonzeros, an
-  online softmax per row and the weighted aggregate of z; returns the
+  ``leaky_relu(adst_i + asrc_j, 0.2)`` over each row's nonzeros, a
+  softmax per row and the weighted aggregate of z; returns the
   normalised output and the rows' (max, denominator) statistics;
 * ``bsr_attention_bwd_row`` (:190): ``dc_i = Σ_j dpre_ij`` over A, the
   weights recomputed from (m, l);
@@ -13,14 +13,16 @@ The port of ``repro/kernels/bsr_attention.py``'s three Pallas TPU kernels:
   ``dd_j = Σ_i dpre_ij`` over Aᵀ.
 
 For CUDA tensors each wrapper launches its hand-written Hopper kernel
-(``kernels/csrc/bsr_attention.cu``, no atomics, bitwise repeatable): the
-forward and the column pass one CTA per (block-row, column tile), a
-block's all-zero columns skipped; the row pass one CTA per work item of
-A's ``NonzeroColumns`` (``kernels/bsr_spmm.py``, the SpMM kernels'
-operand, built once per operand), a hub row's segments added in order
-by a second pass. For CPU tensors each runs the plain version in
-``kernels/ref.py``. There is no fallback between the two: a CUDA call
-that cannot launch raises. The block values are the adjacency mask only
+(``kernels/csrc/bsr_attention.cu``, no atomics, bitwise repeatable). Each
+kernel walks its operand's ``NonzeroColumns`` (``kernels/bsr_spmm.py``,
+the SpMM kernels' operand, built once per operand), not its blocks: the
+forward and the row pass A's, the column pass Aᵀ's. One CTA takes one
+work item (a block-row, or one segment of a hub row) across the whole
+H·Dh width, and a second pass combines a split row's segments in order.
+A CUDA call takes the columns as ``nzc=`` and raises without them. For
+CPU tensors each wrapper runs the plain version in ``kernels/ref.py`` and
+ignores ``nzc``. There is no fallback between the two: a CUDA call that
+cannot launch raises. The block values are the adjacency mask only
 (value != 0). Each wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
@@ -32,11 +34,14 @@ import torch
 from repro_torch.kernels.bsr_spmm import (
     _I,
     _INDEX_NAMES,
+    _NZC_ARGTYPES,
     _P,
     NonzeroColumns,
     _check_nzc,
     _entry,
+    _nzc_args,
     _nzc_tensors,
+    _partial,
     _raise_on,
     _require_nzc,
     _stream,
@@ -47,10 +52,8 @@ from repro_torch.kernels.ref import (
     bsr_attention_fwd_ref,
 )
 
-#: block-row heights the kernels instantiate; block columns up to 128
+#: block-row heights the kernels instantiate
 BRS = (8, 16)
-MAX_BC = 128
-MAX_THREADS = 256
 
 
 def _check(block_rows, block_cols, blocks, heads, row_ops: dict,
@@ -89,9 +92,11 @@ def _check(block_rows, block_cols, blocks, heads, row_ops: dict,
     return hd // heads
 
 
-def _check_launch(heads, **tensors) -> None:
-    """What the CUDA kernels take: every operand on one card, int32
-    indices, float32 values, contiguous; a built tile and head count."""
+def _check_launch(nzc: NonzeroColumns, **tensors) -> None:
+    """What the CUDA kernels take: every operand (and the columns ``nzc``)
+    on one card, int32 indices, float32 values, contiguous; a built block
+    height."""
+    tensors.update(_nzc_tensors(nzc))
     device = tensors["z"].device
     for name, t in tensors.items():
         dtype = torch.int32 if name in _INDEX_NAMES else torch.float32
@@ -101,10 +106,22 @@ def _check_launch(heads, **tensors) -> None:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    _, br, bc = tensors["blocks"].shape
-    if br not in BRS or bc > MAX_BC or heads * br > MAX_THREADS:
-        raise ValueError(f"tile ({br}, {bc}) with {heads} heads is not built: "
-                         f"br in {BRS}, bc <= {MAX_BC}, heads*br <= {MAX_THREADS}")
+    if nzc.br not in BRS:
+        raise ValueError(f"block height {nzc.br} is not built; built: {BRS}")
+
+
+def _launch(name: str, symbol: str, nzc: NonzeroColumns, slot_row: int,
+            tensors: tuple, ints: tuple, device) -> None:
+    """Launch ``symbol`` of the attention library over ``nzc``: its work
+    list, split rows and columns, scratch of ``slot_row`` floats a row of
+    a split row's slot, then ``tensors`` (device pointers) and ``ints``."""
+    partial = _partial(nzc, slot_row, device)
+    fn = _entry("bsr_attention", symbol,
+                _NZC_ARGTYPES + (_P,) * len(tensors) + (_I,) * len(ints) + (_P,))
+    with torch.cuda.device(device):
+        err = fn(*_nzc_args(nzc, partial), *(t.data_ptr() for t in tensors),
+                 *ints, _stream(device))
+    _raise_on(err, name)
 
 
 def bsr_attention_fwd(
@@ -116,6 +133,7 @@ def bsr_attention_fwd(
     z: torch.Tensor,  # [n_cols_padded, H*Dh] head-major
     n_rows_padded: int,
     heads: int,
+    nzc: Optional[NonzeroColumns] = None,
 ):
     """Fused edge softmax + aggregation over A. Returns ``(out
     [n_rows_padded, H*Dh], m [n_rows_padded, H], l [n_rows_padded, H])``:
@@ -123,31 +141,33 @@ def bsr_attention_fwd(
     for the recompute backward (m = 0 on rows without a nonzero).
 
     The stream contract is ``bsr_spmm``'s: rows sorted, each row's
-    block-columns increasing, zero padding blocks trailing; the kernel
-    does not re-check it on the device. CPU calls run the plain version
-    and do not count as launches."""
+    block-columns increasing, zero padding blocks trailing. The kernel
+    reads A's ``nzc`` (``nonzero_columns`` of these blocks, built once per
+    operand: ``BSRDevice.nonzero_columns()``, which
+    ``kernels/ops.py:build_sparse_mha`` calls at bind time), not the
+    blocks; a CUDA call requires it. CPU calls run the plain version,
+    ignore ``nzc`` and do not count as launches."""
     dh = _check(block_rows, block_cols, blocks, heads, {"adst": adst},
                 {"asrc": asrc, "z": z}, n_rows_padded)
+    if nzc is not None:
+        _check_nzc(nzc, blocks.shape[1], n_rows_padded)
     if z.device.type == "cpu":
         return bsr_attention_fwd_ref(block_rows, block_cols, blocks, adst,
                                      asrc, z, n_rows_padded, heads)
-    _check_launch(heads, block_rows=block_rows, block_cols=block_cols,
+    _require_nzc(nzc)
+    _check_launch(nzc, block_rows=block_rows, block_cols=block_cols,
                   blocks=blocks, adst=adst, asrc=asrc, z=z)
-    n_blocks, br, bc = blocks.shape
+    br = nzc.br
     dev = z.device
     out = torch.empty((n_rows_padded, heads * dh), dtype=torch.float32, device=dev)
     m = torch.empty((n_rows_padded, heads), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
     if n_rows_padded == 0:
         return out, m, l
-    fn = _entry("bsr_attention", "bsr_attention_fwd_f32",
-                (_P,) * 9 + (_I,) * 6 + (_P,))
-    with torch.cuda.device(dev):
-        err = fn(block_rows.data_ptr(), block_cols.data_ptr(), blocks.data_ptr(),
-                 adst.data_ptr(), asrc.data_ptr(), z.data_ptr(), out.data_ptr(),
-                 m.data_ptr(), l.data_ptr(), n_blocks, n_rows_padded // br,
-                 heads, dh, br, bc, _stream(dev))
-    _raise_on(err, "bsr_attention_fwd")
+    # a split row's slot: its unnormalised out, then m and l
+    _launch("bsr_attention_fwd", "bsr_attention_fwd_f32", nzc,
+            heads * dh + 2 * heads, (adst, asrc, z, out, m, l),
+            (heads, dh, br), dev)
     bsr_attention_fwd.launches += 1
     return out, m, l
 
@@ -170,13 +190,11 @@ def bsr_attention_bwd_row(
     """Row pass of the recompute backward over A: ``dc [n_rows_padded, H]``,
     the destination-side score cotangent.
 
-    The kernel reads A's ``nzc`` (``nonzero_columns`` of these blocks,
-    built once per operand: ``BSRDevice.nonzero_columns()``, which
-    ``kernels/ops.py:build_sparse_mha`` calls at bind time), not the
-    blocks; a CUDA call requires it, and a block-row's dy rows
-    (``br·H·Dh`` floats, staged per CTA) must fit in a CTA's shared
-    memory, else the launch fails. CPU calls run the plain version, ignore
-    ``nzc`` and do not count as launches."""
+    The kernel reads A's ``nzc``, as the forward does; a CUDA call
+    requires it, and a block-row's dy rows (``br·H·Dh`` floats, staged per
+    CTA) must fit in a CTA's shared memory, else the launch fails. CPU
+    calls run the plain version, ignore ``nzc`` and do not count as
+    launches."""
     dh = _check(block_rows, block_cols, blocks, heads,
                 {"adst": adst, "dy": dy, "r": r, "m": m, "l": l},
                 {"asrc": asrc, "z": z}, n_rows_padded)
@@ -187,26 +205,15 @@ def bsr_attention_bwd_row(
                                          asrc, z, dy, r, m, l, n_rows_padded,
                                          heads)
     _require_nzc(nzc)
-    _check_launch(heads, block_rows=block_rows, block_cols=block_cols,
-                  blocks=blocks, adst=adst, asrc=asrc, z=z, dy=dy, r=r, m=m, l=l,
-                  **_nzc_tensors(nzc))
-    br = blocks.shape[1]
+    _check_launch(nzc, block_rows=block_rows, block_cols=block_cols,
+                  blocks=blocks, adst=adst, asrc=asrc, z=z, dy=dy, r=r, m=m, l=l)
+    br = nzc.br
     dc = torch.empty((n_rows_padded, heads), dtype=torch.float32, device=z.device)
     if n_rows_padded == 0:
         return dc
-    partial = (None if nzc.n_slots == 0 else
-               torch.empty((nzc.n_slots, br, heads), dtype=torch.float32,
-                           device=z.device))
-    fn = _entry("bsr_attention", "bsr_attention_bwd_row_f32",
-                (_P, _I, _P, _I) + (_P,) * 11 + (_I,) * 4 + (_P,))
-    with torch.cuda.device(z.device):
-        err = fn(nzc.items.data_ptr(), nzc.items.shape[0], nzc.splits.data_ptr(),
-                 nzc.splits.shape[0], nzc.x_rows.data_ptr(), nzc.values.data_ptr(),
-                 None if partial is None else partial.data_ptr(),
-                 adst.data_ptr(), asrc.data_ptr(), z.data_ptr(), dy.data_ptr(),
-                 r.data_ptr(), m.data_ptr(), l.data_ptr(), dc.data_ptr(),
-                 heads, dh, br, int(dy.data_ptr() % 16 == 0), _stream(z.device))
-    _raise_on(err, "bsr_attention_bwd_row")
+    _launch("bsr_attention_bwd_row", "bsr_attention_bwd_row_f32", nzc,
+            heads, (adst, asrc, z, dy, r, m, l, dc),
+            (heads, dh, br, int(dy.data_ptr() % 16 == 0)), z.device)
     bsr_attention_bwd_row.launches += 1
     return dc
 
@@ -224,37 +231,38 @@ def bsr_attention_bwd_col(
     l: torch.Tensor,  # [n_cols_padded, H]
     n_rows_padded: int,
     heads: int,
+    nzc: Optional[NonzeroColumns] = None,
 ):
     """Column pass of the recompute backward over Aᵀ: ``(dzv
     [n_rows_padded, H*Dh], dd [n_rows_padded, H])`` on the source side.
     Operands indexed by Aᵀ's block rows live on the source side (asrc, z),
     those indexed by its block columns on the destination side (adst, dy,
-    r, m, l). One launch computes both: dd's dots need a head's whole
-    width, so the kernel's first column tile takes them."""
+    r, m, l). The kernel reads Aᵀ's ``nzc`` (its destinations), built once
+    per operand as A's is; a CUDA call requires it. One launch computes
+    both outputs, each dy row read once. CPU calls run the plain version,
+    ignore ``nzc`` and do not count as launches."""
     dh = _check(block_rows, block_cols, blocks, heads, {"asrc": asrc, "z": z},
                 {"adst": adst, "dy": dy, "r": r, "m": m, "l": l},
                 n_rows_padded)
+    if nzc is not None:
+        _check_nzc(nzc, blocks.shape[1], n_rows_padded)
     if z.device.type == "cpu":
         return bsr_attention_bwd_col_ref(block_rows, block_cols, blocks, asrc,
                                          adst, z, dy, r, m, l, n_rows_padded,
                                          heads)
-    _check_launch(heads, block_rows=block_rows, block_cols=block_cols,
+    _require_nzc(nzc)
+    _check_launch(nzc, block_rows=block_rows, block_cols=block_cols,
                   blocks=blocks, asrc=asrc, adst=adst, z=z, dy=dy, r=r, m=m, l=l)
-    n_blocks, br, bc = blocks.shape
+    br = nzc.br
     dev = z.device
     dzv = torch.empty((n_rows_padded, heads * dh), dtype=torch.float32, device=dev)
     dd = torch.empty((n_rows_padded, heads), dtype=torch.float32, device=dev)
     if n_rows_padded == 0:
         return dzv, dd
-    fn = _entry("bsr_attention", "bsr_attention_bwd_col_f32",
-                (_P,) * 12 + (_I,) * 6 + (_P,))
-    with torch.cuda.device(dev):
-        err = fn(block_rows.data_ptr(), block_cols.data_ptr(), blocks.data_ptr(),
-                 asrc.data_ptr(), adst.data_ptr(), z.data_ptr(), dy.data_ptr(),
-                 r.data_ptr(), m.data_ptr(), l.data_ptr(), dzv.data_ptr(),
-                 dd.data_ptr(), n_blocks, n_rows_padded // br, heads, dh, br,
-                 bc, _stream(dev))
-    _raise_on(err, "bsr_attention_bwd_col")
+    # a split row's slot: its partial dzv, then dd
+    _launch("bsr_attention_bwd_col", "bsr_attention_bwd_col_f32", nzc,
+            heads * dh + heads, (asrc, adst, z, dy, r, m, l, dzv, dd),
+            (heads, dh, br), dev)
     bsr_attention_bwd_col.launches += 1
     return dzv, dd
 

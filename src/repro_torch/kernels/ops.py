@@ -87,12 +87,11 @@ def _fit_rows(x: torch.Tensor, n: int) -> torch.Tensor:
 @dataclasses.dataclass
 class BSRDevice:
     """Device-resident flattened BSR + padding metadata. The kernels find
-    each row's range themselves (the work list ``nzc.items``, or for the
-    attention forward and column pass a search over ``block_rows``) and apply the epilogue at the
-    row's end, so ``first_in_row``/``last_in_row`` are not carried.
-    ``nzc``, the operand's nonzero columns that the three SpMM kernels
-    and the attention row pass read, is built once by
-    ``nonzero_columns()``."""
+    each row's range themselves (the work list ``nzc.items``) and apply
+    the epilogue at the row's end, so ``first_in_row``/``last_in_row``
+    are not carried. ``nzc``, the operand's nonzero columns that every
+    BSR kernel reads (the three SpMM kernels and the three attention
+    passes), is built once by ``nonzero_columns()``."""
 
     block_rows: torch.Tensor  # [n_blocks] int32
     block_cols: torch.Tensor  # [n_blocks] int32
@@ -342,7 +341,8 @@ class _SparseMHAPair(torch.autograd.Function):
         out, m, l = _executor(inner, "attn_fwd")(
             fwd.block_rows, fwd.block_cols, fwd.blocks,
             _c(_fit_rows(adst[:n_dst], nr_pad)), _c(_fit_rows(asrc, nc_pad)),
-            _c(_fit_rows(z32, nc_pad).reshape(nc_pad, h * dh)), nr_pad, h)
+            _c(_fit_rows(z32, nc_pad).reshape(nc_pad, h * dh)), nr_pad, h,
+            **_nzc_kw(inner, fwd.nonzero_columns))
         out = out.reshape(nr_pad, h, dh)[:n_dst]
         m, l = m[:n_dst], l[:n_dst]
         ctx.save_for_backward(z32, a_src, a_dst, out, m, l, asrc, adst)
@@ -374,7 +374,8 @@ class _SparseMHAPair(torch.autograd.Function):
             _c(_fit_rows(z32, nt_r).reshape(nt_r, hd)),
             _c(_fit_rows(dy, nt_c).reshape(nt_c, hd)),
             _c(_fit_rows(r, nt_c)), _c(_fit_rows(m, nt_c)),
-            _c(_fit_rows(l, nt_c)), nt_r, h)
+            _c(_fit_rows(l, nt_c)), nt_r, h,
+            **_nzc_kw(inner, bwd.nonzero_columns))
         dzv = dzv.reshape(nt_r, h, dh)[:n_src]
         dd = dd[:n_src]
         a_src32, a_dst32 = a_src.float(), a_dst.float()
@@ -404,12 +405,14 @@ def build_sparse_mha(fwd: BSRDevice, bwd: BSRDevice, inner: str):
     """Differentiable fused-attention closure over a (A, Aᵀ) pair — the op
     behind the registry's ``sparse_mha`` / ``spmm_attention`` on the
     ``cuda`` and ``torch`` backends. Returns ``mha(z, a_src, a_dst)`` on
-    unpadded ``z [n_src, H, Dh]`` -> ``[n_dst, H, Dh]``. For ``cuda`` A's
-    nonzero columns, which the backward's row pass reads, are built here,
-    once (shared with any SpMM on A), so no training step pays for them."""
+    unpadded ``z [n_src, H, Dh]`` -> ``[n_dst, H, Dh]``. For ``cuda`` the
+    nonzero columns of A (the forward and the row pass read them) and of
+    Aᵀ (the column pass) are built here, once (shared with any SpMM on
+    them), so no training step pays for them."""
     _executor(inner, "attn_fwd")  # validates inner now, not at the first call
     if inner == "cuda":
         fwd.nonzero_columns()
+        bwd.nonzero_columns()
     geom = (fwd.n_rows, fwd.n_cols, fwd.n_rows_padded, fwd.n_cols_padded,
             bwd.n_rows_padded, bwd.n_cols_padded)
 

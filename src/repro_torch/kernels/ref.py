@@ -7,15 +7,20 @@ on the card, and the executor for CPU tensors (the tests, and the
 
 The SpMM and attention versions walk the block stream in fixed chunks of
 about ``CHUNK_BYTES`` of gathered operand, in stream order, each chunk
-``index_add_``-ed into the output: a full-graph operand gathered in one
-piece (ogbn-arxiv's A at F=256: ~120 GB) would not fit on the card.
+added into the output: a full-graph operand gathered in one piece
+(ogbn-arxiv's A at F=256: ~120 GB) would not fit on the card.
+
+A chunk's terms reach the output rows through ``_row_add``: a segment sum
+per block-row in stream order, then one add per row. ``index_add_`` of
+the terms themselves would add them atomically on the card, in an order
+that changes from run to run. So these versions give the same bits on
+every run, on the CPU and on the card.
 
 The attention versions add each block's float32 partial sums into float64
-row sums. ``index_add_`` on the card adds in an order that changes from
-run to run, and the score cotangents (dc, dd) are sums that nearly cancel:
-with float32 row sums the GAT path's a_dst gradient read 1.3e-3 away from
-the kernels' (H100, ``chip_smoke.py``'s training check), more than its
-1e-3 gate allows.
+row sums: the score cotangents (dc, dd) are sums that nearly cancel, and
+with float32 row sums in a varying order the GAT path's a_dst gradient
+read 1.3e-3 away from the kernels' (H100, ``chip_smoke.py``'s training
+check), more than its 1e-3 gate allows.
 """
 from __future__ import annotations
 
@@ -23,6 +28,17 @@ import torch
 
 #: gathered operand per chunk of the plain SpMM versions
 CHUNK_BYTES = 1 << 30
+
+
+def _row_add(out: torch.Tensor, rows: torch.Tensor, terms: torch.Tensor) -> None:
+    """``out[rows[k]] += terms[k]`` for one chunk of the block stream, its
+    rows sorted (the stream contract): each row's terms summed in stream
+    order (``torch.segment_reduce``), then added once per row, so no two
+    adds meet and the result does not depend on the device's scheduling.
+    On unsorted rows it still sums right, in no fixed order."""
+    rows_u, counts = torch.unique_consecutive(rows, return_counts=True)
+    out.index_add_(0, rows_u, torch.segment_reduce(terms, "sum", lengths=counts,
+                                                   axis=0))
 
 
 def bsr_spmm_ref(
@@ -35,8 +51,7 @@ def bsr_spmm_ref(
     """Y[r*BR:(r+1)*BR] += blocks[b] @ X[c*BC:(c+1)*BC] for each block b.
 
     Float32 [n_rows_padded, F]; block-rows without blocks are zero.
-    ``index_add_`` uses atomics on CUDA, so on the card this version is
-    not bitwise repeatable (the kernel is)."""
+    Bitwise repeatable on every device (``_row_add``)."""
     n_blocks, br, bc = blocks.shape
     f = x.shape[-1]
     x_blk = x.float().reshape(x.shape[0] // bc, bc, f)
@@ -46,7 +61,7 @@ def bsr_spmm_ref(
     for s in range(0, n_blocks, step):
         gathered = x_blk[block_cols[s:s + step].long()]  # [chunk, BC, F]
         prod = torch.bmm(blocks[s:s + step].float(), gathered)
-        out.index_add_(0, block_rows[s:s + step].long(), prod)
+        _row_add(out, block_rows[s:s + step].long(), prod)
     return out.reshape(n_rows_padded, f)
 
 
@@ -170,10 +185,10 @@ def bsr_attention_fwd_ref(
     for s0 in range(0, n_blocks, step):
         rows, cols, mask, s = scores(s0)
         p = torch.where(mask, torch.exp(s - m[rows][:, :, None, :]), 0.0)
-        l.index_add_(0, rows, p.sum(dim=2).double())
+        _row_add(l, rows, p.sum(dim=2).double())
         # [c, H, BR, BC] @ [c, H, BC, Dh] -> [c, BR, H, Dh]
         pz = torch.matmul(p.permute(0, 3, 1, 2), z_blk[cols].permute(0, 2, 1, 3))
-        acc.index_add_(0, rows, pz.permute(0, 2, 1, 3).double())
+        _row_add(acc, rows, pz.permute(0, 2, 1, 3).double())
     l = l.float().reshape(n_rows_padded, h)
     m = torch.where(l > 0, m.reshape(n_rows_padded, h), 0.0)
     out = acc.float().reshape(n_rows_padded, h, dh) / l.clamp(min=1e-20)[..., None]
@@ -226,7 +241,7 @@ def bsr_attention_bwd_row_ref(
         datt = torch.matmul(dy_blk[rows].permute(0, 2, 1, 3),
                             z_blk[cols].permute(0, 2, 3, 1)).permute(0, 2, 3, 1)
         dpre = att * (datt - rr) * torch.where(pre >= 0, 1.0, LEAKY_SLOPE)
-        dc.index_add_(0, rows, dpre.sum(dim=2).double())
+        _row_add(dc, rows, dpre.sum(dim=2).double())
     return dc.float().reshape(n_rows_padded, h)
 
 
@@ -273,10 +288,10 @@ def bsr_attention_bwd_col_ref(
         datt = torch.matmul(z_blk[rows].permute(0, 2, 1, 3),
                             dyc.transpose(2, 3)).permute(0, 2, 3, 1)
         dpre = att * (datt - rr) * torch.where(pre >= 0, 1.0, LEAKY_SLOPE)
-        dd.index_add_(0, rows, dpre.sum(dim=2).double())
+        _row_add(dd, rows, dpre.sum(dim=2).double())
         # [c, H, BR, BC] @ [c, H, BC, Dh] -> [c, BR, H, Dh]
-        dzv.index_add_(0, rows, torch.matmul(att.permute(0, 3, 1, 2),
-                                             dyc).permute(0, 2, 1, 3).double())
+        _row_add(dzv, rows, torch.matmul(att.permute(0, 3, 1, 2),
+                                         dyc).permute(0, 2, 1, 3).double())
     return (dzv.float().reshape(n_rows_padded, hd),
             dd.float().reshape(n_rows_padded, h))
 

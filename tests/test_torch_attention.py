@@ -417,8 +417,8 @@ def test_cuda_attention_kernels_match_plain():
     """On the card: the three kernels against their plain versions on the
     same device tensors at 1e-4 (a padded tail, rows without blocks, a
     row whose max lies in its second block, H·Dh not a multiple of 32, Dh
-    250 at 3 heads; the row pass through A's nonzero columns), and a
-    repeat launch bitwise equal."""
+    250 at 3 heads; each pass through its operand's nonzero columns), and
+    a repeat launch bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     cases = [(60, 240, 8, 2, 5), (300, 1500, None, 3, 250),
@@ -434,8 +434,9 @@ def test_cuda_attention_kernels_match_plain():
              _attn_inputs(30 + seed, nrp, ncp, heads, dh).items()}
         base = (t["rows"], t["cols"], t["blocks"])
         fargs = (*base, v["adst"], v["asrc"], v["z"], nrp, heads)
-        got = bsr_attention_fwd(*fargs)
-        again = bsr_attention_fwd(*fargs)
+        nzc = nonzero_columns(*base, nrp)  # A's columns: forward and row pass
+        got = bsr_attention_fwd(*fargs, nzc=nzc)
+        again = bsr_attention_fwd(*fargs, nzc=nzc)
         want = bsr_attention_fwd_ref(*fargs)
         torch.cuda.synchronize()
         for a, b, c in zip(got, again, want):
@@ -445,22 +446,21 @@ def test_cuda_attention_kernels_match_plain():
         assert torch.all(got[0][8:16] == 0) and torch.all(m[8:16] == 0)
         rargs = (*base, v["adst"], v["asrc"], v["z"], v["dy"], v["r"], m, l,
                  nrp, heads)
-        nzc = nonzero_columns(*base, nrp)  # the row pass reads A's columns
         got = bsr_attention_bwd_row(*rargs, nzc=nzc)
         assert torch.equal(got, bsr_attention_bwd_row(*rargs, nzc=nzc))
         np.testing.assert_allclose(got.cpu().numpy(),
                                    bsr_attention_bwd_row_ref(*rargs).cpu().numpy(),
                                    **TOL)
         # the column pass on the same stream read as Aᵀ: its rows are the
-        # sources, its columns the destinations
+        # sources, its columns the destinations (so its columns are nzc)
         fit = tops._fit_rows
         cargs = (*base, fit(v["asrc"], nrp).contiguous(),
                  fit(v["adst"], ncp).contiguous(), fit(v["z"], nrp).contiguous(),
                  fit(v["dy"], ncp).contiguous(), fit(v["r"], ncp).contiguous(),
                  fit(m, ncp).contiguous(), (fit(l, ncp) + 1.0).contiguous(),
                  nrp, heads)
-        got = bsr_attention_bwd_col(*cargs)
-        again = bsr_attention_bwd_col(*cargs)
+        got = bsr_attention_bwd_col(*cargs, nzc=nzc)
+        again = bsr_attention_bwd_col(*cargs, nzc=nzc)
         want = bsr_attention_bwd_col_ref(*cargs)
         torch.cuda.synchronize()
         for a, b, c in zip(got, again, want):
