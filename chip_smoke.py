@@ -34,25 +34,27 @@ is printed:
    every ReLU decision the two part on within 1e-5 of 0 and taken from
    the cuda program; the parameters after the last epoch within 5e-2,
    finite losses within 1e-3 relative at every epoch and falling, exactly fused 3 /
-   masked 2 / bsr_spmm 1 / Adam 6 launches per epoch; the median epoch
+   masked 2 / bsr_spmm 1 / Adam 1 (the step's 6 leaves in one launch)
+   launches per epoch; the median epoch
    time, device ms per kernel and for the matmuls from a profiled epoch
    that recorded every launch, the idle share, peak memory, the
    operands' host build time and the build time and size of their
-   nonzero columns (the fused-epilogue and masked kernels' operand).
-5. The fused-epilogue, masked and Adam kernels against their plain versions
+   nonzero columns (the fused-epilogue and masked kernels' operand), and
+   the host time of one ``opt.update`` over the program's tree
+   (synchronised host clock, median of 30).
+5. The fused-epilogue and masked kernels against their plain versions
    on the main path's real operands (A and Aᵀ of the full graph, the
    fused and masked kernels through their nonzero columns): five
    epilogue specs at F=256 and F=40, a repeat launch bitwise equal, masks
    compared where |pre-activation| > 1e-5; the masked kernel on Aᵀ with a
    real ReLU mask; ``bsr_spmm`` on Aᵀ at F=40 (and the non-finite case
    there); edge cases (phase 2's: ragged F, rows misaligned for float4, a
-   hub row longer than a CTA's split); Adam
-   on the six GCN leaves and on sizes 1 and 1,000,003 (1e-6). Time per call from CUDA
+   hub row longer than a CTA's split). Time per call from CUDA
    events (these full-graph calls keep the card busy far longer than their
-   launches take; Adam's short launches from ``torch.profiler``), plain
+   launches take; ``bsr_spmm``'s short calls from ``torch.profiler``), plain
    ms, library ms
-   (``torch.sparse.mm`` + the epilogue's torch ops; ``torch.optim.Adam(
-   fused=True)``), the least time the card could take (bytes over 3.35 TB/s
+   (``torch.sparse.mm`` + the epilogue's torch ops), the least time the
+   card could take (bytes over 3.35 TB/s
    or fp32 operations over 67 TFLOP/s, whichever is larger; ``bound_ms``
    counted over the nonzeros alone, the bound the three SpMM kernels
    answer to, and ``layout_bound_ms`` over the BSR layout's blocks), and
@@ -61,7 +63,7 @@ is printed:
 6. The quickstart at full scale: the corafull analog (19,793 nodes, 8,710
    features, 95% zeros), GCN [8710, 32, 70], layer 0 on
    ``cuda.feature_matmul_sparse``; 10 epochs of cuda against torch with the
-   same checks and exactly 2 / 1 / 3 / 4 launches per epoch (and a second
+   same checks and exactly 2 / 1 / 3 / 1 launches per epoch (and a second
    pass for each ``bsr_spmm`` call on a split operand); the fused pair's
    forward and backward on A and Aᵀ with unequal paddings (19,800 rows,
    19,840 columns), cuda against torch; ``bsr_spmm`` on all three of its
@@ -79,8 +81,9 @@ is printed:
    and exactly 3 / 3 / 3 attention launches (forward, row pass, column
    pass; the forward and the row pass over A's nonzero columns, the
    column pass over Aᵀ's, both built when the layer is bound, each with
-   its split rows' second pass once a call) and 15 Adam launches per
-   epoch, no BSR SpMM; every layer bound to ``cuda.spmm_attention``.
+   its split rows' second pass once a call) and 1 Adam launch per
+   epoch (15 leaves), no BSR SpMM; every layer bound to
+   ``cuda.spmm_attention``.
 8. The three attention kernels against their plain versions on phase 7's
    real A and Aᵀ with the layers' real inputs (z, a_src, a_dst and the
    loss's cotangent dy, captured in one training step), each through its
@@ -98,8 +101,8 @@ is printed:
    the split (its segments and second-pass launches beside it).
 9. GT on the quickstart at full scale: GT [8710, 32, 70], 4 heads, layer 0
    on ``cuda.feature_matmul_sparse``; 10 epochs cuda against torch with
-   the same checks and exactly 2 / 2 / 2 attention, 2 ``bsr_spmm`` and 12
-   Adam launches per epoch; the attention pair's forward and backward on
+   the same checks and exactly 2 / 2 / 2 attention, 2 ``bsr_spmm`` and 1
+   Adam launch (12 leaves) per epoch; the attention pair's forward and backward on
    corafull's unequal paddings, cuda against torch; one epoch of the
    program compiled with ``fuse_attention=False`` (the segment path on the
    card), its loss within 2e-4 of the fused first epoch's.
@@ -128,6 +131,16 @@ is printed:
     ``enable_gqa=True``), the kernel's over SDPA's (``vs_library``), and
     the bound (fp32 operations over 67 TFLOP/s against bytes over 3.35
     TB/s).
+12. ``fused_adam_multi`` against its plain version at 1e-6, weight decay 0
+    and 0.01: on phase 4's six GCN leaves and phase 7's fifteen GAT
+    leaves (random gradients and moments), each in one launch; on a mixed
+    list (empty, 0-d, 1, 3, 4, 5, 1,000, 2,053 and 1,000,003 values, and a
+    view at a 4-byte offset) in one launch; on 2 * CAPACITY + 5 leaves in
+    ceil(leaves / CAPACITY) launches; outputs contiguous, inputs kept. On
+    both paths' leaves the kernel's device time (profiler), its plain
+    version, ``torch.optim.Adam(fused=True)``'s step and the bound (28
+    bytes a parameter over 3.35 TB/s); beside them each training path's
+    ``opt.update`` host time from phases 4, 6, 7 and 9.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -180,7 +193,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     HEAD_DIMS,
     flash_attention,
 )
-from repro_torch.kernels.fused_adam import fused_adam  # noqa: E402
+from repro_torch.kernels.fused_adam import (  # noqa: E402
+    CAPACITY,
+    fused_adam,
+    fused_adam_multi,
+)
 from repro_torch.kernels.ref import (  # noqa: E402
     bsr_attention_bwd_col_ref,
     bsr_attention_bwd_row_ref,
@@ -976,7 +993,7 @@ def fused_kernel_phase(prog, csr_a, device, reps: int) -> dict:
     dims = prog.model.config.layer_dims
     widths = sorted(set(dims[1:]), reverse=True)  # 256, 40 at full width
     alpha = torch.full((1,), 1.25, device=device)
-    err = {"fused": 0.0, "masked": 0.0, "spmm": 0.0, "adam": 0.0}
+    err = {"fused": 0.0, "masked": 0.0, "spmm": 0.0}
     rows = {}
     for f in widths:
         x = torch.randn((fwd.n_cols_padded, f), generator=gen).to(device)
@@ -1048,7 +1065,6 @@ def fused_kernel_phase(prog, csr_a, device, reps: int) -> dict:
         rows[key]["full_call_ms_by"] = call["ms_by"]
         rows[key]["hub_share_of_call"] = rows[key]["hub_ms"] / call["ms"]
         print(f"[kernel] {key} row: " + json.dumps(rows[key]))
-    rows["adam"], err["adam"] = adam_checks(prog, device, reps)
     return {"rows": rows, "err": err}
 
 
@@ -1080,53 +1096,130 @@ def spmm_operand_row(label, op, lib, x, device, reps: int):
     return row, err
 
 
-def adam_checks(prog, device, reps: int):
-    """``fused_adam`` on the six GCN leaves (random gradients, after one
-    step's moments) and on sizes 1 and 1,000,003, against its plain version
-    at 1e-6; times summed over the six leaves; ``torch.optim.Adam(
-    fused=True)``'s step on the same leaves as the library yardstick."""
-    gen = torch.Generator().manual_seed(13)
-    leaves = [t.detach() for t in
-              [prog.params["layers"][i][k] for i in range(len(prog.params["layers"]))
-               for k in sorted(prog.params["layers"][i])]]
-    leaves += [torch.randn(1, generator=gen).to(device),
-               torch.randn(1_000_003, generator=gen).to(device)]
-    lr_t = bias_corrected_lr(0.01, 0.9, 0.999, 3)
-    err = 0.0
-    sets = []
-    for p in leaves:
+#: ``adam_checks``' mixed list: empty, 1, 3, 4, 5, 1,000, 2,053 and
+#: 1,000,003 values and a 0-d leaf (a view at a 4-byte offset is added)
+ADAM_MIXED = [(0,), (1,), (3,), (4,), (5,), (1000,), (2053,), (1_000_003,), ()]
+
+
+def adam_inputs(params, gen, device) -> list:
+    """(p, g, m, v) for each parameter: random gradients, and moments as
+    after a few steps."""
+    out = []
+    for p in params:
         g = torch.randn(p.shape, generator=gen).to(device)
         m = 0.1 * torch.randn(p.shape, generator=gen).to(device)
         v = 0.01 * torch.rand(p.shape, generator=gen).to(device)
-        sets.append((p.contiguous(), g, m, v))
-        for wd in (0.0, 0.01):
-            out = fused_adam(p.contiguous(), g, m, v, lr_t, weight_decay=wd)
-            ref = fused_adam_ref(p, g, m, v, lr_t, 0.9, 0.999, 1e-8, wd)
-            for a, r in zip(out, ref):
-                err = max(err, check_close(f"fused_adam {tuple(p.shape)}", a, r,
-                                           ADAM_TOL))
-    print(f"[kernel] fused_adam: max_abs_err={err:.3g} over "
-          f"{[tuple(p.shape) for p in leaves]}")
-    gcn = sets[:-2]
-    lib_params = [p.clone().requires_grad_(True) for p, *_ in gcn]
-    for lp, (_, g, _, _) in zip(lib_params, gcn):
+        out.append((p.detach().contiguous(), g, m, v))
+    return out
+
+
+def check_adam(label, leaves, lr_t, device, launches: int) -> float:
+    """``fused_adam_multi`` over ``leaves`` at weight decay 0 and 0.01
+    against the plain version leaf by leaf at ADAM_TOL, each call in
+    exactly ``launches`` launches on the card; every output contiguous and
+    of its leaf's shape, the inputs kept."""
+    ps, gs, ms, vs = (list(x) for x in zip(*leaves))
+    kept = [t.clone() for t in (*ps, *gs, *ms, *vs)]
+    err = 0.0
+    for wd in (0.0, 0.01):
+        before = fused_adam.launches
+        out = fused_adam_multi(ps, gs, ms, vs, lr_t, weight_decay=wd)
+        sync(device)
+        got = fused_adam.launches - before
+        if got != (launches if device.type == "cuda" else 0):
+            raise AssertionError(f"fused_adam {label}: {got} launches, expected "
+                                 f"{launches}")
+        for i, leaf in enumerate(leaves):
+            ref = fused_adam_ref(*leaf, lr_t, 0.9, 0.999, 1e-8, wd)
+            for a, r in zip((o[i] for o in out), ref):
+                if a.shape != r.shape or not a.is_contiguous():
+                    raise AssertionError(f"fused_adam {label} leaf {i}: output "
+                                         f"{tuple(a.stride())} of {tuple(a.shape)}")
+                err = max(err, check_close(f"fused_adam {label} leaf {i} "
+                                           f"{tuple(r.shape)}", a, r, ADAM_TOL))
+    if not all(torch.equal(a, b) for a, b in zip(kept, (*ps, *gs, *ms, *vs))):
+        raise AssertionError(f"fused_adam {label}: an input was modified")
+    return err
+
+
+def adam_row(label, leaves, lr_t, device, reps: int) -> dict:
+    """One step over a path's leaves: the kernel's device time (one launch,
+    profiler), its plain version leaf by leaf, ``torch.optim.Adam(
+    fused=True)``'s step on the same leaves (the library yardstick) and
+    the bound, 28 bytes a parameter over the card's memory rate."""
+    lib_params = [p.clone().requires_grad_(True) for p, *_ in leaves]
+    for lp, (_, g, _, _) in zip(lib_params, leaves):
         lp.grad = g.clone()
     lib = torch.optim.Adam(lib_params, lr=0.01, betas=(0.9, 0.999), eps=1e-8,
                            fused=device.type == "cuda")
-    row = {"kernel": "fused_adam", "leaves": [tuple(p.shape) for p, *_ in gcn],
-           "params": int(sum(p.numel() for p, *_ in gcn))}
+    ps, gs, ms, vs = (list(x) for x in zip(*leaves))
+    row = {"kernel": "fused_adam", "leaves_of": label,
+           "leaves": [tuple(p.shape) for p in ps],
+           "params": int(sum(p.numel() for p in ps))}
     row.update(timings({
-        "": lambda: [fused_adam(p, g, m, v, lr_t) for p, g, m, v in gcn],
-        "plain_": lambda: [fused_adam_ref(p, g, m, v, lr_t, 0.9, 0.999, 1e-8, 0.0)
-                           for p, g, m, v in gcn],
+        "": lambda: fused_adam_multi(ps, gs, ms, vs, lr_t),
+        "plain_": lambda: [fused_adam_ref(*leaf, lr_t, 0.9, 0.999, 1e-8, 0.0)
+                           for leaf in leaves],
         "library_": lib.step}, device, reps,
-        expect={"": {"fused_adam": len(gcn)}, "plain_": {}, "library_": {}}))
+        expect={"": {"fused_adam": 1}, "plain_": {}, "library_": {}}))
     nbytes = 28 * row["params"]
     row.update({"bytes": nbytes, "nnz_bytes": nbytes, "flop": 15.0 * row["params"]})
     row["bound_ms"], row["bound_by"] = _bound(nbytes, row["flop"])
     row["nnz_bound_ms"] = row["bound_ms"]
-    print("[kernel] " + json.dumps(row))
-    return row, err
+    print("[adam] " + json.dumps(row))
+    return row
+
+
+def adam_checks(leaf_sets: dict, device, reps: int) -> dict:
+    """Phase 12: ``fused_adam_multi`` against its plain version at 1e-6 on
+    each training path's leaves (``leaf_sets``: GCN's 6 and GAT's 15, random
+    gradients and moments), on the mixed list (``ADAM_MIXED`` and a view at
+    a 4-byte offset) in one launch, and on a list of 2 * CAPACITY + 5
+    leaves in ceil(leaves / CAPACITY) launches; then ``adam_row`` on each
+    path's leaves."""
+    gen = torch.Generator().manual_seed(13)
+    lr_t = bias_corrected_lr(0.01, 0.9, 0.999, 3)
+    sets = {label: adam_inputs(params, gen, device)
+            for label, params in leaf_sets.items()}
+    err = 0.0
+    for label, leaves in sets.items():
+        err = max(err, check_adam(label, leaves, lr_t, device, 1))
+    mixed = adam_inputs([torch.randn(shape, generator=gen).to(device)
+                         for shape in ADAM_MIXED], gen, device)
+    mixed.append(tuple(misaligned(t) for t in adam_inputs(
+        [torch.randn(1001, generator=gen).to(device)], gen, device)[0]))
+    err = max(err, check_adam("mixed", mixed, lr_t, device, 1))
+    many = adam_inputs([torch.randn(1 + 37 * i, generator=gen).to(device)
+                        for i in range(2 * CAPACITY + 5)], gen, device)
+    err = max(err, check_adam(f"{len(many)} leaves", many, lr_t, device,
+                              -(-len(many) // CAPACITY)))
+    print(f"[adam] fused_adam: max_abs_err={err:.3g} over "
+          f"{ {k: len(v) for k, v in sets.items()} } leaves, the mixed list "
+          f"{[tuple(p.shape) for p, *_ in mixed]} and {len(many)} leaves")
+    rows = {label: adam_row(label, leaves, lr_t, device, reps)
+            for label, leaves in sets.items()}
+    return {"rows": rows, "err": err}
+
+
+def update_host_ms(prog, device, reps: int = 30) -> dict:
+    """One ``opt.update`` over the program's tree, as ``train_epoch`` calls
+    it (gradients of the program's loss at its parameters): the host clock
+    from a synchronised card to the update's end, synchronised, over
+    ``reps`` calls after 3 more; median, min and max."""
+    grads = value_and_grad(prog.model.loss_fn, prog.params, prog.x,
+                           prog.labels, prog.train_mask)[1]
+    times = []
+    with torch.no_grad():
+        for _ in range(reps + 3):
+            sync(device)
+            t0 = time.perf_counter()
+            prog.opt.update(grads, prog.opt_state, prog.params)
+            sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+    times = times[3:]
+    return {"median": float(np.median(times)), "min": min(times),
+            "max": max(times), "reps": reps,
+            "leaves": len(tree_leaves(prog.params))}
 
 
 #: what a kernel's second pass is counted under in a profiled window: the
@@ -1157,7 +1250,7 @@ def classify(name: str) -> str:
     m = re.search(r"nzc_(?:kernel|split_reduce)<\s*\d+,\s*\d+,\s*(\w+),", name)
     if m:
         return "bsr_spmm_masked" if m.group(1) == "true" else "bsr_spmm_fused_epilogue"
-    if "fused_adam_kernel" in name:
+    if "fused_adam_multi_kernel" in name:
         return "fused_adam"
     m = re.search(r"attn_(fwd|bwd_row|bwd_col)_(?:kernel|reduce)", name)
     if m:
@@ -1353,6 +1446,8 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
                                  f"expected {want}")
     launched = counts()
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    update_host = update_host_ms(prog, device)
+    print(f"[{name}] opt.update host time: {json.dumps(update_host)}")
     # the trained parameters: bias terms no longer zero
     grad_end = grad_check(f"after {epochs} epochs", prog.params)
     ref_losses, ref_times = [], []
@@ -1375,6 +1470,7 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
            "epoch_ms_median": epoch_s * 1e3, "ref_epoch_ms_median":
            float(np.median(ref_times)) * 1e3, "epoch_ms": [t * 1e3 for t in times],
            "launches": launched, "per_epoch": want, "build_s": build_s,
+           "update_host_ms": update_host,
            "ref_build_s": ref_build_s, "operand_bytes": prog.plan.graph_op.fwd_bytes,
            "nonzero_columns": nzc,
            "peak_mem_bytes": peak, "accuracy": prog.accuracy(),
@@ -2325,14 +2421,16 @@ def epoch_entry(name: str, calls: list, err: float, epoch: dict) -> dict:
     return entry
 
 
-def kernel_entries(serving_entry, launches_by_path, fk, ak, errs, dims,
+def kernel_entries(serving_entry, launches_by_path, fk, ak, adam, errs, dims,
                    epoch: dict, gat_epoch: dict, flash: dict) -> list:
     """The kernels line: one entry per kernel. ``launches`` sums every
     driven path (``launches_by_path`` splits it). The three GCN training
-    kernels report one epoch of phase 4 (calls from phase 5), the three
-    attention kernels one epoch of phase 7 (calls from phase 8), through
-    ``epoch_entry``. ``bsr_spmm`` keeps its serving batch, and
-    ``flash_attention`` (``flash``) one call of phase 10's prefill."""
+    kernels report one epoch of phase 4 (calls from phase 5; Adam's from
+    phase 12, with GAT's 15 leaves and each path's ``opt.update`` host
+    time beside them), the three attention kernels one epoch of phase 7
+    (calls from phase 8), through ``epoch_entry``. ``bsr_spmm`` keeps its
+    serving batch, and ``flash_attention`` (``flash``) one call of phase
+    10's prefill."""
     rows = fk["rows"]
     n = len(dims) - 1
     per_epoch = {
@@ -2340,7 +2438,7 @@ def kernel_entries(serving_entry, launches_by_path, fk, ak, errs, dims,
                                           "relu" if l < n - 1 else "none")]
                                     for l in range(n)],
         "bsr_spmm_masked": [rows[("masked", dims[1])]] * (n - 1),
-        "fused_adam": [rows["adam"]],
+        "fused_adam": [adam["rows"]["gcn"]],
     }
     entries = [dict(serving_entry)]
     entries += [epoch_entry(name, calls, errs[name], epoch)
@@ -2348,6 +2446,9 @@ def kernel_entries(serving_entry, launches_by_path, fk, ak, errs, dims,
     for kind, (name, _, _) in ATTENTION.items():
         calls = [ak["rows"][(kind, l)] for l in range(ak["layers"])]
         entries.append(epoch_entry(name, calls, errs[name], gat_epoch))
+    adam_entry = next(e for e in entries if e["name"] == "fused_adam")
+    adam_entry["gat_step"] = adam["rows"]["gat"]
+    adam_entry["update_host_ms"] = adam["update_host_ms"]
     entries[0]["max_abs_err"] = errs["bsr_spmm"]
     entries[0]["training_aT"] = rows[("spmm", dims[-1])]
     entries.append(dict(flash))
@@ -2359,7 +2460,7 @@ def kernel_entries(serving_entry, launches_by_path, fk, ak, errs, dims,
 
 
 def run(sizes: Sizes, device) -> dict:
-    """Phases 2 to 11 at ``sizes`` on ``device``; returns the kernels line
+    """Phases 2 to 12 at ``sizes`` on ``device``; returns the kernels line
     and the details."""
     t_start = t0 = time.perf_counter()
     ds = generate_dataset(sizes.dataset, scale=sizes.scale, seed=0)
@@ -2404,9 +2505,10 @@ def run(sizes: Sizes, device) -> dict:
            .initialize_layers(dims, "xavier", seed=0).set_optimizer(*ADAM))
     train = train_path("train", gnn, device, sizes.epochs, {
         "bsr_spmm_fused_epilogue": n, "bsr_spmm_masked": n - 1, "bsr_spmm": 1,
-        "fused_adam": 2 * n})
+        "fused_adam": 1})
     if any(l.feature_path != "dense" for l in train["prog"].plan.layers):
         raise AssertionError("the main path's features are dense")
+    adam_leaves = {"gcn": tree_leaves(train["prog"].params)}
     # phase 5: the training kernels on the main path's operands
     t0 = time.perf_counter()
     fk = fused_kernel_phase(train["prog"], ds.graph.sym_normalized(), device,
@@ -2428,7 +2530,7 @@ def run(sizes: Sizes, device) -> dict:
             .initialize_layers(qdims, "xavier", seed=0).set_optimizer(*ADAM))
     quick = train_path("quickstart", qgnn, device, sizes.epochs, {
         "bsr_spmm_fused_epilogue": qn, "bsr_spmm_masked": qn - 1,
-        "bsr_spmm": 3, "fused_adam": 2 * qn})
+        "bsr_spmm": 3, "fused_adam": 1})
     if quick["prog"].plan.layers[0].primitive != "cuda.feature_matmul_sparse":
         raise AssertionError("the quickstart's layer 0 must bind "
                              "cuda.feature_matmul_sparse")
@@ -2446,9 +2548,10 @@ def run(sizes: Sizes, device) -> dict:
             .initialize_layers(gdims, "xavier", seed=0).set_optimizer(*GAT_ADAM))
     gat = train_path("gat", ggnn, device, sizes.epochs, {
         "bsr_attention_fwd": gn, "bsr_attention_bwd_row": gn,
-        "bsr_attention_bwd_col": gn, "fused_adam": 5 * gn})
+        "bsr_attention_bwd_col": gn, "fused_adam": 1})
     if any(l.agg_primitive != "cuda.spmm_attention" for l in gat["prog"].plan.layers):
         raise AssertionError("every GAT layer must bind cuda.spmm_attention")
+    adam_leaves["gat"] = tree_leaves(gat["prog"].params)
     phase_s["7"] = time.perf_counter() - t0
     # phase 8: the attention kernels on phase 7's operands and inputs
     t0 = time.perf_counter()
@@ -2465,7 +2568,7 @@ def run(sizes: Sizes, device) -> dict:
             .initialize_layers(qdims, "xavier", seed=0).set_optimizer(*ADAM))
     gt = train_path("gt", tgnn, device, sizes.epochs, {
         "bsr_attention_fwd": qn, "bsr_attention_bwd_row": qn,
-        "bsr_attention_bwd_col": qn, "bsr_spmm": 2, "fused_adam": 6 * qn})
+        "bsr_attention_bwd_col": qn, "bsr_spmm": 2, "fused_adam": 1})
     gplan = gt["prog"].plan
     if gplan.layers[0].primitive != "cuda.feature_matmul_sparse":
         raise AssertionError("GT's layer 0 must bind cuda.feature_matmul_sparse")
@@ -2500,6 +2603,14 @@ def run(sizes: Sizes, device) -> dict:
     del lm
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    # phase 12: Adam on the GCN and GAT paths' leaves, the mixed list, a
+    # list over a launch's capacity; each path's opt.update host time
+    t0 = time.perf_counter()
+    adam = adam_checks(adam_leaves, device, reps=20)
+    adam["update_host_ms"] = {p: r["summary"]["update_host_ms"] for p, r in (
+        ("train", train), ("quickstart", quick), ("gat", gat), ("gt", gt))}
+    print(f"[adam] opt.update host ms by path: {json.dumps(adam['update_host_ms'])}")
+    phase_s["12"] = time.perf_counter() - t0
 
     attn_err = max(ak["err"]["edge"], attn_pair_err)
     nonfinite = max(edge["nonfinite"], fk["err"]["nonfinite"])
@@ -2509,7 +2620,7 @@ def run(sizes: Sizes, device) -> dict:
                                            nonfinite),
             "bsr_spmm_masked": max(fk["err"]["masked"], edge["masked"], pair_err,
                                    nonfinite),
-            "fused_adam": fk["err"]["adam"],
+            "fused_adam": adam["err"],
             **{name: max(ak["err"][kind], attn_err)
                for kind, (name, _, _) in ATTENTION.items()}}
     serving_counts = {k: 0 for k in KERNELS}
@@ -2520,14 +2631,15 @@ def run(sizes: Sizes, device) -> dict:
                "gat": gat["summary"]["launches"],
                "gt": gt["summary"]["launches"],
                "lm_serving": lm_summary["launches"]}
-    entries = kernel_entries(serving_entry, by_path, fk, ak, errs, dims,
+    entries = kernel_entries(serving_entry, by_path, fk, ak, adam, errs, dims,
                              train["summary"]["profile"],
                              gat["summary"]["profile"], flash_entry(fa))
     entries[0]["quickstart"] = qk["rows"]
     return {"kernels": entries, "layers": layers, "serve": serve,
             "sample_s": kern["sample_s"], "train": train["summary"],
             "quickstart": quick["summary"], "gat": gat["summary"],
-            "gt": gt["summary"], "lm": lm_summary, "flash": fa, "phase_s": phase_s,
+            "gt": gt["summary"], "lm": lm_summary, "flash": fa, "adam": adam,
+            "phase_s": phase_s,
             "attention_hub": ak["hub"], "quickstart_spmm": qk["rows"],
             "kernel_rows": {str(k): v for k, v in fk["rows"].items()},
             "attention_rows": {str(k): v for k, v in ak["rows"].items()}}
@@ -2583,7 +2695,7 @@ def main() -> int:
           f"{lm['decode_step_ms_median']:.2f} ms a step (torch "
           f"{lm['ref_decode_step_ms_median']:.2f}), {lm['tokens_per_s']:.1f} tokens/s, "
           f"peak {lm['peak_mem_bytes'] / 2**30:.2f} GiB on {card}")
-    print(f"[done] phases 2-11 in {time.perf_counter() - t_all:.1f}s: "
+    print(f"[done] phases 2-12 in {time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

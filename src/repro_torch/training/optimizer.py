@@ -6,9 +6,10 @@ contract: ``opt.init(params) -> state``, ``opt.update(grads, state, params)
 -> (new_params, new_state)``, on plain trees (dicts and lists) of tensors;
 inputs are not modified. The step count lives on the host, so the bias
 correction ``lr_t`` is a host float32 and a step reads nothing back from
-the card. With ``fused=True`` the Adam family runs each leaf through the
-Hopper kernel ``kernels/csrc/fused_adam.cu`` (one pass instead of ~10
-elementwise ops); CPU tensors take its plain version.
+the card. With ``fused=True`` the Adam family runs a step's leaves, in
+``tree_leaves`` order, through one ``fused_adam_multi`` call: one launch
+of the Hopper kernel ``kernels/csrc/fused_adam.cu`` (one pass instead of
+~10 elementwise ops a leaf); CPU tensors take its plain version.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.fused_adam import fused_adam
+from repro_torch.kernels.fused_adam import fused_adam_multi
 
 
 def tree_leaves(tree) -> list:
@@ -120,21 +121,25 @@ def adam(
         upd = m_new / (torch.sqrt(v_new) + eps) + weight_decay * p.float()
         return (p - lr_t * upd.to(p.dtype)).to(p.dtype), m_new, v_new
 
-    def leaf_fused(p, g, m, v, lr_t):
-        return fused_adam(p.detach().contiguous(), g.contiguous(), m, v, lr_t,
-                          beta1=beta1, beta2=beta2, eps=eps,
-                          weight_decay=weight_decay)
+    def plain_step(ps, gs, ms, vs, lr_t):
+        out = [leaf_plain(*leaf, lr_t) for leaf in zip(ps, gs, ms, vs)]
+        return tuple([o[i] for o in out] for i in range(3))
 
-    leaf = leaf_fused if fused else leaf_plain
+    def fused_step(ps, gs, ms, vs, lr_t):
+        return fused_adam_multi([p.detach().contiguous() for p in ps],
+                                [g.contiguous() for g in gs], ms, vs, lr_t,
+                                beta1=beta1, beta2=beta2, eps=eps,
+                                weight_decay=weight_decay)
+
+    step_leaves = fused_step if fused else plain_step
 
     def update(grads, state, params):
         step = state.step + 1
         lr_t = bias_corrected_lr(lr_fn(step), beta1, beta2, step)
-        out = [leaf(p, g, m, v, lr_t) for p, g, m, v in zip(
-            tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
-            tree_leaves(state.v))]
-        new_params, new_m, new_v = (tree_unflatten(params, [o[i] for o in out])
-                                    for i in range(3))
+        new = step_leaves(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state.m), tree_leaves(state.v), lr_t)
+        new_params, new_m, new_v = (tree_unflatten(params, leaves)
+                                    for leaves in new)
         return new_params, AdamState(step=step, m=new_m, v=new_v)
 
     return Optimizer(init, update)
