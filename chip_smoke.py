@@ -141,6 +141,35 @@ is printed:
     version, ``torch.optim.Adam(fused=True)``'s step and the bound (28
     bytes a parameter over 3.35 TB/s); beside them each training path's
     ``opt.update`` host time from phases 4, 6, 7 and 9.
+13. GAT serving on the sampled path: phase 7's GAT [128, 750, 750, 40]
+    with 3 heads, untrained, through ``build_engine(arch="GAT")`` with
+    phase 3's fanouts, batches and request stream, cuda against the
+    torch engine with the same weights: logits within 1e-4, exactly one
+    ``bsr_attention_fwd`` launch a layer and batch and nothing else
+    (the batch's A, built on the card where the forward runs; its rows
+    hold at most fanout + 1 columns, so none splits), a cache-on pass
+    whose hits equal its misses bitwise; latency, throughput, a batch's
+    time by part and idle share, its column builds, and the forward
+    kernel on one 256-seed batch's real operands against its plain
+    version (checked, a repeat bitwise equal, device ms, bounds).
+14. Sampled training at full width, 1,024-seed batches, fanouts (15,
+    10, 5), ``MiniBatchTrainer`` on cuda (fused Adam) against torch
+    (plain versions, plain Adam) from the same weights over the same
+    batches, with phase 4's gates (the ReLU here is torch's, after the
+    aggregation: ``decided_sampled_grads``): (a) SAGE-mean [128, 256,
+    256, 40], Adam 0.01, the train mask cut to 8,192 nodes, 2 epochs of
+    8 steps, exactly 6 ``bsr_spmm`` launches a step (each layer's
+    forward and backward product) and 1 Adam launch, and ``bsr_spmm`` on
+    one batch's A and Aᵀ at the layers' widths against its plain version
+    and ``torch.sparse.mm``; (b) GAT as phase 13, lr 0.002, 4 steps over
+    one 1,024-seed batch, exactly 3 / 3 / 3 attention launches and 1
+    Adam launch a step, and the three passes on one batch's real
+    operands and cotangents (dy rescaled) against their plain versions;
+    (c) one step each of GT [8710, 32, 70] with 4 heads on the corafull
+    analog (layer 0 on ``gather.feature_matmul_sparse``, fanouts (10,
+    5)) and of SAGE-max [128, 256, 256, 40]. Per path the host sampling
+    and copy ms and the step's ms a batch, the column builds, and a
+    profiled step's device ms by kernel and idle share.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -210,8 +239,9 @@ from repro_torch.kernels.ref import (  # noqa: E402
 )
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
-from repro_torch.training.optimizer import bias_corrected_lr, tree_leaves  # noqa: E402
-from repro_torch.training.trainer import value_and_grad  # noqa: E402
+from repro_torch.models.gnn import GNNConfig  # noqa: E402
+from repro_torch.training.optimizer import adam, bias_corrected_lr, tree_leaves  # noqa: E402
+from repro_torch.training.trainer import MiniBatchTrainer, value_and_grad  # noqa: E402
 from repro_torch.launch.serve import build_engine, drive  # noqa: E402
 from repro_torch.serving.gnn_engine import GNNServingEngine  # noqa: E402
 
@@ -241,6 +271,10 @@ ADAM = ("adam", 0.01, 0.9, 0.999)
 #: about 0.01 and the loss leaps from 3.70 to 25-35 (an H100 run): in that
 #: chaos the two programs' 1e-7 differences grow past 1e-3 by epoch 5
 GAT_ADAM = ("adam", 0.002, 0.9, 0.999)
+#: phase 14's lengths: SAGE's epochs over the cut train mask, GAT's steps
+#: over one batch
+SAGE_EPOCHS = 2
+GAT_STEPS = 4
 
 #: every kernel wrapper of the port, by the name the kernels line uses
 KERNELS = {"bsr_spmm": bsr_spmm,
@@ -254,6 +288,9 @@ KERNELS = {"bsr_spmm": bsr_spmm,
 #: one call's launches of each timed SpMM call (``timings``' ``expect``):
 #: the kernel, its plain version, the library yardstick
 SPMM_EXPECT = {"": {"bsr_spmm": 1}, "plain_": {}, "library_": {}}
+#: the same on a sampled training batch, whose plain calls (summed in
+#: stream order, a host sync a chunk) are long: CUDA events time them
+SAMPLED_SPMM_EXPECT = {"": {"bsr_spmm": 1}, "library_": {}}
 #: the attention kernels and their plain versions, by pass
 ATTENTION = {"fwd": ("bsr_attention_fwd", bsr_attention_fwd, bsr_attention_fwd_ref),
              "row": ("bsr_attention_bwd_row", bsr_attention_bwd_row,
@@ -325,6 +362,13 @@ class Sizes:
     lm_prompts: tuple = (128, 1024)
     lm_new_tokens: int = 32
     lm_slots: int = 4
+    # the sampled path (phases 13-14): GAT serving at gat_hidden on
+    # `dataset` with `fanouts`, `batch_size`; training with
+    # `sampled_batch_size`-seed batches: SAGE over the train mask cut to
+    # `sage_cut` nodes for SAGE_EPOCHS epochs, GAT over one batch for
+    # GAT_STEPS steps
+    sampled_batch_size: int = 1024
+    sage_cut: int = 8192
 
 
 def zero_counts() -> None:
@@ -826,9 +870,10 @@ def kernel_phase(ds, eng, device, reps: int = 20) -> dict:
             "edge": edge}
 
 
-def serving_phase(ds, eng, ref, sizes: Sizes) -> dict:
+def serving_phase(ds, eng, ref, sizes: Sizes, kernel: str = "bsr_spmm") -> dict:
     """The main path: two engines (cuda kernels, torch reference) on one
-    request stream with one set of weights."""
+    request stream with one set of weights; ``kernel`` (one launch a layer
+    and batch) the only kernel launched."""
     for a, b in zip(eng.trainer.params["layers"], ref.trainer.params["layers"]):
         if not all(torch.equal(a[k], b[k]) for k in a):
             raise AssertionError("the two engines must share weights")
@@ -840,14 +885,14 @@ def serving_phase(ds, eng, ref, sizes: Sizes) -> dict:
     zero_counts()
     done, wall = drive(eng, ds.graph.n_rows, sizes.n_requests)
     launched = counts()
-    launches = launched["bsr_spmm"]
+    launches = launched[kernel]
     batches = eng.n_batches
     # one launch per layer and batch on the card; CPU tensors run the plain
     # version and launch nothing (a CPU rehearsal of this phase)
     on_card = eng.trainer.device.type == "cuda"
     expected = len(sizes.fanouts) * batches if on_card else 0
     if launches != expected or (on_card and batches == 0):
-        raise AssertionError(f"bsr_spmm launched {launches} times for "
+        raise AssertionError(f"{kernel} launched {launches} times for "
                              f"{batches} batches of {len(sizes.fanouts)} layers")
     if sum(launched.values()) != launches:
         raise AssertionError(f"serving launched other kernels: {launched}")
@@ -880,13 +925,15 @@ def serving_phase(ds, eng, ref, sizes: Sizes) -> dict:
 
     lat = np.asarray([r.latency_s for r in done]) * 1e3
     return {"requests": len(done), "batches": batches, "waves": eng.n_waves,
-            "launches": launches, "warmup_s": warmup_s, "wall_s": wall,
+            "launches": launches, "launched": launched, "warmup_s": warmup_s,
+            "wall_s": wall,
             "req_per_s": len(done) / wall, "p50_ms": float(np.percentile(lat, 50)),
             "p99_ms": float(np.percentile(lat, 99)), "max_logit_diff": worst,
             "cache_hits": c.hits, "signatures": n_warm}
 
 
-def breakdown(eng, device, n_ids: int, reps: int = 5) -> dict:
+def breakdown(eng, device, n_ids: int, reps: int = 5,
+              kernel: str = "bsr_spmm") -> dict:
     """Where one wave's batch spends its time, median of ``reps`` batches
     of ``n_ids`` seeds (host clock, synchronised): sampling and CSR→BSR on
     the host, the copy to the device, the forward pass (each layer's
@@ -894,7 +941,7 @@ def breakdown(eng, device, n_ids: int, reps: int = 5) -> dict:
     On the card, one more batch runs under the profiler (after a warmup
     batch): the device's busy time in it, and the idle share of the
     batch's median wall time; both None where no window recorded the
-    batch's one ``bsr_spmm`` launch per layer."""
+    batch's one ``kernel`` launch per layer."""
     tr = eng.trainer
     rng = np.random.default_rng(11)
     parts = {"sample_ms": [], "to_device_ms": [], "forward_ms": [],
@@ -923,7 +970,7 @@ def breakdown(eng, device, n_ids: int, reps: int = 5) -> dict:
         n_layers = len(eng.config.layer_dims) - 1
         prof, _ = profiled(lambda: one_batch(rng.choice(tr.n_nodes, n_ids,
                                                         replace=False)),
-                           device, {"bsr_spmm": n_layers})
+                           device, {kernel: n_layers})
         busy = None if prof is None else busy_ms(prof)
         out["device_busy_ms"] = busy
         out["idle_share"] = (None if busy is None
@@ -1265,18 +1312,19 @@ def classify(name: str) -> str:
     return "other (elementwise, reductions)"
 
 
-def epoch_profile(prog, device, epoch_s: float, want: dict) -> dict:
-    """One more epoch under the profiler (CUDA activity, after a warmup
-    epoch): device ms and launches by kernel, busy total, and the idle
-    share of the median epoch time. A kernel's device ms hold both of its
-    passes; its launches count the row pass (one a call) and its
-    ``SECOND_PASS`` apart. ``complete`` is False where none of
-    ``PROFILE_TRIES`` windows held exactly ``want``'s launches of the
-    port's kernels and their second passes (or off the card)."""
+def epoch_profile(fn, device, epoch_s: float, want: dict) -> dict:
+    """One more call of ``fn`` (an epoch, or a step) under the profiler
+    (CUDA activity, after a warmup call): device ms and launches by
+    kernel, busy total, and the idle share of the median wall time
+    ``epoch_s``. A kernel's device ms hold both of its passes; its
+    launches count the row pass (one a call) and its ``SECOND_PASS``
+    apart. ``complete`` is False where none of ``PROFILE_TRIES`` windows
+    held exactly ``want``'s launches of the port's kernels and their
+    second passes (or off the card)."""
     if device.type != "cuda":
         return {"complete": False}
     sync(device)
-    prof, windows = profiled(prog.train_epoch, device, want)
+    prof, windows = profiled(fn, device, want)
     if prof is None:
         return {"complete": False, "windows": windows}
     by, launched = defaultdict(float), defaultdict(int)
@@ -1374,6 +1422,41 @@ def decided_grads(prog, ref, params) -> tuple:
     return got, want, calls
 
 
+def gradient_gate(name: str, when: str, decided: tuple) -> dict:
+    """Both programs' gradients at the same parameters, leaf by leaf
+    (``decided``: cuda grads, torch grads, ReLU calls, as
+    ``decided_grads`` returns them): Adam normalises a gradient's scale
+    away, so the losses alone would pass a backward that is off by a
+    constant factor. Every ReLU decision the two programs part on must
+    lie within MASK_MARGIN of 0."""
+    cuda_grads, torch_grads, calls = decided
+    out = {"grads": leaf_diffs(cuda_grads, torch_grads), "relu_decisions": calls}
+    print(f"[{name}] gradients {when}: {json.dumps(out)}")
+    if any(c["beyond_margin"] for c in calls):
+        raise AssertionError(f"[{name}] ReLU masks {when} differ beyond "
+                             f"|pre| > {MASK_MARGIN}: {calls}")
+    if not max(out["grads"].values()) <= GRAD_RTOL:
+        raise AssertionError(f"[{name}] gradients {when} differ: {out}")
+    return out
+
+
+def loss_and_param_gate(name: str, when: str, losses, ref_losses, params,
+                        ref_params, falling: bool = True) -> tuple:
+    """Finite losses within 1e-3 relative of the torch program's at every
+    epoch, falling where ``falling``, and the parameters ``when`` within
+    PARAM_RTOL a leaf. Returns the relative loss gaps and the parameters'."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    if not (np.isfinite(losses).all() and max(rel) <= 1e-3):
+        raise AssertionError(f"[{name}] losses {losses} vs reference {ref_losses}")
+    if falling and not losses[-1] < losses[0]:
+        raise AssertionError(f"[{name}] loss did not fall: {losses}")
+    param_diff = leaf_diffs(params, ref_params)
+    print(f"[{name}] parameters {when}: {json.dumps(param_diff)}")
+    if not max(param_diff.values()) <= PARAM_RTOL:
+        raise AssertionError(f"[{name}] parameters {when} differ: {param_diff}")
+    return rel, param_diff
+
+
 def nzc_build(prog, device) -> dict:
     """The SpMM kernels' operand (the nonzero columns of A and Aᵀ), which
     ``compile`` built once on the device: ``column_build`` of each
@@ -1413,21 +1496,7 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
     want = {k: expected.get(k, 0) if on_card else 0 for k in KERNELS}
 
     def grad_check(when: str, params) -> dict:
-        """Both programs' gradients at the same parameters, leaf by leaf:
-        Adam normalises a gradient's scale away, so the losses alone would
-        pass a backward that is off by a constant factor. Every ReLU
-        decision the two programs part on must lie within MASK_MARGIN of 0
-        (``decided_grads``)."""
-        cuda_grads, torch_grads, calls = decided_grads(prog, ref, params)
-        out = {"grads": leaf_diffs(cuda_grads, torch_grads),
-               "relu_decisions": calls}
-        print(f"[{name}] gradients {when}: {json.dumps(out)}")
-        if any(c["beyond_margin"] for c in calls):
-            raise AssertionError(f"[{name}] ReLU masks {when} differ beyond "
-                                 f"|pre| > {MASK_MARGIN}: {calls}")
-        if not max(out["grads"].values()) <= GRAD_RTOL:
-            raise AssertionError(f"[{name}] gradients {when} differ: {out}")
-        return out
+        return gradient_gate(name, when, decided_grads(prog, ref, params))
 
     grad_start = grad_check("at the first step", prog.params)
     spmm_second = spmm_second_passes(prog) if on_card else 0
@@ -1455,16 +1524,9 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
         t0 = time.perf_counter()
         ref_losses.append(ref.train_epoch()["loss"])
         ref_times.append(time.perf_counter() - t0)
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
-    if not (np.isfinite(losses).all() and max(rel) <= 1e-3):
-        raise AssertionError(f"[{name}] losses {losses} vs reference {ref_losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"[{name}] loss did not fall: {losses}")
-    param_diff = leaf_diffs(prog.params, ref.params)
-    print(f"[{name}] parameters after {epochs} epochs: {json.dumps(param_diff)}")
-    if not max(param_diff.values()) <= PARAM_RTOL:
-        raise AssertionError(f"[{name}] parameters after {epochs} epochs "
-                             f"differ: {param_diff}")
+    rel, param_diff = loss_and_param_gate(
+        name, f"after {epochs} epochs", losses, ref_losses, prog.params,
+        ref.params)
     epoch_s = float(np.median(times))
     out = {"losses": losses, "ref_losses": ref_losses, "max_rel_diff": max(rel),
            "epoch_ms_median": epoch_s * 1e3, "ref_epoch_ms_median":
@@ -1487,7 +1549,8 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
     second = {k + SECOND_PASS: want[k] if op.nzc is not None and op.nzc.splits.shape[0] else 0
               for k, op in split.items()}
     second["bsr_spmm" + SECOND_PASS] = spmm_second
-    out["profile"] = epoch_profile(prog, device, epoch_s, {**want, **second})
+    out["profile"] = epoch_profile(prog.train_epoch, device, epoch_s,
+                                   {**want, **second})
     print(f"[{name}] " + json.dumps({k: v for k, v in out.items()
                                      if k not in ("epoch_ms",)}))
     return {"summary": out, "prog": prog, "ref": ref, "weights": weights}
@@ -1595,28 +1658,33 @@ def capture_attention(prog) -> list:
 def attention_operands(fwd, bwd, rec) -> dict:
     """The three passes' arguments for one captured layer, built as
     ``kernels/ops.py:_SparseMHAPair`` builds them: the statistics (m, l)
-    and the output from the plain forward, r = Σ_d dy·out. The loss's
-    cotangent is a mean over the training nodes (~1e-5 at the last layer,
-    less below), so dy is rescaled to unit variance, as
+    and the output from the plain forward, r = Σ_d dy·out; destinations
+    are the leading ``fwd.n_rows`` sources (all of them in full batch).
+    The loss's cotangent is a mean over the training nodes (~1e-5 at the
+    last layer, less below), so dy is rescaled to unit variance, as
     ``feature_operand_checks`` scales its dense operand: otherwise dc,
-    dzv and dd would lie below the check's absolute tolerance."""
+    dzv and dd would lie below the check's absolute tolerance. Without a
+    cotangent (inference) only the forward's arguments."""
     fit = kops._fit_rows
     h = rec["heads"]
     n, hd = rec["z"].shape
-    dy3 = rec["dy"] / rec["dy"].std()
     z3 = rec["z"].reshape(n, h, hd // h)
     asrc = torch.einsum("nhd,hd->nh", z3, rec["a_src"])
     adst = torch.einsum("nhd,hd->nh", z3, rec["a_dst"])
-    nr, nc, ntr, ntc = (fwd.n_rows_padded, fwd.n_cols_padded,
-                        bwd.n_rows_padded, bwd.n_cols_padded)
+    nr, nc = fwd.n_rows_padded, fwd.n_cols_padded
     a = (fwd.block_rows, fwd.block_cols, fwd.blocks)
-    at = (bwd.block_rows, bwd.block_cols, bwd.blocks)
     fargs = (*a, fit(adst, nr).contiguous(), fit(asrc, nc).contiguous(),
              fit(rec["z"], nc).contiguous(), nr, h)
+    if "dy" not in rec:
+        return {"fwd": fargs}
+    n_dst = fwd.n_rows
+    ntr, ntc = bwd.n_rows_padded, bwd.n_cols_padded
+    at = (bwd.block_rows, bwd.block_cols, bwd.blocks)
+    dy3 = rec["dy"] / rec["dy"].std()
     out, m, l = bsr_attention_fwd_ref(*fargs)
-    dy = dy3.reshape(n, hd)
-    r = torch.einsum("nhd,nhd->nh", dy3, out[:n].reshape(n, h, hd // h))
-    m, l = m[:n], l[:n]
+    dy = dy3.reshape(n_dst, hd)
+    r = torch.einsum("nhd,nhd->nh", dy3, out[:n_dst].reshape(n_dst, h, hd // h))
+    m, l = m[:n_dst], l[:n_dst]
     rargs = (*a, fargs[3], fargs[4], fargs[5], fit(dy, nr).contiguous(),
              fit(r, nr).contiguous(), fit(m, nr).contiguous(),
              fit(l, nr).contiguous(), nr, h)
@@ -1975,6 +2043,455 @@ def attention_pair_unequal(prog, device) -> float:
                 raise AssertionError(f"attention pair {label}: relative {rel}")
     print(f"[gt] attention pair, unequal paddings: max_abs_err={err:.3g}")
     return err
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-14: the sampled path, GAT serving and training
+# ---------------------------------------------------------------------------
+
+def train_cut(mask: np.ndarray, n: int) -> np.ndarray:
+    """``mask`` cut to its first ``n`` nodes."""
+    cut = np.zeros_like(mask)
+    cut[np.flatnonzero(mask)[:n]] = True
+    return cut
+
+
+def capture_sampled_attention(tr, data, grad: bool) -> list:
+    """Each attention layer's real operands and inputs in one pass of the
+    trainer over the batch ``data``: A and Aᵀ as ``BSRDevice``s (Aᵀ None
+    where the batch has none), z [N, H*Dh], a_src, a_dst, the head count
+    and, with ``grad`` (one loss and gradient), the loss's cotangent of
+    the layer's output, dy [n_out, H, Dh]. Measurement only:
+    ``kops.sampled_mha_pair`` is wrapped for this pass."""
+    inner = kops.sampled_mha_pair
+    layers = []
+
+    def spy(fwd, bwd, z3, a_src, a_dst, n_out, how):
+        out = inner(fwd, bwd, z3, a_src, a_dst, n_out, how)
+        n = z3.shape[0]
+        rec = {"z": z3.detach().reshape(n, -1), "a_src": a_src.detach(),
+               "a_dst": a_dst.detach(), "heads": z3.shape[1],
+               "fwd": kops._arrays_operand(fwd, n_out, n),
+               "bwd": None if bwd is None else kops._arrays_operand(bwd, n, n_out)}
+        layers.append(rec)
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__("dy", g.detach()))
+        return out
+
+    kops.sampled_mha_pair = spy
+    try:
+        if grad:
+            value_and_grad(tr._loss, tr.params, data)
+        else:
+            with torch.no_grad():
+                tr._logits(tr.params, data)
+    finally:
+        kops.sampled_mha_pair = inner
+    return layers
+
+
+def sampled_attention_rows(label, captured, device, reps: int) -> tuple:
+    """The attention passes on one batch's captured operands and inputs
+    (``attention_operands``: the forward alone without a cotangent), each
+    through its stream's nonzero columns: checked against the plain
+    version (``check_attention``: 1e-4, a repeat bitwise equal), then its
+    device time (profiler; a call is short) beside the plain version's,
+    and the bounds. Returns the rows by (pass, layer) and the largest
+    error by pass."""
+    err = {k: 0.0 for k in ATTENTION}
+    rows = {}
+    for layer, rec in enumerate(captured):
+        args = attention_operands(rec["fwd"], rec["bwd"], rec)
+        h = rec["heads"]
+        hd = rec["z"].shape[1]
+        for kind, a in args.items():
+            name, _, plain = ATTENTION[kind]
+            stream = rec["bwd"] if kind == "col" else rec["fwd"]
+            nzc = stream.nonzero_columns()
+            err[kind] = max(err[kind], check_attention(
+                f"{label} layer {layer} H={h} Dh={hd // h}", kind, a, device, nzc))
+            row = {"kernel": name, "operand": "A^T" if kind == "col" else "A",
+                   "layer": layer, "heads": h, "Dh": hd // h,
+                   "n_rows_padded": stream.n_rows_padded,
+                   "n_cols_padded": stream.n_cols_padded,
+                   "n_blocks": int(stream.blocks.shape[0]),
+                   "split_rows": int(nzc.splits.shape[0])}
+            row.update(timings({"": attention_call(kind, a, nzc),
+                                "plain_": lambda: plain(*a)}, device, reps,
+                               expect={"": {name: 1}}))
+            row.update(attention_bound(stream.block_rows, stream.block_cols,
+                                       stream.blocks, h, hd, stream.n_rows_padded,
+                                       kind))
+            row["library_ms"] = None
+            rows[(kind, layer)] = row
+            print(f"[{label}] " + json.dumps(row))
+    return rows, err
+
+
+def batch_columns(data) -> dict:
+    """``column_build`` of every layer's A and (where copied) Aᵀ in the
+    batch ``data``: what the path builds on the card once per batch and
+    layer, each operand where its product runs."""
+    out = {}
+    for l, blk in enumerate(data["blocks"]):
+        for label, key, n_rows in (("A", "fwd", data["valid"][l + 1].shape[0]),
+                                   ("A^T", "bwd", data["valid"][l].shape[0])):
+            if key in blk:
+                d = blk[key]
+                out[f"layer {l} {label}"] = column_build(
+                    d["rows"], d["cols"], d["blocks"], n_rows, d["rows"].device,
+                    reps=3)[0]
+    return out
+
+
+def sampled_gat_serving(ds, sizes: Sizes, device) -> dict:
+    """Phase 13: GAT [F, gat_hidden..., C] served on the sampled path
+    through ``build_engine(arch="GAT")``, cuda against the torch engine
+    with the same weights and request stream (``serving_phase``: one
+    ``bsr_attention_fwd`` launch a layer and batch and nothing else); the
+    batch's time by part, its nonzero-column builds, and the forward
+    kernel on one largest-bucket batch's real operands."""
+    kw = dict(arch="GAT", hidden=sizes.gat_hidden[0], fanouts=sizes.fanouts,
+              batch_size=sizes.batch_size, n_buckets=sizes.n_buckets,
+              wave_size=sizes.wave_size, use_cache=False, device=device,
+              gat_heads=sizes.gat_heads)
+    eng = build_engine(ds, engine="cuda", **kw)
+    ref = build_engine(ds, engine="torch", **kw)
+    print(f"[gat-serving] plan:\n{eng.trainer.plan.describe()}")
+    if any(l.agg_primitive != "cuda.spmm_attention" for l in eng.trainer.plan.layers):
+        raise AssertionError("every sampled GAT layer must bind cuda.spmm_attention")
+    serve = serving_phase(ds, eng, ref, sizes, kernel="bsr_attention_fwd")
+    print(f"[gat-serving] {json.dumps(serve)}")
+    serve["breakdown"] = [breakdown(eng, device, n, kernel="bsr_attention_fwd")
+                          for n in (4 * sizes.wave_size, sizes.batch_size)]
+    print(f"[gat-serving] per-batch breakdown: {json.dumps(serve['breakdown'])}")
+    tr = eng.trainer
+    seeds = np.random.default_rng(3).choice(ds.graph.n_rows, sizes.batch_size,
+                                            replace=False)
+    data = tr._batch_arrays(tr.sampler.sample_batch(seeds, tr.features))
+    builds = batch_columns(data)
+    print(f"[gat-serving] nonzero columns of one batch: {json.dumps(builds)}")
+    rows, err = sampled_attention_rows(
+        "gat-serving", capture_sampled_attention(tr, data, grad=False), device,
+        reps=5)
+    serve.update(columns=builds,
+                 column_build_ms=sum(b["build_ms"] for b in builds.values()),
+                 rows=rows, max_abs_err=err["fwd"])
+    return serve
+
+
+def decided_sampled_grads(tr, ref, params, data) -> tuple:
+    """Both sampled programs' gradients at ``params`` on the batch
+    ``data``, the torch program's ReLU decisions taken from the cuda
+    program's where the two part within MASK_MARGIN of 0 (as
+    ``decided_grads``; here the ReLU is torch's, after the aggregation or
+    the attention). Each trainer's layers apply the hook where they apply
+    their ReLU: with an activation other than ``torch.relu``,
+    ``apply_layer`` leaves the ReLU out of the composed epilogue and
+    calls the activation after it, the same operations in the same
+    order."""
+    masks, calls = [], []
+
+    def record(pre):
+        masks.append(pre > 0)
+        return torch.relu(pre)
+
+    def decide(pre):
+        want, mine = masks[len(calls)], pre > 0
+        parted = mine != want
+        beyond = parted & (pre.abs() > MASK_MARGIN)
+        calls.append({"elements": pre.numel(), "parted": int(parted.sum()),
+                      "beyond_margin": int(beyond.sum()),
+                      "max_abs_pre": float(pre[parted].abs().max())
+                      if parted.any() else 0.0})
+        keep = torch.where(parted & ~beyond, want, mine)
+        return torch.where(keep, pre, torch.zeros_like(pre))
+
+    def grads_with(trainer, hook):
+        config = trainer.config
+        if config.activation is not torch.relu:
+            raise AssertionError("the gate hooks the port's own ReLU")
+        trainer.config = dataclasses.replace(config, activation=hook)
+        try:
+            return value_and_grad(trainer._loss, params, data)[1]
+        finally:
+            trainer.config = config
+
+    got = grads_with(tr, record)
+    want = grads_with(ref, decide)
+    if len(calls) != len(masks):
+        raise AssertionError(f"{len(masks)} ReLU calls in the cuda program, "
+                             f"{len(calls)} in the torch program")
+    return got, want, calls
+
+
+def sampled_per_step(plan) -> dict:
+    """The kernel launches one sampled training step makes, from the plan:
+    fused attention 3 passes a layer; a BSR aggregation one ``bsr_spmm``
+    a layer forward and one backward where its input needs a gradient
+    (X·W under the composed epilogue; x itself, data at layer 0,
+    otherwise); one Adam launch."""
+    n = len(plan.layers)
+    out = {"fused_adam": 1}
+    if plan.layers[0].agg_primitive.endswith("spmm_attention"):
+        out.update({name: n for name, _, _ in ATTENTION.values()})
+    elif plan.sampler.emit_bsr:
+        out["bsr_spmm"] = n + len(backward_layers(plan))
+    return out
+
+
+def backward_layers(plan) -> list:
+    """The layers whose ``bsr_spmm`` aggregation runs a backward product."""
+    return [l.index for l in plan.layers if l.epilogue is not None or l.index > 0]
+
+
+def step_second_passes(plan, data, per_step: dict) -> dict:
+    """The second passes one step over ``data`` launches: once for each
+    call on an operand with split rows (A for the forward products and
+    the attention row pass, Aᵀ for the backward and the column pass)."""
+    def split(d, n_rows):
+        return int(nonzero_columns(d["rows"], d["cols"], d["blocks"],
+                                   n_rows).splits.shape[0] > 0)
+
+    if not plan.sampler.emit_bsr:
+        return {}
+    valid = data["valid"]
+    a = [split(b["fwd"], valid[l + 1].shape[0]) for l, b in enumerate(data["blocks"])]
+    at = [split(b["bwd"], valid[l].shape[0]) for l, b in enumerate(data["blocks"])]
+    if "bsr_spmm" in per_step:
+        return {"bsr_spmm" + SECOND_PASS:
+                sum(a) + sum(at[l] for l in backward_layers(plan))}
+    return {"bsr_attention_fwd" + SECOND_PASS: sum(a),
+            "bsr_attention_bwd_row" + SECOND_PASS: sum(a),
+            "bsr_attention_bwd_col" + SECOND_PASS: sum(at)}
+
+
+def step_breakdown(tr, device, reps: int = 3) -> dict:
+    """Where one training step's time goes, median of ``reps`` batches of
+    the path's seeds (host clock, synchronised): sampling and CSR→BSR on
+    the host, the copy to the card, the step (forward with the column
+    builds, backward, Adam; its result dropped, so the trainer is left as
+    it was)."""
+    rng = np.random.default_rng(11)
+    n = min(tr.sampler.batch_size, len(tr.train_ids))
+    parts = {"sample_ms": [], "to_device_ms": [], "step_ms": []}
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        batch = tr.sampler.sample_batch(rng.choice(tr.train_ids, n, replace=False),
+                                        tr.features, tr.labels_np, rng=rng)
+        t1 = time.perf_counter()
+        data = tr._batch_arrays(batch, train=True)
+        sync(device)
+        t2 = time.perf_counter()
+        float(tr._step(tr.params, tr.opt_state, data)[2])
+        t3 = time.perf_counter()
+        for k, a, b in (("sample_ms", t0, t1), ("to_device_ms", t1, t2),
+                        ("step_ms", t2, t3)):
+            parts[k].append((b - a) * 1e3)
+    out = {"seeds": n, **{k: float(np.median(v)) for k, v in parts.items()}}
+    out["batch_ms"] = sum(out[k] for k in parts)
+    return out
+
+
+def step_profile(tr, data, device, want: dict) -> dict:
+    """``epoch_profile`` of one step over the fixed batch ``data`` (the
+    result dropped, so the trainer is left as it was), against the step's
+    median synchronised time over 3 steps (``step_ms``)."""
+    if device.type != "cuda":
+        return {"complete": False}
+
+    def step():
+        return tr._step(tr.params, tr.opt_state, data)
+
+    times = []
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        step()
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.median(times))
+    return {"step_ms": step_s * 1e3, **epoch_profile(step, device, step_s, want)}
+
+
+def sampled_spmm_rows(batch, data, dims, device, reps: int) -> tuple:
+    """``bsr_spmm`` on one training batch's real operands at the widths the
+    step gives them: each layer's A at its output width (the forward's
+    X·Wn) and Aᵀ at the same width (the backward's dY), through nonzero
+    columns built as the step builds them; checked against the plain
+    version (a repeat bitwise equal) and ``torch.sparse.mm`` on the
+    block's CSR, then timed beside both (device time, profiler) with the
+    bounds."""
+    rows, err = {}, 0.0
+    for l, (blk, d) in enumerate(zip(batch.blocks, data["blocks"])):
+        f = dims[l + 1]
+        n_out, n_in = batch.bucket.node_caps[l + 1], batch.bucket.node_caps[l]
+        for label, arr, csr, n_rows, n_cols in (
+                ("A", d["fwd"], blk.csr, n_out, n_in),
+                ("A^T", d["bwd"], blk.csr.transpose(), n_in, n_out)):
+            x = torch.randn((n_cols, f),
+                            generator=torch.Generator().manual_seed(l)).to(device)
+            args = (arr["rows"], arr["cols"], arr["blocks"], x, n_rows)
+            nzc = nonzero_columns(*args[:3], n_rows)
+            err = max(err, check_spmm(f"sampled layer {l} {label} [{n_rows}x{n_cols}] "
+                                      f"F={f}", *args, device, nzc))
+            lib = csr_tensor(csr, device)
+            check_close(f"library yardstick (sampled layer {l} {label})",
+                        torch.sparse.mm(lib, x), bsr_spmm_ref(*args))
+            row = {"kernel": "bsr_spmm", "operand": label, "layer": l, "F": f,
+                   "n_rows_padded": n_rows, "n_cols_padded": n_cols,
+                   "n_blocks": int(arr["blocks"].shape[0]), "nnz": int(csr.nnz),
+                   "split_rows": int(nzc.splits.shape[0])}
+            row.update(timings({"": lambda: bsr_spmm(*args, nzc=nzc),
+                                "plain_": lambda: bsr_spmm_ref(*args),
+                                "library_": lambda: torch.sparse.mm(lib, x)},
+                               device, reps, expect=SAMPLED_SPMM_EXPECT))
+            row.update(spmm_bound(*args[:3], f, n_rows))
+            rows[(label, l)] = row
+            print("[sage-sampled] " + json.dumps(row))
+    return rows, err
+
+
+def sampled_train_path(name, ds, cfg, device, *, lr: float, fanouts,
+                       batch_size: int, cut: int, epochs: int,
+                       falling: bool = True) -> dict:
+    """One sampled training path: ``MiniBatchTrainer`` on ``cuda`` (fused
+    Adam) and on ``torch`` (plain versions, plain Adam) from the same
+    weights over the train mask cut to ``cut`` nodes, ``epochs`` epochs
+    each (the same batches: the trainers' streams share a seed). Counts
+    zeroed just before the cuda run and read after every epoch, each
+    epoch's launches exactly ``sampled_per_step`` times its steps. Phase
+    4's gates: the gradients of both programs at the same parameters on
+    a fixed probe batch (the first ``batch_size`` train seeds) at the
+    first step and after the last, ReLU decisions as
+    ``decided_sampled_grads``; losses within 1e-3 relative (and falling
+    where ``falling``); parameters after the last step."""
+    mask = train_cut(ds.train_mask, cut)
+    trs, build_s = {}, {}
+    for eng in ("cuda", "torch"):
+        t0 = time.perf_counter()
+        trs[eng] = MiniBatchTrainer(
+            cfg, ds.graph, ds.features, ds.labels, mask,
+            adam(lr, fused=eng == "cuda"), fanouts=tuple(fanouts),
+            batch_size=batch_size, engine=eng, seed=0, device=device)
+        build_s[eng] = time.perf_counter() - t0
+    tr, ref = trs["cuda"], trs["torch"]
+    for a, b in zip(tr.params["layers"], ref.params["layers"]):
+        if not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"[{name}] the two programs must share weights")
+    plan = tr.plan
+    print(f"[{name}] plan (trainers built in {build_s['cuda']:.1f}s + "
+          f"{build_s['torch']:.1f}s):\n{plan.describe()}")
+    on_card = device.type == "cuda"
+    per_step = sampled_per_step(plan)
+    steps = -(-len(tr.train_ids) // batch_size)
+    want = {k: per_step.get(k, 0) * steps if on_card else 0 for k in KERNELS}
+    probe = tr.sampler.sample_batch(tr.train_ids[:batch_size], tr.features,
+                                    tr.labels_np, rng=np.random.default_rng(17))
+    data = tr._batch_arrays(probe, train=True)
+
+    def grad_check(when: str, params) -> dict:
+        return gradient_gate(name, when,
+                             decided_sampled_grads(tr, ref, params, data))
+
+    grad_start = grad_check("at the first step", tr.params)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, times = [], []
+    zero_counts()
+    for epoch in range(epochs):
+        before = counts()
+        t0 = time.perf_counter()
+        losses.append(tr.train_epoch())  # float() each step: synchronised
+        times.append(time.perf_counter() - t0)
+        got = {k: v - before[k] for k, v in counts().items()}
+        if got != want:
+            raise AssertionError(f"[{name}] epoch {epoch + 1} launched {got}, "
+                                 f"expected {want}")
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    grad_end = grad_check(f"after {epochs * steps} steps", tr.params)
+    ref_losses, ref_times = [], []
+    for _ in range(epochs):
+        t0 = time.perf_counter()
+        ref_losses.append(ref.train_epoch())
+        ref_times.append(time.perf_counter() - t0)
+    rel, param_diff = loss_and_param_gate(
+        name, f"after {epochs * steps} steps", losses, ref_losses, tr.params,
+        ref.params, falling)
+    columns = batch_columns(data)
+    second = step_second_passes(plan, data, per_step) if on_card else {}
+    out = {"losses": losses, "ref_losses": ref_losses, "max_rel_diff": max(rel),
+           "steps_per_epoch": steps, "epoch_ms": [t * 1e3 for t in times],
+           "ref_epoch_ms": [t * 1e3 for t in ref_times],
+           "step_ms_mean": float(np.sum(times)) * 1e3 / (epochs * steps),
+           "ref_step_ms_mean": float(np.sum(ref_times)) * 1e3 / (epochs * steps),
+           "launches": launched, "per_step": per_step, "second_passes_probe": second,
+           "build_s": build_s, "peak_mem_bytes": peak, "n_traces": tr.n_traces,
+           "grad_start": grad_start, "grad_end": grad_end,
+           "param_rel_diff": param_diff, "columns": columns,
+           "column_build_ms": sum(c["build_ms"] for c in columns.values()),
+           "breakdown": step_breakdown(tr, device),
+           "profile": step_profile(tr, data, device, {**per_step, **second})}
+    print(f"[{name}] " + json.dumps({k: v for k, v in out.items()
+                                     if k not in ("columns",)}))
+    return {"summary": out, "tr": tr, "ref": ref, "data": data, "probe": probe}
+
+
+def sampled_training(ds, qds, sizes: Sizes, device) -> dict:
+    """Phase 14: sampled training at full width. (a) SAGE-mean [F,
+    train_hidden..., C] on ``dataset``, fused Adam 0.01, the train mask
+    cut to ``sage_cut`` nodes, ``SAGE_EPOCHS`` epochs, and ``bsr_spmm`` on
+    one batch's real operands; (b) GAT [F, gat_hidden..., C] with
+    ``gat_heads`` heads, ``GAT_ADAM``'s lr, the train mask cut to one
+    batch, ``GAT_STEPS`` steps, and the three attention kernels on one
+    batch's real operands and cotangents; (c) one step each of GT [F,
+    quick_hidden..., C] with ``gt_heads`` heads on ``quick_dataset``
+    (fanouts the last of ``fanouts``) and SAGE-max [F, train_hidden...,
+    C] on ``dataset``."""
+    b = sizes.sampled_batch_size
+    dims = [ds.features.shape[1], *sizes.train_hidden, ds.n_classes]
+    out = {}
+    sage = sampled_train_path(
+        "sage-sampled", ds, GNNConfig(kind="SAGE", layer_dims=dims,
+                                      aggregation="mean"),
+        device, lr=ADAM[1], fanouts=sizes.fanouts, batch_size=b,
+        cut=sizes.sage_cut, epochs=SAGE_EPOCHS)
+    spmm_rows, spmm_err = sampled_spmm_rows(sage["probe"], sage["data"], dims,
+                                            device, reps=5)
+    out["sage"] = {**sage["summary"], "rows": spmm_rows, "max_abs_err": spmm_err}
+    del sage
+    gdims = [ds.features.shape[1], *sizes.gat_hidden, ds.n_classes]
+    gat = sampled_train_path(
+        "gat-sampled", ds, GNNConfig(kind="GAT", layer_dims=gdims,
+                                     aggregation="gcn", gat_heads=sizes.gat_heads),
+        device, lr=GAT_ADAM[1], fanouts=sizes.fanouts, batch_size=b, cut=b,
+        epochs=GAT_STEPS)
+    captured = capture_sampled_attention(gat["tr"], gat["data"], grad=True)
+    rows, err = sampled_attention_rows("gat-sampled", captured, device, reps=2)
+    out["gat"] = {**gat["summary"], "rows": rows, "err": err}
+    del gat, captured
+    qdims = [qds.features.shape[1], *sizes.quick_hidden, qds.n_classes]
+    gt = sampled_train_path(
+        "gt-sampled", qds, GNNConfig(kind="GT", layer_dims=qdims,
+                                     aggregation="gcn", gat_heads=sizes.gt_heads),
+        device, lr=ADAM[1], fanouts=sizes.fanouts[-(len(qdims) - 1):],
+        batch_size=b, cut=b, epochs=1, falling=False)
+    if gt["tr"].plan.layers[0].primitive != "gather.feature_matmul_sparse":
+        raise AssertionError("sampled GT's layer 0 must bind "
+                             "gather.feature_matmul_sparse")
+    out["gt"] = gt["summary"]
+    del gt
+    mx = sampled_train_path(
+        "max-sampled", ds, GNNConfig(kind="SAGE", layer_dims=dims,
+                                     aggregation="max"),
+        device, lr=ADAM[1], fanouts=sizes.fanouts, batch_size=b, cut=b,
+        epochs=1, falling=False)
+    if any(l.agg_primitive != "gather.segment_max" for l in mx["tr"].plan.layers):
+        raise AssertionError("sampled SAGE-max must bind gather.segment_max")
+    out["max"] = mx["summary"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2459,8 +2976,37 @@ def kernel_entries(serving_entry, launches_by_path, fk, ak, adam, errs, dims,
     return entries
 
 
+def sampled_entries(entries: list, gat_serve: dict, sampled: dict) -> None:
+    """Each on-path kernel's calls on the sampled paths beside its entry:
+    ``bsr_spmm`` on a SAGE training batch's A and Aᵀ, the attention passes
+    on a GAT serving batch (the forward) and a GAT training batch; each
+    the batch's layers summed (``sum_rows``), and the launches a batch or
+    step that the path's run counted."""
+    by_name = {e["name"]: e for e in entries}
+
+    def per_step(path: str, name: str) -> float:
+        s = sampled[path]
+        return s["launches"][name] / (len(s["losses"]) * s["steps_per_epoch"])
+
+    by_name["bsr_spmm"]["sampled_sage_step"] = {
+        **sum_rows(list(sampled["sage"]["rows"].values())),
+        "launches_a_step": per_step("sage", "bsr_spmm"),
+        "shape": "one SAGE training batch: every layer's A and Aᵀ at its width"}
+    for kind, (name, _, _) in ATTENTION.items():
+        entry = by_name[name]
+        for label, rows, launches in (
+                ("sampled_gat_serving_batch", gat_serve["rows"],
+                 gat_serve["launched"][name] / gat_serve["batches"]),
+                ("sampled_gat_step", sampled["gat"]["rows"], per_step("gat", name))):
+            calls = [r for (k, _), r in rows.items() if k == kind]
+            if calls:
+                entry[label] = {**sum_rows(calls), "launches_a_batch": launches}
+    by_name["fused_adam"]["sampled_launches_a_step"] = {
+        p: per_step(p, "fused_adam") for p in sampled}
+
+
 def run(sizes: Sizes, device) -> dict:
-    """Phases 2 to 12 at ``sizes`` on ``device``; returns the kernels line
+    """Phases 2 to 14 at ``sizes`` on ``device``; returns the kernels line
     and the details."""
     t_start = t0 = time.perf_counter()
     ds = generate_dataset(sizes.dataset, scale=sizes.scale, seed=0)
@@ -2612,16 +3158,28 @@ def run(sizes: Sizes, device) -> dict:
     print(f"[adam] opt.update host ms by path: {json.dumps(adam['update_host_ms'])}")
     phase_s["12"] = time.perf_counter() - t0
 
+    # phase 13: GAT serving on the sampled path
+    t0 = time.perf_counter()
+    gat_serve = sampled_gat_serving(ds, sizes, device)
+    phase_s["13"] = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # phase 14: sampled training (SAGE, GAT; one step of GT and of SAGE-max)
+    t0 = time.perf_counter()
+    sampled = sampled_training(ds, qds, sizes, device)
+    phase_s["14"] = time.perf_counter() - t0
+
     attn_err = max(ak["err"]["edge"], attn_pair_err)
     nonfinite = max(edge["nonfinite"], fk["err"]["nonfinite"])
     errs = {"bsr_spmm": max(kern["max_abs_err"], fk["err"]["spmm"], pair_err,
-                            qk["err"], nonfinite),
+                            qk["err"], nonfinite, sampled["sage"]["max_abs_err"]),
             "bsr_spmm_fused_epilogue": max(fk["err"]["fused"], edge["fused"], pair_err,
                                            nonfinite),
             "bsr_spmm_masked": max(fk["err"]["masked"], edge["masked"], pair_err,
                                    nonfinite),
             "fused_adam": adam["err"],
-            **{name: max(ak["err"][kind], attn_err)
+            **{name: max(ak["err"][kind], attn_err, sampled["gat"]["err"][kind],
+                         gat_serve["max_abs_err"] if kind == "fwd" else 0.0)
                for kind, (name, _, _) in ATTENTION.items()}}
     serving_counts = {k: 0 for k in KERNELS}
     serving_counts["bsr_spmm"] = serve["launches"]
@@ -2630,15 +3188,25 @@ def run(sizes: Sizes, device) -> dict:
                "quickstart": quick["summary"]["launches"],
                "gat": gat["summary"]["launches"],
                "gt": gt["summary"]["launches"],
-               "lm_serving": lm_summary["launches"]}
+               "lm_serving": lm_summary["launches"],
+               "gat_serving_sampled": gat_serve["launched"],
+               **{f"{p}_sampled": sampled[p]["launches"]
+                  for p in ("sage", "gat", "gt", "max")}}
     entries = kernel_entries(serving_entry, by_path, fk, ak, adam, errs, dims,
                              train["summary"]["profile"],
                              gat["summary"]["profile"], flash_entry(fa))
     entries[0]["quickstart"] = qk["rows"]
+    sampled_entries(entries, gat_serve, sampled)
     return {"kernels": entries, "layers": layers, "serve": serve,
             "sample_s": kern["sample_s"], "train": train["summary"],
             "quickstart": quick["summary"], "gat": gat["summary"],
             "gt": gt["summary"], "lm": lm_summary, "flash": fa, "adam": adam,
+            "gat_serving_sampled": {k: v for k, v in gat_serve.items() if k != "rows"},
+            "sampled": {p: {k: v for k, v in r.items() if k != "rows"}
+                        for p, r in sampled.items()},
+            "sampled_rows": {f"{p} {k}": v for p, r in (
+                ("gat_serving", gat_serve), ("sage", sampled["sage"]),
+                ("gat", sampled["gat"])) for k, v in r["rows"].items()},
             "phase_s": phase_s,
             "attention_hub": ak["hub"], "quickstart_spmm": qk["rows"],
             "kernel_rows": {str(k): v for k, v in fk["rows"].items()},
@@ -2681,6 +3249,16 @@ def main() -> int:
           f"p50 {serve['p50_ms']:.2f} ms, p99 {serve['p99_ms']:.2f} ms, "
           f"warmup {serve['warmup_s']:.2f}s, sample one 256-seed batch "
           f"{result['sample_s']:.3f}s on {card}")
+    gs = result["gat_serving_sampled"]
+    print(f"[gat-serving] {gs['requests']} requests, {gs['req_per_s']:.2f} req/s, "
+          f"p50 {gs['p50_ms']:.2f} ms, p99 {gs['p99_ms']:.2f} ms, column builds "
+          f"{gs['column_build_ms']:.2f} ms a batch on {card}")
+    for path, r in result["sampled"].items():
+        print(f"[{path}-sampled] {len(r['losses'])} epochs of {r['steps_per_epoch']} "
+              f"steps, {r['step_ms_mean']:.1f} ms a step (torch reference "
+              f"{r['ref_step_ms_mean']:.1f} ms), loss {r['losses'][0]:.4f} -> "
+              f"{r['losses'][-1]:.4f}, max rel diff {r['max_rel_diff']:.2e}, "
+              f"peak {r['peak_mem_bytes'] / 2**30:.2f} GiB on {card}")
     for path in ("train", "quickstart", "gat", "gt"):
         r = result[path]
         print(f"[{path}] {len(r['losses'])} epochs, median epoch "
@@ -2695,7 +3273,7 @@ def main() -> int:
           f"{lm['decode_step_ms_median']:.2f} ms a step (torch "
           f"{lm['ref_decode_step_ms_median']:.2f}), {lm['tokens_per_s']:.1f} tokens/s, "
           f"peak {lm['peak_mem_bytes'] / 2**30:.2f} GiB on {card}")
-    print(f"[done] phases 2-12 in {time.perf_counter() - t_all:.1f}s: "
+    print(f"[done] phases 2-14 in {time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -35,9 +35,6 @@ OP_VOCABULARY = (
     "feature_matmul_dense",
 )
 
-TRAINING_ITEM = "ROADMAP.md Queue 1, item 2 (sampled training)"
-SAMPLED_ATTENTION_ITEM = ("ROADMAP.md Queue 1, item 11 (attention and max "
-                          "on the sampled path)")
 LAYOUT_ITEM = "ROADMAP.md Queue 1, item 5 (layout autotuner)"
 RUNTIME_ITEM = "ROADMAP.md Queue 1, item 6 (runtime)"
 VERIFY_ITEM = "ROADMAP.md Queue 1, item 8 (verifier)"

@@ -9,13 +9,13 @@ layer 0, post-activation estimates for hidden layers). ``describe()``
 prints the same plan dump, with the port's backend names (``cuda`` for
 ``pallas``, ``torch`` for ``xla``).
 
-Full batch runs every arch (GCN, SAGE mean/sum/gcn/max, GIN, GAT, GT);
+Both paths run every arch (GCN, SAGE mean/sum/gcn/max, GIN, GAT, GT);
 attention archs bind the fused ``spmm_attention`` on ``cuda``/``torch``
-(an ``AttentionPlan`` per layer). The sampled path runs the matmul
-aggregations; attention and ``max`` there wait for ROADMAP.md Queue 1,
-item 11. ``layout="auto"`` waits for item 5; the distributed lowering for
-item 7; the plan-contract verifier (``check_plan``) for item 8, and a
-full-batch plan's ``describe()`` says so.
+(an ``AttentionPlan`` per layer), the sampled path over each batch's
+padded (A, Aᵀ) pair, and ``max`` binds ``gather.segment_max``.
+``layout="auto"`` waits for ROADMAP.md Queue 1, item 5; the distributed
+lowering for item 7; the plan-contract verifier (``check_plan``) for
+item 8, and a full-batch plan's ``describe()`` says so.
 """
 from __future__ import annotations
 
@@ -29,7 +29,6 @@ from repro_torch import resolve_device
 from repro_torch.backends import Backend, select_backend
 from repro_torch.backends.registry import (
     LAYOUT_ITEM,
-    SAMPLED_ATTENTION_ITEM,
     VERIFY_ITEM,
     not_ported,
 )
@@ -231,6 +230,7 @@ def lower_sampled(
     use_sparse_input: bool = True,
     feat_slack: float = 2.0,
     fuse_epilogue: bool = True,
+    fuse_attention: bool = True,
     layout: "LayoutPlan | str | None" = None,
     infer_only: bool = False,
 ) -> SampledModelPlan:
@@ -244,12 +244,12 @@ def lower_sampled(
     ``feat_slack`` times the template's density. ``layout`` renumbers the
     full graph before the sampler is built (the trainer maps user ids
     through ``inv_perm``). ``infer_only=True`` marks a serving plan.
+    GAT / GT bind the fused ``spmm_attention`` over each batch's BSR pair
+    on ``cuda``/``torch`` (``fuse_attention=False``: the segment path over
+    the padded edge lists); ``max`` binds ``gather.segment_max``.
     """
     backend = select_backend(engine)
     kind = config.kind
-    if is_attention_arch(kind):
-        raise not_ported(f"{kind} (attention aggregation) on the sampled path",
-                         SAMPLED_ATTENTION_ITEM)
     dims = list(config.layer_dims)
     features = np.asarray(features)
     if features.shape[-1] != dims[0]:
@@ -261,10 +261,6 @@ def lower_sampled(
     if len(fanouts) != config.n_layers:
         raise ValueError(
             f"need one fanout per layer ({config.n_layers}), got {fanouts!r}")
-    agg = effective_aggregation(config)
-    if agg == "max":
-        raise not_ported("max aggregation on the sampled path",
-                         SAMPLED_ATTENTION_ITEM)
 
     if isinstance(layout, LayoutPlan):
         lp = dataclasses.replace(layout, br=int(br), bc=int(bc), bf=0,
@@ -285,8 +281,16 @@ def lower_sampled(
     if lp.reordered_graph is not None:  # sampler holds its own weighted copy
         lp = dataclasses.replace(lp, reordered_graph=None)
 
+    agg = effective_aggregation(config)
     weighted = _weighted_graph(graph, agg)
-    emit_bsr = backend.name in ("cuda", "torch")
+    is_attn = is_attention_arch(kind)
+    # matmul aggregations ride the BSR operands; attention archs join them
+    # when the fused attention kernel is on (the per-batch BSR nonzero
+    # pattern doubles as the attention mask); max stays edge-valued
+    emit_attn = (fuse_attention and is_attn
+                 and backend.name in ("cuda", "torch"))
+    emit_bsr = (backend.name in ("cuda", "torch")
+                and (emit_attn if is_attn else agg != "max"))
     sampler = NeighborSampler(
         weighted, fanouts, batch_size, n_buckets=n_buckets, br=br, bc=bc,
         seed=seed, emit_bsr=emit_bsr)
@@ -301,7 +305,12 @@ def lower_sampled(
     s_frontier = 1.0 - np.count_nonzero(rows) / max(rows.size, 1)
 
     emit_epilogue = fuse_epilogue and epilogue_fusable(config, agg)
-    if emit_epilogue:
+    if is_attn:
+        agg_primitive = (f"{backend.name}.spmm_attention" if emit_attn
+                         else f"{backend.name}.segment_softmax_aggregate")
+    elif agg == "max":
+        agg_primitive = "gather.segment_max"
+    elif emit_epilogue:
         agg_primitive = f"{backend.name}.spmm_fused_epilogue"
     elif backend.name == "gather":
         agg_primitive = "gather.segment_sum_baseline"
@@ -353,12 +362,15 @@ def lower_sampled(
             epilogue = _epilogue_binding(
                 config, is_last=(i == config.n_layers - 1),
                 sparse_path=(path == "sparse"))
+        attention = None
+        if is_attn:
+            attention = _attention_binding(config.gat_heads, d_out, emit_attn)
 
         layers.append(LayerPlan(
             index=i, op_kind=kind, d_in=d_in, d_out=d_out,
             feature_path=path, primitive=primitive,
             agg_primitive=agg_primitive, decision=decision, note=note,
-            epilogue=epilogue, layout=lp,
+            epilogue=epilogue, attention=attention, layout=lp,
         ))
 
     return SampledModelPlan(

@@ -10,8 +10,9 @@
 // ~1.4 nonzeros, so reading whole blocks moved ~90x the X rows the
 // product needs. The operand's nonzero columns are built once per
 // full-batch operand (Aᵀ of training; X and Xᵀ of the Alg-1 sparse layer
-// 0) and once per batch and layer on the sampled serving path
-// (kernels/ops.py:bsr_spmm_pair), where the sampler's zero padding
+// 0) and once per batch and layer on the sampled path
+// (kernels/ops.py:bsr_spmm_pair: A in the forward, Aᵀ in the backward
+// of training), where the sampler's zero padding
 // tail gives no column, so the loop needs no padding branch. What bounds
 // it is the X row gathers, one per nonzero column, and on the feature
 // operands (~1.2 nonzeros a column, thousands of columns a row) the

@@ -5,7 +5,8 @@ operand ``BSRDevice`` and ``build_bsr_pair``, ``bsr_spmm_pair`` (the
 sampled path's SpMM with its Aᵀ backward) and the fused-epilogue pair
 ``bsr_spmm_fused_pair`` / ``build_fused_epilogue`` (the full-batch path's
 aggregation), and the fused attention pair ``sparse_mha_pair`` /
-``build_sparse_mha`` (GAT and GT, DESIGN.md §10); and the LM's prefill
+``build_sparse_mha`` (GAT and GT, DESIGN.md §10) with its sampled form
+``sampled_mha_pair`` over a batch's arrays; and the LM's prefill
 attention, ``"flash"`` (``models/attention.py``), which needs no gradient.
 
 ``inner`` picks the executor everywhere: ``"cuda"`` the kernel wrappers
@@ -354,6 +355,9 @@ class _SparseMHAPair(torch.autograd.Function):
     def backward(ctx, dy):
         z32, a_src, a_dst, out, m, l, asrc, adst = ctx.saved_tensors
         fwd, bwd, inner = ctx.fwd, ctx.bwd, ctx.inner
+        if bwd is None:
+            raise RuntimeError("sampled_mha_pair was called without the "
+                               "transposed operand; no gradient exists")
         n_dst, n_src, nr_pad, nc_pad, nt_r, nt_c = ctx.geom
         h, dh = z32.shape[1], z32.shape[2]
         hd = h * dh
@@ -420,3 +424,33 @@ def build_sparse_mha(fwd: BSRDevice, bwd: BSRDevice, inner: str):
         return sparse_mha_pair(fwd, bwd, z, a_src, a_dst, geom, inner)
 
     return mha
+
+
+def _arrays_operand(arrays: tuple, n_rows: int, n_cols: int) -> BSRDevice:
+    """A per-batch 4-tuple (rows, cols, first, blocks) as a ``BSRDevice``
+    of ``n_rows`` x ``n_cols``, both already padded; its nonzero columns
+    are built at its first use."""
+    rows, cols, _first, blocks = arrays
+    _, br, bc = blocks.shape
+    return BSRDevice(block_rows=rows, block_cols=cols, blocks=blocks,
+                     n_rows=n_rows, n_cols=n_cols, n_rows_padded=n_rows,
+                     n_cols_padded=n_cols, br=br, bc=bc)
+
+
+def sampled_mha_pair(fwd_arrays: tuple, bwd_arrays: Optional[tuple],
+                     z: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
+                     n_out: int, inner: str = "cuda") -> torch.Tensor:
+    """``sparse_mha_pair`` on one sampled batch's bipartite layer: A
+    (``fwd_arrays``) is [n_out, n_in] and Aᵀ (``bwd_arrays``) [n_in,
+    n_out], each the 4-tuple (rows, cols, first, blocks), with ``n_in =
+    z.shape[0]``. The sampler's caps are lcm(br, bc)-aligned, so they are
+    the padded dimensions (``geom = (n_out, n_in, n_out, n_in, n_in,
+    n_out)``). For ``cuda``, A's nonzero columns are built where the
+    forward runs (the row pass reuses them) and Aᵀ's in the backward
+    only; ``bwd_arrays=None`` (inference) builds none, and the backward
+    then raises."""
+    n_in = z.shape[0]
+    fwd = _arrays_operand(fwd_arrays, n_out, n_in)
+    bwd = None if bwd_arrays is None else _arrays_operand(bwd_arrays, n_in, n_out)
+    geom = (n_out, n_in, n_out, n_in, n_in, n_out)
+    return sparse_mha_pair(fwd, bwd, z, a_src, a_dst, geom, inner)

@@ -1,16 +1,18 @@
 """GNN serving launcher: ``python -m repro_torch.launch.serve``.
 
 Counterpart of ``repro/launch/serve.py``: builds a synthetic dataset
-analog, loads an untrained model (random weights from seed 0; training
-is the next slice, so ``--epochs`` takes only 0) and drives the online GNN
-serving engine from a request loop — Poisson think time, seed-node
-queries drawn 80% from a hot set so the embedding cache has something to
-hit — then prints p50/p99 latency, throughput and cache statistics.
+analog, trains ``--epochs`` mini-batch epochs with ``adam(0.01)`` over
+the dataset's train mask (or, with ``--epochs 0``, loads an untrained
+model: random weights from seed 0) and drives the online GNN serving
+engine from a request loop — Poisson think time, seed-node queries drawn
+80% from a hot set so the embedding cache has something to hit — then
+prints p50/p99 latency, throughput and cache statistics.
 
 The defaults are the port's serving configuration: the ogbn-arxiv analog
 at full scale, GCN [128, 256, 256, 40] as in OGB's ogbn-arxiv GCN
-baseline, fanouts (15, 10, 5), 256-seed batches, on CUDA. ``--device cpu``
-runs the plain PyTorch versions instead (use a small ``--scale`` there).
+baseline, fanouts (15, 10, 5), 256-seed batches, no training, on CUDA.
+``--device cpu`` runs the plain PyTorch versions instead (use a small
+``--scale`` there).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import numpy as np
 from repro_torch.graph.datasets import DATASET_SPECS, generate_dataset
 from repro_torch.models.gnn import GNNConfig
 from repro_torch.serving.gnn_engine import GNNRequest, GNNServingEngine
+from repro_torch.training.optimizer import adam
 from repro_torch.training.trainer import MiniBatchTrainer
 
 
@@ -30,16 +33,24 @@ def _percentile_ms(xs, q):
     return float(np.percentile(np.asarray(xs), q) * 1e3) if len(xs) else 0.0
 
 
+def model_config(ds, arch: str, hidden: int, n_layers: int,
+                 **config) -> GNNConfig:
+    """``arch`` over ``ds`` with ``n_layers`` layers: [F, hidden, ...,
+    n_classes]; ``config`` the rest of ``GNNConfig`` (``gat_heads=``)."""
+    dims = [ds.features.shape[1]] + [hidden] * (n_layers - 1) + [ds.n_classes]
+    return GNNConfig(kind=arch, layer_dims=dims, **config)
+
+
 def build_engine(ds, *, arch: str, hidden: int, fanouts: Sequence[int],
                  batch_size: int, n_buckets: int, wave_size: int,
                  use_cache: bool, engine: str = "cuda", device=None,
-                 seed: int = 0) -> GNNServingEngine:
-    """An infer-only trainer over ``ds`` wrapped in a serving engine. The
-    model has one layer per fanout: [F, hidden, ..., n_classes]."""
-    dims = [ds.features.shape[1]] + [hidden] * (len(fanouts) - 1) + [ds.n_classes]
-    cfg = GNNConfig(kind=arch, layer_dims=dims)
+                 seed: int = 0, **config) -> GNNServingEngine:
+    """An infer-only trainer of ``model_config(ds, arch, hidden,
+    len(fanouts), **config)``, untrained weights from ``seed``, wrapped in
+    a serving engine."""
     trainer = MiniBatchTrainer(
-        cfg, ds.graph, ds.features, None, None, None, fanouts=tuple(fanouts),
+        model_config(ds, arch, hidden, len(fanouts), **config), ds.graph,
+        ds.features, None, None, None, fanouts=tuple(fanouts),
         batch_size=batch_size, n_buckets=n_buckets, engine=engine, seed=seed,
         infer_only=True, device=device)
     return GNNServingEngine(trainer, wave_size=wave_size,
@@ -79,14 +90,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--dataset", default="ogbn-arxiv",
                     choices=sorted(DATASET_SPECS))
     ap.add_argument("--scale", type=float, default=1.0)
-    ap.add_argument("--arch", default="GCN", choices=["GCN", "SAGE", "GIN"])
+    ap.add_argument("--arch", default="GCN",
+                    choices=["GCN", "SAGE", "GIN", "GAT", "GT"])
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--fanouts", default="15,10,5",
                     help="comma-separated fanout per layer (sets the depth)")
     ap.add_argument("--batch-size", type=int, default=256)
     ap.add_argument("--buckets", type=int, default=2)
-    ap.add_argument("--epochs", type=int, default=0, choices=[0],
-                    help="training is not ported yet: serve an untrained model")
+    ap.add_argument("--epochs", type=int, default=0,
+                    help="mini-batch epochs to train first (0: serve an "
+                         "untrained model)")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--wave-size", type=int, default=8)
     ap.add_argument("--query-size", type=int, default=4,
@@ -104,11 +117,26 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"[serve] {ds.name}: {ds.graph.n_rows} nodes {ds.graph.nnz} edges "
           f"{ds.features.shape[1]} features, arch={args.arch} "
           f"fanouts={fanouts} device={args.device}")
-    engine = build_engine(
-        ds, arch=args.arch, hidden=args.hidden, fanouts=fanouts,
-        batch_size=args.batch_size, n_buckets=args.buckets,
-        wave_size=args.wave_size, use_cache=not args.no_cache,
-        device=args.device)
+    if args.epochs > 0:
+        trainer = MiniBatchTrainer(
+            model_config(ds, args.arch, args.hidden, len(fanouts)), ds.graph,
+            ds.features, ds.labels, ds.train_mask,
+            adam(0.01, fused=True), fanouts=fanouts,
+            batch_size=args.batch_size, n_buckets=args.buckets, seed=0,
+            device=args.device)
+        for e in range(args.epochs):
+            t0 = time.perf_counter()
+            loss = trainer.train_epoch()
+            print(f"[serve] train epoch {e}: loss {loss:.4f} "
+                  f"({time.perf_counter() - t0:.2f}s)")
+        engine = GNNServingEngine(trainer, wave_size=args.wave_size,
+                                  use_cache=not args.no_cache, seed=0)
+    else:
+        engine = build_engine(
+            ds, arch=args.arch, hidden=args.hidden, fanouts=fanouts,
+            batch_size=args.batch_size, n_buckets=args.buckets,
+            wave_size=args.wave_size, use_cache=not args.no_cache,
+            device=args.device)
     t0 = time.perf_counter()
     n_warm = engine.warmup()
     print(f"[serve] warmup: {n_warm} shape signatures "

@@ -5,20 +5,22 @@
   ``GNNModel``; ``train_step`` is the one step it and ``core/dsl.py``
   share. Checkpoints, guarded steps and fault injection wait for
   ROADMAP.md Queue 1, item 6.
-* ``MiniBatchTrainer`` — the inference half of the neighbour-sampled
-  trainer, as the serving path uses it: per batch, the sampler's bucketed
-  block stack goes to the device and every layer runs
-  ``models/gnn.py:apply_layer`` with ``LayerOps`` bound to the batch's
-  bipartite operands — matmul aggregations through
-  ``kernels/ops.py:bsr_spmm_pair`` (the Hopper kernel on the ``cuda``
-  backend), the Alg-1 sparse input path through the gather backend's
-  edge-list ``spmm``. Its training half is ROADMAP.md Queue 1, item 2;
-  the distributed trainer is item 7.
+* ``MiniBatchTrainer`` — neighbour-sampled mini-batch training and
+  inference (DESIGN.md §7): per batch, the sampler's bucketed block stack
+  goes to the device and every layer runs ``models/gnn.py:apply_layer``
+  with ``LayerOps`` bound to the batch's bipartite operands — matmul
+  aggregations through ``kernels/ops.py:bsr_spmm_pair``, fused attention
+  through ``kernels/ops.py:sampled_mha_pair`` (the Hopper kernels on the
+  ``cuda`` backend), ``max`` and segment attention over the padded edge
+  lists, the Alg-1 sparse input path through the gather backend's
+  edge-list ``spmm``; the loss on the batch's seeds, one optimizer step
+  per batch. The distributed trainer is ROADMAP.md Queue 1, item 7.
 
-PyTorch runs eagerly, so nothing is traced. ``n_infer_traces`` counts the
-distinct shape signatures the infer path has seen — the JAX package's jit
-retrace count — so the serving contract "at most one per bucket, none
-after warmup" keeps its meaning.
+PyTorch runs eagerly, so nothing is traced. ``n_traces`` and
+``n_infer_traces`` count the distinct shape signatures the training step
+and the infer path have seen — the JAX package's jit retrace counts — so
+the contract "at most one per bucket and input-path variant, none after
+warmup" keeps its meaning.
 """
 from __future__ import annotations
 
@@ -32,11 +34,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.backends import compose_epilogue, get_backend
 from repro_torch.backends.gather import EdgeListOperand
-from repro_torch.backends.registry import (
-    RUNTIME_ITEM,
-    TRAINING_ITEM,
-    not_ported,
-)
+from repro_torch.backends.registry import RUNTIME_ITEM, not_ported
 from repro_torch.core.aggregate import gather_scatter_aggregate
 from repro_torch.core.lowering import SampledModelPlan, lower_sampled
 from repro_torch.core.sparsity import PAPER_GAMMA_DEFAULT
@@ -138,13 +136,19 @@ class FullBatchTrainer:
 
 
 class MiniBatchTrainer:
-    """Neighbour-sampled inference over a ``SampledModelPlan``.
+    """Neighbour-sampled mini-batch training over a ``SampledModelPlan``.
 
-    ``device`` is where batches and params live: CUDA unless the caller
-    passes another (``device="cpu"`` runs the plain PyTorch versions, as
-    the tests do); with no card, CUDA raises. ``opt`` must be ``None`` and
-    ``train_mask`` is not read: this slice ports inference only (the
-    JAX package's constructor signature is kept for the training slice).
+    Per epoch: reshuffle the train seeds, batch them, sample the L-layer
+    block stack per batch (``graph/sampling.py``), and run one optimizer
+    step per batch with the loss on the batch's seeds only. The RNGs are
+    drawn in the JAX package's order (the shuffle stream ``seed + 1``
+    samples the epoch's batches too), so both trainers see the same
+    batches. Without ``opt`` (or with an ``infer_only`` plan) the trainer
+    only infers. ``device`` is where batches and params live: CUDA unless
+    the caller passes another (``device="cpu"`` runs the plain PyTorch
+    versions, as the tests do); with no card, CUDA raises. ``ckpt_dir``,
+    ``guard`` and ``injector`` are the runtime's and raise until it is
+    ported.
     """
 
     def __init__(
@@ -154,7 +158,7 @@ class MiniBatchTrainer:
         features: np.ndarray,
         labels: Optional[np.ndarray],
         train_mask: Optional[np.ndarray],
-        opt=None,
+        opt: Optional[Optimizer] = None,
         *,
         plan: Optional[SampledModelPlan] = None,
         fanouts=None,
@@ -165,12 +169,16 @@ class MiniBatchTrainer:
         seed: int = 0,
         layout: "str | None" = None,
         infer_only: bool = False,
+        guard=None,
+        injector=None,
+        ckpt_dir: Optional[str] = None,
         device=None,
     ):
+        for name, value in (("ckpt_dir", ckpt_dir), ("guard", guard),
+                            ("injector", injector)):
+            if value is not None:
+                raise not_ported(f"MiniBatchTrainer({name}=...)", RUNTIME_ITEM)
         self.device = resolve_device(device)
-        if opt is not None:
-            raise not_ported("mini-batch training (an optimizer)",
-                             TRAINING_ITEM)
         if plan is None:
             if graph is None or fanouts is None:
                 raise ValueError("need either a plan or (graph, fanouts)")
@@ -183,6 +191,7 @@ class MiniBatchTrainer:
         self.plan = plan
         self.sampler = plan.sampler
         self.backend = get_backend(plan.backend)
+        self.opt = opt
         # permutation contract (DESIGN.md §9): a reordered plan's sampler
         # walks the renumbered graph, so features/labels are held in
         # execution order and user node ids map through inv_perm
@@ -191,19 +200,34 @@ class MiniBatchTrainer:
                              if lp is not None and lp.permutes else None)
         self.features = np.asarray(features, dtype=np.float32)
         self.n_nodes = int(self.features.shape[0])
+        self.infer_only = bool(plan.infer_only or opt is None)
         self.labels_np = (np.zeros(self.n_nodes, dtype=np.int32)
                           if labels is None
                           else np.asarray(labels, dtype=np.int32))
         if self._inv_perm_np is not None:
             self.features = self.features[lp.perm]
             self.labels_np = self.labels_np[lp.perm]
+        self.train_ids = (np.zeros(0, dtype=np.int64) if train_mask is None
+                          else self._to_exec(
+                              np.flatnonzero(np.asarray(train_mask))))
         self.params = init_params(
             config, torch.Generator().manual_seed(seed), self.device)
+        self.opt_state = opt.init(self.params) if opt is not None else None
+        self._shuffle_rng = np.random.default_rng(seed + 1)
+        self._epoch_idx = 0
 
         self._sparse0 = plan.layers[0].feature_path == "sparse"
-        self._agg_mode = "bsr" if self.sampler.emit_bsr else "segment"
+        self._is_gat = config.kind in ("GAT", "GT")
+        self._is_max = plan.aggregation == "max"
+        # fused attention: the plan bound spmm_attention and the sampler
+        # emits the per-batch BSR pair to run it on
+        self._fuse_attention = (self.sampler.emit_bsr and any(
+            l.agg_primitive.endswith("spmm_attention") for l in plan.layers))
+        self._agg_mode = ("bsr" if self.sampler.emit_bsr
+                          else "max" if self._is_max else "segment")
         self._inner = plan.backend if plan.backend in ("cuda", "torch") else "torch"
 
+        self.n_traces = 0
         self.n_infer_traces = 0
         self.n_feature_overflows = 0
         self._seen_signatures: set = set()
@@ -223,38 +247,82 @@ class MiniBatchTrainer:
 
     # -- per-batch LayerOps bindings ----------------------------------------
 
-    def _make_agg(self, blk: dict, n_out: int):
-        if self._agg_mode == "bsr":
-            fwd = (blk["fwd"]["rows"], blk["fwd"]["cols"],
-                   blk["fwd"]["first"], blk["fwd"]["blocks"])
-            inner = self._inner
+    @staticmethod
+    def _pair(blk: dict) -> tuple:
+        """The batch layer's (A, Aᵀ) arrays, each (rows, cols, first,
+        blocks); Aᵀ is ``None`` where only the forward was copied."""
+        return tuple(None if d is None else
+                     (d["rows"], d["cols"], d["first"], d["blocks"])
+                     for d in (blk["fwd"], blk.get("bwd")))
+
+    def _make_agg(self, blk: dict, n_out: int, valid_out: torch.Tensor):
+        mode, inner = self._agg_mode, self._inner
+        if mode == "bsr":
+            fwd, bwd = self._pair(blk)
 
             def agg(u):
                 # any feature width: the kernel masks the ragged edge, so
-                # u is not padded to a lane tile; no transposed operand,
-                # since the serving path takes no gradient
-                return kops.bsr_spmm_pair(fwd, None, u.contiguous(), n_out,
+                # u is not padded to a lane tile
+                return kops.bsr_spmm_pair(fwd, bwd, u.contiguous(), n_out,
                                           inner)
 
             return agg
         src, dst, w = blk["edge_src"], blk["edge_dst"], blk["edge_w"]
+        if mode == "max":
+
+            def agg(u):
+                # padded rows hold no edge (-inf) or the dump row's: zeroed
+                # here, not only after the layer, since -inf rows times W
+                # would make dW NaN (-inf * 0)
+                y = gather_scatter_aggregate(src, dst, w, u, n_out, "max")
+                return torch.where(valid_out[:, None], y, 0.0)
+
+            return agg
 
         def agg(u):
             return gather_scatter_aggregate(src, dst, w, u, n_out, "sum")
 
         return agg
 
+    def _make_gat(self, blk: dict, n_out: int):
+        if self._fuse_attention:
+            # fused attention over the batch's padded bipartite BSR pair
+            fwd, bwd = self._pair(blk)
+            inner = self._inner
+
+            def gat_attention(z, a_src, a_dst, heads):
+                z3 = z.reshape(z.shape[0], heads, -1)
+                return kops.sampled_mha_pair(fwd, bwd, z3, a_src, a_dst,
+                                             n_out, inner)
+
+            return gat_attention
+        backend = self.backend
+        src, dst = blk["edge_src"], blk["edge_dst"]
+
+        def gat_attention(z, a_src, a_dst, heads):
+            z3 = z.reshape(z.shape[0], heads, -1)
+            return backend.segment_softmax_aggregate(z3, a_src, a_dst, src,
+                                                     dst, n_out)
+
+        return gat_attention
+
     def _make_xw(self, data: dict):
         # the plan's "gather.feature_matmul_sparse": the per-batch COO is
         # the gather backend's edge-list operand with W as the gathered
-        # matrix
+        # matrix. dW = Xᵀ·dY runs on the same list with source and
+        # destination swapped (an index_add_ as the forward's): autograd's
+        # own VJP of the gather W[cols] sorts and walks each column's
+        # entries serially, and the COO's padding (13.8M of a corafull
+        # 1,024-seed batch's 17.2M entries) all sits at (0, 0)
         rows, cols, vals = data["feat"]
         operand = EdgeListOperand(src=cols, dst=rows, weights=vals,
                                   n_rows=data["valid"][0].shape[0])
         gather = get_backend("gather")
 
         def xw(w):
-            return gather.spmm(operand, w)
+            transposed = EdgeListOperand(src=rows, dst=cols, weights=vals,
+                                         n_rows=w.shape[0])
+            return gather.spmm_transposed_vjp(operand, transposed)(w)
 
         return xw
 
@@ -265,13 +333,16 @@ class MiniBatchTrainer:
         levels = []
         for i in range(n):
             blk = data["blocks"][i]
-            n_out = data["valid"][i + 1].shape[0]
-            agg = self._make_agg(blk, n_out)
+            valid_out = data["valid"][i + 1]
+            n_out = valid_out.shape[0]
+            agg = self._make_agg(blk, n_out, valid_out)
             fe = (compose_epilogue(agg)
                   if self.plan.layers[i].epilogue is not None else None)
             ops = LayerOps(
                 aggregate=agg,
                 xw=(self._make_xw(data) if i == 0 and "feat" in data else None),
+                gat_attention=(self._make_gat(blk, n_out)
+                               if self._is_gat else None),
                 restrict=lambda u, _n=n_out: u[:_n],
                 fused_epilogue=fe,
             )
@@ -279,7 +350,7 @@ class MiniBatchTrainer:
                             is_last=(i == n - 1))
             # re-zero padded rows: keeps dump-row garbage out of the next
             # layer's operands
-            x = torch.where(data["valid"][i + 1][:, None], x, 0.0)
+            x = torch.where(valid_out[:, None], x, 0.0)
             if collect:
                 levels.append(x)
         if collect:
@@ -288,11 +359,31 @@ class MiniBatchTrainer:
             return tuple(levels)
         return x  # [node_caps[L], n_classes], padded rows zero
 
+    def _loss(self, params, data) -> torch.Tensor:
+        """Mean cross-entropy over the batch's seed rows (0 when none)."""
+        logp = torch.log_softmax(self._logits(params, data), dim=-1)
+        nll = -logp.gather(1, data["labels"].long()[:, None])[:, 0]
+        seed_mask = data["valid"][-1]
+        denom = seed_mask.sum().clamp(min=1)
+        return torch.where(seed_mask, nll, 0.0).sum() / denom
+
     def _count_signature(self, kind: str, data: dict) -> None:
         sig = (kind, _signature(data))
         if sig not in self._seen_signatures:
             self._seen_signatures.add(sig)
-            self.n_infer_traces += 1
+            if kind == "step":
+                self.n_traces += 1
+            else:
+                self.n_infer_traces += 1
+
+    def _step(self, params, opt_state, data):
+        """One batch: loss and gradients, then the optimizer update;
+        ``loss`` stays on the device."""
+        self._count_signature("step", data)
+        loss, grads = value_and_grad(self._loss, params, data)
+        with torch.no_grad():
+            params, opt_state = self.opt.update(grads, opt_state, params)
+        return tree_map(torch.Tensor.detach, params), opt_state, loss
 
     def _infer(self, params, data):
         self._count_signature("logits", data)
@@ -306,7 +397,10 @@ class MiniBatchTrainer:
 
     # -- host-side batch marshalling ----------------------------------------
 
-    def _batch_arrays(self, batch: SampledBatch) -> dict:
+    def _batch_arrays(self, batch: SampledBatch, train: bool = False) -> dict:
+        """The batch on the device. ``train`` adds what only a training
+        step reads: the labels and each layer's transposed BSR operand;
+        inference copies the forward operand alone."""
         dev = self.device
 
         def t(a):
@@ -315,9 +409,9 @@ class MiniBatchTrainer:
         blocks = []
         for blk in batch.blocks:
             if self._agg_mode == "bsr":
-                # forward operand only: inference takes no gradient, so
-                # the transposed operand never leaves the host
                 d = {"fwd": {k: t(v) for k, v in blk.fwd_bsr.items()}}
+                if train:
+                    d["bwd"] = {k: t(v) for k, v in blk.bwd_bsr.items()}
             else:
                 d = {"edge_src": t(blk.edge_src), "edge_dst": t(blk.edge_dst),
                      "edge_w": t(blk.edge_w)}
@@ -327,12 +421,59 @@ class MiniBatchTrainer:
             "valid": tuple(t(v) for v in batch.valid),
             "blocks": tuple(blocks),
         }
+        if train:
+            data["labels"] = t(batch.labels)
         if self._sparse0:
             if batch.feat_coo is not None:
                 data["feat"] = tuple(t(a) for a in batch.feat_coo)
             else:  # denser than the template's cap: dense-path fallback
                 self.n_feature_overflows += 1
         return data
+
+    # -- training -----------------------------------------------------------
+
+    def _require_training(self) -> None:
+        if self.infer_only:
+            raise RuntimeError(
+                "trainer is infer-only (plan.infer_only or no optimizer): "
+                "training is unavailable")
+
+    def train_epoch(self) -> float:
+        """One reshuffled pass over the train seeds; mean seed-weighted loss."""
+        self._require_training()
+        total, count = 0.0, 0
+        for batch in self.sampler.epoch_batches(
+                self.train_ids, self.features, self.labels_np,
+                rng=self._shuffle_rng):
+            data = self._batch_arrays(batch, train=True)
+            self.params, self.opt_state, loss = self._step(
+                self.params, self.opt_state, data)
+            total += float(loss) * batch.n_seeds  # synchronises with the card
+            count += batch.n_seeds
+        return total / max(count, 1)
+
+    def fit(self, epochs: int) -> TrainResult:
+        """Train until ``epochs`` epochs are done in all; per epoch the mean
+        loss and the wall time."""
+        losses, times = [], []
+        while self._epoch_idx < epochs:
+            t0 = time.perf_counter()
+            losses.append(self.train_epoch())
+            times.append(time.perf_counter() - t0)
+            self._epoch_idx += 1
+        return TrainResult(losses=losses, epoch_times=times,
+                           final_params=self.params)
+
+    def loss_and_grads(self, seeds: Optional[np.ndarray] = None):
+        """Loss and gradients at the current params for one batch (no
+        update): the probe the parity tests use. ``seeds`` are user node
+        ids (the train seeds by default), sampled with the sampler's own
+        stream."""
+        self._require_training()
+        seeds = self.train_ids if seeds is None else self._to_exec(seeds)
+        batch = self.sampler.sample_batch(seeds, self.features, self.labels_np)
+        return value_and_grad(self._loss, self.params,
+                              self._batch_arrays(batch, train=True))
 
     # -- inference ----------------------------------------------------------
 

@@ -36,6 +36,7 @@ from repro_torch.models.gnn import (  # noqa: E402
 from repro_torch.training.optimizer import adam, tree_leaves  # noqa: E402
 from repro_torch.training.trainer import (  # noqa: E402
     FullBatchTrainer,
+    MiniBatchTrainer,
     value_and_grad,
 )
 
@@ -216,11 +217,20 @@ def test_unported_parts_raise_naming_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 5"):
         lower(GNNConfig(kind="GCN", layer_dims=dims), g, x, layout="auto",
               device="cpu")
-    for cfg in (GNNConfig(kind="GAT", layer_dims=dims),
-                GNNConfig(kind="SAGE", layer_dims=dims, aggregation="max")):
-        lower(cfg, g, x, device="cpu")  # full batch: ported
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
-            lower_sampled(cfg, g, x, fanouts=(4, 3))
+    for kw in (dict(ckpt_dir="/nonexistent"), dict(guard=object()),
+               dict(injector=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
+            MiniBatchTrainer(GNNConfig(kind="GCN", layer_dims=dims), g, x,
+                             None, None, adam(), fanouts=(4, 3),
+                             device="cpu", **kw)
+    # attention and max, once item 11, bind on both paths now
+    for cfg, prim in ((GNNConfig(kind="GAT", layer_dims=dims),
+                       "cuda.spmm_attention"),
+                      (GNNConfig(kind="SAGE", layer_dims=dims,
+                                 aggregation="max"), "gather.segment_max")):
+        for plan in (lower(cfg, g, x, device="cpu"),
+                     lower_sampled(cfg, g, x, fanouts=(4, 3))):
+            assert {l.agg_primitive for l in plan.layers} == {prim}
 
 
 def test_entry_points_run_on_the_card_unless_asked(monkeypatch):

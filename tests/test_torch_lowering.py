@@ -1,8 +1,9 @@
 """Port parity, lowering: ``repro_torch.core.lowering.lower_sampled`` makes the
 same plan as the JAX package's — the same ``describe()`` dump with the
 backend names mapped (``pallas`` -> ``cuda``, ``xla`` -> ``torch``) — for the
-matmul archs on a sparse-feature (nell) and a dense-feature (ogbn-arxiv)
-dataset; the Alg-1 arithmetic agrees; archs of later slices raise."""
+archs, the attention archs (fused and segment) and ``max`` on a
+sparse-feature (nell) and a dense-feature (ogbn-arxiv) dataset; the
+Alg-1 arithmetic agrees."""
 import jax
 import numpy as np
 import pytest
@@ -37,15 +38,16 @@ def _dataset(regime):
     return generate_dataset("ogbn-arxiv", scale=0.001, seed=0)  # dense
 
 
-def _plans(kind, agg, regime, engine, **kw):
+def _plans(kind, agg, regime, engine, heads=4, **kw):
     ds = _dataset(regime)
     dims = [ds.features.shape[1], 16, ds.n_classes]
+    cfg = dict(kind=kind, layer_dims=dims, aggregation=agg, gat_heads=heads)
     jp = jax_lower_sampled(
-        JaxConfig(kind=kind, layer_dims=dims, aggregation=agg), ds.graph,
-        ds.features, fanouts=(4, 3), batch_size=16, engine=engine, **kw)
+        JaxConfig(**cfg), ds.graph, ds.features, fanouts=(4, 3),
+        batch_size=16, engine=engine, **kw)
     tp = lower_sampled(
-        GNNConfig(kind=kind, layer_dims=dims, aggregation=agg), ds.graph,
-        ds.features, fanouts=(4, 3), batch_size=16, engine=NAMES[engine], **kw)
+        GNNConfig(**cfg), ds.graph, ds.features, fanouts=(4, 3),
+        batch_size=16, engine=NAMES[engine], **kw)
     return jp, tp
 
 
@@ -77,6 +79,25 @@ def test_sampled_plan_options_match_jax(kw):
         np.testing.assert_array_equal(tp.layout.inv_perm, jp.layout.inv_perm)
 
 
+@pytest.mark.parametrize("kind,agg", [("GAT", "gcn"), ("GT", "gcn"),
+                                      ("SAGE", "max")])
+@pytest.mark.parametrize("regime", ["sparse", "dense"])
+@pytest.mark.parametrize("engine", ["pallas", "xla", "gather"])
+@pytest.mark.parametrize("fuse_attention", [True, False])
+def test_sampled_attention_and_max_plans_match_jax(kind, agg, regime, engine,
+                                                   fuse_attention):
+    jp, tp = _plans(kind, agg, regime, engine, heads=3,
+                    fuse_attention=fuse_attention)
+    assert tp.describe() == _mapped(jp.describe())
+    assert tp.sampler.emit_bsr == jp.sampler.emit_bsr
+    for jl, tl in zip(jp.layers, tp.layers):
+        assert (tl.attention is None) == (jl.attention is None)
+        if tl.attention is not None:
+            assert (tl.attention.heads, tl.attention.head_dim, tl.attention.fused,
+                    tl.attention.vjp) == (jl.attention.heads, jl.attention.head_dim,
+                                          jl.attention.fused, jl.attention.vjp)
+
+
 def test_gather_engine_plan_matches_jax():
     jp, tp = _plans("GCN", "gcn", "dense", "gather")
     assert tp.describe() == _mapped(jp.describe())
@@ -100,14 +121,33 @@ def test_activation_sparsity_keys_on_the_ports_relu():
 
 
 def test_later_slices_raise_not_implemented():
+    """Attention and ``max`` on the sampled path, once a later slice, now
+    bind: GAT / GT the fused ``spmm_attention`` over the per-batch BSR
+    pair (an ``AttentionPlan`` per layer, the recompute VJP) or, with
+    ``fuse_attention=False``, the segment path over the edge lists; SAGE
+    with ``max`` ``gather.segment_max`` over the edge lists."""
     ds = _dataset("dense")
     dims = [ds.features.shape[1], 16, ds.n_classes]
-    for cfg in (GNNConfig(kind="GAT", layer_dims=dims),
-                GNNConfig(kind="GT", layer_dims=dims),
-                GNNConfig(kind="SAGE", layer_dims=dims, aggregation="max")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1, item 11"):
-            lower_sampled(cfg, ds.graph, ds.features, fanouts=(4, 3))
+    for kind in ("GAT", "GT"):
+        cfg = GNNConfig(kind=kind, layer_dims=dims, gat_heads=4)
+        for fused, prim in ((True, "cuda.spmm_attention"),
+                            (False, "cuda.segment_softmax_aggregate")):
+            plan = lower_sampled(cfg, ds.graph, ds.features, fanouts=(4, 3),
+                                 fuse_attention=fused)
+            assert plan.sampler.emit_bsr is fused
+            assert [l.agg_primitive for l in plan.layers] == [prim, prim]
+            assert [(l.attention.heads, l.attention.head_dim, l.attention.fused,
+                     l.attention.vjp) for l in plan.layers] == [
+                (4, 4, fused, "recompute(m,l)" if fused else "autodiff"),
+                (4, max(ds.n_classes // 4, 1), fused,
+                 "recompute(m,l)" if fused else "autodiff")]
+            assert all(l.epilogue is None for l in plan.layers)
+    plan = lower_sampled(GNNConfig(kind="SAGE", layer_dims=dims,
+                                   aggregation="max"),
+                         ds.graph, ds.features, fanouts=(4, 3))
+    assert not plan.sampler.emit_bsr
+    assert all(l.agg_primitive == "gather.segment_max" and l.attention is None
+               and l.epilogue is None for l in plan.layers)
 
 
 def test_registry_names_and_default_backend():

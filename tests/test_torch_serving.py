@@ -7,8 +7,10 @@ mode); the port's runs its default ``cuda`` backend on ``device="cpu"``,
 where the kernel wrapper takes its plain version. Both get the same
 weights (``params_from_jax``) and the same request stream; logits agree
 within 1e-4 (float32, different summation orders) and the engines' counters
-agree exactly. Also: the shape-signature bound, the no-card error, and that
-the port imports without JAX or ``repro``."""
+agree exactly, for the matmul archs, GAT, GT and SAGE-max. Also: GAT
+through the reduced-fanout plan, the launcher training then serving on
+the CPU, the shape-signature bound, the no-card error, and that the port
+imports without JAX or ``repro``."""
 import os
 import subprocess
 import sys
@@ -27,8 +29,10 @@ from repro.serving.gnn_engine import GNNRequest as JaxRequest  # noqa: E402
 from repro.serving.gnn_engine import GNNServingEngine as JaxEngine  # noqa: E402
 from repro.training.trainer import MiniBatchTrainer as JaxTrainer  # noqa: E402
 from repro_torch.graph.csr import csr_from_edges  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.gnn import GNNConfig, params_from_jax  # noqa: E402
 from repro_torch.serving.gnn_engine import GNNRequest, GNNServingEngine  # noqa: E402
+from repro_torch.training.optimizer import adam  # noqa: E402
 from repro_torch.training.trainer import MiniBatchTrainer  # noqa: E402
 
 pytestmark = pytest.mark.serving
@@ -51,18 +55,16 @@ def _inputs(sparse_features=False):
 def _pair(kind, *, agg="gcn", layout=None, sparse_features=False,
           fanouts=(4, 3), batch_size=8, n_buckets=2):
     """(JAX trainer on pallas-interpret, port trainer on cpu) with the
-    same graph, features and weights."""
+    same graph, features and weights; GAT and GT with 2 heads."""
     src, dst, x = _inputs(sparse_features)
     kw = dict(fanouts=fanouts, batch_size=batch_size, n_buckets=n_buckets,
               seed=0, layout=layout, infer_only=True)
-    dims = [F, 8, C]
-    jtr = JaxTrainer(JaxConfig(kind=kind, layer_dims=dims, aggregation=agg),
-                     jax_csr_from_edges(src, dst, N), x, None, None, None,
-                     engine="pallas", **kw)
+    cfg = dict(kind=kind, layer_dims=[F, 8, C], aggregation=agg, gat_heads=2)
+    jtr = JaxTrainer(JaxConfig(**cfg), jax_csr_from_edges(src, dst, N), x,
+                     None, None, None, engine="pallas", **kw)
     jtr.params = jax_init_params(jtr.config, jax.random.PRNGKey(42))
-    ttr = MiniBatchTrainer(GNNConfig(kind=kind, layer_dims=dims, aggregation=agg),
-                           csr_from_edges(src, dst, N), x, None, None, None,
-                           device="cpu", **kw)
+    ttr = MiniBatchTrainer(GNNConfig(**cfg), csr_from_edges(src, dst, N), x,
+                           None, None, None, device="cpu", **kw)
     ttr.params = params_from_jax(
         jax.tree_util.tree_map(np.asarray, jtr.params), device="cpu")
     return jtr, ttr
@@ -92,6 +94,9 @@ def _stats(engine):
     ("GIN", "sum", None, False),
     ("GCN", "gcn", "degree", False),
     ("GIN", "sum", None, True),
+    ("GAT", "gcn", None, False),
+    ("GT", "gcn", None, True),
+    ("SAGE", "max", None, False),
 ])
 def test_serving_logits_and_stats_match_jax(kind, agg, layout, sparse):
     jtr, ttr = _pair(kind, agg=agg, layout=layout, sparse_features=sparse)
@@ -120,6 +125,43 @@ def test_hidden_levels_match_jax():
     np.testing.assert_allclose(te.serve(ids), je.serve(ids), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(te.embed(ids, level=1), je.embed(ids, level=1),
                                atol=1e-4, rtol=1e-4)
+
+
+def test_gat_serves_through_the_reduced_fanout_plan():
+    """An overloaded engine answers GAT waves from the reduced-fanout
+    sampler, as the JAX engine does: same requests, same degraded marks
+    and counters, logits within 1e-4."""
+    jtr, ttr = _pair("GAT")
+    engines = [cls(tr, wave_size=2, use_cache=False, seed=3,
+                   overload_threshold=2, degraded_fanouts=(2, 1))
+               for cls, tr in ((JaxEngine, jtr), (GNNServingEngine, ttr))]
+    done = []
+    for eng, req in zip(engines, (JaxRequest, GNNRequest)):
+        eng.warmup()
+        for i in range(6):
+            eng.submit(req(rid=i, node_ids=np.asarray([i % N, (i * 7) % N])))
+        done.append(eng.run())
+    jdone, tdone = done
+    marks = [r.degraded for r in tdone]
+    assert marks == [r.degraded for r in jdone]
+    assert "fanout" in marks and marks[-1] is None
+    for jr, tr in zip(jdone, tdone):
+        np.testing.assert_allclose(tr.logits, jr.logits, atol=1e-4, rtol=1e-4)
+    js, ts = (e.stats() for e in engines)
+    assert ts["degraded"] == js["degraded"] and ts["degraded_waves"] >= 1
+    assert ts["degraded_waves"] == js["degraded_waves"]
+
+
+def test_launcher_trains_gat_then_serves_on_the_cpu(capsys):
+    """``python -m repro_torch.launch.serve --arch GAT --epochs 1`` at a
+    tiny scale on the CPU: one epoch of training, then the request loop."""
+    stats = launch_serve.main([
+        "--device", "cpu", "--dataset", "corafull", "--scale", "0.01",
+        "--hidden", "16", "--fanouts", "4,3", "--batch-size", "32",
+        "--arch", "GAT", "--epochs", "1", "--requests", "12"])
+    out = capsys.readouterr().out
+    assert "train epoch 0: loss" in out
+    assert stats["requests"] >= 12 and stats["infer_traces"] >= 1
 
 
 def test_shape_signatures_bounded_by_buckets_and_zero_after_warmup():
@@ -151,9 +193,11 @@ def test_no_card_raises_unless_cpu_requested(monkeypatch):
     tr = MiniBatchTrainer(cfg, g, x, None, None, None, fanouts=(4, 3),
                           batch_size=8, infer_only=True, device="cpu")
     assert tr.infer_logits([1, 2]).shape == (2, C)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MiniBatchTrainer(cfg, g, x, None, None, object(), fanouts=(4, 3),
-                         device="cpu")
+    # an optimizer is accepted now: the trainer trains on the CPU
+    tr = MiniBatchTrainer(cfg, g, x, np.zeros(N, np.int32), np.ones(N, bool),
+                          adam(0.01), fanouts=(4, 3), batch_size=8,
+                          device="cpu")
+    assert not tr.infer_only and np.isfinite(tr.train_epoch())
 
 
 def test_port_imports_without_jax_or_repro():
