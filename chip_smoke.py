@@ -170,6 +170,29 @@ is printed:
     5)) and of SAGE-max [128, 256, 256, 40]. Per path the host sampling
     and copy ms and the step's ms a batch, the column builds, and a
     profiled step's device ms by kernel and idle share.
+15. gemma3-1b served at its published widths and depth (26 layers,
+    d_model 1152, 4 heads with 1 KV head of 256, d_ff 6912, vocab
+    262,144; a 512-token window on 22 layers, layers 5, 11, 17 and 23
+    global; 792,994,176 parameters), phase 10's requests and checks:
+    exactly 4 ``flash_attention`` launches a wave (the global layers; a
+    windowed layer always takes the masked core) and none in decode; the
+    1,024-token wave and every decode step past position 512 make the
+    window bite. Then phase 11's checks of the kernel at D = 256 on the
+    four global layers' real q, k, v (B 4, H 4, Hkv 1, T 1024) and on
+    ragged D = 256 shapes (``d256_edge_cases``), its time beside SDPA's
+    and the bound.
+16. LM training at full width: llama3.2-1b (1,235,814,400 parameters in
+    11 leaves) through ``make_train_step(build_model(cfg, remat="layer"),
+    adamw(warmup_cosine(3e-4, 2, 10), fused=True))`` at bfloat16 compute,
+    10 steps over one fixed ``make_dummy_batch`` of 4 x 1,024 tokens:
+    exactly one ``fused_adam`` launch a step and no other kernel of the
+    port, a falling loss; the ``torch`` program (plain Adam) from the same
+    weights and batch after the first program's optimizer state is freed:
+    losses within 1e-3 relative at every step, parameters within 1e-2 a
+    leaf. The step's synchronised ms, tokens/s, the run's peak memory, a
+    profiled step by kernel class; the Adam kernel on the LM's leaves
+    against its plain version (1e-6), its CUDA-event ms beside
+    ``torch.optim.AdamW(fused=True)``'s and the bound.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -237,10 +260,16 @@ from repro_torch.kernels.ref import (  # noqa: E402
     flash_attention_ref,
     fused_adam_ref,
 )
-from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.models.model_zoo import (  # noqa: E402
+    build_model,
+    make_dummy_batch,
+    make_train_step,
+)
+from repro_torch.models.transformer import _layer_window  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.models.gnn import GNNConfig  # noqa: E402
-from repro_torch.training.optimizer import adam, bias_corrected_lr, tree_leaves  # noqa: E402
+from repro_torch.training.optimizer import adam, adamw, bias_corrected_lr, tree_leaves  # noqa: E402
+from repro_torch.training.schedule import warmup_cosine  # noqa: E402
 from repro_torch.training.trainer import MiniBatchTrainer, value_and_grad  # noqa: E402
 from repro_torch.launch.serve import build_engine, drive  # noqa: E402
 from repro_torch.serving.gnn_engine import GNNServingEngine  # noqa: E402
@@ -362,6 +391,11 @@ class Sizes:
     lm_prompts: tuple = (128, 1024)
     lm_new_tokens: int = 32
     lm_slots: int = 4
+    # LM training (phase 16): llama3.2-1b (reduced where `lm_reduced`) on
+    # one lm_train_batch x lm_train_seq batch for lm_train_steps steps
+    lm_train_batch: int = 4
+    lm_train_seq: int = 1024
+    lm_train_steps: int = 10
     # the sampled path (phases 13-14): GAT serving at gat_hidden on
     # `dataset` with `fanouts`, `batch_size`; training with
     # `sampled_batch_size`-seed batches: SAGE over the train mask cut to
@@ -1305,7 +1339,8 @@ def classify(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "flash_attention"
     low = name.lower()
-    if "gemm" in low or "cutlass" in low or "xmma" in low:
+    # nvjet: cuBLAS's Hopper kernels (the bfloat16 products of phase 16)
+    if "gemm" in low or "cutlass" in low or "xmma" in low or "nvjet" in low:
         return "matmul"
     if "memcpy" in low or "memset" in low:
         return "copies"
@@ -1328,13 +1363,17 @@ def epoch_profile(fn, device, epoch_s: float, want: dict) -> dict:
     if prof is None:
         return {"complete": False, "windows": windows}
     by, launched = defaultdict(float), defaultdict(int)
-    for name, us, n in device_events(prof):
+    events = device_events(prof)
+    for name, us, n in events:
         by[classify(name)] += us / 1e3
         launched[launch_key(name)] += n
     busy = sum(by.values())
+    top = sorted(events, key=lambda e: -e[1])[:8]
     return {"complete": True, "windows": windows, "device_ms": dict(by),
             "launches": dict(launched),
-            "busy_ms": busy, "idle_share": 1.0 - busy / (epoch_s * 1e3)}
+            "busy_ms": busy, "idle_share": 1.0 - busy / (epoch_s * 1e3),
+            "top": [{"kernel": k[:120], "ms": us / 1e3, "launches": n}
+                    for k, us, n in top]}
 
 
 def leaf_diffs(got: dict, want: dict) -> dict:
@@ -2572,16 +2611,21 @@ def lm_profile(fn, device, n_flash: int, wall_ms: float) -> dict:
             "busy_ms": busy, "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms}
 
 
-def lm_serving_phase(sizes: Sizes, device) -> dict:
-    """Phase 10, LM serving: ``ServingEngine`` over the ``cuda`` model
-    (prefill attention on the flash kernel) at the configuration's full
-    width, random weights from a seeded generator on the card; counts
-    zeroed just before ``run()`` and read after it. Then the ``torch``
-    model (the plain version) fed the same inputs call by call: its
-    logits within 1e-4 at every step, and its greedy tokens equal where
-    the cuda program's top-2 margin exceeds ``TOKEN_MARGIN``."""
-    base = get_config(sizes.lm_arch)
-    cfg = base.reduced() if sizes.lm_reduced else base
+def flash_layers(cfg) -> int:
+    """The layers whose prefill runs the flash kernel: those without a
+    sliding window (all of llama3.2-1b's 16, gemma3-1b's 4 global ones)."""
+    return sum(_layer_window(cfg, i) == 0 for i in range(cfg.n_layers))
+
+
+def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
+    """Phases 10 and 15, LM serving: ``ServingEngine`` over the ``cuda``
+    model (prefill attention on the flash kernel in the layers without a
+    window) at the configuration's full width, random weights from a
+    seeded generator on the card; counts zeroed just before ``run()`` and
+    read after it. Then the ``torch`` model (the plain version) fed the
+    same inputs call by call: its logits within 1e-4 at every step, and
+    its greedy tokens equal where the cuda program's top-2 margin exceeds
+    ``TOKEN_MARGIN``."""
     model, ref = build_model(cfg, inner="cuda"), build_model(cfg, inner="torch")
     on_card = device.type == "cuda"
     gen = torch.Generator(device=device).manual_seed(0)
@@ -2623,7 +2667,7 @@ def lm_serving_phase(sizes: Sizes, device) -> dict:
     peak = torch.cuda.max_memory_allocated(device) - mem_before if on_card else 0
 
     waves = rec.wave + 1
-    per_wave = cfg.n_layers if on_card else 0
+    per_wave = flash_layers(cfg) if on_card else 0
     if [r.rid for r in done] != list(range(len(reqs))):
         raise AssertionError("requests not answered in order")
     for r in done:
@@ -2636,7 +2680,7 @@ def lm_serving_phase(sizes: Sizes, device) -> dict:
                                  f"flash_attention {c['flash']} times, expected {want}")
     if launched["flash_attention"] != per_wave * waves or (on_card and waves == 0):
         raise AssertionError(f"flash_attention launched {launched['flash_attention']} "
-                             f"times for {waves} waves of {cfg.n_layers} layers")
+                             f"times for {waves} waves of {per_wave} flash layers")
     if sum(launched.values()) != launched["flash_attention"]:
         raise AssertionError(f"LM serving launched other kernels: {launched}")
 
@@ -2821,15 +2865,49 @@ def flash_edge_cases(device) -> dict:
     return err
 
 
-def flash_phase(lm: dict, device, reps: int) -> dict:
-    """Phase 11 on phase 10's longest prefill: each layer's real q, k, v
-    (B 4, T 1024, H 32, Hkv 8, D 64 at llama3.2-1b), the kernel against its
-    plain version in float32 and on bfloat16 copies, a repeat bitwise
-    equal; edge cases; per call at layer 0's inputs the kernel's, the
-    plain version's and ``scaled_dot_product_attention``'s time (on K/V
-    repeated to H heads, and with ``enable_gqa``; SDPA's ``is_causal`` is
-    top-left too, and both are held to the plain version), the bound, and
-    the kernel's time summed over every layer of the wave."""
+def d256_edge_cases(device) -> dict:
+    """The D = 256 kernel (gemma3-1b's global layers: H 4, one KV head, so
+    4 heads a CTA) on ragged shapes: Tq != Tk causal and not, T = 1, a
+    query tile's 16 rows a head cut at 150, Hkv == H (1 head a CTA) and a
+    group of 2; float32 and bfloat16, and strided and misaligned views
+    bitwise equal to the aligned call."""
+    gen = torch.Generator().manual_seed(37)
+    err = {"f32": 0.0, "bf16": 0.0}
+    for b, h, hkv, tq, tk, causal in (
+            (1, 4, 1, 150, 97, True), (2, 4, 1, 150, 201, False),
+            (1, 4, 1, 40, 72, True), (1, 4, 1, 72, 40, True), (2, 4, 1, 1, 1, True),
+            (1, 4, 4, 33, 33, True), (1, 4, 2, 130, 130, True)):
+        q = torch.randn((b, h, tq, 256), generator=gen).to(device)
+        k, v = (torch.randn((b, hkv, tk, 256), generator=gen).to(device)
+                for _ in range(2))
+        label = f"D=256 B={b} H={h} Hkv={hkv} Tq={tq} Tk={tk} causal={causal}"
+        err["f32"] = max(err["f32"], check_flash(label, q, k, v, causal, device))
+        got = flash_attention(q, k, v, causal=causal)
+        for layout, args in (
+                ("strided", [x.transpose(1, 2).contiguous().transpose(1, 2)
+                             for x in (q, k, v)]),
+                ("misaligned", [misaligned(x) for x in (q, k, v)])):
+            if device.type == "cuda" and not torch.equal(
+                    flash_attention(*args, causal=causal), got):
+                raise AssertionError(f"flash_attention {label} {layout}: not the "
+                                     "aligned call's result")
+        err["bf16"] = max(err["bf16"], check_flash(
+            label + " bf16", *(x.to(torch.bfloat16) for x in (q, k, v)), causal,
+            device, FLASH_BF16_TOL))
+    return err
+
+
+def flash_phase(lm: dict, device, reps: int, edge_cases=flash_edge_cases) -> dict:
+    """Phase 11 on phase 10's longest prefill, and phase 15 on gemma3-1b's
+    (``edge_cases=d256_edge_cases``): each flash layer's real q, k, v (B
+    4, T 1024; H 32, Hkv 8, D 64 at llama3.2-1b; H 4, Hkv 1, D 256 on
+    gemma3-1b's global layers), the kernel against its plain version in
+    float32 and on bfloat16 copies, a repeat bitwise equal; edge cases;
+    per call at the first flash layer's inputs the kernel's, the plain
+    version's and ``scaled_dot_product_attention``'s time (on K/V repeated
+    to H heads, and with ``enable_gqa``; SDPA's ``is_causal`` is top-left
+    too, and both are held to the plain version), the bound, and the
+    kernel's time summed over every flash layer of the wave."""
     layers = capture_flash(lm["model"], lm["params"], lm["tokens"], lm["max_seq"], device)
     err = {"f32": 0.0, "bf16": 0.0}
     for i, (q, k, v) in enumerate(layers):
@@ -2838,7 +2916,7 @@ def flash_phase(lm: dict, device, reps: int) -> dict:
         err["bf16"] = max(err["bf16"], check_flash(
             shape + " bf16", *(x.to(torch.bfloat16) for x in (q, k, v)), True,
             device, FLASH_BF16_TOL))
-    edge = flash_edge_cases(device)
+    edge = edge_cases(device)
     q, k, v = layers[0]
     b, h, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -2891,6 +2969,204 @@ def flash_entry(fa: dict) -> dict:
                  f"Hkv {row['Hkv']}, T {row['Tq']}, D {row['D']}, causal, float32; "
                  f"wave_ms the kernel over all {row['layers']} layers (CUDA events)",
     }
+
+
+#: phase 16: AdamW over warmup_cosine(LM_LR, LM_WARMUP, steps), at the JAX
+#: launcher's default peak rate with a 2-step warmup, so the loss falls
+#: within the run's steps on its one batch
+LM_LR, LM_WARMUP = 3e-4, 2
+#: the cuda program (fused Adam) against the torch program (plain Adam):
+#: both run the same bfloat16 forward and backward on the card, so they
+#: part only where the two Adams round differently and a weight that moves
+#: by it crosses a bfloat16 rounding edge in a later step's cast. Losses
+#: at every step within LM_LOSS_RTOL relative; after the last step each
+#: leaf's parameters within LM_PARAM_RTOL (norm of the difference over the
+#: leaf's norm), a bound that a weight whose gradient is within rounding of
+#: 0, where Adam's normalised step may take either sign, cannot pass alone
+LM_LOSS_RTOL = 1e-3
+LM_PARAM_RTOL = 1e-2
+
+
+def lm_train_run(model, opt, params, batch, steps: int, device) -> dict:
+    """``steps`` steps of ``make_train_step(model, opt)`` (bfloat16
+    compute, the JAX default) over one batch from ``params``: per step
+    the loss, the synchronised host ms and the port's launches."""
+    step = make_train_step(model, opt)
+    state = opt.init(params)
+    losses, ms, launched = [], [], []
+    for _ in range(steps):
+        sync(device)
+        before = counts()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launched.append({k: v - before[k] for k, v in counts().items()})
+    return {"params": params, "state": state, "step": step, "losses": losses,
+            "ms": ms, "launched": launched}
+
+
+def lm_adam_row(params, device, reps: int) -> dict:
+    """``fused_adam_multi`` over the LM's leaves (the trained weights,
+    random gradients and moments, weight decay 0.01): one launch, each
+    leaf within ADAM_TOL of the plain version; the kernel's CUDA-event ms
+    (a call keeps the card busy ~10 ms, far longer than its launch), the
+    plain version's, ``torch.optim.AdamW(fused=True)``'s step on the same
+    leaves (in place, last) and the bound, 28 bytes a parameter over the
+    card's memory rate."""
+    gen = torch.Generator(device=device).manual_seed(17)
+    ps = [p.detach() for p in tree_leaves(params)]
+    gs = [torch.randn(p.shape, generator=gen, device=device) for p in ps]
+    ms = [0.1 * torch.randn(p.shape, generator=gen, device=device) for p in ps]
+    vs = [0.01 * torch.rand(p.shape, generator=gen, device=device) for p in ps]
+    lr_t = bias_corrected_lr(LM_LR, 0.9, 0.999, 3)
+    before = fused_adam.launches
+    out = fused_adam_multi(ps, gs, ms, vs, lr_t, weight_decay=0.01)
+    sync(device)
+    if fused_adam.launches - before != (1 if device.type == "cuda" else 0):
+        raise AssertionError(f"fused_adam over the LM's {len(ps)} leaves: "
+                             f"{fused_adam.launches - before} launches, expected 1")
+    err = 0.0
+    for i, leaf in enumerate(zip(ps, gs, ms, vs)):
+        ref = fused_adam_ref(*leaf, lr_t, 0.9, 0.999, 1e-8, 0.01)
+        for a, r in zip((o[i] for o in out), ref):
+            err = max(err, check_close(f"fused_adam LM leaf {i} {tuple(r.shape)}",
+                                       a, r, ADAM_TOL))
+    del out, ref
+    n = int(sum(p.numel() for p in ps))
+    row = {"kernel": "fused_adam", "leaves_of": "llama3.2-1b training step",
+           "leaves": len(ps), "params": n, "max_abs_err": err}
+    row.update(timings({
+        "": lambda: fused_adam_multi(ps, gs, ms, vs, lr_t, weight_decay=0.01),
+        "plain_": lambda: [fused_adam_ref(*leaf, lr_t, 0.9, 0.999, 1e-8, 0.01)
+                           for leaf in zip(ps, gs, ms, vs)]}, device, reps))
+    del ms, vs
+    lib_params = [p.requires_grad_(True) for p in ps]
+    for lp, g in zip(lib_params, gs):
+        lp.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=LM_LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.01, fused=device.type == "cuda")
+    row.update(timings({"library_": lib.step}, device, reps))
+    row["library"] = "torch.optim.AdamW(fused=True).step on the same leaves"
+    row.update({"bytes": 28 * n, "flop": 15.0 * n})
+    row["bound_ms"], row["bound_by"] = _bound(row["bytes"], row["flop"])
+    print("[lm-train] adam " + json.dumps(row))
+    return row
+
+
+def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
+    """Phase 16, LM training: ``make_train_step(build_model(cfg,
+    remat="layer"), adamw(warmup_cosine(LM_LR, LM_WARMUP, steps),
+    fused=True))`` at bfloat16 compute over one fixed ``make_dummy_batch``
+    of lm_train_batch x lm_train_seq tokens, random weights from a seeded
+    generator on the card; counts zeroed just before the steps and read
+    after them: exactly one ``fused_adam`` launch a step and no other
+    kernel of the port, finite losses that fall. Then the ``torch``
+    program (plain Adam) from the same weights and batch, after the first
+    program's optimizer state is freed: losses within LM_LOSS_RTOL at
+    every step, parameters within LM_PARAM_RTOL a leaf. The step's
+    synchronised ms, tokens/s, the run's peak memory, a profiled step by
+    kernel class, and the Adam launch on the LM's leaves (``lm_adam_row``)."""
+    steps = sizes.lm_train_steps
+    sched = warmup_cosine(LM_LR, LM_WARMUP, steps)
+    on_card = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = build_model(cfg, inner="cuda", remat="layer")
+    init = model.init(gen, device=device)
+    batch = make_dummy_batch(cfg, sizes.lm_train_batch, sizes.lm_train_seq,
+                             generator=torch.Generator(device=device).manual_seed(1))
+    n_params = sum(t.numel() for t in tree_leaves(init))
+    tokens = batch["tokens"].numel()
+    print(f"[lm-train] {cfg.name}: {n_params:,} parameters in "
+          f"{len(tree_leaves(init))} leaves, batch {tuple(batch['tokens'].shape)}, "
+          f"{steps} steps of AdamW(warmup_cosine({LM_LR}, {LM_WARMUP}, {steps}))")
+    mem_before = torch.cuda.memory_allocated(device) if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    run = lm_train_run(model, adamw(sched, fused=True), init, batch, steps, device)
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated(device) - mem_before if on_card else 0
+    want = {name: 0 for name in KERNELS}
+    want["fused_adam"] = 1 if on_card else 0
+    for i, got in enumerate(run["launched"]):
+        if got != want:
+            raise AssertionError(f"LM training step {i}: launches {got}, expected {want}")
+    if launched["fused_adam"] != steps * want["fused_adam"] \
+            or sum(launched.values()) != launched["fused_adam"]:
+        raise AssertionError(f"LM training launched {launched} in {steps} steps")
+    losses = run["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"LM training losses do not fall: {losses}")
+    median_ms = float(np.median(run["ms"]))
+    profile = epoch_profile(lambda: run["step"](run["params"], run["state"], batch),
+                            device, median_ms / 1e3, {"fused_adam": 1})
+    params, step_ms = run["params"], run["ms"]
+    del run
+    if on_card:
+        torch.cuda.empty_cache()
+
+    ref_model = build_model(cfg, inner="torch", remat="layer")
+    ref = lm_train_run(ref_model, adamw(sched), init, batch, steps, device)
+    if sum(sum(c.values()) for c in ref["launched"]) != 0:
+        raise AssertionError("the torch LM training program launched a kernel")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    if not max(rel) <= LM_LOSS_RTOL:
+        raise AssertionError(f"LM training losses part: {losses} vs {ref['losses']}")
+    param_rel = [float(torch.linalg.vector_norm((a - b).float())
+                       / torch.linalg.vector_norm(b.float()))
+                 for a, b in zip(tree_leaves(params), tree_leaves(ref["params"]))]
+    if not max(param_rel) <= LM_PARAM_RTOL:
+        raise AssertionError(f"LM training parameters part by {max(param_rel)} "
+                             f"> {LM_PARAM_RTOL}")
+    print(f"[lm-train] cuda vs torch (plain Adam): losses within {max(rel):.3g} "
+          f"relative at every step, parameters within {max(param_rel):.3g} a leaf")
+    ref_losses, ref_ms = ref["losses"], float(np.median(ref["ms"]))
+    del ref, init
+    if on_card:
+        torch.cuda.empty_cache()
+    adam_row = lm_adam_row(params, device, reps=5)
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    out = {
+        "arch": cfg.name, "n_params": n_params, "batch": sizes.lm_train_batch,
+        "seq": sizes.lm_train_seq, "steps": steps, "losses": losses,
+        "ref_losses": ref_losses, "max_rel_diff": max(rel),
+        "param_max_rel_diff": max(param_rel), "param_rel_diff": param_rel,
+        "launches": launched, "step_ms": step_ms, "step_ms_median": median_ms,
+        "ref_step_ms_median": ref_ms,
+        "tokens_per_s": tokens / (median_ms / 1e3), "peak_mem_bytes": peak,
+        "profile": profile, "adam": adam_row,
+    }
+    print("[lm-train] " + json.dumps(out))
+    return out
+
+
+def gemma_and_training(sizes: Sizes, device) -> dict:
+    """Phases 15 and 16: gemma3-1b served (its windows; the flash kernel at
+    D = 256 on its global layers, checked and timed on the wave's inputs),
+    then llama3.2-1b trained. Reduced configs where ``lm_reduced`` (gemma
+    with 6 layers, so that one is global)."""
+    phase_s = {}
+    t0 = time.perf_counter()
+    gcfg = get_config("gemma3-1b")
+    if sizes.lm_reduced:
+        gcfg = dataclasses.replace(gcfg.reduced(), n_layers=6)
+    gemma = lm_serving_phase(gcfg, sizes, device)
+    gfa = flash_phase(gemma, device, reps=10, edge_cases=d256_edge_cases)
+    del gemma["model"], gemma["params"]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_s["15"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tcfg = get_config("llama3.2-1b")
+    train = lm_training_phase(tcfg.reduced() if sizes.lm_reduced else tcfg, sizes,
+                              device)
+    phase_s["16"] = time.perf_counter() - t0
+    return {"gemma": gemma["summary"], "gemma_flash": gfa, "lm_train": train,
+            "phase_s": phase_s}
 
 
 def sum_rows(rows: list) -> dict:
@@ -3005,8 +3281,44 @@ def sampled_entries(entries: list, gat_serve: dict, sampled: dict) -> None:
         p: per_step(p, "fused_adam") for p in sampled}
 
 
+def lm_entries(entries: list, lm2: dict) -> None:
+    """Phases 15-16 beside their kernels' entries: the flash call at
+    gemma3-1b's D = 256 (one call at its first global layer's inputs,
+    CUDA events; ``max_abs_err`` over both widths), and the Adam launch
+    over the LM training step's leaves."""
+    by_name = {e["name"]: e for e in entries}
+    g = lm2["gemma_flash"]
+    row = g["row"]
+    flash = by_name["flash_attention"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], g["err"]["f32"], g["edge"]["f32"])
+    flash["bf16_max_abs_err"] = max(flash["bf16_max_abs_err"], g["err"]["bf16"],
+                                    g["edge"]["bf16"])
+    flash["gemma_d256"] = {
+        **{k: row[k] for k in ("ms", "ms_by", "wall_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "library_enable_gqa_ms",
+                               "vs_library", "wave_ms")},
+        "max_abs_err": max(g["err"]["f32"], g["edge"]["f32"]),
+        "launches_a_wave": lm2["gemma"]["flash_per_wave"],
+        "shape": f"one call at the first global layer's prefill inputs: B {row['B']}, "
+                 f"H {row['H']}, Hkv {row['Hkv']}, T {row['Tq']}, D {row['D']}, causal, "
+                 f"float32; wave_ms the kernel over all {row['layers']} global layers"}
+    t = lm2["lm_train"]
+    a = t["adam"]
+    adam = by_name["fused_adam"]
+    adam["max_abs_err"] = max(adam["max_abs_err"], a["max_abs_err"])
+    adam["lm_step"] = {
+        **{k: a[k] for k in ("ms", "ms_by", "plain_ms", "library_ms", "library",
+                             "bound_ms", "bound_by", "params", "leaves")},
+        "profiled_step_ms": (t["profile"]["device_ms"].get("fused_adam")
+                             if t["profile"]["complete"] else None),
+        "launches_a_step": t["launches"]["fused_adam"] / t["steps"],
+        "shape": f"one launch over {t['arch']}'s {a['leaves']} leaves "
+                 f"({a['params']:,} values): ms by CUDA events; profiled_step_ms "
+                 "its device time inside a profiled training step"}
+
+
 def run(sizes: Sizes, device) -> dict:
-    """Phases 2 to 14 at ``sizes`` on ``device``; returns the kernels line
+    """Phases 2 to 16 at ``sizes`` on ``device``; returns the kernels line
     and the details."""
     t_start = t0 = time.perf_counter()
     ds = generate_dataset(sizes.dataset, scale=sizes.scale, seed=0)
@@ -3139,7 +3451,9 @@ def run(sizes: Sizes, device) -> dict:
 
     # phase 10: LM serving at llama3.2-1B width, the flash kernel's main path
     t0 = time.perf_counter()
-    lm = lm_serving_phase(sizes, device)
+    lm_cfg = get_config(sizes.lm_arch)
+    lm = lm_serving_phase(lm_cfg.reduced() if sizes.lm_reduced else lm_cfg, sizes,
+                          device)
     lm_summary = lm["summary"]
     phase_s["10"] = time.perf_counter() - t0
     # phase 11: the flash kernel on phase 10's prefill inputs
@@ -3168,6 +3482,12 @@ def run(sizes: Sizes, device) -> dict:
     t0 = time.perf_counter()
     sampled = sampled_training(ds, qds, sizes, device)
     phase_s["14"] = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # phases 15-16: gemma3-1b serving (windows, flash at D = 256), then
+    # llama3.2-1b training
+    lm2 = gemma_and_training(sizes, device)
+    phase_s.update(lm2["phase_s"])
 
     attn_err = max(ak["err"]["edge"], attn_pair_err)
     nonfinite = max(edge["nonfinite"], fk["err"]["nonfinite"])
@@ -3189,6 +3509,8 @@ def run(sizes: Sizes, device) -> dict:
                "gat": gat["summary"]["launches"],
                "gt": gt["summary"]["launches"],
                "lm_serving": lm_summary["launches"],
+               "lm_serving_gemma": lm2["gemma"]["launches"],
+               "lm_training": lm2["lm_train"]["launches"],
                "gat_serving_sampled": gat_serve["launched"],
                **{f"{p}_sampled": sampled[p]["launches"]
                   for p in ("sage", "gat", "gt", "max")}}
@@ -3197,10 +3519,13 @@ def run(sizes: Sizes, device) -> dict:
                              gat["summary"]["profile"], flash_entry(fa))
     entries[0]["quickstart"] = qk["rows"]
     sampled_entries(entries, gat_serve, sampled)
+    lm_entries(entries, lm2)
     return {"kernels": entries, "layers": layers, "serve": serve,
             "sample_s": kern["sample_s"], "train": train["summary"],
             "quickstart": quick["summary"], "gat": gat["summary"],
             "gt": gt["summary"], "lm": lm_summary, "flash": fa, "adam": adam,
+            "gemma": lm2["gemma"], "gemma_flash": lm2["gemma_flash"],
+            "lm_train": lm2["lm_train"],
             "gat_serving_sampled": {k: v for k, v in gat_serve.items() if k != "rows"},
             "sampled": {p: {k: v for k, v in r.items() if k != "rows"}
                         for p, r in sampled.items()},
@@ -3273,7 +3598,24 @@ def main() -> int:
           f"{lm['decode_step_ms_median']:.2f} ms a step (torch "
           f"{lm['ref_decode_step_ms_median']:.2f}), {lm['tokens_per_s']:.1f} tokens/s, "
           f"peak {lm['peak_mem_bytes'] / 2**30:.2f} GiB on {card}")
-    print(f"[done] phases 2-14 in {time.perf_counter() - t_all:.1f}s: "
+    g = result["gemma"]
+    gf = result["gemma_flash"]["row"]
+    print(f"[gemma] {g['arch']}: {g['requests']} requests in {g['waves']} waves, "
+          f"{g['flash_per_wave']} flash launches a wave, prefill "
+          f"{', '.join(f'{x:.1f}' for x in g['prefill_ms'])} ms a wave, decode "
+          f"{g['decode_step_ms_median']:.2f} ms a step, {g['tokens_per_s']:.1f} "
+          f"tokens/s, peak {g['peak_mem_bytes'] / 2**30:.2f} GiB; flash at D = "
+          f"{gf['D']}: {gf['ms']:.3f} ms a call (bound {gf['bound_ms']:.3f}, SDPA "
+          f"{gf['library_ms']:.3f}) on {card}")
+    t = result["lm_train"]
+    print(f"[lm-train] {t['arch']}: {t['steps']} steps of B {t['batch']} x T "
+          f"{t['seq']}, {t['step_ms_median']:.1f} ms a step (torch program "
+          f"{t['ref_step_ms_median']:.1f}), {t['tokens_per_s']:.0f} tokens/s, loss "
+          f"{t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}, max rel diff "
+          f"{t['max_rel_diff']:.2e}, peak {t['peak_mem_bytes'] / 2**30:.2f} GiB; Adam "
+          f"{t['adam']['ms']:.3f} ms a launch (bound {t['adam']['bound_ms']:.3f}, "
+          f"AdamW(fused=True) {t['adam']['library_ms']:.3f}) on {card}")
+    print(f"[done] phases 2-16 in {time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -39,7 +39,7 @@
 // tiles are issued from the last (the longest causal loop) to the first.
 //
 // Inside a CTA: 128 threads as 16 (ty) x 8 (tx). Thread (ty, tx) owns the
-// RM consecutive rows ty·RM.. of the tile (RM = 8, or 4 at D = 128), the
+// RM consecutive rows ty·RM.. of the tile (RM = 8, or 4 at D >= 128), the
 // scores of key columns tx + 8·j (j < 8) of each key tile and the output
 // columns g·8·CW + tx·CW + c (CW = min(4, D/8) contiguous, g < D/(8·CW)):
 //   * S = Q·Kᵀ as RM x 8 register outer products over d: Q row-major and K
@@ -69,7 +69,10 @@
 // What bounds it: operations. At the LM's prefill (B 4, H 32, Hkv 8, T
 // 1024, D 64, causal) the work is 4·B·H·T²·D/2 = 17.2 GFLOP against ~84 MB
 // of q, k, v and out: 0.256 ms at the H100's 67 TFLOP/s of float32 FMA
-// against 0.025 ms at 3.35 TB/s. Tensor cores (TF32 or bf16 operands,
+// against 0.025 ms at 3.35 TB/s. At D = 256 (gemma3-1b's global layers)
+// a CTA holds 64 rows: its Q, K, V and P tiles take 215,040 bytes of shared
+// memory, under the H100's 227 KB opt-in, so one CTA runs on an SM, and a
+// thread keeps 4 x 32 accumulators. Tensor cores (TF32 or bf16 operands,
 // behind a flag with their own tolerance) are later work (PERF.md).
 
 #include <cuda_bf16.h>
@@ -379,6 +382,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
            Strides ks, Strides vs, Strides os, float scale, int causal,
            cudaStream_t stream) {
   using C = Cfg<D>;
+  static_assert(C::SMEM <= 227 * 1024, "over the H100's shared memory a block");
   const int bqh = C::BQ / hp;
   if (bqh < C::RM) return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = (tq + bqh - 1) / bqh;
@@ -414,6 +418,7 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
     FLASH_D(32)
     FLASH_D(64)
     FLASH_D(128)
+    FLASH_D(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -426,7 +431,7 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
 // Tk, D] and out [B, H, Tq, D] are device pointers read and written through
 // the given (b, h, t) element strides, d contiguous (out's rows 16-byte
 // aligned: the wrapper allocates it); dtype 0 is float32, 1
-// bfloat16 (all four tensors alike); D in {8, 16, 32, 64, 128}; Hkv divides
+// bfloat16 (all four tensors alike); D in {8, 16, 32, 64, 128, 256}; Hkv divides
 // H; causal masks col > row (top-left). heads_per_cta: the query heads of
 // one KV group a CTA serves, 1, 2 or 4, dividing H/Hkv.
 // async: q, k and v are float32 with 16-byte aligned row

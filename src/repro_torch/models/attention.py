@@ -3,21 +3,24 @@
 Counterpart of the GQA half of ``repro/models/attention.py``: one masked
 softmax core (``_attn_core``, the JAX package's plain attention) and the
 flash kernel where it computes the same function. A prefill of a cache
-from index 0 with no window is causal self-attention over the ``t``
-fresh keys starting at position 0, which is exactly what the flash kernel
-computes (``kernels/flash_attention.py``, causal, top-left): there the
-attention runs through the ``inner`` executor's ``"flash"`` op, the Hopper
-kernel for ``inner="cuda"`` on the card. The JAX package's mask over all
-``s_max`` cache slots gives the same result, since causality already
-hides every key at or beyond ``t``. Every other case (decode against the
-cache, a cache index past 0, the uncached forward) is ``_attn_core``.
+from index 0 by a layer without a window is causal self-attention over
+the ``t`` fresh keys starting at position 0, which is exactly what the
+flash kernel computes (``kernels/flash_attention.py``, causal, top-left):
+there the attention runs through the ``inner`` executor's ``"flash"`` op,
+the Hopper kernel for ``inner="cuda"`` on the card. The JAX package's
+mask over all ``s_max`` cache slots gives the same result, since
+causality already hides every key at or beyond ``t``. Every other case
+(decode against the cache, a cache index past 0, the uncached forward,
+and every call of a layer with a sliding window) is ``_attn_core``: the
+Pallas kernel has no window, so a windowed layer's mask stays where the
+JAX package puts it (``make_mask(..., window=)``).
 
 The cache's tensors are updated in place (the JAX package returns new
 arrays): a cache dict holds ``k``/``v`` ``[B, S, KV, Dh]`` and the index
-``idx`` as a Python int on the host. MLA, sliding windows and cross
-attention are not ported (ROADMAP.md Queue 1, item 9): ``gqa_apply`` has
-no ``window`` or ``kv_source``, and ``models/transformer.py:check_ported``
-refuses the configurations that need them.
+``idx`` as a Python int on the host. MLA and cross attention are not
+ported (ROADMAP.md Queue 1, item 9 (d) and (g)): ``gqa_apply`` has no
+``kv_source``, and ``models/transformer.py:check_ported`` refuses the
+configurations that need them.
 """
 from __future__ import annotations
 
@@ -54,15 +57,20 @@ def make_mask(
     q_pos: torch.Tensor,  # [Tq] absolute positions of queries
     k_pos: torch.Tensor,  # [Tk] absolute positions of keys
     causal: bool,
+    window: Optional[int] = None,  # 0/None => unlimited
     k_valid: Optional[torch.Tensor] = None,  # [B, Tk] cache validity
 ) -> torch.Tensor:
     """Additive float32 mask [B|1, 1, Tq, Tk]: 0 where a query sees a key,
     ``NEG_INF`` where it does not (``-inf`` where both rules hide it, as
-    the JAX package's float32 sum of two ``NEG_INF`` overflows)."""
+    the JAX package's float32 sum of two ``NEG_INF`` overflows). A
+    ``window`` > 0 keeps only keys less than ``max(window, 1)`` positions
+    behind the query."""
     diff = q_pos[:, None] - k_pos[None, :]
     ok = torch.ones_like(diff, dtype=torch.bool)
     if causal:
         ok = ok & (diff >= 0)
+    if window:
+        ok = ok & (diff < max(window, 1))
     zero = torch.zeros((), dtype=torch.float32, device=diff.device)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=diff.device)
     mask = torch.where(ok, zero, neg)[None, None, :, :]
@@ -90,13 +98,15 @@ def gqa_apply(
     x: torch.Tensor,  # [B, T, D]
     positions: torch.Tensor,  # [T]
     *,
+    window: int = 0,  # 0 => unlimited; > 0 a sliding window
     cache: Optional[dict] = None,  # {"k": [B,S,KV,Dh], "v": ..., "idx": int}
     inner: str = "cuda",
 ):
     """Returns ``(out [B, T, D], new_cache)``; ``new_cache`` shares the
     input cache's (updated) tensors and holds ``idx + t``. ``inner`` picks
-    the prefill attention's executor: ``"cuda"`` the flash kernel (its
-    plain version for CPU tensors), ``"torch"`` the plain version."""
+    the prefill attention's executor where the layer has no ``window``:
+    ``"cuda"`` the flash kernel (its plain version for CPU tensors),
+    ``"torch"`` the plain version."""
     b, t, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(b, t, h, dh)
@@ -106,7 +116,7 @@ def gqa_apply(
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        mask = make_mask(positions, positions, causal=True)
+        mask = make_mask(positions, positions, causal=True, window=window)
         out = _attn_core(q, k, v, mask)
         return out.reshape(b, t, h * dh) @ p["wo"], None
 
@@ -118,7 +128,7 @@ def gqa_apply(
                          f"and {t} more do not fit")
     ck[:, idx:idx + t] = k.to(ck.dtype)
     cv[:, idx:idx + t] = v.to(cv.dtype)
-    if idx == 0 and t > 1:
+    if idx == 0 and t > 1 and not window:
         # the keys as the cache holds them, at q's dtype (as JAX reads them)
         kc, vc = (c[:, :t].to(q.dtype) for c in (ck, cv))
         out = _executor(inner, "flash")(
@@ -127,7 +137,8 @@ def gqa_apply(
     else:
         k_pos = torch.arange(s_max, device=x.device)
         k_valid = (k_pos < idx + t)[None, :].expand(b, s_max)
-        mask = make_mask(positions, k_pos, causal=True, k_valid=k_valid)
+        mask = make_mask(positions, k_pos, causal=True, window=window,
+                         k_valid=k_valid)
         out = _attn_core(q, ck.to(q.dtype), cv.to(q.dtype), mask)
     new_cache = {"k": ck, "v": cv, "idx": idx + t}
     return out.reshape(b, t, h * dh) @ p["wo"], new_cache

@@ -106,5 +106,12 @@ def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens]
 
 
+def embed_dense_path(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The dense path, ``one_hot(tokens) @ table``, kept for the crossover
+    tests beside the gather."""
+    onehot = F.one_hot(tokens.long(), p["table"].shape[0]).to(p["table"].dtype)
+    return onehot @ p["table"]
+
+
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ p["table"].T

@@ -2,24 +2,33 @@
 
 Counterpart of ``repro/models/model_zoo.py``: ``build_model(cfg)`` -> LM,
 ``count_params`` (the closed form, copied: N for the 6·N·D roofline term,
-``active_only`` counting only routed-in experts), and the serving steps
-``make_prefill_step`` / ``make_decode_step``. The port runs eagerly, so
-the steps are thin closures over the model. ``make_train_step`` waits for
-LM training (ROADMAP.md Queue 1, item 9).
+``active_only`` counting only routed-in experts), the training step
+``make_train_step`` and ``make_eval_step``, the serving steps
+``make_prefill_step`` / ``make_decode_step``, and ``make_dummy_batch``.
+The port runs eagerly, so the steps are closures over the model; a
+training step is autograd over ``LM.loss`` and one ``opt.update``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
+from repro_torch.backends.registry import not_ported
 from repro_torch.configs.base import LMConfig
 from repro_torch.models.transformer import LM
+from repro_torch.training.grad import accum_add, accum_init, accum_mean
+from repro_torch.training.optimizer import Optimizer, tree_leaves, tree_map, tree_unflatten
 
 #: ``repro/models/xlstm.py:SLSTM_FF_MULT``, for the sLSTM block's count
 SLSTM_FF_MULT = 1.375
 
 
-def build_model(cfg: LMConfig, inner: str = "cuda") -> LM:
+def build_model(cfg: LMConfig, inner: str = "cuda", remat: str = "layer") -> LM:
     """The LM for ``cfg`` with ``inner``'s prefill attention (``"cuda"``
-    the flash kernel, ``"torch"`` its plain version)."""
-    return LM(cfg, inner=inner)
+    the flash kernel, ``"torch"`` its plain version) and ``remat``'s
+    recomputation in training (``"layer"`` or ``"none"``)."""
+    return LM(cfg, inner=inner, remat=remat)
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +114,59 @@ def count_params(cfg: LMConfig, active_only: bool = False) -> int:
 # Step closures
 # ---------------------------------------------------------------------------
 
+def make_train_step(model: LM, opt: Optimizer, compute_dtype=torch.bfloat16,
+                    microbatches: int = 1):
+    """(params, opt_state, batch) -> (params, opt_state, loss).
+
+    The loss runs on every float32 leaf cast to ``compute_dtype``, so the
+    gradients reach the float32 leaves through the casts, as in the JAX
+    package. ``microbatches > 1`` splits the batch's leading axis into
+    equal parts, sums their float32 gradients (``training/grad.py``'s
+    accumulators) and losses in order and takes both means before the one
+    ``opt.update``."""
+
+    def cast(tree):
+        return tree_map(lambda x: x.to(compute_dtype) if x.dtype == torch.float32
+                        else x, tree)
+
+    def loss_and_grads(params, batch):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss, _ = model.loss(cast(tree_unflatten(params, leaves)), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), grads
+
+    def step(params, opt_state, batch):
+        if microbatches <= 1:
+            loss, grads = loss_and_grads(params, batch)
+            new_params, new_opt_state = opt.update(
+                tree_unflatten(params, list(grads)), opt_state, params)
+            return new_params, new_opt_state, loss
+        n = next(iter(batch.values())).shape[0]
+        if n % microbatches:
+            raise ValueError(f"a batch of {n} does not split into {microbatches} "
+                             "equal microbatches")
+        acc = accum_init(params)
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=tree_leaves(params)[0].device)
+        for i in range(microbatches):
+            mb = {k: torch.chunk(v, microbatches)[i] for k, v in batch.items()}
+            loss, grads = loss_and_grads(params, mb)
+            acc = accum_add(acc, tree_unflatten(params, list(grads)))
+            loss_sum = loss_sum + loss
+        new_params, new_opt_state = opt.update(accum_mean(acc), opt_state, params)
+        return new_params, new_opt_state, loss_sum * (1.0 / microbatches)
+
+    return step
+
+
+def make_eval_step(model: LM):
+    def step(params, batch):
+        with torch.no_grad():
+            return model.loss(params, batch)
+
+    return step
+
+
 def make_prefill_step(model: LM):
     def step(params, tokens, cache):
         return model.prefill(params, tokens, cache)
@@ -117,3 +179,24 @@ def make_decode_step(model: LM):
         return model.decode_step(params, cache, tokens)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Batch construction
+# ---------------------------------------------------------------------------
+
+def make_dummy_batch(cfg: LMConfig, batch: int, seq: int,
+                     generator: Optional[torch.Generator] = None) -> dict:
+    """A random batch of ``max(seq, 8)`` tokens a row, drawn from
+    ``generator`` on its device (a CPU generator seeded 0 if none): tokens
+    in [0, vocab_size) and the labels, the tokens shifted by one with a
+    -100 tail. Vision and encoder inputs are not ported (ROADMAP.md Queue
+    1, item 9 (g))."""
+    if cfg.frontend == "vision" or cfg.is_encoder_decoder:
+        raise not_ported(f"{cfg.name}: the dummy batch's frontend or encoder "
+                         "inputs", "ROADMAP.md Queue 1, item 9 (g)")
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, max(seq, 8)), generator=gen,
+                           device=gen.device)
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -100)], dim=1)
+    return {"tokens": tokens, "labels": labels}

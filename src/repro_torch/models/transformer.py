@@ -1,8 +1,9 @@
 """The LM substrate's decoder for the dense family, on PyTorch.
 
 Counterpart of ``repro/models/transformer.py`` for configurations whose
-every block is ``"attn"`` (GQA with RoPE) with a dense FFN: no window,
-MLA, MoE, encoder, frontend or multi-token prediction (llama3.2-1b,
+every block is ``"attn"`` (GQA with RoPE, global or with a sliding
+window) with a dense FFN: no MLA, MoE, encoder, frontend or multi-token
+prediction (llama3.2-1b, gemma3-1b with its 5:1 local:global windows,
 starcoder2-3b, granite-34b). Anything else raises ``NotImplementedError``
 naming ROADMAP.md Queue 1, item 9.
 
@@ -10,11 +11,16 @@ Parameters keep the JAX package's tree: ``{"embed": {"table"},
 "segments": [...], "final_norm": {...}, "head"?}``, where a segment that
 ``plan_segments`` scans keeps its layers stacked on a leading
 ``[n_reps]`` axis (``params_from_jax`` carries the JAX tree over leaf by
-leaf) and the repetitions run in a Python loop over views of it; an
-unrolled segment is a list of per-layer dicts. ``shard_activation`` and
-``remat`` have no counterpart on one card and are dropped. The entry
-points are ``forward``, ``prefill`` (which unembeds only the last
-position: the full ``[B, T, V]`` logits of a 4 x 1024 prefill at
+leaf) and the repetitions run in a Python loop over the views that one
+``torch.unbind`` a leaf gives (``_unbind``: one stacked gradient); an
+unrolled segment is a list of per-layer dicts; each layer gets its own
+window (``_layer_window``) as a Python int, where the JAX package scans
+an int array of them. ``shard_activation`` has no counterpart on one card
+and is dropped; ``remat="layer"`` recomputes each layer of a scanned
+segment in the backward (``torch.utils.checkpoint``), as the JAX
+package's ``jax.checkpoint`` of the scan body does. The entry points are
+``forward``, ``loss`` (training), ``prefill`` (which unembeds only the
+last position: the full ``[B, T, V]`` logits of a 4 x 1024 prefill at
 llama3.2-1b width would take 2.1 GB) and ``decode_step``. Caches are
 updated in place (``models/attention.py``), the index ``idx`` a Python
 int on the host.
@@ -26,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.backends.registry import LM_ITEM, not_ported
@@ -95,13 +102,20 @@ def check_ported(cfg: LMConfig) -> None:
     parts = [("block kinds other than attn", any(k != "attn" for k in cfg.blocks)),
              ("mixture of experts", cfg.moe is not None),
              ("multi-head latent attention (MLA)", cfg.mla is not None),
-             ("sliding-window attention", bool(cfg.sliding_window)),
              ("encoder-decoder", cfg.is_encoder_decoder),
              (f"the {cfg.frontend} frontend", cfg.frontend != "none"),
              ("multi-token prediction", cfg.mtp_depth > 0)]
     missing = [what for what, present in parts if present]
     if missing:
         raise not_ported(f"{cfg.name}: " + ", ".join(missing), LM_ITEM)
+
+
+def _layer_window(cfg: LMConfig, layer_id: int) -> int:
+    """0 = global attention; >0 = sliding-window size."""
+    if cfg.sliding_window and cfg.global_every:
+        is_global = (layer_id + 1) % cfg.global_every == 0
+        return 0 if is_global else cfg.sliding_window
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -116,11 +130,11 @@ def _init_layer(generator, cfg: LMConfig, lead: tuple, device) -> dict:
             "ffn": mlp_init(generator, d, cfg.d_ff, cfg.activation, lead, device)}
 
 
-def _apply_layer(p, cfg: LMConfig, x, positions, cache, inner: str):
+def _apply_layer(p, cfg: LMConfig, x, positions, window: int, cache, inner: str):
     """One pre-norm block: x + attn(norm1(x)), then + mlp(norm2(x))."""
     h = apply_norm(cfg.norm, p["norm1"], x)
-    a, new_cache = attn.gqa_apply(p["attn"], cfg, h, positions, cache=cache,
-                                  inner=inner)
+    a, new_cache = attn.gqa_apply(p["attn"], cfg, h, positions, window=window,
+                                  cache=cache, inner=inner)
     x = x + a
     x = x + apply_mlp(p["ffn"], apply_norm(cfg.norm, p["norm2"], x), cfg.activation)
     return x, new_cache
@@ -133,6 +147,17 @@ def _index(tree, r: int):
     return tree[r]
 
 
+def _unbind(tree, n: int) -> list:
+    """A stacked segment's dict of tensors as ``n`` per-repetition dicts of
+    views, split by one ``torch.unbind`` a leaf: its backward stacks the
+    repetitions' gradients into one tensor, where ``n`` separate
+    ``tree[r]`` would each fill a zeroed tensor of the whole stack."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[r] for k, v in parts.items()} for r in range(n)]
+    return list(torch.unbind(tree))
+
+
 # ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
@@ -140,13 +165,18 @@ def _index(tree, r: int):
 class LM:
     """The dense decoder over ``inner``'s prefill attention: ``"cuda"`` the
     flash kernel (its plain version for CPU tensors), ``"torch"`` the
-    plain version on any device."""
+    plain version on any device. ``remat="layer"`` recomputes each layer
+    of a scanned segment in the backward of an uncached call; ``"none"``
+    keeps every activation."""
 
-    def __init__(self, cfg: LMConfig, inner: str = "cuda"):
+    def __init__(self, cfg: LMConfig, inner: str = "cuda", remat: str = "layer"):
         check_ported(cfg)
         _executor(inner, "flash")  # validates inner now
+        if remat not in ("layer", "none"):
+            raise ValueError(f"remat must be 'layer' or 'none', got {remat!r}")
         self.cfg = cfg
         self.inner = inner
+        self.remat = remat
         self.segments = plan_segments(cfg)
 
     def init(self, generator: torch.Generator, device=None) -> dict:
@@ -170,28 +200,43 @@ class LM:
         return params
 
     def _run_segments(self, params, x, positions, cache):
+        cfg = self.cfg
         cache_idx = None if cache is None else cache["idx"]
         new_segs = None if cache is None else []
         for si, seg in enumerate(self.segments):
             seg_p = params["segments"][si]
             seg_c = None if cache is None else cache["segments"][si]
             reps = 1 if seg.mode == "unroll" else seg.n_reps
+            remat = (self.remat == "layer" and seg.mode == "scan" and cache is None
+                     and torch.is_grad_enabled())
+            period = len(seg.kinds)
+            if seg.mode == "scan":
+                seg_p = [_unbind(p, reps) for p in seg_p]
             for r in range(reps):
-                for j in range(len(seg.kinds)):
-                    lp = seg_p[j] if seg.mode == "unroll" else _index(seg_p[j], r)
+                for j in range(period):
+                    window = _layer_window(cfg, seg.layer_ids[r * period + j])
+                    lp = seg_p[j] if seg.mode == "unroll" else seg_p[j][r]
+                    if remat:
+                        x = checkpoint(self._layer_out, lp, x, positions, window,
+                                       use_reentrant=False)
+                        continue
                     lc = None
                     if seg_c is not None:
                         c = seg_c[j]["attn"]
                         if seg.mode == "scan":
                             c = _index(c, r)
                         lc = {**c, "idx": cache_idx}
-                    x, _ = _apply_layer(lp, self.cfg, x, positions, lc, self.inner)
+                    x, _ = _apply_layer(lp, cfg, x, positions, window, lc, self.inner)
             if new_segs is not None:
                 new_segs.append(seg_c)  # its tensors were updated in place
         new_cache = None
         if cache is not None:
             new_cache = {"idx": cache_idx + x.shape[1], "segments": new_segs}
         return x, new_cache
+
+    def _layer_out(self, lp, x, positions, window: int):
+        """An uncached layer's output, the unit ``remat`` recomputes."""
+        return _apply_layer(lp, self.cfg, x, positions, window, None, self.inner)[0]
 
     def _hidden(self, params, tokens, cache, positions):
         cfg = self.cfg
@@ -213,6 +258,14 @@ class LM:
         logits = unembed(self._head(params), hidden)
         aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
         return logits, aux, new_cache, hidden
+
+    def loss(self, params, batch: dict) -> tuple:
+        """batch: tokens [B, S], labels [B, S] (-100 = ignore). Returns
+        ``(ce + 0.01·aux, {"ce", "aux", "denom"})``, as the JAX package's
+        ``LM.loss`` for configurations without a frontend or MTP."""
+        logits, aux, _, _ = self.forward(params, batch["tokens"])
+        ce, denom = _masked_ce(logits, batch["labels"], self.cfg.vocab_size)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux, "denom": denom}
 
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
                    device=None) -> dict:
@@ -241,6 +294,22 @@ class LM:
         positions = torch.arange(idx, idx + 1, device=tokens.device)
         hidden, new_cache = self._hidden(params, tokens, cache, positions)
         return unembed(self._head(params), hidden[:, -1]), new_cache
+
+
+def _masked_ce(logits, labels, vocab_size: int):
+    """Mean next-token cross entropy over the labels >= 0, and their count
+    (at least 1): the vocabulary padding's logits set to -1e30 at the
+    logits' dtype, the log-softmax in float32."""
+    vpad = logits.shape[-1]
+    if vpad > vocab_size:
+        pad = torch.arange(vpad, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    mask = labels >= 0
+    safe = labels.clamp(min=0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = mask.sum().clamp(min=1).float()
+    return torch.where(mask, nll, torch.zeros_like(nll)).sum() / denom, denom
 
 
 def params_from_jax(tree, device=None):

@@ -64,14 +64,15 @@ def _t(*arrays):
 
 
 SHAPES = [(2, 2, 16, 16, 8), (1, 3, 33, 33, 16), (2, 1, 64, 64, 32),
-          (1, 2, 40, 72, 8)]
+          (1, 2, 40, 72, 8), (1, 2, 24, 40, 256)]
 
 
 @pytest.mark.parametrize("b,h,tq,tk,d", SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_matches_pallas(jx, b, h, tq, tk, d, causal):
     """Every shape of the JAX suite's ``test_flash_matches_ref``, causal
-    with Tq != Tk too, against the Pallas kernel itself."""
+    with Tq != Tk too, and gemma3-1b's head width 256, against the Pallas
+    kernel itself."""
     q, k, v = _qkv(b * 100 + tq, b, h, tq, tk, d)
     got = flash_attention(*_t(q, k, v), causal=causal)
     want = jx.flash(*(jx.jnp.asarray(a) for a in (q, k, v)), causal=causal,
@@ -175,7 +176,7 @@ def test_wrapper_checks_and_executor():
     got = tops._executor("cuda", "flash")(q, k, v, causal=True)
     assert flash_attention.launches == before  # CPU tensors: the plain version
     torch.testing.assert_close(got, tops._executor("torch", "flash")(q, k, v, causal=True))
-    assert set(HEAD_DIMS) == {8, 16, 32, 64, 128}
+    assert set(HEAD_DIMS) == {8, 16, 32, 64, 128, 256}
 
 
 @pytest.mark.parametrize("group,want", [(1, 1), (2, 2), (3, 1), (4, 4), (6, 2),
@@ -202,7 +203,8 @@ def _cuda():
     (2, 2, 2, 16, 16, 8, True), (1, 3, 3, 33, 33, 16, False),
     (1, 2, 2, 40, 72, 32, True), (1, 2, 2, 72, 40, 32, True),
     (2, 8, 2, 130, 130, 64, True), (1, 4, 1, 1, 70, 128, False),
-    (1, 4, 4, 1000, 1000, 64, True), (2, 4, 2, 65, 129, 128, False)])
+    (1, 4, 4, 1000, 1000, 64, True), (2, 4, 2, 65, 129, 128, False),
+    (1, 4, 1, 100, 100, 256, True), (2, 4, 1, 65, 129, 256, False)])
 def test_cuda_kernel_matches_plain(b, h, hkv, tq, tk, d, causal):
     """fp32 within 2e-5, one launch, a repeat bitwise equal; bf16 copies
     within 5e-2."""

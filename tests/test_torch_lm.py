@@ -2,11 +2,17 @@
 ``get_config("llama3.2-1b").reduced()`` with the JAX package's weights
 carried over by ``params_from_jax``, the port's norms, MLPs, RoPE,
 ``gqa_apply`` (without a cache, and with one at index 0, where the flash
-kernel's plain version runs, and past 0), ``LM.forward``, ``prefill`` and
-three ``decode_step``s, and ``ServingEngine`` on the JAX example's traffic
-against the JAX package's; the copied configs, ``plan_segments`` and
-``count_params``; the refusal of what is not ported. The flash kernel's
-own tests are in ``test_torch_flash_attention.py``.
+kernel's plain version runs, and past 0; with a sliding window, which
+always takes the masked core), ``make_mask`` with windows,
+``LM.forward``, ``prefill`` and three ``decode_step``s, and
+``ServingEngine`` on the JAX example's traffic against the JAX package's;
+the same end to end for gemma3-1b (6 layers, so that layer 5 is global,
+with prompts longer than its 32-token reduced window), starcoder2-3b
+(LayerNorm, GELU) and granite-34b (one KV head); the copied configs,
+``plan_segments`` and ``count_params``; the refusal of what is not
+ported. The flash kernel's own tests are in
+``test_torch_flash_attention.py``, LM training's in
+``test_torch_lm_train.py``.
 
 Tolerance 1e-4 (absolute and relative, float32), the JAX suite's: the
 same float32 operations in another order (CPU matmuls, the flash
@@ -210,6 +216,58 @@ def test_make_mask_matches_jax(jx):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("window", [None, 0, 1, 3, 32])
+def test_make_mask_window_matches_jax(jx, window):
+    """Windows 0 (and None: unlimited), 1 (a query sees itself alone) and
+    wider, causal, with cache validity: the same NEG_INF sums."""
+    q, k = np.arange(30, 36), np.arange(40)
+    valid = np.arange(40)[None, :] < np.array([[36], [33]])
+    got = tattn.make_mask(torch.from_numpy(q), torch.from_numpy(k), True,
+                          window=window, k_valid=torch.from_numpy(valid))
+    want = jx.attn.make_mask(jx.jnp.asarray(q), jx.jnp.asarray(k), True,
+                             window=None if window is None else jx.jnp.asarray(window),
+                             k_valid=jx.jnp.asarray(valid))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    seen = (got[0, 0] == 0).sum(-1)
+    # query 30 + i sees keys i - window + 31 .. 30 + i
+    assert seen.tolist() == [min(window or 99, 31 + i) for i in range(6)]
+
+
+@pytest.mark.parametrize("idx,t", [(0, 1), (0, 20), (20, 1), (11, 6)])
+def test_gqa_apply_with_window_matches_jax(jx, lm, monkeypatch, idx, t):
+    """A windowed layer (window 8, keys reaching 20 positions back): the
+    uncached call and the cache branch against the JAX package's, and never
+    the flash executor, not even on a prefill from index 0."""
+    jp, tp = _layer0_attn(lm)
+    b, s_max, window = 2, 24, 8
+    r = np.random.default_rng(7 + idx + t)
+    x = r.standard_normal((b, t, lm.cfg.d_model)).astype(np.float32)
+    filled = r.standard_normal((2, b, s_max, lm.cfg.n_kv_heads,
+                                lm.cfg.resolved_head_dim)).astype(np.float32)
+    filled[:, :, idx:] = 0.0
+    pos = np.arange(idx, idx + t)
+    calls = []
+    flash = tops._EXECUTORS["cuda"]["flash"]
+    monkeypatch.setitem(tops._EXECUTORS["cuda"], "flash",
+                        lambda *a, **k: calls.append(1) or flash(*a, **k))
+    jcache = {"k": jx.jnp.asarray(filled[0]), "v": jx.jnp.asarray(filled[1]),
+              "idx": jx.jnp.int32(idx)}
+    want, _ = jx.attn.gqa_apply(jp, lm.cfg, jx.jnp.asarray(x), jx.jnp.asarray(pos),
+                                window=jx.jnp.asarray(window), cache=jcache)
+    tcache = {"k": torch.from_numpy(filled[0]), "v": torch.from_numpy(filled[1]),
+              "idx": idx}
+    got, _ = tattn.gqa_apply(tp, lm.cfg, torch.from_numpy(x), torch.from_numpy(pos),
+                             window=window, cache=tcache, inner="cuda")
+    _close(got, want)
+    if idx == 0:
+        want, _ = jx.attn.gqa_apply(jp, lm.cfg, jx.jnp.asarray(x), jx.jnp.asarray(pos),
+                                    window=jx.jnp.asarray(window))
+        got, _ = tattn.gqa_apply(tp, lm.cfg, torch.from_numpy(x), torch.from_numpy(pos),
+                                 window=window)
+        _close(got, want)
+    assert calls == []
+
+
 # ---------------------------------------------------------------------------
 # The model and its entry points
 # ---------------------------------------------------------------------------
@@ -315,7 +373,6 @@ def test_segment_planning_full_configs(jx):
 @pytest.mark.parametrize("arch,what", [
     ("dbrx-132b", "mixture of experts"),
     ("deepseek-v3-671b", "MLA"),
-    ("gemma3-1b", "sliding-window"),
     ("zamba2-7b", "block kinds"),
     ("whisper-tiny", "encoder-decoder"),
 ])
@@ -380,3 +437,92 @@ def test_no_card_raises_unless_cpu_requested(lm, monkeypatch):
         lm.model.init(torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.model.init_cache(1, 8)
+
+
+# ---------------------------------------------------------------------------
+# gemma3-1b's windows, starcoder2-3b and granite-34b, end to end
+# ---------------------------------------------------------------------------
+
+#: (architecture, layers or None for the reduced config's, prompt tokens)
+OTHER_ARCHS = {"gemma3-1b": (6, 40), "starcoder2-3b": (None, 9),
+               "granite-34b": (None, 9)}
+
+
+def _other_cfg(getter, arch):
+    n_layers, _ = OTHER_ARCHS[arch]
+    cfg = getter(arch).reduced()
+    return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
+
+
+@pytest.fixture(scope="module", params=list(OTHER_ARCHS))
+def other(request, jx):
+    arch = request.param
+    cfg = _other_cfg(get_config, arch)
+    jmodel = jx.build_model(_other_cfg(jx.get_config, arch), remat="none")
+    jparams = jmodel.init(jx.jax.random.PRNGKey(0))
+    return types.SimpleNamespace(
+        arch=arch, cfg=cfg, jmodel=jmodel, jparams=jparams, model=build_model(cfg),
+        tparams=params_from_jax(jx.jax.device_get(jparams), device="cpu"))
+
+
+def test_other_archs_forward_prefill_and_decode_match_jax(jx, other, monkeypatch):
+    """``forward``, ``prefill`` and three greedy ``decode_step``s within
+    1e-4 of JAX's. gemma3-1b's prompt (40 tokens) and decode positions lie
+    past its 32-token window on layers 0-4; its prefill takes the flash
+    executor on layer 5 alone, the others' on every layer."""
+    cfg, jnp = other.cfg, jx.jnp
+    t = OTHER_ARCHS[other.arch][1]
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, t)).astype(np.int32)
+    jlog, _, _, _ = other.jmodel.forward(other.jparams, jnp.asarray(toks))
+    tlog, _, _, _ = other.model.forward(other.tparams, torch.from_numpy(toks).long())
+    _close(tlog, jlog)
+
+    calls = []
+    flash = tops._EXECUTORS["cuda"]["flash"]
+    monkeypatch.setitem(tops._EXECUTORS["cuda"], "flash",
+                        lambda *a, **k: calls.append(1) or flash(*a, **k))
+    jcache = other.jmodel.init_cache(2, t + 8, dtype=jnp.float32)
+    tcache = other.model.init_cache(2, t + 8, dtype=torch.float32, device="cpu")
+    jl, jcache = other.jmodel.prefill(other.jparams, jnp.asarray(toks), jcache)
+    tl, tcache = other.model.prefill(other.tparams, torch.from_numpy(toks).long(), tcache)
+    _close(tl, jl)
+    n_global = (cfg.n_layers // cfg.global_every if cfg.sliding_window
+                else cfg.n_layers)
+    assert len(calls) == n_global == (1 if other.arch == "gemma3-1b" else cfg.n_layers)
+    for step in range(3):
+        cur = np.asarray(jnp.argmax(jl, -1))[:, None].astype(np.int32)
+        assert np.array_equal(cur[:, 0], torch.argmax(tl, -1).numpy())
+        jl, jcache = other.jmodel.decode_step(other.jparams, jcache, jnp.asarray(cur))
+        tl, tcache = other.model.decode_step(other.tparams, tcache,
+                                             torch.from_numpy(cur).long())
+        _close(tl, jl)
+        assert tcache["idx"] == int(jcache["idx"]) == t + 1 + step
+    assert len(calls) == n_global
+
+
+def _long_requests(cls, cfg, lo, hi, n=6, new=10):
+    rng = np.random.default_rng(1)
+    return [cls(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                           size=int(rng.integers(lo, hi))).astype(np.int32),
+                max_new_tokens=new) for i in range(n)]
+
+
+def test_other_archs_serving_engine_matches_jax(jx, other):
+    """Left-padded waves and greedy decoding: the JAX engine's tokens.
+    gemma3-1b's prompts run 33-60 tokens, past its window, so the padding's
+    shift of positions under the window is exercised as the JAX engine
+    has it."""
+    lo, hi = (33, 61) if other.arch == "gemma3-1b" else (4, 12)
+    jeng = jx.engine.ServingEngine(other.jmodel, other.jparams, batch_slots=4,
+                                   max_seq=80)
+    teng = ServingEngine(other.model, other.tparams, batch_slots=4, max_seq=80,
+                         device="cpu")
+    for jr, tr in zip(_long_requests(jx.engine.Request, other.cfg, lo, hi),
+                      _long_requests(Request, other.cfg, lo, hi)):
+        jeng.submit(jr)
+        teng.submit(tr)
+    jdone, tdone = jeng.run(), teng.run()
+    assert [r.rid for r in tdone] == [r.rid for r in jdone] == list(range(6))
+    for jr, tr in zip(jdone, tdone):
+        assert tr.done and len(tr.output) == 10
+        assert tr.output == [int(t) for t in jr.output], tr.rid
