@@ -193,6 +193,37 @@ is printed:
     profiled step by kernel class; the Adam kernel on the LM's leaves
     against its plain version (1e-6), its CUDA-event ms beside
     ``torch.optim.AdamW(fused=True)``'s and the bound.
+17. The layout stage and γ, with a fresh layout cache: (a)
+    ``plan_layout`` on phase 4's graph at width 256, ``cuda``, fused:
+    each order's block count beside its column-stream length, each timed
+    candidate (one ``bc`` a block height) beside its cost-model score,
+    the winner, measured; a second call a cache hit that measures
+    nothing; then phase 4's program at ``layout="auto"`` from phase 4's
+    weights with phase 4's gates against the torch program at the same
+    layout, its first step's logits in user order within 1e-4 of phase
+    4's, its losses within 1e-3 relative of phase 4's at every epoch,
+    the median epoch and a profiled epoch beside phase 4's; (b) the same
+    for the quickstart at width 32; (c) γ measured (``measure_gamma``,
+    the microbenchmark of ``calibrate_gamma``: the Hopper ``bsr_spmm``
+    over X's nonzero columns against fp32 ``torch.matmul``, CUDA events)
+    at the JAX package's default shape (1,024 x 1,024 -> 64, launch-bound
+    on this card) and at the quickstart's layer 0 (corafull's X ->
+    32), the decision each γ gives the quickstart's and GT's layer 0,
+    and the quickstart's epoch with layer 0 forced sparse (γ 0.20, the
+    default, which stays) and dense (γ 0.01), in turns, losses within
+    1e-3 relative.
+18. The runtime: (a) phase 4's GCN and weights through
+    ``FullBatchTrainer`` under ``GuardPolicy()`` with epoch 3's
+    gradients poisoned with NaN: that epoch's params bitwise those before
+    it, every loss finite; the epoch-10 save killed (``checkpoint_kill``)
+    leaves step 5 the newest checkpoint, from which a fresh trainer
+    resumes to the uninterrupted run's params bit for bit; the host ms
+    of a save and a restore, the guarded epoch beside phase 4's; (b)
+    phase 14's SAGE-mean over the train mask cut to 4,096 nodes (4
+    steps an epoch), interrupted after epoch 1 and resumed to epoch 2:
+    every batch's seed ids, the losses and the params bitwise the
+    uninterrupted run's (where they are not, the uninterrupted run is
+    repeated and the resume held to the repeat's difference).
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -210,6 +241,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from collections import defaultdict
@@ -221,9 +253,30 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.core import layout as layout_mod  # noqa: E402
 from repro_torch.core.dsl import GNNProgram  # noqa: E402
+from repro_torch.core.layout import (  # noqa: E402
+    _candidate_grid,
+    _load_cache,
+    _model_scores,
+    column_stream,
+    plan_layout,
+)
+from repro_torch.core.sparsity import (  # noqa: E402
+    PAPER_GAMMA_DEFAULT,
+    decide_execution_path_from_stats,
+    measure_gamma,
+)
 from repro_torch.backends import get_backend  # noqa: E402
-from repro_torch.graph.csr import csr_from_dense, csr_from_edges, csr_to_bsr  # noqa: E402
+from repro_torch.graph.csr import (  # noqa: E402
+    REORDER_MODES,
+    adaptive_bc,
+    bsr_block_count,
+    csr_from_dense,
+    csr_from_edges,
+    csr_to_bsr,
+    reorder_graph,
+)
 from repro_torch.graph.datasets import generate_dataset  # noqa: E402
 from repro_torch.graph.sampling import _pad_bsr  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -235,6 +288,7 @@ from repro_torch.kernels.bsr_attention import (  # noqa: E402
     bsr_attention_fwd,
 )
 from repro_torch.kernels.bsr_spmm import (  # noqa: E402
+    BUILT_BR,
     bsr_spmm,
     bsr_spmm_fused_epilogue,
     bsr_spmm_masked,
@@ -268,9 +322,22 @@ from repro_torch.models.model_zoo import (  # noqa: E402
 from repro_torch.models.transformer import _layer_window  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.models.gnn import GNNConfig  # noqa: E402
+from repro_torch.runtime import (  # noqa: E402
+    FaultInjector,
+    FaultSpec,
+    GuardPolicy,
+    InjectedFault,
+    list_checkpoints,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from repro_torch.training.optimizer import adam, adamw, bias_corrected_lr, tree_leaves  # noqa: E402
 from repro_torch.training.schedule import warmup_cosine  # noqa: E402
-from repro_torch.training.trainer import MiniBatchTrainer, value_and_grad  # noqa: E402
+from repro_torch.training.trainer import (  # noqa: E402
+    FullBatchTrainer,
+    MiniBatchTrainer,
+    value_and_grad,
+)
 from repro_torch.launch.serve import build_engine, drive  # noqa: E402
 from repro_torch.serving.gnn_engine import GNNServingEngine  # noqa: E402
 
@@ -304,6 +371,14 @@ GAT_ADAM = ("adam", 0.002, 0.9, 0.999)
 #: over one batch
 SAGE_EPOCHS = 2
 GAT_STEPS = 4
+#: phase 17: γ below which the quickstart's layer 0 (s = 0.95) runs dense
+#: (τ = 1 - γ above s)
+DENSE_GAMMA = 0.01
+#: phase 18: the guarded GCN's poisoned epoch and its checkpoint interval;
+#: the sampled resume's epochs (interrupted after the first)
+POISONED_EPOCH = 3
+CKPT_EVERY = 5
+RESUME_EPOCHS = 2
 
 #: every kernel wrapper of the port, by the name the kernels line uses
 KERNELS = {"bsr_spmm": bsr_spmm,
@@ -403,6 +478,9 @@ class Sizes:
     # GAT_STEPS steps
     sampled_batch_size: int = 1024
     sage_cut: int = 8192
+    # phase 18: sampled SAGE-mean resumed over the train mask cut to
+    # `resume_cut` nodes, RESUME_EPOCHS epochs
+    resume_cut: int = 4096
 
 
 def zero_counts() -> None:
@@ -1508,21 +1586,29 @@ def nzc_build(prog, device) -> dict:
                               ("A^T", prog.plan.graph_op.bwd_operand))}
 
 
-def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
+def train_path(name, gnn, device, epochs: int, expected: dict,
+               layout=None, weights=None) -> dict:
     """One training path: the ``cuda`` program (fused Adam) and the
-    ``torch`` program (plain versions, plain Adam) from the same weights,
-    ``epochs`` epochs each; counts zeroed just before the cuda run and read
-    after every epoch, each epoch's launches exactly ``expected`` (kernel
-    name -> launches; every other kernel 0)."""
+    ``torch`` program (plain versions, plain Adam) from the same weights
+    (``weights`` where given, else the program's seed) at the cuda
+    program's layout (``layout`` as ``compile`` takes it), ``epochs``
+    epochs each; counts zeroed just before the cuda run and read after
+    every epoch, each epoch's launches exactly ``expected`` (kernel name
+    -> launches; every other kernel 0). ``logits0``: the cuda program's
+    logits at the first step, in user node order, on the host."""
     t0 = time.perf_counter()
-    prog = gnn.compile(engine="cuda", device=device, fused_optimizer=True)
+    prog = gnn.compile(engine="cuda", device=device, fused_optimizer=True,
+                       layout=layout, params=weights)
     sync(device)
     build_s = time.perf_counter() - t0
     weights = {"layers": [{k: v.detach().cpu().numpy() for k, v in layer.items()}
                           for layer in prog.params["layers"]]}
+    with torch.no_grad():
+        logits0 = prog.model.apply(prog.params, prog.x).cpu()
     t0 = time.perf_counter()
     ref = gnn.compile(engine="torch", device=device, fused_optimizer=False,
-                      params=weights)
+                      params=weights,
+                      layout=None if layout is None else prog.plan.layout)
     sync(device)
     ref_build_s = time.perf_counter() - t0
     print(f"[{name}] plan (operands built in {build_s:.1f}s + {ref_build_s:.1f}s "
@@ -1575,6 +1661,7 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
            "ref_build_s": ref_build_s, "operand_bytes": prog.plan.graph_op.fwd_bytes,
            "nonzero_columns": nzc,
            "peak_mem_bytes": peak, "accuracy": prog.accuracy(),
+           "layout": prog.plan.layout.describe(),
            "grad_start": grad_start, "grad_end": grad_end,
            "param_rel_diff": param_diff}
     # each fused call and attention forward and row pass runs on A, each
@@ -1592,7 +1679,8 @@ def train_path(name, gnn, device, epochs: int, expected: dict) -> dict:
                                    {**want, **second})
     print(f"[{name}] " + json.dumps({k: v for k, v in out.items()
                                      if k not in ("epoch_ms",)}))
-    return {"summary": out, "prog": prog, "ref": ref, "weights": weights}
+    return {"summary": out, "prog": prog, "ref": ref, "weights": weights,
+            "logits0": logits0}
 
 
 def pair_unequal_paddings(prog, device) -> float:
@@ -3169,6 +3257,353 @@ def gemma_and_training(sizes: Sizes, device) -> dict:
             "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# Phases 17-18: the layout stage and γ, and the single-device runtime
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def layout_cache():
+    """A fresh layout cache for the run: ``MORPHLING_LAYOUT_CACHE`` points
+    into a temporary directory (the lowering's ``layout="auto"`` reads
+    it), restored after."""
+    before = os.environ.get("MORPHLING_LAYOUT_CACHE")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "layout_cache.json")
+        os.environ["MORPHLING_LAYOUT_CACHE"] = path
+        try:
+            yield path
+        finally:
+            if before is None:
+                os.environ.pop("MORPHLING_LAYOUT_CACHE", None)
+            else:
+                os.environ["MORPHLING_LAYOUT_CACHE"] = before
+
+
+def order_stats(graph, f: int, device) -> dict:
+    """Each order's BSR block count at the order rule's reference tile (8
+    x the adaptive bc) beside the Hopper kernels' column stream (its
+    length at each built block height) and, on the card, the fused
+    kernel's forward at width ``f`` and br 8 timed as the autotuner times
+    a candidate: does the block count rank the orders as the card does?"""
+    bc = adaptive_bc(graph.n_cols)
+    out = {}
+    for mode in ("none",) + REORDER_MODES:
+        g = graph if mode == "none" else reorder_graph(graph, mode)[0]
+        out[mode] = {"blocks_8x%d" % bc: bsr_block_count(g, 8, bc),
+                     **{f"columns_br{br}": column_stream(g, br)[0]
+                        for br in BUILT_BR}}
+        if device.type == "cuda":
+            ms, = layout_mod._time_scores(g, f, "cuda", True, [(8, 16, 0)], 0,
+                                          device)
+            out[mode]["fused_ms_br8"] = ms * 1e3
+    return out
+
+
+def plan_phase(name: str, graph, f: int, device, cache: str) -> dict:
+    """``plan_layout`` on ``cuda`` at width ``f``, fused: the orders'
+    block counts and column streams, each timed candidate's median ms
+    (read back from the cache entry) beside its cost-model score, the
+    winner (measured on the card); then the same call again, a cache hit
+    that measures nothing."""
+    t0 = time.perf_counter()
+    stats = order_stats(graph, f, device)
+    stats_s = time.perf_counter() - t0
+    calls = layout_mod.measure_calls()
+    t0 = time.perf_counter()
+    plan = plan_layout(graph, f, backend="cuda", fused=True, device=device,
+                       cache_path=cache)
+    plan_s = time.perf_counter() - t0
+    timed = layout_mod.measure_calls() - calls
+    on_card = device.type == "cuda"
+    if plan.source != ("measured" if on_card else "cost-model"):
+        raise AssertionError(f"[{name}] plan source {plan.source}")
+    g_r = graph if plan.reordered_graph is None else plan.reordered_graph
+    grid = _candidate_grid(g_r, f, None, True, "cuda")
+    scores = _load_cache(cache)[plan.fingerprint]["scores"]
+    model = dict(zip((f"{br}x{bc}x{bf}" for br, bc, bf in grid),
+                     _model_scores(g_r, f, grid, "cuda")))
+    candidates = {k: {"median_ms": v * 1e3 if on_card else None,
+                      "model_score": model[k]} for k, v in scores.items()}
+    t0 = time.perf_counter()
+    again = plan_layout(graph, f, backend="cuda", fused=True, device=device,
+                        cache_path=cache)
+    hit_s = time.perf_counter() - t0
+    if again.source != "cache" or layout_mod.measure_calls() != calls + timed:
+        raise AssertionError(f"[{name}] the second plan must be a cache hit "
+                             f"that measures nothing: {again.source}")
+    if (again.order, again.br, again.bc) != (plan.order, plan.br, plan.bc):
+        raise AssertionError(f"[{name}] the cache hit's layout differs")
+    out = {"order": plan.order, "winner": f"{plan.br}x{plan.bc}",
+           "describe": plan.describe(), "source": plan.source,
+           "measured_candidates": timed, "orders": stats,
+           "candidates": candidates, "plan_s": plan_s, "cache_hit_s": hit_s,
+           "order_stats_s": stats_s, "f": f}
+    print(f"[{name}] layout plan: {json.dumps(out)}")
+    return out
+
+
+def auto_path(name: str, gnn, base: dict, device, epochs: int,
+              expected: dict) -> dict:
+    """``compile(layout="auto")`` (the plan just cached) from the
+    identity-layout path ``base``'s weights: ``train_path``'s gates
+    against the torch program at the same layout, the first step's
+    logits in user order against ``base``'s (1e-4), and every epoch's
+    loss within 1e-3 relative of ``base``'s."""
+    run = train_path(name, gnn, device, epochs, expected, layout="auto",
+                     weights=base["weights"])
+    prog = run["prog"]
+    if prog.plan.layout.source != "cache":
+        raise AssertionError(f"[{name}] compile must take the cached plan")
+    err = check_close(f"[{name}] first-step logits against the identity "
+                      "layout's", run["logits0"], base["logits0"])
+    ours, theirs = run["summary"]["losses"], base["summary"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(ours, theirs)]
+    if not max(rel) <= 1e-3:
+        raise AssertionError(f"[{name}] losses {ours} vs identity {theirs}")
+    s = run["summary"]
+    s.update(logits_max_abs_err=err, identity_rel_diff=max(rel),
+             identity_epoch_ms_median=base["summary"]["epoch_ms_median"],
+             identity_profile=base["summary"]["profile"].get("device_ms"))
+    print(f"[{name}] layout {s['layout']}: median epoch "
+          f"{s['epoch_ms_median']:.2f} ms against the identity layout's "
+          f"{s['identity_epoch_ms_median']:.2f}; device ms "
+          f"{json.dumps(s['profile'].get('device_ms'))} against "
+          f"{json.dumps(s['identity_profile'])}")
+    del run["prog"], run["ref"]
+    return s
+
+
+def gamma_phase(qgnn, quick: dict, qds, device, epochs: int) -> dict:
+    """γ measured twice (``measure_gamma``, the microbenchmark behind
+    ``calibrate_gamma``: the ``cuda`` plan's sparse X·W against fp32
+    ``torch.matmul``): at the JAX package's default shape and at the
+    quickstart's layer 0 (corafull's X → 32); the decision each γ gives
+    the quickstart's and GT's layer 0; then the quickstart's epoch with
+    layer 0 forced sparse (γ 0.20) and dense (``DENSE_GAMMA``), epochs
+    in turns from phase 6's weights, losses within 1e-3 relative."""
+    zero_counts()
+    measured = {}
+    for label, kw in (("JAX's default 1024x1024->64, s=0.9 (launch-bound on "
+                       "the card)", {}),
+                      (f"quickstart layer 0 {qds.features.shape[0]}x"
+                       f"{qds.features.shape[1]}->32",
+                       dict(x=qds.features, h=32))):
+        m = measure_gamma(engine="cuda", device=device, repeats=20, **kw)
+        measured[label] = dataclasses.asdict(m)
+        print(f"[gamma] {label}: t_dense {m.t_dense * 1e3:.4f} ms, t_sparse "
+              f"{m.t_sparse * 1e3:.4f} ms, eta_dense {m.eta_dense / 1e12:.3f} "
+              f"TFLOP/s, eta_sparse {m.eta_sparse / 1e12:.3f} TFLOP/s, gamma "
+              f"{m.gamma:.4f}")
+    n, f = qds.features.shape
+    decisions = {}
+    for label, m in measured.items():
+        d = decide_execution_path_from_stats(qds.feature_sparsity, n, f, 32,
+                                             gamma=m["gamma"])
+        # GT's layer 0 is [8710 -> 32] on corafull too: the same decision
+        decisions[label] = {"quickstart_and_gt_layer0": d.mode,
+                            "threshold": d.threshold,
+                            "predicted_speedup": d.predicted_speedup}
+    print(f"[gamma] decisions at s={qds.feature_sparsity:.4f}: "
+          f"{json.dumps(decisions)}")
+    progs = {}
+    for path, gamma in (("sparse", PAPER_GAMMA_DEFAULT), ("dense", DENSE_GAMMA)):
+        qgnn.gamma = gamma
+        progs[path] = qgnn.compile(engine="cuda", device=device,
+                                   fused_optimizer=True, params=quick["weights"])
+        if progs[path].plan.layers[0].feature_path != path:
+            raise AssertionError(f"gamma {gamma} must put layer 0 on {path}")
+    qgnn.gamma = PAPER_GAMMA_DEFAULT
+    losses = {p: [] for p in progs}
+    times = {p: [] for p in progs}
+    for epoch in range(epochs):
+        for p in (("sparse", "dense") if epoch % 2 == 0 else ("dense", "sparse")):
+            t0 = time.perf_counter()
+            losses[p].append(progs[p].train_epoch()["loss"])
+            times[p].append(time.perf_counter() - t0)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["dense"], losses["sparse"])]
+    if not (np.isfinite(losses["dense"]).all() and max(rel) <= 1e-3):
+        raise AssertionError(f"[gamma] dense {losses['dense']} vs sparse "
+                             f"{losses['sparse']}")
+    out = {"measured": measured, "decisions": decisions,
+           "epoch_ms_median": {p: float(np.median(t)) * 1e3
+                               for p, t in times.items()},
+           "epoch_ms": {p: [x * 1e3 for x in t] for p, t in times.items()},
+           "losses": losses, "max_rel_diff": max(rel),
+           "launches": counts(), "default_gamma": PAPER_GAMMA_DEFAULT}
+    print(f"[gamma] quickstart epoch, layer 0 sparse "
+          f"{out['epoch_ms_median']['sparse']:.3f} ms, dense "
+          f"{out['epoch_ms_median']['dense']:.3f} ms (medians of {epochs}, in "
+          f"turns); losses within {max(rel):.2e}")
+    return out
+
+
+def params_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def runtime_phase(gnn, base: dict, device, epochs: int, expected: dict) -> dict:
+    """Phase 18 (a): the arxiv GCN from phase 4's weights through
+    ``FullBatchTrainer`` under the guard (fused Adam 0.01), the injector
+    poisoning epoch ``POISONED_EPOCH``'s gradients with NaN: that epoch's
+    params bitwise those before it, every loss finite; a run whose
+    epoch-10 save is killed leaves step 5 the newest checkpoint, and a
+    fresh trainer resumes from it to the uninterrupted run's params, bit
+    for bit. The host ms of a save and a restore; the guarded epoch beside
+    phase 4's."""
+    prog = gnn.compile(engine="cuda", device=device, fused_optimizer=True,
+                       params=base["weights"])
+    data = (prog.x, prog.labels, prog.train_mask)
+    on_card = device.type == "cuda"
+
+    def trainer(ckpt_dir=None, kill=False):
+        faults = [FaultSpec(site="grad", steps=(POISONED_EPOCH,), mode="nan")]
+        if kill:
+            faults.append(FaultSpec(site="checkpoint_kill", steps=(epochs,)))
+        return FullBatchTrainer(prog.model, adam(*ADAM[1:], fused=True),
+                                ckpt_dir=ckpt_dir, ckpt_every=CKPT_EVERY,
+                                guard=GuardPolicy(),
+                                injector=FaultInjector(0, faults))
+
+    zero_counts()
+    straight = trainer().fit(prog.params, *data, epochs)
+    launched = counts()
+    want = {k: expected.get(k, 0) * epochs if on_card else 0 for k in KERNELS}
+    if launched != want:
+        raise AssertionError(f"[runtime] launched {launched}, expected {want}")
+    if not (np.isfinite(straight.losses).all()
+            and straight.guard["skipped"] == 1):
+        raise AssertionError(f"[runtime] {straight.losses} {straight.guard}")
+    before = trainer().fit(prog.params, *data, POISONED_EPOCH).final_params
+    after = trainer().fit(prog.params, *data, POISONED_EPOCH + 1).final_params
+    if not params_equal(before, after):
+        raise AssertionError("[runtime] the poisoned epoch changed the params")
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            trainer(d, kill=True).fit(prog.params, *data, epochs)
+            raise AssertionError("[runtime] the killed save did not raise")
+        except InjectedFault:
+            pass
+        left = list_checkpoints(d)
+        if left != [CKPT_EVERY]:
+            raise AssertionError(f"[runtime] checkpoints after the kill: {left}")
+        resumed = trainer(d).fit(prog.params, *data, epochs)
+        if not (resumed.restored_from == CKPT_EVERY
+                and resumed.losses == straight.losses[CKPT_EVERY:]
+                and params_equal(resumed.final_params, straight.final_params)):
+            raise AssertionError(f"[runtime] the resume is not bitwise: "
+                                 f"{resumed.losses} vs {straight.losses}")
+        opt = adam(*ADAM[1:], fused=True)
+        state = (straight.final_params, opt.init(straight.final_params))
+        save_ms, restore_ms = [], []
+        for i in range(5):
+            sync(device)
+            t0 = time.perf_counter()
+            save_checkpoint(os.path.join(d, "timed"), i + 1, state)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            restored, _ = restore_checkpoint(os.path.join(d, "timed"), state)
+            sync(device)
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state[0]))
+    out = {"losses": straight.losses, "guard": straight.guard,
+           "epoch_ms_median": float(np.median(straight.epoch_times)) * 1e3,
+           "unguarded_epoch_ms_median": base["summary"]["epoch_ms_median"],
+           "resumed_losses": resumed.losses, "save_ms_median": float(np.median(save_ms)),
+           "restore_ms_median": float(np.median(restore_ms)),
+           "save_ms": save_ms, "restore_ms": restore_ms,
+           "state_bytes": 3 * nbytes, "launches": launched}
+    print(f"[runtime] guarded GCN: epoch {POISONED_EPOCH} skipped bitwise, "
+          f"losses finite, the epoch-{epochs} save killed, resumed from "
+          f"{CKPT_EVERY} bitwise; guarded epoch {out['epoch_ms_median']:.2f} ms "
+          f"(phase 4 unguarded {out['unguarded_epoch_ms_median']:.2f}); save "
+          f"{out['save_ms_median']:.1f} ms, restore {out['restore_ms_median']:.1f} "
+          f"ms of {out['state_bytes'] / 2**20:.1f} MiB (params, m, v; host "
+          "clock, synchronised, medians of 5)")
+    del prog
+    return out
+
+
+def recorded_seeds(tr) -> list:
+    """Every batch's seed ids the trainer's epochs draw, in order."""
+    seeds, draw = [], tr.sampler.epoch_batches
+
+    def epoch_batches(*args, **kw):
+        for batch in draw(*args, **kw):
+            seeds.append(batch.seeds.copy())
+            yield batch
+
+    tr.sampler.epoch_batches = epoch_batches
+    return seeds
+
+
+def sampled_resume(ds, sizes: Sizes, device) -> dict:
+    """Phase 18 (b): phase 14's SAGE-mean (fused Adam 0.01, fanouts and
+    batches as there), the train mask cut to ``resume_cut`` nodes,
+    interrupted after epoch 1 and resumed by a fresh trainer to epoch
+    ``RESUME_EPOCHS``: every batch's seed ids, the losses and the params
+    bitwise those of the uninterrupted run. Where they are not, the
+    uninterrupted run is repeated: the resume must then be no further
+    from it than the repeat is."""
+    dims = [ds.features.shape[1], *sizes.train_hidden, ds.n_classes]
+    cfg = GNNConfig(kind="SAGE", layer_dims=dims, aggregation="mean")
+    mask = train_cut(ds.train_mask, sizes.resume_cut)
+
+    def trainer(**kw):
+        return MiniBatchTrainer(cfg, ds.graph, ds.features, ds.labels, mask,
+                                adam(*ADAM[1:], fused=True),
+                                fanouts=tuple(sizes.fanouts),
+                                batch_size=sizes.sampled_batch_size,
+                                engine="cuda", seed=0, device=device, **kw)
+
+    def diff(a, b) -> float:
+        return max(float((x - y).abs().max())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    zero_counts()
+    t0 = time.perf_counter()
+    s = trainer()
+    s_seeds = recorded_seeds(s)
+    rs = s.fit(RESUME_EPOCHS)
+    straight_s = time.perf_counter() - t0
+    launched = counts()
+    steps = len(s_seeds) // RESUME_EPOCHS
+    per_step = sampled_per_step(s.plan)
+    want = {k: per_step.get(k, 0) * steps * RESUME_EPOCHS
+            if device.type == "cuda" else 0 for k in KERNELS}
+    if launched != want:
+        raise AssertionError(f"[resume] launched {launched}, expected {want}")
+    with tempfile.TemporaryDirectory() as d:
+        trainer(ckpt_dir=d, ckpt_every=1).fit(1)
+        b = trainer(ckpt_dir=d, ckpt_every=1)
+        b_seeds = recorded_seeds(b)
+        rb = b.fit(RESUME_EPOCHS)
+    if rb.restored_from != 1:
+        raise AssertionError(f"[resume] restored from {rb.restored_from}")
+    tail = s_seeds[steps:]
+    if len(b_seeds) != len(tail) or not all(
+            np.array_equal(x, y) for x, y in zip(b_seeds, tail)):
+        raise AssertionError("[resume] the resumed batches' seeds differ")
+    bitwise = rb.losses == rs.losses[1:] and params_equal(b.params, s.params)
+    out = {"steps_per_epoch": steps, "epochs": RESUME_EPOCHS,
+           "cut": int(mask.sum()), "losses": rs.losses,
+           "resumed_losses": rb.losses, "bitwise": bitwise,
+           "straight_s": straight_s, "launches": launched}
+    if not bitwise:
+        r = trainer()
+        r.fit(RESUME_EPOCHS)
+        out["repeat_param_max_abs_diff"] = diff(r.params, s.params)
+        out["resume_param_max_abs_diff"] = diff(b.params, s.params)
+        print(f"[resume] not bitwise: {json.dumps(out)}")
+        if not out["resume_param_max_abs_diff"] <= out["repeat_param_max_abs_diff"]:
+            raise AssertionError("[resume] the resume is further from the "
+                                 "uninterrupted run than a repeat is")
+    print(f"[resume] sampled SAGE-mean, {steps} steps an epoch over "
+          f"{out['cut']} seeds, interrupted after epoch 1 and resumed: seeds "
+          f"bitwise, losses and params {'bitwise' if bitwise else 'within the repeat'}"
+          f" ({straight_s:.1f}s uninterrupted)")
+    return out
+
+
 def sum_rows(rows: list) -> dict:
     """Timed or bounded calls summed: times, bounds, bytes and operations;
     ``ms_by`` and ``bound_by`` of the sum."""
@@ -3317,8 +3752,29 @@ def lm_entries(entries: list, lm2: dict) -> None:
                  "its device time inside a profiled training step"}
 
 
+def layout_entries(entries: list, auto: dict, gamma: dict) -> None:
+    """Phase 17 beside the SpMM kernels' entries: each one's device ms in
+    a profiled epoch at the autotuned layout beside the identity layout's
+    (phases 4 and 6), and γ's two measurements beside ``bsr_spmm``."""
+    by_name = {e["name"]: e for e in entries}
+    for name in ("bsr_spmm", "bsr_spmm_fused_epilogue", "bsr_spmm_masked"):
+        by_name[name]["autotuned"] = {
+            path: {"layout": a["layout"],
+                   "ms": (a["profile"]["device_ms"].get(name, 0.0)
+                          if a["profile"]["complete"] else None),
+                   "identity_ms": (a["identity_profile"] or {}).get(name),
+                   "launches_an_epoch": a["per_epoch"][name],
+                   "epoch_ms_median": a["epoch_ms_median"],
+                   "identity_epoch_ms_median": a["identity_epoch_ms_median"]}
+            for path, a in auto.items()}
+    by_name["bsr_spmm"]["gamma"] = {
+        label: {k: m[k] for k in ("t_dense", "t_sparse", "eta_dense",
+                                  "eta_sparse", "gamma")}
+        for label, m in gamma["measured"].items()}
+
+
 def run(sizes: Sizes, device) -> dict:
-    """Phases 2 to 16 at ``sizes`` on ``device``; returns the kernels line
+    """Phases 2 to 18 at ``sizes`` on ``device``; returns the kernels line
     and the details."""
     t_start = t0 = time.perf_counter()
     ds = generate_dataset(sizes.dataset, scale=sizes.scale, seed=0)
@@ -3361,9 +3817,9 @@ def run(sizes: Sizes, device) -> dict:
     n = len(dims) - 1
     gnn = (GNNProgram.load(ds, arch="GCN", aggregation="gcn")
            .initialize_layers(dims, "xavier", seed=0).set_optimizer(*ADAM))
-    train = train_path("train", gnn, device, sizes.epochs, {
-        "bsr_spmm_fused_epilogue": n, "bsr_spmm_masked": n - 1, "bsr_spmm": 1,
-        "fused_adam": 1})
+    train_expect = {"bsr_spmm_fused_epilogue": n, "bsr_spmm_masked": n - 1,
+                    "bsr_spmm": 1, "fused_adam": 1}
+    train = train_path("train", gnn, device, sizes.epochs, train_expect)
     if any(l.feature_path != "dense" for l in train["prog"].plan.layers):
         raise AssertionError("the main path's features are dense")
     adam_leaves = {"gcn": tree_leaves(train["prog"].params)}
@@ -3386,9 +3842,9 @@ def run(sizes: Sizes, device) -> dict:
     qn = len(qdims) - 1
     qgnn = (GNNProgram.load(qds, arch="GCN", aggregation="gcn")
             .initialize_layers(qdims, "xavier", seed=0).set_optimizer(*ADAM))
-    quick = train_path("quickstart", qgnn, device, sizes.epochs, {
-        "bsr_spmm_fused_epilogue": qn, "bsr_spmm_masked": qn - 1,
-        "bsr_spmm": 3, "fused_adam": 1})
+    quick_expect = {"bsr_spmm_fused_epilogue": qn, "bsr_spmm_masked": qn - 1,
+                    "bsr_spmm": 3, "fused_adam": 1}
+    quick = train_path("quickstart", qgnn, device, sizes.epochs, quick_expect)
     if quick["prog"].plan.layers[0].primitive != "cuda.feature_matmul_sparse":
         raise AssertionError("the quickstart's layer 0 must bind "
                              "cuda.feature_matmul_sparse")
@@ -3488,6 +3944,29 @@ def run(sizes: Sizes, device) -> dict:
     # llama3.2-1b training
     lm2 = gemma_and_training(sizes, device)
     phase_s.update(lm2["phase_s"])
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # phase 17: the layout stage and γ; a fresh cache, which the lowering's
+    # layout="auto" reads too
+    t0 = time.perf_counter()
+    with layout_cache() as cache:
+        lay = {"train": plan_phase("layout-arxiv", ds.graph, dims[1], device, cache)}
+        auto = {"train": auto_path("train-auto", gnn, train, device, sizes.epochs,
+                                   train_expect)}
+        lay["quickstart"] = plan_phase("layout-quickstart", qds.graph, qdims[1],
+                                       device, cache)
+        auto["quickstart"] = auto_path("quickstart-auto", qgnn, quick, device,
+                                       sizes.epochs, quick_expect)
+    gamma = gamma_phase(qgnn, quick, qds, device, sizes.epochs)
+    phase_s["17"] = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # phase 18: the runtime (guard, injector, checkpoints, resume)
+    t0 = time.perf_counter()
+    runtime = runtime_phase(gnn, train, device, sizes.epochs, train_expect)
+    resume = sampled_resume(ds, sizes, device)
+    phase_s["18"] = time.perf_counter() - t0
 
     attn_err = max(ak["err"]["edge"], attn_pair_err)
     nonfinite = max(edge["nonfinite"], fk["err"]["nonfinite"])
@@ -3513,19 +3992,25 @@ def run(sizes: Sizes, device) -> dict:
                "lm_training": lm2["lm_train"]["launches"],
                "gat_serving_sampled": gat_serve["launched"],
                **{f"{p}_sampled": sampled[p]["launches"]
-                  for p in ("sage", "gat", "gt", "max")}}
+                  for p in ("sage", "gat", "gt", "max")},
+               "train_auto": auto["train"]["launches"],
+               "quickstart_auto": auto["quickstart"]["launches"],
+               "gamma": gamma["launches"], "runtime": runtime["launches"],
+               "sage_resume": resume["launches"]}
     entries = kernel_entries(serving_entry, by_path, fk, ak, adam, errs, dims,
                              train["summary"]["profile"],
                              gat["summary"]["profile"], flash_entry(fa))
     entries[0]["quickstart"] = qk["rows"]
     sampled_entries(entries, gat_serve, sampled)
     lm_entries(entries, lm2)
+    layout_entries(entries, auto, gamma)
     return {"kernels": entries, "layers": layers, "serve": serve,
             "sample_s": kern["sample_s"], "train": train["summary"],
             "quickstart": quick["summary"], "gat": gat["summary"],
             "gt": gt["summary"], "lm": lm_summary, "flash": fa, "adam": adam,
             "gemma": lm2["gemma"], "gemma_flash": lm2["gemma_flash"],
-            "lm_train": lm2["lm_train"],
+            "lm_train": lm2["lm_train"], "layout": lay, "auto": auto,
+            "gamma": gamma, "runtime": runtime, "resume": resume,
             "gat_serving_sampled": {k: v for k, v in gat_serve.items() if k != "rows"},
             "sampled": {p: {k: v for k, v in r.items() if k != "rows"}
                         for p, r in sampled.items()},
@@ -3615,7 +4100,23 @@ def main() -> int:
           f"{t['max_rel_diff']:.2e}, peak {t['peak_mem_bytes'] / 2**30:.2f} GiB; Adam "
           f"{t['adam']['ms']:.3f} ms a launch (bound {t['adam']['bound_ms']:.3f}, "
           f"AdamW(fused=True) {t['adam']['library_ms']:.3f}) on {card}")
-    print(f"[done] phases 2-16 in {time.perf_counter() - t_all:.1f}s: "
+    for path, a in result["auto"].items():
+        print(f"[{path}-auto] {a['layout']}: median epoch {a['epoch_ms_median']:.2f} "
+              f"ms (identity layout {a['identity_epoch_ms_median']:.2f}), loss "
+              f"within {a['identity_rel_diff']:.2e} of the identity layout's on {card}")
+    g = result["gamma"]
+    print(f"[gamma] " + "; ".join(
+        f"{k}: gamma {m['gamma']:.4f} (t_dense {m['t_dense'] * 1e3:.4f} ms, "
+        f"t_sparse {m['t_sparse'] * 1e3:.4f} ms)" for k, m in g["measured"].items())
+          + f"; quickstart epoch sparse {g['epoch_ms_median']['sparse']:.3f} ms, "
+          f"dense {g['epoch_ms_median']['dense']:.3f} ms on {card}")
+    r = result["runtime"]
+    print(f"[runtime] guarded epoch {r['epoch_ms_median']:.2f} ms (unguarded "
+          f"{r['unguarded_epoch_ms_median']:.2f}), save {r['save_ms_median']:.1f} "
+          f"ms, restore {r['restore_ms_median']:.1f} ms; sampled resume "
+          f"{'bitwise' if result['resume']['bitwise'] else 'within the repeat'} "
+          f"on {card}")
+    print(f"[done] phases 2-18 in {time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

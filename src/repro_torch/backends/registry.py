@@ -35,8 +35,6 @@ OP_VOCABULARY = (
     "feature_matmul_dense",
 )
 
-LAYOUT_ITEM = "ROADMAP.md Queue 1, item 5 (layout autotuner)"
-RUNTIME_ITEM = "ROADMAP.md Queue 1, item 6 (runtime)"
 VERIFY_ITEM = "ROADMAP.md Queue 1, item 8 (verifier)"
 LM_ITEM = "ROADMAP.md Queue 1, item 9 (LM substrate)"
 

@@ -137,7 +137,9 @@ class GNNProgram:
         "gather"``; ``None`` is ``cuda``); ``device`` is CUDA unless asked
         (``"cpu"`` runs the plain versions, as the tests do).
         ``fused_optimizer=True`` runs Adam through the fused kernel.
-        ``layout`` takes ``None | "none" | "degree" | "rcm"``.
+        ``layout`` takes ``None | "none" | "auto" | "degree" | "rcm"``:
+        ``"auto"`` runs the layout-optimization stage (graph reordering
+        and cached tile autotuning, DESIGN.md §9).
         ``fuse_attention=False`` keeps GAT / GT on the segment-softmax
         gather path instead of the fused BSR attention. ``params``
         takes the JAX package's parameters as a numpy tree

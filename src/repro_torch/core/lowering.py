@@ -13,9 +13,11 @@ Both paths run every arch (GCN, SAGE mean/sum/gcn/max, GIN, GAT, GT);
 attention archs bind the fused ``spmm_attention`` on ``cuda``/``torch``
 (an ``AttentionPlan`` per layer), the sampled path over each batch's
 padded (A, Aᵀ) pair, and ``max`` binds ``gather.segment_max``.
-``layout="auto"`` waits for ROADMAP.md Queue 1, item 5; the distributed
-lowering for item 7; the plan-contract verifier (``check_plan``) for
-item 8, and a full-batch plan's ``describe()`` says so.
+``layout="auto"`` runs the layout stage (``core/layout.py:plan_layout``:
+node order and a tile timed on this device, cached on disk). The
+distributed lowering waits for ROADMAP.md Queue 1, item 7; the
+plan-contract verifier (``check_plan``) for item 8, and a full-batch
+plan's ``describe()`` says so.
 """
 from __future__ import annotations
 
@@ -27,17 +29,18 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.backends import Backend, select_backend
-from repro_torch.backends.registry import (
-    LAYOUT_ITEM,
-    VERIFY_ITEM,
-    not_ported,
-)
+from repro_torch.backends.registry import VERIFY_ITEM
 from repro_torch.core.aggregate import (
     FusedGraphOp,
     _weighted_graph,
     make_fused_aggregate,
 )
-from repro_torch.core.layout import LayoutPlan, _select_order, default_layout
+from repro_torch.core.layout import (
+    LayoutPlan,
+    _select_order,
+    default_layout,
+    plan_layout,
+)
 from repro_torch.core.sparsity import (
     PAPER_GAMMA_DEFAULT,
     SparsityDecision,
@@ -443,27 +446,41 @@ def _sparse_expressible(kind: str) -> tuple[bool, str]:
     return False, f"no sparse lowering for {kind}"
 
 
-def _resolve_layout(graph: CSRGraph, layout: "LayoutPlan | str | None",
-                    br: Optional[int], bc: Optional[int]) -> LayoutPlan:
+def _resolve_layout(
+    graph: CSRGraph,
+    f_dim: int,
+    backend_name: str,
+    fused: bool,
+    layout: "LayoutPlan | str | None",
+    br: Optional[int],
+    bc: Optional[int],
+    device: torch.device,
+    n_heads: int = 0,
+    attention: bool = False,
+) -> LayoutPlan:
     """Turn a ``layout=`` argument into a concrete ``LayoutPlan``.
 
     * ``None`` / ``"none"`` — identity order, explicit ``br``/``bc`` when
       given, the adaptive ``bc`` otherwise;
+    * ``"auto"`` — the full layout stage: order selection and tile
+      autotuning with the disk cache (``core/layout.py:plan_layout``),
+      timed on ``device`` where that times the backend's kernels;
     * ``"degree"`` / ``"rcm"`` — that order with the same tile;
-    * a ``LayoutPlan`` — passes through untouched;
-    * ``"auto"`` (order selection + tile autotuning) is not ported.
+    * a ``LayoutPlan`` — passes through untouched.
 
-    Explicit ``br``/``bc`` with a ``LayoutPlan`` is a conflict (the layout
-    carries the tile) and raises.
+    Explicit ``br``/``bc`` with ``"auto"`` or a ``LayoutPlan`` is a
+    conflict (the layout carries the tile) and raises.
     """
-    if layout == "auto":
-        raise not_ported("layout='auto' (the tile autotuner)", LAYOUT_ITEM)
-    if isinstance(layout, LayoutPlan):
+    if isinstance(layout, LayoutPlan) or layout == "auto":
         if br is not None or bc is not None:
             raise ValueError(
                 f"explicit br/bc conflict with layout={layout!r}: the "
                 f"layout carries the tile — pass one or the other")
-        return layout
+        if isinstance(layout, LayoutPlan):
+            return layout
+        return plan_layout(graph, f_dim, backend=backend_name, fused=fused,
+                           device=device, n_heads=n_heads,
+                           attention=attention)
     if layout is None or layout == "none":
         lp = default_layout(graph, br=br, bc=bc)
         if br is not None or bc is not None:
@@ -501,10 +518,12 @@ def lower(
     separate ops). ``fuse_attention=False`` keeps GAT / GT on the
     segment-softmax gather path; by default they bind the fused BSR
     attention kernels on ``cuda`` and their plain versions on ``torch``.
-    ``layout`` takes ``None | "none" | "degree" | "rcm"`` or a
-    ``LayoutPlan``; a reordered plan carries ``perm``/``inv_perm`` and
-    ``GNNModel.apply`` permutes features in and logits back. Operands are
-    built on ``device``: CUDA unless asked.
+    ``layout`` takes ``None | "none" | "auto" | "degree" | "rcm"`` or a
+    ``LayoutPlan``; ``"auto"`` runs the layout stage (order and a tile
+    timed on ``device`` where that times the backend's kernels, else the
+    cost model; cached on disk). A reordered plan carries
+    ``perm``/``inv_perm`` and ``GNNModel.apply`` permutes features in and
+    logits back. Operands are built on ``device``: CUDA unless asked.
     """
     backend = select_backend(engine)
     dev = resolve_device(device)
@@ -517,7 +536,13 @@ def lower(
     is_attn = is_attention_arch(kind)
     emit_attn = (use_fused and fuse_attention and is_attn
                  and backend.name in ("cuda", "torch"))
-    lp = _resolve_layout(graph, layout, br, bc)
+    # the autotuner measures at the width the aggregation runs: every arch
+    # aggregates post-transform tensors of the hidden width
+    agg_width = dims[1] if len(dims) > 1 else dims[0]
+    lp = _resolve_layout(graph, agg_width, backend.name, emit_epilogue,
+                         layout, br, bc, dev,
+                         n_heads=config.gat_heads if is_attn else 0,
+                         attention=emit_attn)
     if lp.permutes:
         graph_exec = (lp.reordered_graph if lp.reordered_graph is not None
                       else permute_graph(graph, lp.inv_perm))

@@ -378,6 +378,24 @@ class BSRMatrix:
     def padded_cols(self) -> int:
         return _ceil_to(self.n_cols, self.bc)
 
+    def padding_waste(self) -> float:
+        """Fraction of stored block cells that lie outside the logical
+        matrix (the row/column overhang of the last block-row and
+        block-column); the plan dump prints it."""
+        total = self.n_blocks * self.br * self.bc
+        if total == 0:
+            return 0.0
+        row_over = self.padded_rows - self.n_rows
+        col_over = self.padded_cols - self.n_cols
+        last_r = self.padded_rows // self.br - 1
+        last_c = self.padded_cols // self.bc - 1
+        in_last_row = self.block_rows == last_r
+        in_last_col = self.block_cols == last_c
+        waste = (int(in_last_row.sum()) * row_over * self.bc
+                 + int(in_last_col.sum()) * col_over * self.br
+                 - int((in_last_row & in_last_col).sum()) * row_over * col_over)
+        return waste / total
+
     def to_dense(self) -> np.ndarray:
         out = np.zeros((self.padded_rows, self.padded_cols), dtype=self.blocks.dtype)
         for b in range(self.n_blocks):

@@ -4,10 +4,13 @@ Counterpart of ``repro/launch/train.py``: the architecture's reduced
 config unless ``--full`` (which also recomputes each layer in the
 backward, ``remat="layer"``), ``adamw(warmup_cosine(lr, 10, steps),
 fused=True)`` (one ``fused_adam`` launch a step on the card, its plain
-version on the CPU), a fresh dummy batch every step, and one line a step with its loss and synchronised ms. Runs
-on CUDA unless ``--device cpu``. Checkpoints (``--ckpt-dir``) come with
-the runtime (ROADMAP.md Queue 1, item 6), the heartbeat monitor with the
-distributed path (item 7).
+version on the CPU), a fresh dummy batch every step, and one line a step
+with its loss and synchronised ms. Runs on CUDA unless ``--device cpu``.
+``--ckpt-dir`` resumes from the latest checkpoint there and saves
+``(params, opt_state)`` every ``--ckpt-every`` steps, in the JAX
+package's format; a resumed run draws the batches an uninterrupted run
+draws. The heartbeat monitor comes with the distributed path (ROADMAP.md
+Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -18,9 +21,9 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.backends.registry import RUNTIME_ITEM, not_ported
 from repro_torch.configs import get_config, list_archs
 from repro_torch.models.model_zoo import build_model, make_dummy_batch, make_train_step
+from repro_torch.runtime.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.training.optimizer import adamw
 from repro_torch.training.schedule import warmup_cosine
 
@@ -38,9 +41,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise not_ported("--ckpt-dir (checkpoints)", RUNTIME_ITEM)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -52,9 +54,18 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
 
     params = model.init(torch.Generator(device=device).manual_seed(0), device=device)
     opt_state = opt.init(params)
+    start = 0
+    if args.ckpt_dir:
+        (params, opt_state), restored = restore_checkpoint(
+            args.ckpt_dir, (params, opt_state))
+        if restored:
+            start = restored
+            print(f"[train] resumed from step {restored}")
     gen = torch.Generator(device=device).manual_seed(1)
+    for _ in range(start):  # the batches the steps before the resume drew
+        make_dummy_batch(cfg, args.batch, args.seq, generator=gen)
     losses = []
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         batch = make_dummy_batch(cfg, args.batch, args.seq, generator=gen)
         t0 = time.perf_counter()
         params, opt_state, loss = step(params, opt_state, batch)
@@ -62,6 +73,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         dt = time.perf_counter() - t0
         print(f"[train] step {i + 1}/{args.steps} loss={losses[-1]:.4f} "
               f"({dt * 1e3:.0f} ms)")
+        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+            save_checkpoint(args.ckpt_dir, i + 1, (params, opt_state))
     print("[train] done")
     return losses
 

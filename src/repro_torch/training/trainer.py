@@ -3,8 +3,8 @@
 * ``FullBatchTrainer`` — single-device full-batch training (paper §V-C
   protocol: per-epoch forward + backward + optimizer) over a
   ``GNNModel``; ``train_step`` is the one step it and ``core/dsl.py``
-  share. Checkpoints, guarded steps and fault injection wait for
-  ROADMAP.md Queue 1, item 6.
+  share, with checkpoints, the guarded step and fault injection
+  (``runtime/``).
 * ``MiniBatchTrainer`` — neighbour-sampled mini-batch training and
   inference (DESIGN.md §7): per batch, the sampler's bucketed block stack
   goes to the device and every layer runs ``models/gnn.py:apply_layer``
@@ -14,7 +14,9 @@
   ``cuda`` backend), ``max`` and segment attention over the padded edge
   lists, the Alg-1 sparse input path through the gather backend's
   edge-list ``spmm``; the loss on the batch's seeds, one optimizer step
-  per batch. The distributed trainer is ROADMAP.md Queue 1, item 7.
+  per batch, under the same runtime: checkpoints that carry the shuffle
+  and sampler RNG states, so a resume replays the exact batch sequence.
+  The distributed trainer is ROADMAP.md Queue 1, item 7.
 
 PyTorch runs eagerly, so nothing is traced. ``n_traces`` and
 ``n_infer_traces`` count the distinct shape signatures the training step
@@ -34,7 +36,6 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.backends import compose_epilogue, get_backend
 from repro_torch.backends.gather import EdgeListOperand
-from repro_torch.backends.registry import RUNTIME_ITEM, not_ported
 from repro_torch.core.aggregate import gather_scatter_aggregate
 from repro_torch.core.lowering import SampledModelPlan, lower_sampled
 from repro_torch.core.sparsity import PAPER_GAMMA_DEFAULT
@@ -47,6 +48,15 @@ from repro_torch.models.gnn import (
     LayerOps,
     apply_layer,
     init_params,
+)
+from repro_torch.runtime.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.runtime.resilience import (
+    FaultInjector,
+    GuardPolicy,
+    GuardRunner,
+    guarded_update,
+    pack_rng_state,
+    unpack_rng_state,
 )
 from repro_torch.training.optimizer import (
     Optimizer,
@@ -76,6 +86,8 @@ class TrainResult:
     losses: list
     epoch_times: list
     final_params: dict
+    restored_from: Optional[int] = None
+    guard: Optional[dict] = None  # GuardRunner.stats() when guarded
 
 
 def value_and_grad(loss_fn, params, *args):
@@ -100,39 +112,87 @@ def train_step(model: GNNModel, opt: Optimizer, params, opt_state, x,
     return tree_map(torch.Tensor.detach, params), opt_state, loss
 
 
-class FullBatchTrainer:
-    """Single-device full-batch training over a ``GNNModel``.
+def guarded_train_step(loss_fn, opt: Optimizer, params, opt_state, *args,
+                       scale: float = 1.0, poison: float = 0.0):
+    """One step of ``loss_fn(params, *args)`` under the guard: the injected
+    ``poison`` (the ``grad`` fault's NaN or inf; nothing on a clean step)
+    added to every gradient leaf, and the candidate step committed only if
+    its params and loss are finite (``runtime.resilience.guarded_update``).
+    Returns ``(params, opt_state, loss, ok)``. The optimizer works out of
+    place, so the old tree is kept without a copy."""
+    loss, grads = value_and_grad(loss_fn, params, *args)
+    if poison != 0.0:
+        grads = tree_map(lambda g: g + poison, grads)
+    with torch.no_grad():
+        p_new, s_new = opt.update(grads, opt_state, params)
+        return guarded_update(params, opt_state, p_new, s_new, loss, scale)
 
-    ``ckpt_dir``, ``guard`` and ``injector`` (checkpoints, the guarded
-    step's resilience ladder, fault injection) are the runtime's and raise
-    until it is ported.
+
+class FullBatchTrainer:
+    """Single-device full-batch training over a ``GNNModel``, optionally
+    under a guarded step.
+
+    ``guard`` (a ``runtime.resilience.GuardPolicy``) arms the resilience
+    ladder (DESIGN.md §13): each step's candidate params and loss pass one
+    non-finite count on the device and commit only when finite;
+    consecutive bad steps escalate skip → LR backoff → rollback to the
+    last checkpoint. ``injector`` is the deterministic fault source: its
+    ``grad`` site adds NaN/inf to every gradient leaf on fired steps.
+    ``ckpt_dir`` restores the latest checkpoint at the start of ``fit``
+    and saves ``(params, opt_state)`` every ``ckpt_every`` epochs, in the
+    JAX package's format.
     """
 
     def __init__(self, model: GNNModel, opt: Optimizer,
-                 ckpt_dir: Optional[str] = None, guard=None, injector=None):
-        for name, value in (("ckpt_dir", ckpt_dir), ("guard", guard),
-                            ("injector", injector)):
-            if value is not None:
-                raise not_ported(f"FullBatchTrainer({name}=...)", RUNTIME_ITEM)
+                 ckpt_dir: Optional[str] = None, ckpt_every: int = 10,
+                 guard: Optional[GuardPolicy] = None,
+                 injector: Optional[FaultInjector] = None):
         self.model = model
         self.opt = opt
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+        self.injector = injector
+        self.guard = GuardRunner(guard) if guard is not None else None
 
-    def fit(self, params, x, labels, mask, epochs: int) -> TrainResult:
-        """``epochs`` steps on the model's device; per epoch the loss and
-        the wall time of the step, synchronised."""
+    def fit(self, params, x, labels, mask, epochs: int,
+            start_epoch: int = 0) -> TrainResult:
+        """Epochs ``start_epoch`` (or the restored checkpoint's step) to
+        ``epochs`` on the model's device; per epoch the loss and the wall
+        time of the step, synchronised."""
         dev = self.model.device
         opt_state = self.opt.init(params)
+        restored = None
+        if self.ckpt_dir:
+            (params, opt_state), restored = restore_checkpoint(
+                self.ckpt_dir, (params, opt_state))
+            if restored is not None:
+                start_epoch = restored
         x, labels, mask = (torch.as_tensor(a, device=dev)
                            for a in (x, labels, mask))
         losses, times = [], []
-        for _ in range(epochs):
+        for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
-            params, opt_state, loss = train_step(self.model, self.opt, params,
-                                                 opt_state, x, labels, mask)
+            if self.guard is None:
+                params, opt_state, loss = train_step(
+                    self.model, self.opt, params, opt_state, x, labels, mask)
+            else:
+                poison = (self.injector.grad_poison(epoch)
+                          if self.injector is not None else 0.0)
+                params, opt_state, loss, ok = guarded_train_step(
+                    self.model.loss_fn, self.opt, params, opt_state, x,
+                    labels, mask, scale=self.guard.scale, poison=poison)
+                action = self.guard.after_step(bool(ok), step=epoch)
+                if action == "rollback" and self.ckpt_dir:
+                    (params, opt_state), _ = restore_checkpoint(
+                        self.ckpt_dir, (params, opt_state))
             losses.append(float(loss))  # synchronises with the card
             times.append(time.perf_counter() - t0)
+            if self.ckpt_dir and (epoch + 1) % self.ckpt_every == 0:
+                save_checkpoint(self.ckpt_dir, epoch + 1, (params, opt_state),
+                                injector=self.injector)
         return TrainResult(losses=losses, epoch_times=times,
-                           final_params=params)
+                           final_params=params, restored_from=restored,
+                           guard=self.guard.stats() if self.guard else None)
 
 
 class MiniBatchTrainer:
@@ -146,9 +206,11 @@ class MiniBatchTrainer:
     batches. Without ``opt`` (or with an ``infer_only`` plan) the trainer
     only infers. ``device`` is where batches and params live: CUDA unless
     the caller passes another (``device="cpu"`` runs the plain PyTorch
-    versions, as the tests do); with no card, CUDA raises. ``ckpt_dir``,
-    ``guard`` and ``injector`` are the runtime's and raise until it is
-    ported.
+    versions, as the tests do); with no card, CUDA raises. ``guard`` and
+    ``injector`` arm the guarded step as in ``FullBatchTrainer`` (a
+    rollback restores the last checkpoint, RNG streams included);
+    ``ckpt_dir`` checkpoints every ``ckpt_every`` epochs and ``fit``
+    resumes from the latest one.
     """
 
     def __init__(
@@ -169,15 +231,12 @@ class MiniBatchTrainer:
         seed: int = 0,
         layout: "str | None" = None,
         infer_only: bool = False,
-        guard=None,
-        injector=None,
+        guard: Optional[GuardPolicy] = None,
+        injector: Optional[FaultInjector] = None,
         ckpt_dir: Optional[str] = None,
+        ckpt_every: int = 5,
         device=None,
     ):
-        for name, value in (("ckpt_dir", ckpt_dir), ("guard", guard),
-                            ("injector", injector)):
-            if value is not None:
-                raise not_ported(f"MiniBatchTrainer({name}=...)", RUNTIME_ITEM)
         self.device = resolve_device(device)
         if plan is None:
             if graph is None or fanouts is None:
@@ -214,7 +273,16 @@ class MiniBatchTrainer:
             config, torch.Generator().manual_seed(seed), self.device)
         self.opt_state = opt.init(self.params) if opt is not None else None
         self._shuffle_rng = np.random.default_rng(seed + 1)
+        # resilience (DESIGN.md §13): guarded steps, and checkpoints that
+        # capture the sampler and shuffle RNG states, so a resume replays
+        # the exact batch sequence a straight run would have drawn
+        self.injector = injector
+        self.guard = (GuardRunner(guard, restore_fn=self.restore)
+                      if guard is not None else None)
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = int(ckpt_every)
         self._epoch_idx = 0
+        self._global_step = 0
 
         self._sparse0 = plan.layers[0].feature_path == "sparse"
         self._is_gat = config.kind in ("GAT", "GT")
@@ -385,6 +453,13 @@ class MiniBatchTrainer:
             params, opt_state = self.opt.update(grads, opt_state, params)
         return tree_map(torch.Tensor.detach, params), opt_state, loss
 
+    def _step_guarded(self, params, opt_state, data, scale: float,
+                      poison: float):
+        """``_step`` under the guard: ``(params, opt_state, loss, ok)``."""
+        self._count_signature("step", data)
+        return guarded_train_step(self._loss, self.opt, params, opt_state,
+                                  data, scale=scale, poison=poison)
+
     def _infer(self, params, data):
         self._count_signature("logits", data)
         with torch.no_grad():
@@ -446,23 +521,76 @@ class MiniBatchTrainer:
                 self.train_ids, self.features, self.labels_np,
                 rng=self._shuffle_rng):
             data = self._batch_arrays(batch, train=True)
-            self.params, self.opt_state, loss = self._step(
-                self.params, self.opt_state, data)
+            if self.guard is None:
+                self.params, self.opt_state, loss = self._step(
+                    self.params, self.opt_state, data)
+            else:
+                poison = (self.injector.grad_poison(self._global_step)
+                          if self.injector is not None else 0.0)
+                self.params, self.opt_state, loss, ok = self._step_guarded(
+                    self.params, self.opt_state, data, self.guard.scale,
+                    poison)
+                # a rollback (restore_fn is self.restore) rewinds the RNG
+                # streams too, so the replayed epochs redraw the batches
+                self.guard.after_step(bool(ok), step=self._global_step)
+            self._global_step += 1
             total += float(loss) * batch.n_seeds  # synchronises with the card
             count += batch.n_seeds
         return total / max(count, 1)
 
+    # -- checkpoint / resume (DESIGN.md §13 RNG-state contract) -------------
+
+    def _ckpt_state(self) -> dict:
+        return {
+            "params": self.params,
+            "opt": self.opt_state,
+            "epoch": np.int64(self._epoch_idx),
+            "global_step": np.int64(self._global_step),
+            "shuffle_rng": pack_rng_state(self._shuffle_rng),
+            "sampler_rng": pack_rng_state(self.sampler.rng),
+        }
+
+    def save(self) -> Optional[str]:
+        """Checkpoint params, optimizer state, the epoch and step counters
+        and the shuffle and sampler RNG states: all a resume needs to
+        replay the exact batch sequence."""
+        if not self.ckpt_dir:
+            return None
+        return save_checkpoint(self.ckpt_dir, self._epoch_idx,
+                               self._ckpt_state(), injector=self.injector)
+
+    def restore(self) -> Optional[int]:
+        """Restore the latest checkpoint (params, opt state, RNG streams,
+        counters); returns the restored epoch, or None if there is none."""
+        if not self.ckpt_dir:
+            return None
+        state, step = restore_checkpoint(self.ckpt_dir, self._ckpt_state())
+        if step is None:
+            return None
+        self.params = state["params"]
+        self.opt_state = state["opt"]
+        self._epoch_idx = int(state["epoch"])
+        self._global_step = int(state["global_step"])
+        unpack_rng_state(self._shuffle_rng, state["shuffle_rng"])
+        unpack_rng_state(self.sampler.rng, state["sampler_rng"])
+        return step
+
     def fit(self, epochs: int) -> TrainResult:
-        """Train until ``epochs`` epochs are done in all; per epoch the mean
-        loss and the wall time."""
+        """Train until ``epochs`` epochs are done in all (resuming from the
+        latest checkpoint under ``ckpt_dir``); per epoch the mean loss and
+        the wall time."""
+        restored = self.restore() if self.ckpt_dir else None
         losses, times = [], []
         while self._epoch_idx < epochs:
             t0 = time.perf_counter()
             losses.append(self.train_epoch())
             times.append(time.perf_counter() - t0)
             self._epoch_idx += 1
+            if self.ckpt_dir and self._epoch_idx % self.ckpt_every == 0:
+                self.save()
         return TrainResult(losses=losses, epoch_times=times,
-                           final_params=self.params)
+                           final_params=self.params, restored_from=restored,
+                           guard=self.guard.stats() if self.guard else None)
 
     def loss_and_grads(self, seeds: Optional[np.ndarray] = None):
         """Loss and gradients at the current params for one batch (no

@@ -2,8 +2,9 @@
 ``repro_torch``'s ``lower`` makes the JAX package's plans; one training
 step's loss and gradients agree with the JAX package's Pallas path
 (interpret mode) from the same weights; a 10-epoch trace of a
-quickstart-shaped program tracks the JAX package's ``xla`` trace; and the
-parts that are not ported raise, naming ROADMAP.md.
+quickstart-shaped program tracks the JAX package's ``xla`` trace; the
+runtime's arguments and ``layout="auto"`` are taken, and the parts that
+are not ported say so, naming ROADMAP.md.
 
 The port runs its default ``cuda`` backend on ``device="cpu"``, where each
 kernel wrapper takes its plain version. Tolerances: plans exactly; loss
@@ -205,24 +206,33 @@ def test_full_batch_trainer_fits_and_matches_the_program():
     assert len(res.epoch_times) == 4 and res.losses[-1] < res.losses[0]
 
 
-def test_unported_parts_raise_naming_roadmap():
-    src, dst, x, _, _ = _inputs("dense")
+def test_unported_parts_raise_naming_roadmap(tmp_path, monkeypatch):
+    """Items 5 and 6 are ported: the trainers take the runtime's
+    arguments and ``lower`` takes ``layout="auto"``; the plan dump still
+    names the verifier (item 8) as not ported."""
+    from repro_torch.runtime import FaultInjector, FaultSpec, GuardPolicy
+
+    monkeypatch.setenv("MORPHLING_LAYOUT_CACHE", str(tmp_path / "layouts.json"))
+    src, dst, x, labels, mask = _inputs("dense")
     g = csr_from_edges(src, dst, 64)
     dims = [x.shape[1], 16, 5]
     model = GNNModel(GNNConfig(kind="GCN", layer_dims=dims), g, device="cpu")
-    for kw in (dict(ckpt_dir="/nonexistent"), dict(guard=object()),
-               dict(injector=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
-            FullBatchTrainer(model, adam(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 5"):
-        lower(GNNConfig(kind="GCN", layer_dims=dims), g, x, layout="auto",
-              device="cpu")
-    for kw in (dict(ckpt_dir="/nonexistent"), dict(guard=object()),
-               dict(injector=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
-            MiniBatchTrainer(GNNConfig(kind="GCN", layer_dims=dims), g, x,
-                             None, None, adam(), fanouts=(4, 3),
-                             device="cpu", **kw)
+    inj = FaultInjector(seed=0, faults=[FaultSpec(site="grad", steps=(1,))])
+    res = FullBatchTrainer(model, adam(), ckpt_dir=str(tmp_path / "full"),
+                           ckpt_every=2, guard=GuardPolicy(),
+                           injector=inj).fit(
+        init_params(model.config, torch.Generator().manual_seed(0), "cpu"),
+        x, labels, mask, epochs=2)
+    assert res.guard["skipped"] == 1 and res.restored_from is None
+    plan = lower(GNNConfig(kind="GCN", layer_dims=dims), g, x, layout="auto",
+                 device="cpu")
+    assert plan.layout.source == "cost-model"  # the kernels need the card
+    assert "check_plan not ported" in plan.describe().splitlines()[-1]
+    tr = MiniBatchTrainer(GNNConfig(kind="GCN", layer_dims=dims), g, x,
+                          labels, mask, adam(), fanouts=(4, 3), device="cpu",
+                          ckpt_dir=str(tmp_path / "mini"), ckpt_every=1,
+                          guard=GuardPolicy(), injector=FaultInjector(seed=0))
+    assert tr.fit(1).guard["skipped"] == 0 and tr.save() is not None
     # attention and max, once item 11, bind on both paths now
     for cfg, prim in ((GNNConfig(kind="GAT", layer_dims=dims),
                        "cuda.spmm_attention"),

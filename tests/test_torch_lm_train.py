@@ -354,7 +354,7 @@ def test_embed_dense_path_matches_gather_and_jax(jx):
     torch.testing.assert_close(got, tlayers.embed_lookup(p, torch.from_numpy(tokens)))
 
 
-def test_launch_train_on_the_cpu():
+def test_launch_train_on_the_cpu(tmp_path):
     out = io.StringIO()
     with redirect_stdout(out):
         losses = launch_train.main(["--arch", "gemma3-1b", "--device", "cpu",
@@ -362,9 +362,14 @@ def test_launch_train_on_the_cpu():
     lines = out.getvalue().splitlines()
     assert len(losses) == 2 and np.isfinite(losses).all()
     assert lines[0].startswith("[train] step 1/2 loss=") and lines[-1] == "[train] done"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        launch_train.main(["--arch", "llama3.2-1b", "--device", "cpu",
-                           "--ckpt-dir", "x"])
+    # --ckpt-dir (ROADMAP.md Queue 1, item 6) checkpoints every --ckpt-every
+    with redirect_stdout(io.StringIO()):
+        again = launch_train.main(["--arch", "gemma3-1b", "--device", "cpu",
+                                   "--steps", "2", "--seq", "40", "--ckpt-dir",
+                                   str(tmp_path), "--ckpt-every", "1"])
+    assert again == losses
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_0000000001", "step_0000000002"]
 
 
 def test_launch_train_without_a_card_raises(monkeypatch):

@@ -320,14 +320,23 @@ def test_inference_copies_and_builds_only_the_forward_operand(
             value_and_grad(tr._loss, tr.params, {**train, "blocks": infer["blocks"]})
 
 
-def test_runtime_arguments_raise_naming_item_6():
+def test_runtime_arguments_raise_naming_item_6(tmp_path):
+    """Item 6 is ported: ``ckpt_dir``, ``guard`` and ``injector`` are
+    taken (an injected inf step is skipped, an epoch checkpointed and
+    restored); an infer-only trainer still refuses to train."""
+    from repro_torch.runtime import FaultInjector, FaultSpec, GuardPolicy
+
     src, dst, x, labels, mask = _inputs("dense")
     cfg = GNNConfig(kind="GCN", layer_dims=[F, H, C])
-    for kw in (dict(ckpt_dir="/nonexistent"), dict(guard=object()),
-               dict(injector=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
-            MiniBatchTrainer(cfg, csr_from_edges(src, dst, N), x, labels, mask,
-                             adam(0.01), fanouts=(3, 4), device="cpu", **kw)
+    inj = FaultInjector(seed=0, faults=[FaultSpec(site="grad", steps=(0,),
+                                                  mode="inf")])
+    tr = MiniBatchTrainer(cfg, csr_from_edges(src, dst, N), x, labels, mask,
+                          adam(0.01), fanouts=(3, 4), device="cpu",
+                          ckpt_dir=str(tmp_path), ckpt_every=1,
+                          guard=GuardPolicy(), injector=inj)
+    res = tr.fit(1)
+    assert res.guard["skipped"] == 1 and np.isfinite(res.losses).all()
+    assert tr.restore() == 1
     tr = MiniBatchTrainer(cfg, csr_from_edges(src, dst, N), x, None, None,
                           None, fanouts=(3, 4), device="cpu")
     for call in (tr.train_epoch, tr.loss_and_grads):
