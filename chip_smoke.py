@@ -224,6 +224,32 @@ is printed:
     every batch's seed ids, the losses and the params bitwise the
     uninterrupted run's (where they are not, the uninterrupted run is
     repeated and the resume held to the repeat's difference).
+19. The plan-contract verifier (``core/verify.py``) and the chaos soak.
+    Every lowering above ran ``validate="fast"``, the default. (a) Each
+    plan that phases 3-17 lowered (serving, the arxiv GCN, the
+    quickstart, GAT, GT, sampled GAT serving, sampled SAGE, GAT, GT and
+    SAGE-max, both ``layout="auto"`` plans) verified in fast and in full
+    mode where its phase holds it, against its exec graph: zero
+    violations, each mode's ms (synchronised, median of 3); full mode's
+    value checks are reductions on the card, and a sampled plan's
+    template batch builds its column streams there. (b) One ``lower`` of
+    the arxiv GCN and one ``lower_sampled`` of the sampled SAGE plan with
+    ``validate="off"``, and the shares that (a)'s fast and full checks of
+    those plans add to it. (c) The quickstart GCN lowered at
+    ``layout="degree"`` on the card passes full mode; six corruptions of
+    its card-resident operands are each flagged by name through
+    ``check_plan``: an unsorted block column, a NaN block, an item
+    dropped from A's column stream, a stale stream after
+    ``dataclasses.replace(blocks=...)``, a swapped ``perm`` pair, a
+    block-row with twice its mass. (d) ``tools/chaos_soak.py``'s 24
+    schedules on the card (guarded full-batch and sampled training with
+    poisoned gradients and killed checkpoint writers, the serving
+    engine's degradation rungs; the distributed target names ROADMAP.md
+    Queue 1, item 7): every end-state property holds; its launches are
+    the kernels line's ``chaos`` path, and every kernel call it made is
+    held against its plain version on the same inputs within 1e-4 (the
+    inputs and outputs recorded as it ran, the plain versions run after
+    the counts are read).
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -262,6 +288,12 @@ from repro_torch.core.layout import (  # noqa: E402
     column_stream,
     plan_layout,
 )
+from repro_torch.core.lowering import lower, lower_sampled  # noqa: E402
+from repro_torch.core.verify import (  # noqa: E402
+    PlanVerificationError,
+    check_plan,
+    verify_plan,
+)
 from repro_torch.core.sparsity import (  # noqa: E402
     PAPER_GAMMA_DEFAULT,
     decide_execution_path_from_stats,
@@ -275,6 +307,7 @@ from repro_torch.graph.csr import (  # noqa: E402
     csr_from_dense,
     csr_from_edges,
     csr_to_bsr,
+    permute_graph,
     reorder_graph,
 )
 from repro_torch.graph.datasets import generate_dataset  # noqa: E402
@@ -340,6 +373,7 @@ from repro_torch.training.trainer import (  # noqa: E402
 )
 from repro_torch.launch.serve import build_engine, drive  # noqa: E402
 from repro_torch.serving.gnn_engine import GNNServingEngine  # noqa: E402
+from tools import chaos_soak  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
@@ -379,6 +413,8 @@ DENSE_GAMMA = 0.01
 POISONED_EPOCH = 3
 CKPT_EVERY = 5
 RESUME_EPOCHS = 2
+#: phase 19: repeats of each timed verification (medians)
+VERIFY_REPS = 3
 
 #: every kernel wrapper of the port, by the name the kernels line uses
 KERNELS = {"bsr_spmm": bsr_spmm,
@@ -1613,6 +1649,8 @@ def train_path(name, gnn, device, epochs: int, expected: dict,
     ref_build_s = time.perf_counter() - t0
     print(f"[{name}] plan (operands built in {build_s:.1f}s + {ref_build_s:.1f}s "
           f"on the host and copied):\n{prog.describe_plan()}")
+    verified = verify_timed(name, prog.plan, device,
+                            exec_graph(gnn.graph, prog.plan))
     nzc = nzc_build(prog, device)
     print(f"[{name}] nonzero columns of A and Aᵀ: {json.dumps(nzc)}")
     on_card = device.type == "cuda"
@@ -1663,7 +1701,7 @@ def train_path(name, gnn, device, epochs: int, expected: dict,
            "peak_mem_bytes": peak, "accuracy": prog.accuracy(),
            "layout": prog.plan.layout.describe(),
            "grad_start": grad_start, "grad_end": grad_end,
-           "param_rel_diff": param_diff}
+           "param_rel_diff": param_diff, "verify": verified}
     # each fused call and attention forward and row pass runs on A, each
     # masked call and attention column pass on Aᵀ, bsr_spmm on the
     # operands recorded in one step: a call on an operand with split rows
@@ -1884,6 +1922,18 @@ def stream_columns(args):
     return nonzero_columns(args[0], args[1], args[2], args[-2])
 
 
+def output_error(got, want) -> tuple:
+    """(max |got - want|, max excess of |got - want| over TOL·|want|,
+    ||got - want|| / ||want||): an output within TOL of its plain version
+    has the last two at most TOL."""
+    if not got.numel():
+        return 0.0, 0.0, 0.0
+    diff = (got - want).abs()
+    gap, scale = float(diff.norm()), float(want.norm())
+    return (float(diff.max()), float((diff - TOL * want.abs()).max()),
+            gap / scale if scale else (0.0 if gap == 0 else float("inf")))
+
+
 def check_attention(label, kind, args, device, nzc) -> float:
     """One attention kernel against its plain version on the same device
     tensors, every output within the JAX suite's tolerance (|got - want| <=
@@ -1901,15 +1951,7 @@ def check_attention(label, kind, args, device, nzc) -> float:
     sync(device)
     got, again, want = ((t,) if isinstance(t, torch.Tensor) else t
                         for t in (got, again, want))
-    errs = []
-    for a, w in zip(got, want):
-        if not a.numel():
-            errs.append((0.0, 0.0, 0.0))
-            continue
-        diff = (a - w).abs()
-        gap, scale = float(diff.norm()), float(w.norm())
-        errs.append((float(diff.max()), float((diff - TOL * w.abs()).max()),
-                     gap / scale if scale else (0.0 if gap == 0 else float("inf"))))
+    errs = [output_error(a, w) for a, w in zip(got, want)]
     if not all(excess <= TOL and rel <= TOL for _, excess, rel in errs):
         raise AssertionError(f"{name} {label}: (max abs error, max excess over "
                              f"the relative part, error norm over the output's) "
@@ -2288,6 +2330,7 @@ def sampled_gat_serving(ds, sizes: Sizes, device) -> dict:
     if any(l.agg_primitive != "cuda.spmm_attention" for l in eng.trainer.plan.layers):
         raise AssertionError("every sampled GAT layer must bind cuda.spmm_attention")
     serve = serving_phase(ds, eng, ref, sizes, kernel="bsr_attention_fwd")
+    serve["verify"] = verify_timed("gat-serving", eng.trainer.plan, device)
     print(f"[gat-serving] {json.dumps(serve)}")
     serve["breakdown"] = [breakdown(eng, device, n, kernel="bsr_attention_fwd")
                           for n in (4 * sizes.wave_size, sizes.batch_size)]
@@ -2510,6 +2553,7 @@ def sampled_train_path(name, ds, cfg, device, *, lr: float, fanouts,
     plan = tr.plan
     print(f"[{name}] plan (trainers built in {build_s['cuda']:.1f}s + "
           f"{build_s['torch']:.1f}s):\n{plan.describe()}")
+    verified = verify_timed(name, plan, device)
     on_card = device.type == "cuda"
     per_step = sampled_per_step(plan)
     steps = -(-len(tr.train_ids) // batch_size)
@@ -2558,6 +2602,7 @@ def sampled_train_path(name, ds, cfg, device, *, lr: float, fanouts,
            "build_s": build_s, "peak_mem_bytes": peak, "n_traces": tr.n_traces,
            "grad_start": grad_start, "grad_end": grad_end,
            "param_rel_diff": param_diff, "columns": columns,
+           "verify": verified,
            "column_build_ms": sum(c["build_ms"] for c in columns.values()),
            "breakdown": step_breakdown(tr, device),
            "profile": step_profile(tr, data, device, {**per_step, **second})}
@@ -3773,8 +3818,282 @@ def layout_entries(entries: list, auto: dict, gamma: dict) -> None:
         for label, m in gamma["measured"].items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the plan-contract verifier on every plan, and the chaos soak
+# ---------------------------------------------------------------------------
+
+def exec_graph(graph, plan):
+    """The graph a full-batch plan's operands were built on: ``graph``
+    renumbered by the plan's order where it permutes (host)."""
+    lp = plan.layout
+    if lp is None or not lp.permutes:
+        return graph
+    return permute_graph(graph, np.asarray(lp.inv_perm))
+
+
+def verify_timed(name: str, plan, device, graph=None) -> dict:
+    """Phase 19 (a), run where the plan's phase holds it (its operands
+    are freed after): ``verify_plan`` in fast and in full mode,
+    ``VERIFY_REPS`` times each (synchronised host clock), on the
+    operands' device; a sampled plan's template batch builds its streams
+    on the plan's device, its trainer's. Any violation fails the run."""
+    out = {"plan": name, "family": type(plan).__name__}
+    for mode in ("fast", "full"):
+        ms = []
+        for _ in range(VERIFY_REPS):
+            sync(device)
+            t0 = time.perf_counter()
+            found = verify_plan(plan, mode=mode, graph=graph)
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if found:
+                raise AssertionError(f"[{name}] {mode} verification: "
+                                     + "; ".join(str(v) for v in found))
+        out[f"{mode}_ms"] = float(np.median(ms))
+        out[f"{mode}_ms_all"] = ms
+    print(f"[verify] {name} ({out['family']}): 0 violations; fast "
+          f"{out['fast_ms']:.2f} ms, full {out['full_ms']:.2f} ms (medians of "
+          f"{VERIFY_REPS}, synchronised)")
+    return out
+
+
+def lowering_cost(name: str, lower_fn, checked: dict, device) -> dict:
+    """Phase 19 (b): one ``lower_fn()`` with ``validate="off"`` (the plan
+    freed after, synchronised host clock), and the shares that (a)'s
+    fast and full checks of the same plan (``checked``, medians) add to
+    it."""
+    sync(device)
+    t0 = time.perf_counter()
+    plan = lower_fn()
+    sync(device)
+    off = (time.perf_counter() - t0) * 1e3
+    del plan
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"off_ms": off, "fast_ms": checked["fast_ms"],
+           "full_ms": checked["full_ms"], "plan": checked["plan"],
+           "fast_share": checked["fast_ms"] / off,
+           "full_share": checked["full_ms"] / off}
+    print(f"[verify] lowering {name}: off {off:.1f} ms (one lowering); "
+          f"{checked['plan']}'s check fast {out['fast_ms']:.2f} ms "
+          f"({out['fast_share']:.2%} of off), full {out['full_ms']:.2f} ms "
+          f"({out['full_share']:.2%})")
+    return out
+
+
+def _replace_operand(plan, which: str = "fwd_operand", **fields):
+    dev = dataclasses.replace(getattr(plan.graph_op, which), **fields)
+    return dataclasses.replace(
+        plan, graph_op=dataclasses.replace(plan.graph_op, **{which: dev}))
+
+
+def card_mutations(qds, qdims, device) -> dict:
+    """Phase 19 (c): the quickstart GCN lowered on the card at
+    ``layout="degree"`` passes full mode against its exec graph; then
+    six corruptions of its card-resident operands (and its permutation)
+    are each flagged by name through ``check_plan``, which raises: an
+    unsorted block column, a NaN block, an item dropped from A's column
+    stream, a stale stream after ``dataclasses.replace(blocks=...)``, a
+    swapped ``perm`` pair, a block-row with twice its mass. The value
+    checks run as reductions on the card (``core/verify.py``)."""
+    cfg = GNNConfig(kind="GCN", layer_dims=qdims, aggregation="gcn")
+    plan = lower(cfg, qds.graph, qds.features, engine="cuda", device=device,
+                 layout="degree", validate="off")
+    g = exec_graph(qds.graph, plan)
+    check_plan(plan, mode="full", graph=g)
+    dev = plan.graph_op.fwd_operand
+    if device.type == "cuda" and not (dev.blocks.is_cuda and dev.nzc.items.is_cuda):
+        raise AssertionError("[mutations] the operands must lie on the card")
+    rows = dev.block_rows.cpu().numpy()
+    row = int(np.flatnonzero(np.bincount(rows) >= 2)[0])
+    i, j = np.flatnonzero(rows == row)[:2].tolist()
+    cols = dev.block_cols.clone()
+    cols[i], cols[j] = dev.block_cols[j], dev.block_cols[i]
+    nan = dev.blocks.clone()
+    nan[i, 0, 0] = float("nan")
+    items = dev.nzc.items
+    keep = torch.ones(items.shape[0], dtype=torch.bool, device=items.device)
+    keep[items.shape[0] // 2] = False
+    stale = dev.blocks.clone()
+    stale[i] = 0.0  # a block's columns leave the stream; nzc keeps them
+    heavy = dev.blocks.clone()
+    heavy[torch.from_numpy(rows == row).to(heavy.device)] *= 2.0
+    perm = np.asarray(plan.layout.perm).copy()
+    perm[[0, 1]] = perm[[1, 0]]
+    cases = {
+        "bsr.cols_sorted": _replace_operand(plan, block_cols=cols),
+        "bsr.finite": _replace_operand(plan, blocks=nan),
+        "nzc.row_coverage": _replace_operand(plan, nzc=dataclasses.replace(
+            dev.nzc, items=items[keep].contiguous())),
+        "nzc.stream_match": _replace_operand(plan, blocks=stale),
+        "perm.inverse": dataclasses.replace(
+            plan, layout=dataclasses.replace(plan.layout, perm=perm)),
+        "layout.operand_rows": _replace_operand(plan, blocks=heavy),
+    }
+    out = {}
+    for invariant, bad in cases.items():
+        sync(device)
+        t0 = time.perf_counter()
+        try:
+            check_plan(bad, mode="full", graph=g)
+        except PlanVerificationError as e:
+            found = e.violations
+        else:
+            raise AssertionError(f"[mutations] {invariant}: not flagged")
+        ms = (time.perf_counter() - t0) * 1e3
+        named = [str(v) for v in found if v.invariant == invariant]
+        if not named:
+            raise AssertionError(f"[mutations] {invariant} not named: "
+                                 + "; ".join(str(v) for v in found))
+        out[invariant] = {"flagged": named[0], "ms": ms,
+                          "all": sorted({v.invariant for v in found})}
+        print(f"[mutations] {named[0]} ({ms:.1f} ms; all flagged: "
+              f"{', '.join(out[invariant]['all'])})")
+    del plan, cases, nan, stale, heavy
+    return out
+
+
+#: the kernels the chaos soak reaches, by ``kernels/ops.py`` executor key
+SOAK_OPS = {"spmm": "bsr_spmm", "fused": "bsr_spmm_fused_epilogue",
+            "masked": "bsr_spmm_masked", "attn_fwd": "bsr_attention_fwd",
+            "attn_row": "bsr_attention_bwd_row",
+            "attn_col": "bsr_attention_bwd_col"}
+
+
+def _held(t):
+    return t.detach().clone() if isinstance(t, torch.Tensor) else t
+
+
+@contextlib.contextmanager
+def recorded_calls(calls: list):
+    """Inside the ``with`` statement each ``cuda`` executor of ``SOAK_OPS``
+    appends every call to ``calls``: its executor key, its arguments
+    (tensors copied before the call; ``nzc`` left out, as the plain
+    versions read the blocks) and its outputs (copied). The kernels
+    launch as before; the executors are restored after."""
+    table = kops._EXECUTORS["cuda"]
+    saved = {op: table[op] for op in SOAK_OPS}
+
+    def spy(op, kernel):
+        def call(*args, **kw):
+            held = (tuple(_held(a) for a in args),
+                    {k: _held(v) for k, v in kw.items() if k != "nzc"})
+            out = kernel(*args, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            calls.append((op, *held, tuple(_held(o) for o in outs)))
+            return out
+        return call
+
+    for op, kernel in saved.items():
+        table[op] = spy(op, kernel)
+    try:
+        yield calls
+    finally:
+        table.update(saved)
+
+
+def check_recorded(calls: list, device) -> dict:
+    """Each recorded call against its plain version (the ``torch``
+    executor) on the same inputs: every output within TOL by
+    ``output_error`` (the norm holds the backward's small outputs, means
+    over a few seeds, to their own scale), the fused kernel's ReLU mask
+    equal where |pre-activation| > MASK_MARGIN. Returns, per kernel, the
+    calls checked and the largest absolute error."""
+    plain = kops._EXECUTORS["torch"]
+    out = {name: {"calls": 0, "max_abs_err": 0.0} for name in SOAK_OPS.values()}
+    for i, (op, args, kw, got) in enumerate(calls):
+        name = SOAK_OPS[op]
+        want = plain[op](*args, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        if op == "fused" and args[-1] == "relu":
+            pre, _ = plain[op](*args[:-1], "none")
+            far = pre.abs() > MASK_MARGIN
+            if not torch.equal(got[1][far], want[1][far]):
+                raise AssertionError(f"[chaos] {name} call {i}: masks differ")
+            got, want = got[:1], want[:1]
+        errs = [output_error(a, w) for a, w in zip(got, want) if a is not None]
+        if not all(excess <= TOL and rel <= TOL for _, excess, rel in errs):
+            finite = all(bool(torch.isfinite(a).all()) for a in args
+                         if isinstance(a, torch.Tensor) and a.is_floating_point())
+            raise AssertionError(
+                f"[chaos] {name} call {i} (inputs {'' if finite else 'not '}"
+                f"finite): (max abs error, max excess over the relative part, "
+                f"error norm over the output's) per output {errs} > {TOL}")
+        out[name]["calls"] += 1
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       *(e for e, _, _ in errs))
+    sync(device)
+    return out
+
+
+def soak_phase(device) -> dict:
+    """Phase 19 (d): ``tools/chaos_soak.py``'s ``N_SCHEDULES`` schedules on
+    ``device`` (a violated end-state property raises); the launches they
+    made, counted from 0. Every kernel call of the soak is recorded
+    (``recorded_calls``) and, after the counts are read, held against its
+    plain version (``check_recorded``): a kernel launched in the soak
+    must have each of its launches checked."""
+    t0 = time.perf_counter()
+    calls = []
+    zero_counts()
+    with recorded_calls(calls):
+        rows = list(chaos_soak.soak(chaos_soak.N_SCHEDULES, 0, device,
+                                    os.path.join(ROOT, "chiprun_out", "chaos_soak")))
+    launched = counts()
+    s = time.perf_counter() - t0
+    for r in rows:
+        print(f"[chaos] {r}")
+    print(f"[chaos] {len(rows)} schedules in {s:.1f}s, every property held; "
+          f"launches {json.dumps({k: v for k, v in launched.items() if v})}")
+    t0 = time.perf_counter()
+    checked = check_recorded(calls, device)
+    check_s = time.perf_counter() - t0
+    for name, n in launched.items():
+        if n > checked.get(name, {"calls": 0})["calls"]:
+            raise AssertionError(f"[chaos] {name}: {n} launches, "
+                                 f"{checked.get(name, {'calls': 0})['calls']} "
+                                 "held against the plain version")
+    print(f"[chaos] every kernel call held against its plain version in "
+          f"{check_s:.1f}s: " + "; ".join(
+              f"{k} {c['calls']} calls, max abs error {c['max_abs_err']:.3g}"
+              for k, c in checked.items() if c["calls"]))
+    return {"schedules": len(rows), "rows": rows, "s": s, "launches": launched,
+            "checked": checked, "check_s": check_s}
+
+
+def verifier_phase(ds, qds, sizes: Sizes, device, verified: list) -> dict:
+    """Phase 19: (a) the full-mode verifications that phases 3-17 made of
+    their plans (``verify_timed``), gathered; (b) what the check costs
+    the lowering: one ``validate="off"`` lowering of the arxiv GCN and of
+    the sampled SAGE plan, beside (a)'s check of each; (c) the mutations
+    on card-resident operands; (d) the chaos soak, its kernel calls held
+    against their plain versions."""
+    t_phase = time.perf_counter()
+    print("[verify] phase 19 (a): " + "; ".join(
+        f"{v['plan']} fast {v['fast_ms']:.2f} / full {v['full_ms']:.2f} ms"
+        for v in verified))
+    by_plan = {v["plan"]: v for v in verified}
+    dims = [ds.features.shape[1], *sizes.train_hidden, ds.n_classes]
+    gcn = GNNConfig(kind="GCN", layer_dims=dims, aggregation="gcn")
+    sage = GNNConfig(kind="SAGE", layer_dims=dims, aggregation="mean")
+    cost = {
+        "gcn": lowering_cost("arxiv GCN", lambda: lower(
+            gcn, ds.graph, ds.features, engine="cuda", device=device,
+            validate="off"), by_plan["train"], device),
+        "sage_sampled": lowering_cost("sampled SAGE", lambda: lower_sampled(
+            sage, ds.graph, ds.features, fanouts=sizes.fanouts,
+            batch_size=sizes.sampled_batch_size, engine="cuda", seed=0,
+            device=device, validate="off"), by_plan["sage-sampled"], device)}
+    qdims = [qds.features.shape[1], *sizes.quick_hidden, qds.n_classes]
+    mutations = card_mutations(qds, qdims, device)
+    soak = soak_phase(device)
+    return {"plans": verified, "lowering": cost, "mutations": mutations,
+            "soak": {k: v for k, v in soak.items() if k != "launches"},
+            "launches": soak["launches"], "s": time.perf_counter() - t_phase}
+
+
 def run(sizes: Sizes, device) -> dict:
-    """Phases 2 to 18 at ``sizes`` on ``device``; returns the kernels line
+    """Phases 2 to 19 at ``sizes`` on ``device``; returns the kernels line
     and the details."""
     t_start = t0 = time.perf_counter()
     ds = generate_dataset(sizes.dataset, scale=sizes.scale, seed=0)
@@ -3787,6 +4106,7 @@ def run(sizes: Sizes, device) -> dict:
     ref = build_engine(ds, engine="torch", **kw)
     kern = kernel_phase(ds, eng, device)
     serve = serving_phase(ds, eng, ref, sizes)
+    serve["verify"] = verify_timed("serve", eng.trainer.plan, device)
     print(f"[serve] {json.dumps(serve)}")
     serve["breakdown"] = [breakdown(eng, device, n)
                           for n in (4 * sizes.wave_size, sizes.batch_size)]
@@ -3967,6 +4287,17 @@ def run(sizes: Sizes, device) -> dict:
     runtime = runtime_phase(gnn, train, device, sizes.epochs, train_expect)
     resume = sampled_resume(ds, sizes, device)
     phase_s["18"] = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # phase 19: the verifier on every plan above, its cost to the lowering,
+    # mutations on card-resident operands, the chaos soak
+    verified = [serve["verify"], train["summary"]["verify"],
+                quick["summary"]["verify"], gat["summary"]["verify"],
+                gt["summary"]["verify"], gat_serve["verify"],
+                *(sampled[p]["verify"] for p in ("sage", "gat", "gt", "max")),
+                auto["train"]["verify"], auto["quickstart"]["verify"]]
+    verify = verifier_phase(ds, qds, sizes, device, verified)
+    phase_s["19"] = verify["s"]
 
     attn_err = max(ak["err"]["edge"], attn_pair_err)
     nonfinite = max(edge["nonfinite"], fk["err"]["nonfinite"])
@@ -3980,6 +4311,8 @@ def run(sizes: Sizes, device) -> dict:
             **{name: max(ak["err"][kind], attn_err, sampled["gat"]["err"][kind],
                          gat_serve["max_abs_err"] if kind == "fwd" else 0.0)
                for kind, (name, _, _) in ATTENTION.items()}}
+    for name, c in verify["soak"]["checked"].items():
+        errs[name] = max(errs[name], c["max_abs_err"])
     serving_counts = {k: 0 for k in KERNELS}
     serving_counts["bsr_spmm"] = serve["launches"]
     by_path = {"serving": serving_counts,
@@ -3996,7 +4329,7 @@ def run(sizes: Sizes, device) -> dict:
                "train_auto": auto["train"]["launches"],
                "quickstart_auto": auto["quickstart"]["launches"],
                "gamma": gamma["launches"], "runtime": runtime["launches"],
-               "sage_resume": resume["launches"]}
+               "sage_resume": resume["launches"], "chaos": verify["launches"]}
     entries = kernel_entries(serving_entry, by_path, fk, ak, adam, errs, dims,
                              train["summary"]["profile"],
                              gat["summary"]["profile"], flash_entry(fa))
@@ -4011,6 +4344,7 @@ def run(sizes: Sizes, device) -> dict:
             "gemma": lm2["gemma"], "gemma_flash": lm2["gemma_flash"],
             "lm_train": lm2["lm_train"], "layout": lay, "auto": auto,
             "gamma": gamma, "runtime": runtime, "resume": resume,
+            "verify": {k: v for k, v in verify.items() if k != "launches"},
             "gat_serving_sampled": {k: v for k, v in gat_serve.items() if k != "rows"},
             "sampled": {p: {k: v for k, v in r.items() if k != "rows"}
                         for p, r in sampled.items()},
@@ -4116,7 +4450,18 @@ def main() -> int:
           f"ms, restore {r['restore_ms_median']:.1f} ms; sampled resume "
           f"{'bitwise' if result['resume']['bitwise'] else 'within the repeat'} "
           f"on {card}")
-    print(f"[done] phases 2-18 in {time.perf_counter() - t_all:.1f}s: "
+    v = result["verify"]
+    low = v["lowering"]
+    print(f"[verify] {len(v['plans'])} plans verified in full, 0 violations; "
+          f"the check against one unchecked lowering: arxiv GCN fast "
+          f"{low['gcn']['fast_share']:.2%}, full {low['gcn']['full_share']:.2%}; "
+          f"sampled SAGE fast {low['sage_sampled']['fast_share']:.2%}, full "
+          f"{low['sage_sampled']['full_share']:.2%}; {len(v['mutations'])} card "
+          f"mutations flagged by name; chaos soak {v['soak']['schedules']} "
+          f"schedules held in {v['soak']['s']:.1f}s, its "
+          f"{sum(c['calls'] for c in v['soak']['checked'].values())} kernel "
+          f"calls within {TOL} of the plain versions on {card}")
+    print(f"[done] phases 2-19 in {time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -35,7 +35,7 @@ OP_VOCABULARY = (
     "feature_matmul_dense",
 )
 
-VERIFY_ITEM = "ROADMAP.md Queue 1, item 8 (verifier)"
+DIST_ITEM = "ROADMAP.md Queue 1, item 7 (distributed)"
 LM_ITEM = "ROADMAP.md Queue 1, item 9 (LM substrate)"
 
 

@@ -130,7 +130,8 @@ class GNNProgram:
                 use_fused: bool = True, fused_optimizer: bool = False,
                 layout: "str | None" = None,
                 fuse_attention: bool = True,
-                params: Optional[dict] = None) -> CompiledProgram:
+                params: Optional[dict] = None,
+                validate: str = "fast") -> CompiledProgram:
         """Lower the spec to per-layer plans with operands on ``device``.
 
         ``engine`` names a registered backend (``"cuda" | "torch" |
@@ -145,6 +146,10 @@ class GNNProgram:
         takes the JAX package's parameters as a numpy tree
         (``params_from_jax``), so one set of weights drives both packages;
         without it, Xavier weights are drawn from the program's seed.
+        ``validate`` selects the plan-contract verification depth
+        (``"off" | "fast" | "full"``, ``core/verify.py``): a malformed
+        operand raises ``PlanVerificationError`` here instead of giving
+        wrong gradients later.
         """
         if self._layer_dims is None:
             raise RuntimeError("call initialize_layers first")
@@ -155,7 +160,8 @@ class GNNProgram:
         # Alg 1 Phase 1, per layer: runtime analysis & lowering
         plan = lower(config, self.graph, self.features, gamma=self.gamma,
                      engine=engine, use_fused=use_fused, layout=layout,
-                     fuse_attention=fuse_attention, device=dev)
+                     fuse_attention=fuse_attention, device=dev,
+                     validate=validate)
         model = GNNModel(config, self.graph, use_fused=use_fused, plan=plan)
         if params is None:
             p = init_params(config, torch.Generator().manual_seed(self._seed),

@@ -14,10 +14,10 @@ attention archs bind the fused ``spmm_attention`` on ``cuda``/``torch``
 (an ``AttentionPlan`` per layer), the sampled path over each batch's
 padded (A, Aᵀ) pair, and ``max`` binds ``gather.segment_max``.
 ``layout="auto"`` runs the layout stage (``core/layout.py:plan_layout``:
-node order and a tile timed on this device, cached on disk). The
-distributed lowering waits for ROADMAP.md Queue 1, item 7; the
-plan-contract verifier (``check_plan``) for item 8, and a full-batch
-plan's ``describe()`` says so.
+node order and a tile timed on this device, cached on disk). Both
+lowerings check the plan they return (``core/verify.py:check_plan``,
+``validate="fast"`` by default, as in the JAX package). The distributed
+lowering waits for ROADMAP.md Queue 1, item 7.
 """
 from __future__ import annotations
 
@@ -29,7 +29,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.backends import Backend, select_backend
-from repro_torch.backends.registry import VERIFY_ITEM
 from repro_torch.core.aggregate import (
     FusedGraphOp,
     _weighted_graph,
@@ -48,6 +47,7 @@ from repro_torch.core.sparsity import (
     decide_execution_path_from_stats,
     estimate_activation_sparsity,
 )
+from repro_torch.core.verify import _resolve_mode, check_plan
 from repro_torch.graph.csr import CSRGraph, permute_graph
 from repro_torch.graph.sampling import NeighborSampler
 
@@ -173,8 +173,7 @@ class ModelPlan:
             f"input_sparsity={self.feature_sparsity:.3f} "
             f"layers={len(self.layers)}"
         )
-        return "\n".join([head] + ["  " + l.describe() for l in self.layers]
-                         + [f"  (check_plan not ported: {VERIFY_ITEM})"])
+        return "\n".join([head] + ["  " + l.describe() for l in self.layers])
 
 
 @dataclasses.dataclass
@@ -198,6 +197,9 @@ class SampledModelPlan:
     layout: Optional[LayoutPlan] = None
     # serving plans: the trainer never builds loss/grad closures
     infer_only: bool = False
+    # where the trainer builds each batch's operands (None: the host); the
+    # full-mode check builds the template batch's column streams there
+    device: Optional[torch.device] = None
 
     def describe(self) -> str:
         head = (
@@ -236,6 +238,8 @@ def lower_sampled(
     fuse_attention: bool = True,
     layout: "LayoutPlan | str | None" = None,
     infer_only: bool = False,
+    validate: str = "fast",
+    device=None,
 ) -> SampledModelPlan:
     """Lower a GNN spec onto the neighbour-sampled mini-batch path.
 
@@ -250,7 +254,13 @@ def lower_sampled(
     GAT / GT bind the fused ``spmm_attention`` over each batch's BSR pair
     on ``cuda``/``torch`` (``fuse_attention=False``: the segment path over
     the padded edge lists); ``max`` binds ``gather.segment_max``.
+    ``validate`` (``"off" | "fast" | "full"``) is the depth of the
+    plan-contract check run on the finished plan (``core/verify.py``).
+    ``device`` is where the trainer builds each batch's operands (None:
+    the host); the plan carries it, and full mode builds the template
+    batch's column streams there.
     """
+    _resolve_mode(validate)
     backend = select_backend(engine)
     kind = config.kind
     dims = list(config.layer_dims)
@@ -376,12 +386,15 @@ def lower_sampled(
             epilogue=epilogue, attention=attention, layout=lp,
         ))
 
-    return SampledModelPlan(
+    plan = SampledModelPlan(
         layers=layers, backend=backend.name, gamma=gamma, arch=kind,
         aggregation=agg, feature_sparsity=float(s_frontier), fanouts=fanouts,
         batch_size=int(batch_size), n_buckets=int(n_buckets), sampler=sampler,
         layout=lp, infer_only=bool(infer_only),
+        device=None if device is None else torch.device(device),
     )
+    check_plan(plan, mode=validate)
+    return plan
 
 
 def effective_aggregation(config) -> str:
@@ -506,6 +519,7 @@ def lower(
     bc: Optional[int] = None,
     layout: "LayoutPlan | str | None" = None,
     device=None,
+    validate: str = "fast",
 ) -> ModelPlan:
     """Lower a GNN spec onto backend primitives for full-batch execution:
     the synthesis step, as ``repro/core/lowering.py:lower``.
@@ -524,7 +538,11 @@ def lower(
     cost model; cached on disk). A reordered plan carries
     ``perm``/``inv_perm`` and ``GNNModel.apply`` permutes features in and
     logits back. Operands are built on ``device``: CUDA unless asked.
+    ``validate`` (``"off" | "fast" | "full"``) is the depth of the
+    plan-contract check run on the finished plan against the exec graph
+    (``core/verify.py``; full mode's value checks run on ``device``).
     """
+    _resolve_mode(validate)
     backend = select_backend(engine)
     dev = resolve_device(device)
     kind = config.kind
@@ -557,6 +575,7 @@ def lower(
                                     engine=backend, device=dev,
                                     build_attention=emit_attn)
     # operands are built: drop the layout's host-side copy of the graph
+    # (``graph_exec`` keeps it for the plan check)
     if lp.reordered_graph is not None:
         lp = dataclasses.replace(lp, reordered_graph=None)
 
@@ -627,8 +646,10 @@ def lower(
             sparse_xw=sparse_xw,
         ))
 
-    return ModelPlan(
+    plan = ModelPlan(
         layers=layers, backend=backend.name, gamma=gamma, arch=kind,
         aggregation=agg, feature_sparsity=s_input, graph_op=graph_op,
         layout=lp, device=dev,
     )
+    check_plan(plan, mode=validate, graph=graph_exec)
+    return plan

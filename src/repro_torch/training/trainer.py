@@ -245,7 +245,7 @@ class MiniBatchTrainer:
                 config, graph, features, fanouts=fanouts,
                 batch_size=batch_size, n_buckets=n_buckets, gamma=gamma,
                 engine=engine, seed=seed, layout=layout,
-                infer_only=infer_only)
+                infer_only=infer_only, device=self.device)
         self.config = config
         self.plan = plan
         self.sampler = plan.sampler

@@ -3,8 +3,8 @@
 step's loss and gradients agree with the JAX package's Pallas path
 (interpret mode) from the same weights; a 10-epoch trace of a
 quickstart-shaped program tracks the JAX package's ``xla`` trace; the
-runtime's arguments and ``layout="auto"`` are taken, and the parts that
-are not ported say so, naming ROADMAP.md.
+runtime's arguments, ``layout="auto"`` and ``validate="full"`` are
+taken.
 
 The port runs its default ``cuda`` backend on ``device="cpu"``, where each
 kernel wrapper takes its plain version. Tolerances: plans exactly; loss
@@ -100,9 +100,7 @@ def test_plan_matches_jax(jx, kind, agg, regime, engine):
     tp = lower(GNNConfig(kind=kind, layer_dims=dims, aggregation=agg),
                csr_from_edges(src, dst, 64), x, engine=NAMES[engine],
                device="cpu")
-    lines = tp.describe().splitlines()
-    assert lines[:-1] == _mapped(jp.describe()).splitlines()
-    assert "check_plan not ported" in lines[-1] and "ROADMAP.md" in lines[-1]
+    assert tp.describe() == _mapped(jp.describe())
     assert tp.feature_sparsity == jp.feature_sparsity
     for t, j in zip(tp.layers, jp.layers):
         assert t.decision.__dict__ == {k: getattr(j.decision, k)
@@ -125,7 +123,7 @@ def test_plan_options_match_jax(jx, kw):
         src, dst, 64), x, engine="pallas", interpret=True, **kw)
     tp = lower(GNNConfig(kind="GIN", layer_dims=dims), csr_from_edges(
         src, dst, 64), x, engine="cuda", device="cpu", **kw)
-    assert tp.describe().splitlines()[:-1] == _mapped(jp.describe()).splitlines()
+    assert tp.describe() == _mapped(jp.describe())
     if "layout" in kw:
         np.testing.assert_array_equal(tp.layout.perm, jp.layout.perm)
         np.testing.assert_array_equal(tp.layout.inv_perm, jp.layout.inv_perm)
@@ -207,9 +205,9 @@ def test_full_batch_trainer_fits_and_matches_the_program():
 
 
 def test_unported_parts_raise_naming_roadmap(tmp_path, monkeypatch):
-    """Items 5 and 6 are ported: the trainers take the runtime's
-    arguments and ``lower`` takes ``layout="auto"``; the plan dump still
-    names the verifier (item 8) as not ported."""
+    """Items 5, 6 and 8 are ported: the trainers take the runtime's
+    arguments, and ``lower`` takes ``layout="auto"`` and verifies that
+    plan in full mode."""
     from repro_torch.runtime import FaultInjector, FaultSpec, GuardPolicy
 
     monkeypatch.setenv("MORPHLING_LAYOUT_CACHE", str(tmp_path / "layouts.json"))
@@ -225,9 +223,8 @@ def test_unported_parts_raise_naming_roadmap(tmp_path, monkeypatch):
         x, labels, mask, epochs=2)
     assert res.guard["skipped"] == 1 and res.restored_from is None
     plan = lower(GNNConfig(kind="GCN", layer_dims=dims), g, x, layout="auto",
-                 device="cpu")
+                 device="cpu", validate="full")
     assert plan.layout.source == "cost-model"  # the kernels need the card
-    assert "check_plan not ported" in plan.describe().splitlines()[-1]
     tr = MiniBatchTrainer(GNNConfig(kind="GCN", layer_dims=dims), g, x,
                           labels, mask, adam(), fanouts=(4, 3), device="cpu",
                           ckpt_dir=str(tmp_path / "mini"), ckpt_every=1,

@@ -225,6 +225,7 @@ def test_port_imports_without_jax_or_repro():
     assert {"repro_torch.core.dsl", "repro_torch.training.optimizer",
             "repro_torch.kernels.fused_adam", "repro_torch.kernels.ops",
             "repro_torch.core.aggregate", "repro_torch.core.lowering",
+            "repro_torch.core.verify",
             "repro_torch.kernels.bsr_attention",
             "repro_torch.kernels.flash_attention", "repro_torch.configs.base",
             "repro_torch.configs.llama3p2_1b", "repro_torch.models.layers",
