@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 20]
 
-Phases; any failure raises, so the exit code is not 0 and no result line
+Phases (``--phases 20``: phase 20 alone); any failure raises, so the exit code is not 0 and no result line
 is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
@@ -250,6 +250,34 @@ is printed:
     held against its plain version on the same inputs within 1e-4 (the
     inputs and outputs recorded as it ran, the plain versions run after
     the counts are read).
+20. The MoE family, after phases 2-19 have returned and freed the card.
+    (a) dbrx-132b served at its published widths (d_model 6,144; 48
+    heads over 8 KV heads of 128; 16 experts of 10,752, top-4, capacity
+    factor 1.25; vocab 100,352), cut to 2 layers (one scanned segment of
+    2): 7,751,331,840 parameters, phase 10's requests and checks: exactly
+    2 ``flash_attention`` launches a wave (D = 128) and none in decode,
+    no other kernel of the port; both programs' MoE routing recorded
+    (``RoutingLog``), the logits held within 1e-4 and the greedy tokens
+    where the top-2 margin exceeds ``TOKEN_MARGIN`` on every call of a
+    wave before its routing parts, and no token parted at a top-k margin
+    above ``ROUTE_MARGIN``; a profiled prefill and decode step by class
+    (expert bmm, dispatch/combine, flash, other products, elementwise).
+    (b) Phase 11's checks of the kernel at D = 128 on (a)'s 1,024-token
+    wave (B 4, H 48, Hkv 8, T 1024) and ragged D = 128 shapes
+    (``d128_edge_cases``), its time beside SDPA's and the bound. (c)
+    deepseek-v3-671b served at its published widths (d_model 7,168; 128
+    MLA heads, q rank 1,536, kv rank 512, qk 128 + 64, v 128; 256
+    experts of 2,048, top-8, 1 shared; dense FFN 18,432; vocab 129,280),
+    cut to 2 layers (one dense, one MoE) without MTP: 13,944,130,560
+    parameters, the same requests and checks with no kernel of the port
+    launched (MLA takes the masked core), and its latent cache's bytes
+    beside a full K/V cache's. (d) deepseek-v3-671b trained at a width cut
+    (d_model 2,048, 16 heads, vocab 32,768, 3 layers: one dense, then a
+    scanned segment of 2 MoE layers of ``MOE_TRAIN_EXPERTS`` experts;
+    MLA, the FFN widths, top-8, the shared expert and MTP as published:
+    1,563,119,616 parameters) through phase 16's checks, after two runs
+    of the first step's backward that must be bitwise equal. Each part's
+    peak allocation.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -259,9 +287,11 @@ to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -274,6 +304,7 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -352,6 +383,7 @@ from repro_torch.models.model_zoo import (  # noqa: E402
     make_dummy_batch,
     make_train_step,
 )
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.transformer import _layer_window  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.models.gnn import GNNConfig  # noqa: E402
@@ -364,7 +396,13 @@ from repro_torch.runtime import (  # noqa: E402
     restore_checkpoint,
     save_checkpoint,
 )
-from repro_torch.training.optimizer import adam, adamw, bias_corrected_lr, tree_leaves  # noqa: E402
+from repro_torch.training.optimizer import (  # noqa: E402
+    adam,
+    adamw,
+    bias_corrected_lr,
+    tree_leaves,
+    tree_unflatten,
+)
 from repro_torch.training.schedule import warmup_cosine  # noqa: E402
 from repro_torch.training.trainer import (  # noqa: E402
     FullBatchTrainer,
@@ -594,16 +632,18 @@ def window_complete(prof, expect: dict) -> bool:
     return False
 
 
-def profiled(fn, device, expect: dict):
-    """``torch.profiler`` (CUDA activity only) over one call of ``fn``,
-    after one more call as the profiler's warmup step, which is discarded;
-    the first of ``PROFILE_TRIES`` windows that is complete for ``expect``
-    (``window_complete``) and its number, else (None, PROFILE_TRIES)."""
+def profiled(fn, device, expect: dict, cpu: bool = False):
+    """``torch.profiler`` (CUDA activity only, or CPU activity too) over
+    one call of ``fn``, after one more call as the profiler's warmup step,
+    which is discarded; the first of ``PROFILE_TRIES`` windows that is
+    complete for ``expect`` (``window_complete``) and its number, else
+    (None, PROFILE_TRIES)."""
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     for attempt in range(1, PROFILE_TRIES + 1):
         sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
         with warnings.catch_warnings():  # "profiler clears events each cycle"
             warnings.simplefilter("ignore", UserWarning)
-            with profile(activities=[ProfilerActivity.CUDA], schedule=sched) as prof:
+            with profile(activities=activities, schedule=sched) as prof:
                 for _ in range(2):
                     fn()
                     torch.cuda.synchronize(device)
@@ -2678,17 +2718,61 @@ FLASH_BF16_TOL = 5e-2
 #: greedy tokens must agree where the cuda program's top-2 logit margin
 #: exceeds this (below it, float32 rounding may pick either)
 TOKEN_MARGIN = 1e-3
+#: an MoE layer may route a token to other experts in the cuda and torch
+#: programs only where the cuda program's top-k margin (p_k - p_(k+1)) is
+#: at most this: the flash kernel moves q·k, and so the router's inputs,
+#: by float32 rounding, far below it
+ROUTE_MARGIN = 1e-5
+
+
+class RoutingLog:
+    """Measurement only: while entered, every ``moe.route`` call appends
+    the expert ids it chose [T, k] and each token's top-k margin
+    ``p_k - p_(k+1)`` [T] to ``calls``. Nothing on the main path calls it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        route = self._route = moe_mod.route
+
+        def recorded(probs, k):
+            vals, ids = route(probs, k)
+            top = torch.sort(probs, dim=-1, descending=True).values
+            margin = (top[:, k - 1] - top[:, k] if k < probs.shape[1]
+                      else torch.full_like(top[:, 0], float("inf")))
+            self.calls.append((ids.clone(), margin))
+            return vals, ids
+
+        moe_mod.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.route = self._route
+
+
+def routes_parted(ours: list, theirs: list) -> list:
+    """The top-k margins (``ours``') at every token that one program's MoE
+    calls routed to other experts than the other's, call by call."""
+    if len(ours) != len(theirs):
+        raise AssertionError(f"{len(ours)} MoE calls against {len(theirs)}")
+    margins = []
+    for (ids, margin), (other, _) in zip(ours, theirs):
+        differ = (ids.sort(1).values != other.sort(1).values).any(1)
+        margins += margin[differ].tolist()
+    return margins
 
 
 class RecordingLM:
     """The cuda model's entry points as ``ServingEngine`` calls them. Each
-    call's token input, last-position logits, synchronised host time and
-    flash launches are recorded, so that the reference program can be fed
-    the same inputs afterwards. Measurement only."""
+    call's token input, last-position logits, synchronised host time,
+    flash launches and (under a ``RoutingLog``) MoE routing are recorded,
+    so that the reference program can be fed the same inputs afterwards.
+    Measurement only."""
 
-    def __init__(self, model, device):
-        self.model, self.device = model, device
-        self.calls = []  # dicts: wave, kind, tokens, logits, s, flash
+    def __init__(self, model, device, routing: "RoutingLog | None" = None):
+        self.model, self.device, self.routing = model, device, routing
+        self.calls = []  # dicts: wave, kind, tokens, logits, s, flash, routes
         self.wave = -1
 
     def init_cache(self, *args, **kw):
@@ -2697,12 +2781,14 @@ class RecordingLM:
     def _call(self, kind, fn, tokens):
         sync(self.device)
         before = flash_attention.launches
+        n_routes = len(self.routing.calls) if self.routing else 0
         t0 = time.perf_counter()
         logits, cache = fn()
         sync(self.device)
         self.calls.append({"wave": self.wave, "kind": kind, "tokens": tokens.clone(),
                            "logits": logits.clone(), "s": time.perf_counter() - t0,
-                           "flash": flash_attention.launches - before})
+                           "flash": flash_attention.launches - before,
+                           "routes": self.routing.calls[n_routes:] if self.routing else []})
         return logits, cache
 
     def prefill(self, params, tokens, cache):
@@ -2727,38 +2813,74 @@ def lm_requests(sizes: Sizes, vocab: int) -> list:
             for i, n in enumerate(lengths)]
 
 
-def lm_profile(fn, device, n_flash: int, wall_ms: float) -> dict:
+#: phase 20's profiled calls by kernel class: a kernel launched inside one
+#: of ``models/moe.py``'s ``record_function`` spans counts under its stage
+MOE_SPANS = {span: "expert bmm" if span == "moe.experts" else "dispatch/combine"
+             for span in moe_mod.SPANS}
+
+
+def lm_profile(fn, device, n_flash: int, wall_ms: float, spans: dict = None) -> dict:
     """One call of ``fn`` under the profiler: device ms by kernel class,
     busy total and the idle share of ``wall_ms`` (the call's synchronised
-    time in the engine's run)."""
+    time in the engine's run). With ``spans`` (a ``record_function``
+    span's name -> a class) the profiler records CPU activity too: every
+    kernel, copy and memset counts under its name's class, and one that an op
+    inside such a span launched moves to the span's class (a kernel
+    launched outside any op, as flash's through ctypes, stays under its
+    name's)."""
     if device.type != "cuda":
         return {"complete": False}
-    prof, windows = profiled(fn, device, {"flash_attention": n_flash})
+    prof, windows = profiled(fn, device, {"flash_attention": n_flash}, cpu=bool(spans))
     if prof is None:
         return {"complete": False, "windows": windows}
     by = defaultdict(float)
-    for name, us, _ in device_events(prof):
-        by[classify(name)] += us / 1e3
+    if spans:
+        for e in prof.events():
+            # the spans and the profiler's step also show on the device's
+            # timeline, as user annotations
+            annotation = (getattr(e, "is_user_annotation", False) or e.name in spans
+                          or e.name.startswith("ProfilerStep"))
+            if e.device_type == DeviceType.CUDA and not annotation:
+                by[classify(e.name)] += e.time_range.elapsed_us() / 1e3
+            span, p = None, e
+            while p is not None and span is None:
+                span, p = spans.get(p.name), p.cpu_parent
+            for k in (getattr(e, "kernels", None) or []) if span else []:
+                by[span] += k.duration / 1e3
+                by[classify(k.name)] -= k.duration / 1e3
+    else:
+        for name, us, _ in device_events(prof):
+            by[classify(name)] += us / 1e3
     busy = sum(by.values())
-    return {"complete": True, "windows": windows, "device_ms": dict(by),
-            "busy_ms": busy, "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms}
+    # a kernel listed under two ops would leave its name's class negative
+    return {"complete": min(by.values(), default=0.0) > -1e-6, "windows": windows,
+            "device_ms": dict(by), "busy_ms": busy, "wall_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms}
 
 
 def flash_layers(cfg) -> int:
     """The layers whose prefill runs the flash kernel: those without a
-    sliding window (all of llama3.2-1b's 16, gemma3-1b's 4 global ones)."""
+    sliding window (all of llama3.2-1b's 16, gemma3-1b's 4 global ones,
+    dbrx-132b's), none where the attention is MLA (deepseek-v3-671b:
+    ``_attn_core`` always)."""
+    if cfg.mla:
+        return 0
     return sum(_layer_window(cfg, i) == 0 for i in range(cfg.n_layers))
 
 
 def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
-    """Phases 10 and 15, LM serving: ``ServingEngine`` over the ``cuda``
-    model (prefill attention on the flash kernel in the layers without a
-    window) at the configuration's full width, random weights from a
-    seeded generator on the card; counts zeroed just before ``run()`` and
-    read after it. Then the ``torch`` model (the plain version) fed the
-    same inputs call by call: its logits within 1e-4 at every step, and
-    its greedy tokens equal where the cuda program's top-2 margin exceeds
-    ``TOKEN_MARGIN``."""
+    """Phases 10, 15 and 20, LM serving: ``ServingEngine`` over the
+    ``cuda`` model (prefill attention on the flash kernel in the GQA layers
+    without a window) at the configuration's full width, random weights
+    from a seeded generator on the card; counts zeroed just before
+    ``run()`` and read after it. Then the ``torch`` model (the plain
+    version) fed the same inputs call by call: its logits within 1e-4 at
+    every step, and its greedy tokens equal where the cuda program's top-2
+    margin exceeds ``TOKEN_MARGIN``. With MoE layers both programs'
+    routing is recorded (``RoutingLog``): a wave is held to those gates
+    up to the first call whose routing parted, and the run fails if any
+    token parted at a top-k margin above ``ROUTE_MARGIN``; the calls
+    parted and not held are counted."""
     model, ref = build_model(cfg, inner="cuda"), build_model(cfg, inner="torch")
     on_card = device.type == "cuda"
     gen = torch.Generator(device=device).manual_seed(0)
@@ -2767,9 +2889,16 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
     sync(device)
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV) of {cfg.resolved_head_dim}, "
-          f"vocab {cfg.vocab_size}: {n_params:,} parameters drawn in {init_s:.2f}s")
+    heads = (f"{cfg.n_heads} MLA heads (q rank {cfg.mla.q_lora_rank}, kv rank "
+             f"{cfg.mla.kv_lora_rank}, qk {cfg.mla.qk_nope_head_dim} + "
+             f"{cfg.mla.qk_rope_head_dim}, v {cfg.mla.v_head_dim})" if cfg.mla else
+             f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV) of {cfg.resolved_head_dim}")
+    experts = (f", {cfg.moe.n_experts} experts of {cfg.moe.d_ff_expert} (top "
+               f"{cfg.moe.n_experts_per_token}, {cfg.moe.n_shared_experts} shared) from "
+               f"layer {cfg.first_k_dense_layers}" if cfg.moe else "")
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {heads}"
+          f"{experts}, vocab {cfg.vocab_size}: {n_params:,} parameters drawn in "
+          f"{init_s:.2f}s")
     max_seq = sizes.lm_prompts[1] + sizes.lm_new_tokens
     # warmup: the same requests once, untimed (the flash library's load,
     # cuBLAS's first calls at these shapes)
@@ -2781,7 +2910,8 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
     warm.run()
     sync(device)
     warmup_s = time.perf_counter() - t0
-    rec = RecordingLM(model, device)
+    routing = RoutingLog() if cfg.moe else None
+    rec = RecordingLM(model, device, routing)
     engine = ServingEngine(rec, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
                            device=device)
     reqs = lm_requests(sizes, cfg.vocab_size)
@@ -2791,13 +2921,15 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     zero_counts()
-    t0 = time.perf_counter()
-    done = engine.run()
-    sync(device)
-    wall = time.perf_counter() - t0
+    with routing or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        done = engine.run()
+        sync(device)
+        wall = time.perf_counter() - t0
     launched = counts()
     # the run's own peak: what earlier phases left allocated is not counted
-    peak = torch.cuda.max_memory_allocated(device) - mem_before if on_card else 0
+    peak_abs = torch.cuda.max_memory_allocated(device) if on_card else 0
+    peak = peak_abs - mem_before
 
     waves = rec.wave + 1
     per_wave = flash_layers(cfg) if on_card else 0
@@ -2819,22 +2951,34 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
 
     worst, steps, sure_steps, ref_s = 0.0, 0, 0, defaultdict(list)
     cache = None
+    parted_waves, parted, unheld = set(), [], 0
     for c in rec.calls:
         logits = c["logits"]
         if logits.shape != (c["tokens"].shape[0], cfg.padded_vocab()) \
                 or not torch.isfinite(logits).all():
             raise AssertionError(f"{c['kind']} logits {tuple(logits.shape)} not finite "
                                  f"or of the wrong shape")
+        ref_routing = RoutingLog() if cfg.moe else None
         sync(device)
         t0 = time.perf_counter()
-        if c["kind"] == "prefill":
-            cache = ref.init_cache(c["tokens"].shape[0], max_seq, dtype=torch.float32,
-                                   device=device)
-            want, cache = ref.prefill(params, c["tokens"], cache)
-        else:
-            want, cache = ref.decode_step(params, cache, c["tokens"])
+        with ref_routing or contextlib.nullcontext():
+            if c["kind"] == "prefill":
+                cache = ref.init_cache(c["tokens"].shape[0], max_seq, dtype=torch.float32,
+                                       device=device)
+                want, cache = ref.prefill(params, c["tokens"], cache)
+            else:
+                want, cache = ref.decode_step(params, cache, c["tokens"])
         sync(device)
         ref_s[c["kind"]].append(time.perf_counter() - t0)
+        if ref_routing is not None:
+            margins = routes_parted(c["routes"], ref_routing.calls)
+            if margins:
+                parted.append({"wave": c["wave"], "kind": c["kind"],
+                               "tokens": len(margins), "max_margin": max(margins)})
+                parted_waves.add(c["wave"])
+        if c["wave"] in parted_waves:  # the torch program's cache differs from here
+            unheld += 1
+            continue
         worst = max(worst, float((logits - want).abs().max()))
         top = torch.topk(logits, 2, dim=-1).values
         sure = (top[:, 0] - top[:, 1]) > TOKEN_MARGIN
@@ -2845,9 +2989,16 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
                                  f"{c['wave']} where the top-2 margin > {TOKEN_MARGIN}")
     if not worst <= TOL:
         raise AssertionError(f"cuda vs torch LM logits differ by {worst} > {TOL}")
+    route_margin = max((p["max_margin"] for p in parted), default=0.0)
+    if route_margin > ROUTE_MARGIN:
+        raise AssertionError(f"MoE routing parted at a top-k margin of {route_margin} "
+                             f"> {ROUTE_MARGIN}: {parted}")
     print(f"[lm] cuda vs torch, the torch model fed the cuda program's tokens: "
           f"logits within {worst:.3g}; greedy tokens equal at all {sure_steps} of "
-          f"{steps} (slot, step) pairs whose top-2 margin > {TOKEN_MARGIN}")
+          f"{steps} (slot, step) pairs whose top-2 margin > {TOKEN_MARGIN}"
+          + (f"; MoE routing parted in {len(parted)} of {len(rec.calls)} calls "
+             f"(largest top-k margin there {route_margin:.3g}), {unheld} calls not "
+             f"held" if cfg.moe else ""))
 
     prefill_s = [c["s"] for c in rec.calls if c["kind"] == "prefill"]
     decode_s = [c["s"] for c in rec.calls if c["kind"] == "decode"]
@@ -2860,6 +3011,7 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
     _, filled = model.prefill(params, longest["tokens"], model.init_cache(
         b, max_seq, dtype=torch.float32, device=device))
     cur = longest["logits"].argmax(-1)[:, None]
+    spans = MOE_SPANS if cfg.moe else None
     out = {
         "arch": cfg.name, "n_params": n_params, "init_s": init_s, "warmup_s": warmup_s,
         "requests": len(done),
@@ -2869,6 +3021,7 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
                                if c["kind"] == "prefill"],
         "launches": launched, "flash_per_wave": per_wave,
         "max_logit_diff": worst, "token_pairs": steps, "token_pairs_compared": sure_steps,
+        "routing_parted": parted, "calls_not_held": unheld,
         "wall_s": wall, "tokens_per_s": tokens / wall,
         "prefill_ms": [x * 1e3 for x in prefill_s],
         "decode_step_ms_median": median_ms,
@@ -2876,14 +3029,15 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
         "ref_prefill_ms": [x * 1e3 for x in ref_s["prefill"]],
         "ref_decode_step_ms_median": float(np.median(ref_s["decode"])) * 1e3
         if ref_s["decode"] else 0.0,
-        "peak_mem_bytes": peak, "params_bytes": 4 * n_params,
+        "peak_mem_bytes": peak, "peak_abs_bytes": peak_abs, "params_bytes": 4 * n_params,
         "profile_prefill": lm_profile(
             lambda: model.prefill(params, longest["tokens"], model.init_cache(
                 b, max_seq, dtype=torch.float32, device=device)),
-            device, per_wave, longest["s"] * 1e3),
+            device, per_wave, longest["s"] * 1e3, spans),
         "profile_decode": lm_profile(
-            lambda: model.decode_step(params, filled, cur), device, 0, median_ms),
+            lambda: model.decode_step(params, filled, cur), device, 0, median_ms, spans),
     }
+    del filled
     print("[lm] " + json.dumps(out))
     return {"summary": out, "model": model, "params": params, "tokens": longest["tokens"],
             "max_seq": max_seq}
@@ -2998,22 +3152,17 @@ def flash_edge_cases(device) -> dict:
     return err
 
 
-def d256_edge_cases(device) -> dict:
-    """The D = 256 kernel (gemma3-1b's global layers: H 4, one KV head, so
-    4 heads a CTA) on ragged shapes: Tq != Tk causal and not, T = 1, a
-    query tile's 16 rows a head cut at 150, Hkv == H (1 head a CTA) and a
-    group of 2; float32 and bfloat16, and strided and misaligned views
+def head_dim_edge_cases(device, d: int, shapes: tuple, seed: int) -> dict:
+    """The kernel at head width ``d`` on ragged ``shapes`` (B, H, Hkv, Tq,
+    Tk, causal), float32 and bfloat16, and strided and misaligned views
     bitwise equal to the aligned call."""
-    gen = torch.Generator().manual_seed(37)
+    gen = torch.Generator().manual_seed(seed)
     err = {"f32": 0.0, "bf16": 0.0}
-    for b, h, hkv, tq, tk, causal in (
-            (1, 4, 1, 150, 97, True), (2, 4, 1, 150, 201, False),
-            (1, 4, 1, 40, 72, True), (1, 4, 1, 72, 40, True), (2, 4, 1, 1, 1, True),
-            (1, 4, 4, 33, 33, True), (1, 4, 2, 130, 130, True)):
-        q = torch.randn((b, h, tq, 256), generator=gen).to(device)
-        k, v = (torch.randn((b, hkv, tk, 256), generator=gen).to(device)
+    for b, h, hkv, tq, tk, causal in shapes:
+        q = torch.randn((b, h, tq, d), generator=gen).to(device)
+        k, v = (torch.randn((b, hkv, tk, d), generator=gen).to(device)
                 for _ in range(2))
-        label = f"D=256 B={b} H={h} Hkv={hkv} Tq={tq} Tk={tk} causal={causal}"
+        label = f"D={d} B={b} H={h} Hkv={hkv} Tq={tq} Tk={tk} causal={causal}"
         err["f32"] = max(err["f32"], check_flash(label, q, k, v, causal, device))
         got = flash_attention(q, k, v, causal=causal)
         for layout, args in (
@@ -3028,6 +3177,22 @@ def d256_edge_cases(device) -> dict:
             label + " bf16", *(x.to(torch.bfloat16) for x in (q, k, v)), causal,
             device, FLASH_BF16_TOL))
     return err
+
+
+#: the D = 256 kernel (gemma3-1b's global layers: H 4, one KV head, so 4
+#: heads a CTA): Tq != Tk causal and not, T = 1, a query tile's 16 rows a
+#: head cut at 150, Hkv == H (1 head a CTA) and a group of 2
+d256_edge_cases = functools.partial(head_dim_edge_cases, d=256, seed=37, shapes=(
+    (1, 4, 1, 150, 97, True), (2, 4, 1, 150, 201, False),
+    (1, 4, 1, 40, 72, True), (1, 4, 1, 72, 40, True), (2, 4, 1, 1, 1, True),
+    (1, 4, 4, 33, 33, True), (1, 4, 2, 130, 130, True)))
+#: the D = 128 kernel (dbrx-132b: H 48 over 8 KV heads, a group of 6, so 2
+#: heads a CTA): Tq != Tk causal and not, T = 1, a query tile cut at 150,
+#: groups of 6, 3, 2 and 1
+d128_edge_cases = functools.partial(head_dim_edge_cases, d=128, seed=41, shapes=(
+    (1, 12, 2, 150, 97, True), (2, 12, 2, 150, 201, False),
+    (1, 12, 2, 40, 72, True), (1, 12, 2, 72, 40, True), (2, 12, 2, 1, 1, True),
+    (1, 6, 2, 130, 130, True), (1, 6, 3, 33, 33, True), (1, 6, 6, 100, 100, True)))
 
 
 def flash_phase(lm: dict, device, reps: int, edge_cases=flash_edge_cases) -> dict:
@@ -3140,7 +3305,7 @@ def lm_train_run(model, opt, params, batch, steps: int, device) -> dict:
             "ms": ms, "launched": launched}
 
 
-def lm_adam_row(params, device, reps: int) -> dict:
+def lm_adam_row(params, device, reps: int, arch: str) -> dict:
     """``fused_adam_multi`` over the LM's leaves (the trained weights,
     random gradients and moments, weight decay 0.01): one launch, each
     leaf within ADAM_TOL of the plain version; the kernel's CUDA-event ms
@@ -3168,7 +3333,7 @@ def lm_adam_row(params, device, reps: int) -> dict:
                                        a, r, ADAM_TOL))
     del out, ref
     n = int(sum(p.numel() for p in ps))
-    row = {"kernel": "fused_adam", "leaves_of": "llama3.2-1b training step",
+    row = {"kernel": "fused_adam", "leaves_of": f"{arch} training step",
            "leaves": len(ps), "params": n, "max_abs_err": err}
     row.update(timings({
         "": lambda: fused_adam_multi(ps, gs, ms, vs, lr_t, weight_decay=0.01),
@@ -3188,8 +3353,31 @@ def lm_adam_row(params, device, reps: int) -> dict:
     return row
 
 
+def first_step_grads(model, params, batch) -> list:
+    """The loss and every leaf's gradient of one training step's backward,
+    as ``make_train_step`` takes it (the float32 leaves cast to bfloat16
+    inside the loss)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    cast = [p.to(torch.bfloat16) for p in leaves]
+    loss, _ = model.loss(tree_unflatten(params, cast), batch)
+    return [loss.detach(), *torch.autograd.grad(loss, leaves)]
+
+
+def repeats_bitwise(model, params, batch) -> int:
+    """Two runs of the first step's backward from the same weights and
+    batch: the loss and every gradient bitwise equal (the MoE's dispatch
+    and combine sum in a fixed order); the number of tensors compared."""
+    first = first_step_grads(model, params, batch)
+    again = first_step_grads(model, params, batch)
+    for i, (a, b) in enumerate(zip(first, again)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"LM training: {'the loss' if i == 0 else f'gradient {i - 1}'}"
+                                 " of two runs of the first step is not bitwise equal")
+    return len(first)
+
+
 def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
-    """Phase 16, LM training: ``make_train_step(build_model(cfg,
+    """Phases 16 and 20 (d), LM training: ``make_train_step(build_model(cfg,
     remat="layer"), adamw(warmup_cosine(LM_LR, LM_WARMUP, steps),
     fused=True))`` at bfloat16 compute over one fixed ``make_dummy_batch``
     of lm_train_batch x lm_train_seq tokens, random weights from a seeded
@@ -3200,7 +3388,9 @@ def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
     program's optimizer state is freed: losses within LM_LOSS_RTOL at
     every step, parameters within LM_PARAM_RTOL a leaf. The step's
     synchronised ms, tokens/s, the run's peak memory, a profiled step by
-    kernel class, and the Adam launch on the LM's leaves (``lm_adam_row``)."""
+    kernel class, and the Adam launch on the LM's leaves (``lm_adam_row``).
+    With MoE layers, first two runs of the first step's backward, bitwise
+    equal (``repeats_bitwise``)."""
     steps = sizes.lm_train_steps
     sched = warmup_cosine(LM_LR, LM_WARMUP, steps)
     on_card = device.type == "cuda"
@@ -3214,13 +3404,19 @@ def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
     print(f"[lm-train] {cfg.name}: {n_params:,} parameters in "
           f"{len(tree_leaves(init))} leaves, batch {tuple(batch['tokens'].shape)}, "
           f"{steps} steps of AdamW(warmup_cosine({LM_LR}, {LM_WARMUP}, {steps}))")
+    repeated = None
+    if cfg.moe:
+        repeated = repeats_bitwise(model, init, batch)
+        print(f"[lm-train] two runs of the first step: the loss and all "
+              f"{repeated - 1} gradients bitwise equal")
     mem_before = torch.cuda.memory_allocated(device) if on_card else 0
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     zero_counts()
     run = lm_train_run(model, adamw(sched, fused=True), init, batch, steps, device)
     launched = counts()
-    peak = torch.cuda.max_memory_allocated(device) - mem_before if on_card else 0
+    peak_abs = torch.cuda.max_memory_allocated(device) if on_card else 0
+    peak = peak_abs - mem_before
     want = {name: 0 for name in KERNELS}
     want["fused_adam"] = 1 if on_card else 0
     for i, got in enumerate(run["launched"]):
@@ -3259,7 +3455,7 @@ def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
     del ref, init
     if on_card:
         torch.cuda.empty_cache()
-    adam_row = lm_adam_row(params, device, reps=5)
+    adam_row = lm_adam_row(params, device, reps=5, arch=cfg.name)
     del params
     if on_card:
         torch.cuda.empty_cache()
@@ -3271,7 +3467,8 @@ def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
         "launches": launched, "step_ms": step_ms, "step_ms_median": median_ms,
         "ref_step_ms_median": ref_ms,
         "tokens_per_s": tokens / (median_ms / 1e3), "peak_mem_bytes": peak,
-        "profile": profile, "adam": adam_row,
+        "peak_abs_bytes": peak_abs,
+        "profile": profile, "adam": adam_row, "first_step_tensors_bitwise": repeated,
     }
     print("[lm-train] " + json.dumps(out))
     return out
@@ -3300,6 +3497,156 @@ def gemma_and_training(sizes: Sizes, device) -> dict:
     phase_s["16"] = time.perf_counter() - t0
     return {"gemma": gemma["summary"], "gemma_flash": gfa, "lm_train": train,
             "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the MoE family (mixture of experts, MLA, multi-token prediction)
+# ---------------------------------------------------------------------------
+
+#: phase 20 (d): the training cut's routed experts, half the 64 of the
+#: width cut it stands for: with 64 the out-of-place AdamW update alone
+#: holds 28 bytes a parameter (weights, gradients, both moments and the
+#: three new tensors), 72 GiB of 2.77 B parameters, past the 70 GiB the
+#: phase may take
+MOE_TRAIN_EXPERTS = 32
+
+
+def moe_configs(sizes: Sizes) -> dict:
+    """Phase 20's configurations, each cut as PERF.md §4 states: dbrx-132b
+    and deepseek-v3-671b served at their published widths, cut in depth
+    (dbrx 40 -> 2 layers, one scanned segment of 2; deepseek 61 -> 2, one
+    dense layer then one MoE layer of all 256 experts, ``mtp_depth`` 1 ->
+    0, which serving never reads), and deepseek-v3-671b trained at a width
+    cut (d_model 2,048, 16 heads, vocab 32,768, 3 layers: one dense, then
+    a scanned segment of 2 MoE layers of ``MOE_TRAIN_EXPERTS`` experts;
+    the MLA ranks, the expert and dense FFN widths, top-8, the shared
+    expert and ``mtp_depth`` 1 as published). The reduced configs take the
+    same depth cuts where ``lm_reduced``."""
+    dbrx, ds = get_config("dbrx-132b"), get_config("deepseek-v3-671b")
+    if sizes.lm_reduced:
+        dbrx, ds = dbrx.reduced(), ds.reduced()
+    train = dataclasses.replace(ds, name=ds.name + "-train-cut", n_layers=3,
+                                first_k_dense_layers=1)
+    if not sizes.lm_reduced:
+        train = dataclasses.replace(
+            train, d_model=2048, n_heads=16, n_kv_heads=16, vocab_size=32768,
+            moe=dataclasses.replace(ds.moe, n_experts=MOE_TRAIN_EXPERTS))
+    return {"dbrx": dataclasses.replace(dbrx, n_layers=2),
+            "deepseek": dataclasses.replace(ds, n_layers=2, first_k_dense_layers=1,
+                                            mtp_depth=0),
+            "train": train}
+
+
+def free_card(device) -> None:
+    if device.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def latent_cache_bytes(model, cfg, sizes: Sizes, device) -> dict:
+    """MLA's cache for the engine's slots and positions (float32, the
+    engine's dtype), allocated and measured, beside what a full K/V cache
+    of the same positions and heads would take (K at qk_nope + qk_rope, V
+    at v_head_dim a head, computed)."""
+    max_seq = sizes.lm_prompts[1] + sizes.lm_new_tokens
+    cache = model.init_cache(sizes.lm_slots, max_seq, dtype=torch.float32, device=device)
+    latent = sum(layer["attn"]["latent"].numel() * 4
+                 for seg in cache["segments"] for layer in seg)
+    m = cfg.mla
+    full = (cfg.n_layers * sizes.lm_slots * max_seq * cfg.n_heads
+            * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim) * 4)
+    return {"latent_bytes": latent, "full_kv_bytes": full, "ratio": full / latent,
+            "slots": sizes.lm_slots, "positions": max_seq}
+
+
+def moe_phase(sizes: Sizes, device) -> dict:
+    """Phase 20, the MoE family on the card, after everything earlier
+    phases held is freed: (a) dbrx-132b served (``lm_serving_phase``:
+    flash at D = 128 twice a wave, the routing rule of ``ROUTE_MARGIN``),
+    (b) flash at D = 128 on (a)'s wave (``flash_phase`` with
+    ``d128_edge_cases``), (c) deepseek-v3-671b served (MLA: no kernel of
+    the port) and its latent cache's bytes, (d) the training cut trained
+    (``lm_training_phase``: one Adam launch a step, the first step's
+    backward bitwise twice). Each part's peak allocation; the phase's
+    seconds by part."""
+    on_card = device.type == "cuda"
+    free_card(device)
+    held = torch.cuda.memory_allocated(device) if on_card else 0
+    print(f"[moe] phase 20: {held / 2**30:.2f} GiB still allocated by phases 2-19")
+    cfgs = moe_configs(sizes)
+    phase_s = {}
+    t0 = time.perf_counter()
+    dbrx = lm_serving_phase(cfgs["dbrx"], sizes, device)
+    phase_s["20a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dbrx_flash = flash_phase(dbrx, device, reps=10, edge_cases=d128_edge_cases)
+    phase_s["20b"] = time.perf_counter() - t0
+    del dbrx["model"], dbrx["params"], dbrx["tokens"]
+    free_card(device)
+    t0 = time.perf_counter()
+    ds = lm_serving_phase(cfgs["deepseek"], sizes, device)
+    ds["summary"]["latent_cache"] = latent_cache_bytes(ds["model"], cfgs["deepseek"],
+                                                       sizes, device)
+    print(f"[moe] deepseek latent cache: {json.dumps(ds['summary']['latent_cache'])}")
+    phase_s["20c"] = time.perf_counter() - t0
+    del ds["model"], ds["params"], ds["tokens"]
+    free_card(device)
+    t0 = time.perf_counter()
+    train = lm_training_phase(cfgs["train"], sizes, device)
+    phase_s["20d"] = time.perf_counter() - t0
+    free_card(device)
+    peaks = {"dbrx": dbrx["summary"]["peak_abs_bytes"],
+             "deepseek": ds["summary"]["peak_abs_bytes"],
+             "train": train["peak_abs_bytes"]}
+    print(f"[moe] phase 20 peaks (GiB, allocated): "
+          + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in peaks.items())
+          + f"; seconds: {json.dumps(phase_s)}")
+    return {"dbrx": dbrx["summary"], "dbrx_flash": dbrx_flash,
+            "deepseek": ds["summary"], "train": train, "held_before_bytes": held,
+            "peaks": peaks, "phase_s": phase_s}
+
+
+def moe_entries(entries: list, p20: dict) -> None:
+    """Phase 20 beside its kernels' entries: its three paths' launches
+    (``launches`` and ``launches_by_path``), the flash call at dbrx-132b's
+    D = 128 (one call at its first layer's inputs, CUDA events;
+    ``max_abs_err`` over every width), and the Adam launch over the
+    training cut's leaves."""
+    by_name = {e["name"]: e for e in entries}
+    for path, launched in (("lm_serving_dbrx", p20["dbrx"]["launches"]),
+                           ("lm_serving_deepseek", p20["deepseek"]["launches"]),
+                           ("lm_training_moe", p20["train"]["launches"])):
+        for e in entries:
+            e["launches_by_path"][path] = launched[e["name"]]
+            e["launches"] += launched[e["name"]]
+    g = p20["dbrx_flash"]
+    row = g["row"]
+    flash = by_name["flash_attention"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], g["err"]["f32"], g["edge"]["f32"])
+    flash["bf16_max_abs_err"] = max(flash.get("bf16_max_abs_err", 0.0), g["err"]["bf16"],
+                                    g["edge"]["bf16"])
+    flash["dbrx_d128"] = {
+        **{k: row[k] for k in ("ms", "ms_by", "wall_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "library_enable_gqa_ms",
+                               "vs_library", "wave_ms")},
+        "max_abs_err": max(g["err"]["f32"], g["edge"]["f32"]),
+        "launches_a_wave": p20["dbrx"]["flash_per_wave"],
+        "shape": f"one call at layer 0's prefill inputs: B {row['B']}, H {row['H']}, "
+                 f"Hkv {row['Hkv']}, T {row['Tq']}, D {row['D']}, causal, float32; "
+                 f"wave_ms the kernel over all {row['layers']} layers"}
+    t = p20["train"]
+    a = t["adam"]
+    adam = by_name["fused_adam"]
+    adam["max_abs_err"] = max(adam["max_abs_err"], a["max_abs_err"])
+    adam["moe_step"] = {
+        **{k: a[k] for k in ("ms", "ms_by", "plain_ms", "library_ms", "library",
+                             "bound_ms", "bound_by", "params", "leaves")},
+        "profiled_step_ms": (t["profile"]["device_ms"].get("fused_adam")
+                             if t["profile"]["complete"] else None),
+        "launches_a_step": t["launches"]["fused_adam"] / t["steps"],
+        "shape": f"one launch over {t['arch']}'s {a['leaves']} leaves "
+                 f"({a['params']:,} values, stacked experts among them): ms by CUDA "
+                 "events; profiled_step_ms its device time inside a profiled step"}
 
 
 # ---------------------------------------------------------------------------
@@ -3771,7 +4118,7 @@ def lm_entries(entries: list, lm2: dict) -> None:
     row = g["row"]
     flash = by_name["flash_attention"]
     flash["max_abs_err"] = max(flash["max_abs_err"], g["err"]["f32"], g["edge"]["f32"])
-    flash["bf16_max_abs_err"] = max(flash["bf16_max_abs_err"], g["err"]["bf16"],
+    flash["bf16_max_abs_err"] = max(flash.get("bf16_max_abs_err", 0.0), g["err"]["bf16"],
                                     g["edge"]["bf16"])
     flash["gemma_d256"] = {
         **{k: row[k] for k in ("ms", "ms_by", "wall_ms", "plain_ms", "bound_ms",
@@ -4092,7 +4439,27 @@ def verifier_phase(ds, qds, sizes: Sizes, device, verified: list) -> dict:
             "launches": soak["launches"], "s": time.perf_counter() - t_phase}
 
 
-def run(sizes: Sizes, device) -> dict:
+def run(sizes: Sizes, device, phases: str = "all") -> dict:
+    """Phases 2 to 20 at ``sizes`` on ``device`` (phase 20 alone where
+    ``phases`` is "20": the kernels line then holds phase 20's launches and
+    numbers alone); returns the kernels line and the details. Phase 20
+    starts after phases 2-19 have returned, so that nothing they held stays
+    on the card."""
+    if phases == "20":
+        result = {"phase_s": {}, "kernels": [
+            {"name": name, "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0}
+            for name in KERNELS]}
+    else:
+        result = phases_2_to_19(sizes, device)
+    t0 = time.perf_counter()
+    moe = moe_phase(sizes, device)
+    result["phase_s"]["20"] = time.perf_counter() - t0
+    moe_entries(result["kernels"], moe)
+    result["moe"] = moe
+    return result
+
+
+def phases_2_to_19(sizes: Sizes, device) -> dict:
     """Phases 2 to 19 at ``sizes`` on ``device``; returns the kernels line
     and the details."""
     t_start = t0 = time.perf_counter()
@@ -4357,37 +4724,9 @@ def run(sizes: Sizes, device) -> dict:
             "attention_rows": {str(k): v for k, v in ak["rows"].items()}}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
-              "test needs an NVIDIA card", file=sys.stderr)
-        return 1
-    device = torch.device("cuda", 0)
-    card = card_line()
-    print(f"[card] {card}")
-    t0 = time.perf_counter()
-    built = build.build(LIBRARIES)
-    print(f"[build] nvcc sm_90a, in parallel, {time.perf_counter() - t0:.1f}s: "
-          + ", ".join(f"{k} {v:.1f}s" for k, v in built.items()))
-    for name in LIBRARIES:
-        log = build.library_path(name).with_suffix(".so.log")
-        if log.exists():
-            text = log.read_text()
-            regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", text)})
-            spilling = {k: int(a) + int(b) for k, a, b in re.findall(
-                r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
-                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
-                if int(a) + int(b)}
-            print(f"[build] ptxas {name}: registers {regs[0]}-{regs[-1]}, "
-                  f"spilled bytes {sum(spilling.values())}"
-                  + (f" in {spilling}" if spilling else ""))
-
-    clocks = {"query": CLOCKS, "start": card_line(CLOCKS)}
-    print(f"[card] {CLOCKS}: {clocks['start']}")
-    t_all = time.perf_counter()
-    result = run(Sizes(), device)
-    clocks["end"] = card_line(CLOCKS)
-    print(f"[card] {CLOCKS} after the phases: {clocks['end']}")
+def print_summary(result: dict, card: str) -> None:
+    """One line a path of ``run``'s result, each beside the card's name
+    and power limit."""
     serve = result["serve"]
     print(f"[serve] {serve['requests']} requests, {serve['req_per_s']:.2f} req/s, "
           f"p50 {serve['p50_ms']:.2f} ms, p99 {serve['p99_ms']:.2f} ms, "
@@ -4461,7 +4800,82 @@ def main() -> int:
           f"schedules held in {v['soak']['s']:.1f}s, its "
           f"{sum(c['calls'] for c in v['soak']['checked'].values())} kernel "
           f"calls within {TOL} of the plain versions on {card}")
-    print(f"[done] phases 2-19 in {time.perf_counter() - t_all:.1f}s: "
+    print_moe_summary(result["moe"], card)
+
+
+def print_moe_summary(m: dict, card: str) -> None:
+    """Phase 20's lines: each served model's, flash at D = 128, the
+    training cut's."""
+    for key in ("dbrx", "deepseek"):
+        r = m[key]
+        print(f"[moe] {r['arch']}: {r['n_params']:,} parameters, {r['requests']} "
+              f"requests in {r['waves']} waves, {r['flash_per_wave']} flash launches a "
+              f"wave, prefill {', '.join(f'{x:.1f}' for x in r['prefill_ms'])} ms a "
+              f"wave, decode {r['decode_step_ms_median']:.2f} ms a step, "
+              f"{r['tokens_per_s']:.1f} tokens/s, peak {r['peak_abs_bytes'] / 2**30:.2f} "
+              f"GiB, routing parted in {len(r['routing_parted'])} calls on {card}")
+    f = m["dbrx_flash"]["row"]
+    print(f"[moe] flash at D = {f['D']} (B {f['B']}, H {f['H']}, Hkv {f['Hkv']}, T "
+          f"{f['Tq']}): {f['ms']:.3f} ms a call (bound {f['bound_ms']:.3f}, SDPA "
+          f"{f['library_ms']:.3f}, SDPA enable_gqa {f['library_enable_gqa_ms']:.3f}) "
+          f"on {card}")
+    t = m["train"]
+    print(f"[moe] {t['arch']}: {t['n_params']:,} parameters, {t['steps']} steps of B "
+          f"{t['batch']} x T {t['seq']}, {t['step_ms_median']:.1f} ms a step (torch "
+          f"program {t['ref_step_ms_median']:.1f}), {t['tokens_per_s']:.0f} tokens/s, "
+          f"loss {t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}, max rel diff "
+          f"{t['max_rel_diff']:.2e}, peak {t['peak_abs_bytes'] / 2**30:.2f} GiB; Adam "
+          f"{t['adam']['ms']:.3f} ms a launch (bound {t['adam']['bound_ms']:.3f}, "
+          f"AdamW(fused=True) {t['adam']['library_ms']:.3f}) on {card}")
+
+
+#: the libraries phase 20 runs
+MOE_LIBRARIES = ("flash_attention", "fused_adam")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", choices=("all", "20"), default="all",
+                    help="every phase (the default), or phase 20 alone after building "
+                         "its two libraries")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs an NVIDIA card", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    card = card_line()
+    print(f"[card] {card}")
+    t0 = time.perf_counter()
+    libraries = LIBRARIES if args.phases == "all" else MOE_LIBRARIES
+    built = build.build(libraries)
+    print(f"[build] nvcc sm_90a, in parallel, {time.perf_counter() - t0:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in built.items()))
+    for name in libraries:
+        log = build.library_path(name).with_suffix(".so.log")
+        if log.exists():
+            text = log.read_text()
+            regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", text)})
+            spilling = {k: int(a) + int(b) for k, a, b in re.findall(
+                r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+                if int(a) + int(b)}
+            print(f"[build] ptxas {name}: registers {regs[0]}-{regs[-1]}, "
+                  f"spilled bytes {sum(spilling.values())}"
+                  + (f" in {spilling}" if spilling else ""))
+
+    clocks = {"query": CLOCKS, "start": card_line(CLOCKS)}
+    print(f"[card] {CLOCKS}: {clocks['start']}")
+    t_all = time.perf_counter()
+    result = run(Sizes(), device, args.phases)
+    clocks["end"] = card_line(CLOCKS)
+    print(f"[card] {CLOCKS} after the phases: {clocks['end']}")
+    if args.phases == "all":
+        print_summary(result, card)
+    else:
+        print_moe_summary(result["moe"], card)
+    print(f"[done] phases {'2-20' if args.phases == 'all' else '20'} in "
+          f"{time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -1,6 +1,6 @@
-"""Grouped query attention (GQA + RoPE) for the LM substrate.
+"""Attention for the LM substrate: GQA (+RoPE, sliding window) and MLA.
 
-Counterpart of the GQA half of ``repro/models/attention.py``: one masked
+Counterpart of ``repro/models/attention.py`` without cross attention: one masked
 softmax core (``_attn_core``, the JAX package's plain attention) and the
 flash kernel where it computes the same function. A prefill of a cache
 from index 0 by a layer without a window is causal self-attention over
@@ -17,10 +17,15 @@ JAX package puts it (``make_mask(..., window=)``).
 
 The cache's tensors are updated in place (the JAX package returns new
 arrays): a cache dict holds ``k``/``v`` ``[B, S, KV, Dh]`` and the index
-``idx`` as a Python int on the host. MLA and cross attention are not
-ported (ROADMAP.md Queue 1, item 9 (d) and (g)): ``gqa_apply`` has no
-``kv_source``, and ``models/transformer.py:check_ported`` refuses the
-configurations that need them.
+``idx`` as a Python int on the host. DeepSeek-V3's multi-head latent
+attention (``mla_apply``) caches only the compressed latent ``[B, S,
+kv_lora_rank + qk_rope_head_dim]``, written in place the same way, and
+rebuilds K and V from it through ``wkv_b`` at every call; its query and
+key width (nope + rope) differs from its value width, so it always takes
+``_attn_core``. Cross attention is not ported (ROADMAP.md Queue 1, item
+9 (g)): ``gqa_apply`` has no ``kv_source``, and
+``models/transformer.py:check_ported`` refuses the configurations that
+need it.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import LMConfig, MLAConfig
 from repro_torch.kernels.ops import _executor
 from repro_torch.models.layers import apply_rope, dense_init
 
@@ -151,3 +156,82 @@ def gqa_cache_init(cfg: LMConfig, batch: int, s_max: int,
     kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     return {"k": torch.zeros((*lead, batch, s_max, kv, dh), dtype=dtype, device=device),
             "v": torch.zeros((*lead, batch, s_max, kv, dh), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): low-rank Q/KV with decoupled RoPE, latent KV cache
+# ---------------------------------------------------------------------------
+
+def mla_init(generator: torch.Generator, cfg: LMConfig, lead: tuple = (),
+             device=None) -> dict:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {"wq_a": dense_init(generator, d, m.q_lora_rank, lead, device),
+            "wq_b": dense_init(generator, m.q_lora_rank, h * qk_head, lead, device),
+            "wkv_a": dense_init(generator, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                                lead, device),
+            "wkv_b": dense_init(generator, m.kv_lora_rank,
+                                h * (m.qk_nope_head_dim + m.v_head_dim), lead, device),
+            "wo": dense_init(generator, h * m.v_head_dim, d, lead, device)}
+
+
+def mla_apply(
+    p: dict,
+    cfg: LMConfig,
+    x: torch.Tensor,  # [B, T, D]
+    positions: torch.Tensor,  # [T]
+    cache: Optional[dict] = None,  # {"latent": [B, S, R + rope], "idx": int}
+):
+    """Returns ``(out [B, T, D], new_cache)``. Queries through ``wq_a``
+    then ``wq_b``, RoPE on their last ``qk_rope_head_dim`` columns; the
+    latent ``x @ wkv_a``, RoPE on its rope part (one head shared by all);
+    K and V rebuilt from the latent (read at x's dtype, as the JAX package
+    reads its cache) through ``wkv_b``; the mask over every cache slot,
+    causal and valid below ``idx + t``."""
+    m: MLAConfig = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    r, nope, rope_d, vdim = (m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim,
+                             m.v_head_dim)
+    q = ((x @ p["wq_a"]) @ p["wq_b"]).reshape(b, t, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    latent_new = x @ p["wkv_a"]  # [B, T, R + rope_d]
+    k_rope_new = apply_rope(latent_new[..., r:][:, :, None, :], positions,
+                            cfg.rope_theta)[:, :, 0, :]
+    latent_new = torch.cat([latent_new[..., :r], k_rope_new], -1)
+
+    if cache is None:
+        latent, k_pos, k_valid = latent_new, positions, None
+    else:
+        idx = cache["idx"]
+        latent = cache["latent"]
+        s_max = latent.shape[1]
+        if idx + t > s_max:
+            raise ValueError(f"the cache holds {s_max} positions; {idx} are filled "
+                             f"and {t} more do not fit")
+        latent[:, idx:idx + t] = latent_new.to(latent.dtype)
+        k_pos = torch.arange(s_max, device=x.device)
+        k_valid = (k_pos < idx + t)[None, :].expand(b, s_max)
+
+    s = latent.shape[1]
+    kv = (latent[..., :r].to(x.dtype) @ p["wkv_b"]).reshape(b, s, h, nope + vdim)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k_rope = latent[..., r:].to(x.dtype)[:, :, None, :].expand(b, s, h, rope_d)
+    qk = torch.cat([q_nope, q_rope], -1)
+    kk = torch.cat([k_nope, k_rope], -1)
+    mask = make_mask(positions, k_pos, causal=True, k_valid=k_valid)
+    out = _attn_core(qk, kk, v, mask).reshape(b, t, h * vdim) @ p["wo"]
+    new_cache = None if cache is None else {"latent": latent, "idx": idx + t}
+    return out, new_cache
+
+
+def mla_cache_init(cfg: LMConfig, batch: int, s_max: int, dtype=torch.bfloat16,
+                   lead: tuple = (), device=None) -> dict:
+    """A zeroed latent ``[*lead, B, S, kv_lora_rank + qk_rope_head_dim]``
+    (the index lives at the cache's root, ``LM.init_cache``)."""
+    m: MLAConfig = cfg.mla
+    return {"latent": torch.zeros((*lead, batch, s_max, m.kv_lora_rank + m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}

@@ -1,14 +1,17 @@
-"""The LM substrate's decoder for the dense family, on PyTorch.
+"""The LM substrate's decoder for the dense and MoE families, on PyTorch.
 
 Counterpart of ``repro/models/transformer.py`` for configurations whose
-every block is ``"attn"`` (GQA with RoPE, global or with a sliding
-window) with a dense FFN: no MLA, MoE, encoder, frontend or multi-token
-prediction (llama3.2-1b, gemma3-1b with its 5:1 local:global windows,
-starcoder2-3b, granite-34b). Anything else raises ``NotImplementedError``
+every block is ``"attn"``: GQA with RoPE (global or with a sliding
+window) or DeepSeek's MLA with its latent cache, a dense FFN or a
+mixture of experts (``models/moe.py``) from layer
+``first_k_dense_layers`` on, and DeepSeek-V3's multi-token prediction in
+the loss (llama3.2-1b, gemma3-1b with its 5:1 local:global windows,
+starcoder2-3b, granite-34b, dbrx-132b, deepseek-v3-671b). Other block
+kinds, the encoder and the frontends raise ``NotImplementedError``
 naming ROADMAP.md Queue 1, item 9.
 
 Parameters keep the JAX package's tree: ``{"embed": {"table"},
-"segments": [...], "final_norm": {...}, "head"?}``, where a segment that
+"segments": [...], "final_norm": {...}, "head"?, "mtp"?}``, where a segment that
 ``plan_segments`` scans keeps its layers stacked on a leading
 ``[n_reps]`` axis (``params_from_jax`` carries the JAX tree over leaf by
 leaf) and the repetitions run in a Python loop over the views that one
@@ -18,7 +21,9 @@ window (``_layer_window``) as a Python int, where the JAX package scans
 an int array of them. ``shard_activation`` has no counterpart on one card
 and is dropped; ``remat="layer"`` recomputes each layer of a scanned
 segment in the backward (``torch.utils.checkpoint``), as the JAX
-package's ``jax.checkpoint`` of the scan body does. The entry points are
+package's ``jax.checkpoint`` of the scan body does, the MoE layers'
+load-balance loss included: every layer returns its ``aux`` and the
+segments sum it in layer order. The entry points are
 ``forward``, ``loss`` (training), ``prefill`` (which unembeds only the
 last position: the full ``[B, T, V]`` logits of a 4 x 1024 prefill at
 llama3.2-1b width would take 2.1 GB) and ``decode_step``. Caches are
@@ -39,9 +44,11 @@ from repro_torch.backends.registry import LM_ITEM, not_ported
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.ops import _executor
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
+    dense_init,
     embed_init,
     embed_lookup,
     mlp_init,
@@ -98,16 +105,18 @@ def plan_segments(cfg: LMConfig) -> list[Segment]:
 
 def check_ported(cfg: LMConfig) -> None:
     """Raise ``NotImplementedError`` (ROADMAP.md Queue 1, item 9) unless
-    every block of ``cfg`` is dense GQA attention the port runs."""
+    every block of ``cfg`` is an attention block the port runs (GQA or
+    MLA, dense FFN or MoE) and it has no encoder or frontend."""
     parts = [("block kinds other than attn", any(k != "attn" for k in cfg.blocks)),
-             ("mixture of experts", cfg.moe is not None),
-             ("multi-head latent attention (MLA)", cfg.mla is not None),
              ("encoder-decoder", cfg.is_encoder_decoder),
-             (f"the {cfg.frontend} frontend", cfg.frontend != "none"),
-             ("multi-token prediction", cfg.mtp_depth > 0)]
+             (f"the {cfg.frontend} frontend", cfg.frontend != "none")]
     missing = [what for what, present in parts if present]
     if missing:
         raise not_ported(f"{cfg.name}: " + ", ".join(missing), LM_ITEM)
+
+
+def _layer_is_moe(cfg: LMConfig, layer_id: int) -> bool:
+    return cfg.moe is not None and layer_id >= cfg.first_k_dense_layers
 
 
 def _layer_window(cfg: LMConfig, layer_id: int) -> int:
@@ -122,22 +131,34 @@ def _layer_window(cfg: LMConfig, layer_id: int) -> int:
 # Per-layer init / apply
 # ---------------------------------------------------------------------------
 
-def _init_layer(generator, cfg: LMConfig, lead: tuple, device) -> dict:
+def _init_layer(generator, cfg: LMConfig, layer_id: int, lead: tuple, device) -> dict:
+    """Layer ``layer_id``'s block: MLA or GQA, then MoE or a dense MLP."""
     d = cfg.d_model
-    return {"norm1": norm_init(cfg.norm, d, lead, device),
-            "attn": attn.gqa_init(generator, cfg, lead, device),
-            "norm2": norm_init(cfg.norm, d, lead, device),
-            "ffn": mlp_init(generator, d, cfg.d_ff, cfg.activation, lead, device)}
+    a = (attn.mla_init(generator, cfg, lead, device) if cfg.mla
+         else attn.gqa_init(generator, cfg, lead, device))
+    ffn = (moe_mod.moe_init(generator, cfg, lead, device) if _layer_is_moe(cfg, layer_id)
+           else mlp_init(generator, d, cfg.d_ff, cfg.activation, lead, device))
+    return {"norm1": norm_init(cfg.norm, d, lead, device), "attn": a,
+            "norm2": norm_init(cfg.norm, d, lead, device), "ffn": ffn}
 
 
 def _apply_layer(p, cfg: LMConfig, x, positions, window: int, cache, inner: str):
-    """One pre-norm block: x + attn(norm1(x)), then + mlp(norm2(x))."""
+    """One pre-norm block: x + attn(norm1(x)), then + ffn(norm2(x)).
+    Returns ``(x, new_cache, aux)``: the MoE's load-balance loss, or None
+    for a dense FFN."""
     h = apply_norm(cfg.norm, p["norm1"], x)
-    a, new_cache = attn.gqa_apply(p["attn"], cfg, h, positions, window=window,
-                                  cache=cache, inner=inner)
+    if cfg.mla:
+        a, new_cache = attn.mla_apply(p["attn"], cfg, h, positions, cache=cache)
+    else:
+        a, new_cache = attn.gqa_apply(p["attn"], cfg, h, positions, window=window,
+                                      cache=cache, inner=inner)
     x = x + a
-    x = x + apply_mlp(p["ffn"], apply_norm(cfg.norm, p["norm2"], x), cfg.activation)
-    return x, new_cache
+    h2 = apply_norm(cfg.norm, p["norm2"], x)
+    if "router" in p["ffn"]:
+        f, aux = moe_mod.moe_apply(p["ffn"], cfg, h2)
+    else:
+        f, aux = apply_mlp(p["ffn"], h2, cfg.activation), None
+    return x + f, new_cache, aux
 
 
 def _index(tree, r: int):
@@ -163,9 +184,10 @@ def _unbind(tree, n: int) -> list:
 # ---------------------------------------------------------------------------
 
 class LM:
-    """The dense decoder over ``inner``'s prefill attention: ``"cuda"`` the
-    flash kernel (its plain version for CPU tensors), ``"torch"`` the
-    plain version on any device. ``remat="layer"`` recomputes each layer
+    """The decoder over ``inner``'s prefill attention for GQA layers
+    without a window: ``"cuda"`` the flash kernel (its plain version for
+    CPU tensors), ``"torch"`` the plain version on any device (MLA layers
+    always take ``_attn_core``). ``remat="layer"`` recomputes each layer
     of a scanned segment in the backward of an uncached call; ``"none"``
     keeps every activation."""
 
@@ -190,17 +212,26 @@ class LM:
         segs = []
         for seg in self.segments:
             lead = () if seg.mode == "unroll" else (seg.n_reps,)
-            segs.append([_init_layer(generator, cfg, lead, device)
-                         for _ in seg.kinds])
+            segs.append([_init_layer(generator, cfg, lid, lead, device)
+                         for lid in seg.layer_ids[:len(seg.kinds)]])
         params["segments"] = segs
         params["final_norm"] = norm_init(cfg.norm, cfg.d_model, (), device)
         if not cfg.tie_embeddings:
             params["head"] = embed_init(generator, cfg.padded_vocab(),
                                         cfg.d_model, device)
+        if cfg.mtp_depth > 0:
+            d = cfg.d_model
+            params["mtp"] = {
+                "proj": dense_init(generator, 2 * d, d, (), device),
+                "norm": norm_init(cfg.norm, d, (), device),
+                "block": _init_layer(generator, cfg, cfg.n_layers - 1, (), device)}
         return params
 
     def _run_segments(self, params, x, positions, cache):
+        """Returns ``(x, aux, new_cache)``: ``aux`` the float32 sum of the
+        MoE layers' load-balance losses, in layer order."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         cache_idx = None if cache is None else cache["idx"]
         new_segs = None if cache is None else []
         for si, seg in enumerate(self.segments):
@@ -217,34 +248,39 @@ class LM:
                     window = _layer_window(cfg, seg.layer_ids[r * period + j])
                     lp = seg_p[j] if seg.mode == "unroll" else seg_p[j][r]
                     if remat:
-                        x = checkpoint(self._layer_out, lp, x, positions, window,
-                                       use_reentrant=False)
-                        continue
-                    lc = None
-                    if seg_c is not None:
-                        c = seg_c[j]["attn"]
-                        if seg.mode == "scan":
-                            c = _index(c, r)
-                        lc = {**c, "idx": cache_idx}
-                    x, _ = _apply_layer(lp, cfg, x, positions, window, lc, self.inner)
+                        x, layer_aux = checkpoint(self._layer_out, lp, x, positions,
+                                                  window, use_reentrant=False)
+                    else:
+                        lc = None
+                        if seg_c is not None:
+                            c = seg_c[j]["attn"]
+                            if seg.mode == "scan":
+                                c = _index(c, r)
+                            lc = {**c, "idx": cache_idx}
+                        x, _, layer_aux = _apply_layer(lp, cfg, x, positions, window,
+                                                       lc, self.inner)
+                    if layer_aux is not None:
+                        aux = aux + layer_aux
             if new_segs is not None:
                 new_segs.append(seg_c)  # its tensors were updated in place
         new_cache = None
         if cache is not None:
             new_cache = {"idx": cache_idx + x.shape[1], "segments": new_segs}
-        return x, new_cache
+        return x, aux, new_cache
 
     def _layer_out(self, lp, x, positions, window: int):
-        """An uncached layer's output, the unit ``remat`` recomputes."""
-        return _apply_layer(lp, self.cfg, x, positions, window, None, self.inner)[0]
+        """An uncached layer's output and its aux (None for a dense FFN),
+        the unit ``remat`` recomputes."""
+        x, _, aux = _apply_layer(lp, self.cfg, x, positions, window, None, self.inner)
+        return x, aux
 
     def _hidden(self, params, tokens, cache, positions):
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens) * float(np.sqrt(cfg.d_model))
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
-        x, new_cache = self._run_segments(params, x, positions, cache)
-        return apply_norm(cfg.norm, params["final_norm"], x), new_cache
+        x, aux, new_cache = self._run_segments(params, x, positions, cache)
+        return apply_norm(cfg.norm, params["final_norm"], x), aux, new_cache
 
     def _head(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["head"]
@@ -253,30 +289,56 @@ class LM:
                 cache: Optional[dict] = None,
                 positions: Optional[torch.Tensor] = None):
         """tokens [B, T]. Returns ``(logits [B, T, Vpad], aux_loss,
-        new_cache, hidden)``; ``aux_loss`` is 0 (no MoE)."""
-        hidden, new_cache = self._hidden(params, tokens, cache, positions)
+        new_cache, hidden)``; ``aux_loss`` sums the MoE layers' (0 where
+        there are none)."""
+        hidden, aux, new_cache = self._hidden(params, tokens, cache, positions)
         logits = unembed(self._head(params), hidden)
-        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
         return logits, aux, new_cache, hidden
 
     def loss(self, params, batch: dict) -> tuple:
         """batch: tokens [B, S], labels [B, S] (-100 = ignore). Returns
-        ``(ce + 0.01·aux, {"ce", "aux", "denom"})``, as the JAX package's
-        ``LM.loss`` for configurations without a frontend or MTP."""
-        logits, aux, _, _ = self.forward(params, batch["tokens"])
-        ce, denom = _masked_ce(logits, batch["labels"], self.cfg.vocab_size)
-        return ce + 0.01 * aux, {"ce": ce, "aux": aux, "denom": denom}
+        ``(ce + 0.01·aux [+ 0.3·mtp], {"ce", "aux", "denom"[, "mtp"]})``, as
+        the JAX package's ``LM.loss`` for configurations without a
+        frontend."""
+        cfg = self.cfg
+        logits, aux, _, hidden = self.forward(params, batch["tokens"])
+        ce, denom = _masked_ce(logits, batch["labels"], cfg.vocab_size)
+        total = ce + 0.01 * aux
+        metrics = {"ce": ce, "aux": aux, "denom": denom}
+        if cfg.mtp_depth > 0:
+            mtp = self._mtp_loss(params, hidden, batch["tokens"], batch["labels"])
+            total = total + 0.3 * mtp
+            metrics["mtp"] = mtp
+        return total, metrics
+
+    def _mtp_loss(self, params, hidden, tokens, labels):
+        """DeepSeek-V3's multi-token prediction (depth 1): position t's
+        final hidden state, normed, beside the embedding of token t + 1,
+        projected and run through ``params["mtp"]["block"]`` (its aux
+        dropped, as the JAX package drops it), predicts token t + 2 (the
+        label at t + 1)."""
+        cfg = self.cfg
+        mp = params["mtp"]
+        nxt = embed_lookup(params["embed"], tokens[:, 1:]) * float(np.sqrt(cfg.d_model))
+        z = torch.cat([apply_norm(cfg.norm, mp["norm"], hidden[:, :-1]), nxt], -1)
+        z = z @ mp["proj"]
+        pos = torch.arange(z.shape[1], device=z.device)
+        z, _, _ = _apply_layer(mp["block"], cfg, z, pos, 0, None, self.inner)
+        logits2 = unembed(self._head(params), apply_norm(cfg.norm, params["final_norm"], z))
+        ce, _ = _masked_ce(logits2, labels[:, 1:], cfg.vocab_size)
+        return ce
 
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
                    device=None) -> dict:
-        """Zeroed KV caches in the JAX package's tree (a scanned segment's
-        stacked on ``[n_reps]``) and ``idx = 0``, on ``device``."""
+        """Zeroed caches in the JAX package's tree (a scanned segment's
+        stacked on ``[n_reps]``): K/V for GQA layers, the latent for MLA
+        layers; ``idx = 0``, on ``device``."""
         device = resolve_device(device)
+        init = attn.mla_cache_init if self.cfg.mla else attn.gqa_cache_init
         segs = []
         for seg in self.segments:
             lead = () if seg.mode == "unroll" else (seg.n_reps,)
-            segs.append([{"attn": attn.gqa_cache_init(self.cfg, batch, s_max, dtype,
-                                                      lead, device)}
+            segs.append([{"attn": init(self.cfg, batch, s_max, dtype, lead, device)}
                          for _ in seg.kinds])
         return {"idx": 0, "segments": segs}
 
@@ -285,14 +347,14 @@ class LM:
         from its index; returns ``(last-position logits [B, Vpad],
         new_cache)``."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        hidden, new_cache = self._hidden(params, tokens, cache, positions)
+        hidden, _, new_cache = self._hidden(params, tokens, cache, positions)
         return unembed(self._head(params), hidden[:, -1]), new_cache
 
     def decode_step(self, params, cache: dict, tokens: torch.Tensor):
         """One decode step: tokens [B, 1] at position ``cache["idx"]``."""
         idx = cache["idx"]
         positions = torch.arange(idx, idx + 1, device=tokens.device)
-        hidden, new_cache = self._hidden(params, tokens, cache, positions)
+        hidden, _, new_cache = self._hidden(params, tokens, cache, positions)
         return unembed(self._head(params), hidden[:, -1]), new_cache
 
 
@@ -316,7 +378,9 @@ def params_from_jax(tree, device=None):
     """The JAX package's LM parameters (numpy leaves, e.g. from
     ``jax.device_get``) as the port's tree of float32 tensors on
     ``device`` (CUDA unless asked): the same keys, lists and stacked
-    ``[n_reps, ...]`` segment axes."""
+    ``[n_reps, ...]`` segment axes, the MoE layers' bare ``router`` and
+    stacked ``[n_reps, E, D, F]`` experts, MLA's weights and ``mtp``
+    included."""
     device = resolve_device(device)
     return tree_map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device),
                     tree)
