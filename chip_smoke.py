@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 20]
+    python3 chip_smoke.py [--phases 20|21]
 
-Phases (``--phases 20``: phase 20 alone); any failure raises, so the exit code is not 0 and no result line
-is printed:
+Phases (``--phases 20`` or ``21``: that phase alone); any failure raises,
+so the exit code is not 0 and no result line is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
    six CUDA libraries built in parallel from
@@ -278,6 +278,29 @@ is printed:
     1,563,119,616 parameters) through phase 16's checks, after two runs
     of the first step's backward that must be bitwise equal. Each part's
     peak allocation.
+21. The recurrent families, after phase 20 has returned and freed the
+    card. (a) zamba2-7b served at its published widths and depth (81
+    layers: 68 Mamba2 blocks of d_inner 7,168, 112 heads of 64, state 64,
+    chunk 128; 13 shared sites of one GQA block, 32 heads of 112, and
+    MLP 14,336; vocab 32,000; 5,736,924,992 parameters), phase 10's
+    requests and checks: exactly 13 ``flash_attention`` launches a wave
+    (D = 112, one a shared site) and none in decode, no other kernel of
+    the port; its longest prefill timed by block kind. (b) Phase 11's
+    checks of the kernel at D = 112 on (a)'s 1,024-token wave (B 4, H 32,
+    Hkv 32, T 1024) and on ``d128_edge_cases``' shapes at D = 112, its
+    time beside the plain version's, SDPA's and the bound. (c)
+    xlstm-1.3b served at its published size (48 layers, 42 mLSTM and 6
+    sLSTM, d_model 2,048, 4 heads of 512; 1,283,330,048 parameters),
+    the same requests and checks with no kernel of the port launched; its
+    longest prefill timed by block kind (the sLSTM loop's share). (d) For
+    both, the longest wave prefilled whole against prefilled to T - 4 and
+    decoded 4 steps: the last logits within 2e-2. (e) xlstm-1.3b trained
+    at its published size through phase 16's checks on a batch of 4 x
+    ``HYBRID_TRAIN_SEQ`` tokens (256) for ``HYBRID_TRAIN_STEPS`` steps
+    (2), two ``fused_adam`` launches a step (its 86 leaves fill two
+    tables of ``CAPACITY``), after two runs of the first step's backward
+    that must be bitwise equal (no profiled step: ~30 launches a time
+    step of the sLSTM loop). Each part's peak allocation.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -384,6 +407,7 @@ from repro_torch.models.model_zoo import (  # noqa: E402
     make_train_step,
 )
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.transformer import _layer_window  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.models.gnn import GNNConfig  # noqa: E402
@@ -2859,17 +2883,18 @@ def lm_profile(fn, device, n_flash: int, wall_ms: float, spans: dict = None) -> 
 
 
 def flash_layers(cfg) -> int:
-    """The layers whose prefill runs the flash kernel: those without a
-    sliding window (all of llama3.2-1b's 16, gemma3-1b's 4 global ones,
-    dbrx-132b's), none where the attention is MLA (deepseek-v3-671b:
-    ``_attn_core`` always)."""
-    if cfg.mla:
-        return 0
-    return sum(_layer_window(cfg, i) == 0 for i in range(cfg.n_layers))
+    """The layers whose prefill runs the flash kernel: the attention
+    layers without a sliding window (all of llama3.2-1b's 16, gemma3-1b's
+    4 global ones, dbrx-132b's), none where the attention is MLA
+    (deepseek-v3-671b: ``_attn_core`` always), and every shared site
+    (zamba2-7b's 13); no recurrent block (xlstm-1.3b: none)."""
+    return sum(kind == "shared_attn"
+               or (kind == "attn" and not cfg.mla and _layer_window(cfg, i) == 0)
+               for i, kind in enumerate(cfg.blocks))
 
 
 def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
-    """Phases 10, 15 and 20, LM serving: ``ServingEngine`` over the
+    """Phases 10, 15, 20 and 21, LM serving: ``ServingEngine`` over the
     ``cuda`` model (prefill attention on the flash kernel in the GQA layers
     without a window) at the configuration's full width, random weights
     from a seeded generator on the card; counts zeroed just before
@@ -2880,7 +2905,9 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
     routing is recorded (``RoutingLog``): a wave is held to those gates
     up to the first call whose routing parted, and the run fails if any
     token parted at a top-k margin above ``ROUTE_MARGIN``; the calls
-    parted and not held are counted."""
+    parted and not held are counted. A model with sLSTM blocks leaves its
+    longest prefill unprofiled (xlstm-1.3b's launches ~30 kernels a time
+    step of its sLSTM loop: a trace of ~200,000)."""
     model, ref = build_model(cfg, inner="cuda"), build_model(cfg, inner="torch")
     on_card = device.type == "cuda"
     gen = torch.Generator(device=device).manual_seed(0)
@@ -2896,8 +2923,11 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
     experts = (f", {cfg.moe.n_experts} experts of {cfg.moe.d_ff_expert} (top "
                f"{cfg.moe.n_experts_per_token}, {cfg.moe.n_shared_experts} shared) from "
                f"layer {cfg.first_k_dense_layers}" if cfg.moe else "")
-    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {heads}"
-          f"{experts}, vocab {cfg.vocab_size}: {n_params:,} parameters drawn in "
+    kinds = {k: cfg.blocks.count(k) for k in dict.fromkeys(cfg.blocks)}
+    blocks = ("" if set(kinds) == {"attn"} else
+              " (" + ", ".join(f"{n} {k}" for k, n in kinds.items()) + ")")
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers{blocks}, d_model {cfg.d_model}, "
+          f"{heads}{experts}, vocab {cfg.vocab_size}: {n_params:,} parameters drawn in "
           f"{init_s:.2f}s")
     max_seq = sizes.lm_prompts[1] + sizes.lm_new_tokens
     # warmup: the same requests once, untimed (the flash library's load,
@@ -2950,6 +2980,7 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
         raise AssertionError(f"LM serving launched other kernels: {launched}")
 
     worst, steps, sure_steps, ref_s = 0.0, 0, 0, defaultdict(list)
+    worst_at = None
     cache = None
     parted_waves, parted, unheld = set(), [], 0
     for c in rec.calls:
@@ -2979,7 +3010,9 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
         if c["wave"] in parted_waves:  # the torch program's cache differs from here
             unheld += 1
             continue
-        worst = max(worst, float((logits - want).abs().max()))
+        diff = float((logits - want).abs().max())
+        if diff > worst:
+            worst, worst_at = diff, f"a {c['kind']} of wave {c['wave']}"
         top = torch.topk(logits, 2, dim=-1).values
         sure = (top[:, 0] - top[:, 1]) > TOKEN_MARGIN
         steps += sure.numel()
@@ -2988,7 +3021,8 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
             raise AssertionError(f"greedy tokens differ in a {c['kind']} of wave "
                                  f"{c['wave']} where the top-2 margin > {TOKEN_MARGIN}")
     if not worst <= TOL:
-        raise AssertionError(f"cuda vs torch LM logits differ by {worst} > {TOL}")
+        raise AssertionError(f"cuda vs torch LM logits differ by {worst} > {TOL} "
+                             f"(in {worst_at})")
     route_margin = max((p["max_margin"] for p in parted), default=0.0)
     if route_margin > ROUTE_MARGIN:
         raise AssertionError(f"MoE routing parted at a top-k margin of {route_margin} "
@@ -3033,7 +3067,8 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
         "profile_prefill": lm_profile(
             lambda: model.prefill(params, longest["tokens"], model.init_cache(
                 b, max_seq, dtype=torch.float32, device=device)),
-            device, per_wave, longest["s"] * 1e3, spans),
+            device, per_wave, longest["s"] * 1e3, spans)
+        if "slstm" not in cfg.blocks else {"complete": False, "skipped": True},
         "profile_decode": lm_profile(
             lambda: model.decode_step(params, filled, cur), device, 0, median_ms, spans),
     }
@@ -3307,7 +3342,8 @@ def lm_train_run(model, opt, params, batch, steps: int, device) -> dict:
 
 def lm_adam_row(params, device, reps: int, arch: str) -> dict:
     """``fused_adam_multi`` over the LM's leaves (the trained weights,
-    random gradients and moments, weight decay 0.01): one launch, each
+    random gradients and moments, weight decay 0.01): one launch for
+    every ``CAPACITY`` leaves, each
     leaf within ADAM_TOL of the plain version; the kernel's CUDA-event ms
     (a call keeps the card busy ~10 ms, far longer than its launch), the
     plain version's, ``torch.optim.AdamW(fused=True)``'s step on the same
@@ -3322,9 +3358,10 @@ def lm_adam_row(params, device, reps: int, arch: str) -> dict:
     before = fused_adam.launches
     out = fused_adam_multi(ps, gs, ms, vs, lr_t, weight_decay=0.01)
     sync(device)
-    if fused_adam.launches - before != (1 if device.type == "cuda" else 0):
+    want = -(-len(ps) // CAPACITY) if device.type == "cuda" else 0
+    if fused_adam.launches - before != want:
         raise AssertionError(f"fused_adam over the LM's {len(ps)} leaves: "
-                             f"{fused_adam.launches - before} launches, expected 1")
+                             f"{fused_adam.launches - before} launches, expected {want}")
     err = 0.0
     for i, leaf in enumerate(zip(ps, gs, ms, vs)):
         ref = fused_adam_ref(*leaf, lr_t, 0.9, 0.999, 1e-8, 0.01)
@@ -3377,20 +3414,23 @@ def repeats_bitwise(model, params, batch) -> int:
 
 
 def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
-    """Phases 16 and 20 (d), LM training: ``make_train_step(build_model(cfg,
+    """Phases 16, 20 (d) and 21 (e), LM training: ``make_train_step(build_model(cfg,
     remat="layer"), adamw(warmup_cosine(LM_LR, LM_WARMUP, steps),
     fused=True))`` at bfloat16 compute over one fixed ``make_dummy_batch``
     of lm_train_batch x lm_train_seq tokens, random weights from a seeded
     generator on the card; counts zeroed just before the steps and read
-    after them: exactly one ``fused_adam`` launch a step and no other
-    kernel of the port, finite losses that fall. Then the ``torch``
+    after them: exactly one ``fused_adam`` launch a step for every
+    ``CAPACITY`` leaves (one up to 48; xlstm-1.3b's 86 take two) and no
+    other kernel of the port, finite losses that fall. Then the ``torch``
     program (plain Adam) from the same weights and batch, after the first
     program's optimizer state is freed: losses within LM_LOSS_RTOL at
     every step, parameters within LM_PARAM_RTOL a leaf. The step's
     synchronised ms, tokens/s, the run's peak memory, a profiled step by
-    kernel class, and the Adam launch on the LM's leaves (``lm_adam_row``).
-    With MoE layers, first two runs of the first step's backward, bitwise
-    equal (``repeats_bitwise``)."""
+    kernel class (not with sLSTM blocks: xlstm-1.3b's step launches ~30
+    kernels a time step of its sLSTM loop, forward, recomputed and
+    backward), and the Adam launch on the LM's leaves (``lm_adam_row``).
+    First, two runs of the first step's backward, bitwise equal
+    (``repeats_bitwise``)."""
     steps = sizes.lm_train_steps
     sched = warmup_cosine(LM_LR, LM_WARMUP, steps)
     on_card = device.type == "cuda"
@@ -3404,11 +3444,9 @@ def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
     print(f"[lm-train] {cfg.name}: {n_params:,} parameters in "
           f"{len(tree_leaves(init))} leaves, batch {tuple(batch['tokens'].shape)}, "
           f"{steps} steps of AdamW(warmup_cosine({LM_LR}, {LM_WARMUP}, {steps}))")
-    repeated = None
-    if cfg.moe:
-        repeated = repeats_bitwise(model, init, batch)
-        print(f"[lm-train] two runs of the first step: the loss and all "
-              f"{repeated - 1} gradients bitwise equal")
+    repeated = repeats_bitwise(model, init, batch)
+    print(f"[lm-train] two runs of the first step: the loss and all "
+          f"{repeated - 1} gradients bitwise equal")
     mem_before = torch.cuda.memory_allocated(device) if on_card else 0
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
@@ -3418,7 +3456,8 @@ def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
     peak_abs = torch.cuda.max_memory_allocated(device) if on_card else 0
     peak = peak_abs - mem_before
     want = {name: 0 for name in KERNELS}
-    want["fused_adam"] = 1 if on_card else 0
+    # one launch a step for every CAPACITY leaves (xlstm-1.3b's 86 take 2)
+    want["fused_adam"] = -(-len(tree_leaves(init)) // CAPACITY) if on_card else 0
     for i, got in enumerate(run["launched"]):
         if got != want:
             raise AssertionError(f"LM training step {i}: launches {got}, expected {want}")
@@ -3429,8 +3468,9 @@ def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"LM training losses do not fall: {losses}")
     median_ms = float(np.median(run["ms"]))
-    profile = epoch_profile(lambda: run["step"](run["params"], run["state"], batch),
-                            device, median_ms / 1e3, {"fused_adam": 1})
+    profile = (epoch_profile(lambda: run["step"](run["params"], run["state"], batch),
+                             device, median_ms / 1e3, {"fused_adam": 1})
+               if "slstm" not in cfg.blocks else {"complete": False, "skipped": True})
     params, step_ms = run["params"], run["ms"]
     del run
     if on_card:
@@ -3647,6 +3687,206 @@ def moe_entries(entries: list, p20: dict) -> None:
         "shape": f"one launch over {t['arch']}'s {a['leaves']} leaves "
                  f"({a['params']:,} values, stacked experts among them): ms by CUDA "
                  "events; profiled_step_ms its device time inside a profiled step"}
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: Mamba2/SSD with Zamba2's shared block, and xLSTM
+# ---------------------------------------------------------------------------
+
+#: phase 21 (d): a whole prefill's last logits against those of a prefill
+#: to T - CHUNK_STEPS and CHUNK_STEPS decode steps, within the JAX suite's
+#: bound for decode against forward (tests/test_models_components.py:56-81)
+CHUNK_TOL = 2e-2
+CHUNK_STEPS = 4
+#: phase 21 (e): xlstm-1.3b trained on lm_train_batch x HYBRID_TRAIN_SEQ
+#: tokens for HYBRID_TRAIN_STEPS steps, cut from phase 16's 1,024 and 10:
+#: the sLSTM loop's eager launches make a 1,024-token step ~23 s (PERF.md
+#: §4)
+HYBRID_TRAIN_SEQ = 256
+HYBRID_TRAIN_STEPS = 2
+
+#: the D = 112 kernel (zamba2-7b's shared block: H 32 over 32 KV heads, so
+#: 1 head a CTA) on ``d128_edge_cases``' shapes: Tq != Tk causal and not,
+#: T = 1, a query tile cut at 150, KV groups of 6, 3, 2 and 1
+d112_edge_cases = functools.partial(head_dim_edge_cases, d=112, seed=43,
+                                    shapes=d128_edge_cases.keywords["shapes"])
+
+
+def hybrid_configs(sizes: Sizes) -> dict:
+    """Phase 21's configurations, at their published widths and depths:
+    zamba2-7b (81 layers: 68 Mamba2 blocks, 13 shared sites) and
+    xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM); their reduced configs where
+    ``lm_reduced``."""
+    zamba, xl = get_config("zamba2-7b"), get_config("xlstm-1.3b")
+    if sizes.lm_reduced:
+        zamba, xl = zamba.reduced(), xl.reduced()
+    return {"zamba2": zamba, "xlstm": xl}
+
+
+def block_times(model, params, tokens, max_seq: int, device) -> dict:
+    """One prefill of ``tokens`` with each recurrent block timed
+    (synchronised host clock; measurement only: the transformer's table of
+    recurrent blocks is wrapped for this call): ms by block kind, the
+    whole prefill's ms, and each kind's share of it."""
+    table = transformer_mod._RECURRENT
+    saved = dict(table)
+    spent = defaultdict(float)
+
+    def timed(kind, fn):
+        def call(*args, **kw):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync(device)
+            spent[kind] += time.perf_counter() - t0
+            return out
+        return call
+
+    table.update({kind: timed(kind, fn) for kind, fn in saved.items()})
+    try:
+        cache = model.init_cache(tokens.shape[0], max_seq, dtype=torch.float32,
+                                 device=device)
+        sync(device)
+        t0 = time.perf_counter()
+        model.prefill(params, tokens, cache)
+        sync(device)
+        total = time.perf_counter() - t0
+    finally:
+        table.update(saved)
+    out = {"prefill_ms": total * 1e3, "tokens": list(tokens.shape),
+           "ms_by_kind": {k: v * 1e3 for k, v in spent.items()},
+           "share": {k: v / total for k, v in spent.items()}}
+    print(f"[hybrid] a {tuple(tokens.shape)} prefill by block: {json.dumps(out)}")
+    return out
+
+
+def chunked_vs_recurrent(name: str, model, params, tokens, max_seq: int, device) -> dict:
+    """The last logits of a whole prefill of ``tokens`` [B, T] against a
+    prefill of the first T - CHUNK_STEPS tokens (the chunked forms) and
+    CHUNK_STEPS decode steps over the rest (the recurrences), through the
+    cuda model: finite, within CHUNK_TOL."""
+    b, t = tokens.shape
+
+    def cache():
+        return model.init_cache(b, max_seq, dtype=torch.float32, device=device)
+
+    want, _ = model.prefill(params, tokens, cache())
+    got, c = model.prefill(params, tokens[:, :t - CHUNK_STEPS], cache())
+    for i in range(t - CHUNK_STEPS, t):
+        got, c = model.decode_step(params, c, tokens[:, i:i + 1])
+    sync(device)
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{name}: chunked or recurrent logits not finite")
+    diff = float((got - want).abs().max())
+    if not diff <= CHUNK_TOL:
+        raise AssertionError(f"{name}: chunked against recurrent logits differ by "
+                             f"{diff} > {CHUNK_TOL}")
+    print(f"[hybrid] {name}: a {t}-token prefill against {t - CHUNK_STEPS} prefilled and "
+          f"{CHUNK_STEPS} decoded: last logits within {diff:.3g} (bound {CHUNK_TOL}; "
+          f"largest |logit| {float(want.abs().max()):.3g})")
+    return {"max_abs_diff": diff, "tokens": [b, t], "decode_steps": CHUNK_STEPS,
+            "max_abs_logit": float(want.abs().max())}
+
+
+def hybrid_phase(sizes: Sizes, device) -> dict:
+    """Phase 21, the recurrent families on the card, after everything
+    earlier phases held is freed: (a) zamba2-7b served
+    (``lm_serving_phase``: flash at D = 112 at each of its 13 shared sites
+    a wave) and its longest prefill timed by block kind; (b) flash at D =
+    112 on (a)'s wave (``flash_phase`` with ``d112_edge_cases``); (c)
+    xlstm-1.3b served (no kernel of the port) and its longest prefill
+    timed by block kind, the sLSTM loop's share among them; (d) for both,
+    chunked against recurrent on the longest wave; (e) xlstm-1.3b trained
+    (``lm_training_phase``: two Adam launches a step, its 86 leaves in two
+    tables, the first step's backward bitwise twice) on HYBRID_TRAIN_SEQ
+    tokens a row for HYBRID_TRAIN_STEPS steps. Each part's peak
+    allocation; the phase's seconds by part."""
+    on_card = device.type == "cuda"
+    free_card(device)
+    held = torch.cuda.memory_allocated(device) if on_card else 0
+    print(f"[hybrid] phase 21: {held / 2**30:.2f} GiB still allocated by earlier phases")
+    cfgs = hybrid_configs(sizes)
+    phase_s = {"21d": 0.0}
+    t0 = time.perf_counter()
+    zamba = lm_serving_phase(cfgs["zamba2"], sizes, device)
+    zamba["summary"]["blocks"] = block_times(zamba["model"], zamba["params"],
+                                             zamba["tokens"], zamba["max_seq"], device)
+    phase_s["21a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zamba_flash = flash_phase(zamba, device, reps=10, edge_cases=d112_edge_cases)
+    phase_s["21b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunked = {"zamba2": chunked_vs_recurrent(cfgs["zamba2"].name, zamba["model"],
+                                              zamba["params"], zamba["tokens"],
+                                              zamba["max_seq"], device)}
+    phase_s["21d"] += time.perf_counter() - t0
+    del zamba["model"], zamba["params"], zamba["tokens"]
+    free_card(device)
+    t0 = time.perf_counter()
+    xl = lm_serving_phase(cfgs["xlstm"], sizes, device)
+    xl["summary"]["blocks"] = block_times(xl["model"], xl["params"], xl["tokens"],
+                                          xl["max_seq"], device)
+    phase_s["21c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunked["xlstm"] = chunked_vs_recurrent(cfgs["xlstm"].name, xl["model"], xl["params"],
+                                            xl["tokens"], xl["max_seq"], device)
+    phase_s["21d"] += time.perf_counter() - t0
+    del xl["model"], xl["params"], xl["tokens"]
+    free_card(device)
+    t0 = time.perf_counter()
+    train_sizes = dataclasses.replace(
+        sizes, lm_train_seq=min(sizes.lm_train_seq, HYBRID_TRAIN_SEQ),
+        lm_train_steps=min(sizes.lm_train_steps, HYBRID_TRAIN_STEPS))
+    train = lm_training_phase(cfgs["xlstm"], train_sizes, device)
+    phase_s["21e"] = time.perf_counter() - t0
+    free_card(device)
+    peaks = {"zamba2": zamba["summary"]["peak_abs_bytes"],
+             "xlstm": xl["summary"]["peak_abs_bytes"], "train": train["peak_abs_bytes"]}
+    print(f"[hybrid] phase 21 peaks (GiB, allocated): "
+          + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in peaks.items())
+          + f"; seconds: {json.dumps(phase_s)}")
+    return {"zamba2": zamba["summary"], "zamba2_flash": zamba_flash,
+            "xlstm": xl["summary"], "chunked": chunked, "train": train,
+            "held_before_bytes": held, "peaks": peaks, "phase_s": phase_s}
+
+
+def hybrid_entries(entries: list, p21: dict) -> None:
+    """Phase 21 beside its kernels' entries: its three paths' launches, the
+    flash call at zamba2-7b's D = 112 (one call at its first shared site's
+    inputs, CUDA events; ``max_abs_err`` over every width), and the Adam
+    launch over xlstm-1.3b's leaves."""
+    by_name = {e["name"]: e for e in entries}
+    for path, launched in (("lm_serving_zamba2", p21["zamba2"]["launches"]),
+                           ("lm_serving_xlstm", p21["xlstm"]["launches"]),
+                           ("lm_training_xlstm", p21["train"]["launches"])):
+        for e in entries:
+            e["launches_by_path"][path] = launched[e["name"]]
+            e["launches"] += launched[e["name"]]
+    g = p21["zamba2_flash"]
+    row = g["row"]
+    flash = by_name["flash_attention"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], g["err"]["f32"], g["edge"]["f32"])
+    flash["bf16_max_abs_err"] = max(flash.get("bf16_max_abs_err", 0.0), g["err"]["bf16"],
+                                    g["edge"]["bf16"])
+    flash["zamba2_d112"] = {
+        **{k: row[k] for k in ("ms", "ms_by", "wall_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "library_enable_gqa_ms",
+                               "vs_library", "wave_ms")},
+        "max_abs_err": max(g["err"]["f32"], g["edge"]["f32"]),
+        "launches_a_wave": p21["zamba2"]["flash_per_wave"],
+        "shape": f"one call at the first shared site's prefill inputs: B {row['B']}, "
+                 f"H {row['H']}, Hkv {row['Hkv']}, T {row['Tq']}, D {row['D']}, causal, "
+                 f"float32; wave_ms the kernel over all {row['layers']} shared sites"}
+    t = p21["train"]
+    a = t["adam"]
+    adam = by_name["fused_adam"]
+    adam["max_abs_err"] = max(adam["max_abs_err"], a["max_abs_err"])
+    adam["xlstm_step"] = {
+        **{k: a[k] for k in ("ms", "ms_by", "plain_ms", "library_ms", "library",
+                             "bound_ms", "bound_by", "params", "leaves")},
+        "launches_a_step": t["launches"]["fused_adam"] / t["steps"],
+        "shape": f"one launch over {t['arch']}'s {a['leaves']} leaves "
+                 f"({a['params']:,} values): ms by CUDA events"}
 
 
 # ---------------------------------------------------------------------------
@@ -4440,22 +4680,29 @@ def verifier_phase(ds, qds, sizes: Sizes, device, verified: list) -> dict:
 
 
 def run(sizes: Sizes, device, phases: str = "all") -> dict:
-    """Phases 2 to 20 at ``sizes`` on ``device`` (phase 20 alone where
-    ``phases`` is "20": the kernels line then holds phase 20's launches and
-    numbers alone); returns the kernels line and the details. Phase 20
-    starts after phases 2-19 have returned, so that nothing they held stays
-    on the card."""
-    if phases == "20":
+    """Phases 2 to 21 at ``sizes`` on ``device`` (phase 20 or 21 alone
+    where ``phases`` is "20" or "21": the kernels line then holds that
+    phase's launches and numbers alone); returns the kernels line and the
+    details. Phases 20 and 21 each start after the phases before them have
+    returned, so that nothing those held stays on the card."""
+    if phases in ("20", "21"):
         result = {"phase_s": {}, "kernels": [
             {"name": name, "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0}
             for name in KERNELS]}
     else:
         result = phases_2_to_19(sizes, device)
-    t0 = time.perf_counter()
-    moe = moe_phase(sizes, device)
-    result["phase_s"]["20"] = time.perf_counter() - t0
-    moe_entries(result["kernels"], moe)
-    result["moe"] = moe
+    if phases in ("all", "20"):
+        t0 = time.perf_counter()
+        moe = moe_phase(sizes, device)
+        result["phase_s"]["20"] = time.perf_counter() - t0
+        moe_entries(result["kernels"], moe)
+        result["moe"] = moe
+    if phases in ("all", "21"):
+        t0 = time.perf_counter()
+        hybrid = hybrid_phase(sizes, device)
+        result["phase_s"]["21"] = time.perf_counter() - t0
+        hybrid_entries(result["kernels"], hybrid)
+        result["hybrid"] = hybrid
     return result
 
 
@@ -4801,6 +5048,7 @@ def print_summary(result: dict, card: str) -> None:
           f"{sum(c['calls'] for c in v['soak']['checked'].values())} kernel "
           f"calls within {TOL} of the plain versions on {card}")
     print_moe_summary(result["moe"], card)
+    print_hybrid_summary(result["hybrid"], card)
 
 
 def print_moe_summary(m: dict, card: str) -> None:
@@ -4829,15 +5077,43 @@ def print_moe_summary(m: dict, card: str) -> None:
           f"AdamW(fused=True) {t['adam']['library_ms']:.3f}) on {card}")
 
 
-#: the libraries phase 20 runs
+def print_hybrid_summary(m: dict, card: str) -> None:
+    """Phase 21's lines: each served model's with its prefill by block
+    kind and its chunked-against-recurrent gap, flash at D = 112, the
+    xlstm-1.3b training run's."""
+    for key in ("zamba2", "xlstm"):
+        r = m[key]
+        share = ", ".join(f"{k} {v:.1%}" for k, v in r["blocks"]["share"].items())
+        print(f"[hybrid] {r['arch']}: {r['n_params']:,} parameters, {r['requests']} "
+              f"requests in {r['waves']} waves, {r['flash_per_wave']} flash launches a "
+              f"wave, prefill {', '.join(f'{x:.1f}' for x in r['prefill_ms'])} ms a "
+              f"wave ({share} of a timed one), decode {r['decode_step_ms_median']:.2f} "
+              f"ms a step, {r['tokens_per_s']:.1f} tokens/s, logits within "
+              f"{r['max_logit_diff']:.3g}, chunked vs recurrent "
+              f"{m['chunked'][key]['max_abs_diff']:.3g}, peak "
+              f"{r['peak_abs_bytes'] / 2**30:.2f} GiB on {card}")
+    f = m["zamba2_flash"]["row"]
+    print(f"[hybrid] flash at D = {f['D']} (B {f['B']}, H {f['H']}, Hkv {f['Hkv']}, T "
+          f"{f['Tq']}): {f['ms']:.3f} ms a call (bound {f['bound_ms']:.3f}, plain "
+          f"{f['plain_ms']:.3f}, SDPA {f['library_ms']:.3f}) on {card}")
+    t = m["train"]
+    print(f"[hybrid] {t['arch']} training: {t['n_params']:,} parameters, {t['steps']} "
+          f"steps of B {t['batch']} x T {t['seq']}, {t['step_ms_median']:.1f} ms a step "
+          f"(torch program {t['ref_step_ms_median']:.1f}), {t['tokens_per_s']:.0f} "
+          f"tokens/s, loss {t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}, max rel diff "
+          f"{t['max_rel_diff']:.2e}, peak {t['peak_abs_bytes'] / 2**30:.2f} GiB; Adam "
+          f"{t['adam']['ms']:.3f} ms a launch (bound {t['adam']['bound_ms']:.3f}) on {card}")
+
+
+#: the libraries phases 20 and 21 run
 MOE_LIBRARIES = ("flash_attention", "fused_adam")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", choices=("all", "20"), default="all",
-                    help="every phase (the default), or phase 20 alone after building "
-                         "its two libraries")
+    ap.add_argument("--phases", choices=("all", "20", "21"), default="all",
+                    help="every phase (the default), or phase 20 or 21 alone after "
+                         "building their two libraries")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4872,9 +5148,11 @@ def main(argv=None) -> int:
     print(f"[card] {CLOCKS} after the phases: {clocks['end']}")
     if args.phases == "all":
         print_summary(result, card)
-    else:
+    elif args.phases == "20":
         print_moe_summary(result["moe"], card)
-    print(f"[done] phases {'2-20' if args.phases == 'all' else '20'} in "
+    else:
+        print_hybrid_summary(result["hybrid"], card)
+    print(f"[done] phases {'2-21' if args.phases == 'all' else args.phases} in "
           f"{time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -39,9 +39,10 @@
 // tiles are issued from the last (the longest causal loop) to the first.
 //
 // Inside a CTA: 128 threads as 16 (ty) x 8 (tx). Thread (ty, tx) owns the
-// RM consecutive rows ty·RM.. of the tile (RM = 8, or 4 at D >= 128), the
+// RM consecutive rows ty·RM.. of the tile (RM = 8, or 4 at D >= 112), the
 // scores of key columns tx + 8·j (j < 8) of each key tile and the output
-// columns g·8·CW + tx·CW + c (CW = min(4, D/8) contiguous, g < D/(8·CW)):
+// columns g·8·CW + tx·CW + c (CW contiguous, the largest of 4, 2 and 1
+// that D/8 divides into: 2 at D = 112; g < D/(8·CW)):
 //   * S = Q·Kᵀ as RM x 8 register outer products over d: Q row-major and K
 //     key-major (its rows padded by 4 floats, so the 8 tx lanes of a
 //     quarter warp read distinct banks), both read as float4 along d: 8
@@ -72,7 +73,10 @@
 // against 0.025 ms at 3.35 TB/s. At D = 256 (gemma3-1b's global layers)
 // a CTA holds 64 rows: its Q, K, V and P tiles take 215,040 bytes of shared
 // memory, under the H100's 227 KB opt-in, so one CTA runs on an SM, and a
-// thread keeps 4 x 32 accumulators. Tensor cores (TF32 or bf16 operands,
+// thread keeps 4 x 32 accumulators. At D = 112 (zamba2-7b's shared block,
+// 3584 / 32) a CTA holds 64 rows too: 104,448 bytes, so two CTAs share an
+// SM (at 128 rows, 149,504 bytes, only one would fit), and each thread
+// keeps 4 x 14 accumulators in 7 float2 column pairs. Tensor cores (TF32 or bf16 operands,
 // behind a flag with their own tolerance) are later work (PERF.md).
 
 #include <cuda_bf16.h>
@@ -88,9 +92,10 @@ constexpr float kNegInf = -1e30f;
 // The tile geometry of head width D.
 template <int D>
 struct Cfg {
-  static constexpr int RM = D >= 128 ? 4 : 8;     // query rows per thread
+  static constexpr int RM = D >= 112 ? 4 : 8;     // query rows per thread
   static constexpr int BQ = 16 * RM;              // query rows per CTA
-  static constexpr int CW = D >= 32 ? 4 : D / 8;  // contiguous output columns
+  // contiguous output columns: the largest of 4, 2, 1 with D % (8·CW) == 0
+  static constexpr int CW = D % 32 == 0 ? 4 : D % 16 == 0 ? 2 : 1;
   static constexpr int G = D / (8 * CW);          // their groups
   static constexpr int CN = G * CW;               // output columns per thread
   static constexpr int LDK = D + 4;               // K row: padded
@@ -417,6 +422,7 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
     FLASH_D(16)
     FLASH_D(32)
     FLASH_D(64)
+    FLASH_D(112)
     FLASH_D(128)
     FLASH_D(256)
     default:
@@ -431,7 +437,7 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o,
 // Tk, D] and out [B, H, Tq, D] are device pointers read and written through
 // the given (b, h, t) element strides, d contiguous (out's rows 16-byte
 // aligned: the wrapper allocates it); dtype 0 is float32, 1
-// bfloat16 (all four tensors alike); D in {8, 16, 32, 64, 128, 256}; Hkv divides
+// bfloat16 (all four tensors alike); D in {8, 16, 32, 64, 112, 128, 256}; Hkv divides
 // H; causal masks col > row (top-left). heads_per_cta: the query heads of
 // one KV group a CTA serves, 1, 2 or 4, dividing H/Hkv.
 // async: q, k and v are float32 with 16-byte aligned row

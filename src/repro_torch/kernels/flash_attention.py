@@ -5,7 +5,7 @@ The port of ``repro/kernels/flash_attention.py:flash_attention`` (the
 Pallas TPU kernel, ``pallas_call`` at :106), the LM substrate's prefill
 attention. For CUDA tensors the wrapper launches the hand-written Hopper
 kernel ``kernels/csrc/flash_attention.cu`` (128 query rows a CTA, 64 at
-D = 128 and 256, shared by up to ``HEADS_PER_CTA`` heads of one KV group; 8x8 register
+D = 112, 128 and 256, shared by up to ``HEADS_PER_CTA`` heads of one KV group; 8x8 register
 tiles fed by float4 shared-memory reads; K/V tiles loaded by ``cp.async``
 where q, k and v are float32 with 16-byte aligned rows, else by the
 kernel's synchronous path; float32 accumulation on the CUDA cores, any
@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels.ref import flash_attention_ref
 
 #: head widths the kernel is instantiated for (one template each)
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the most query heads of one KV group a CTA serves: each K/V tile it
 #: loads then serves that many heads (on an H100, 4 heads a CTA ran 5-6%

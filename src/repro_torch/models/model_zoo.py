@@ -17,11 +17,9 @@ import torch
 from repro_torch.backends.registry import not_ported
 from repro_torch.configs.base import LMConfig
 from repro_torch.models.transformer import LM
+from repro_torch.models.xlstm import SLSTM_FF_MULT
 from repro_torch.training.grad import accum_add, accum_init, accum_mean
 from repro_torch.training.optimizer import Optimizer, tree_leaves, tree_map, tree_unflatten
-
-#: ``repro/models/xlstm.py:SLSTM_FF_MULT``, for the sLSTM block's count
-SLSTM_FF_MULT = 1.375
 
 
 def build_model(cfg: LMConfig, inner: str = "cuda", remat: str = "layer") -> LM:

@@ -1,17 +1,22 @@
-"""The LM substrate's decoder for the dense and MoE families, on PyTorch.
+"""The LM substrate's decoder on PyTorch: dense, MoE, Mamba2 and xLSTM.
 
-Counterpart of ``repro/models/transformer.py`` for configurations whose
-every block is ``"attn"``: GQA with RoPE (global or with a sliding
-window) or DeepSeek's MLA with its latent cache, a dense FFN or a
-mixture of experts (``models/moe.py``) from layer
-``first_k_dense_layers`` on, and DeepSeek-V3's multi-token prediction in
-the loss (llama3.2-1b, gemma3-1b with its 5:1 local:global windows,
-starcoder2-3b, granite-34b, dbrx-132b, deepseek-v3-671b). Other block
-kinds, the encoder and the frontends raise ``NotImplementedError``
-naming ROADMAP.md Queue 1, item 9.
+Counterpart of ``repro/models/transformer.py`` for every configuration
+without an encoder or a frontend. Block kinds: ``"attn"``, GQA with RoPE
+(global or with a sliding window) or DeepSeek's MLA with its latent
+cache, then a dense FFN or a mixture of experts (``models/moe.py``) from
+layer ``first_k_dense_layers`` on; ``"mamba"``, a Mamba2/SSD block
+(``models/ssm.py``); ``"mlstm"`` and ``"slstm"``, the xLSTM blocks
+(``models/xlstm.py``); ``"shared_attn"``, Zamba2's weight-shared block:
+its layer holds ``{}`` and every such site runs ``params["shared_attn"]``
+(one GQA block and MLP) with a K/V cache of its own. DeepSeek-V3's
+multi-token prediction joins the loss (llama3.2-1b, gemma3-1b with its
+5:1 local:global windows, starcoder2-3b, granite-34b, dbrx-132b,
+deepseek-v3-671b, zamba2-7b, xlstm-1.3b). The encoder and the frontends
+raise ``NotImplementedError`` naming ROADMAP.md Queue 1, item 9 (g).
 
 Parameters keep the JAX package's tree: ``{"embed": {"table"},
-"segments": [...], "final_norm": {...}, "head"?, "mtp"?}``, where a segment that
+"segments": [...], "final_norm": {...}, "head"?, "shared_attn"?,
+"mtp"?}``, where a segment that
 ``plan_segments`` scans keeps its layers stacked on a leading
 ``[n_reps]`` axis (``params_from_jax`` carries the JAX tree over leaf by
 leaf) and the repetitions run in a Python loop over the views that one
@@ -27,8 +32,10 @@ segments sum it in layer order. The entry points are
 ``forward``, ``loss`` (training), ``prefill`` (which unembeds only the
 last position: the full ``[B, T, V]`` logits of a 4 x 1024 prefill at
 llama3.2-1b width would take 2.1 GB) and ``decode_step``. Caches are
-updated in place (``models/attention.py``), the index ``idx`` a Python
-int on the host.
+updated in place (``models/attention.py``, ``models/ssm.py``,
+``models/xlstm.py``): a layer's holds ``"attn"`` (K/V or the latent),
+``"ssm"`` or ``"xl"`` by its kind, the recurrent states always float32;
+the index ``idx`` a Python int on the host.
 """
 from __future__ import annotations
 
@@ -45,6 +52,8 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.ops import _executor
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -103,12 +112,19 @@ def plan_segments(cfg: LMConfig) -> list[Segment]:
     return segs
 
 
+#: the block kinds the port builds, each with the key of its layer's cache
+CACHE_KEYS = {"attn": "attn", "shared_attn": "attn", "mamba": "ssm",
+              "mlstm": "xl", "slstm": "xl"}
+
+
 def check_ported(cfg: LMConfig) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP.md Queue 1, item 9) unless
-    every block of ``cfg`` is an attention block the port runs (GQA or
-    MLA, dense FFN or MoE) and it has no encoder or frontend."""
-    parts = [("block kinds other than attn", any(k != "attn" for k in cfg.blocks)),
-             ("encoder-decoder", cfg.is_encoder_decoder),
+    """Raise ``NotImplementedError`` (ROADMAP.md Queue 1, item 9 (g)) where
+    ``cfg`` has an encoder or a frontend, and ``ValueError`` for a block
+    kind the JAX package does not know either."""
+    unknown = sorted(set(cfg.blocks) - set(CACHE_KEYS))
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {unknown}")
+    parts = [("encoder-decoder", cfg.is_encoder_decoder),
              (f"the {cfg.frontend} frontend", cfg.frontend != "none")]
     missing = [what for what, present in parts if present]
     if missing:
@@ -131,23 +147,46 @@ def _layer_window(cfg: LMConfig, layer_id: int) -> int:
 # Per-layer init / apply
 # ---------------------------------------------------------------------------
 
-def _init_layer(generator, cfg: LMConfig, layer_id: int, lead: tuple, device) -> dict:
-    """Layer ``layer_id``'s block: MLA or GQA, then MoE or a dense MLP."""
+def _init_layer(generator, cfg: LMConfig, kind: str, layer_id: int, lead: tuple,
+                device) -> dict:
+    """Layer ``layer_id``'s block of ``kind``: for ``"attn"`` MLA or GQA,
+    then MoE or a dense MLP; ``{}`` for a shared site."""
     d = cfg.d_model
-    a = (attn.mla_init(generator, cfg, lead, device) if cfg.mla
-         else attn.gqa_init(generator, cfg, lead, device))
-    ffn = (moe_mod.moe_init(generator, cfg, lead, device) if _layer_is_moe(cfg, layer_id)
-           else mlp_init(generator, d, cfg.d_ff, cfg.activation, lead, device))
-    return {"norm1": norm_init(cfg.norm, d, lead, device), "attn": a,
-            "norm2": norm_init(cfg.norm, d, lead, device), "ffn": ffn}
+    if kind == "attn":
+        a = (attn.mla_init(generator, cfg, lead, device) if cfg.mla
+             else attn.gqa_init(generator, cfg, lead, device))
+        ffn = (moe_mod.moe_init(generator, cfg, lead, device)
+               if _layer_is_moe(cfg, layer_id)
+               else mlp_init(generator, d, cfg.d_ff, cfg.activation, lead, device))
+        return {"norm1": norm_init(cfg.norm, d, lead, device), "attn": a,
+                "norm2": norm_init(cfg.norm, d, lead, device), "ffn": ffn}
+    if kind == "shared_attn":
+        return {}  # weights live in params["shared_attn"]
+    init = {"mamba": ssm_mod.mamba_init, "mlstm": xlstm_mod.mlstm_init,
+            "slstm": xlstm_mod.slstm_init}[kind]
+    return {"norm": norm_init(cfg.norm, d, lead, device),
+            kind: init(generator, cfg, lead, device)}
 
 
-def _apply_layer(p, cfg: LMConfig, x, positions, window: int, cache, inner: str):
-    """One pre-norm block: x + attn(norm1(x)), then + ffn(norm2(x)).
-    Returns ``(x, new_cache, aux)``: the MoE's load-balance loss, or None
-    for a dense FFN."""
+#: the recurrent blocks' apply functions, by kind
+_RECURRENT = {"mamba": ssm_mod.mamba_apply, "mlstm": xlstm_mod.mlstm_apply,
+              "slstm": xlstm_mod.slstm_apply}
+
+
+def _apply_layer(p, cfg: LMConfig, kind: str, x, positions, window: int, cache,
+                 inner: str, shared=None):
+    """One pre-norm block of ``kind``: for attention x + attn(norm1(x)),
+    then + ffn(norm2(x)) (``shared``'s weights at a shared site, always
+    GQA and an MLP); for a recurrent block x + block(norm(x)). Returns
+    ``(x, new_cache, aux)``: the MoE's load-balance loss, or None."""
+    if kind in _RECURRENT:
+        h = apply_norm(cfg.norm, p["norm"], x)
+        y, new_cache = _RECURRENT[kind](p[kind], cfg, h, cache=cache)
+        return x + y, new_cache, None
+    if kind == "shared_attn":
+        p, window = shared, 0
     h = apply_norm(cfg.norm, p["norm1"], x)
-    if cfg.mla:
+    if cfg.mla and kind == "attn":
         a, new_cache = attn.mla_apply(p["attn"], cfg, h, positions, cache=cache)
     else:
         a, new_cache = attn.gqa_apply(p["attn"], cfg, h, positions, window=window,
@@ -184,10 +223,11 @@ def _unbind(tree, n: int) -> list:
 # ---------------------------------------------------------------------------
 
 class LM:
-    """The decoder over ``inner``'s prefill attention for GQA layers
-    without a window: ``"cuda"`` the flash kernel (its plain version for
-    CPU tensors), ``"torch"`` the plain version on any device (MLA layers
-    always take ``_attn_core``). ``remat="layer"`` recomputes each layer
+    """The decoder over ``inner``'s prefill attention for GQA layers and
+    shared sites without a window: ``"cuda"`` the flash kernel (its plain
+    version for CPU tensors), ``"torch"`` the plain version on any device
+    (MLA layers always take ``_attn_core``; the recurrent blocks run no
+    kernel of the port). ``remat="layer"`` recomputes each layer
     of a scanned segment in the backward of an uncached call; ``"none"``
     keeps every activation."""
 
@@ -212,19 +252,26 @@ class LM:
         segs = []
         for seg in self.segments:
             lead = () if seg.mode == "unroll" else (seg.n_reps,)
-            segs.append([_init_layer(generator, cfg, lid, lead, device)
-                         for lid in seg.layer_ids[:len(seg.kinds)]])
+            segs.append([_init_layer(generator, cfg, kind, lid, lead, device)
+                         for kind, lid in zip(seg.kinds, seg.layer_ids)])
         params["segments"] = segs
         params["final_norm"] = norm_init(cfg.norm, cfg.d_model, (), device)
         if not cfg.tie_embeddings:
             params["head"] = embed_init(generator, cfg.padded_vocab(),
                                         cfg.d_model, device)
+        d = cfg.d_model
+        if "shared_attn" in cfg.blocks:
+            params["shared_attn"] = {
+                "norm1": norm_init(cfg.norm, d, (), device),
+                "attn": attn.gqa_init(generator, cfg, (), device),
+                "norm2": norm_init(cfg.norm, d, (), device),
+                "ffn": mlp_init(generator, d, cfg.d_ff, cfg.activation, (), device)}
         if cfg.mtp_depth > 0:
-            d = cfg.d_model
             params["mtp"] = {
                 "proj": dense_init(generator, 2 * d, d, (), device),
                 "norm": norm_init(cfg.norm, d, (), device),
-                "block": _init_layer(generator, cfg, cfg.n_layers - 1, (), device)}
+                "block": _init_layer(generator, cfg, "attn", cfg.n_layers - 1, (),
+                                     device)}
         return params
 
     def _run_segments(self, params, x, positions, cache):
@@ -232,6 +279,7 @@ class LM:
         MoE layers' load-balance losses, in layer order."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        shared = params.get("shared_attn")
         cache_idx = None if cache is None else cache["idx"]
         new_segs = None if cache is None else []
         for si, seg in enumerate(self.segments):
@@ -244,21 +292,24 @@ class LM:
             if seg.mode == "scan":
                 seg_p = [_unbind(p, reps) for p in seg_p]
             for r in range(reps):
-                for j in range(period):
+                for j, kind in enumerate(seg.kinds):
                     window = _layer_window(cfg, seg.layer_ids[r * period + j])
                     lp = seg_p[j] if seg.mode == "unroll" else seg_p[j][r]
                     if remat:
-                        x, layer_aux = checkpoint(self._layer_out, lp, x, positions,
-                                                  window, use_reentrant=False)
+                        x, layer_aux = checkpoint(self._layer_out, lp, kind, x,
+                                                  positions, window, shared,
+                                                  use_reentrant=False)
                     else:
                         lc = None
                         if seg_c is not None:
-                            c = seg_c[j]["attn"]
+                            key = CACHE_KEYS[kind]
+                            lc = seg_c[j][key]
                             if seg.mode == "scan":
-                                c = _index(c, r)
-                            lc = {**c, "idx": cache_idx}
-                        x, _, layer_aux = _apply_layer(lp, cfg, x, positions, window,
-                                                       lc, self.inner)
+                                lc = _index(lc, r)
+                            if key == "attn":
+                                lc = {**lc, "idx": cache_idx}
+                        x, _, layer_aux = _apply_layer(lp, cfg, kind, x, positions,
+                                                       window, lc, self.inner, shared)
                     if layer_aux is not None:
                         aux = aux + layer_aux
             if new_segs is not None:
@@ -268,10 +319,11 @@ class LM:
             new_cache = {"idx": cache_idx + x.shape[1], "segments": new_segs}
         return x, aux, new_cache
 
-    def _layer_out(self, lp, x, positions, window: int):
-        """An uncached layer's output and its aux (None for a dense FFN),
-        the unit ``remat`` recomputes."""
-        x, _, aux = _apply_layer(lp, self.cfg, x, positions, window, None, self.inner)
+    def _layer_out(self, lp, kind: str, x, positions, window: int, shared):
+        """An uncached layer's output and its aux (None but for an MoE
+        FFN), the unit ``remat`` recomputes."""
+        x, _, aux = _apply_layer(lp, self.cfg, kind, x, positions, window, None,
+                                 self.inner, shared)
         return x, aux
 
     def _hidden(self, params, tokens, cache, positions):
@@ -323,7 +375,7 @@ class LM:
         z = torch.cat([apply_norm(cfg.norm, mp["norm"], hidden[:, :-1]), nxt], -1)
         z = z @ mp["proj"]
         pos = torch.arange(z.shape[1], device=z.device)
-        z, _, _ = _apply_layer(mp["block"], cfg, z, pos, 0, None, self.inner)
+        z, _, _ = _apply_layer(mp["block"], cfg, "attn", z, pos, 0, None, self.inner)
         logits2 = unembed(self._head(params), apply_norm(cfg.norm, params["final_norm"], z))
         ce, _ = _masked_ce(logits2, labels[:, 1:], cfg.vocab_size)
         return ce
@@ -331,15 +383,29 @@ class LM:
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
                    device=None) -> dict:
         """Zeroed caches in the JAX package's tree (a scanned segment's
-        stacked on ``[n_reps]``): K/V for GQA layers, the latent for MLA
-        layers; ``idx = 0``, on ``device``."""
+        stacked on ``[n_reps]``): K/V at ``dtype`` for GQA layers and
+        shared sites, the latent for MLA layers, and float32 states for
+        the recurrent blocks (``"ssm"``, ``"xl"``, whatever ``dtype``, as
+        the JAX package's); ``idx = 0``, on ``device``."""
         device = resolve_device(device)
-        init = attn.mla_cache_init if self.cfg.mla else attn.gqa_cache_init
+        cfg = self.cfg
+
+        def layer_cache(kind, lead):
+            if kind == "mamba":
+                return {"ssm": ssm_mod.mamba_cache_init(cfg, batch, lead=lead,
+                                                        device=device)}
+            if kind in ("mlstm", "slstm"):
+                init = (xlstm_mod.mlstm_cache_init if kind == "mlstm"
+                        else xlstm_mod.slstm_cache_init)
+                return {"xl": init(cfg, batch, lead, device)}
+            init = (attn.mla_cache_init if cfg.mla and kind == "attn"
+                    else attn.gqa_cache_init)
+            return {"attn": init(cfg, batch, s_max, dtype, lead, device)}
+
         segs = []
         for seg in self.segments:
             lead = () if seg.mode == "unroll" else (seg.n_reps,)
-            segs.append([{"attn": init(self.cfg, batch, s_max, dtype, lead, device)}
-                         for _ in seg.kinds])
+            segs.append([layer_cache(kind, lead) for kind in seg.kinds])
         return {"idx": 0, "segments": segs}
 
     def prefill(self, params, tokens: torch.Tensor, cache: dict):
@@ -380,7 +446,8 @@ def params_from_jax(tree, device=None):
     ``device`` (CUDA unless asked): the same keys, lists and stacked
     ``[n_reps, ...]`` segment axes, the MoE layers' bare ``router`` and
     stacked ``[n_reps, E, D, F]`` experts, MLA's weights and ``mtp``
-    included."""
+    included, and the empty ``{}`` of Zamba2's shared sites beside
+    ``shared_attn``."""
     device = resolve_device(device)
     return tree_map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device),
                     tree)

@@ -64,15 +64,15 @@ def _t(*arrays):
 
 
 SHAPES = [(2, 2, 16, 16, 8), (1, 3, 33, 33, 16), (2, 1, 64, 64, 32),
-          (1, 2, 40, 72, 8), (1, 2, 24, 40, 256)]
+          (1, 2, 40, 72, 8), (1, 2, 24, 40, 256), (1, 2, 40, 24, 112)]
 
 
 @pytest.mark.parametrize("b,h,tq,tk,d", SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_matches_pallas(jx, b, h, tq, tk, d, causal):
     """Every shape of the JAX suite's ``test_flash_matches_ref``, causal
-    with Tq != Tk too, and gemma3-1b's head width 256, against the Pallas
-    kernel itself."""
+    with Tq != Tk too, gemma3-1b's head width 256 and zamba2-7b's 112,
+    against the Pallas kernel itself."""
     q, k, v = _qkv(b * 100 + tq, b, h, tq, tk, d)
     got = flash_attention(*_t(q, k, v), causal=causal)
     want = jx.flash(*(jx.jnp.asarray(a) for a in (q, k, v)), causal=causal,
@@ -176,7 +176,7 @@ def test_wrapper_checks_and_executor():
     got = tops._executor("cuda", "flash")(q, k, v, causal=True)
     assert flash_attention.launches == before  # CPU tensors: the plain version
     torch.testing.assert_close(got, tops._executor("torch", "flash")(q, k, v, causal=True))
-    assert set(HEAD_DIMS) == {8, 16, 32, 64, 128, 256}
+    assert set(HEAD_DIMS) == {8, 16, 32, 64, 112, 128, 256}
 
 
 @pytest.mark.parametrize("group,want", [(1, 1), (2, 2), (3, 1), (4, 4), (6, 2),

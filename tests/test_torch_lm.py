@@ -391,9 +391,7 @@ def test_segment_planning_full_configs(jx):
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("xlstm-1.3b", "block kinds"),
     ("pixtral-12b", "the vision frontend"),
-    ("zamba2-7b", "block kinds"),
     ("whisper-tiny", "encoder-decoder"),
 ])
 def test_not_ported_configs_raise(arch, what):

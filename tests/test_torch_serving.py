@@ -231,6 +231,8 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.configs.llama3p2_1b", "repro_torch.models.layers",
             "repro_torch.models.attention", "repro_torch.models.transformer",
             "repro_torch.models.moe", "repro_torch.configs.dbrx_132b",
+            "repro_torch.models.ssm", "repro_torch.models.xlstm",
+            "repro_torch.configs.zamba2_7b", "repro_torch.configs.xlstm_1p3b",
             "repro_torch.configs.deepseek_v3_671b",
             "repro_torch.models.model_zoo", "repro_torch.serving.engine",
             "repro_torch.training.grad", "repro_torch.training.schedule",
