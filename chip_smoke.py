@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 20|21]
+    python3 chip_smoke.py [--phases 20|21|22]
 
-Phases (``--phases 20`` or ``21``: that phase alone); any failure raises,
+Phases (``--phases 20``, ``21`` or ``22``: that phase alone); any failure raises,
 so the exit code is not 0 and no result line is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
@@ -301,6 +301,35 @@ so the exit code is not 0 and no result line is printed:
     tables of ``CAPACITY``), after two runs of the first step's backward
     that must be bitwise equal (no profiled step: ~30 launches a time
     step of the sLSTM loop). Each part's peak allocation.
+22. The encoder-decoder and the vision frontend, after phase 21 has
+    returned and freed the card; the cuda and torch programs share one
+    parameter tree a model. (a) whisper-tiny at its published size (4
+    encoder layers over 1,500 frames, 4 decoder layers, d_model 384, 6
+    heads of 64, vocab 51,865): one wave of 4 prompts of 1,024 tokens
+    with frames [4, 1,500, 384] from a seeded generator on the card,
+    through ``make_prefill_step``, then 32 greedy ``make_decode_step``s
+    (``frontend_wave``): exactly 12 ``flash_attention`` launches in the
+    prefill (4 encoder layers non-causal at T 1,500, 4 causal
+    self-attentions, 4 non-causal cross attentions at Tq 1,024 x Tk
+    1,500) and none in decode, no other kernel, the torch program's
+    logits within 1e-4 at every call and its greedy tokens where the
+    top-2 margin exceeds ``TOKEN_MARGIN``; then phase 10's requests
+    through the engine, text alone as the JAX engine runs them (the cross
+    attention over the cache's zeroed encoder output: 8 launches a
+    wave), held as phase 10 holds them. (b) Phase 11's checks of the
+    kernel on the q, k, v of (a)'s and (c)'s prefills by kind (whisper's
+    encoder, self and cross attention; pixtral-12b's B 4, H 32, Hkv 8, T
+    1,280, D 128, causal), each kind's CUDA-event ms beside the plain
+    version's, SDPA's and the bound. (c) pixtral-12b at its published
+    size (40 layers, d_model 5,120, 32 heads over 8 KV heads of 128,
+    vocab 131,072; 12,247,782,400 parameters): one wave of 4 prompts of
+    1,024 text tokens after 256 patch embeddings [4, 256, 5,120], then
+    32 decode steps, the same gates, exactly 40 flash launches in the
+    prefill and none in decode; a profiled prefill by kernel class. (d)
+    Phase 16's checks on whisper-tiny whole (4 x 1,024 tokens with its
+    frames, 10 steps) and on pixtral-12b cut to ``PIXTRAL_TRAIN_LAYERS``
+    (2) layers at its published widths (1,887,462,400 parameters, 2 steps
+    of 4 x (256 + 768) tokens). Each part's peak allocation.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -403,7 +432,9 @@ from repro_torch.kernels.ref import (  # noqa: E402
 )
 from repro_torch.models.model_zoo import (  # noqa: E402
     build_model,
+    make_decode_step,
     make_dummy_batch,
+    make_prefill_step,
     make_train_step,
 )
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -2883,14 +2914,17 @@ def lm_profile(fn, device, n_flash: int, wall_ms: float, spans: dict = None) -> 
 
 
 def flash_layers(cfg) -> int:
-    """The layers whose prefill runs the flash kernel: the attention
-    layers without a sliding window (all of llama3.2-1b's 16, gemma3-1b's
-    4 global ones, dbrx-132b's), none where the attention is MLA
-    (deepseek-v3-671b: ``_attn_core`` always), and every shared site
-    (zamba2-7b's 13); no recurrent block (xlstm-1.3b: none)."""
+    """Flash launches a prefill of text: one for each attention layer
+    without a sliding window (all of llama3.2-1b's 16, gemma3-1b's 4
+    global ones, dbrx-132b's, pixtral-12b's 40), two for an
+    encoder-decoder's (whisper-tiny's self attention, and its cross
+    attention over the cache's encoder output), none where the attention
+    is MLA (deepseek-v3-671b: ``_attn_core`` always), and one for every
+    shared site (zamba2-7b's 13); none for a recurrent block (xlstm-1.3b:
+    none)."""
     return sum(kind == "shared_attn"
                or (kind == "attn" and not cfg.mla and _layer_window(cfg, i) == 0)
-               for i, kind in enumerate(cfg.blocks))
+               for i, kind in enumerate(cfg.blocks)) * (2 if cfg.is_encoder_decoder else 1)
 
 
 def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
@@ -3100,18 +3134,24 @@ def capture_flash(model, params, tokens, max_seq: int, device) -> list:
     flash inputs (q, k, v as the layer passes them: [B, H, T, D] views of
     the projections and of the cache). Measurement only: the executor is
     wrapped for this call."""
+    return [x[:3] for x in capture_flash_calls(model, params, tokens, max_seq, device)]
+
+
+def capture_flash_calls(model, params, tokens, max_seq: int, device, **inputs) -> list:
+    """``capture_flash`` with the frontend's ``inputs`` given to the
+    prefill: each flash call's (q, k, v, causal) in launch order."""
     table = kops._EXECUTORS["cuda"]
     inner = table["flash"]
     layers = []
 
     def spy(q, k, v, **kw):
-        layers.append((q, k, v))
+        layers.append((q, k, v, kw["causal"]))
         return inner(q, k, v, **kw)
 
     table["flash"] = spy
     try:
         model.prefill(params, tokens, model.init_cache(
-            tokens.shape[0], max_seq, dtype=torch.float32, device=device))
+            tokens.shape[0], max_seq, dtype=torch.float32, device=device), **inputs)
     finally:
         table["flash"] = inner
     return layers
@@ -3368,7 +3408,12 @@ def lm_adam_row(params, device, reps: int, arch: str) -> dict:
         for a, r in zip((o[i] for o in out), ref):
             err = max(err, check_close(f"fused_adam LM leaf {i} {tuple(r.shape)}",
                                        a, r, ADAM_TOL))
-    del out, ref
+        # each leaf's outputs and plain version freed once checked: the
+        # pixtral-12b cut's 2.5 GiB embedding leaves would not fit twice
+        del ref
+        for o in out:
+            o[i] = None
+    del out
     n = int(sum(p.numel() for p in ps))
     row = {"kernel": "fused_adam", "leaves_of": f"{arch} training step",
            "leaves": len(ps), "params": n, "max_abs_err": err}
@@ -3469,12 +3514,11 @@ def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
         raise AssertionError(f"LM training losses do not fall: {losses}")
     median_ms = float(np.median(run["ms"]))
     profile = (epoch_profile(lambda: run["step"](run["params"], run["state"], batch),
-                             device, median_ms / 1e3, {"fused_adam": 1})
+                             device, median_ms / 1e3, {"fused_adam": want["fused_adam"]})
                if "slstm" not in cfg.blocks else {"complete": False, "skipped": True})
     params, step_ms = run["params"], run["ms"]
     del run
-    if on_card:
-        torch.cuda.empty_cache()
+    free_card(device)  # a collection first: reference cycles may hold tensors
 
     ref_model = build_model(cfg, inner="torch", remat="layer")
     ref = lm_train_run(ref_model, adamw(sched), init, batch, steps, device)
@@ -3493,12 +3537,13 @@ def lm_training_phase(cfg, sizes: Sizes, device) -> dict:
           f"relative at every step, parameters within {max(param_rel):.3g} a leaf")
     ref_losses, ref_ms = ref["losses"], float(np.median(ref["ms"]))
     del ref, init
+    free_card(device)  # a collection first: reference cycles may hold tensors
     if on_card:
-        torch.cuda.empty_cache()
+        print(f"[lm-train] {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated "
+              "before the Adam row")
     adam_row = lm_adam_row(params, device, reps=5, arch=cfg.name)
     del params
-    if on_card:
-        torch.cuda.empty_cache()
+    free_card(device)  # a collection first: reference cycles may hold tensors
     out = {
         "arch": cfg.name, "n_params": n_params, "batch": sizes.lm_train_batch,
         "seq": sizes.lm_train_seq, "steps": steps, "losses": losses,
@@ -3887,6 +3932,349 @@ def hybrid_entries(entries: list, p21: dict) -> None:
         "launches_a_step": t["launches"]["fused_adam"] / t["steps"],
         "shape": f"one launch over {t['arch']}'s {a['leaves']} leaves "
                  f"({a['params']:,} values): ms by CUDA events"}
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the encoder-decoder, cross attention and the vision frontend
+# ---------------------------------------------------------------------------
+
+#: phase 22 (d): pixtral-12b trained cut to PIXTRAL_TRAIN_LAYERS layers at
+#: its published widths (1,887,457,280 parameters, ~30 GB at 16 bytes a
+#: parameter: its 40 layers would take 196 GB) for PIXTRAL_TRAIN_STEPS
+#: steps of 4 x (256 + 768) tokens
+PIXTRAL_TRAIN_LAYERS = 2
+PIXTRAL_TRAIN_STEPS = 2
+
+
+def encdec_configs(sizes: Sizes) -> dict:
+    """Phase 22's configurations: whisper-tiny (4 encoder and 4 decoder
+    layers, 1,500 frames) and pixtral-12b (40 layers, 256 frontend
+    tokens) at their published sizes, and pixtral-12b's training cut to
+    PIXTRAL_TRAIN_LAYERS layers; their reduced configs where
+    ``lm_reduced``."""
+    whisper, pixtral = get_config("whisper-tiny"), get_config("pixtral-12b")
+    if sizes.lm_reduced:
+        whisper, pixtral = whisper.reduced(), pixtral.reduced()
+    return {"whisper": whisper, "pixtral": pixtral,
+            "pixtral_train": dataclasses.replace(pixtral, name=pixtral.name + "-train-cut",
+                                                 n_layers=PIXTRAL_TRAIN_LAYERS)}
+
+
+def prefill_flash_launches(cfg, frames: bool) -> int:
+    """Flash launches a prefill: ``flash_layers``' (whisper's self and cross
+    attention over the cache's encoder output), and with encoder frames one
+    more for each encoder layer."""
+    return flash_layers(cfg) + (cfg.n_encoder_layers if frames else 0)
+
+
+def frontend_inputs(cfg, batch: int, device) -> dict:
+    """The stub frontends' inputs for ``batch`` rows, standard normal from a
+    seeded generator on ``device``: pixtral's patch embeddings [B, 256,
+    D], whisper's frame embeddings [B, 1,500, D]."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    out = {}
+    if cfg.frontend == "vision":
+        out["frontend_embeds"] = torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                                             generator=gen, device=device)
+    if cfg.is_encoder_decoder:
+        out["encoder_frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                            generator=gen, device=device)
+    return out
+
+
+def drive_wave(model, params, tokens, inputs: dict, max_seq: int, steps: int, device,
+               feed: "list | None" = None) -> list:
+    """One wave through ``make_prefill_step`` (the prompt ``tokens`` with
+    ``inputs``) and ``steps`` greedy steps of ``make_decode_step`` (the
+    argmax, or ``feed``'s tokens: the other program's): per call its
+    kind, token input, last-position logits, synchronised seconds and
+    flash launches."""
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    cache = model.init_cache(tokens.shape[0], max_seq, dtype=torch.float32, device=device)
+    calls = []
+
+    def call(kind, fn, toks):
+        sync(device)
+        before = flash_attention.launches
+        t0 = time.perf_counter()
+        logits, new_cache = fn()
+        sync(device)
+        calls.append({"kind": kind, "tokens": toks, "logits": logits.clone(),
+                      "s": time.perf_counter() - t0,
+                      "flash": flash_attention.launches - before})
+        return logits, new_cache
+
+    logits, cache = call("prefill", lambda: prefill(params, tokens, cache, **inputs), tokens)
+    for i in range(steps):
+        cur = logits.argmax(-1)[:, None] if feed is None else feed[i]
+        logits, cache = call("decode", lambda: decode(params, cache, cur), cur)
+    del cache
+    return calls
+
+
+def frontend_wave(cfg, model, ref, params, sizes: Sizes, device) -> dict:
+    """Phase 22 (a) and (c), one wave with the frontend's inputs: lm_slots
+    prompts of lm_prompts[1] random text tokens (after pixtral's 256 patch
+    embeddings; with whisper's 1,500 frames) prefilled through
+    ``make_prefill_step`` and decoded lm_new_tokens greedy steps through
+    ``make_decode_step``, on the cuda model after a two-step warmup;
+    counts zeroed just before and read after: exactly
+    ``prefill_flash_launches`` flash launches in the prefill, none in
+    decode, no other kernel. Then the torch model on the same inputs and
+    the cuda program's tokens: logits within TOL at every call, greedy
+    tokens equal where the top-2 margin exceeds TOKEN_MARGIN. Prefill ms,
+    decode ms a step, tokens/s, the run's peak, and one profiled prefill
+    by kernel class."""
+    on_card = device.type == "cuda"
+    b, t, steps = sizes.lm_slots, sizes.lm_prompts[1], sizes.lm_new_tokens
+    inputs = frontend_inputs(cfg, b, device)
+    n_front = cfg.n_frontend_tokens if "frontend_embeds" in inputs else 0
+    max_seq = n_front + t + steps
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), device=device,
+                           generator=torch.Generator(device=device).manual_seed(6))
+    drive_wave(model, params, tokens, inputs, max_seq, 2, device)  # warmup
+    per_prefill = prefill_flash_launches(cfg, "encoder_frames" in inputs) if on_card else 0
+    mem_before = torch.cuda.memory_allocated(device) if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    calls = drive_wave(model, params, tokens, inputs, max_seq, steps, device)
+    launched = counts()
+    peak_abs = torch.cuda.max_memory_allocated(device) if on_card else 0
+    for i, c in enumerate(calls):
+        want = per_prefill if c["kind"] == "prefill" else 0
+        if c["flash"] != want:
+            raise AssertionError(f"{cfg.name}: call {i} ({c['kind']}) launched "
+                                 f"flash_attention {c['flash']} times, expected {want}")
+    if launched["flash_attention"] != per_prefill \
+            or sum(launched.values()) != launched["flash_attention"]:
+        raise AssertionError(f"{cfg.name} wave launched {launched}, expected "
+                             f"{per_prefill} flash_attention launches and nothing else")
+    zero_counts()
+    ref_calls = drive_wave(ref, params, tokens, inputs, max_seq, steps, device,
+                           feed=[c["tokens"] for c in calls[1:]])
+    if sum(counts().values()):
+        raise AssertionError(f"the torch program launched {counts()}")
+    worst, sure_steps = 0.0, 0
+    for i, (c, r) in enumerate(zip(calls, ref_calls)):
+        logits, want = c["logits"], r["logits"]
+        if logits.shape != (b, cfg.padded_vocab()) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{cfg.name}: call {i} logits {tuple(logits.shape)} not "
+                                 "finite or of the wrong shape")
+        worst = max(worst, float((logits - want).abs().max()))
+        top = torch.topk(logits, 2, dim=-1).values
+        sure = (top[:, 0] - top[:, 1]) > TOKEN_MARGIN
+        sure_steps += int(sure.sum())
+        if not torch.equal(logits.argmax(-1)[sure], want.argmax(-1)[sure]):
+            raise AssertionError(f"{cfg.name}: greedy tokens differ at call {i} where "
+                                 f"the top-2 margin > {TOKEN_MARGIN}")
+    if not worst <= TOL:
+        raise AssertionError(f"{cfg.name}: cuda vs torch logits differ by {worst} > {TOL}")
+    print(f"[encdec] {cfg.name} wave: logits within {worst:.3g} of the torch program at "
+          f"all {len(calls)} calls; greedy tokens equal at all {sure_steps} of "
+          f"{b * len(calls)} (row, call) pairs whose top-2 margin > {TOKEN_MARGIN}")
+    prefill_ms = calls[0]["s"] * 1e3
+    decode_ms = float(np.median([c["s"] for c in calls[1:]])) * 1e3
+    out = {
+        "arch": cfg.name, "batch": b, "text_tokens": t, "frontend_tokens": n_front,
+        "encoder_frames": cfg.encoder_seq if "encoder_frames" in inputs else 0,
+        "decode_steps": steps, "launches": launched, "flash_per_prefill": per_prefill,
+        "max_logit_diff": worst, "token_pairs_compared": sure_steps,
+        "prefill_ms": prefill_ms, "ref_prefill_ms": ref_calls[0]["s"] * 1e3,
+        "decode_step_ms_median": decode_ms,
+        "ref_decode_step_ms_median": float(np.median([c["s"] for c in ref_calls[1:]])) * 1e3,
+        "tokens_per_s": b * steps / sum(c["s"] for c in calls[1:]),
+        "peak_mem_bytes": peak_abs - mem_before, "peak_abs_bytes": peak_abs,
+        "profile_prefill": lm_profile(
+            lambda: make_prefill_step(model)(params, tokens, model.init_cache(
+                b, max_seq, dtype=torch.float32, device=device), **inputs),
+            device, per_prefill, prefill_ms),
+    }
+    _, filled = make_prefill_step(model)(params, tokens, model.init_cache(
+        b, max_seq, dtype=torch.float32, device=device), **inputs)
+    cur = calls[0]["logits"].argmax(-1)[:, None]
+    out["profile_decode"] = lm_profile(
+        lambda: make_decode_step(model)(params, filled, cur), device, 0, decode_ms)
+    del filled
+    print("[encdec] " + json.dumps(out))
+    return {"summary": out, "tokens": tokens, "inputs": inputs, "max_seq": max_seq}
+
+
+def flash_shape_rows(label: str, layers: list, device, reps: int) -> dict:
+    """Phase 22 (b): the flash kernel on captured prefill inputs, grouped by
+    kind (``layers``: (kind, q, k, v, causal) each): every call against its
+    plain version in float32 and on bfloat16 copies, a repeat bitwise
+    equal (``check_flash``); per kind, at its first call's inputs, the
+    kernel's, the plain version's and SDPA's CUDA-event ms (K/V repeated
+    to H heads, and with ``enable_gqa``), and the bound."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for kind in dict.fromkeys(k for k, *_ in layers):
+        mine = [x for x in layers if x[0] == kind]
+        err = {"f32": 0.0, "bf16": 0.0}
+        for i, (_, q, k, v, causal) in enumerate(mine):
+            shape = f"{label} {kind} {i} q {tuple(q.shape)} k {tuple(k.shape)}"
+            err["f32"] = max(err["f32"], check_flash(shape, q, k, v, causal, device))
+            err["bf16"] = max(err["bf16"], check_flash(
+                shape + " bf16", *(x.to(torch.bfloat16) for x in (q, k, v)), causal,
+                device, FLASH_BF16_TOL))
+        _, q, k, v, causal = mine[0]
+        b, h, tq, d = q.shape
+        hkv, tk = k.shape[1], k.shape[2]
+        kr, vr = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+        want = flash_attention_ref(q, k, v, causal=causal)
+        lib_err = max(float((sdpa(q, kr, vr, is_causal=causal) - want).abs().max()),
+                      float((sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+                             - want).abs().max()))
+        if not lib_err <= TOL:
+            raise AssertionError(f"scaled_dot_product_attention disagrees: {lib_err}")
+        row = {"B": b, "H": h, "Hkv": hkv, "Tq": tq, "Tk": tk, "D": d, "causal": causal,
+               "calls": len(mine), "max_abs_err": err["f32"], "bf16_max_abs_err": err["bf16"],
+               "library_max_abs_err": lib_err}
+        row.update(timings({
+            "": lambda: flash_attention(q, k, v, causal=causal),
+            "plain_": lambda: flash_attention_ref(q, k, v, causal=causal),
+            "library_": lambda: sdpa(q, kr, vr, is_causal=causal),
+            "library_enable_gqa_": lambda: sdpa(q, k, v, is_causal=causal,
+                                                enable_gqa=True),
+        }, device, reps))
+        row["vs_library"] = row["ms"] / row["library_ms"]
+        row.update(flash_bound(b, h, hkv, tq, tk, d, causal, q.element_size()))
+        print(f"[kernel] flash_attention {label} {kind} " + json.dumps(row))
+        rows[f"{label} {kind}"] = row
+    return rows
+
+
+def whisper_flash_kinds(cfg, layers: list) -> list:
+    """Whisper's prefill flash calls in launch order, named: the encoder's
+    layers first, then each decoder layer's self attention (causal) and
+    cross attention."""
+    n_enc = cfg.n_encoder_layers
+    kinds = ["encoder"] * n_enc + ["self", "cross"] * cfg.n_layers
+    if len(layers) != len(kinds):
+        raise AssertionError(f"{len(layers)} flash calls in whisper's prefill, "
+                             f"expected {len(kinds)}")
+    return [(kind, *x) for kind, x in zip(kinds, layers)]
+
+
+def encdec_phase(sizes: Sizes, device) -> dict:
+    """Phase 22, the encoder-decoder and the vision frontend on the card,
+    after everything earlier phases held is freed: (a) whisper-tiny, one
+    wave with its frames (``frontend_wave``: 12 flash launches, 4 of them
+    the encoder's at T 1,500 and 4 the cross attention's at Tq 1,024 x Tk
+    1,500, both non-causal), then phase 10's requests through the
+    engine (``lm_serving_phase``: text alone, 8 flash launches a wave);
+    (b) flash on (a)'s and (c)'s captured prefill inputs
+    (``flash_shape_rows``); (c) pixtral-12b, one wave after its 256 patch
+    embeddings (40 flash launches, D = 128, causal, T 1,280); (d)
+    whisper-tiny and the pixtral-12b cut trained (``lm_training_phase``).
+    The cuda and torch programs share one parameter tree a model. Each
+    part's peak allocation; the phase's seconds by part."""
+    on_card = device.type == "cuda"
+    free_card(device)
+    held = torch.cuda.memory_allocated(device) if on_card else 0
+    print(f"[encdec] phase 22: {held / 2**30:.2f} GiB still allocated by earlier phases")
+    cfgs = encdec_configs(sizes)
+    phase_s = {"22b": 0.0}
+    out = {"held_before_bytes": held, "flash_rows": {}}
+    for key, part in (("whisper", "22a"), ("pixtral", "22c")):
+        cfg = cfgs[key]
+        t0 = time.perf_counter()
+        model, ref = build_model(cfg, inner="cuda"), build_model(cfg, inner="torch")
+        params = model.init(torch.Generator(device=device).manual_seed(0), device=device)
+        sync(device)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"[encdec] {cfg.name}: {cfg.n_layers} layers"
+              + (f" after {cfg.n_encoder_layers} encoder layers over {cfg.encoder_seq} "
+                 "frames" if cfg.is_encoder_decoder else
+                 f" after {cfg.n_frontend_tokens} frontend tokens")
+              + f", d_model {cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} KV) of "
+              f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}: {n_params:,} parameters "
+              f"drawn in {time.perf_counter() - t0:.2f}s")
+        wave = frontend_wave(cfg, model, ref, params, sizes, device)
+        wave["summary"]["n_params"] = n_params
+        out[key] = wave["summary"]
+        phase_s[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        layers = capture_flash_calls(model, params, wave["tokens"], wave["max_seq"],
+                                     device, **wave["inputs"])
+        del wave
+        named = (whisper_flash_kinds(cfg, layers) if cfg.is_encoder_decoder
+                 else [("causal", *x) for x in layers])
+        out["flash_rows"].update(flash_shape_rows(cfg.name, named, device, reps=10))
+        del layers, named
+        phase_s["22b"] += time.perf_counter() - t0
+        if key == "whisper":
+            t0 = time.perf_counter()
+            del model, ref, params
+            free_card(device)
+            serve = lm_serving_phase(cfg, sizes, device)
+            out["whisper_engine"] = serve["summary"]
+            del serve
+            phase_s["22a"] += time.perf_counter() - t0
+        else:
+            del model, ref, params
+        free_card(device)
+    for key, cfg, train_sizes in (
+            ("whisper_train", cfgs["whisper"], sizes),
+            ("pixtral_train", cfgs["pixtral_train"],
+             dataclasses.replace(sizes, lm_train_steps=min(sizes.lm_train_steps,
+                                                           PIXTRAL_TRAIN_STEPS)))):
+        t0 = time.perf_counter()
+        out[key] = lm_training_phase(cfg, train_sizes, device)
+        phase_s["22d"] = phase_s.get("22d", 0.0) + time.perf_counter() - t0
+        free_card(device)
+    out["peaks"] = {k: out[k]["peak_abs_bytes"] for k in
+                    ("whisper", "whisper_engine", "pixtral", "whisper_train",
+                     "pixtral_train")}
+    out["phase_s"] = phase_s
+    print(f"[encdec] phase 22 peaks (GiB, allocated): "
+          + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in out["peaks"].items())
+          + f"; seconds: {json.dumps(phase_s)}")
+    return out
+
+
+def encdec_entries(entries: list, p22: dict) -> None:
+    """Phase 22 beside its kernels' entries: its five paths' launches, the
+    flash calls at the new shapes (whisper's encoder and cross attention
+    at D = 64, non-causal; pixtral-12b's at D = 128, causal; one call each
+    at the first such layer's inputs, CUDA events; ``max_abs_err`` over
+    every call), and the Adam launch over each trained model's leaves."""
+    by_name = {e["name"]: e for e in entries}
+    for path, launched in (("lm_wave_whisper", p22["whisper"]["launches"]),
+                           ("lm_serving_whisper", p22["whisper_engine"]["launches"]),
+                           ("lm_wave_pixtral", p22["pixtral"]["launches"]),
+                           ("lm_training_whisper", p22["whisper_train"]["launches"]),
+                           ("lm_training_pixtral", p22["pixtral_train"]["launches"])):
+        for e in entries:
+            e["launches_by_path"][path] = launched[e["name"]]
+            e["launches"] += launched[e["name"]]
+    flash = by_name["flash_attention"]
+    rows = p22["flash_rows"]
+    flash["encdec"] = {}
+    for label, row in rows.items():
+        flash["max_abs_err"] = max(flash["max_abs_err"], row["max_abs_err"])
+        flash["bf16_max_abs_err"] = max(flash.get("bf16_max_abs_err", 0.0),
+                                        row["bf16_max_abs_err"])
+        flash["encdec"][label] = {
+            **{k: row[k] for k in ("ms", "ms_by", "wall_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "library_enable_gqa_ms",
+                                   "vs_library", "max_abs_err", "calls")},
+            "shape": f"one call at the first such layer's prefill inputs: B {row['B']}, "
+                     f"H {row['H']}, Hkv {row['Hkv']}, Tq {row['Tq']}, Tk {row['Tk']}, "
+                     f"D {row['D']}, {'causal' if row['causal'] else 'non-causal'}, "
+                     "float32"}
+    adam = by_name["fused_adam"]
+    for key in ("whisper_train", "pixtral_train"):
+        t = p22[key]
+        a = t["adam"]
+        adam["max_abs_err"] = max(adam["max_abs_err"], a["max_abs_err"])
+        adam[key.replace("_train", "_step")] = {
+            **{k: a[k] for k in ("ms", "ms_by", "plain_ms", "library_ms", "library",
+                                 "bound_ms", "bound_by", "params", "leaves")},
+            "launches_a_step": t["launches"]["fused_adam"] / t["steps"],
+            "shape": f"one launch over {t['arch']}'s {a['leaves']} leaves "
+                     f"({a['params']:,} values): ms by CUDA events"}
 
 
 # ---------------------------------------------------------------------------
@@ -4680,12 +5068,12 @@ def verifier_phase(ds, qds, sizes: Sizes, device, verified: list) -> dict:
 
 
 def run(sizes: Sizes, device, phases: str = "all") -> dict:
-    """Phases 2 to 21 at ``sizes`` on ``device`` (phase 20 or 21 alone
-    where ``phases`` is "20" or "21": the kernels line then holds that
-    phase's launches and numbers alone); returns the kernels line and the
-    details. Phases 20 and 21 each start after the phases before them have
-    returned, so that nothing those held stays on the card."""
-    if phases in ("20", "21"):
+    """Phases 2 to 22 at ``sizes`` on ``device`` (phase 20, 21 or 22 alone
+    where ``phases`` is "20", "21" or "22": the kernels line then holds
+    that phase's launches and numbers alone); returns the kernels line and
+    the details. Phases 20, 21 and 22 each start after the phases before
+    them have returned, so that nothing those held stays on the card."""
+    if phases in ("20", "21", "22"):
         result = {"phase_s": {}, "kernels": [
             {"name": name, "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0}
             for name in KERNELS]}
@@ -4703,6 +5091,12 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
         result["phase_s"]["21"] = time.perf_counter() - t0
         hybrid_entries(result["kernels"], hybrid)
         result["hybrid"] = hybrid
+    if phases in ("all", "22"):
+        t0 = time.perf_counter()
+        encdec = encdec_phase(sizes, device)
+        result["phase_s"]["22"] = time.perf_counter() - t0
+        encdec_entries(result["kernels"], encdec)
+        result["encdec"] = encdec
     return result
 
 
@@ -5049,6 +5443,7 @@ def print_summary(result: dict, card: str) -> None:
           f"calls within {TOL} of the plain versions on {card}")
     print_moe_summary(result["moe"], card)
     print_hybrid_summary(result["hybrid"], card)
+    print_encdec_summary(result["encdec"], card)
 
 
 def print_moe_summary(m: dict, card: str) -> None:
@@ -5105,14 +5500,53 @@ def print_hybrid_summary(m: dict, card: str) -> None:
           f"{t['adam']['ms']:.3f} ms a launch (bound {t['adam']['bound_ms']:.3f}) on {card}")
 
 
-#: the libraries phases 20 and 21 run
+def print_encdec_summary(m: dict, card: str) -> None:
+    """Phase 22's lines: each model's wave, whisper-tiny's engine run, the
+    flash calls at the new shapes, each training run's."""
+    for key in ("whisper", "pixtral"):
+        r = m[key]
+        prof = r["profile_prefill"]
+        by = (", ".join(f"{k} {v:.1f}" for k, v in sorted(
+            prof["device_ms"].items(), key=lambda kv: -kv[1])) if prof["complete"]
+            else "not profiled")
+        print(f"[encdec] {r['arch']}: {r['n_params']:,} parameters, a wave of "
+              f"{r['batch']} x ({r['frontend_tokens']} + {r['text_tokens']}) tokens"
+              + (f" with {r['encoder_frames']} frames" if r["encoder_frames"] else "")
+              + f", {r['flash_per_prefill']} flash launches, prefill {r['prefill_ms']:.1f} "
+              f"ms (torch {r['ref_prefill_ms']:.1f}; device ms {by}), decode "
+              f"{r['decode_step_ms_median']:.2f} ms a step, {r['tokens_per_s']:.1f} "
+              f"tokens/s, logits within {r['max_logit_diff']:.3g}, peak "
+              f"{r['peak_abs_bytes'] / 2**30:.2f} GiB on {card}")
+    e = m["whisper_engine"]
+    print(f"[encdec] {e['arch']} engine (text alone): {e['requests']} requests in "
+          f"{e['waves']} waves, {e['flash_per_wave']} flash launches a wave, prefill "
+          f"{', '.join(f'{x:.1f}' for x in e['prefill_ms'])} ms a wave, decode "
+          f"{e['decode_step_ms_median']:.2f} ms a step, {e['tokens_per_s']:.1f} "
+          f"tokens/s on {card}")
+    for label, f in m["flash_rows"].items():
+        print(f"[encdec] flash {label} (B {f['B']}, H {f['H']}, Hkv {f['Hkv']}, Tq "
+              f"{f['Tq']}, Tk {f['Tk']}, D {f['D']}, causal {f['causal']}): "
+              f"{f['ms']:.3f} ms a call (bound {f['bound_ms']:.3f}, plain "
+              f"{f['plain_ms']:.3f}, SDPA {f['library_ms']:.3f}) on {card}")
+    for key in ("whisper_train", "pixtral_train"):
+        t = m[key]
+        print(f"[encdec] {t['arch']} training: {t['n_params']:,} parameters, {t['steps']} "
+              f"steps of B {t['batch']} x T {t['seq']}, {t['step_ms_median']:.1f} ms a "
+              f"step (torch program {t['ref_step_ms_median']:.1f}), loss "
+              f"{t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}, max rel diff "
+              f"{t['max_rel_diff']:.2e}, peak {t['peak_abs_bytes'] / 2**30:.2f} GiB; Adam "
+              f"{t['adam']['ms']:.3f} ms a launch (bound {t['adam']['bound_ms']:.3f}) on "
+              f"{card}")
+
+
+#: the libraries phases 20, 21 and 22 run
 MOE_LIBRARIES = ("flash_attention", "fused_adam")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", choices=("all", "20", "21"), default="all",
-                    help="every phase (the default), or phase 20 or 21 alone after "
+    ap.add_argument("--phases", choices=("all", "20", "21", "22"), default="all",
+                    help="every phase (the default), or phase 20, 21 or 22 alone after "
                          "building their two libraries")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -5150,9 +5584,11 @@ def main(argv=None) -> int:
         print_summary(result, card)
     elif args.phases == "20":
         print_moe_summary(result["moe"], card)
-    else:
+    elif args.phases == "21":
         print_hybrid_summary(result["hybrid"], card)
-    print(f"[done] phases {'2-21' if args.phases == 'all' else args.phases} in "
+    else:
+        print_encdec_summary(result["encdec"], card)
+    print(f"[done] phases {'2-22' if args.phases == 'all' else args.phases} in "
           f"{time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -36,7 +36,6 @@ OP_VOCABULARY = (
 )
 
 DIST_ITEM = "ROADMAP.md Queue 1, item 7 (distributed)"
-LM_ITEM = "ROADMAP.md Queue 1, item 9 (g)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

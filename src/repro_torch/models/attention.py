@@ -1,19 +1,25 @@
-"""Attention for the LM substrate: GQA (+RoPE, sliding window) and MLA.
+"""Attention for the LM substrate: GQA (+RoPE, sliding window, cross) and MLA.
 
-Counterpart of ``repro/models/attention.py`` without cross attention: one masked
-softmax core (``_attn_core``, the JAX package's plain attention) and the
-flash kernel where it computes the same function. A prefill of a cache
-from index 0 by a layer without a window is causal self-attention over
-the ``t`` fresh keys starting at position 0, which is exactly what the
-flash kernel computes (``kernels/flash_attention.py``, causal, top-left):
-there the attention runs through the ``inner`` executor's ``"flash"`` op,
-the Hopper kernel for ``inner="cuda"`` on the card. The JAX package's
-mask over all ``s_max`` cache slots gives the same result, since
-causality already hides every key at or beyond ``t``. Every other case
-(decode against the cache, a cache index past 0, the uncached forward,
-and every call of a layer with a sliding window) is ``_attn_core``: the
-Pallas kernel has no window, so a windowed layer's mask stays where the
-JAX package puts it (``make_mask(..., window=)``).
+Counterpart of ``repro/models/attention.py``: one masked softmax core
+(``_attn_core``, the JAX package's plain attention) and the flash kernel
+where it computes the same function. A prefill of a cache from index 0 by
+a layer without a window is causal self-attention over the ``t`` fresh
+keys starting at position 0, which is exactly what the flash kernel
+computes (``kernels/flash_attention.py``, causal, top-left): there the
+attention runs through the ``inner`` executor's ``"flash"`` op, the
+Hopper kernel for ``inner="cuda"`` on the card. The JAX package's mask
+over all ``s_max`` cache slots gives the same result, since causality
+already hides every key at or beyond ``t``. Cross attention
+(``kv_source``: whisper's encoder over its frames, and each decoder
+layer over the encoder's output) has no RoPE, writes no cache and sees
+every key, the JAX package's zero mask: in a serving call (a cache
+given, which it returns unchanged) of more than one query it is the
+flash kernel with ``causal=False``. Every other case (decode against the
+cache, a cache index past 0, the uncached forward and loss, which need
+gradients the kernel does not give, and every call of a layer with a
+sliding window) is ``_attn_core``: the Pallas kernel has no window, so a
+windowed layer's mask stays where the JAX package puts it
+(``make_mask(..., window=)``).
 
 The cache's tensors are updated in place (the JAX package returns new
 arrays): a cache dict holds ``k``/``v`` ``[B, S, KV, Dh]`` and the index
@@ -22,10 +28,7 @@ attention (``mla_apply``) caches only the compressed latent ``[B, S,
 kv_lora_rank + qk_rope_head_dim]``, written in place the same way, and
 rebuilds K and V from it through ``wkv_b`` at every call; its query and
 key width (nope + rope) differs from its value width, so it always takes
-``_attn_core``. Cross attention is not ported (ROADMAP.md Queue 1, item
-9 (g)): ``gqa_apply`` has no ``kv_source``, and
-``models/transformer.py:check_ported`` refuses the configurations that
-need it.
+``_attn_core``.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 
 from repro_torch.configs.base import LMConfig, MLAConfig
 from repro_torch.kernels.ops import _executor
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, dot
 
 NEG_INF = -2.0e38
 
@@ -44,7 +47,10 @@ NEG_INF = -2.0e38
 def _attn_core(q, k, v, mask) -> torch.Tensor:
     """q:[B,Tq,H,Dh] k:[B,Tk,KV,Dh] v:[B,Tk,KV,Dv] mask:[B|1,1,Tq,Tk]
     (additive) -> [B,Tq,H,Dv]. Logits and softmax in float32, the
-    probabilities multiplied at q's dtype, as in the JAX package."""
+    probabilities rounded to q's dtype and multiplied with v at the two's
+    promoted dtype, the result at q's dtype, as in the JAX package (in
+    bfloat16 training whisper's cross attention meets a bfloat16 q with
+    float32 keys and values)."""
     b, tq, h, dh = q.shape
     kv = k.shape[2]
     dv = v.shape[-1]
@@ -54,7 +60,8 @@ def _attn_core(q, k, v, mask) -> torch.Tensor:
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
     logits = logits + mask[:, :, None, :, :]  # broadcast over groups
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    dt = torch.promote_types(probs.dtype, v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(dt), v.to(dt))
     return out.reshape(b, tq, h, dv).to(q.dtype)
 
 
@@ -105,16 +112,20 @@ def gqa_apply(
     *,
     window: int = 0,  # 0 => unlimited; > 0 a sliding window
     cache: Optional[dict] = None,  # {"k": [B,S,KV,Dh], "v": ..., "idx": int}
+    kv_source: Optional[torch.Tensor] = None,  # cross attention's memory [B,Tk,D]
     inner: str = "cuda",
 ):
     """Returns ``(out [B, T, D], new_cache)``; ``new_cache`` shares the
     input cache's (updated) tensors and holds ``idx + t``. ``inner`` picks
     the prefill attention's executor where the layer has no ``window``:
     ``"cuda"`` the flash kernel (its plain version for CPU tensors),
-    ``"torch"`` the plain version."""
+    ``"torch"`` the plain version. With ``kv_source`` the call is cross
+    attention (``_cross``) and returns ``cache`` unchanged."""
     b, t, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, t, h, dh)
+    q = dot(x, p["wq"]).reshape(b, t, h, dh)
+    if kv_source is not None:
+        return _cross(p, cfg, q, kv_source, cache, inner), cache
     k = (x @ p["wk"]).reshape(b, t, kv, dh)
     v = (x @ p["wv"]).reshape(b, t, kv, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -147,6 +158,28 @@ def gqa_apply(
         out = _attn_core(q, ck.to(q.dtype), cv.to(q.dtype), mask)
     new_cache = {"k": ck, "v": cv, "idx": idx + t}
     return out.reshape(b, t, h * dh) @ p["wo"], new_cache
+
+
+def _cross(p: dict, cfg: LMConfig, q: torch.Tensor, src: torch.Tensor,
+           cache: Optional[dict], inner: str) -> torch.Tensor:
+    """Cross attention of ``q`` [B, T, H, Dh] over ``src`` [B, Tk, D]: no
+    RoPE, every key visible. A serving call of more than one query whose
+    q, k and v share a dtype runs ``inner``'s flash with ``causal=False``;
+    decode, the uncached forward and loss, and bfloat16 queries against
+    float32 memory (bfloat16 training) take ``_attn_core`` with a zero
+    mask, whose promotions are the JAX package's."""
+    b, t, h, dh = q.shape
+    tk, kv = src.shape[1], cfg.n_kv_heads
+    k = dot(src, p["wk"]).reshape(b, tk, kv, dh)
+    v = dot(src, p["wv"]).reshape(b, tk, kv, dh)
+    if cache is not None and t > 1 and q.dtype == k.dtype:
+        out = _executor(inner, "flash")(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=False).transpose(1, 2)
+    else:
+        mask = torch.zeros((1, 1, t, tk), dtype=torch.float32, device=q.device)
+        out = _attn_core(q, k, v, mask)
+    return dot(out.reshape(b, t, h * dh), p["wo"])
 
 
 def gqa_cache_init(cfg: LMConfig, batch: int, s_max: int,

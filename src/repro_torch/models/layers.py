@@ -61,13 +61,25 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
             "b_out": torch.zeros((*lead, d_model), device=device)}
 
 
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` at the two operands' promoted dtype, as ``jnp.matmul``
+    promotes them (``torch.matmul`` refuses mixed dtypes): in bfloat16
+    training the whisper encoder's float32 frames meet bfloat16 weights,
+    which the JAX package upcasts."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def apply_mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
     """SwiGLU ``(silu(x·W_gate) ⊙ x·W_up)·W_down``, or GELU (tanh
-    approximation, as ``jax.nn.gelu``'s default) with biases."""
+    approximation, as ``jax.nn.gelu``'s default) with biases, its products
+    at the promoted dtype (``dot``: whisper's encoder)."""
     if activation == "swiglu":
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
-    return h @ p["w_out"] + p["b_out"]
+    h = F.gelu(dot(x, p["w_in"]) + p["b_in"], approximate="tanh")
+    return dot(h, p["w_out"]) + p["b_out"]
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.backends.registry import not_ported
 from repro_torch.configs.base import LMConfig
 from repro_torch.models.transformer import LM
 from repro_torch.models.xlstm import SLSTM_FF_MULT
@@ -166,8 +165,9 @@ def make_eval_step(model: LM):
 
 
 def make_prefill_step(model: LM):
-    def step(params, tokens, cache):
-        return model.prefill(params, tokens, cache)
+    def step(params, tokens, cache, frontend_embeds=None, encoder_frames=None):
+        return model.prefill(params, tokens, cache, frontend_embeds=frontend_embeds,
+                             encoder_frames=encoder_frames)
 
     return step
 
@@ -185,16 +185,24 @@ def make_decode_step(model: LM):
 
 def make_dummy_batch(cfg: LMConfig, batch: int, seq: int,
                      generator: Optional[torch.Generator] = None) -> dict:
-    """A random batch of ``max(seq, 8)`` tokens a row, drawn from
-    ``generator`` on its device (a CPU generator seeded 0 if none): tokens
-    in [0, vocab_size) and the labels, the tokens shifted by one with a
-    -100 tail. Vision and encoder inputs are not ported (ROADMAP.md Queue
-    1, item 9 (g))."""
-    if cfg.frontend == "vision" or cfg.is_encoder_decoder:
-        raise not_ported(f"{cfg.name}: the dummy batch's frontend or encoder "
-                         "inputs", "ROADMAP.md Queue 1, item 9 (g)")
+    """A random batch, drawn from ``generator`` on its device (a CPU
+    generator seeded 0 if none), with the JAX package's keys and shapes:
+    ``max(seq - n_front, 8)`` tokens a row in [0, vocab_size), where
+    ``n_front`` is the vision frontend's token count (0 without one), and
+    the labels, the tokens shifted by one with a -100 tail; standard
+    normal float32 ``frontend_embeds`` [B, n_front, D] for the vision
+    frontend and ``encoder_frames`` [B, encoder_seq, D] for an
+    encoder-decoder."""
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, max(seq, 8)), generator=gen,
-                           device=gen.device)
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    tokens = torch.randint(0, cfg.vocab_size, (batch, max(seq - n_front, 8)),
+                           generator=gen, device=gen.device)
     labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -100)], dim=1)
-    return {"tokens": tokens, "labels": labels}
+    out = {"tokens": tokens, "labels": labels}
+    if cfg.frontend == "vision":
+        out["frontend_embeds"] = torch.randn((batch, n_front, cfg.d_model),
+                                             generator=gen, device=gen.device)
+    if cfg.is_encoder_decoder:
+        out["encoder_frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                            generator=gen, device=gen.device)
+    return out

@@ -1,7 +1,8 @@
-"""The LM substrate's decoder on PyTorch: dense, MoE, Mamba2 and xLSTM.
+"""The LM substrate on PyTorch: dense, MoE, Mamba2, xLSTM, the
+encoder-decoder and the vision frontend.
 
-Counterpart of ``repro/models/transformer.py`` for every configuration
-without an encoder or a frontend. Block kinds: ``"attn"``, GQA with RoPE
+Counterpart of ``repro/models/transformer.py`` for every configuration.
+Block kinds: ``"attn"``, GQA with RoPE
 (global or with a sliding window) or DeepSeek's MLA with its latent
 cache, then a dense FFN or a mixture of experts (``models/moe.py``) from
 layer ``first_k_dense_layers`` on; ``"mamba"``, a Mamba2/SSD block
@@ -9,14 +10,16 @@ layer ``first_k_dense_layers`` on; ``"mamba"``, a Mamba2/SSD block
 (``models/xlstm.py``); ``"shared_attn"``, Zamba2's weight-shared block:
 its layer holds ``{}`` and every such site runs ``params["shared_attn"]``
 (one GQA block and MLP) with a K/V cache of its own. DeepSeek-V3's
-multi-token prediction joins the loss (llama3.2-1b, gemma3-1b with its
-5:1 local:global windows, starcoder2-3b, granite-34b, dbrx-132b,
-deepseek-v3-671b, zamba2-7b, xlstm-1.3b). The encoder and the frontends
-raise ``NotImplementedError`` naming ROADMAP.md Queue 1, item 9 (g).
+multi-token prediction joins the loss. whisper-tiny's encoder
+(``LM.encode``: bidirectional GQA without RoPE over the stub frontend's
+frame embeddings) feeds a cross attention in every decoder layer
+(``norm_x``, ``cross``); pixtral-12b's stub vision frontend hands over
+patch embeddings that are prepended to the text, and the loss drops
+their logits.
 
 Parameters keep the JAX package's tree: ``{"embed": {"table"},
 "segments": [...], "final_norm": {...}, "head"?, "shared_attn"?,
-"mtp"?}``, where a segment that
+"encoder"?: {"layers": [...], "final_norm"}, "mtp"?}``, where a segment that
 ``plan_segments`` scans keeps its layers stacked on a leading
 ``[n_reps]`` axis (``params_from_jax`` carries the JAX tree over leaf by
 leaf) and the repetitions run in a Python loop over the views that one
@@ -28,14 +31,17 @@ and is dropped; ``remat="layer"`` recomputes each layer of a scanned
 segment in the backward (``torch.utils.checkpoint``), as the JAX
 package's ``jax.checkpoint`` of the scan body does, the MoE layers'
 load-balance loss included: every layer returns its ``aux`` and the
-segments sum it in layer order. The entry points are
+segments sum it in layer order; the encoder's output is an input of
+each recomputed layer, so its gradient reaches the encoder. The entry points are
 ``forward``, ``loss`` (training), ``prefill`` (which unembeds only the
 last position: the full ``[B, T, V]`` logits of a 4 x 1024 prefill at
 llama3.2-1b width would take 2.1 GB) and ``decode_step``. Caches are
 updated in place (``models/attention.py``, ``models/ssm.py``,
 ``models/xlstm.py``): a layer's holds ``"attn"`` (K/V or the latent),
 ``"ssm"`` or ``"xl"`` by its kind, the recurrent states always float32;
-the index ``idx`` a Python int on the host.
+the index ``idx`` a Python int on the host; an encoder-decoder's cache
+holds the encoder's output ``"enc_out"``, which a prefill with frames
+replaces.
 """
 from __future__ import annotations
 
@@ -47,7 +53,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.backends.registry import LM_ITEM, not_ported
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.ops import _executor
 from repro_torch.models import attention as attn
@@ -118,17 +123,11 @@ CACHE_KEYS = {"attn": "attn", "shared_attn": "attn", "mamba": "ssm",
 
 
 def check_ported(cfg: LMConfig) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP.md Queue 1, item 9 (g)) where
-    ``cfg`` has an encoder or a frontend, and ``ValueError`` for a block
-    kind the JAX package does not know either."""
+    """Raise ``ValueError`` for a block kind the JAX package does not know
+    either."""
     unknown = sorted(set(cfg.blocks) - set(CACHE_KEYS))
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {unknown}")
-    parts = [("encoder-decoder", cfg.is_encoder_decoder),
-             (f"the {cfg.frontend} frontend", cfg.frontend != "none")]
-    missing = [what for what, present in parts if present]
-    if missing:
-        raise not_ported(f"{cfg.name}: " + ", ".join(missing), LM_ITEM)
 
 
 def _layer_is_moe(cfg: LMConfig, layer_id: int) -> bool:
@@ -150,7 +149,8 @@ def _layer_window(cfg: LMConfig, layer_id: int) -> int:
 def _init_layer(generator, cfg: LMConfig, kind: str, layer_id: int, lead: tuple,
                 device) -> dict:
     """Layer ``layer_id``'s block of ``kind``: for ``"attn"`` MLA or GQA,
-    then MoE or a dense MLP; ``{}`` for a shared site."""
+    then MoE or a dense MLP (an encoder-decoder's with ``norm_x`` and the
+    ``cross`` attention); ``{}`` for a shared site."""
     d = cfg.d_model
     if kind == "attn":
         a = (attn.mla_init(generator, cfg, lead, device) if cfg.mla
@@ -158,8 +158,12 @@ def _init_layer(generator, cfg: LMConfig, kind: str, layer_id: int, lead: tuple,
         ffn = (moe_mod.moe_init(generator, cfg, lead, device)
                if _layer_is_moe(cfg, layer_id)
                else mlp_init(generator, d, cfg.d_ff, cfg.activation, lead, device))
-        return {"norm1": norm_init(cfg.norm, d, lead, device), "attn": a,
-                "norm2": norm_init(cfg.norm, d, lead, device), "ffn": ffn}
+        p = {"norm1": norm_init(cfg.norm, d, lead, device), "attn": a,
+             "norm2": norm_init(cfg.norm, d, lead, device), "ffn": ffn}
+        if cfg.is_encoder_decoder:
+            p["norm_x"] = norm_init(cfg.norm, d, lead, device)
+            p["cross"] = attn.gqa_init(generator, cfg, lead, device)
+        return p
     if kind == "shared_attn":
         return {}  # weights live in params["shared_attn"]
     init = {"mamba": ssm_mod.mamba_init, "mlstm": xlstm_mod.mlstm_init,
@@ -174,9 +178,10 @@ _RECURRENT = {"mamba": ssm_mod.mamba_apply, "mlstm": xlstm_mod.mlstm_apply,
 
 
 def _apply_layer(p, cfg: LMConfig, kind: str, x, positions, window: int, cache,
-                 inner: str, shared=None):
+                 inner: str, shared=None, enc_out=None):
     """One pre-norm block of ``kind``: for attention x + attn(norm1(x)),
-    then + ffn(norm2(x)) (``shared``'s weights at a shared site, always
+    then, given the encoder's output ``enc_out``, + cross(norm_x(x)) over
+    it, then + ffn(norm2(x)) (``shared``'s weights at a shared site, always
     GQA and an MLP); for a recurrent block x + block(norm(x)). Returns
     ``(x, new_cache, aux)``: the MoE's load-balance loss, or None."""
     if kind in _RECURRENT:
@@ -192,6 +197,11 @@ def _apply_layer(p, cfg: LMConfig, kind: str, x, positions, window: int, cache,
         a, new_cache = attn.gqa_apply(p["attn"], cfg, h, positions, window=window,
                                       cache=cache, inner=inner)
     x = x + a
+    if enc_out is not None:
+        hx = apply_norm(cfg.norm, p["norm_x"], x)
+        c, _ = attn.gqa_apply(p["cross"], cfg, hx, positions, cache=cache,
+                              kv_source=enc_out, inner=inner)
+        x = x + c
     h2 = apply_norm(cfg.norm, p["norm2"], x)
     if "router" in p["ffn"]:
         f, aux = moe_mod.moe_apply(p["ffn"], cfg, h2)
@@ -223,11 +233,12 @@ def _unbind(tree, n: int) -> list:
 # ---------------------------------------------------------------------------
 
 class LM:
-    """The decoder over ``inner``'s prefill attention for GQA layers and
-    shared sites without a window: ``"cuda"`` the flash kernel (its plain
-    version for CPU tensors), ``"torch"`` the plain version on any device
-    (MLA layers always take ``_attn_core``; the recurrent blocks run no
-    kernel of the port). ``remat="layer"`` recomputes each layer
+    """The model over ``inner``'s prefill attention for GQA layers and
+    shared sites without a window, and for the encoder and the cross
+    attention of an encoder-decoder: ``"cuda"`` the flash kernel (its
+    plain version for CPU tensors), ``"torch"`` the plain version on any
+    device (MLA layers always take ``_attn_core``; the recurrent blocks
+    run no kernel of the port). ``remat="layer"`` recomputes each layer
     of a scanned segment in the backward of an uncached call; ``"none"``
     keeps every activation."""
 
@@ -266,6 +277,15 @@ class LM:
                 "attn": attn.gqa_init(generator, cfg, (), device),
                 "norm2": norm_init(cfg.norm, d, (), device),
                 "ffn": mlp_init(generator, d, cfg.d_ff, cfg.activation, (), device)}
+        if cfg.is_encoder_decoder:
+            params["encoder"] = {
+                "layers": [{"norm1": norm_init(cfg.norm, d, (), device),
+                            "attn": attn.gqa_init(generator, cfg, (), device),
+                            "norm2": norm_init(cfg.norm, d, (), device),
+                            "ffn": mlp_init(generator, d, cfg.d_ff, cfg.activation, (),
+                                            device)}
+                           for _ in range(cfg.n_encoder_layers)],
+                "final_norm": norm_init(cfg.norm, d, (), device)}
         if cfg.mtp_depth > 0:
             params["mtp"] = {
                 "proj": dense_init(generator, 2 * d, d, (), device),
@@ -274,9 +294,28 @@ class LM:
                                      device)}
         return params
 
-    def _run_segments(self, params, x, positions, cache):
+    def encode(self, params, frames: torch.Tensor, cache: Optional[dict] = None):
+        """whisper's encoder over ``frames`` [B, Tk, D]: pre-norm layers of
+        bidirectional attention (cross attention of the frames over
+        themselves, no RoPE, as in the JAX package) and an MLP, then the
+        final norm. ``cache`` only says that the call serves a prefill,
+        where the attention is the flash kernel (``attention._cross``)."""
+        cfg = self.cfg
+        x = frames
+        pos = torch.arange(x.shape[1], device=x.device)
+        for lp in params["encoder"]["layers"]:
+            h = apply_norm(cfg.norm, lp["norm1"], x)
+            a, _ = attn.gqa_apply(lp["attn"], cfg, h, pos, cache=cache, kv_source=h,
+                                  inner=self.inner)
+            x = x + a
+            x = x + apply_mlp(lp["ffn"], apply_norm(cfg.norm, lp["norm2"], x),
+                              cfg.activation)
+        return apply_norm(cfg.norm, params["encoder"]["final_norm"], x)
+
+    def _run_segments(self, params, x, positions, cache, enc_out=None):
         """Returns ``(x, aux, new_cache)``: ``aux`` the float32 sum of the
-        MoE layers' load-balance losses, in layer order."""
+        MoE layers' load-balance losses, in layer order; every attention
+        layer cross-attends to ``enc_out`` where it is given."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         shared = params.get("shared_attn")
@@ -297,7 +336,7 @@ class LM:
                     lp = seg_p[j] if seg.mode == "unroll" else seg_p[j][r]
                     if remat:
                         x, layer_aux = checkpoint(self._layer_out, lp, kind, x,
-                                                  positions, window, shared,
+                                                  positions, window, shared, enc_out,
                                                   use_reentrant=False)
                     else:
                         lc = None
@@ -309,7 +348,8 @@ class LM:
                             if key == "attn":
                                 lc = {**lc, "idx": cache_idx}
                         x, _, layer_aux = _apply_layer(lp, cfg, kind, x, positions,
-                                                       window, lc, self.inner, shared)
+                                                       window, lc, self.inner, shared,
+                                                       enc_out)
                     if layer_aux is not None:
                         aux = aux + layer_aux
             if new_segs is not None:
@@ -317,43 +357,68 @@ class LM:
         new_cache = None
         if cache is not None:
             new_cache = {"idx": cache_idx + x.shape[1], "segments": new_segs}
+            if enc_out is not None:
+                new_cache["enc_out"] = enc_out
         return x, aux, new_cache
 
-    def _layer_out(self, lp, kind: str, x, positions, window: int, shared):
+    def _layer_out(self, lp, kind: str, x, positions, window: int, shared, enc_out):
         """An uncached layer's output and its aux (None but for an MoE
         FFN), the unit ``remat`` recomputes."""
         x, _, aux = _apply_layer(lp, self.cfg, kind, x, positions, window, None,
-                                 self.inner, shared)
+                                 self.inner, shared, enc_out)
         return x, aux
 
-    def _hidden(self, params, tokens, cache, positions):
+    def _hidden(self, params, tokens, cache, positions, frontend_embeds=None,
+                encoder_frames=None):
+        """The final-normed hidden states, ``frontend_embeds`` [B, F, D]
+        prepended to the tokens' embeddings at their dtype; an
+        encoder-decoder cross-attends to the encoding of
+        ``encoder_frames``, else to the cache's ``enc_out`` (none without
+        either)."""
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens) * float(np.sqrt(cfg.d_model))
+        if frontend_embeds is not None:
+            x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
-        x, aux, new_cache = self._run_segments(params, x, positions, cache)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            if encoder_frames is not None:
+                enc_out = self.encode(params, encoder_frames, cache)
+            elif cache is not None and "enc_out" in cache:
+                enc_out = cache["enc_out"]
+        x, aux, new_cache = self._run_segments(params, x, positions, cache, enc_out)
         return apply_norm(cfg.norm, params["final_norm"], x), aux, new_cache
 
     def _head(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["head"]
 
     def forward(self, params, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None,
                 cache: Optional[dict] = None,
                 positions: Optional[torch.Tensor] = None):
-        """tokens [B, T]. Returns ``(logits [B, T, Vpad], aux_loss,
-        new_cache, hidden)``; ``aux_loss`` sums the MoE layers' (0 where
-        there are none)."""
-        hidden, aux, new_cache = self._hidden(params, tokens, cache, positions)
+        """tokens [B, T] (``frontend_embeds`` [B, F, D] prepended;
+        ``encoder_frames`` [B, Tk, D] encoded for the cross attention).
+        Returns ``(logits [B, F + T, Vpad], aux_loss, new_cache, hidden)``;
+        ``aux_loss`` sums the MoE layers' (0 where there are none)."""
+        hidden, aux, new_cache = self._hidden(params, tokens, cache, positions,
+                                              frontend_embeds, encoder_frames)
         logits = unembed(self._head(params), hidden)
         return logits, aux, new_cache, hidden
 
     def loss(self, params, batch: dict) -> tuple:
-        """batch: tokens [B, S], labels [B, S] (-100 = ignore). Returns
-        ``(ce + 0.01·aux [+ 0.3·mtp], {"ce", "aux", "denom"[, "mtp"]})``, as
-        the JAX package's ``LM.loss`` for configurations without a
-        frontend."""
+        """batch: tokens [B, S], labels [B, S] (-100 = ignore), and
+        ``frontend_embeds`` / ``encoder_frames`` where the model takes
+        them. Returns ``(ce + 0.01·aux [+ 0.3·mtp], {"ce", "aux",
+        "denom"[, "mtp"]})`` over the text positions (the frontend's
+        logits dropped), as the JAX package's ``LM.loss``."""
         cfg = self.cfg
-        logits, aux, _, hidden = self.forward(params, batch["tokens"])
+        front = batch.get("frontend_embeds")
+        logits, aux, _, hidden = self.forward(params, batch["tokens"], front,
+                                              batch.get("encoder_frames"))
+        if front is not None:
+            logits = logits[:, front.shape[1]:]
         ce, denom = _masked_ce(logits, batch["labels"], cfg.vocab_size)
         total = ce + 0.01 * aux
         metrics = {"ce": ce, "aux": aux, "denom": denom}
@@ -386,7 +451,8 @@ class LM:
         stacked on ``[n_reps]``): K/V at ``dtype`` for GQA layers and
         shared sites, the latent for MLA layers, and float32 states for
         the recurrent blocks (``"ssm"``, ``"xl"``, whatever ``dtype``, as
-        the JAX package's); ``idx = 0``, on ``device``."""
+        the JAX package's); an encoder-decoder's ``enc_out`` [B,
+        encoder_seq, D] at ``dtype``; ``idx = 0``, on ``device``."""
         device = resolve_device(device)
         cfg = self.cfg
 
@@ -406,14 +472,24 @@ class LM:
         for seg in self.segments:
             lead = () if seg.mode == "unroll" else (seg.n_reps,)
             segs.append([layer_cache(kind, lead) for kind in seg.kinds])
-        return {"idx": 0, "segments": segs}
+        cache = {"idx": 0, "segments": segs}
+        if cfg.is_encoder_decoder:
+            cache["enc_out"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                           dtype=dtype, device=device)
+        return cache
 
-    def prefill(self, params, tokens: torch.Tensor, cache: dict):
-        """Run the whole prompt [B, T] through the model, filling ``cache``
-        from its index; returns ``(last-position logits [B, Vpad],
-        new_cache)``."""
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        hidden, _, new_cache = self._hidden(params, tokens, cache, positions)
+    def prefill(self, params, tokens: torch.Tensor, cache: dict,
+                frontend_embeds: Optional[torch.Tensor] = None,
+                encoder_frames: Optional[torch.Tensor] = None):
+        """Run the whole prompt [B, T] (after ``frontend_embeds`` [B, F, D],
+        at positions 0..F + T - 1) through the model, filling ``cache``
+        from its index (an encoder-decoder's ``enc_out`` with the encoding
+        of ``encoder_frames`` where given); returns ``(last-position logits
+        [B, Vpad], new_cache)``."""
+        n_front = 0 if frontend_embeds is None else frontend_embeds.shape[1]
+        positions = torch.arange(tokens.shape[1] + n_front, device=tokens.device)
+        hidden, _, new_cache = self._hidden(params, tokens, cache, positions,
+                                            frontend_embeds, encoder_frames)
         return unembed(self._head(params), hidden[:, -1]), new_cache
 
     def decode_step(self, params, cache: dict, tokens: torch.Tensor):
@@ -446,8 +522,10 @@ def params_from_jax(tree, device=None):
     ``device`` (CUDA unless asked): the same keys, lists and stacked
     ``[n_reps, ...]`` segment axes, the MoE layers' bare ``router`` and
     stacked ``[n_reps, E, D, F]`` experts, MLA's weights and ``mtp``
-    included, and the empty ``{}`` of Zamba2's shared sites beside
-    ``shared_attn``."""
+    included, the empty ``{}`` of Zamba2's shared sites beside
+    ``shared_attn``, and an encoder-decoder's ``encoder`` (a list of layer
+    dicts and ``final_norm``) and each decoder layer's ``norm_x`` and
+    ``cross``."""
     device = resolve_device(device)
     return tree_map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device),
                     tree)

@@ -8,9 +8,10 @@ always takes the masked core), ``make_mask`` with windows,
 ``ServingEngine`` on the JAX example's traffic against the JAX package's;
 the same end to end for gemma3-1b (6 layers, so that layer 5 is global,
 with prompts longer than its 32-token reduced window), starcoder2-3b
-(LayerNorm, GELU) and granite-34b (one KV head); the copied configs,
-``plan_segments`` and ``count_params``; the refusal of what is not
-ported. The flash kernel's own tests are in
+(LayerNorm, GELU), granite-34b (one KV head), whisper-tiny (text alone:
+its cross attention over the cache's zeroed encoder output, as the JAX
+engine runs it) and pixtral-12b (text alone); the copied configs,
+``plan_segments`` and ``count_params``. The flash kernel's own tests are in
 ``test_torch_flash_attention.py``, LM training's in
 ``test_torch_lm_train.py``.
 
@@ -333,30 +334,48 @@ def _mtp_gap(cfg) -> int:
     return moe - 3 * d * cfg.d_ff
 
 
+def _norm_gap(cfg) -> int:
+    """What the JAX package's closed form leaves out of the norms: the
+    final norm (and whisper's encoder's), and every LayerNorm's bias:
+    norm1's and norm2's of each layer, norm_x's of each decoder layer and
+    both of each encoder layer."""
+    if cfg.norm == "rmsnorm":
+        return cfg.d_model
+    n_norms = 2 * cfg.n_layers
+    if cfg.is_encoder_decoder:
+        n_norms += cfg.n_layers + 2 * cfg.n_encoder_layers + 2
+    return cfg.d_model * (2 + n_norms)
+
+
 def test_init_shapes_and_count_params(jx, lm):
     """``LM.init`` gives the JAX tree's shapes leaf for leaf, and for each
     config ``count_params`` is exactly the initialised count less what the
-    JAX package's closed form leaves out: the final norm, a LayerNorm's
-    biases, and on deepseek-v3-671b the MTP block's experts (counted as a
-    dense MLP: 10,923,802,624 parameters at the published widths). Within
-    5% of the count (the JAX suite's ``test_param_count_matches_init``)
-    for the dense configs."""
+    JAX package's closed form leaves out: the final norms and the
+    LayerNorms' biases (``_norm_gap``), and on deepseek-v3-671b the MTP
+    block's experts (counted as a dense MLP: 10,923,802,624 parameters at
+    the published widths). Within 5% of the count (the JAX suite's
+    ``test_param_count_matches_init``) for the dense configs. pixtral-12b
+    at its published size: 12,247,777,280 by ``count_params``, its final
+    norm's 5,120 beside."""
     jshapes = [tuple(a.shape) for a in jx.jax.tree_util.tree_leaves(lm.jparams)]
     params = lm.model.init(torch.Generator().manual_seed(0), device="cpu")
     assert [tuple(t.shape) for t in tree_leaves(params)] == jshapes
     for arch in ("llama3.2-1b", "starcoder2-3b", "granite-34b", "dbrx-132b",
-                 "deepseek-v3-671b"):
+                 "deepseek-v3-671b", "whisper-tiny", "pixtral-12b"):
         cfg = get_config(arch).reduced()
         p = build_model(cfg).init(torch.Generator().manual_seed(1), device="cpu")
         n = sum(t.numel() for t in tree_leaves(p))
-        left_out = cfg.d_model * (1 if cfg.norm == "rmsnorm" else 2 + 2 * cfg.n_layers)
-        assert count_params(cfg) + left_out + _mtp_gap(cfg) == n, arch
+        assert count_params(cfg) + _norm_gap(cfg) + _mtp_gap(cfg) == n, arch
         if cfg.moe is None:
             assert abs(n - count_params(cfg)) / n < 0.05
     assert _mtp_gap(get_config("deepseek-v3-671b").reduced()) > 0
     assert _mtp_gap(get_config("deepseek-v3-671b")) == 10_923_802_624
     assert _mtp_gap(get_config("dbrx-132b")) == 0
     assert get_config(ARCH).param_count() + 2048 == 1_235_814_400
+    pixtral = get_config("pixtral-12b")
+    assert count_params(pixtral) + _norm_gap(pixtral) == 12_247_777_280 + 5_120
+    whisper = get_config("whisper-tiny")
+    assert _norm_gap(whisper) == 384 * (2 + 8 + 4 + 8 + 2)
 
 
 def test_configs_and_count_params_match_jax(jx):
@@ -388,15 +407,6 @@ def test_segment_planning_full_configs(jx):
         assert ([dataclasses.astuple(s) for s in plan_segments(get_config(arch))]
                 == [dataclasses.astuple(s)
                     for s in jx.plan_segments(jx.get_config(arch))]), arch
-
-
-@pytest.mark.parametrize("arch,what", [
-    ("pixtral-12b", "the vision frontend"),
-    ("whisper-tiny", "encoder-decoder"),
-])
-def test_not_ported_configs_raise(arch, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.*Queue 1, item 9"):
-        build_model(get_config(arch).reduced())
 
 
 # ---------------------------------------------------------------------------
@@ -463,7 +473,8 @@ def test_no_card_raises_unless_cpu_requested(lm, monkeypatch):
 
 #: (architecture, layers or None for the reduced config's, prompt tokens)
 OTHER_ARCHS = {"gemma3-1b": (6, 40), "starcoder2-3b": (None, 9),
-               "granite-34b": (None, 9)}
+               "granite-34b": (None, 9), "whisper-tiny": (None, 9),
+               "pixtral-12b": (None, 9)}
 
 
 def _other_cfg(getter, arch):
@@ -485,9 +496,11 @@ def other(request, jx):
 
 def test_other_archs_forward_prefill_and_decode_match_jax(jx, other, monkeypatch):
     """``forward``, ``prefill`` and three greedy ``decode_step``s within
-    1e-4 of JAX's. gemma3-1b's prompt (40 tokens) and decode positions lie
-    past its 32-token window on layers 0-4; its prefill takes the flash
-    executor on layer 5 alone, the others' on every layer."""
+    1e-4 of JAX's, on text alone. gemma3-1b's prompt (40 tokens) and
+    decode positions lie past its 32-token window on layers 0-4; its
+    prefill takes the flash executor on layer 5 alone, whisper-tiny's
+    twice a layer (its self-attention, and its cross attention over the
+    cache's zeroed encoder output), the others' once a layer."""
     cfg, jnp = other.cfg, jx.jnp
     t = OTHER_ARCHS[other.arch][1]
     toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, t)).astype(np.int32)
@@ -505,8 +518,9 @@ def test_other_archs_forward_prefill_and_decode_match_jax(jx, other, monkeypatch
     tl, tcache = other.model.prefill(other.tparams, torch.from_numpy(toks).long(), tcache)
     _close(tl, jl)
     n_global = (cfg.n_layers // cfg.global_every if cfg.sliding_window
-                else cfg.n_layers)
-    assert len(calls) == n_global == (1 if other.arch == "gemma3-1b" else cfg.n_layers)
+                else cfg.n_layers) * (2 if cfg.is_encoder_decoder else 1)
+    assert len(calls) == n_global == {"gemma3-1b": 1, "whisper-tiny": 8}.get(
+        other.arch, cfg.n_layers)
     for step in range(3):
         cur = np.asarray(jnp.argmax(jl, -1))[:, None].astype(np.int32)
         assert np.array_equal(cur[:, 0], torch.argmax(tl, -1).numpy())

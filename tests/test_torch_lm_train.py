@@ -338,9 +338,9 @@ def test_dummy_batch():
     assert torch.equal(labels[:, :-1], tokens[:, 1:])
     assert (labels[:, -1] == -100).all()
     assert make_dummy_batch(cfg, 2, 3)["tokens"].shape == (2, 8)  # at least 8
-    for arch in ("pixtral-12b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match=r"item 9 \(g\)"):
-            make_dummy_batch(get_config(arch).reduced(), 2, 16)
+    # the frontend's and encoder's inputs: tests/test_torch_encdec.py
+    assert sorted(make_dummy_batch(get_config("whisper-tiny").reduced(), 2, 16)) == [
+        "encoder_frames", "labels", "tokens"]
 
 
 def test_embed_dense_path_matches_gather_and_jax(jx):

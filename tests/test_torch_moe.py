@@ -35,6 +35,8 @@ torch = pytest.importorskip("torch")
 
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
+import _torch_lm_family as fam_checks  # noqa: E402
+
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import LMConfig, MoEConfig  # noqa: E402
 from repro_torch.kernels.fused_adam import CAPACITY, fused_adam  # noqa: E402
@@ -503,37 +505,6 @@ def _replayed_routing(jx_routed: list, parted: list):
     assert next(calls, None) is None, "the port made fewer MoE calls than JAX"
 
 
-class _XlaLogistic(torch.autograd.Function):
-    """``lax.logistic`` as the JAX package's CPU compile computes it at a
-    16-bit dtype: ``1 / (1 + exp(-x))``, each op rounded to x's dtype, and
-    its derivative ``s · (1 - s)`` rounded the same way."""
-
-    @staticmethod
-    def forward(ctx, x):
-        s = torch.reciprocal(torch.exp(-x) + 1)
-        ctx.save_for_backward(s)
-        return s
-
-    @staticmethod
-    def backward(ctx, g):
-        (s,) = ctx.saved_tensors
-        return g * (s * (1 - s))
-
-
-@contextlib.contextmanager
-def _xla_rounded_silu():
-    """Within the block, ``F.silu`` (every SwiGLU of the port: the dense
-    MLP, the experts, the shared expert) is ``jax.nn.silu`` as XLA's CPU
-    backend rounds it, ``x · logistic(x)`` with each op rounded
-    (``_XlaLogistic``), where PyTorch's silu rounds once."""
-    silu = torch.nn.functional.silu
-    torch.nn.functional.silu = lambda x, inplace=False: x * _XlaLogistic.apply(x)
-    try:
-        yield
-    finally:
-        torch.nn.functional.silu = silu
-
-
 def _port_steps(lm, dtype, remat="layer"):
     opt = adamw(tsched.warmup_cosine(LR, WARMUP, STEPS), fused=True)
     step = make_train_step(build_model(lm.cfg, remat=remat), opt,
@@ -616,7 +587,7 @@ def test_train_steps_bf16_match_jax(lm):
     n_moe = sum(lid >= lm.cfg.first_k_dense_layers for lid in range(lm.cfg.n_layers))
     assert len(routed) == STEPS * len(routed_1) == STEPS * (n_moe + lm.cfg.mtp_depth)
     parted = []
-    with _xla_rounded_silu():
+    with fam_checks.xla_rounded():
         with _replayed_routing(routed, parted):
             losses, params = _port_steps(lm, "bfloat16", remat="none")
         with _replayed_routing(routed_1, parted):

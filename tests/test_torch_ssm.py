@@ -269,7 +269,11 @@ def test_zamba_serving_engine_matches_jax(jx, zamba):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_zamba_train_steps_match_jax(jx, zamba, dtype):
-    fam_checks.check_train_steps(jx, zamba, dtype)
+    """bfloat16 gradients held by their distance from float32, not leaf by
+    leaf: the chunked SSD's bfloat16 decay sums are the port's
+    ``_segsum``, not JAX's prefix-sum differences (ROADMAP.md Queue 3,
+    item 12)."""
+    fam_checks.check_train_steps(jx, zamba, dtype, bf16_leaf_rule=False)
 
 
 def test_zamba_jax_checkpoint_restores_in_the_port(jx, zamba, tmp_path):
