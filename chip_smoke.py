@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 20|21|22]
+    python3 chip_smoke.py [--phases 20|21|22|23]
 
-Phases (``--phases 20``, ``21`` or ``22``: that phase alone); any failure raises,
+Phases (``--phases 20``, ``21``, ``22`` or ``23``: that phase alone); any failure raises,
 so the exit code is not 0 and no result line is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
@@ -330,6 +330,39 @@ so the exit code is not 0 and no result line is printed:
     frames, 10 steps) and on pixtral-12b cut to ``PIXTRAL_TRAIN_LAYERS``
     (2) layers at its published widths (1,887,462,400 parameters, 2 steps
     of 4 x (256 + 768) tokens). Each part's peak allocation.
+23. Distributed full-batch training, after phase 22 has returned and
+    freed the card: 4 rank processes share the card in one gloo group
+    (``launch/mesh.py:run_ranks``) and train through
+    ``hierarchical_partition -> build_distributed_graph ->
+    lower_distributed -> DistributedGNNTrainer``, from seed 0: (a) phase
+    4's GCN [128, 256, 256, 40] on the ogbn-arxiv analog at full scale,
+    partitioned 4 ways at ``br=8, bc=32``, Adam 0.01, 5 epochs; (b) phase
+    7's GAT [128, 750, 750, 40], 3 heads, Adam 0.002, 10 epochs (as in
+    phase 7: the loss leaps at the second step and is back below its
+    first value only after 5), on the same partition (its effective
+    aggregation is GCN's, so the same ``DistributedGraph``); (c) SAGE-mean [8710, 16, 70] on the corafull
+    analog (19,793 nodes), the JAX package's ``examples/distributed_gnn.py``
+    model, layer 0 on ``dist_feature_matmul_sparse``, 5 epochs. Two worker
+    processes partition, build, lower and verify each plan in fast and
+    full mode (timed) and write each rank's slices, while the three
+    single-device cuda programs train on the card from the same weights;
+    then one spawn runs the three runs on every rank. Gates per run: the
+    first step's loss within 1e-4 and each gradient leaf within 1e-3
+    norm-relative of the single-device program at the same parameters
+    (where the two programs' ReLU decisions part, the single-device one
+    takes the distributed one's, each within 1e-5 of 0); the losses over
+    the epochs within 1e-3 relative of the single-device program's, and
+    falling; the four ranks' losses equal and parameters bitwise equal
+    after every epoch; each of the run's kernels launched on every rank
+    and nothing else, Adam once a step; every kernel call of rank 0's
+    first step within 1e-4 of its plain version on the same operands
+    (the interior and boundary streams), and the Adam kernel at 1e-6.
+    Printed: per run and rank the epoch ms (synchronised, median) beside
+    the single-device epoch, per layer the exchange's pack and copy out,
+    wire and copy in (one instrumented step) and whether the interior
+    kernel ran inside the wire's window, each kernel's CUDA-event ms on
+    the streams beside its plain version's, the library call's and the
+    bound, and the host's partition and build seconds.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -340,19 +373,26 @@ to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
+import multiprocessing
 import os
+import pickle
+import queue
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
 from collections import defaultdict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -371,7 +411,14 @@ from repro_torch.core.layout import (  # noqa: E402
     column_stream,
     plan_layout,
 )
-from repro_torch.core.lowering import lower, lower_sampled  # noqa: E402
+from repro_torch.core.halo import build_distributed_graph  # noqa: E402
+from repro_torch.core.lowering import (  # noqa: E402
+    effective_aggregation,
+    lower,
+    lower_distributed,
+    lower_sampled,
+)
+from repro_torch.core.partitioner import hierarchical_partition  # noqa: E402
 from repro_torch.core.verify import (  # noqa: E402
     PlanVerificationError,
     check_plan,
@@ -441,7 +488,8 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.transformer import _layer_window  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
-from repro_torch.models.gnn import GNNConfig  # noqa: E402
+from repro_torch.models.gnn import GNNConfig, params_from_jax  # noqa: E402
+from repro_torch.launch.mesh import run_ranks  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     FaultInjector,
     FaultSpec,
@@ -460,6 +508,7 @@ from repro_torch.training.optimizer import (  # noqa: E402
 )
 from repro_torch.training.schedule import warmup_cosine  # noqa: E402
 from repro_torch.training.trainer import (  # noqa: E402
+    DistributedGNNTrainer,
     FullBatchTrainer,
     MiniBatchTrainer,
     value_and_grad,
@@ -1628,27 +1677,31 @@ def spmm_second_passes(prog) -> int:
     return sum(split)
 
 
-def decided_grads(prog, ref, params) -> tuple:
-    """Both programs' gradients at ``params``, the torch program's ReLU
-    decisions taken from the cuda program's where the two part within
-    MASK_MARGIN of 0: there the sign is rounding's, and one flip moves a
-    nearly cancelling gradient past GRAD_RTOL. Returns (cuda grads, torch
-    grads, per ReLU call: elements, decisions parted, those beyond the
-    margin, the largest |pre| among them)."""
-    masks, calls = [], []
-
+def relu_recorder(masks: list):
+    """A ``fused_executor`` hook that keeps each ReLU call's mask, in call
+    order."""
     def record(fn, *args, **kw):
         y, mask = fn(*args, **kw)
         if mask is not None:
             masks.append(mask)
         return y, mask
+    return record
 
+
+def relu_decider(wants: list, calls: list):
+    """A ``fused_executor`` hook that gives the n-th ReLU call the
+    decisions of ``wants[n]`` (rows re-tiled to the call's) where the two
+    part within MASK_MARGIN of 0, and records per call the elements, the
+    decisions parted, those beyond the margin and the largest |pre| among
+    them in ``calls``."""
     def decide(fn, rows, cols, blocks, x, n, self_term=None, bias=None,
-               alpha=None, activation="none"):
+               alpha=None, activation="none", **kw):
         if activation != "relu":
-            return fn(rows, cols, blocks, x, n, self_term, bias, alpha, activation)
-        pre, _ = fn(rows, cols, blocks, x, n, self_term, bias, alpha, "none")
-        want, mask = masks[len(calls)], (pre > 0).float()
+            return fn(rows, cols, blocks, x, n, self_term, bias, alpha,
+                      activation, **kw)
+        pre, _ = fn(rows, cols, blocks, x, n, self_term, bias, alpha, "none", **kw)
+        want = kops._fit_rows(wants[len(calls)], pre.shape[0])
+        mask = (pre > 0).float()
         parted = mask != want
         beyond = parted & (pre.abs() > MASK_MARGIN)
         calls.append({"elements": mask.numel(), "parted": int(parted.sum()),
@@ -1657,11 +1710,21 @@ def decided_grads(prog, ref, params) -> tuple:
                       if parted.any() else 0.0})
         mask = torch.where(parted & ~beyond, want, mask)
         return torch.where(mask > 0, pre, torch.zeros_like(pre)), mask
+    return decide
 
-    with fused_executor("cuda", record):
+
+def decided_grads(prog, ref, params) -> tuple:
+    """Both programs' gradients at ``params``, the torch program's ReLU
+    decisions taken from the cuda program's where the two part within
+    MASK_MARGIN of 0: there the sign is rounding's, and one flip moves a
+    nearly cancelling gradient past GRAD_RTOL. Returns (cuda grads, torch
+    grads, per ReLU call: elements, decisions parted, those beyond the
+    margin, the largest |pre| among them)."""
+    masks, calls = [], []
+    with fused_executor("cuda", relu_recorder(masks)):
         got = value_and_grad(prog.model.loss_fn, params, prog.x, prog.labels,
                              prog.train_mask)[1]
-    with fused_executor("torch", decide):
+    with fused_executor("torch", relu_decider(masks, calls)):
         want = value_and_grad(ref.model.loss_fn, params, ref.x, ref.labels,
                               ref.train_mask)[1]
     if len(calls) != len(masks):
@@ -4967,36 +5030,43 @@ def recorded_calls(calls: list):
         table.update(saved)
 
 
-def check_recorded(calls: list, device) -> dict:
-    """Each recorded call against its plain version (the ``torch``
-    executor) on the same inputs: every output within TOL by
-    ``output_error`` (the norm holds the backward's small outputs, means
-    over a few seeds, to their own scale), the fused kernel's ReLU mask
-    equal where |pre-activation| > MASK_MARGIN. Returns, per kernel, the
-    calls checked and the largest absolute error."""
+def check_call(label: str, op: str, args: tuple, kw: dict, got: tuple) -> float:
+    """One recorded call (``recorded_calls``) against its plain version
+    (the ``torch`` executor) on the same inputs: every output within TOL
+    by ``output_error`` (the norm holds the backward's small outputs,
+    means over a few seeds, to their own scale), the fused kernel's ReLU
+    mask equal where |pre-activation| > MASK_MARGIN. Returns the largest
+    absolute error; raises, naming ``label``, where a check fails."""
     plain = kops._EXECUTORS["torch"]
+    want = plain[op](*args, **kw)
+    want = want if isinstance(want, tuple) else (want,)
+    if op == "fused" and args[-1] == "relu":
+        pre, _ = plain[op](*args[:-1], "none")
+        far = pre.abs() > MASK_MARGIN
+        if not torch.equal(got[1][far], want[1][far]):
+            raise AssertionError(f"{label}: masks differ")
+        got, want = got[:1], want[:1]
+    errs = [output_error(a, w) for a, w in zip(got, want) if a is not None]
+    if not all(excess <= TOL and rel <= TOL for _, excess, rel in errs):
+        finite = all(bool(torch.isfinite(a).all()) for a in args
+                     if isinstance(a, torch.Tensor) and a.is_floating_point())
+        raise AssertionError(
+            f"{label} (inputs {'' if finite else 'not '}finite): (max abs "
+            f"error, max excess over the relative part, error norm over the "
+            f"output's) per output {errs} > {TOL}")
+    return max(e for e, _, _ in errs)
+
+
+def check_recorded(calls: list, device) -> dict:
+    """Each recorded call against its plain version (``check_call``).
+    Returns, per kernel, the calls checked and the largest absolute
+    error."""
     out = {name: {"calls": 0, "max_abs_err": 0.0} for name in SOAK_OPS.values()}
     for i, (op, args, kw, got) in enumerate(calls):
         name = SOAK_OPS[op]
-        want = plain[op](*args, **kw)
-        want = want if isinstance(want, tuple) else (want,)
-        if op == "fused" and args[-1] == "relu":
-            pre, _ = plain[op](*args[:-1], "none")
-            far = pre.abs() > MASK_MARGIN
-            if not torch.equal(got[1][far], want[1][far]):
-                raise AssertionError(f"[chaos] {name} call {i}: masks differ")
-            got, want = got[:1], want[:1]
-        errs = [output_error(a, w) for a, w in zip(got, want) if a is not None]
-        if not all(excess <= TOL and rel <= TOL for _, excess, rel in errs):
-            finite = all(bool(torch.isfinite(a).all()) for a in args
-                         if isinstance(a, torch.Tensor) and a.is_floating_point())
-            raise AssertionError(
-                f"[chaos] {name} call {i} (inputs {'' if finite else 'not '}"
-                f"finite): (max abs error, max excess over the relative part, "
-                f"error norm over the output's) per output {errs} > {TOL}")
+        err = check_call(f"[chaos] {name} call {i}", op, args, kw, got)
         out[name]["calls"] += 1
-        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
-                                       *(e for e, _, _ in errs))
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     sync(device)
     return out
 
@@ -5067,13 +5137,713 @@ def verifier_phase(ds, qds, sizes: Sizes, device, verified: list) -> dict:
             "launches": soak["launches"], "s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: distributed full-batch training, 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: the rank processes of phase 23; they share the one card
+DIST_RANKS = 4
+#: the runs: (name, graph, arch, aggregation, hidden widths, heads,
+#: optimizer, epochs). (a) phase 4's GCN, (b) phase 7's GAT (its
+#: effective aggregation is GCN's, so it trains on the same
+#: ``DistributedGraph``; 10 epochs, as phase 7: at lr 0.002 the loss leaps
+#: at the second step, 3.70 -> 4.92, and is back below its first value
+#: only after 5), (c) the JAX package's ``examples/distributed_gnn.py``
+#: model, SAGE-mean [8710, 16, 70] on the corafull analog at full scale
+DIST_RUNS = (("gcn", "arxiv", "GCN", "gcn", "train_hidden", 0, ADAM, 5),
+             ("gat", "arxiv", "GAT", "gcn", "gat_hidden", "gat_heads", GAT_ADAM, 10),
+             ("sage", "corafull", "SAGE", "mean", (16,), 0, ADAM, 5))
+#: the tile of every phase-23 graph (the JAX package's distributed tests')
+DIST_BR, DIST_BC = 8, 32
+
+
+def dist_runs(sizes: Sizes, graph: Optional[str] = None) -> list:
+    """Phase 23's runs (of ``graph`` alone where given) as dicts."""
+    out = []
+    for name, g, arch, agg, hidden, heads, opt, epochs in DIST_RUNS:
+        if graph is not None and g != graph:
+            continue
+        out.append({"name": name, "graph": g, "arch": arch, "aggregation": agg,
+                    "hidden": tuple(getattr(sizes, hidden) if isinstance(hidden, str)
+                                    else hidden),
+                    "heads": getattr(sizes, heads) if isinstance(heads, str) else 4,
+                    "opt": opt, "epochs": epochs})
+    return out
+
+
+def dist_dataset(sizes: Sizes, graph: str):
+    return (generate_dataset(sizes.dataset, scale=sizes.scale, seed=0)
+            if graph == "arxiv" else
+            generate_dataset(sizes.quick_dataset, scale=sizes.quick_scale, seed=0))
+
+
+def rank_global_ids(graph, part: np.ndarray, k: int) -> list:
+    """Each rank's local rows as global node ids, in the order
+    ``build_local_views`` gives them without a reorder: the rank's nodes
+    ascending, those with no in-edge from another rank (interior) first."""
+    deg = np.diff(graph.indptr)
+    dst = np.repeat(np.arange(graph.n_rows, dtype=np.int64), deg)
+    boundary = np.zeros(graph.n_rows, dtype=bool)
+    boundary[dst[part[graph.indices] != part[dst]]] = True
+    out = []
+    for r in range(k):
+        local = np.flatnonzero(part == r)
+        out.append(np.concatenate([local[~boundary[local]], local[boundary[local]]]))
+    return out
+
+
+def dist_prepare(sizes: Sizes, graph: str, work: str, ready) -> dict:
+    """Phase 23's host work for one graph, in a worker process: the dataset,
+    ``hierarchical_partition(graph, 4)``, one ``DistributedGraph`` for each
+    distinct effective aggregation of the graph's runs (``br=8, bc=32``),
+    each run's plan (``lower_distributed``), and each rank's slice of the
+    graph and of the plan pickled into ``work``; then a message on
+    ``ready`` (the runs' files: the ranks can start), and only then each
+    plan through ``verify_plan`` in fast and in full mode, timed, while
+    the ranks train (a violation raises when the parent reads the
+    result). Returns the host seconds, the partition's and the graph's
+    shapes, the plan dumps, the verification, the files and each rank's
+    global row ids."""
+    t0 = time.perf_counter()
+    ds = dist_dataset(sizes, graph)
+    host = {"dataset_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    part = hierarchical_partition(ds.graph, DIST_RANKS)
+    host["partition_s"] = time.perf_counter() - t0
+    gids = rank_global_ids(ds.graph, part.assignment, DIST_RANKS)
+    dists, runs = {}, {}
+    for run in dist_runs(sizes, graph):
+        cfg = GNNConfig(kind=run["arch"], layer_dims=[
+            ds.features.shape[1], *run["hidden"], ds.n_classes],
+            aggregation=run["aggregation"], gat_heads=run["heads"])
+        agg = effective_aggregation(cfg)
+        if agg not in dists:
+            t0 = time.perf_counter()
+            d = build_distributed_graph(ds.graph, ds.features, ds.labels,
+                                        ds.train_mask, part, br=DIST_BR,
+                                        bc=DIST_BC, aggregation=agg)
+            host[f"build_{agg}_s"] = time.perf_counter() - t0
+            for r, ids in enumerate(gids):  # the rows are where gids says
+                if not (int(d.n_valid[r]) == ids.size and np.array_equal(
+                        d.features[r, : ids.size], ds.features[ids])
+                        and np.array_equal(d.labels[r, : ids.size], ds.labels[ids])):
+                    raise AssertionError(f"[dist] rank {r}'s rows are not its "
+                                         "global ids' rows")
+            files = []
+            for r in range(DIST_RANKS):
+                files.append(os.path.join(work, f"{graph}-{agg}-rank{r}.pkl"))
+                with open(files[-1], "wb") as fh:
+                    pickle.dump(d.rank_slice(r, bulk=False), fh, protocol=5)
+            dists[agg] = (d, files)
+        d, files = dists[agg]
+        t0 = time.perf_counter()
+        plan = lower_distributed(cfg, d, inner="cuda", validate="off")
+        lower_s = time.perf_counter() - t0
+        if plan.overlap is None:
+            raise AssertionError(f"[dist] {run['name']}: the plan must bind the "
+                                 "split-phase compositions")
+        plan_files = []
+        for r in range(DIST_RANKS):
+            plan_files.append(os.path.join(work, f"{run['name']}-plan-rank{r}.pkl"))
+            with open(plan_files[-1], "wb") as fh:
+                pickle.dump(plan.rank_slice(r), fh, protocol=5)
+        runs[run["name"]] = {
+            "config": {"kind": cfg.kind, "layer_dims": list(cfg.layer_dims),
+                       "aggregation": cfg.aggregation, "gat_heads": cfg.gat_heads},
+            "plan": plan.describe(),
+            "sparse0": plan.layers[0].feature_path == "sparse",
+            "agg_primitives": [l.agg_primitive for l in plan.layers],
+            "lower_s": lower_s, "dist_files": files, "plan_files": plan_files,
+            "_plan": (plan, agg)}
+    ready.put({"graph": graph, "host_s": dict(host), "runs": {
+        name: {k: v for k, v in r.items() if k != "_plan"}
+        for name, r in runs.items()}})
+    for name, r in runs.items():
+        plan, agg = r.pop("_plan")
+        r["verify"] = {}
+        for mode in ("fast", "full"):
+            t0 = time.perf_counter()
+            found = verify_plan(plan, mode=mode, dist=dists[agg][0])
+            r["verify"][f"{mode}_ms"] = (time.perf_counter() - t0) * 1e3
+            if found:
+                raise AssertionError(f"[dist] {name} {mode} verification: "
+                                     + "; ".join(str(v) for v in found))
+    shapes = {agg: {"n_local": d.n_local, "n_ghost": d.n_ghost,
+                    "max_send": d.max_send, "live_shifts": list(d.live_shifts),
+                    "n_valid": d.n_valid.tolist(),
+                    "n_interior": d.n_interior.tolist(),
+                    "fwd_blocks": int(d.fwd["rows"].shape[1]),
+                    "interior_blocks": d.interior_blocks.tolist(),
+                    "boundary_blocks": d.boundary_blocks.tolist()}
+              for agg, (d, _) in dists.items()}
+    return {"graph": graph, "nodes": ds.graph.n_rows, "nnz": ds.graph.nnz,
+            "host_s": host, "partition": {
+                "phase": part.phase, "edge_cut": part.edge_cut,
+                "vertex_imbalance": part.vertex_imbalance,
+                "load_imbalance": part.load_imbalance},
+            "shapes": shapes, "runs": runs, "gids": gids}
+
+
+def params_digest(params) -> str:
+    h = hashlib.sha256()
+    for p in tree_leaves(params):
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _stream_of(ops: dict, args: tuple) -> str:
+    """The bound stream a recorded call ran on: its blocks' count and its
+    output rows (``n_rows_padded``) against each operand's."""
+    blocks = args[2]
+    for name, op in ops.items():
+        if op.blocks.shape == blocks.shape and torch.equal(op.block_rows, args[0]):
+            return name
+    raise AssertionError("a recorded call ran on no bound operand")
+
+
+def _coo_library(op) -> torch.Tensor:
+    """The operand as a ``torch.sparse`` CSR tensor (its nonzeros): the
+    library yardstick's operand, never used by the port."""
+    b, i, j = torch.nonzero(op.blocks, as_tuple=True)
+    rows = op.block_rows.long()[b] * op.br + i
+    cols = op.block_cols.long()[b] * op.bc + j
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, cols]), op.blocks[b, i, j],
+            (op.n_rows_padded, op.n_cols_padded)).coalesce().to_sparse_csr()
+
+
+def dist_call_rows(calls: list, ops: dict, device, reps: int = 3) -> list:
+    """Each recorded kernel call of one step on this rank: against its
+    plain version on the same inputs (``check_call``), its CUDA-event ms (median over ``reps`` launches after one), the plain
+    version's, the library call's (``torch.sparse.mm`` on the stream, and
+    the epilogue's torch ops; none for the attention passes) and the
+    bound."""
+    plain = kops._EXECUTORS["torch"]
+    kernel = kops._EXECUTORS["cuda"]
+    rows, libs = [], {}
+    for i, (op_key, args, kw, got) in enumerate(calls):
+        name = SOAK_OPS[op_key]
+        stream = _stream_of(ops, args)
+        op = ops[stream]
+        err = check_call(f"[dist] {name} call {i} on {stream}", op_key, args,
+                         kw, got)
+        nzc = op.nonzero_columns()
+        row = {"kernel": name, "stream": stream, "call": i, "max_abs_err": err,
+               "ms": time_ms(lambda: kernel[op_key](*args, nzc=nzc, **kw), device,
+                             reps, warmup=1),
+               "plain_ms": time_ms(lambda: plain[op_key](*args, **kw), device, 1,
+                                   warmup=0)}
+        if op_key in ("attn_fwd", "attn_row", "attn_col"):
+            heads = args[-1]
+            hd = args[5].shape[1]
+            row.update(attention_bound(args[0], args[1], args[2], heads, hd,
+                                       args[-2], op_key[5:]))
+            row["library_ms"] = None
+        else:
+            x = args[3]
+            f = x.shape[1]
+            if stream not in libs:
+                libs[stream] = _coo_library(op)
+            lib = libs[stream]
+            if op_key == "spmm":
+                row.update(spmm_bound(args[0], args[1], args[2], f, args[4]))
+                lib_fn = lambda: torch.sparse.mm(lib, x)  # noqa: E731
+            elif op_key == "masked":
+                row.update(fused_bound(op, f, False, False, False, masked=True))
+                mask = args[4]
+                lib_fn = lambda: torch.sparse.mm(lib, x * mask)  # noqa: E731
+            else:
+                self_term, bias, alpha, act = args[5], args[6], args[7], args[8]
+                row.update(fused_bound(op, f, self_term is not None, bias is not None,
+                                       act == "relu"))
+
+                def lib_fn(x=x, self_term=self_term, bias=bias, alpha=alpha, act=act):
+                    y = torch.sparse.mm(lib, x)
+                    if self_term is not None:
+                        y = y + alpha * self_term
+                    if bias is not None:
+                        y = y + bias
+                    return torch.relu(y) if act == "relu" else y
+            row["library_ms"] = time_ms(lib_fn, device, reps, warmup=1)
+        rows.append(row)
+    return rows
+
+
+def _layer_exchanges(records: list) -> list:
+    """The instrumented step's exchange records, one line per layer and
+    direction: pack and copy out, wire, copy in, the interior kernel's
+    CUDA-event ms beside the wire and whether it had started (and ended)
+    by the time the wire finished."""
+    keys = ("layer", "dir", "f", "bytes", "pack_ms", "wire_ms", "copy_in_ms",
+            "finish_ms", "interior_ms", "probe_started_in_wire",
+            "probe_done_in_wire")
+    return [{k: r[k] for k in keys if k in r} for r in records]
+
+
+def dist_profiled_step(tr, device, profile_it: bool) -> dict:
+    """One more step on every rank (their collectives keep the ranks in
+    step); where ``profile_it``, under the profiler (CUDA activity: this
+    process's kernels, copies and memsets alone): device ms and launches
+    by kernel class, busy ms, and the idle share of the step's
+    synchronised wall time."""
+    if not (profile_it and device.type == "cuda"):
+        tr.train_epoch()
+        return {"complete": False}
+    sync(device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train_epoch()  # reads the loss: synchronised
+            wall = (time.perf_counter() - t0) * 1e3
+    by, launched = defaultdict(float), defaultdict(int)
+    for name, us, n in device_events(prof):
+        by[classify(name)] += us / 1e3
+        launched[launch_key(name)] += n
+    busy = sum(by.values())
+    return {"complete": busy > 0, "step_ms": wall, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall, "device_ms": dict(by),
+            "launches": dict(launched)}
+
+
+def dist_rank_run(rank: int, spec: dict, device) -> dict:
+    """One phase-23 run on this rank: its slices loaded, the trainer bound
+    (the fused Adam kernel), one probe step (``loss_and_grads``; rank 0
+    records every kernel call and every rank its ReLU masks), the epochs
+    timed (synchronised: ``train_epoch`` reads the loss) with a digest of
+    the parameters after each, the launches counted from 0 over the probe
+    and the epochs; then one more step, profiled on rank 0
+    (``dist_profiled_step``), and one more probe with the exchange's
+    timing records on, and on rank 0 every recorded call held against its plain version
+    (``dist_call_rows``) and the Adam kernel against its plain version and
+    timed on the run's leaves."""
+    t0 = time.perf_counter()
+    with open(spec["dist_files"][rank], "rb") as fh:
+        dist = pickle.load(fh)
+    with open(spec["plan_files"][rank], "rb") as fh:
+        plan = pickle.load(fh)
+    load_s = time.perf_counter() - t0
+    cfg = GNNConfig(**spec["config"])
+    _, lr, b1, b2 = spec["opt"]
+    t0 = time.perf_counter()
+    tr = DistributedGNNTrainer(dist, cfg, adam(lr, b1, b2, fused=True), plan=plan,
+                               params=params_from_jax(spec["weights"], device),
+                               device=device)
+    sync(device)
+    bind_s = time.perf_counter() - t0
+    masks, calls = [], []
+    zero_counts()
+    with contextlib.ExitStack() as stack:
+        if rank == 0:
+            stack.enter_context(recorded_calls(calls))
+        stack.enter_context(fused_executor("cuda", relu_recorder(masks)))
+        loss0, grads0 = tr.loss_and_grads()
+        loss0 = float(loss0)
+    losses, epoch_ms, digests = [], [], []
+    for _ in range(spec["epochs"]):
+        sync(device)
+        t0 = time.perf_counter()
+        losses.append(tr.train_epoch())
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        digests.append(params_digest(tr.params))
+    launched = counts()
+    profiled_step = dist_profiled_step(tr, device, rank == 0)
+    tr.halo.timings = []
+    sync(device)
+    t0 = time.perf_counter()
+    tr.loss_and_grads()
+    sync(device)
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    exchanges = _layer_exchanges(tr.halo.timings)
+    tr.halo.timings = None
+    n = int(dist.n_valid[0])
+    out = {"rank": rank, "load_s": load_s, "bind_s": bind_s, "loss0": loss0,
+           "losses": losses, "epoch_ms": epoch_ms,
+           "epoch_ms_median": float(np.median(epoch_ms)), "digests": digests,
+           "launches": launched, "instrumented_step_ms": probe_ms,
+           "profiled_step": profiled_step,
+           "exchanges": exchanges, "n_valid": n,
+           "masks": [m[:n].cpu().numpy() > 0 for m in masks],  # the ReLU's decisions
+           "operand_blocks": {k: int(op.blocks.shape[0]) for k, op in tr.operands.items()},
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(device)
+           if device.type == "cuda" else 0}
+    if rank == 0:
+        out["grads"] = [g.cpu().numpy() for g in tree_leaves(grads0)]
+        t0 = time.perf_counter()
+        out["calls"] = dist_call_rows(calls, tr.operands, device)
+        del calls
+        lr_t = bias_corrected_lr(lr, b1, b2, 1)
+        leaves = list(zip(tree_leaves(tr.params), tree_leaves(grads0),
+                          tree_leaves(tr.opt_state.m), tree_leaves(tr.opt_state.v)))
+        out["adam_err"] = check_adam(f"dist {spec['name']}", leaves, lr_t, device, 1)
+        out["adam"] = adam_row(f"dist {spec['name']}", leaves, lr_t, device, reps=5)
+        out["check_s"] = time.perf_counter() - t0
+    print(f"[dist] rank {rank} {spec['name']}: loaded in {load_s:.1f}s, bound in "
+          f"{bind_s:.1f}s, epoch {out['epoch_ms_median']:.1f} ms (median of "
+          f"{len(epoch_ms)}), losses {losses[0]:.4f} -> {losses[-1]:.4f}"
+          + (f", rank 0's checks {out['check_s']:.1f}s" if rank == 0 else ""),
+          flush=True)
+    return out
+
+
+def dist_rank(rank: int, specs: list) -> dict:
+    """What each phase-23 rank process runs: every run in turn."""
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if torch.cuda.is_available() else torch.device("cpu"))
+    out = {}
+    for spec in specs:
+        out[spec["name"]] = dist_rank_run(rank, spec, device)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def dist_reference(run: dict, ds, device) -> dict:
+    """The single-device cuda program of a run on the whole graph (fused
+    Adam), from seed 0: its parameters (the ranks start from them), its
+    epochs' losses and synchronised times; the program is kept for the
+    gradient gate."""
+    dims = [ds.features.shape[1], *run["hidden"], ds.n_classes]
+    gnn = (GNNProgram.load(ds, arch=run["arch"], aggregation=run["aggregation"],
+                           gat_heads=run["heads"])
+           .initialize_layers(dims, "xavier", seed=0).set_optimizer(*run["opt"]))
+    t0 = time.perf_counter()
+    prog = gnn.compile(engine="cuda", device=device, fused_optimizer=True)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    if prog.plan.layout is not None and prog.plan.layout.permutes:
+        raise AssertionError("[dist] the single-device program must keep the "
+                             "graph's order")
+    weights = {"layers": [{k: v.detach().cpu().numpy() for k, v in layer.items()}
+                          for layer in prog.params["layers"]]}
+    p0 = {"layers": [{k: v.detach().clone() for k, v in layer.items()}
+                     for layer in prog.params["layers"]]}
+    losses, times = [], []
+    for _ in range(run["epochs"]):
+        t0 = time.perf_counter()
+        losses.append(prog.train_epoch()["loss"])  # float(): synchronised
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"prog": prog, "p0": p0, "weights": weights, "losses": losses,
+            "epoch_ms": times, "epoch_ms_median": float(np.median(times)),
+            "build_s": build_s, "plan": prog.describe_plan()}
+
+
+def dist_alone_epoch_ms(ref: dict, epochs: int) -> float:
+    """The single-device program's epoch once the ranks have returned and
+    the host's workers are done (its first epochs ran beside them):
+    ``epochs`` more epochs, synchronised, the median."""
+    times = []
+    for _ in range(epochs):
+        t0 = time.perf_counter()
+        ref["prog"].train_epoch()  # reads the loss: synchronised
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def dist_gradient_gate(name: str, ref: dict, ranks: list, gids: list) -> dict:
+    """The first step, distributed against single-device at the same
+    parameters: the loss within 1e-4, each gradient leaf within GRAD_RTOL
+    (norm of the difference over the leaf's). Where the two programs'
+    ReLU decisions part (the fused kernels sum in other orders), the
+    single-device program takes the distributed program's decision, as
+    ``decided_grads`` does, and every such element must lie within
+    MASK_MARGIN of 0."""
+    prog, p0 = ref["prog"], ref["p0"]
+    n = prog.x.shape[0]
+    n_masks = len(ranks[0]["masks"])
+    want = []
+    for c in range(n_masks):
+        g = np.zeros((n, ranks[0]["masks"][c].shape[1]), dtype=np.float32)
+        for r, ids in enumerate(gids):
+            g[ids] = ranks[r]["masks"][c]
+        want.append(torch.from_numpy(g).to(prog.x.device))
+    calls = []
+    with fused_executor("cuda", relu_decider(want, calls)):
+        loss, grads = value_and_grad(prog.model.loss_fn, p0, prog.x, prog.labels,
+                                     prog.train_mask)
+    if len(calls) != n_masks:
+        raise AssertionError(f"[dist] {name}: {n_masks} ReLU calls distributed, "
+                             f"{len(calls)} on one device")
+    dist_grads = tree_unflatten(p0, [torch.from_numpy(g).to(prog.x.device)
+                                     for g in ranks[0]["grads"]])
+    out = {"loss": ranks[0]["loss0"], "ref_loss": float(loss),
+           "loss_diff": abs(ranks[0]["loss0"] - float(loss)),
+           "grads": leaf_diffs(dist_grads, grads), "relu_decisions": calls}
+    print(f"[dist] {name} first step against one device: {json.dumps(out)}")
+    if any(c["beyond_margin"] for c in calls):
+        raise AssertionError(f"[dist] {name}: ReLU masks differ beyond |pre| > "
+                             f"{MASK_MARGIN}: {calls}")
+    if not out["loss_diff"] <= TOL:
+        raise AssertionError(f"[dist] {name}: first loss {out['loss']} against "
+                             f"{out['ref_loss']}")
+    if not max(out["grads"].values()) <= GRAD_RTOL:
+        raise AssertionError(f"[dist] {name}: gradients differ: {out['grads']}")
+    return out
+
+
+#: each run's kernels, launched on every rank (and Adam once a step)
+DIST_KERNELS = {
+    "gcn": ("bsr_spmm_fused_epilogue", "bsr_spmm_masked", "bsr_spmm", "fused_adam"),
+    "gat": ("bsr_attention_fwd", "bsr_attention_bwd_row", "bsr_attention_bwd_col",
+            "fused_adam"),
+    "sage": ("bsr_spmm", "bsr_spmm_fused_epilogue", "bsr_spmm_masked", "fused_adam"),
+}
+
+
+def dist_run_gates(name: str, run: dict, ref: dict, ranks: list,
+                   on_card: bool) -> dict:
+    """A run's gates beyond the first step: every rank's losses equal, each
+    epoch within 1e-3 relative of the single-device program's, falling;
+    the ranks' parameters bitwise equal after every epoch (digests); each
+    of the run's kernels launched on every rank, and nothing else."""
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        if r["losses"] != r0["losses"] or r["digests"] != r0["digests"]:
+            raise AssertionError(f"[dist] {name}: rank {r['rank']} parted from "
+                                 f"rank 0: {r['losses']} vs {r0['losses']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"])]
+    if not (np.isfinite(r0["losses"]).all() and max(rel) <= 1e-3):
+        raise AssertionError(f"[dist] {name}: losses {r0['losses']} against one "
+                             f"device's {ref['losses']}")
+    if not r0["losses"][-1] < r0["losses"][0]:
+        raise AssertionError(f"[dist] {name}: the loss did not fall: {r0['losses']}")
+    on_path = set(DIST_KERNELS[name])
+    for r in ranks if on_card else ():  # CPU tensors launch nothing
+        missing = [k for k in on_path if not r["launches"][k]]
+        stray = [k for k, v in r["launches"].items() if v and k not in on_path]
+        if missing or stray:
+            raise AssertionError(f"[dist] {name} rank {r['rank']}: kernels not "
+                                 f"launched {missing}, launched off the path "
+                                 f"{stray}: {r['launches']}")
+        if r["launches"]["fused_adam"] != len(r["losses"]):
+            raise AssertionError(f"[dist] {name}: Adam launched "
+                                 f"{r['launches']['fused_adam']} times in "
+                                 f"{len(r['losses'])} steps")
+    return {"max_rel_diff": max(rel), "rel": rel}
+
+
+def dist_kernel_summary(rows: list) -> dict:
+    """Rank 0's step, per kernel: the calls, their ms, plain ms, library
+    ms and bounds summed, per stream and in all."""
+    out = {}
+    for name in sorted({r["kernel"] for r in rows}):
+        mine = [r for r in rows if r["kernel"] == name]
+
+        def total(sel):
+            t = {k: (None if any(r.get(k) is None for r in sel)
+                     else sum(r[k] for r in sel))
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flop")}
+            _, t["bound_by"] = _bound(t["bytes"], t["flop"])
+            t["calls"] = len(sel)
+            t["max_abs_err"] = max(r["max_abs_err"] for r in sel)
+            return t
+
+        out[name] = {**total(mine), "by_stream": {
+            s: total([r for r in mine if r["stream"] == s])
+            for s in sorted({r["stream"] for r in mine})}}
+    return out
+
+
+def distributed_phase(sizes: Sizes, device) -> dict:
+    """Phase 23: runs (a) GCN and (b) GAT on the ogbn-arxiv analog and (c)
+    SAGE-mean on the corafull analog, each on ``DIST_RANKS`` rank processes
+    that share the card (gloo, ``launch/mesh.py:run_ranks``). Two worker
+    processes do the host work (``dist_prepare``) while the single-device
+    programs of the three runs train on the card (``dist_reference``);
+    once the workers have written the ranks' files, one spawn runs every
+    run on every rank (``dist_rank``) while the workers verify the plans
+    in full, and the gates hold each run to the single-device program."""
+    t_phase = time.perf_counter()
+    runs = dist_runs(sizes)
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Manager() as manager, concurrent.futures.ProcessPoolExecutor(
+                2, mp_context=ctx) as pool:
+            ready = manager.Queue()
+            futures = {g: pool.submit(dist_prepare, sizes, g, work, ready)
+                       for g in ("arxiv", "corafull")}
+            refs = {}
+            for graph in ("arxiv", "corafull"):
+                ds = dist_dataset(sizes, graph)
+                for run in dist_runs(sizes, graph):
+                    refs[run["name"]] = dist_reference(run, ds, device)
+                    print(f"[dist] {run['name']} on one device: plan\n"
+                          f"{refs[run['name']]['plan']}\nlosses "
+                          f"{refs[run['name']]['losses']}, epoch "
+                          f"{refs[run['name']]['epoch_ms_median']:.2f} ms")
+                del ds
+            ref_s = time.perf_counter() - t_phase
+            files = {}
+            while len(files) < len(futures):
+                try:
+                    msg = ready.get(timeout=5)
+                except queue.Empty:
+                    for f in futures.values():
+                        if f.done():
+                            f.result()  # a worker that failed raises here
+                    continue
+                files[msg["graph"]] = msg
+            host_s = time.perf_counter() - t_phase
+            specs = []
+            for run in runs:
+                p = files[run["graph"]]["runs"][run["name"]]
+                specs.append({"name": run["name"], "config": p["config"],
+                              "opt": run["opt"], "epochs": run["epochs"],
+                              "weights": refs[run["name"]]["weights"],
+                              "dist_files": p["dist_files"],
+                              "plan_files": p["plan_files"]})
+            # the workers verify the plans in full while the ranks train
+            t0 = time.perf_counter()
+            ranks = run_ranks(dist_rank, DIST_RANKS, (specs,), device=device,
+                              timeout_s=600)
+            ranks_s = time.perf_counter() - t0
+            prep = {g: f.result() for g, f in futures.items()}
+        for g, p in prep.items():
+            print(f"[dist] {g}: {p['nodes']} nodes, partition {json.dumps(p['partition'])}"
+                  f", host {json.dumps(p['host_s'])}, shapes {json.dumps(p['shapes'])}")
+            for name, r in p["runs"].items():
+                print(f"[dist] {name} plan (lowered in {r['lower_s']:.2f}s; verified "
+                      f"fast {r['verify']['fast_ms']:.1f} ms, full "
+                      f"{r['verify']['full_ms']:.1f} ms, 0 violations, beside the "
+                      f"ranks):\n{r['plan']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"runs": {}, "host_s": host_s, "ref_s": ref_s, "ranks_s": ranks_s,
+           "prepare": {g: {k: v for k, v in p.items() if k != "gids"}
+                       for g, p in prep.items()}}
+    for run in runs:
+        name = run["name"]
+        by_rank = [r[name] for r in ranks]
+        prep_run = prep[run["graph"]]["runs"][name]
+        if prep_run["sparse0"] != (name == "sage"):
+            raise AssertionError(f"[dist] {name}: layer 0's path is "
+                                 f"{'sparse' if prep_run['sparse0'] else 'dense'}")
+        grad = dist_gradient_gate(name, refs[name], by_rank, prep[run["graph"]]["gids"])
+        gates = dist_run_gates(name, run, refs[name], by_rank,
+                               device.type == "cuda")
+        launched = {k: sum(r["launches"][k] for r in by_rank) for k in KERNELS}
+        out["runs"][name] = {
+            "graph": run["graph"], "arch": run["arch"], "epochs": run["epochs"],
+            "losses": by_rank[0]["losses"], "ref_losses": refs[name]["losses"],
+            "max_rel_diff": gates["max_rel_diff"], "first_step": grad,
+            "epoch_ms_median": [r["epoch_ms_median"] for r in by_rank],
+            "epoch_ms": [r["epoch_ms"] for r in by_rank],
+            "ref_epoch_ms_median": refs[name]["epoch_ms_median"],
+            "ref_build_s": refs[name]["build_s"],
+            "bind_s": [r["bind_s"] for r in by_rank],
+            "load_s": [r["load_s"] for r in by_rank],
+            "instrumented_step_ms": [r["instrumented_step_ms"] for r in by_rank],
+            "exchanges": [r["exchanges"] for r in by_rank],
+            "operand_blocks": [r["operand_blocks"] for r in by_rank],
+            "peak_mem_bytes": [r["peak_mem_bytes"] for r in by_rank],
+            "launches": launched, "launches_by_rank": [r["launches"] for r in by_rank],
+            "kernels": dist_kernel_summary(by_rank[0]["calls"]),
+            "profiled_step": by_rank[0]["profiled_step"],
+            "calls": by_rank[0]["calls"], "adam": by_rank[0]["adam"],
+            "adam_err": by_rank[0]["adam_err"], "check_s": by_rank[0]["check_s"],
+            "plan": prep_run["plan"], "verify": prep_run["verify"],
+            "lower_s": prep_run["lower_s"],
+            "ref_epoch_ms_alone_median": dist_alone_epoch_ms(refs[name], run["epochs"])}
+        del refs[name]["prog"]
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def distributed_entries(entries: list, p23: dict, alone: bool) -> None:
+    """Phase 23 beside its kernels' entries: each run's launches over its
+    four ranks (paths ``distributed_<run>``), ``max_abs_err`` over rank 0's
+    calls of one step and the Adam check, and each kernel's calls of that
+    step on the split streams (``distributed``: ms, plain ms, library ms,
+    bounds, per stream). Alone (``--phases 23``), the entries take their
+    top-level numbers from the runs that launched them."""
+    by_name = {e["name"]: e for e in entries}
+    for name, run in p23["runs"].items():
+        for e in entries:
+            n = run["launches"][e["name"]]
+            e["launches_by_path"][f"distributed_{name}"] = n
+            e["launches"] += n
+        for k, s in run["kernels"].items():
+            e = by_name[k]
+            e["max_abs_err"] = max(e["max_abs_err"], s["max_abs_err"])
+            e.setdefault("distributed", {})[name] = {
+                **s, "shape": "rank 0's calls of one training step on its "
+                              "interior and boundary streams (4 ranks), summed; "
+                              "CUDA events"}
+        adam = by_name["fused_adam"]
+        adam["max_abs_err"] = max(adam["max_abs_err"], run["adam_err"])
+        adam.setdefault("distributed", {})[name] = {
+            k: run["adam"][k] for k in ("ms", "ms_by", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by", "params")}
+    if not alone:
+        return
+    for e in entries:
+        runs = e.get("distributed")
+        if not runs:
+            continue
+        first = next(iter(runs.values()))
+        e.update({"route": "cuda", "source": SOURCES[e["name"]][0],
+                  "replaces": SOURCES[e["name"]][1]})
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+            e[k] = first[k]
+
+
+def print_distributed_summary(m: dict, card: str) -> None:
+    """Phase 23's lines: per run the epochs of every rank beside the
+    single-device epoch, the first step's gaps, the exchange per layer on
+    rank 0 and whether the interior kernel ran inside the wire's window,
+    each kernel's ms on the split streams, the host's seconds."""
+    for g, p in m["prepare"].items():
+        print(f"[dist] {g}: partition {p['partition']['phase']} in "
+              f"{p['host_s']['partition_s']:.1f}s, builds "
+              + ", ".join(f"{k} {v:.1f}s" for k, v in p["host_s"].items()
+                          if k.startswith("build"))
+              + f" on the host (worker processes) on {card}")
+    for name, r in m["runs"].items():
+        fs = r["first_step"]
+        print(f"[dist] {name} ({r['arch']} on {r['graph']}, 4 ranks on one card): epoch "
+              f"{', '.join(f'{x:.1f}' for x in r['epoch_ms_median'])} ms by rank "
+              f"(one device {r['ref_epoch_ms_alone_median']:.2f} ms alone, "
+              f"{r['ref_epoch_ms_median']:.2f} beside the host's workers), losses "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, max rel diff "
+              f"{r['max_rel_diff']:.2e}, first loss gap {fs['loss_diff']:.2e}, "
+              f"grads {max(fs['grads'].values()):.2e} on {card}")
+        ps = r["profiled_step"]
+        if ps["complete"]:
+            print(f"[dist] {name} rank 0 profiled step: {ps['step_ms']:.1f} ms, the card "
+                  f"busy {ps['busy_ms']:.2f} ms with this rank's work (idle "
+                  f"{ps['idle_share']:.1%}): " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sorted(ps["device_ms"].items(),
+                                                        key=lambda kv: -kv[1])))
+        else:
+            print(f"[dist] {name} rank 0 profiled step: not measured")
+        for e in r["exchanges"][0]:
+            print(f"[dist] {name} rank 0 layer {e['layer']} {e['dir']} (F {e['f']}, "
+                  f"{e['bytes'] / 2**20:.1f} MiB out): pack {e['pack_ms']:.2f} ms, "
+                  f"wire {e['wire_ms']:.2f}, copy in {e['copy_in_ms']:.2f}"
+                  + (f", interior kernel {e['interior_ms']:.3f} ms, started in the "
+                     f"wire {e['probe_started_in_wire']}, done "
+                     f"{e['probe_done_in_wire']}" if "interior_ms" in e else ""))
+        for k, s in r["kernels"].items():
+            print(f"[dist] {name} {k}: {s['calls']} calls a step on rank 0, "
+                  f"{s['ms']:.3f} ms (plain {s['plain_ms']:.1f}, library "
+                  f"{'-' if s['library_ms'] is None else format(s['library_ms'], '.3f')}"
+                  f", bound {s['bound_ms']:.3f}): "
+                  + "; ".join(f"{st} {v['ms']:.3f}" for st, v in s["by_stream"].items()))
+    print(f"[dist] phase 23 in {m['s']:.1f}s: host {m['host_s']:.1f}s (one device "
+          f"{m['ref_s']:.1f}s beside it), ranks {m['ranks_s']:.1f}s")
+
+
 def run(sizes: Sizes, device, phases: str = "all") -> dict:
-    """Phases 2 to 22 at ``sizes`` on ``device`` (phase 20, 21 or 22 alone
-    where ``phases`` is "20", "21" or "22": the kernels line then holds
-    that phase's launches and numbers alone); returns the kernels line and
-    the details. Phases 20, 21 and 22 each start after the phases before
-    them have returned, so that nothing those held stays on the card."""
-    if phases in ("20", "21", "22"):
+    """Phases 2 to 23 at ``sizes`` on ``device`` (phase 20, 21, 22 or 23
+    alone where ``phases`` names it: the kernels line then holds that
+    phase's launches and numbers alone); returns the kernels line and
+    the details. Phases 20 to 23 each start after the phases before them
+    have returned, so that nothing those held stays on the card."""
+    if phases in ("20", "21", "22", "23"):
         result = {"phase_s": {}, "kernels": [
             {"name": name, "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0}
             for name in KERNELS]}
@@ -5097,6 +5867,12 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
         result["phase_s"]["22"] = time.perf_counter() - t0
         encdec_entries(result["kernels"], encdec)
         result["encdec"] = encdec
+    if phases in ("all", "23"):
+        t0 = time.perf_counter()
+        dist = distributed_phase(sizes, device)
+        result["phase_s"]["23"] = time.perf_counter() - t0
+        distributed_entries(result["kernels"], dist, alone=phases == "23")
+        result["distributed"] = dist
     return result
 
 
@@ -5444,6 +6220,7 @@ def print_summary(result: dict, card: str) -> None:
     print_moe_summary(result["moe"], card)
     print_hybrid_summary(result["hybrid"], card)
     print_encdec_summary(result["encdec"], card)
+    print_distributed_summary(result["distributed"], card)
 
 
 def print_moe_summary(m: dict, card: str) -> None:
@@ -5541,13 +6318,16 @@ def print_encdec_summary(m: dict, card: str) -> None:
 
 #: the libraries phases 20, 21 and 22 run
 MOE_LIBRARIES = ("flash_attention", "fused_adam")
+#: the libraries phase 23 runs
+DIST_LIBRARIES = ("bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "bsr_attention",
+                  "fused_adam")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", choices=("all", "20", "21", "22"), default="all",
-                    help="every phase (the default), or phase 20, 21 or 22 alone after "
-                         "building their two libraries")
+    ap.add_argument("--phases", choices=("all", "20", "21", "22", "23"), default="all",
+                    help="every phase (the default), or phase 20, 21, 22 or 23 alone "
+                         "after building the libraries it runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -5557,7 +6337,8 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"[card] {card}")
     t0 = time.perf_counter()
-    libraries = LIBRARIES if args.phases == "all" else MOE_LIBRARIES
+    libraries = (LIBRARIES if args.phases == "all" else
+                 DIST_LIBRARIES if args.phases == "23" else MOE_LIBRARIES)
     built = build.build(libraries)
     print(f"[build] nvcc sm_90a, in parallel, {time.perf_counter() - t0:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in built.items()))
@@ -5586,9 +6367,11 @@ def main(argv=None) -> int:
         print_moe_summary(result["moe"], card)
     elif args.phases == "21":
         print_hybrid_summary(result["hybrid"], card)
-    else:
+    elif args.phases == "22":
         print_encdec_summary(result["encdec"], card)
-    print(f"[done] phases {'2-22' if args.phases == 'all' else args.phases} in "
+    else:
+        print_distributed_summary(result["distributed"], card)
+    print(f"[done] phases {'2-23' if args.phases == 'all' else args.phases} in "
           f"{time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -9,6 +9,9 @@ Each backend is a registered object serving the shared op vocabulary
                ``xla``): the reference the ``cuda`` backend is held against
 * ``gather`` — edge-list gather + ``index_add_`` (the PyG/DGL baseline)
 
+and ``distributed`` (``DIST_OP_VOCABULARY``), which ``lower_distributed``
+asks for by name and ``select_backend(None)`` never picks.
+
 Unlike the JAX registry there is no platform auto-selection: ``None``
 selects ``cuda``, and the device operands are built on is the caller's
 choice (``repro_torch.resolve_device``: CUDA unless asked). Parts still
@@ -33,6 +36,19 @@ OP_VOCABULARY = (
     "spmm_attention",
     "feature_matmul_sparse",
     "feature_matmul_dense",
+)
+
+#: the distributed (MPI-analog) op vocabulary (DESIGN.md §6), served by
+#: ``backends/distributed.py`` as halo-exchange compositions of one rank's
+#: local primitives; ``lower_distributed`` binds these per layer
+DIST_OP_VOCABULARY = (
+    "dist_spmm",
+    "dist_spmm_transposed_vjp",
+    "dist_spmm_fused_epilogue",
+    "dist_segment_softmax_aggregate",
+    "dist_spmm_attention",
+    "dist_segment_max",
+    "dist_feature_matmul_sparse",
 )
 
 DIST_ITEM = "ROADMAP.md Queue 1, item 7 (distributed)"

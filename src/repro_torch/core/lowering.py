@@ -1,7 +1,9 @@
 """The lowering pass: GNN spec -> per-layer plans (DESIGN.md §3, §7).
 
 Counterpart of ``repro/core/lowering.py``'s ``lower`` (full batch: a
-``ModelPlan``) and ``lower_sampled`` (mini-batch: a ``SampledModelPlan``).
+``ModelPlan``), ``lower_sampled`` (mini-batch: a ``SampledModelPlan``)
+and ``lower_distributed`` (node-sharded over P ranks: a
+``DistributedModelPlan``).
 A spec becomes per-layer ``LayerPlan`` records naming the feature path,
 the backend primitives and the epilogue binding, with the same
 Algorithm-1 decisions as the JAX package (measured input sparsity for
@@ -14,10 +16,9 @@ attention archs bind the fused ``spmm_attention`` on ``cuda``/``torch``
 (an ``AttentionPlan`` per layer), the sampled path over each batch's
 padded (A, Aᵀ) pair, and ``max`` binds ``gather.segment_max``.
 ``layout="auto"`` runs the layout stage (``core/layout.py:plan_layout``:
-node order and a tile timed on this device, cached on disk). Both
-lowerings check the plan they return (``core/verify.py:check_plan``,
-``validate="fast"`` by default, as in the JAX package). The distributed
-lowering waits for ROADMAP.md Queue 1, item 7.
+node order and a tile timed on this device, cached on disk). Every
+lowering checks the plan it returns (``core/verify.py:check_plan``,
+``validate="fast"`` by default, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -101,6 +102,37 @@ def is_attention_arch(kind: str) -> bool:
     return kind in ("GAT", "GT")
 
 
+@dataclasses.dataclass(frozen=True)
+class OverlapPlan:
+    """The distributed plan's split-phase execution record (DESIGN.md §11).
+
+    Declares that every matmul / attention aggregation layer runs the
+    interior product (local columns only) while the halo exchange is on
+    the wire, then the boundary product once the ghosts have landed,
+    forward and backward (``backends/distributed.py``). ``live_shifts`` is
+    the host-computed set of ring shifts with at least one live send on
+    any rank; dead shifts are not posted. ``double_buffer_slots`` is the
+    depth of the trainer's ``GhostBufferRing``. ``prefetch_depth`` > 0
+    marks host-streamed operands (not ported: ROADMAP.md Queue 1, item 7).
+    """
+
+    interior_blocks: int        # fleet-total interior stream length
+    boundary_blocks: int        # fleet-total boundary stream length
+    live_shifts: tuple          # ring shifts actually posted
+    total_shifts: int           # P - 1
+    double_buffer_slots: int = 2
+    prefetch_depth: int = 0     # 0 = device-resident operands
+
+    def describe(self) -> str:
+        line = (f"split-phase int={self.interior_blocks}b "
+                f"bnd={self.boundary_blocks}b "
+                f"shifts={len(self.live_shifts)}/{self.total_shifts} "
+                f"ghost-slots={self.double_buffer_slots}")
+        if self.prefetch_depth:
+            line += f" prefetch={self.prefetch_depth}"
+        return line
+
+
 @dataclasses.dataclass
 class LayerPlan:
     """One layer's synthesized execution record."""
@@ -173,6 +205,69 @@ class ModelPlan:
             f"input_sparsity={self.feature_sparsity:.3f} "
             f"layers={len(self.layers)}"
         )
+        return "\n".join([head] + ["  " + l.describe() for l in self.layers])
+
+
+@dataclasses.dataclass
+class DistributedModelPlan:
+    """The synthesized *distributed* program: per-layer plans whose
+    aggregation primitives are the halo-exchange compositions of
+    ``backends/distributed.py``, plus the stacked per-rank sparse operands
+    of the layer-0 Alg-1 input path (DESIGN.md §6). Host arrays: each
+    rank binds its own slice on its device (``DistributedGNNTrainer``)."""
+
+    layers: list[LayerPlan]
+    backend: str            # "distributed"
+    inner: str              # the local executor: "cuda" | "torch"
+    gamma: float
+    arch: str
+    aggregation: str
+    n_ranks: int
+    feature_sparsity: float             # pooled over valid rows, all ranks
+    per_rank_sparsity: np.ndarray       # [P] measured per-rank input sparsity
+    # stacked per-rank BSR(X_local) / BSR(X_localᵀ): bound iff layer 0 took
+    # the sparse path
+    feat_fwd: Optional[dict] = dataclasses.field(default=None, repr=False)
+    feat_bwd: Optional[dict] = dataclasses.field(default=None, repr=False)
+    feat_f_pad: int = 0                 # shared padded feature dim of the pair
+    # within-rank order + the tile the stacked operands were built at; the
+    # permutation is baked into the data distribution (perm=None here)
+    layout: Optional[LayoutPlan] = None
+    # split-phase overlap record; None = bulk-synchronous (overlap=False,
+    # a DistributedGraph without split operands, or an aggregation with no
+    # overlapped composition)
+    overlap: Optional[OverlapPlan] = None
+    # the one rank whose feat_fwd / feat_bwd this plan holds (rank_slice)
+    rank: Optional[int] = None
+
+    @property
+    def input_decision(self) -> SparsityDecision:
+        return self.layers[0].decision
+
+    def rank_slice(self, rank: int) -> "DistributedModelPlan":
+        """The plan with rank ``rank``'s X_local operands alone (at index
+        0), what its rank process binds; the decisions stay the fleet's."""
+        if self.rank is not None:
+            raise ValueError(f"already the slice of rank {self.rank}")
+
+        def one(d):
+            return None if d is None else {
+                k: np.ascontiguousarray(v[rank:rank + 1]) for k, v in d.items()}
+
+        return dataclasses.replace(self, feat_fwd=one(self.feat_fwd),
+                                   feat_bwd=one(self.feat_bwd), rank=rank)
+
+    def describe(self) -> str:
+        s = self.per_rank_sparsity
+        head = (
+            f"DistributedModelPlan: arch={self.arch} backend={self.backend} "
+            f"inner={self.inner} ranks={self.n_ranks} "
+            f"aggregation={self.aggregation} gamma={self.gamma:.2f} "
+            f"input_sparsity={self.feature_sparsity:.3f} "
+            f"per_rank_s=[{s.min():.3f}, {s.max():.3f}] layers={len(self.layers)}"
+        )
+        if self.overlap is not None:
+            head += f"\n  overlap[{self.overlap.describe()}]"
         return "\n".join([head] + ["  " + l.describe() for l in self.layers])
 
 
@@ -406,6 +501,193 @@ def effective_aggregation(config) -> str:
     if config.kind == "GIN":
         return "sum"
     return config.aggregation
+
+
+def lower_distributed(
+    config,
+    dist,  # core.halo.DistributedGraph
+    features: Optional[np.ndarray] = None,  # [P, n_local, F]; default dist's
+    *,
+    gamma: float = PAPER_GAMMA_DEFAULT,
+    inner: Optional[str] = None,
+    use_sparse_input: bool = True,
+    fuse_epilogue: bool = True,
+    fuse_attention: bool = True,
+    overlap: bool = True,
+    validate: str = "fast",
+) -> DistributedModelPlan:
+    """Lower a GNN spec onto the distributed backend, on the host, over
+    every rank's arrays (the whole ``DistributedGraph``, not a rank's
+    slice).
+
+    The Alg-1 layer-0 decision runs on *per-rank* feature statistics
+    (padding rows excluded via ``dist.n_valid``). The ranks run one
+    program, so the sparse input path binds iff **every** rank decides
+    sparse; a mixed fleet falls back to dense with the per-rank spread in
+    the plan note. When the sparse path binds, the per-rank
+    BSR(X_local)/BSR(X_localᵀ) pairs are built here, stacked on the rank
+    axis like the graph operands.
+
+    ``overlap=True`` binds the split-phase compositions, recorded as an
+    ``OverlapPlan``; it falls back to the bulk-synchronous primitives
+    when the graph carries no split operands, or for ``max`` and the
+    unfused segment attention, which read the ghost buffer directly.
+    ``inner`` names the local executor (``cuda`` where a card is
+    present, else ``torch``: ``DistributedBackend.inner``)."""
+    from repro_torch.backends import get_backend
+    from repro_torch.core.halo import stack_bsr_matrices
+    from repro_torch.graph.csr import csr_from_dense, csr_to_bsr
+
+    if getattr(dist, "rank", None) is not None:
+        raise ValueError("lower_distributed needs every rank's arrays, not "
+                         f"the slice of rank {dist.rank}")
+    backend = get_backend("distributed")
+    inner_name = inner or backend.inner()
+    kind = config.kind
+    dims = list(config.layer_dims)
+    P = dist.n_ranks
+
+    agg = effective_aggregation(config)
+    if dist.aggregation not in ("sum", agg):
+        raise ValueError(
+            f"DistributedGraph was weighted for {dist.aggregation!r} but the "
+            f"spec needs {agg!r}; rebuild with build_distributed_graph(..., "
+            f"aggregation={agg!r})")
+
+    emit_epilogue = fuse_epilogue and epilogue_fusable(config, agg)
+    is_attn = is_attention_arch(kind)
+    emit_attn = fuse_attention and is_attn
+    split_built = getattr(dist, "fwd_interior", None) is not None
+    emit_overlap = (overlap and split_built and agg != "max"
+                    and (emit_attn if is_attn else True))
+    if is_attn:
+        if emit_attn:
+            agg_primitive = ("distributed.dist_spmm_attention_split"
+                             if emit_overlap
+                             else "distributed.dist_spmm_attention")
+        else:
+            agg_primitive = "distributed.dist_segment_softmax_aggregate"
+    elif agg == "max":
+        agg_primitive = "distributed.dist_segment_max"
+    elif emit_epilogue:
+        agg_primitive = ("distributed.dist_spmm_fused_epilogue_split"
+                         if emit_overlap
+                         else "distributed.dist_spmm_fused_epilogue")
+    else:
+        agg_primitive = ("distributed.dist_spmm_split_transposed_vjp"
+                         if emit_overlap
+                         else "distributed.dist_spmm_transposed_vjp")
+
+    overlap_plan = None
+    if emit_overlap:
+        overlap_plan = OverlapPlan(
+            interior_blocks=int(np.asarray(dist.interior_blocks).sum()),
+            boundary_blocks=int(np.asarray(dist.boundary_blocks).sum()),
+            live_shifts=tuple(dist.live_shifts or ()),
+            total_shifts=P - 1,
+        )
+
+    feats = np.asarray(dist.features if features is None else features)
+    if feats.shape[0] != P or feats.shape[1] != dist.n_local:
+        raise ValueError(
+            f"features must be rank-stacked [P={P}, n_local={dist.n_local}, F]")
+    f_dim = feats.shape[-1]
+    if dims[0] != f_dim:
+        raise ValueError(f"layer_dims[0]={dims[0]} != feature dim {f_dim}")
+
+    # within-rank order + tile the stacked operands were built at; the
+    # permutation is baked into the data distribution (no perm here)
+    lp = LayoutPlan(order=getattr(dist, "reorder", "none"),
+                    br=dist.br, bc=dist.bc, bf=0, source="distributed")
+
+    n_valid = (np.asarray(dist.n_valid) if dist.n_valid is not None
+               else np.full(P, dist.n_local))
+    per_rank_s = np.zeros(P)
+    nnz_total = 0
+    for p in range(P):
+        rows = feats[p, : n_valid[p]]
+        nnz = np.count_nonzero(rows)
+        per_rank_s[p] = 1.0 - nnz / max(rows.size, 1)
+        nnz_total += nnz
+    pooled_s = 1.0 - nnz_total / max(int(n_valid.sum()) * f_dim, 1)
+
+    rank_decisions = [
+        decide_execution_path_from_stats(
+            per_rank_s[p], int(n_valid[p]), dims[0], dims[1], gamma=gamma)
+        for p in range(P)
+    ]
+    all_sparse = all(d.mode == "sparse" for d in rank_decisions)
+
+    feat_fwd = feat_bwd = None
+    f_pad = 0
+    layers: list[LayerPlan] = []
+    for i in range(config.n_layers):
+        d_in, d_out = dims[i], dims[i + 1]
+        if i == 0:
+            decision = decide_execution_path_from_stats(
+                pooled_s, int(n_valid.sum()), d_in, d_out, gamma=gamma)
+        else:
+            s_est = estimate_activation_sparsity(config.activation)
+            decision = decide_execution_path_from_stats(
+                s_est, int(n_valid.sum()), d_in, d_out, gamma=gamma)
+
+        path, primitive, note = "dense", "distributed.feature_matmul_dense", ""
+        if i == 0 and decision.mode == "sparse":
+            expressible, expr_note = _sparse_expressible(kind)
+            if not use_sparse_input:
+                note = "sparse profitable but disabled (use_sparse_input=False)"
+            elif not expressible:
+                note = expr_note
+            elif not all_sparse:
+                note = (f"mixed fleet: {sum(d.mode == 'sparse' for d in rank_decisions)}"
+                        f"/{P} ranks sparse — SPMD-uniform dense fallback")
+            else:
+                # the stacked per-rank sparse operands, built once, here
+                br, bc = dist.br, dist.bc
+                mult = int(np.lcm(br, bc))
+                f_pad = -(-f_dim // mult) * mult
+                fwd_stack, bwd_stack = [], []
+                for p in range(P):
+                    x_csr = csr_from_dense(feats[p])
+                    x_csr = dataclasses.replace(x_csr, n_cols=f_pad)
+                    fwd_stack.append(csr_to_bsr(x_csr, br=br, bc=bc))
+                    bwd_stack.append(csr_to_bsr(x_csr.transpose(), br=br, bc=bc))
+                feat_fwd = stack_bsr_matrices(fwd_stack, br, bc)
+                feat_bwd = stack_bsr_matrices(bwd_stack, br, bc)
+                path = "sparse"
+                primitive = "distributed.dist_feature_matmul_sparse"
+                note = (f"per-rank BSR(X_local); s in "
+                        f"[{per_rank_s.min():.3f}, {per_rank_s.max():.3f}]")
+                if expr_note:
+                    note += f"; {expr_note}"
+        elif decision.mode == "sparse":
+            note = ("sparse profitable but activations are runtime values; "
+                    "no pre-built operand — dense fallback")
+
+        epilogue = None
+        if emit_epilogue:
+            epilogue = _epilogue_binding(
+                config, is_last=(i == config.n_layers - 1),
+                sparse_path=(path == "sparse"))
+        attention = None
+        if is_attn:
+            attention = _attention_binding(config.gat_heads, d_out, emit_attn)
+
+        layers.append(LayerPlan(
+            index=i, op_kind=kind, d_in=d_in, d_out=d_out,
+            feature_path=path, primitive=primitive,
+            agg_primitive=agg_primitive, decision=decision, note=note,
+            epilogue=epilogue, attention=attention, layout=lp,
+        ))
+
+    plan = DistributedModelPlan(
+        layers=layers, backend="distributed", inner=inner_name, gamma=gamma,
+        arch=kind, aggregation=agg, n_ranks=P, feature_sparsity=pooled_s,
+        per_rank_sparsity=per_rank_s, feat_fwd=feat_fwd, feat_bwd=feat_bwd,
+        feat_f_pad=f_pad, layout=lp, overlap=overlap_plan,
+    )
+    check_plan(plan, mode=validate, dist=dist)
+    return plan
 
 
 def epilogue_fusable(config, aggregation: str) -> bool:

@@ -34,8 +34,16 @@ an X row past the end or a stream that no longer matches its blocks
 (``dataclasses.replace(dev, blocks=...)`` keeps the old ``nzc``) give
 wrong sums silently otherwise. The sampler's dicts keep their
 ``first`` flags (the sampler is the JAX package's, byte for byte), so
-``bsr.first_in_row`` stays for them. The distributed checks (``split.*``,
-``halo.*``) come with ROADMAP.md Queue 1, item 7.
+``bsr.first_in_row`` stays for them.
+
+A ``DistributedModelPlan`` is checked against its ``DistributedGraph``
+(``dist=``), whose stacked per-rank operands are host arrays: each
+rank's block streams, the split-phase rules (``split.*``: the interior
+stream reads no ghost column, interior plus boundary re-add to the bulk
+operand, the live shifts match the schedule) and the halo schedule
+(``halo.*``: every send paired with a receive, every ghost slot written
+by one sender), as in the JAX package. The column streams a rank reads
+are built on its device when its trainer binds them, from these blocks.
 
 ``verify_plan`` returns the violation list; ``check_plan`` raises
 :class:`PlanVerificationError` carrying it. Plans are dispatched by shape,
@@ -49,7 +57,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.backends.registry import DIST_ITEM, not_ported
 from repro_torch.core.aggregate import _weighted_graph
 from repro_torch.kernels.bsr_spmm import SPLIT_COLUMNS, nonzero_columns
 
@@ -104,6 +111,14 @@ INVARIANT_CATALOG = {
     "binding.dim_chain": "layer i's d_out feeds layer i+1's d_in",
     "binding.operand_dtype": "operand blocks / features are float32",
     "binding.primitive": "bound primitives name the plan's backend",
+    # distributed split-phase + halo schedule
+    "split.interior_no_ghost": "interior operand never reads a ghost column",
+    "split.reconstruction": "interior + boundary blocks reconstruct the "
+                            "bulk operand exactly",
+    "split.live_shifts": "live-shift set matches the halo schedule",
+    "halo.schedule_paired": "every live send slot has a matching recv slot "
+                            "on the destination rank",
+    "halo.slot_unique": "each ghost slot is written by exactly one sender",
 }
 
 
@@ -678,6 +693,207 @@ def _verify_model_plan(v: _Ctx, plan, graph) -> None:
                 _check_operand_rows(v, name, dev, masses[side])
 
 
+def _stacked_fast_clean(d: dict, nrb: int, ncb: int) -> bool:
+    """One vectorised screening pass over a stacked per-rank BSR dict
+    ``{"rows": [P, n], "cols": [P, n], "first": [P, n]}``: True when every
+    fast-mode invariant holds on every rank. On any failure the caller
+    re-runs the per-rank checker for exact (rank, block) diagnostics; the
+    screening itself never flags."""
+    rows = np.asarray(d["rows"])
+    cols = np.asarray(d["cols"])
+    first = np.asarray(d["first"]) if d.get("first") is not None else None
+    if rows.dtype != np.int32 or cols.dtype != np.int32:
+        return False
+    if rows.ndim != 2 or rows.shape[1] == 0:
+        return False
+    r = rows.astype(np.int64, copy=False)
+    c = cols.astype(np.int64, copy=False)
+    if r.min() < 0 or r.max() >= nrb or c.min() < 0 or c.max() >= ncb:
+        return False
+    same_row = r[:, 1:] == r[:, :-1]
+    if not (r[:, 1:] >= r[:, :-1]).all():
+        return False
+    noninc = same_row & (c[:, 1:] <= c[:, :-1])
+    if noninc.any():
+        pad_sig = c[:, 1:] == 0  # appended padding blocks: col=0, first=0
+        if first is not None:
+            pad_sig &= first[:, 1:] == 0
+        if (noninc & ~pad_sig).any():
+            return False
+    if first is not None:
+        if first.dtype != np.int32:
+            return False
+        want = np.ones(rows.shape, dtype=bool)
+        want[:, 1:] = ~same_row
+        if not np.array_equal(first.astype(bool), want):
+            return False
+    P = rows.shape[0]
+    counts = np.bincount(
+        (r + np.arange(P, dtype=np.int64)[:, None] * nrb).ravel(),
+        minlength=P * nrb)
+    return bool((counts > 0).all())
+
+
+def _live_shift_set(send_idx: np.ndarray) -> tuple:
+    P = send_idx.shape[0]
+    return tuple(int(s) for s in range(1, P)
+                 if bool((send_idx[:, s - 1] >= 0).any()))
+
+
+def _verify_distributed_plan(v: _Ctx, plan, dist) -> None:
+    _check_bindings(v, plan, ("distributed", "gather"))
+    _check_layout(v, plan.layout, None)
+    if dist is None:
+        return
+    if getattr(dist, "rank", None) is not None:
+        raise ValueError("verify a distributed plan against every rank's "
+                         f"arrays, not the slice of rank {dist.rank}")
+
+    P = dist.n_ranks
+    br, bc = dist.br, dist.bc
+    n_local, n_ghost = dist.n_local, dist.n_ghost
+    lp = plan.layout
+    if lp is not None and (lp.br != br or lp.bc != bc):
+        v.flag(-1, "layout", "layout.tile_match",
+               f"plan layout tile ({lp.br}, {lp.bc}) != DistributedGraph "
+               f"tile ({br}, {bc})")
+
+    def stacked(name, d, nrb, ncb):
+        if d is None:
+            return
+        # fast mode: one vectorised pass over all ranks; drop to the
+        # per-rank checker only to name the failing (rank, block)
+        if not v.full and _stacked_fast_clean(d, nrb, ncb):
+            return
+        firsts = d.get("first")
+        for p in range(P):
+            rows, cols = np.asarray(d["rows"][p]), np.asarray(d["cols"][p])
+            op = f"{name}[rank {p}]"
+            _check_bsr_stream(
+                v, op, rows, cols,
+                None if firsts is None else np.asarray(firsts[p]), nrb, ncb,
+                padded=True)
+            if v.full:
+                _check_bsr_values(
+                    v, op, torch.from_numpy(rows),
+                    torch.from_numpy(np.asarray(d["blocks"][p])), nrb, ncb,
+                    cols=torch.from_numpy(cols), n_rows=nrb * br,
+                    n_cols=ncb * bc)
+
+    nrb_l = n_local // br
+    ncb_l = n_local // bc
+    ncb_lg = (n_local + n_ghost) // bc
+    nrb_lg = (n_local + n_ghost) // br
+    stacked("fwd", dist.fwd, nrb_l, ncb_lg)
+    stacked("bwd", dist.bwd, nrb_lg, ncb_l)
+    if plan.feat_fwd is not None:
+        f_pad = plan.feat_f_pad
+        stacked("feat_fwd", plan.feat_fwd, nrb_l, max(f_pad // bc, 1))
+        stacked("feat_bwd", plan.feat_bwd, max(f_pad // br, 1), ncb_l)
+
+    # -- split-phase rules ---------------------------------------------------
+    if dist.fwd_interior is not None:
+        cols_i = np.asarray(dist.fwd_interior["cols"], dtype=np.int64)
+        if cols_i.size and int(cols_i.max()) >= ncb_l:
+            v.flag(-1, "fwd_interior", "split.interior_no_ghost",
+                   f"interior block-col {int(cols_i.max())} reaches into "
+                   f"the ghost region (local block-cols end at {ncb_l})")
+        stacked("fwd_interior", dist.fwd_interior, nrb_l, ncb_l)
+        stacked("bwd_interior", dist.bwd_interior, nrb_l, ncb_l)
+        stacked("fwd_boundary", dist.fwd_boundary, nrb_l, ncb_lg)
+        stacked("bwd_boundary", dist.bwd_boundary, nrb_lg, ncb_l)
+        if v.full:
+            _check_split_reconstruction(v, dist, nrb_l, ncb_lg)
+
+    # -- halo schedule -------------------------------------------------------
+    send_idx = np.asarray(dist.send_idx)
+    recv_slot = np.asarray(dist.recv_slot)
+    for s in range(1, P):
+        for o in range(P):
+            r = (o + s) % P
+            ms = send_idx[o, s - 1] >= 0
+            mr = recv_slot[r, s - 1] >= 0
+            if not np.array_equal(ms, mr):
+                v.flag(-1, f"halo[shift {s}]", "halo.schedule_paired",
+                       f"rank {o} sends {int(ms.sum())} rows at shift {s} "
+                       f"but rank {r} receives {int(mr.sum())}")
+    for p in range(P):
+        slots = recv_slot[p][recv_slot[p] >= 0]
+        if slots.size != np.unique(slots).size:
+            v.flag(-1, f"halo[rank {p}]", "halo.slot_unique",
+                   f"rank {p} has ghost slots written by multiple senders")
+        if slots.size and int(slots.max()) >= n_ghost:
+            v.flag(-1, f"halo[rank {p}]", "halo.schedule_paired",
+                   f"recv slot {int(slots.max())} outside ghost region "
+                   f"[0, {n_ghost})")
+
+    live = _live_shift_set(send_idx)
+    if dist.live_shifts is not None and tuple(dist.live_shifts) != live:
+        v.flag(-1, "live_shifts", "split.live_shifts",
+               f"DistributedGraph.live_shifts={tuple(dist.live_shifts)} "
+               f"but the halo schedule says {live}")
+    if plan.overlap is not None and tuple(plan.overlap.live_shifts) != live:
+        v.flag(-1, "overlap", "split.live_shifts",
+               f"OverlapPlan.live_shifts={tuple(plan.overlap.live_shifts)} "
+               f"but the halo schedule says {live}")
+
+
+def _cells(rows, cols, blocks, nrb: int, ncb: int) -> tuple:
+    """(keys, blocks): a stream's blocks that hold a nonzero, keyed
+    ``row * ncb + col`` and sorted; a cell stored twice is summed (in
+    float64). Zero blocks (the explicit ones of empty block-rows, the
+    stacks' padding) hold nothing to reconstruct and are left out, so a
+    rank's arxiv-sized streams are compared at their own size, not over
+    the dense nrb x ncb grid."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    blocks = np.asarray(blocks)
+    keep = ((rows >= 0) & (rows < nrb) & (cols >= 0) & (cols < ncb)
+            & blocks.reshape(blocks.shape[0], -1).any(axis=1))
+    key = rows[keep] * ncb + cols[keep]
+    order = np.argsort(key, kind="stable")
+    key, vals = key[order], blocks[keep][order]
+    if key.size and bool((key[1:] == key[:-1]).any()):
+        key, start = np.unique(key, return_index=True)
+        vals = np.add.reduceat(vals.astype(np.float64), start, axis=0)
+    return key, vals
+
+
+def _check_split_reconstruction(v: _Ctx, dist, nrb, ncb) -> None:
+    """interior + boundary must re-add to the bulk forward operand, block
+    by block — the y_int + y_bnd == y_bulk stitching contract."""
+    ncb_l = dist.n_local // dist.bc
+    for p in range(dist.n_ranks):
+        bulk_k, bulk_b = _cells(dist.fwd["rows"][p], dist.fwd["cols"][p],
+                                dist.fwd["blocks"][p], nrb, ncb)
+        # interior block-cols index the local columns, which lead the
+        # bulk's: they key into the bulk's grid as they are
+        ic = np.asarray(dist.fwd_interior["cols"][p])
+        ik = ic < ncb_l
+        got_k, got_b = _cells(
+            np.concatenate([np.asarray(dist.fwd_boundary["rows"][p]),
+                            np.asarray(dist.fwd_interior["rows"][p])[ik]]),
+            np.concatenate([np.asarray(dist.fwd_boundary["cols"][p]), ic[ik]]),
+            np.concatenate([np.asarray(dist.fwd_boundary["blocks"][p]),
+                            np.asarray(dist.fwd_interior["blocks"][p])[ik]]),
+            nrb, ncb)
+        if np.array_equal(bulk_k, got_k) and (
+                np.array_equal(bulk_b, got_b)
+                or np.allclose(got_b, bulk_b, rtol=1e-5, atol=1e-6)):
+            continue
+        keys = np.union1d(bulk_k, got_k)
+        want = np.zeros((keys.size, dist.br, dist.bc))
+        have = np.zeros_like(want)
+        want[np.searchsorted(keys, bulk_k)] = bulk_b
+        have[np.searchsorted(keys, got_k)] = got_b
+        if not np.allclose(have, want, rtol=1e-5, atol=1e-6):
+            bad = int(keys[np.argmax(np.abs(have - want).sum(axis=(1, 2)))])
+            v.flag(-1, f"split[rank {p}]", "split.reconstruction",
+                   f"interior + boundary != bulk at block "
+                   f"(row {bad // ncb}, col {bad % ncb})")
+            return
+
+
 def _verify_sampled_plan(v: _Ctx, plan, device) -> None:
     _check_bindings(v, plan, (plan.backend, "gather"))
     sampler = plan.sampler
@@ -866,20 +1082,19 @@ def verify_plan(plan, *, mode: str = "fast", graph=None,
     from (post-reorder). A ``ModelPlan``'s checks run where its operands
     are; a sampled plan's full-mode template batch builds its column
     streams on the plan's ``device``, where the trainer builds a batch's
-    (None: the host). ``dist`` (a distributed plan's
-    graph) is ROADMAP.md Queue 1, item 7, and raises. Dispatch is
-    structural: an object with ``sampler`` / ``graph_op`` is the
-    corresponding family.
+    (None: the host). ``dist`` is the ``DistributedGraph`` behind a
+    ``DistributedModelPlan`` (the plan does not carry the stacked
+    operands), every rank's. Dispatch is structural: an object with
+    ``sampler`` / ``n_ranks`` / ``graph_op`` is the corresponding family.
     """
     mode = _resolve_mode(mode)
-    if dist is not None or hasattr(plan, "n_ranks"):
-        raise not_ported("verifying a distributed plan (split.*, halo.*)",
-                         DIST_ITEM)
     v = _Ctx(mode)
     if mode == "off":
         return []
     if hasattr(plan, "sampler"):
         _verify_sampled_plan(v, plan, torch.device(plan.device or "cpu"))
+    elif hasattr(plan, "n_ranks"):
+        _verify_distributed_plan(v, plan, dist)
     elif hasattr(plan, "graph_op"):
         _verify_model_plan(v, plan, graph)
     else:

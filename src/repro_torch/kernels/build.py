@@ -7,6 +7,14 @@ covers every file under ``csrc/`` and the flags, so an edited source is
 rebuilt and a stale library is never loaded. Sources that need a build are
 compiled in parallel, one ``nvcc`` each, all started together. Nothing
 here runs at import time: the CPU tests import every module.
+
+Several processes may build and load at once (the rank processes of
+``launch/mesh.py``): ``nvcc`` writes to a name of its own process's
+(``.tmp<pid>``), renamed onto the library's name in one step once it is
+complete, so no process ever loads a half-written library; two processes
+that both find it missing both compile, and the second rename replaces
+the first with the same bytes. ``run_ranks`` builds in the parent before
+it spawns, so the ranks find the libraries finished.
 """
 from __future__ import annotations
 

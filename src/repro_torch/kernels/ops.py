@@ -322,6 +322,64 @@ def _c(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+def mha_forward(fwd: BSRDevice, z32: torch.Tensor, a_src: torch.Tensor,
+                a_dst: torch.Tensor, geom: tuple, inner: str) -> tuple:
+    """The attention forward over A (``fwd``) on float32 ``z32 [n_src, H,
+    Dh]``: ``(out [n_dst, H, Dh], m, l, asrc, adst)``, the row statistics
+    and the two score projections the backward reads (``mha_backward``).
+    ``geom`` as in ``_SparseMHAPair``."""
+    n_dst, n_src, nr_pad, nc_pad, _, _ = geom
+    h, dh = z32.shape[1], z32.shape[2]
+    asrc = torch.einsum("nhd,hd->nh", z32, a_src.float())
+    adst = torch.einsum("nhd,hd->nh", z32, a_dst.float())
+    out, m, l = _executor(inner, "attn_fwd")(
+        fwd.block_rows, fwd.block_cols, fwd.blocks,
+        _c(_fit_rows(adst[:n_dst], nr_pad)), _c(_fit_rows(asrc, nc_pad)),
+        _c(_fit_rows(z32, nc_pad).reshape(nc_pad, h * dh)), nr_pad, h,
+        **_nzc_kw(inner, fwd.nonzero_columns))
+    return out.reshape(nr_pad, h, dh)[:n_dst], m[:n_dst], l[:n_dst], asrc, adst
+
+
+def mha_backward(fwd: BSRDevice, bwd: BSRDevice, geom: tuple, inner: str,
+                 z32, a_src, a_dst, out, m, l, asrc, adst,
+                 dy: torch.Tensor) -> tuple:
+    """The recompute VJP of ``mha_forward``: the row pass over A, the
+    column pass over Aᵀ (``bwd``), then ``(dz [n_src, H, Dh], da_src,
+    da_dst)`` in float32."""
+    n_dst, n_src, nr_pad, nc_pad, nt_r, nt_c = geom
+    h, dh = z32.shape[1], z32.shape[2]
+    hd = h * dh
+    dy = dy.float()
+    r = torch.einsum("nhd,nhd->nh", dy, out)
+    adst_d = adst[:n_dst]
+    dc = _executor(inner, "attn_row")(
+        fwd.block_rows, fwd.block_cols, fwd.blocks,
+        _c(_fit_rows(adst_d, nr_pad)), _c(_fit_rows(asrc, nc_pad)),
+        _c(_fit_rows(z32, nc_pad).reshape(nc_pad, hd)),
+        _c(_fit_rows(dy, nr_pad).reshape(nr_pad, hd)),
+        _c(_fit_rows(r, nr_pad)), _c(_fit_rows(m, nr_pad)),
+        _c(_fit_rows(l, nr_pad)), nr_pad, h,
+        **_nzc_kw(inner, fwd.nonzero_columns))[:n_dst]
+    dzv, dd = _executor(inner, "attn_col")(
+        bwd.block_rows, bwd.block_cols, bwd.blocks,
+        _c(_fit_rows(asrc, nt_r)), _c(_fit_rows(adst_d, nt_c)),
+        _c(_fit_rows(z32, nt_r).reshape(nt_r, hd)),
+        _c(_fit_rows(dy, nt_c).reshape(nt_c, hd)),
+        _c(_fit_rows(r, nt_c)), _c(_fit_rows(m, nt_c)),
+        _c(_fit_rows(l, nt_c)), nt_r, h,
+        **_nzc_kw(inner, bwd.nonzero_columns))
+    dzv = dzv.reshape(nt_r, h, dh)[:n_src]
+    dd = dd[:n_src]
+    a_src32, a_dst32 = a_src.float(), a_dst.float()
+    # dz = value path + score path: dd (source side) rides a_src, dc
+    # (destination side) a_dst on the leading n_dst rows
+    dz = (dzv + dd[..., None] * a_src32[None]
+          + _fit_rows(dc, n_src)[..., None] * a_dst32[None])
+    da_src = torch.einsum("nh,nhd->hd", dd, z32)
+    da_dst = torch.einsum("nh,nhd->hd", dc, z32[:n_dst])
+    return dz, da_src, da_dst
+
+
 class _SparseMHAPair(torch.autograd.Function):
     """The counterpart of ``repro/kernels/ops.py:sparse_mha_pair`` and its
     ``_mha_fwd`` / ``_mha_bwd``. ``geom = (n_dst, n_src, n_rows_padded,
@@ -334,18 +392,9 @@ class _SparseMHAPair(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z, a_src, a_dst, fwd, bwd, geom, inner):
-        n_dst, n_src, nr_pad, nc_pad, _, _ = geom
-        h, dh = z.shape[1], z.shape[2]
         z32 = z.float()
-        asrc = torch.einsum("nhd,hd->nh", z32, a_src.float())
-        adst = torch.einsum("nhd,hd->nh", z32, a_dst.float())
-        out, m, l = _executor(inner, "attn_fwd")(
-            fwd.block_rows, fwd.block_cols, fwd.blocks,
-            _c(_fit_rows(adst[:n_dst], nr_pad)), _c(_fit_rows(asrc, nc_pad)),
-            _c(_fit_rows(z32, nc_pad).reshape(nc_pad, h * dh)), nr_pad, h,
-            **_nzc_kw(inner, fwd.nonzero_columns))
-        out = out.reshape(nr_pad, h, dh)[:n_dst]
-        m, l = m[:n_dst], l[:n_dst]
+        out, m, l, asrc, adst = mha_forward(fwd, z32, a_src, a_dst, geom,
+                                            inner)
         ctx.save_for_backward(z32, a_src, a_dst, out, m, l, asrc, adst)
         ctx.fwd, ctx.bwd, ctx.geom, ctx.inner = fwd, bwd, geom, inner
         ctx.dtypes = (z.dtype, a_src.dtype, a_dst.dtype)
@@ -353,42 +402,11 @@ class _SparseMHAPair(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        z32, a_src, a_dst, out, m, l, asrc, adst = ctx.saved_tensors
-        fwd, bwd, inner = ctx.fwd, ctx.bwd, ctx.inner
-        if bwd is None:
+        if ctx.bwd is None:
             raise RuntimeError("sampled_mha_pair was called without the "
                                "transposed operand; no gradient exists")
-        n_dst, n_src, nr_pad, nc_pad, nt_r, nt_c = ctx.geom
-        h, dh = z32.shape[1], z32.shape[2]
-        hd = h * dh
-        dy = dy.float()
-        r = torch.einsum("nhd,nhd->nh", dy, out)
-        adst_d = adst[:n_dst]
-        dc = _executor(inner, "attn_row")(
-            fwd.block_rows, fwd.block_cols, fwd.blocks,
-            _c(_fit_rows(adst_d, nr_pad)), _c(_fit_rows(asrc, nc_pad)),
-            _c(_fit_rows(z32, nc_pad).reshape(nc_pad, hd)),
-            _c(_fit_rows(dy, nr_pad).reshape(nr_pad, hd)),
-            _c(_fit_rows(r, nr_pad)), _c(_fit_rows(m, nr_pad)),
-            _c(_fit_rows(l, nr_pad)), nr_pad, h,
-            **_nzc_kw(inner, fwd.nonzero_columns))[:n_dst]
-        dzv, dd = _executor(inner, "attn_col")(
-            bwd.block_rows, bwd.block_cols, bwd.blocks,
-            _c(_fit_rows(asrc, nt_r)), _c(_fit_rows(adst_d, nt_c)),
-            _c(_fit_rows(z32, nt_r).reshape(nt_r, hd)),
-            _c(_fit_rows(dy, nt_c).reshape(nt_c, hd)),
-            _c(_fit_rows(r, nt_c)), _c(_fit_rows(m, nt_c)),
-            _c(_fit_rows(l, nt_c)), nt_r, h,
-            **_nzc_kw(inner, bwd.nonzero_columns))
-        dzv = dzv.reshape(nt_r, h, dh)[:n_src]
-        dd = dd[:n_src]
-        a_src32, a_dst32 = a_src.float(), a_dst.float()
-        # dz = value path + score path: dd (source side) rides a_src, dc
-        # (destination side) a_dst on the leading n_dst rows
-        dz = (dzv + dd[..., None] * a_src32[None]
-              + _fit_rows(dc, n_src)[..., None] * a_dst32[None])
-        da_src = torch.einsum("nh,nhd->hd", dd, z32)
-        da_dst = torch.einsum("nh,nhd->hd", dc, z32[:n_dst])
+        dz, da_src, da_dst = mha_backward(ctx.fwd, ctx.bwd, ctx.geom,
+                                          ctx.inner, *ctx.saved_tensors, dy)
         zt, st, dt = ctx.dtypes
         return (dz.to(zt), da_src.to(st), da_dst.to(dt), None, None, None,
                 None)

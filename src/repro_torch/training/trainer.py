@@ -16,7 +16,10 @@
   edge-list ``spmm``; the loss on the batch's seeds, one optimizer step
   per batch, under the same runtime: checkpoints that carry the shuffle
   and sampler RNG states, so a resume replays the exact batch sequence.
-  The distributed trainer is ROADMAP.md Queue 1, item 7.
+* ``DistributedGNNTrainer`` — node-sharded full-batch training over the
+  ranks of a ``torch.distributed`` group (the paper's MPI backend), one
+  instance in each rank process (``launch/mesh.py:run_ranks``), over the
+  plan of ``core/lowering.py:lower_distributed``.
 
 PyTorch runs eagerly, so nothing is traced. ``n_traces`` and
 ``n_infer_traces`` count the distinct shape signatures the training step
@@ -35,13 +38,28 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.backends import compose_epilogue, get_backend
+from repro_torch.backends.distributed import DistributedBackend
 from repro_torch.backends.gather import EdgeListOperand
+from repro_torch.backends.registry import DIST_ITEM, not_ported
 from repro_torch.core.aggregate import gather_scatter_aggregate
-from repro_torch.core.lowering import SampledModelPlan, lower_sampled
+from repro_torch.core.halo import (
+    DistributedGraph,
+    GhostBufferRing,
+    HaloSchedule,
+    halo_exchange,
+)
+from repro_torch.core.lowering import (
+    DistributedModelPlan,
+    SampledModelPlan,
+    lower_distributed,
+    lower_sampled,
+)
+from repro_torch.core.pipeline import arch_layer_fns, pipelined_value_and_grad
 from repro_torch.core.sparsity import PAPER_GAMMA_DEFAULT
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.sampling import SampledBatch
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ops import BSRDevice
 from repro_torch.models.gnn import (
     GNNConfig,
     GNNModel,
@@ -632,3 +650,216 @@ class MiniBatchTrainer:
             return 0.0
         pred = np.argmax(self.infer_logits(ids), axis=-1)
         return float(np.mean(pred == self.labels_np[self._to_exec(ids)]))
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class DistributedGNNTrainer:
+    """Node-sharded GNN training over the ranks of a ``torch.distributed``
+    group (the MPI analog): one instance in each rank process
+    (``launch/mesh.py:run_ranks``), each holding its own rows.
+
+    The per-step program, on each rank:
+      1. halo exchange            — ghost features in          (paper 2)
+      2. fused local aggregation  — the BSR kernels over [local | ghost]
+                                    (under a split plan the interior
+                                    stream runs while the exchange is on
+                                    the wire)                  (Alg 2/3)
+      3. dense / Alg-1 sparse transforms per the plan          (Alg 1)
+      4. pipelined backward       — each dW_l all-reduced as soon as
+                                    autograd has it, before layer l−1's
+                                    backward is done (paper 3); ghost
+                                    gradients return through the reverse
+                                    exchange
+      5. optimizer                — the same update on every rank from
+                                    the same summed gradients (paper 4),
+                                    so the ranks' parameters stay bitwise
+                                    equal (one fused Adam launch a step on
+                                    the card, with ``adam(fused=True)``)
+
+    Every layer runs ``models.gnn.apply_layer`` — the single-device
+    model's algebra — with ``LayerOps`` bound to the distributed backend's
+    primitives that the ``DistributedModelPlan`` names. ``dist`` is every
+    rank's ``DistributedGraph`` or this rank's ``rank_slice``; a slice
+    needs ``plan`` (``lower_distributed`` reads every rank's features),
+    lowered on the whole graph (a ``rank_slice`` of it is enough).
+    ``params`` (the same on every rank, as ``params_from_jax`` gives) or
+    ``seed`` set the starting weights; ``device`` is where the rank runs
+    (CUDA unless the caller asks for the CPU). ``guard`` arms the guarded
+    step (``runtime.resilience.GuardPolicy``): the non-finite count of the
+    summed gradients folds into the commit, the same on every rank.
+    ``injector``, ``monitor`` and ``clock`` (the fault injection, the
+    heartbeat monitor and its clock) are not ported yet.
+    """
+
+    def __init__(self, dist: DistributedGraph, config: GNNConfig,
+                 opt: Optimizer, *,
+                 plan: Optional[DistributedModelPlan] = None,
+                 params: Optional[dict] = None, seed: int = 0,
+                 gamma: float = PAPER_GAMMA_DEFAULT,
+                 guard: Optional[GuardPolicy] = None,
+                 injector: Optional[FaultInjector] = None,
+                 monitor=None, clock=None, device=None):
+        if injector is not None or monitor is not None or clock is not None:
+            raise not_ported("the distributed trainer's fault injector, "
+                             "heartbeat monitor and clock", DIST_ITEM)
+        import torch.distributed as tdist
+
+        self.device = resolve_device(device)
+        self.rank = tdist.get_rank()
+        world = tdist.get_world_size()
+        if world != dist.n_ranks:
+            raise ValueError(f"the group has {world} ranks, the graph "
+                             f"{dist.n_ranks}")
+        if dist.rank is not None and dist.rank != self.rank:
+            raise ValueError(f"rank {self.rank} was given the slice of rank "
+                             f"{dist.rank}")
+        if plan is None:
+            plan = lower_distributed(config, dist, gamma=gamma)
+        if plan.rank is not None and plan.rank != self.rank:
+            raise ValueError(f"rank {self.rank} was given the plan slice of "
+                             f"rank {plan.rank}")
+        self.dist = dist
+        self.config = config
+        self.opt = opt
+        self.plan = plan
+        self.backend = DistributedBackend(inner=plan.inner)
+        if params is None:
+            params = init_params(config, torch.Generator().manual_seed(seed),
+                                 self.device)
+        self.params = tree_map(
+            lambda p: p.detach().to(self.device, torch.float32).clone(), params)
+        self.opt_state = opt.init(self.params)
+        self.guard = (guard if isinstance(guard, GuardRunner)
+                      else GuardRunner(guard) if guard is not None else None)
+        self._step_idx = 0
+        self._bind()
+
+    def _bind(self) -> None:
+        """This rank's operands, schedule and per-layer closures, on its
+        device: each BSR operand's column stream is built here, once."""
+        import torch.distributed as tdist
+
+        dist, plan, config = self.dist, self.plan, self.config
+        dev = self.device
+        i = 0 if dist.rank is not None else self.rank
+        backend = self.backend
+        n_local, n_ghost = dist.n_local, dist.n_ghost
+        n_buf = n_local + n_ghost
+        L = config.n_layers
+        sparse0 = plan.layers[0].feature_path == "sparse"
+        is_gat = config.kind in ("GAT", "GT")
+        is_max = plan.aggregation == "max"
+        fuse_attn = is_gat and "dist_spmm_attention" in plan.layers[0].agg_primitive
+        ov = plan.overlap
+        use_split = ov is not None
+        # adjacent layers draw distinct staging slots (GhostBufferRing)
+        self.ghost_ring = GhostBufferRing(ov.double_buffer_slots if use_split else 2)
+        self.ghost_slots = tuple(self.ghost_ring.acquire(l) for l in range(L))
+        self.halo = HaloSchedule.of(
+            dist, device=dev, ring=self.ghost_ring,
+            shifts=ov.live_shifts if use_split else None)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        def operand(d, n_rows, n_cols, rows_padded=None, cols_padded=None):
+            blocks = d["blocks"][i]
+            _, br, bc = blocks.shape
+            return BSRDevice(
+                block_rows=t(d["rows"][i]), block_cols=t(d["cols"][i]),
+                blocks=t(blocks), n_rows=n_rows, n_cols=n_cols,
+                n_rows_padded=rows_padded or _ceil_to(n_rows, br),
+                n_cols_padded=cols_padded or _ceil_to(n_cols, bc), br=br, bc=bc)
+
+        ops: dict = {}
+        if use_split and not is_max:
+            ops["int_fwd"] = operand(dist.fwd_interior, n_local, n_local)
+            ops["int_bwd"] = operand(dist.bwd_interior, n_local, n_local)
+            ops["bnd_fwd"] = operand(dist.fwd_boundary, n_local, n_buf)
+            ops["bnd_bwd"] = operand(dist.bwd_boundary, n_buf, n_local)
+        elif not is_max:
+            ops["fwd"] = operand(dist.fwd, n_local, n_buf)
+            ops["bwd"] = operand(dist.bwd, n_buf, n_local)
+        if sparse0:
+            f, f_pad = plan.layers[0].d_in, plan.feat_f_pad
+            ops["feat_fwd"] = operand(plan.feat_fwd, n_local, f, cols_padded=f_pad)
+            ops["feat_bwd"] = operand(plan.feat_bwd, f, n_local, rows_padded=f_pad)
+        #: this rank's bound operands, by name (the kernel checks read them)
+        self.operands = ops
+        halo = self.halo
+        edge_src = t(dist.edge_src[i]) if (is_gat or is_max) else None
+        edge_dst = t(dist.edge_dst[i]) if (is_gat or is_max) else None
+        xw0 = (backend.dist_feature_matmul_sparse(ops["feat_fwd"], ops["feat_bwd"])
+               if sparse0 else None)
+
+        def layer_ops(l: int) -> LayerOps:
+            slot = self.ghost_slots[l]
+            kw = dict(slot=slot, layer=l)
+            fused = gat = None
+            if is_max:
+                def agg(u):
+                    buf = torch.cat([u.float(), halo_exchange(u, halo, slot, l)])
+                    return backend.dist_segment_max(buf, edge_src, edge_dst, n_local)
+            elif use_split:
+                split = (ops["int_fwd"], ops["int_bwd"], ops["bnd_fwd"], ops["bnd_bwd"])
+                agg = backend.dist_spmm_split_transposed_vjp(*split, halo, **kw)
+                fused = backend.dist_spmm_fused_epilogue_split(*split, halo, **kw)
+                if fuse_attn:
+                    gat = backend.dist_spmm_attention_split(*split, halo, **kw)
+            else:
+                bulk = (ops["fwd"], ops["bwd"])
+                agg = backend.dist_spmm_transposed_vjp(*bulk, halo, **kw)
+                fused = backend.dist_spmm_fused_epilogue(*bulk, halo, **kw)
+                if fuse_attn:
+                    gat = backend.dist_spmm_attention(*bulk, halo, **kw)
+            if is_gat and gat is None:
+                def gat(z, a_src, a_dst, heads):
+                    buf = torch.cat([z.float(), halo_exchange(z, halo, slot, l)])
+                    return backend.dist_segment_softmax_aggregate(
+                        buf.reshape(n_buf, heads, -1), a_src, a_dst, edge_src,
+                        edge_dst, n_local)
+            return LayerOps(
+                aggregate=agg, xw=xw0 if l == 0 else None, gat_attention=gat,
+                fused_epilogue=fused if plan.layers[l].epilogue is not None else None)
+
+        self._layer_fns = arch_layer_fns(config, [layer_ops(l) for l in range(L)])
+        self._x = t(dist.features[i])
+        self._labels = t(dist.labels[i])
+        self._mask = t(dist.mask[i])
+        # the loss's denominator: the training rows of every rank, reduced once
+        count = self._mask.sum().to(torch.float32)
+        tdist.all_reduce(count)
+        self._denom = count.clamp(min=1.0)
+
+    def _compute(self, with_guard: bool = False):
+        return pipelined_value_and_grad(
+            self._layer_fns, self.params, self._x, self._labels, self._mask,
+            self._denom, with_guard=with_guard)
+
+    def train_epoch(self) -> float:
+        """One full-batch step; returns the global loss (synchronises)."""
+        if self.guard is None:
+            loss, grads = self._compute()
+            with torch.no_grad():
+                params, self.opt_state = self.opt.update(
+                    grads, self.opt_state, self.params)
+            self.params = tree_map(torch.Tensor.detach, params)
+        else:
+            loss, grads, bad = self._compute(with_guard=True)
+            with torch.no_grad():
+                p_new, s_new = self.opt.update(grads, self.opt_state, self.params)
+                self.params, self.opt_state, loss, ok = guarded_update(
+                    self.params, self.opt_state, p_new, s_new, loss,
+                    self.guard.scale, extra_bad=bad)
+            self.guard.after_step(bool(ok), step=self._step_idx)
+        self._step_idx += 1
+        return float(loss)
+
+    def loss_and_grads(self):
+        """Global loss and all-reduced gradients at the current params (no
+        update): the probe the parity tests use."""
+        return self._compute()
+

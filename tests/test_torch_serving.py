@@ -236,4 +236,7 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.configs.deepseek_v3_671b",
             "repro_torch.models.model_zoo", "repro_torch.serving.engine",
             "repro_torch.training.grad", "repro_torch.training.schedule",
-            "repro_torch.launch.train"} <= mods
+            "repro_torch.launch.train", "repro_torch.core.partitioner",
+            "repro_torch.core.halo", "repro_torch.core.pipeline",
+            "repro_torch.backends.distributed",
+            "repro_torch.launch.mesh"} <= mods

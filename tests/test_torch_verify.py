@@ -2,8 +2,9 @@
 against ``repro/core/verify.py``, DESIGN.md §14).
 
 * **Shared mutations** — each JAX mutation whose data the port carries
-  (everything but ``last_in_row`` and the distributed split and halo
-  ones) goes, as the same seeded corruption, into a JAX plan (``xla``)
+  (everything but ``last_in_row``, and the distributed split and halo
+  ones, which ``test_torch_distributed.py`` mirrors) goes, as the same
+  seeded corruption, into a JAX plan (``xla``)
   and the port's plan (``torch`` and ``cuda``, built from byte-identical
   operands); both verifiers must name the same invariant.
 * **Column-stream mutations** — the ``nzc.*`` checks that take the place
@@ -656,11 +657,22 @@ def test_compile_passes_validate_on():
 
 
 def test_distributed_checks_name_item_7():
+    """The distributed checks (``split.*``, ``halo.*``) are ported with
+    item 7's core (their mutations and false-positive sweep are in
+    ``test_torch_distributed.py``); a single-device plan ignores
+    ``dist``; what item 7 still leaves, the distributed trainer's fault
+    injector, monitor and clock, names it."""
+    from repro_torch.training.optimizer import adam
+    from repro_torch.training.trainer import DistributedGNNTrainer
+
     plan, _ = _port(*_edges())
+    assert verify_plan(plan, mode="full", dist=object()) == []
+    assert {"split.interior_no_ghost", "split.reconstruction",
+            "split.live_shifts", "halo.schedule_paired",
+            "halo.slot_unique"} <= set(INVARIANT_CATALOG)
+    assert "bsr.last_in_row" not in INVARIANT_CATALOG
     with pytest.raises(NotImplementedError, match="item 7"):
-        verify_plan(plan, mode="full", dist=object())
-    assert not any(k.startswith(("split.", "halo.")) or k == "bsr.last_in_row"
-                   for k in INVARIANT_CATALOG)
+        DistributedGNNTrainer(None, None, adam(), monitor=object())
 
 
 def test_host_copies(monkeypatch):
