@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 20|21|22|23]
+    python3 chip_smoke.py [--phases 20|21|22|23|24]
 
-Phases (``--phases 20``, ``21``, ``22`` or ``23``: that phase alone); any failure raises,
+Phases (``--phases 20``, ``21``, ``22``, ``23`` or ``24``: that phase alone); any failure raises,
 so the exit code is not 0 and no result line is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
@@ -76,8 +76,9 @@ so the exit code is not 0 and no result line is printed:
    [128, 750, 750, 40] with 3 heads (DGL's ogbn-arxiv GAT widths: 250 per
    head, the last layer's 13 projected to 40) and that example's Adam (lr
    0.002), ``compile(engine="cuda", fused_optimizer=True)`` against the
-   ``torch`` program from the same weights, 10 epochs with phase 4's
-   checks (at 5 the loss has not yet come back below its first value)
+   ``torch`` program from the same weights, 7 epochs (``gat_epochs``; cut from
+   10 for the command's time) with phase 4's checks (at 5 the loss has not yet come
+   back below its first value)
    and exactly 3 / 3 / 3 attention launches (forward, row pass, column
    pass; the forward and the row pass over A's nonzero columns, the
    column pass over Aᵀ's, both built when the layer is bound, each with
@@ -157,8 +158,8 @@ so the exit code is not 0 and no result line is printed:
     (plain versions, plain Adam) from the same weights over the same
     batches, with phase 4's gates (the ReLU here is torch's, after the
     aggregation: ``decided_sampled_grads``): (a) SAGE-mean [128, 256,
-    256, 40], Adam 0.01, the train mask cut to 8,192 nodes, 2 epochs of
-    8 steps, exactly 6 ``bsr_spmm`` launches a step (each layer's
+    256, 40], Adam 0.01, the train mask cut to 4,096 nodes (from 8,192,
+    for the command's time), 2 epochs of 4 steps, exactly 6 ``bsr_spmm`` launches a step (each layer's
     forward and backward product) and 1 Adam launch, and ``bsr_spmm`` on
     one batch's A and Aᵀ at the layers' widths against its plain version
     and ``torch.sparse.mm``; (b) GAT as phase 13, lr 0.002, 4 steps over
@@ -242,10 +243,10 @@ so the exit code is not 0 and no result line is printed:
     dropped from A's column stream, a stale stream after
     ``dataclasses.replace(blocks=...)``, a swapped ``perm`` pair, a
     block-row with twice its mass. (d) ``tools/chaos_soak.py``'s 24
-    schedules on the card (guarded full-batch and sampled training with
-    poisoned gradients and killed checkpoint writers, the serving
-    engine's degradation rungs; the distributed target names ROADMAP.md
-    Queue 1, item 7): every end-state property holds; its launches are
+    schedules on the card but its 6 distributed ones (phase 24 (e) runs
+    those): guarded full-batch and sampled training with poisoned
+    gradients and killed checkpoint writers, the serving engine's
+    degradation rungs; every end-state property holds; its launches are
     the kernels line's ``chaos`` path, and every kernel call it made is
     held against its plain version on the same inputs within 1e-4 (the
     inputs and outputs recorded as it ran, the plain versions run after
@@ -296,7 +297,9 @@ so the exit code is not 0 and no result line is printed:
     both, the longest wave prefilled whole against prefilled to T - 4 and
     decoded 4 steps: the last logits within 2e-2. (e) xlstm-1.3b trained
     at its published size through phase 16's checks on a batch of 4 x
-    ``HYBRID_TRAIN_SEQ`` tokens (256) for ``HYBRID_TRAIN_STEPS`` steps
+    ``HYBRID_TRAIN_SEQ`` tokens (256: two of its mLSTM chunks of 128, so
+    the state carried from chunk to chunk runs forward and backward) for
+    ``HYBRID_TRAIN_STEPS`` steps
     (2), two ``fused_adam`` launches a step (its 86 leaves fill two
     tables of ``CAPACITY``), after two runs of the first step's backward
     that must be bitwise equal (no profiled step: ~30 launches a time
@@ -337,7 +340,7 @@ so the exit code is not 0 and no result line is printed:
     lower_distributed -> DistributedGNNTrainer``, from seed 0: (a) phase
     4's GCN [128, 256, 256, 40] on the ogbn-arxiv analog at full scale,
     partitioned 4 ways at ``br=8, bc=32``, Adam 0.01, 5 epochs; (b) phase
-    7's GAT [128, 750, 750, 40], 3 heads, Adam 0.002, 10 epochs (as in
+    7's GAT [128, 750, 750, 40], 3 heads, Adam 0.002, 7 epochs (as in
     phase 7: the loss leaps at the second step and is back below its
     first value only after 5), on the same partition (its effective
     aggregation is GCN's, so the same ``DistributedGraph``); (c) SAGE-mean [8710, 16, 70] on the corafull
@@ -363,6 +366,50 @@ so the exit code is not 0 and no result line is printed:
     kernel ran inside the wire's window, each kernel's CUDA-event ms on
     the streams beside its plain version's, the library call's and the
     bound, and the host's partition and build seconds.
+24. Host-streamed strips on the card and the distributed resilience
+    plane, after phase 23 has returned (its 4-way partitions of both
+    graphs reused). (a) Phase 4's GCN [128, 256, 256, 40] on the
+    ogbn-arxiv analog, first through the resident cuda program (seed 0:
+    its first step's loss and gradients, ``STREAM_EPOCHS`` epochs, their
+    peak allocation), then on ``build_streamed_operand(graph, "gcn",
+    k_shards=4, budget_bytes=128 MiB)`` (halved until A and Aᵀ each cut
+    into 8 strips or more) as the JAX package's
+    ``examples/host_streamed_demo.py`` trains it: ``LayerOps(aggregate=
+    op.aggregate)`` a layer, ``pipelined_value_and_grad``, fused Adam
+    0.01, from the same weights. Gates: the first step's loss within
+    1e-4 and each gradient leaf within 1e-3 norm-relative of the
+    resident program's; exactly 3 x (strips of A + strips of Aᵀ)
+    ``bsr_spmm_accumulate`` launches and one Adam launch an epoch, no
+    other kernel (no strip reaches a plain version); the losses finite
+    and falling; every strip's accumulate call within 1e-4 of its plain
+    version on the same y, the block-rows a strip boundary splits
+    checked apart. Printed: build seconds, strips, the JAX package's
+    block-byte reckoning, the pinned and card bytes of the column
+    streams, the peak allocation beside the resident program's, the
+    median epoch beside its, per pass and strip the copy and kernel ms
+    and whether copy s + 1 ended inside kernel s (CUDA events), a
+    profiled epoch, one strip's call (device, plain, ``torch.addmm``,
+    bound) and a pass over A's strips in the accumulate mode beside a
+    fresh y_s a strip plus ``add_``. (b) The fetch's host half on the
+    card (the JAX demo's operand, checksums on): a transient fault
+    retries to a bitwise-equal y; a permanent one raises
+    ``StreamFetchError`` naming strip, shard and operand; a flipped bit
+    in a pinned column stream raises ``StripChecksumError``. (c)
+    ``ResilientDistributedTrainer`` on 4 ranks sharing the card, SAGE-mean
+    [8710, 16, 70] on the corafull analog: the JAX package's rank-death
+    schedule (NaN at step 1, rank 2 dead from step 3, 12 epochs) ends on
+    3 ranks after one rescale with the NaN step skipped, a straggler
+    schedule (rank 1 8x slower from step 2, 6 epochs) after one
+    rebalance with the state carried bitwise; losses finite and falling;
+    the group's loss and gradients at the carried params within 1e-4 and
+    1e-3 norm-relative of the single-device cuda program's; in every
+    segment each rank's launches counted from 0 (each of the SAGE run's
+    kernels launched on every rank, path ``resilient``) and rank 0's first
+    step's kernel calls (on the 4-rank, the 3-rank and the rebalanced
+    operands) held against their plain versions; each event's
+    ``recovery_s`` and the segments' epoch ms. (d) ``compressed_psum`` on 4
+    ranks against the exact mean (the JAX package's case within its 0.2
+    bound). (e) The chaos soak's distributed schedules among its first 8.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -390,6 +437,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from collections import defaultdict
 from typing import Optional
@@ -453,6 +501,7 @@ from repro_torch.kernels.bsr_attention import (  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (  # noqa: E402
     BUILT_BR,
     bsr_spmm,
+    bsr_spmm_accumulate,
     bsr_spmm_fused_epilogue,
     bsr_spmm_masked,
     nonzero_columns,
@@ -468,6 +517,7 @@ from repro_torch.kernels.fused_adam import (  # noqa: E402
     fused_adam_multi,
 )
 from repro_torch.kernels.ref import (  # noqa: E402
+    bsr_spmm_accum_ref,
     bsr_attention_bwd_col_ref,
     bsr_attention_bwd_row_ref,
     bsr_attention_fwd_ref,
@@ -489,16 +539,23 @@ from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.transformer import _layer_window  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.models.gnn import GNNConfig, params_from_jax  # noqa: E402
-from repro_torch.launch.mesh import run_ranks  # noqa: E402
+from repro_torch.launch.mesh import RankPool, run_ranks  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     FaultInjector,
     FaultSpec,
     GuardPolicy,
     InjectedFault,
+    ResilientDistributedTrainer,
+    RetryPolicy,
+    StreamFetchError,
+    StripChecksumError,
     list_checkpoints,
     restore_checkpoint,
     save_checkpoint,
 )
+from repro_torch.runtime.streaming import build_streamed_operand  # noqa: E402
+from repro_torch.core.pipeline import arch_layer_fns, pipelined_value_and_grad  # noqa: E402
+from repro_torch.models.gnn import LayerOps  # noqa: E402
 from repro_torch.training.optimizer import (  # noqa: E402
     adam,
     adamw,
@@ -560,6 +617,7 @@ VERIFY_REPS = 3
 
 #: every kernel wrapper of the port, by the name the kernels line uses
 KERNELS = {"bsr_spmm": bsr_spmm,
+           "bsr_spmm_accumulate": bsr_spmm_accumulate,
            "bsr_spmm_fused_epilogue": bsr_spmm_fused_epilogue,
            "bsr_spmm_masked": bsr_spmm_masked,
            "fused_adam": fused_adam,
@@ -585,6 +643,8 @@ LIBRARIES = ["bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "fused_adam",
 SOURCES = {
     "bsr_spmm": ("src/repro_torch/kernels/csrc/bsr_spmm.cu",
                  "src/repro/kernels/bsr_spmm.py:105"),
+    "bsr_spmm_accumulate": ("src/repro_torch/kernels/csrc/bsr_spmm.cu",
+                            "src/repro/kernels/bsr_spmm.py:105"),
     "bsr_spmm_fused_epilogue": ("src/repro_torch/kernels/csrc/bsr_spmm_fused.cu",
                                 "src/repro/kernels/bsr_spmm.py:245"),
     "bsr_spmm_masked": ("src/repro_torch/kernels/csrc/bsr_spmm_masked.cu",
@@ -626,6 +686,10 @@ class Sizes:
     # full-batch training: GCN [F, train_hidden..., C] on `dataset`
     train_hidden: tuple = (256, 256)
     epochs: int = 10
+    # phase 7's GAT and phase 23's distributed GAT: 7 epochs (cut from 10
+    # for the command's time: the plain GAT epoch takes ~10 s; at lr 0.002
+    # the loss is back below its first value from epoch 6)
+    gat_epochs: int = 7
     # the quickstart: GCN [F, 32, C] on the corafull analog
     quick_dataset: str = "corafull"
     quick_scale: float = 1.0
@@ -655,7 +719,7 @@ class Sizes:
     # `sage_cut` nodes for SAGE_EPOCHS epochs, GAT over one batch for
     # GAT_STEPS steps
     sampled_batch_size: int = 1024
-    sage_cut: int = 8192
+    sage_cut: int = 4096  # cut from 8192 for the command's time
     # phase 18: sampled SAGE-mean resumed over the train mask cut to
     # `resume_cut` nodes, RESUME_EPOCHS epochs
     resume_cut: int = 4096
@@ -1584,6 +1648,9 @@ def classify(name: str) -> str:
     their names, bsr_spmm.cu's own or the fused and masked kernels' (by
     their MASKED flag); each attention pass's two kernels
     (``attn_<pass>_kernel``, ``attn_<pass>_reduce``) as one kernel."""
+    m = re.search(r"bsr_spmm_(?:kernel|reduce)<\s*\d+,\s*\d+,\s*(\w+)>", name)
+    if m:  # bsr_spmm.cu's kernels: the accumulate mode by its ACCUM flag
+        return "bsr_spmm_accumulate" if m.group(1) in ("true", "1") else "bsr_spmm"
     if "bsr_spmm_kernel<" in name or "bsr_spmm_reduce<" in name:
         return "bsr_spmm"
     m = re.search(r"nzc_(?:kernel|split_reduce)<\s*\d+,\s*\d+,\s*(\w+),", name)
@@ -3809,7 +3876,9 @@ CHUNK_STEPS = 4
 #: phase 21 (e): xlstm-1.3b trained on lm_train_batch x HYBRID_TRAIN_SEQ
 #: tokens for HYBRID_TRAIN_STEPS steps, cut from phase 16's 1,024 and 10:
 #: the sLSTM loop's eager launches make a 1,024-token step ~23 s (PERF.md
-#: §4)
+#: §4); 256 is two of xlstm-1.3b's mLSTM chunks (128), so the state
+#: carried between chunks is trained on the card (a 256-token step took
+#: 5.8 s)
 HYBRID_TRAIN_SEQ = 256
 HYBRID_TRAIN_STEPS = 2
 
@@ -5003,17 +5072,20 @@ def _held(t):
 
 
 @contextlib.contextmanager
-def recorded_calls(calls: list):
+def recorded_calls(calls: list, limit: Optional[int] = None):
     """Inside the ``with`` statement each ``cuda`` executor of ``SOAK_OPS``
-    appends every call to ``calls``: its executor key, its arguments
-    (tensors copied before the call; ``nzc`` left out, as the plain
-    versions read the blocks) and its outputs (copied). The kernels
-    launch as before; the executors are restored after."""
+    appends every call (the first ``limit`` where given) to ``calls``: its
+    executor key, its arguments (tensors copied before the call; ``nzc``
+    left out, as the plain versions read the blocks) and its outputs
+    (copied). The kernels launch as before; the executors are restored
+    after."""
     table = kops._EXECUTORS["cuda"]
     saved = {op: table[op] for op in SOAK_OPS}
 
     def spy(op, kernel):
         def call(*args, **kw):
+            if limit is not None and len(calls) >= limit:
+                return kernel(*args, **kw)
             held = (tuple(_held(a) for a in args),
                     {k: _held(v) for k, v in kw.items() if k != "nzc"})
             out = kernel(*args, **kw)
@@ -5071,9 +5143,15 @@ def check_recorded(calls: list, device) -> dict:
     return out
 
 
+#: the soak's targets phase 19 runs; its distributed schedules run their
+#: kernels in rank processes, and phase 24 (e) runs them
+SOAK_SINGLE = ("full_batch", "mini_batch", "serving")
+
+
 def soak_phase(device) -> dict:
     """Phase 19 (d): ``tools/chaos_soak.py``'s ``N_SCHEDULES`` schedules on
-    ``device`` (a violated end-state property raises); the launches they
+    ``device`` but the distributed ones (``SOAK_SINGLE``; a violated
+    end-state property raises); the launches they
     made, counted from 0. Every kernel call of the soak is recorded
     (``recorded_calls``) and, after the counts are read, held against its
     plain version (``check_recorded``): a kernel launched in the soak
@@ -5083,7 +5161,8 @@ def soak_phase(device) -> dict:
     zero_counts()
     with recorded_calls(calls):
         rows = list(chaos_soak.soak(chaos_soak.N_SCHEDULES, 0, device,
-                                    os.path.join(ROOT, "chiprun_out", "chaos_soak")))
+                                    os.path.join(ROOT, "chiprun_out", "chaos_soak"),
+                                    only=SOAK_SINGLE))
     launched = counts()
     s = time.perf_counter() - t0
     for r in rows:
@@ -5146,12 +5225,13 @@ DIST_RANKS = 4
 #: the runs: (name, graph, arch, aggregation, hidden widths, heads,
 #: optimizer, epochs). (a) phase 4's GCN, (b) phase 7's GAT (its
 #: effective aggregation is GCN's, so it trains on the same
-#: ``DistributedGraph``; 10 epochs, as phase 7: at lr 0.002 the loss leaps
+#: ``DistributedGraph``; 7 epochs, as phase 7: at lr 0.002 the loss leaps
 #: at the second step, 3.70 -> 4.92, and is back below its first value
 #: only after 5), (c) the JAX package's ``examples/distributed_gnn.py``
 #: model, SAGE-mean [8710, 16, 70] on the corafull analog at full scale
 DIST_RUNS = (("gcn", "arxiv", "GCN", "gcn", "train_hidden", 0, ADAM, 5),
-             ("gat", "arxiv", "GAT", "gcn", "gat_hidden", "gat_heads", GAT_ADAM, 10),
+             ("gat", "arxiv", "GAT", "gcn", "gat_hidden", "gat_heads", GAT_ADAM,
+              "gat_epochs"),
              ("sage", "corafull", "SAGE", "mean", (16,), 0, ADAM, 5))
 #: the tile of every phase-23 graph (the JAX package's distributed tests')
 DIST_BR, DIST_BC = 8, 32
@@ -5167,7 +5247,8 @@ def dist_runs(sizes: Sizes, graph: Optional[str] = None) -> list:
                     "hidden": tuple(getattr(sizes, hidden) if isinstance(hidden, str)
                                     else hidden),
                     "heads": getattr(sizes, heads) if isinstance(heads, str) else 4,
-                    "opt": opt, "epochs": epochs})
+                    "opt": opt, "epochs": (getattr(sizes, epochs)
+                                           if isinstance(epochs, str) else epochs)})
     return out
 
 
@@ -5281,7 +5362,7 @@ def dist_prepare(sizes: Sizes, graph: str, work: str, ready) -> dict:
                 "phase": part.phase, "edge_cut": part.edge_cut,
                 "vertex_imbalance": part.vertex_imbalance,
                 "load_imbalance": part.load_imbalance},
-            "shapes": shapes, "runs": runs, "gids": gids}
+            "shapes": shapes, "runs": runs, "gids": gids, "partition_result": part}
 
 
 def params_digest(params) -> str:
@@ -5713,8 +5794,11 @@ def distributed_phase(sizes: Sizes, device) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out = {"runs": {}, "host_s": host_s, "ref_s": ref_s, "ranks_s": ranks_s,
-           "prepare": {g: {k: v for k, v in p.items() if k != "gids"}
-                       for g, p in prep.items()}}
+           "prepare": {g: {k: v for k, v in p.items()
+                           if k not in ("gids", "partition_result")}
+                       for g, p in prep.items()},
+           # the 4-way partitions, for phase 24 (taken out before the dump)
+           "partitions": {g: p["partition_result"] for g, p in prep.items()}}
     for run in runs:
         name = run["name"]
         by_rank = [r[name] for r in ranks]
@@ -5837,13 +5921,738 @@ def print_distributed_summary(m: dict, card: str) -> None:
           f"{m['ref_s']:.1f}s beside it), ranks {m['ranks_s']:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: host-streamed strips on the card, and the resilience plane
+# ---------------------------------------------------------------------------
+
+#: path A's operand: ``build_streamed_operand(graph, "gcn", k_shards=4,
+#: budget_bytes=...)`` from this budget, halved until A and Aᵀ each cut
+#: into at least ``STREAM_MIN_STRIPS`` strips
+STREAM_BUDGET = 128 << 20
+STREAM_MIN_STRIPS = 8
+STREAM_EPOCHS = 5
+#: path B: the JAX package's rank-death schedule (a NaN gradient at step 1,
+#: rank 2 dead from step 3, 12 epochs) and a straggler schedule (rank 1 8x
+#: slower from step 2, 6 epochs), SAGE-mean on the corafull analog; a
+#: monitor timeout of 0 (one missed beat is DEAD)
+RESILIENT_EPOCHS = 12
+STRAGGLER_EPOCHS = 6
+#: (e): the soak's first schedules whose target is ``distributed``
+SOAK_DIST_SCHEDULES = 8
+
+
+def streamed_operand(ds, assignment) -> tuple:
+    """Path A's operand, its budget and its build seconds."""
+    budget = STREAM_BUDGET
+    while True:
+        t0 = time.perf_counter()
+        op = build_streamed_operand(ds.graph, "gcn", k_shards=4, budget_bytes=budget,
+                                    assignment=assignment)
+        build_s = time.perf_counter() - t0
+        if min(op.fwd.n_strips, op.bwd.n_strips) >= STREAM_MIN_STRIPS:
+            return op, budget, build_s
+        budget //= 2
+
+
+def strip_passes(timeline: list) -> list:
+    """A card timeline's records, one list a pass (a pass starts at strip 0)."""
+    passes = []
+    for e in timeline:
+        if e["strip"] == 0:
+            passes.append([])
+        passes[-1].append(e)
+    return passes
+
+
+def pass_summary(records: list, f: int) -> dict:
+    """One pass's per-strip copy and kernel ms (CUDA events), whether copy
+    s + 1 ended inside kernel s (no later than its end), and the pass's
+    span from the first copy's start to the last kernel's end."""
+    copy = [r["copy"][0].elapsed_time(r["copy"][1]) for r in records]
+    kernel = [r["kernel"][0].elapsed_time(r["kernel"][1]) for r in records]
+    hidden = [records[s]["kernel"][0].elapsed_time(records[s + 1]["copy"][1])
+              <= records[s]["kernel"][0].elapsed_time(records[s]["kernel"][1])
+              for s in range(len(records) - 1)]
+    return {"f": f, "strips": len(records), "copy_ms": copy, "kernel_ms": kernel,
+            "copy_hidden": hidden, "bytes": [r["bytes"] for r in records],
+            "span_ms": records[0]["copy"][0].elapsed_time(records[-1]["kernel"][1])}
+
+
+def split_rows(st) -> list:
+    """The block-rows a strip boundary cuts: (strip, block-row) where strip
+    s - 1's last block and strip s's first are in one block-row."""
+    return [(s, int(st.rows[s][0])) for s in range(1, st.n_strips)
+            if st.rows[s - 1][-1] == st.rows[s][0]]
+
+
+def strip_bound(st, s: int, f: int) -> dict:
+    """Least time for one strip's y += A_s·X: its column stream read (the
+    kernel's operand), the X rows its columns reference, and y read and
+    written on the rows the strip touches; fp32 FMAs on its nonzeros."""
+    c = st.columns[s]
+    real = st.blocks[s] if s < st.n_strips - 1 else st.blocks[s][: st.n_blocks - s * st.blocks_per_strip]
+    nz = real != 0
+    b, _, j = np.nonzero(nz)
+    x_rows = np.unique(st.cols[s][b].astype(np.int64) * real.shape[2] + j).size
+    rows_touched = np.unique(st.rows[s][: real.shape[0]]).size * st.br
+    nbytes = c.nbytes + 4 * x_rows * f + 2 * 4 * rows_touched * f
+    flop = 2.0 * int(nz.sum()) * f
+    ms, by = _bound(nbytes, flop)
+    return {"bytes": nbytes, "flop": flop, "bound_ms": ms, "bound_by": by,
+            "nnz": int(nz.sum()), "x_rows": int(x_rows), "rows": int(rows_touched)}
+
+
+def strip_checks(name: str, st, f: int, device, gen) -> dict:
+    """Each strip's accumulate launch (its column stream copied alone)
+    against its plain version (``bsr_spmm_accum_ref`` on the strip's blocks)
+    on the same y, within TOL, the rows a strip boundary splits apart."""
+    x = torch.randn(st.n_cols_padded, f, device=device, generator=gen)
+    y = torch.randn(st.n_rows_padded, f, device=device, generator=gen)
+    split = split_rows(st)
+    errs, split_errs = [], []
+    for s in range(st.n_strips):
+        c = st.columns[s]
+        nzc = c.unpack(st.packed[c.offset:c.offset + c.nbytes].to(device), st.br,
+                       st.n_rows_padded // st.br)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+             for a in (st.rows[s], st.cols[s], st.blocks[s])]
+        want = bsr_spmm_accum_ref(y, *t, x, st.n_rows_padded)
+        bsr_spmm_accumulate(nzc, x, y)
+        errs.append(check_close(f"[stream] {name} strip {s}", y, want))
+        for s2, brow in split:
+            if s2 == s:
+                rows = slice(brow * st.br, (brow + 1) * st.br)
+                split_errs.append(check_close(f"[stream] {name} strip {s} split "
+                                              f"block-row {brow}", y[rows], want[rows]))
+        y = want  # the next strip adds to the plain version's sum
+        del nzc, t
+    return {"strips": st.n_strips, "max_abs_err": max(errs), "split_rows": len(split),
+            "split_max_abs_err": max(split_errs) if split_errs else None}
+
+
+def strip_times(st, s: int, f: int, device, gen) -> dict:
+    """One strip's call at width f, its column stream on the card: the
+    kernel's device ms (profiler), the plain version's and the library
+    call's (``torch.addmm`` of the strip as a CSR tensor, y + A_s·X in one
+    call) CUDA-event ms; then the alternative to the accumulate mode, a
+    fresh y_s a strip (``bsr_spmm`` over the strip's stream with its empty
+    block-rows kept, so it writes every row) and ``y.add_(y_s)``, timed
+    over every strip of the operand beside the accumulate launches."""
+    x = torch.randn(st.n_cols_padded, f, device=device, generator=gen)
+    y = torch.zeros(st.n_rows_padded, f, device=device)
+    c = st.columns[s]
+    nzc = c.unpack(st.packed[c.offset:c.offset + c.nbytes].to(device), st.br,
+                   st.n_rows_padded // st.br)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+         for a in (st.rows[s], st.cols[s], st.blocks[s])]
+    lib = _coo_library(types.SimpleNamespace(
+        block_rows=t[0], block_cols=t[1], blocks=t[2], br=st.br, bc=t[2].shape[2],
+        n_rows_padded=st.n_rows_padded, n_cols_padded=st.n_cols_padded))
+    ms = device_ms(lambda: bsr_spmm_accumulate(nzc, x, y), device, 10,
+                   {"bsr_spmm_accumulate": 1})
+    out = {"strip": s, "f": f, "ms": ms,
+           "ms_by": "profiler" if ms is not None else "cuda events",
+           "wall_ms": time_ms(lambda: bsr_spmm_accumulate(nzc, x, y), device, 10),
+           "plain_ms": time_ms(lambda: bsr_spmm_accum_ref(y, *t, x, st.n_rows_padded),
+                               device, 3, warmup=1),
+           "library_ms": time_ms(lambda: torch.addmm(y, lib, x), device, 10)}
+    if out["ms"] is None:
+        out["ms"] = out["wall_ms"]
+    del lib, t
+    cols = []
+    for k in range(st.n_strips):  # every strip's stream resident: no copies timed
+        ck = st.columns[k]
+        cols.append(ck.unpack(st.packed[ck.offset:ck.offset + ck.nbytes].to(device),
+                              st.br, st.n_rows_padded // st.br))
+    full = []
+    for k in range(st.n_strips):
+        tk = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+              for a in (st.rows[k], st.cols[k], st.blocks[k])]
+        full.append((tk, nonzero_columns(*tk, st.n_rows_padded)))
+
+    def accumulate():
+        for nz in cols:
+            bsr_spmm_accumulate(nz, x, y)
+
+    def fresh():
+        for tk, nz in full:
+            y.add_(bsr_spmm(*tk, x, st.n_rows_padded, nzc=nz))
+
+    out["pass_accumulate_ms"] = time_ms(accumulate, device, 5)
+    out["pass_fresh_add_ms"] = time_ms(fresh, device, 5)
+    return out
+
+
+def streamed_path(ds, sizes: Sizes, device, assignment) -> dict:
+    """Phase 24 (a): the resident cuda program of phase 4's GCN from seed 0
+    (its first step's loss and gradients, ``STREAM_EPOCHS`` epochs and their
+    peak allocation), then the same model on the streamed operand, as the
+    JAX package's ``examples/host_streamed_demo.py`` trains it
+    (``LayerOps(aggregate=op.aggregate)`` a layer, ``pipelined_value_and_grad``,
+    fused Adam): the first step against the resident program's, the epochs
+    timed with their launches counted from 0 and their peak allocation,
+    one instrumented epoch (per strip, copy and kernel ms and the overlap),
+    one profiled epoch; then every strip's accumulate call against its
+    plain version and one strip timed."""
+    dims = [ds.features.shape[1], *sizes.train_hidden, ds.n_classes]
+    cfg = GNNConfig(kind="GCN", layer_dims=dims, aggregation="gcn")
+    gnn = (GNNProgram.load(ds, arch="GCN", aggregation="gcn")
+           .initialize_layers(dims, "xavier", seed=0).set_optimizer(*ADAM))
+    t0 = time.perf_counter()
+    prog = gnn.compile(engine="cuda", device=device, fused_optimizer=True)
+    sync(device)
+    res = {"build_s": time.perf_counter() - t0}
+    p0 = {"layers": [{k: v.detach().clone() for k, v in layer.items()}
+                     for layer in prog.params["layers"]]}
+    ref_loss, ref_grads = value_and_grad(prog.model.loss_fn, p0, prog.x, prog.labels,
+                                         prog.train_mask)
+    ref_loss = float(ref_loss)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    res["losses"], res["epoch_ms"] = [], []
+    for _ in range(STREAM_EPOCHS):
+        t0 = time.perf_counter()
+        res["losses"].append(prog.train_epoch()["loss"])
+        res["epoch_ms"].append((time.perf_counter() - t0) * 1e3)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(device) if on_card else 0
+    res["epoch_ms_median"] = float(np.median(res["epoch_ms"]))
+    del prog, gnn
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    op, budget, build_s = streamed_operand(ds, assignment)
+    out = {"resident": res, "build_s": build_s, "budget": budget,
+           "strips": {"fwd": op.fwd.n_strips, "bwd": op.bwd.n_strips},
+           "blocks_per_strip": {"fwd": op.fwd.blocks_per_strip,
+                                "bwd": op.bwd.blocks_per_strip},
+           "blocks": {"fwd": op.fwd.n_blocks, "bwd": op.bwd.n_blocks},
+           "jax_total_nbytes": op.total_nbytes(), "jax_device_nbytes": op.device_nbytes(),
+           "pinned_nbytes": op.pinned_nbytes(), "card_nbytes": op.card_nbytes(),
+           "columns": {"fwd": sum(c.n_cols for c in op.fwd.columns),
+                       "bwd": sum(c.n_cols for c in op.bwd.columns)}}
+    print(f"[stream] operand built in {build_s:.1f}s at budget {budget >> 20} MiB: "
+          f"{op.fwd.n_strips} + {op.bwd.n_strips} strips of {op.fwd.blocks_per_strip} / "
+          f"{op.bwd.blocks_per_strip} blocks ({op.fwd.n_blocks} / {op.bwd.n_blocks} "
+          f"blocks of 8x32); the JAX package's reckoning {op.total_nbytes() / 2**30:.2f} "
+          f"GiB on the host, {op.device_nbytes() / 2**20:.1f} MiB on the device; "
+          f"column streams {op.pinned_nbytes() / 2**20:.1f} MiB pinned, "
+          f"{op.card_nbytes() / 2**20:.2f} MiB of strip buffers on the card", flush=True)
+    x = torch.from_numpy(ds.features[op.order]).to(device)
+    labels = torch.from_numpy(ds.labels[op.order]).to(device)
+    mask = torch.from_numpy(ds.train_mask[op.order]).to(device)
+    denom = mask.sum().to(torch.float32).clamp(min=1.0)
+    fns = arch_layer_fns(cfg, [LayerOps(aggregate=op.aggregate)] * cfg.n_layers)
+    opt = adam(ADAM[1], ADAM[2], ADAM[3], fused=True)
+    params = {"layers": [{k: v.clone() for k, v in layer.items()}
+                         for layer in p0["layers"]]}
+    opt_state = opt.init(params)
+    loss0, grads0 = pipelined_value_and_grad(fns, params, x, labels, mask, denom)
+    first = {"loss": float(loss0), "ref_loss": ref_loss,
+             "loss_diff": abs(float(loss0) - ref_loss),
+             "grads": leaf_diffs(grads0, ref_grads)}
+    print(f"[stream] first step against the resident program: {json.dumps(first)}")
+    if not first["loss_diff"] <= TOL:
+        raise AssertionError(f"[stream] first loss {first['loss']} against {ref_loss}")
+    if not max(first["grads"].values()) <= GRAD_RTOL:
+        raise AssertionError(f"[stream] gradients differ: {first['grads']}")
+    del grads0, ref_grads
+    sync(device)
+    base = torch.cuda.memory_allocated(device) if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    losses, times = [], []
+    for _ in range(STREAM_EPOCHS):
+        sync(device)
+        t0 = time.perf_counter()
+        loss, grads = pipelined_value_and_grad(fns, params, x, labels, mask, denom)
+        with torch.no_grad():
+            params, opt_state = opt.update(grads, opt_state, params)
+        losses.append(float(loss))  # synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    per_epoch = len(dims) - 1
+    want = {k: 0 for k in KERNELS}
+    if on_card:  # CPU tensors launch nothing
+        want["bsr_spmm_accumulate"] = STREAM_EPOCHS * per_epoch * (op.fwd.n_strips
+                                                                   + op.bwd.n_strips)
+        want["fused_adam"] = STREAM_EPOCHS
+    if launched != want:
+        raise AssertionError(f"[stream] launches {launched}, expected {want}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"[stream] losses {losses}")
+    out.update(first_step=first, losses=losses, epoch_ms=times,
+               epoch_ms_median=float(np.median(times)), launches=launched,
+               peak_bytes=peak, base_bytes=base)
+    # one instrumented epoch: each strip's copy and kernel between events
+    widths = dims[1:]
+    out["passes"] = {"fwd": [], "bwd": []}
+    if on_card:
+        op.fwd.timeline, op.bwd.timeline = [], []
+        sync(device)
+        pipelined_value_and_grad(fns, params, x, labels, mask, denom)
+        sync(device)
+        out["passes"] = {
+            "fwd": [pass_summary(r, f)
+                    for r, f in zip(strip_passes(op.fwd.timeline), widths)],
+            "bwd": [pass_summary(r, f)
+                    for r, f in zip(strip_passes(op.bwd.timeline), widths[::-1])]}
+        op.fwd.timeline = op.bwd.timeline = None
+        if [len(v) for v in out["passes"].values()] != [per_epoch, per_epoch]:
+            raise AssertionError(f"[stream] an epoch made {out['passes']} passes")
+
+    def epoch():
+        loss, grads = pipelined_value_and_grad(fns, params, x, labels, mask, denom)
+        with torch.no_grad():
+            opt.update(grads, opt_state, params)
+
+    out["profile"] = epoch_profile(epoch, device, out["epoch_ms_median"] / 1e3,
+                                   {"bsr_spmm_accumulate": want["bsr_spmm_accumulate"]
+                                    // STREAM_EPOCHS, "fused_adam": 1})
+    del grads, params, opt_state, x, labels, mask
+    gc.collect()
+    out["op"] = op
+    if not on_card:  # the kernel checks and times need the card
+        return out
+    gen = torch.Generator(device=device).manual_seed(24)
+    out["checks"] = {name: strip_checks(name, st, widths[0], device, gen)
+                     for name, st in (("fwd", op.fwd), ("bwd", op.bwd))}
+    mid = op.fwd.n_strips // 2
+    out["timed"] = strip_times(op.fwd, mid, widths[0], device, gen)
+    out["timed"].update(strip_bound(op.fwd, mid, widths[0]))
+    return out
+
+
+def stream_faults(device) -> dict:
+    """Phase 24 (b): the fetch's host half on the card, on the JAX demo's
+    operand (corafull at scale 0.02, 96 KiB budget, checksums on): a
+    fault that fails strip 1's fetch twice retries to a y bitwise equal to
+    the clean pass's; a fault on every fetch raises ``StreamFetchError``
+    naming strip 0, shard 5 and operand 'fwd' after 2 attempts; a flipped
+    bit in a strip's pinned column stream raises ``StripChecksumError``
+    (inside the ``StreamFetchError``) naming that strip."""
+    ds = generate_dataset("corafull", scale=0.02, seed=0)
+    rp = RetryPolicy(max_retries=1, base_delay_s=1e-5, max_delay_s=1e-4)
+    op = build_streamed_operand(ds.graph, "gcn", k_shards=4, budget_bytes=96 * 1024,
+                                retry=rp, shard_id=5, verify_fetch=True)
+    x = torch.randn(op.n_nodes, 40, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    y0 = op.fwd.apply(x)
+    inj = FaultInjector(seed=0, faults=[FaultSpec(site="prefetch", prob=1.0, count=1)])
+    hook = inj.callback_hook("prefetch")
+    op.fwd.fault_hook = lambda i: hook(("fwd", i)) if i == 1 else None
+    y1 = op.fwd.apply(x)
+    sync(device)
+    if not (torch.equal(y0, y1) and inj.fired["prefetch"] == 1):
+        raise AssertionError("[stream] a retried fetch changed y")
+    op.fwd.fault_hook = lambda i: (_ for _ in ()).throw(OSError("pinned read failed"))
+    try:
+        op.fwd.apply(x)
+        raise AssertionError("[stream] a failing fetch did not raise")
+    except StreamFetchError as e:
+        if (e.strip, e.shard, e.name, e.attempts) != (0, 5, "fwd", 2):
+            raise AssertionError(f"[stream] fetch error fields: {e}")
+        permanent = str(e)
+    op.fwd.fault_hook = None
+    c = op.bwd.columns[3]
+    at = c.offset + c.sections[3] + 2
+
+    def flip():  # on the card the pinned buffer the copy reads; off it the blocks
+        if device.type == "cuda":
+            op.bwd.packed[at] ^= 0x40
+        else:
+            op.bwd.blocks[3].reshape(-1).view(np.uint8)[6] ^= 0x40
+
+    flip()
+    try:
+        op.bwd.apply(x)
+        raise AssertionError("[stream] a corrupted strip passed")
+    except StreamFetchError as e:
+        if not (isinstance(e.cause, StripChecksumError) and e.cause.strip == 3):
+            raise AssertionError(f"[stream] corruption raised {e!r}")
+        corrupted = str(e)
+    flip()
+    if not torch.equal(op.bwd.apply(x), op.bwd.apply(x)):
+        raise AssertionError("[stream] the repaired strip's pass does not repeat")
+    out = {"retried_equal": True,
+           "pinned": device.type == "cuda" and bool(op.bwd.packed.is_pinned()),
+           "permanent": permanent, "corrupted": corrupted}
+    print(f"[stream] faults on the card: {json.dumps(out)}")
+    return out
+
+
+#: phase 24 (c): the kernel calls rank 0 records at the start of each
+#: segment and holds against their plain versions: one SAGE step's 12
+#: (phase 23 (c) records the same 12 a step)
+RESILIENT_CHECKED_CALLS = 12
+
+
+def counted_segment_rank(rank: int, spec: dict) -> dict:
+    """``ResilientDistributedTrainer``'s segment on this rank with its
+    kernels' launches counted from 0 (every rank's gathered to rank 0);
+    rank 0 also records the segment's first ``RESILIENT_CHECKED_CALLS``
+    kernel calls and, after the segment, holds each against its plain
+    version (``check_call``)."""
+    import torch.distributed as tdist
+
+    calls: list = []
+    zero_counts()
+    with (recorded_calls(calls, RESILIENT_CHECKED_CALLS) if rank == 0
+          else contextlib.nullcontext()):
+        out = ResilientDistributedTrainer.segment_rank(rank, spec)
+    launched = [None] * tdist.get_world_size()
+    tdist.all_gather_object(launched, counts())
+    if rank == 0:
+        n = len(launched)
+        checks: dict = {}
+        for i, (op, args, kw, got) in enumerate(calls):
+            name = SOAK_OPS[op]
+            err = check_call(f"[resilient] segment from step {spec['step']} on {n} "
+                             f"ranks: {name} call {i}", op, args, kw, got)
+            c = checks.setdefault(name, {"calls": 0, "max_abs_err": 0.0})
+            c["calls"] += 1
+            c["max_abs_err"] = max(c["max_abs_err"], err)
+        out.update(launches_by_rank=launched, checks=checks)
+    return out
+
+
+class CountedResilientTrainer(ResilientDistributedTrainer):
+    """The trainer with ``counted_segment_rank`` on its ranks: each
+    segment's record gains every rank's launches and rank 0's checks."""
+
+    segment_rank = staticmethod(counted_segment_rank)
+
+    def _segment(self, end: int) -> dict:
+        r0 = super()._segment(end)
+        self.segments[-1].update(launches=r0["launches_by_rank"], checks=r0["checks"])
+        return r0
+
+
+def resilient_run(ds, cfg, device, faults, epochs: int, tmp: str, partition,
+                  pool) -> dict:
+    """One ``ResilientDistributedTrainer`` run (``CountedResilientTrainer``)
+    on ``DIST_RANKS`` ranks sharing the card, on ``pool``; its events,
+    segments, losses and guard, and the probe (loss and gradients) at the
+    carried params."""
+    t0 = time.perf_counter()
+    with CountedResilientTrainer(
+            ds.graph, ds.features, ds.labels, ds.train_mask, cfg,
+            functools.partial(adam, ADAM[1], ADAM[2], ADAM[3], fused=True),
+            n_ranks=DIST_RANKS, ckpt_dir=tmp, ckpt_every=2, guard=GuardPolicy(),
+            injector=FaultInjector(seed=0, faults=faults), dead_timeout=0.0,
+            straggler_factor=3.0, window=4, br=DIST_BR, bc=DIST_BC, device=device,
+            timeout_s=600, partition=partition, pool=pool) as rt:
+        build_s = time.perf_counter() - t0
+        res = rt.fit(epochs=epochs)
+        loss, grads = rt.loss_and_grads()
+    return {"rt": rt, "out": res, "probe_loss": loss, "probe_grads": grads,
+            "build_s": build_s, "s": time.perf_counter() - t0}
+
+
+def resilient_launches(name: str, segments: list) -> dict:
+    """Each segment's launches on every rank: each of the SAGE run's
+    kernels (``DIST_KERNELS["sage"]``) launched on every rank, nothing
+    else. Returns the launches summed over segments and ranks, and rank
+    0's checks merged."""
+    on_path = set(DIST_KERNELS["sage"])
+    total = dict.fromkeys(KERNELS, 0)
+    checks: dict = {}
+    for i, sg in enumerate(segments):
+        for r, launched in enumerate(sg["launches"]):
+            missing = [k for k in on_path if not launched[k]]
+            stray = [k for k, v in launched.items() if v and k not in on_path]
+            if missing or stray:
+                raise AssertionError(
+                    f"[resilient] {name} segment {i} rank {r}: kernels not launched "
+                    f"{missing}, launched off the path {stray}: {launched}")
+            for k, v in launched.items():
+                total[k] += v
+        if sum(c["calls"] for c in sg["checks"].values()) < RESILIENT_CHECKED_CALLS:
+            raise AssertionError(f"[resilient] {name} segment {i}: rank 0 checked "
+                                 f"{sg['checks']}")
+        for k, c in sg["checks"].items():
+            m = checks.setdefault(k, {"calls": 0, "max_abs_err": 0.0})
+            m["calls"] += c["calls"]
+            m["max_abs_err"] = max(m["max_abs_err"], c["max_abs_err"])
+    return {"launches": total, "checks": checks}
+
+
+def resilient_gate(name: str, run: dict, prog, device) -> dict:
+    """The carried params on the single-device cuda program ``prog``: the
+    group's probe loss within 1e-4 and each gradient leaf within
+    GRAD_RTOL."""
+    rt = run["rt"]
+    params = {"layers": [{k: v.to(device) for k, v in layer.items()}
+                         for layer in rt.params["layers"]]}
+    loss, grads = value_and_grad(prog.model.loss_fn, params, prog.x, prog.labels,
+                                 prog.train_mask)
+    got = tree_unflatten(params, [torch.from_numpy(g).to(device)
+                                  for g in run["probe_grads"]])
+    out = {"loss": run["probe_loss"], "ref_loss": float(loss),
+           "loss_diff": abs(run["probe_loss"] - float(loss)),
+           "grads": leaf_diffs(got, grads)}
+    if not out["loss_diff"] <= TOL:
+        raise AssertionError(f"[resilient] {name}: loss {out['loss']} against "
+                             f"{out['ref_loss']} on one device")
+    if not max(out["grads"].values()) <= GRAD_RTOL:
+        raise AssertionError(f"[resilient] {name}: gradients differ: {out['grads']}")
+    return out
+
+
+def resilience_path(sizes: Sizes, device, partition, pool) -> dict:
+    """Phase 24 (c): the rank-death and straggler schedules on the JAX
+    package's ``examples/distributed_gnn.py`` model (SAGE-mean [8710, 16,
+    70] on the corafull analog at full scale), 4 ranks sharing the card:
+    the rank-death run ends on 3 ranks after one rescale from the step-2
+    checkpoint with the NaN step skipped, the straggler run after one
+    rebalance with the state carried bitwise; losses finite and falling;
+    each run's carried params against the single-device program
+    (``resilient_gate``)."""
+    ds = dist_dataset(sizes, "corafull")
+    cfg = GNNConfig(kind="SAGE", layer_dims=[ds.features.shape[1], 16, ds.n_classes],
+                    aggregation="mean")
+    schedules = {
+        "rank_death": ([FaultSpec(site="rank_dead", steps=range(3, 10_000), rank=2,
+                                  persistent=True),
+                        FaultSpec(site="grad", steps=(1,), mode="nan")],
+                       RESILIENT_EPOCHS),
+        "straggler": ([FaultSpec(site="rank_slow", steps=range(2, 10_000), rank=1,
+                                 factor=8.0)], STRAGGLER_EPOCHS)}
+    t0 = time.perf_counter()
+    prog = (GNNProgram.load(ds, arch=cfg.kind, aggregation=cfg.aggregation)
+            .initialize_layers(list(cfg.layer_dims), "xavier", seed=0)
+            .compile(engine="cuda", device=device, fused_optimizer=True))
+    out = {"ref_build_s": time.perf_counter() - t0}
+    for name, (faults, epochs) in schedules.items():
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "chiprun_out")) as tmp:
+            run = resilient_run(ds, cfg, device, faults, epochs, tmp, partition, pool)
+        res = run["out"]
+        events = [{"step": e.step, "action": e.action, "recovery_s": e.recovery_s,
+                   **{k: v for k, v in e.detail.items()}} for e in res["events"]]
+        segs = [{k: v for k, v in sg.items() if k != "ready_at"} for sg in res["segments"]]
+        losses = res["losses"]
+        if not (len(losses) == epochs and np.isfinite(losses).all()
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"[resilient] {name}: losses {losses}")
+        if name == "rank_death":
+            ok = (res["final_ranks"] == 3 and [e["action"] for e in events] == ["rescale"]
+                  and res["guard"]["skipped"] >= 1 and events[0]["dead"] == [2])
+        else:
+            ok = (res["final_ranks"] == DIST_RANKS
+                  and [e["action"] for e in events] == ["rebalance"]
+                  and segs[1]["start_digest"] == segs[0]["end_digest"])
+        if not ok:
+            raise AssertionError(f"[resilient] {name}: {json.dumps(events)} "
+                                 f"{json.dumps(segs)} guard {res['guard']}")
+        gate = resilient_gate(name, run, prog, device)
+        out[name] = {**resilient_launches(name, segs),
+                     "events": events, "segments": segs, "losses": losses,
+                     "guard": res["guard"], "final_ranks": res["final_ranks"],
+                     "gate": gate, "builds": res["builds"], "build_s": run["build_s"],
+                     "s": run["s"]}
+        print(f"[resilient] {name}: {json.dumps(out[name])}", flush=True)
+    del prog
+    return out
+
+
+def _psum_rank(rank: int, device) -> dict:
+    """Phase 24 (d) on one rank: ``compressed_psum`` of this rank's
+    gradients (the constant rank + 1, the JAX package's case, and a
+    random tree of GCN [128, 256, 40]'s shapes) with a zero error buffer."""
+    from repro_torch.training.grad import compressed_psum
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device.type == "cuda" else device)
+    g = torch.Generator(device=dev).manual_seed(rank)
+    grads = {"c": torch.full((64,), rank + 1.0, device=dev),
+             "w0": torch.randn(128, 256, device=dev, generator=g),
+             "w1": torch.randn(256, 40, device=dev, generator=g)}
+    err = {k: torch.zeros_like(v) for k, v in grads.items()}
+    means, errs = compressed_psum(grads, err)
+    return {"grads": {k: v.cpu().numpy() for k, v in grads.items()},
+            "means": {k: v.cpu().numpy() for k, v in means.items()},
+            "errs": {k: v.cpu().numpy() for k, v in errs.items()}}
+
+
+def psum_check(device, pool) -> dict:
+    """Phase 24 (d): 4 ranks' ``compressed_psum`` against the exact mean:
+    the ranks' means equal, the constant case within the JAX package's
+    bound (< 0.2 of the true mean), every leaf's error against the exact
+    mean printed beside its scale, and each rank's error buffer its own
+    quantisation residual (g - mean never enters it)."""
+    ranks = pool.run(_psum_rank, DIST_RANKS, (device,))
+    out = {}
+    for k in ranks[0]["means"]:
+        exact = np.mean([r["grads"][k] for r in ranks], axis=0)
+        for r in ranks[1:]:
+            if not np.array_equal(r["means"][k], ranks[0]["means"][k]):
+                raise AssertionError(f"[psum] {k}: ranks' means differ")
+        out[k] = {"max_err": float(np.abs(ranks[0]["means"][k] - exact).max()),
+                  "scale": float(np.abs(exact).max()),
+                  "residual_max": max(float(np.abs(r["errs"][k]).max()) for r in ranks)}
+    if not out["c"]["max_err"] < 0.2 * float(np.mean(np.arange(1, DIST_RANKS + 1))):
+        raise AssertionError(f"[psum] {out['c']}")
+    print(f"[psum] compressed_psum on {DIST_RANKS} ranks: {json.dumps(out)}")
+    return out
+
+
+def soak_distributed(device, pool) -> dict:
+    """Phase 24 (e): the soak's distributed schedules among its first
+    ``SOAK_DIST_SCHEDULES`` (every end-state property raises where it
+    fails)."""
+    t0 = time.perf_counter()
+    rows = list(chaos_soak.soak(SOAK_DIST_SCHEDULES, 0, device,
+                                os.path.join(ROOT, "chiprun_out", "chaos_soak"),
+                                only=("distributed",), pool=pool))
+    for r in rows:
+        print(f"[chaos] {r}")
+    return {"rows": rows, "s": time.perf_counter() - t0}
+
+
+def streaming_phase(sizes: Sizes, device, partitions: Optional[dict]) -> dict:
+    """Phase 24: (a) ``streamed_path``, (b) ``stream_faults``, (c)
+    ``resilience_path``, (d) ``psum_check``, (e) ``soak_distributed``,
+    (c)-(e) on one ``RankPool`` of ``DIST_RANKS`` processes;
+    ``partitions`` are phase 23's 4-way partitions (``hierarchical_partition
+    (graph, 4)``, the ones (a) and (c) make) where it ran, else each part
+    partitions."""
+    t_phase = time.perf_counter()
+    partitions = partitions or {}
+    ds = generate_dataset(sizes.dataset, scale=sizes.scale, seed=0)
+    arxiv = partitions.get("arxiv")
+    out = {"a": streamed_path(ds, sizes, device,
+                              None if arxiv is None else arxiv.assignment)}
+    del ds
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["a_s"] = time.perf_counter() - t_phase
+    out["b"] = stream_faults(device)
+    # (c)-(e) on one pool of rank processes: spawned once, each group
+    # formed anew (4 ranks, 3 after the rescale)
+    t0 = time.perf_counter()
+    with RankPool(DIST_RANKS, device=device, timeout_s=600) as pool:
+        out["pool_s"] = time.perf_counter() - t0
+        out["c"] = resilience_path(sizes, device, partitions.get("corafull"), pool)
+        out["c_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["d"] = psum_check(device, pool)
+        out["d_s"] = time.perf_counter() - t0
+        out["e"] = soak_distributed(device, pool)
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def streaming_entries(entries: list, p24: dict) -> None:
+    """The accumulate mode's entry from phase 24 (a): its launches on the
+    streamed path (``streamed``), its largest error over every strip's
+    check, one strip's call at F = 256 (device ms, plain ms, library ms,
+    bound); every other kernel's launches on the path (Adam's); and each
+    kernel's launches on (c)'s ranks over both schedules (``resilient``),
+    with the largest error of rank 0's checked calls."""
+    a = p24["a"]
+    by_name = {e["name"]: e for e in entries}
+    if "bsr_spmm_accumulate" not in by_name:
+        entries.append({"name": "bsr_spmm_accumulate", "launches": 0,
+                        "launches_by_path": {}, "max_abs_err": 0.0})
+        by_name["bsr_spmm_accumulate"] = entries[-1]
+    runs = [r for k, r in p24["c"].items() if k != "ref_build_s"]
+    for e in entries:
+        n = a["launches"][e["name"]]
+        e["launches_by_path"]["streamed"] = n
+        resilient = sum(r["launches"][e["name"]] for r in runs)
+        e["launches_by_path"]["resilient"] = resilient
+        e["launches"] += n + resilient
+        for r in runs:
+            if e["name"] in r["checks"]:
+                e["max_abs_err"] = max(e["max_abs_err"],
+                                       r["checks"][e["name"]]["max_abs_err"])
+    e = by_name["bsr_spmm_accumulate"]
+    if "timed" not in a:  # off the card: nothing launched, nothing timed
+        return
+    t = a["timed"]
+    e.update({"route": "cuda", "source": SOURCES[e["name"]][0],
+              "replaces": SOURCES[e["name"]][1],
+              "max_abs_err": max(c["max_abs_err"] for c in a["checks"].values()),
+              "ms": t["ms"], "ms_by": t["ms_by"], "plain_ms": t["plain_ms"],
+              "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+              "bound_by": t["bound_by"],
+              "shape": (f"one strip of A (strip {t['strip']} of {a['strips']['fwd']}, "
+                        f"{t['nnz']} nonzeros, {t['rows']} rows touched) at F = "
+                        f"{t['f']}: y += A_s X; library: torch.addmm(y, A_s as CSR, X)")})
+
+
+def print_streaming_summary(m: dict, card: str) -> None:
+    """Phase 24's lines, each beside the card's name and power limit."""
+    a = m["a"]
+    res = a["resident"]
+    print(f"[stream] (a) arxiv GCN on streamed strips: {a['strips']['fwd']} + "
+          f"{a['strips']['bwd']} strips at {a['budget'] >> 20} MiB, built in "
+          f"{a['build_s']:.1f}s; epoch {a['epoch_ms_median']:.2f} ms (median of "
+          f"{STREAM_EPOCHS}) against the resident program's "
+          f"{res['epoch_ms_median']:.2f}; peak allocation {a['peak_bytes'] / 2**30:.2f} "
+          f"GiB (held before the epochs {a['base_bytes'] / 2**30:.2f}) against "
+          f"{res['peak_bytes'] / 2**30:.2f}; column streams {a['pinned_nbytes'] / 2**20:.1f}"
+          f" MiB pinned, {a['card_nbytes'] / 2**20:.2f} MiB on the card; losses "
+          f"{a['losses'][0]:.4f} -> {a['losses'][-1]:.4f}; accumulate launches "
+          f"{a['launches']['bsr_spmm_accumulate']} on {card}")
+    for side, passes in a["passes"].items():
+        for p in passes:
+            hid = sum(p["copy_hidden"])
+            print(f"[stream] {side} pass at F {p['f']}: {p['strips']} strips, copy "
+                  f"{np.median(p['copy_ms']):.3f} ms a strip ({sum(p['copy_ms']):.2f} in "
+                  f"all, {sum(p['bytes']) / 2**20:.1f} MiB), kernel "
+                  f"{np.median(p['kernel_ms']):.3f} ms a strip ({sum(p['kernel_ms']):.2f} "
+                  f"in all), copy s+1 inside kernel s {hid}/{len(p['copy_hidden'])}, "
+                  f"span {p['span_ms']:.2f} ms")
+    if "timed" not in a:
+        return
+    pr = a["profile"]
+    if pr.get("complete"):
+        print(f"[stream] profiled epoch: busy {pr['busy_ms']:.2f} ms (both streams), "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(pr["device_ms"].items(),
+                                                            key=lambda kv: -kv[1])))
+    else:
+        print("[stream] profiled epoch: not measured")
+    t = a["timed"]
+    print(f"[stream] accumulate strip {t['strip']} at F {t['f']}: {t['ms']:.4f} ms "
+          f"({t['ms_by']}), plain {t['plain_ms']:.2f}, library {t['library_ms']:.4f}, "
+          f"bound {t['bound_ms']:.4f} ({t['bound_by']}); a pass over A's strips: "
+          f"accumulate {t['pass_accumulate_ms']:.3f} ms, fresh y_s + add_ "
+          f"{t['pass_fresh_add_ms']:.3f} ms; checks "
+          + json.dumps(a["checks"]) + f" on {card}")
+    for name, r in m["c"].items():
+        if name == "ref_build_s":
+            continue
+        segs = r["segments"]
+        print(f"[resilient] {name}: " + "; ".join(
+            f"{e['action']} at step {e['step']} recovery {e['recovery_s']:.2f}s (host "
+            f"{e['host_s']:.2f}s)" for e in r["events"])
+              + "; segments " + ", ".join(
+                  f"{sg['ranks']} ranks {sg['steps']} steps, started in {sg['start_s']:.1f}s, "
+                  f"epoch {np.median(sg['epoch_ms']) if sg['epoch_ms'] else float('nan'):.1f} ms"
+                  for sg in segs)
+              + f"; loss gap {r['gate']['loss_diff']:.2e}, grads "
+              f"{max(r['gate']['grads'].values()):.2e}; launches on the ranks "
+              + json.dumps({k: v for k, v in r["launches"].items() if v})
+              + "; rank 0's first-step calls against the plain versions "
+              + json.dumps(r["checks"]) + "; host builds "
+              + json.dumps(r["builds"]) + f" on {card}")
+    print(f"[stream] phase 24 in {m['s']:.1f}s: (a) {m['a_s']:.1f}s, the rank pool "
+          f"spawned in {m['pool_s']:.1f}s, (c) {m['c_s']:.1f}s, (d) {m['d_s']:.1f}s, "
+          f"(e) {m['e']['s']:.1f}s")
+
+
 def run(sizes: Sizes, device, phases: str = "all") -> dict:
-    """Phases 2 to 23 at ``sizes`` on ``device`` (phase 20, 21, 22 or 23
-    alone where ``phases`` names it: the kernels line then holds that
+    """Phases 2 to 24 at ``sizes`` on ``device`` (phase 20, 21, 22, 23 or
+    24 alone where ``phases`` names it: the kernels line then holds that
     phase's launches and numbers alone); returns the kernels line and
-    the details. Phases 20 to 23 each start after the phases before them
+    the details. Phases 20 to 24 each start after the phases before them
     have returned, so that nothing those held stays on the card."""
-    if phases in ("20", "21", "22", "23"):
+    if phases in ("20", "21", "22", "23", "24"):
         result = {"phase_s": {}, "kernels": [
             {"name": name, "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0}
             for name in KERNELS]}
@@ -5872,7 +6681,17 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
         dist = distributed_phase(sizes, device)
         result["phase_s"]["23"] = time.perf_counter() - t0
         distributed_entries(result["kernels"], dist, alone=phases == "23")
+        partitions = dist.pop("partitions")
         result["distributed"] = dist
+    else:
+        partitions = None
+    if phases in ("all", "24"):
+        t0 = time.perf_counter()
+        streaming = streaming_phase(sizes, device, partitions)
+        result["phase_s"]["24"] = time.perf_counter() - t0
+        streaming_entries(result["kernels"], streaming)
+        streaming["a"].pop("op")
+        result["streaming"] = streaming
     return result
 
 
@@ -5964,7 +6783,7 @@ def phases_2_to_19(sizes: Sizes, device) -> dict:
     ggnn = (GNNProgram.load(ds, arch="GAT", aggregation="gcn",
                             gat_heads=sizes.gat_heads)
             .initialize_layers(gdims, "xavier", seed=0).set_optimizer(*GAT_ADAM))
-    gat = train_path("gat", ggnn, device, sizes.epochs, {
+    gat = train_path("gat", ggnn, device, sizes.gat_epochs, {
         "bsr_attention_fwd": gn, "bsr_attention_bwd_row": gn,
         "bsr_attention_bwd_col": gn, "fused_adam": 1})
     if any(l.agg_primitive != "cuda.spmm_attention" for l in gat["prog"].plan.layers):
@@ -6325,9 +7144,10 @@ DIST_LIBRARIES = ("bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "bsr_attentio
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", choices=("all", "20", "21", "22", "23"), default="all",
-                    help="every phase (the default), or phase 20, 21, 22 or 23 alone "
-                         "after building the libraries it runs")
+    ap.add_argument("--phases", choices=("all", "20", "21", "22", "23", "24"),
+                    default="all",
+                    help="every phase (the default), or phase 20, 21, 22, 23 or 24 "
+                         "alone after building the libraries it runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -6338,7 +7158,7 @@ def main(argv=None) -> int:
     print(f"[card] {card}")
     t0 = time.perf_counter()
     libraries = (LIBRARIES if args.phases == "all" else
-                 DIST_LIBRARIES if args.phases == "23" else MOE_LIBRARIES)
+                 DIST_LIBRARIES if args.phases in ("23", "24") else MOE_LIBRARIES)
     built = build.build(libraries)
     print(f"[build] nvcc sm_90a, in parallel, {time.perf_counter() - t0:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in built.items()))
@@ -6363,15 +7183,18 @@ def main(argv=None) -> int:
     print(f"[card] {CLOCKS} after the phases: {clocks['end']}")
     if args.phases == "all":
         print_summary(result, card)
+        print_streaming_summary(result["streaming"], card)
     elif args.phases == "20":
         print_moe_summary(result["moe"], card)
     elif args.phases == "21":
         print_hybrid_summary(result["hybrid"], card)
     elif args.phases == "22":
         print_encdec_summary(result["encdec"], card)
-    else:
+    elif args.phases == "23":
         print_distributed_summary(result["distributed"], card)
-    print(f"[done] phases {'2-23' if args.phases == 'all' else args.phases} in "
+    else:
+        print_streaming_summary(result["streaming"], card)
+    print(f"[done] phases {'2-24' if args.phases == 'all' else args.phases} in "
           f"{time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")

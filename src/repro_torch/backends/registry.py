@@ -51,7 +51,9 @@ DIST_OP_VOCABULARY = (
     "dist_feature_matmul_sparse",
 )
 
-DIST_ITEM = "ROADMAP.md Queue 1, item 7 (distributed)"
+#: what item 7 still leaves: (4) tensor-parallel sharding, (5) a transport
+#: other than gloo (NCCL, CUDA IPC)
+DIST_ITEM = "ROADMAP.md Queue 1, item 7, parts 4 and 5 (distributed)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

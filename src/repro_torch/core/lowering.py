@@ -113,7 +113,8 @@ class OverlapPlan:
     the host-computed set of ring shifts with at least one live send on
     any rank; dead shifts are not posted. ``double_buffer_slots`` is the
     depth of the trainer's ``GhostBufferRing``. ``prefetch_depth`` > 0
-    marks host-streamed operands (not ported: ROADMAP.md Queue 1, item 7).
+    marks host-streamed operands (``runtime/streaming.py``, whose strips
+    prefetch one ahead; no plan binds them, as in the JAX package).
     """
 
     interior_blocks: int        # fleet-total interior stream length

@@ -8,6 +8,12 @@ The port of ``repro/kernels/bsr_spmm.py``'s three Pallas TPU kernels:
   optional ReLU (with its 0/1 mask) applied where the row's sum finishes;
 * ``bsr_spmm_masked`` (:312): Y = A·(mask ⊙ X), the ReLU epilogue's VJP.
 
+``bsr_spmm_accumulate`` is ``bsr_spmm``'s accumulate mode, Y += A·X,
+launched from a column stream alone: the kernel a host-streamed strip
+runs (``runtime/streaming.py``), since a budget cut can split a
+block-row between two strips. Its plain version is ``kernels/ref.py:
+bsr_spmm_accum_ref``.
+
 For CUDA tensors each wrapper launches its hand-written Hopper kernel
 (``kernels/csrc/bsr_spmm*.cu``, no atomics, bitwise repeatable); for CPU
 tensors it runs the plain version in ``kernels/ref.py``. There is no
@@ -208,7 +214,9 @@ def _check_launch(**tensors):
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    br = tensors["blocks"].shape[1]
+    # the blocks' height, or (a strip with no blocks on the card) the
+    # column values'
+    br = (tensors["blocks"] if "blocks" in tensors else tensors["values"]).shape[1]
     if br not in BUILT_BR:
         raise ValueError(f"block height {br} is not built; built: {BUILT_BR}")
 
@@ -299,6 +307,42 @@ def bsr_spmm(
     _raise_on(err, "bsr_spmm")
     bsr_spmm.launches += 1
     return y
+
+
+def bsr_spmm_accumulate(nzc: NonzeroColumns, x: torch.Tensor,
+                        out: torch.Tensor) -> torch.Tensor:
+    """``out += A·X`` on the card from A's column stream alone
+    (``bsr_spmm_accum_f32``): what a host-streamed strip launches, whose
+    blocks never reach the card (``runtime/streaming.py`` copies only the
+    strip's ``NonzeroColumns``). Each row an item of ``nzc`` owns is read,
+    added to and written once by one CTA (a split row by its second pass),
+    so strips launched in order on one stream sum in strip order, with no
+    atomics; rows without an item are left as they are. CUDA tensors
+    only: the plain version needs the blocks (``bsr_spmm_accum_ref``).
+    Counts its launches in ``.launches``."""
+    if x.device.type != "cuda":
+        raise ValueError("bsr_spmm_accumulate launches on the card; its "
+                         "plain version, bsr_spmm_accum_ref, takes the blocks")
+    if x.dim() != 2:
+        raise ValueError(f"x must be [n_cols, F], got {tuple(x.shape)}")
+    n_rows_padded = nzc.n_block_rows * nzc.br
+    if tuple(out.shape) != (n_rows_padded, x.shape[1]):
+        raise ValueError(f"out must be [{n_rows_padded}, {x.shape[1]}], got "
+                         f"{tuple(out.shape)}")
+    _check_nzc(nzc, nzc.br, n_rows_padded)
+    _check_launch(x=x, out=out, **_nzc_tensors(nzc))
+    f = x.shape[1]
+    if out.numel() == 0:
+        return out
+    partial = _partial(nzc, f, x.device)
+    fn = _entry("bsr_spmm", "bsr_spmm_accum_f32",
+                _NZC_ARGTYPES + (_P,) * 2 + (_I,) * 3 + (_P,))
+    with torch.cuda.device(x.device):
+        err = fn(*_nzc_args(nzc, partial), x.data_ptr(), out.data_ptr(), f,
+                 nzc.br, int(_vec4(f, x, out)), _stream(x.device))
+    _raise_on(err, "bsr_spmm_accumulate")
+    bsr_spmm_accumulate.launches += 1
+    return out
 
 
 def bsr_spmm_fused_epilogue(
@@ -415,5 +459,6 @@ def bsr_spmm_masked(
 
 
 bsr_spmm.launches = 0
+bsr_spmm_accumulate.launches = 0
 bsr_spmm_fused_epilogue.launches = 0
 bsr_spmm_masked.launches = 0

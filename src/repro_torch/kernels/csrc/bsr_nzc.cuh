@@ -122,8 +122,11 @@ __device__ __forceinline__ void store(float* p, const float (&v)[V]) {
 // The epilogue of one output element vector at y[i], in the reference's
 // order and roundings: (acc + α·self) + bias, then the ReLU and its 0/1
 // mask. The ReLU keeps a NaN, as jnp.maximum and torch.relu do (fmaxf
-// would map it to 0); its mask is 0 there (NaN > 0 is false).
-template <int V, bool HAS_SELF, bool HAS_BIAS, bool RELU>
+// would map it to 0); its mask is 0 there (NaN > 0 is false). ACCUM (the
+// plain product's accumulate mode, y += A·X) adds the sum to what y holds
+// first: y[i] + acc, as the plain version's `out + bsr_spmm_ref(...)`.
+// y[i] is read by plain loads, not __ldg: this launch writes it.
+template <int V, bool HAS_SELF, bool HAS_BIAS, bool RELU, bool ACCUM = false>
 __device__ __forceinline__ void finish(float (&out)[V], size_t i, float a,
                                        const float (&b)[V],
                                        const float* __restrict__ self,
@@ -131,6 +134,20 @@ __device__ __forceinline__ void finish(float (&out)[V], size_t i, float a,
                                        float* __restrict__ mask_out) {
   float s[V], m[V];
   if (HAS_SELF) load<V>(self + i, s);
+  if constexpr (ACCUM) {
+    float prev[V];
+    if constexpr (V == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(y + i);
+      prev[0] = t.x;
+      prev[1] = t.y;
+      prev[2] = t.z;
+      prev[3] = t.w;
+    } else {
+      prev[0] = y[i];
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) out[v] = __fadd_rn(prev[v], out[v]);
+  }
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     if (HAS_SELF) out[v] = __fadd_rn(out[v], __fmul_rn(a, s[v]));
@@ -145,9 +162,13 @@ __device__ __forceinline__ void finish(float (&out)[V], size_t i, float a,
 }
 
 // The row pass over one work item, the CTA's whole body: blockIdx.x the
-// item, blockIdx.y the feature tile of 2^lanes_log2 vectors.
+// item, blockIdx.y the feature tile of 2^lanes_log2 vectors. ACCUM adds
+// the item's sum to y instead of storing it (finish): a host-streamed
+// strip's items (runtime/streaming.py) add into the caller's y, since a
+// strip boundary can cut a block-row in two. Strips run in order on one
+// stream and a launch owns each row once, so no atomics are needed.
 template <int BR, int V, bool MASKED, bool HAS_SELF, bool HAS_BIAS,
-          bool RELU>
+          bool RELU, bool ACCUM = false>
 __device__ __forceinline__ void row_pass(
     const int4* __restrict__ items, const int* __restrict__ x_rows,
     const float* __restrict__ values, float* __restrict__ partial,
@@ -265,7 +286,7 @@ __device__ __forceinline__ void row_pass(
     if (slot >= 0) {
       store<V>(partial + (static_cast<size_t>(slot) * BR + r) * f + feat, out);
     } else {
-      finish<V, HAS_SELF, HAS_BIAS, RELU>(
+      finish<V, HAS_SELF, HAS_BIAS, RELU, ACCUM>(
           out, (static_cast<size_t>(brow) * BR + r) * f + feat, a, b, self,
           y, mask_out);
     }
@@ -273,8 +294,10 @@ __device__ __forceinline__ void row_pass(
 }
 
 // The second pass over the split rows, one CTA a row (blockIdx.x): add
-// its segments' partial sums in segment order and apply the epilogue.
-template <int BR, int V, bool HAS_SELF, bool HAS_BIAS, bool RELU>
+// its segments' partial sums in segment order and apply the epilogue
+// (ACCUM: add the sum to y, as row_pass).
+template <int BR, int V, bool HAS_SELF, bool HAS_BIAS, bool RELU,
+          bool ACCUM = false>
 __device__ __forceinline__ void split_pass(
     const int* __restrict__ splits, const float* __restrict__ partial,
     const float* __restrict__ self, const float* __restrict__ bias,
@@ -298,7 +321,7 @@ __device__ __forceinline__ void split_pass(
       for (int v = 0; v < V; ++v) out[v] = __fadd_rn(out[v], p[v]);
     }
     if (HAS_BIAS) load<V>(bias + feat, b);
-    finish<V, HAS_SELF, HAS_BIAS, RELU>(
+    finish<V, HAS_SELF, HAS_BIAS, RELU, ACCUM>(
         out, (static_cast<size_t>(brow) * BR + r) * f + feat, a, b, self, y,
         mask_out);
   }

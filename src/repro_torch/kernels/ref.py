@@ -65,6 +65,20 @@ def bsr_spmm_ref(
     return out.reshape(n_rows_padded, f)
 
 
+def bsr_spmm_accum_ref(
+    out: torch.Tensor,  # [n_rows_padded, F] float32: what y holds
+    block_rows: torch.Tensor,
+    block_cols: torch.Tensor,
+    blocks: torch.Tensor,
+    x: torch.Tensor,
+    n_rows_padded: int,
+) -> torch.Tensor:
+    """``out + A·X``: the plain version of ``bsr_spmm``'s accumulate mode
+    (a host-streamed strip's product added to the strips before it). A
+    new tensor; ``out`` is not changed."""
+    return out + bsr_spmm_ref(block_rows, block_cols, blocks, x, n_rows_padded)
+
+
 def bsr_spmm_fused_ref(
     block_rows: torch.Tensor,
     block_cols: torch.Tensor,

@@ -9,8 +9,8 @@ with its loss and synchronised ms. Runs on CUDA unless ``--device cpu``.
 ``--ckpt-dir`` resumes from the latest checkpoint there and saves
 ``(params, opt_state)`` every ``--ckpt-every`` steps, in the JAX
 package's format; a resumed run draws the batches an uninterrupted run
-draws. The heartbeat monitor comes with the distributed path (ROADMAP.md
-Queue 1, item 7).
+draws. Every step's time goes to a one-rank ``HeartbeatMonitor``, as the
+JAX launcher feeds it.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, list_archs
 from repro_torch.models.model_zoo import build_model, make_dummy_batch, make_train_step
 from repro_torch.runtime.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.runtime.failure import HeartbeatMonitor
 from repro_torch.training.optimizer import adamw
 from repro_torch.training.schedule import warmup_cosine
 
@@ -64,6 +65,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     gen = torch.Generator(device=device).manual_seed(1)
     for _ in range(start):  # the batches the steps before the resume drew
         make_dummy_batch(cfg, args.batch, args.seq, generator=gen)
+    monitor = HeartbeatMonitor(n_ranks=1)
     losses = []
     for i in range(start, args.steps):
         batch = make_dummy_batch(cfg, args.batch, args.seq, generator=gen)
@@ -71,6 +73,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         params, opt_state, loss = step(params, opt_state, batch)
         losses.append(float(loss))  # waits for the step
         dt = time.perf_counter() - t0
+        monitor.heartbeat(0, step_time=dt)
         print(f"[train] step {i + 1}/{args.steps} loss={losses[-1]:.4f} "
               f"({dt * 1e3:.0f} ms)")
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:

@@ -1,5 +1,5 @@
-"""Resilience layer, the single-device half: fault injection, guarded
-steps, retries, RNG capture.
+"""Resilience layer: fault injection, guarded steps, retries, RNG capture,
+and the distributed orchestrator.
 
 Counterpart of ``repro/runtime/resilience.py`` (DESIGN.md §13):
 
@@ -14,16 +14,20 @@ Counterpart of ``repro/runtime/resilience.py`` (DESIGN.md §13):
   escalating ladder over consecutive bad steps (skip → LR backoff →
   rollback to the last checkpoint).
 * :class:`RetryPolicy` — bounded exponential backoff with deterministic
-  jitter for host-side callbacks.
-
-The distributed orchestrator (heartbeats, elastic rescale, streamed
-shards and their errors) waits for ROADMAP.md Queue 1, item 7.
+  jitter for host-side callbacks (the streamed strips' fetch in
+  ``runtime/streaming.py``, whose failures raise
+  :class:`StreamFetchError` and :class:`StripChecksumError`).
+* :class:`ResilientDistributedTrainer` — the orchestrator that acts on
+  the ranks' heartbeat monitors (``runtime/failure.py``): a DEAD rank
+  triggers checkpoint-restore onto fewer ranks (``runtime/elastic.py``),
+  a STRAGGLER the degree-rebalancing re-partition (§IV-E1).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+import os
 import time
 from typing import Any, Callable, Iterable, Optional
 
@@ -40,6 +44,48 @@ from repro_torch.runtime.checkpoint import _flatten_with_paths, _unflatten
 
 class InjectedFault(RuntimeError):
     """Raised by a fault-injection site (simulates a crash/kill there)."""
+
+
+class StreamFetchError(RuntimeError):
+    """A host-side strip fetch failed (after any retries).
+
+    Carries the strip index, shard id and operand name, so the failure
+    surfaces from the strip stream (``runtime/streaming.py``) with enough
+    context to find the bad shard.
+    """
+
+    def __init__(self, strip: int, shard: int, name: str,
+                 cause: BaseException, attempts: int = 1):
+        self.strip = int(strip)
+        self.shard = int(shard)
+        self.name = str(name)
+        self.cause = cause
+        self.attempts = int(attempts)
+        super().__init__(
+            f"host prefetch of strip {strip} (operand {name!r}, shard "
+            f"{shard}) failed after {attempts} attempt(s): "
+            f"{type(cause).__name__}: {cause}")
+
+
+class StripChecksumError(RuntimeError):
+    """A fetched strip's payload does not match its build-time checksum.
+
+    Raised *inside* the retried read (DESIGN.md §14), so a transient
+    corruption — a bad DMA, a flipped bit in transit — retries under the
+    strips' :class:`RetryPolicy` like any other host fault; persistent
+    corruption exhausts the budget and surfaces as a
+    :class:`StreamFetchError` wrapping this error.
+    """
+
+    def __init__(self, strip: int, name: str, expected: int, got: int):
+        self.strip = int(strip)
+        self.name = str(name)
+        self.expected = int(expected)
+        self.got = int(got)
+        super().__init__(
+            f"strip {strip} of operand {name!r} failed checksum "
+            f"verification: crc32 {got:#010x} != expected {expected:#010x} "
+            f"(silent host-memory corruption?)")
 
 
 def _site_digest(site: str) -> int:
@@ -416,3 +462,431 @@ class VirtualClock:
     def advance(self, dt: float) -> float:
         self._now += float(dt)
         return self._now
+
+
+# ---------------------------------------------------------------------------
+# resilient distributed training orchestrator
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RecoveryEvent:
+    step: int
+    action: str  # "rescale" | "rebalance" | "rollback"
+    detail: dict
+    recovery_s: float
+
+
+def _to_host(tree):
+    """A tree of tensors as numpy (host counts stay ints): what crosses
+    between the rank processes and the parent."""
+    from repro_torch.runtime.checkpoint import _flatten_with_paths
+
+    leaves = [leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else leaf
+              for _, leaf in _flatten_with_paths(tree)]
+    return _unflatten(tree, leaves)
+
+
+def _to_device(tree, device):
+    from repro_torch.runtime.checkpoint import _flatten_with_paths
+
+    leaves = [torch.from_numpy(np.array(leaf)).to(device)
+              if isinstance(leaf, np.ndarray) else leaf
+              for _, leaf in _flatten_with_paths(tree)]
+    return _unflatten(tree, leaves)
+
+
+def _state_digest(tree) -> str:
+    """sha256 over a state's leaves (tensors, arrays, counts), in order."""
+    from repro_torch.runtime.checkpoint import _flatten_with_paths, _to_numpy
+
+    h = hashlib.sha256()
+    for _, leaf in _flatten_with_paths(tree):
+        h.update(np.ascontiguousarray(_to_numpy(leaf)).tobytes())
+    return h.hexdigest()
+
+
+def _segment_rank(rank: int, spec: dict) -> dict:
+    """One rank of one segment (``ResilientDistributedTrainer._segment``):
+    its slices loaded, the trainer bound from the carried state, the
+    monitor fresh on the carried clock; epochs until the monitor
+    recommends an action (every rank's monitor holds the same beats, so
+    every rank stops at the same step) or ``spec["end"]`` is reached.
+    Rank 0 saves the checkpoints (a barrier after each) and hands back
+    the state, the guard runner and the injector; where the epochs ran
+    out, every rank probes the loss and gradients at the final params."""
+    import pickle
+
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.runtime.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.runtime.failure import Action, HeartbeatMonitor
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.trainer import DistributedGNNTrainer
+
+    device = rank_device(rank, spec["device"])
+    with open(spec["files"][rank], "rb") as fh:
+        dist, plan = pickle.load(fh)
+    opt = spec["opt"]()
+    clock = VirtualClock(spec["clock"])
+    n = dist.n_ranks
+    monitor = HeartbeatMonitor(n, dead_timeout=spec["dead_timeout"],
+                               straggler_factor=spec["straggler_factor"],
+                               window=spec["window"], clock=clock)
+    tr = DistributedGNNTrainer(
+        dist, spec["config"], opt, plan=plan,
+        params=_to_device(spec["params"], device), device=device,
+        guard=spec["guard"], injector=spec["injector"], monitor=monitor,
+        clock=clock)
+    tr.opt_state = _to_device(spec["opt_state"], device)
+    tr._step_idx = spec["step"]
+    ckpt_dir, every = spec["ckpt_dir"], spec["ckpt_every"]
+
+    def _rollback():  # guard rung 2: back to the last checkpoint
+        (tr.params, tr.opt_state), _ = restore_checkpoint(
+            ckpt_dir, (tr.params, tr.opt_state))
+
+    tr.set_rollback(_rollback)
+    start_digest = _state_digest((tr.params, tr.opt_state)) if rank == 0 else None
+    ready_at = time.time()
+    losses, epoch_ms, action, states = [], [], Action.NONE, None
+    while tr._step_idx < spec["end"]:
+        t0 = time.perf_counter()
+        losses.append(tr.train_epoch())
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        action = monitor.recommend()
+        if action is not Action.NONE:
+            states = {r: s.value for r, s in monitor.classify().items()}
+            break
+        if tr._step_idx % every == 0:
+            if rank == 0:
+                save_checkpoint(ckpt_dir, tr._step_idx, (tr.params, tr.opt_state),
+                                injector=tr.injector)
+            tdist.barrier()  # no rank rolls back to a half-written step
+    out = {"rank": rank, "losses": losses, "epoch_ms": epoch_ms,
+           "action": action.value, "states": states, "step": tr._step_idx,
+           "clock": clock.now(), "ready_at": ready_at}
+    if action is Action.NONE:
+        loss, grads = tr.loss_and_grads()
+        out["probe"] = {"loss": float(loss),
+                        "grads": [g.cpu().numpy() for g in tree_leaves(grads)]}
+    if rank == 0:
+        if tr.guard is not None:
+            tr.guard.restore_fn = None  # a closure over this process's trainer
+        out.update(params=_to_host(tr.params), opt_state=_to_host(tr.opt_state),
+                   guard=tr.guard, injector=tr.injector, start_digest=start_digest,
+                   end_digest=_state_digest((tr.params, tr.opt_state)))
+    return out
+
+
+class ResilientDistributedTrainer:
+    """Distributed training that survives dead and straggling ranks.
+
+    Counterpart of the JAX package's orchestrator: the control plane
+    around ``DistributedGNNTrainer`` — per-step heartbeats (on a
+    :class:`VirtualClock` advanced by the measured step time, with
+    injector-dictated suppression and slowdown), guarded steps, periodic
+    checkpoints, and the heartbeat→action table:
+
+    ========== =====================================================
+    DEAD       checkpoint-restore onto fewer ranks
+               (``elastic.rescale``: re-partition, re-lower, resume)
+    STRAGGLER  degree-rebalancing re-partition (paper §IV-E1 Phase
+               III, Σdeg balancing) at the same rank count; params
+               are replicated and healthy so state carries over
+    ========== =====================================================
+
+    The JAX package drives one controller over a mesh; the port's ranks
+    are processes (``launch/mesh.py:run_ranks``), so this orchestrator
+    lives in the parent and runs the group a *segment* at a time: one
+    group of its ``RankPool``'s first ``n_ranks`` processes
+    (``launch/mesh.py``) that trains until the ranks' monitors
+    recommend an action (every rank's monitor holds the same beats, so
+    all stop at the same step) or the epochs run out. Rank 0 saves the
+    checkpoints every ``ckpt_every`` steps, in the JAX package's format,
+    and hands back the parameters, optimizer state, guard runner and
+    injector as host values. A DEAD rank leads to ``elastic.rescale``
+    from the latest checkpoint onto n − |dead| ranks in a new group of
+    the pool's first n − |dead| processes; a
+    STRAGGLER to ``hierarchical_partition(..., force_phase=
+    "greedy_degree")`` at the same n with the carried state, bitwise. The
+    injected death stays simulated, as in the JAX package: the "dead"
+    rank's process runs on and stops heartbeating. The guard ladder's
+    counters carry across rebuilds (one ``GuardRunner`` travels with the
+    state).
+
+    ``opt`` is a picklable callable that builds the optimizer (each rank
+    builds its own: ``functools.partial(adam, 1e-2)``); ``params`` the
+    starting weights (a tree of tensors or arrays, e.g. ``params_from_jax``'s),
+    else ``seed``'s ``init_params``. ``device`` is where the ranks run
+    (CUDA unless the caller asks for the CPU); the parent's state and
+    host work stay on the CPU. Each segment's graph slices go to files
+    in a temporary directory the parent removes. ``partition`` (the
+    ``hierarchical_partition(graph, n_ranks, seed=partition_seed)`` a
+    caller already has) skips the first partition. ``pool`` (a
+    ``RankPool`` of at least ``n_ranks`` members on ``device``) runs the
+    segments where the caller keeps one; else the trainer spawns its own
+    when it is built. ``close`` (or leaving a ``with`` statement) stops
+    the trainer's own pool and removes its files; a caller's pool stays
+    open.
+    """
+
+    #: what each rank runs for a segment (``pool.run(segment_rank, n,
+    #: (spec,))``); a subclass may wrap it, to count or record what a
+    #: segment launches on its ranks
+    segment_rank = staticmethod(_segment_rank)
+
+    def __init__(self, graph, features, labels, train_mask, config, opt,
+                 n_ranks: int, *, ckpt_dir: str, ckpt_every: int = 2,
+                 guard: Optional[GuardPolicy] = None,
+                 injector: Optional[FaultInjector] = None,
+                 dead_timeout: float = 0.5, straggler_factor: float = 3.0,
+                 window: int = 8, seed: int = 0, br: int = 8, bc: int = 32,
+                 partition_seed: int = 0, params=None, device=None,
+                 timeout_s: float = 300.0, partition=None, pool=None):
+        from repro_torch import resolve_device
+        from repro_torch.launch.mesh import RankPool
+        from repro_torch.models.gnn import init_params
+
+        self.graph = graph
+        self.features = np.asarray(features)
+        self.labels = np.asarray(labels)
+        self.train_mask = np.asarray(train_mask)
+        self.config = config
+        self.opt = opt
+        self.n_ranks = int(n_ranks)
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = int(ckpt_every)
+        # one runner for the whole run: ladder state and skip/backoff/
+        # rollback counters survive rebuilds (rescale/rebalance)
+        self.guard = GuardRunner(guard or GuardPolicy())
+        self.injector = injector
+        self.dead_timeout = float(dead_timeout)
+        self.straggler_factor = float(straggler_factor)
+        self.window = int(window)
+        self.br, self.bc = int(br), int(bc)
+        self.partition_seed = int(partition_seed)
+        self.device = resolve_device(device)
+        self.timeout_s = float(timeout_s)
+
+        self.clock = VirtualClock()
+        self.step_idx = 0
+        self.events: list[RecoveryEvent] = []
+        #: one record a segment: ranks, steps, spawn and epoch times
+        self.segments: list[dict] = []
+        self.builds: list[dict] = []
+        cpu = torch.device("cpu")
+        if params is None:
+            params = init_params(config, torch.Generator().manual_seed(seed), cpu)
+        self.params = _to_device(_to_host(params), cpu)
+        self.opt_state = opt().init(self.params)
+        self.probe = None  # (loss, grads) at the current params, once taken
+        self._work = None
+        # the pool's members reach their device while the host partitions
+        self._own_pool = pool is None
+        self.pool = pool if pool is not None else RankPool(
+            self.n_ranks, device=self.device, timeout_s=self.timeout_s)
+        try:
+            self._build(self.n_ranks, partition=partition)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        """Stop the trainer's own pool (a caller's stays open) and remove
+        the segments' files."""
+        if self._own_pool:
+            self.pool.close()
+        self._drop_work()
+
+    def __enter__(self) -> "ResilientDistributedTrainer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- (re)construction ---------------------------------------------------
+
+    def _agg(self) -> str:
+        from repro_torch.core.lowering import effective_aggregation
+        return effective_aggregation(self.config)
+
+    def _build(self, n_ranks: int, force_phase: Optional[str] = None,
+               partition=None) -> None:
+        """Partition (unless given), build and lower for ``n_ranks`` ranks,
+        and write each rank's slices for the next segment."""
+        import pickle
+        import tempfile
+
+        from repro_torch.core.halo import build_distributed_graph
+        from repro_torch.core.lowering import lower_distributed
+        from repro_torch.core.partitioner import hierarchical_partition
+
+        times = {"ranks": int(n_ranks)}
+        t0 = time.perf_counter()
+        if partition is None:
+            partition = hierarchical_partition(self.graph, n_ranks,
+                                               seed=self.partition_seed,
+                                               force_phase=force_phase)
+        times["partition_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dist = build_distributed_graph(
+            self.graph, self.features, self.labels, self.train_mask, partition,
+            br=self.br, bc=self.bc, aggregation=self._agg())
+        times["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan = lower_distributed(self.config, dist)
+        times["lower_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._drop_work()
+        self._work = tempfile.mkdtemp(prefix="repro_torch_resilient_")
+        self._files = []
+        for r in range(n_ranks):
+            self._files.append(os.path.join(self._work, f"rank{r}.pkl"))
+            with open(self._files[-1], "wb") as fh:
+                pickle.dump((dist.rank_slice(r, bulk=plan.overlap is None),
+                             plan.rank_slice(r)), fh, protocol=5)
+        times["write_s"] = time.perf_counter() - t0
+        #: the host's seconds for each (re)build: partition, distributed
+        #: graph, lowering, the ranks' files
+        self.builds.append(times)
+        self.partition = partition
+        self.n_ranks = int(n_ranks)
+
+    def _drop_work(self) -> None:
+        import shutil
+
+        if self._work is not None:
+            shutil.rmtree(self._work, ignore_errors=True)
+            self._work = None
+
+    # -- checkpoint plumbing ------------------------------------------------
+
+    def _state(self) -> tuple:
+        return (self.params, self.opt_state)
+
+    def save(self) -> str:
+        from repro_torch.runtime.checkpoint import save_checkpoint
+        return save_checkpoint(self.ckpt_dir, self.step_idx, self._state(),
+                               injector=self.injector)
+
+    # -- a segment ------------------------------------------------------------
+
+    def _segment(self, end: int) -> dict:
+        spec = {"files": self._files, "config": self.config, "opt": self.opt,
+                "params": _to_host(self.params),
+                "opt_state": _to_host(self.opt_state), "guard": self.guard,
+                "injector": self.injector, "clock": self.clock.now(),
+                "step": self.step_idx, "end": int(end),
+                "dead_timeout": self.dead_timeout,
+                "straggler_factor": self.straggler_factor, "window": self.window,
+                "ckpt_dir": self.ckpt_dir, "ckpt_every": self.ckpt_every,
+                "device": self.device}
+        t0 = time.time()
+        ranks = self.pool.run(self.segment_rank, self.n_ranks, (spec,))
+        r0 = ranks[0]
+        for r in ranks[1:]:
+            if (r["action"], r["step"], r["losses"]) != (r0["action"], r0["step"],
+                                                         r0["losses"]):
+                raise RuntimeError(
+                    f"rank {r['rank']} parted from rank 0: action {r['action']!r} "
+                    f"at step {r['step']} against {r0['action']!r} at {r0['step']}")
+        cpu = torch.device("cpu")
+        self.params = _to_device(r0["params"], cpu)
+        self.opt_state = _to_device(r0["opt_state"], cpu)
+        self.guard, self.injector = r0["guard"], r0["injector"]
+        self.clock = VirtualClock(r0["clock"])
+        self.step_idx = r0["step"]
+        self.probe = (r0["probe"]["loss"], r0["probe"]["grads"]) if "probe" in r0 else None
+        self.segments.append({
+            "ranks": self.n_ranks, "steps": len(r0["losses"]),
+            "start_s": max(r["ready_at"] for r in ranks) - t0,
+            "ready_at": max(r["ready_at"] for r in ranks),
+            "epoch_ms": r0["epoch_ms"], "action": r0["action"],
+            "start_digest": r0["start_digest"], "end_digest": r0["end_digest"]})
+        return r0
+
+    # -- recovery actions ---------------------------------------------------
+
+    def _rescale(self, dead) -> RecoveryEvent:
+        """DEAD rank(s): restore the latest checkpoint onto fewer ranks
+        (re-partition + re-lower + resume) — ``elastic.rescale``."""
+        from repro_torch.runtime.elastic import rescale
+
+        t0 = time.perf_counter()
+        new_ranks = max(self.n_ranks - len(dead), 1)
+        state, plan = rescale(self.ckpt_dir, self.graph, new_ranks,
+                              self._state(), old_ranks=self.n_ranks,
+                              partition_seed=self.partition_seed)
+        self.params, self.opt_state = state
+        self.probe = None
+        self._build(new_ranks, partition=plan.partition)
+        if self.injector is not None:
+            self.injector.clear("rank_dead")  # the dead hardware is gone
+        ev = RecoveryEvent(
+            step=self.step_idx, action="rescale",
+            detail={"dead": sorted(int(d) for d in dead),
+                    "old_ranks": plan.old_ranks, "new_ranks": plan.new_ranks,
+                    "restored_step": plan.restored_step},
+            recovery_s=time.perf_counter() - t0)
+        self.events.append(ev)
+        return ev
+
+    def _rebalance(self) -> RecoveryEvent:
+        """STRAGGLER: re-partition with Phase III degree balancing (the
+        paper's remedy — rebalance Σdeg(v), Eq. 9) at the same rank
+        count. The replicated params and optimizer state carry over."""
+        t0 = time.perf_counter()
+        self._build(self.n_ranks, force_phase="greedy_degree")
+        if self.injector is not None:
+            self.injector.clear("rank_slow")  # load has been rebalanced
+        ev = RecoveryEvent(
+            step=self.step_idx, action="rebalance",
+            detail={"ranks": self.n_ranks,
+                    "load_imbalance": float(self.partition.load_imbalance)},
+            recovery_s=time.perf_counter() - t0)
+        self.events.append(ev)
+        return ev
+
+    # -- the training loop --------------------------------------------------
+
+    def fit(self, epochs: int) -> dict:
+        """Train ``epochs`` epochs in all, segment by segment, recovering
+        between segments. An event's ``recovery_s`` runs from the action's
+        decision to the next segment's ranks bound and ready (the host's
+        restore, partition, build and lowering, then the new group);
+        ``detail["host_s"]`` is the host's part alone. An action at the
+        last epoch has no next segment: its ``recovery_s`` is the host's
+        part."""
+        losses: list[float] = []
+        end = self.step_idx + int(epochs)
+        self.save()  # step-0 anchor so the first recovery has a target
+        pending = None  # (event, decided at) until the next segment is up
+        while self.step_idx < end:
+            seg = self._segment(end)
+            losses += seg["losses"]
+            if pending is not None:
+                ev, t = pending
+                ev.recovery_s = self.segments[-1]["ready_at"] - t
+                pending = None
+            t = time.time()
+            if seg["action"] == "restart_from_checkpoint":
+                dead = [int(r) for r, s in seg["states"].items() if s == "dead"]
+                pending = (self._rescale(dead), t)
+            elif seg["action"] == "rebalance":
+                pending = (self._rebalance(), t)
+            if pending is not None:
+                pending[0].detail["host_s"] = pending[0].recovery_s
+        return {"losses": losses, "events": self.events,
+                "guard": self.guard.stats(), "final_ranks": self.n_ranks,
+                "segments": self.segments, "builds": self.builds}
+
+    def loss_and_grads(self):
+        """Global loss and gradients (numpy leaves, ``tree_leaves`` order)
+        at the current params on the current ranks: the last segment's
+        probe where it was taken at these params, else a segment of no
+        epochs that probes."""
+        if self.probe is None:
+            self._segment(self.step_idx)
+        return self.probe

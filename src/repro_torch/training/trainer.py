@@ -40,7 +40,6 @@ from repro_torch import resolve_device
 from repro_torch.backends import compose_epilogue, get_backend
 from repro_torch.backends.distributed import DistributedBackend
 from repro_torch.backends.gather import EdgeListOperand
-from repro_torch.backends.registry import DIST_ITEM, not_ported
 from repro_torch.core.aggregate import gather_scatter_aggregate
 from repro_torch.core.halo import (
     DistributedGraph,
@@ -688,10 +687,18 @@ class DistributedGNNTrainer:
     ``params`` (the same on every rank, as ``params_from_jax`` gives) or
     ``seed`` set the starting weights; ``device`` is where the rank runs
     (CUDA unless the caller asks for the CPU). ``guard`` arms the guarded
-    step (``runtime.resilience.GuardPolicy``): the non-finite count of the
-    summed gradients folds into the commit, the same on every rank.
-    ``injector``, ``monitor`` and ``clock`` (the fault injection, the
-    heartbeat monitor and its clock) are not ported yet.
+    step (``runtime.resilience.GuardPolicy``, or a ``GuardRunner`` whose
+    ladder and counters carry over from a trainer before this one): the
+    non-finite count of the summed gradients folds into the commit, the
+    same on every rank. ``injector`` (a ``FaultInjector``, the same seed
+    and specs on every rank) poisons the summed gradients of a guarded
+    step where its ``grad`` site fires. ``monitor`` (a
+    ``runtime.failure.HeartbeatMonitor`` over every rank) and ``clock``
+    (its ``VirtualClock``) take a heartbeat a step from every rank
+    (``_feed_heartbeats``): each rank keeps its own monitor and feeds it
+    every rank's beat, with one step time agreed by the group, so every
+    rank's monitor classifies alike. ``_step_idx`` is the global step the
+    injection sites key on; a rebuilt trainer is handed it.
     """
 
     def __init__(self, dist: DistributedGraph, config: GNNConfig,
@@ -702,9 +709,6 @@ class DistributedGNNTrainer:
                  guard: Optional[GuardPolicy] = None,
                  injector: Optional[FaultInjector] = None,
                  monitor=None, clock=None, device=None):
-        if injector is not None or monitor is not None or clock is not None:
-            raise not_ported("the distributed trainer's fault injector, "
-                             "heartbeat monitor and clock", DIST_ITEM)
         import torch.distributed as tdist
 
         self.device = resolve_device(device)
@@ -734,8 +738,20 @@ class DistributedGNNTrainer:
         self.opt_state = opt.init(self.params)
         self.guard = (guard if isinstance(guard, GuardRunner)
                       else GuardRunner(guard) if guard is not None else None)
+        # the resilience control plane (DESIGN.md §13)
+        self.injector = injector
+        self.monitor = monitor
+        self.clock = clock
         self._step_idx = 0
         self._bind()
+
+    def set_rollback(self, restore_fn) -> None:
+        """Install the guard ladder's rollback hook (rung 2)."""
+        if self.guard is not None:
+            self.guard.restore_fn = restore_fn
+
+    def guard_stats(self) -> dict:
+        return self.guard.stats() if self.guard is not None else {}
 
     def _bind(self) -> None:
         """This rank's operands, schedule and per-layer closures, on its
@@ -841,6 +857,7 @@ class DistributedGNNTrainer:
 
     def train_epoch(self) -> float:
         """One full-batch step; returns the global loss (synchronises)."""
+        t0 = time.perf_counter()
         if self.guard is None:
             loss, grads = self._compute()
             with torch.no_grad():
@@ -849,14 +866,47 @@ class DistributedGNNTrainer:
             self.params = tree_map(torch.Tensor.detach, params)
         else:
             loss, grads, bad = self._compute(with_guard=True)
+            poison = (self.injector.grad_poison(self._step_idx)
+                      if self.injector is not None else 0.0)
+            if poison != 0.0:  # the same summed gradients on every rank
+                grads = tree_map(lambda g: g + poison, grads)
             with torch.no_grad():
                 p_new, s_new = self.opt.update(grads, self.opt_state, self.params)
                 self.params, self.opt_state, loss, ok = guarded_update(
                     self.params, self.opt_state, p_new, s_new, loss,
                     self.guard.scale, extra_bad=bad)
             self.guard.after_step(bool(ok), step=self._step_idx)
+        loss = float(loss)  # waits: the step's wall time is complete
+        self._feed_heartbeats(time.perf_counter() - t0)
         self._step_idx += 1
-        return float(loss)
+        return loss
+
+    def _feed_heartbeats(self, dt: float) -> None:
+        """The per-step heartbeat feed (DESIGN.md §13): every rank's beat
+        with its step time, into this rank's monitor. The group agrees on
+        one step time first (the largest rank's, ``all_reduce(MAX)``), so
+        the ranks' monitors hold the same times and classify alike. The
+        injector stands in for real hardware faults: a ``rank_dead`` fire
+        suppresses that rank's heartbeat (the dead rank's process goes on
+        and its peers stop hearing it), ``rank_slow`` inflates its step
+        time; the clock, advanced by the agreed time, lets DEAD trip on
+        simulated rather than wall-clock timeouts."""
+        if self.monitor is None:
+            return
+        import torch.distributed as tdist
+
+        agreed = torch.tensor([dt], dtype=torch.float64)
+        tdist.all_reduce(agreed, op=tdist.ReduceOp.MAX)
+        dt = float(agreed)
+        if self.clock is not None:
+            self.clock.advance(dt)
+        for r in range(self.dist.n_ranks):
+            if (self.injector is not None
+                    and self.injector.fires("rank_dead", self._step_idx, rank=r)):
+                continue  # a dead rank stops heartbeating
+            factor = (self.injector.slow_factor(self._step_idx, r)
+                      if self.injector is not None else 1.0)
+            self.monitor.heartbeat(r, dt * factor)
 
     def loss_and_grads(self):
         """Global loss and all-reduced gradients at the current params (no

@@ -296,14 +296,6 @@ def test_a_failing_rank_fails_the_call():
         run_ranks(_failing_body, P, device="cpu", timeout_s=60)
 
 
-def test_unported_resilience_names_item_7():
-    from repro_torch.training.optimizer import adam
-    from repro_torch.training.trainer import DistributedGNNTrainer
-
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DistributedGNNTrainer(None, None, adam(), injector=object())
-
-
 # ---------------------------------------------------------------------------
 # the card: the kernels on one rank's interior and boundary streams
 # ---------------------------------------------------------------------------

@@ -201,10 +201,11 @@ def test_no_card_raises_unless_cpu_requested(monkeypatch):
 
 
 def test_port_imports_without_jax_or_repro():
-    """Every module of the port, and the chip smoke script, import in a
-    process where ``jax`` and ``repro`` cannot be imported."""
+    """Every module of the port, the chip smoke script (with the chaos
+    soak) and the port's example import in a process where ``jax`` and
+    ``repro`` cannot be imported."""
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, importlib.util, pkgutil, sys
         for name in ("jax", "jaxlib", "repro"):
             sys.modules[name] = None  # any import of them now raises
         import repro_torch
@@ -213,6 +214,10 @@ def test_port_imports_without_jax_or_repro():
         for m in mods:
             importlib.import_module(m)
         import chip_smoke
+        import tools.chaos_soak
+        spec = importlib.util.spec_from_file_location(
+            "host_streamed_demo_torch", "examples/host_streamed_demo_torch.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
         print(" ".join(mods))
     """)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -239,4 +244,6 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.launch.train", "repro_torch.core.partitioner",
             "repro_torch.core.halo", "repro_torch.core.pipeline",
             "repro_torch.backends.distributed",
-            "repro_torch.launch.mesh"} <= mods
+            "repro_torch.launch.mesh", "repro_torch.runtime.streaming",
+            "repro_torch.runtime.failure", "repro_torch.runtime.elastic",
+            "repro_torch.runtime.resilience"} <= mods

@@ -660,10 +660,9 @@ def test_distributed_checks_name_item_7():
     """The distributed checks (``split.*``, ``halo.*``) are ported with
     item 7's core (their mutations and false-positive sweep are in
     ``test_torch_distributed.py``); a single-device plan ignores
-    ``dist``; what item 7 still leaves, the distributed trainer's fault
-    injector, monitor and clock, names it."""
-    from repro_torch.training.optimizer import adam
-    from repro_torch.training.trainer import DistributedGNNTrainer
+    ``dist``; what item 7 still leaves (tensor-parallel sharding, a
+    transport other than gloo) is named by ``DIST_ITEM``."""
+    from repro_torch.backends.registry import DIST_ITEM
 
     plan, _ = _port(*_edges())
     assert verify_plan(plan, mode="full", dist=object()) == []
@@ -671,8 +670,7 @@ def test_distributed_checks_name_item_7():
             "split.live_shifts", "halo.schedule_paired",
             "halo.slot_unique"} <= set(INVARIANT_CATALOG)
     assert "bsr.last_in_row" not in INVARIANT_CATALOG
-    with pytest.raises(NotImplementedError, match="item 7"):
-        DistributedGNNTrainer(None, None, adam(), monitor=object())
+    assert "item 7, parts 4 and 5" in DIST_ITEM
 
 
 def test_host_copies(monkeypatch):
@@ -789,7 +787,7 @@ def test_chaos_soak_one_schedule_per_target(tmp_path, capsys):
     assert lines[0] == "name,us_per_call,derived"
     assert [r[0] for r in rows] == ["chaos/distributed", "chaos/full_batch",
                                     "chaos/mini_batch", "chaos/serving"]
-    assert "item 7" in rows[0][2]
+    assert "ranks=4" in rows[0][2]  # 4 gloo rank processes on the CPU
     assert "all properties held" in lines[-1]
     assert os.listdir(tmp_path) == []  # checkpoints removed after each trial
 

@@ -2,7 +2,7 @@
 """Chaos soak: randomized fault schedules against the port's runtime.
 
     python3 tools/chaos_soak.py [--schedules N] [--base-seed S] [--device D]
-                                [--work-dir DIR]
+                                [--work-dir DIR] [--targets T,...]
 
 The counterpart of ``benchmarks/chaos_soak.py``. Each schedule is one
 seeded draw of (target, fault sites, steps) from
@@ -12,8 +12,10 @@ seeded draw of (target, fault sites, steps) from
                  writer kills
   mini_batch   — guarded ``MiniBatchTrainer`` + grad poison through the
                  sampled path
-  distributed  — ROADMAP.md Queue 1, item 7: reported as skipped (the JAX
-                 soak skips it below 2 devices too)
+  distributed  — guarded ``DistributedGNNTrainer`` on ``DIST_RANKS`` gloo
+                 rank processes (``launch/mesh.py:run_ranks``) + grad
+                 poison + a random ``rank_slow`` / ``rank_dead`` step fed
+                 to every rank's heartbeat monitor
   serving      — ``GNNServingEngine`` under random submission bursts,
                  deadlines, and queue bounds (the degradation rungs)
 
@@ -21,11 +23,14 @@ Every trial asserts **end-state properties**, not step-by-step behaviour
 (DESIGN.md §14): training either completes with finite committed params
 and a finite final loss, or raises a *typed* error — it never silently
 diverges; a checkpoint directory is always restorable to a consistent
-step; a serving queue always drains with each request either answered
+step; the distributed ranks agree (losses, parameters bitwise, every
+monitor's classification after every step); a serving queue always drains with each request either answered
 with well-formed, finite, correctly-shaped logits (labeled with which
 degradation rung answered it) or explicitly rejected — never hung.
 
-Default soak is ``N_SCHEDULES`` schedules on ``--device cuda``; prints a
+Default soak is ``N_SCHEDULES`` schedules on ``--device cuda``
+(``--targets`` runs only the named targets' schedules, each keeping its
+seed); prints a
 ``name,us_per_call,derived`` row per schedule. Any property violation
 raises ``ChaosPropertyError`` naming the schedule seed, so a failure
 reproduces with ``--schedules`` and the printed seed alone. Checkpoints
@@ -46,8 +51,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.backends.registry import DIST_ITEM  # noqa: E402
+from repro_torch.core.halo import build_distributed_graph  # noqa: E402
+from repro_torch.core.lowering import effective_aggregation, lower_distributed  # noqa: E402
+from repro_torch.core.partitioner import hierarchical_partition  # noqa: E402
 from repro_torch.graph.datasets import generate_dataset  # noqa: E402
+from repro_torch.launch.mesh import RankPool  # noqa: E402
 from repro_torch.models.gnn import GNNConfig, GNNModel, init_params  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     FaultInjector,
@@ -62,6 +70,9 @@ from repro_torch.training.trainer import FullBatchTrainer, MiniBatchTrainer  # n
 
 N_SCHEDULES = 24
 _EPOCHS = 6
+#: the rank processes of a distributed trial (the JAX soak's P with 4
+#: devices); on one card they share it
+DIST_RANKS = 4
 #: the CUDA sources the trials' kernels are built from, in parallel up front
 _LIBRARIES = ["bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "bsr_attention"]
 
@@ -113,7 +124,7 @@ def _check(ok: bool, seed, target, prop, detail=""):
 # ---------------------------------------------------------------------------
 
 
-def _trial_full_batch(seed: int, rng, device, work_dir: str) -> str:
+def _trial_full_batch(seed: int, rng, device, work_dir: str, get_pool) -> str:
     ds = _dataset(seed)
     cfg = _config(ds, rng)
     faults = [_grad_faults(rng, _EPOCHS)]
@@ -153,7 +164,7 @@ def _trial_full_batch(seed: int, rng, device, work_dir: str) -> str:
     return f"outcome={outcome} guard_skips={skips}"
 
 
-def _trial_mini_batch(seed: int, rng, device, work_dir: str) -> str:
+def _trial_mini_batch(seed: int, rng, device, work_dir: str, get_pool) -> str:
     ds = _dataset(seed)
     cfg = _config(ds, rng)
     n_steps = _EPOCHS * 4  # ~batches per epoch x epochs
@@ -171,11 +182,70 @@ def _trial_mini_batch(seed: int, rng, device, work_dir: str) -> str:
     return f"guard_skips={skips}"
 
 
-def _trial_distributed(seed: int, rng, device, work_dir: str) -> str:
-    return f"skipped=not_ported ({DIST_ITEM})"
+def _dist_rank(rank: int, dist, plan, cfg, seed: int, faults: list,
+               device) -> dict:
+    """One rank of a distributed trial: the guarded trainer with the
+    trial's faults, its own heartbeat monitor on a virtual clock (a
+    timeout of 0: one missed beat is DEAD), ``_EPOCHS`` steps."""
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.runtime import HeartbeatMonitor, VirtualClock
+    from repro_torch.training.trainer import DistributedGNNTrainer
+
+    dev = rank_device(rank, device)
+    clock = VirtualClock()
+    monitor = HeartbeatMonitor(dist.n_ranks, dead_timeout=0.0, window=4,
+                               clock=clock)
+    tr = DistributedGNNTrainer(
+        dist.rank_slice(rank), cfg, adam(1e-2), plan=plan.rank_slice(rank),
+        seed=seed, guard=GuardPolicy(),
+        injector=FaultInjector(seed=seed, faults=faults), monitor=monitor,
+        clock=clock, device=dev)
+    losses, states = [], []
+    for _ in range(_EPOCHS):
+        losses.append(tr.train_epoch())
+        states.append({r: s.value for r, s in monitor.classify().items()})
+    return {"losses": losses, "states": states,
+            "finite": _finite_tree(tr.params),
+            "params": [p.cpu().numpy() for p in tree_leaves(tr.params)],
+            "skipped": tr.guard_stats()["skipped"]}
 
 
-def _trial_serving(seed: int, rng, device, work_dir: str) -> str:
+def _trial_distributed(seed: int, rng, device, work_dir: str, get_pool) -> str:
+    P = DIST_RANKS
+    ds = _dataset(seed)
+    cfg = _config(ds, rng)
+    part = hierarchical_partition(ds.graph, P)
+    dist = build_distributed_graph(ds.graph, ds.features, ds.labels,
+                                   ds.train_mask, part, br=8, bc=8,
+                                   aggregation=effective_aggregation(cfg))
+    plan = lower_distributed(cfg, dist)
+    faults = [_grad_faults(rng, _EPOCHS, rank=int(rng.integers(0, P)))]
+    site = str(rng.choice(["rank_slow", "rank_dead", "none"]))
+    if site != "none":
+        faults.append(FaultSpec(
+            site=site, steps=frozenset([int(rng.integers(1, _EPOCHS))]),
+            rank=int(rng.integers(0, P))))
+    ranks = get_pool().run(_dist_rank, P, (dist, plan, cfg, seed, faults, device))
+    r0 = ranks[0]
+    _check(all(r["finite"] for r in ranks), seed, "distributed",
+           "params_finite", "guard committed a non-finite update")
+    _check(np.isfinite(r0["losses"][-1]), seed, "distributed",
+           "loss_finite", f"final loss {r0['losses'][-1]}")
+    for r in ranks[1:]:
+        _check(r["losses"] == r0["losses"] and all(
+            np.array_equal(a, b) for a, b in zip(r["params"], r0["params"])),
+            seed, "distributed", "ranks_agree", "a rank's losses or params parted")
+        _check(r["states"] == r0["states"], seed, "distributed",
+               "monitors_agree", f"{r['states']} vs {r0['states']}")
+    dead = [s for s in r0["states"] if "dead" in s.values()]
+    if site == "rank_dead":
+        _check(len(dead) == 1, seed, "distributed", "dead_rank_heard",
+               f"{len(dead)} steps with a DEAD rank: {r0['states']}")
+    return (f"ranks={P} extra_site={site} guard_skips={r0['skipped']} "
+            f"dead_steps={len(dead)}")
+
+
+def _trial_serving(seed: int, rng, device, work_dir: str, get_pool) -> str:
     ds = _dataset(seed)
     cfg = _config(ds, rng)
     tr = MiniBatchTrainer(cfg, ds.graph, ds.features, None, None, None,
@@ -228,21 +298,42 @@ _TRIALS = {
 
 
 def soak(n_schedules: int = N_SCHEDULES, base_seed: int = 0, device="cuda",
-         work_dir: str = os.path.join(ROOT, "chiprun_out", "chaos_soak")):
+         work_dir: str = os.path.join(ROOT, "chiprun_out", "chaos_soak"),
+         only=None, pool=None):
     """Yield one CSV row per schedule; raises ChaosPropertyError on the
-    first violated end-state property."""
+    first violated end-state property. ``only`` (target names) runs those
+    targets' schedules alone; each schedule keeps its seed. The
+    distributed schedules run on ``pool`` (a ``RankPool`` of
+    ``DIST_RANKS`` members on ``device``) where given, else on one the
+    soak spawns at its first distributed schedule and closes at its
+    end."""
     device = torch.device(device)
     os.makedirs(work_dir, exist_ok=True)
     targets = sorted(_TRIALS)
-    for i in range(n_schedules):
-        seed = base_seed + i
-        rng = np.random.default_rng(seed)
-        target = targets[i % len(targets)]  # round-robin, faults random
-        t0 = time.perf_counter()
-        detail = _TRIALS[target](seed, rng, device, work_dir)
-        dt = time.perf_counter() - t0
-        yield csv_row(f"chaos/{target}", dt * 1e6,
-                      f"seed={seed} {detail}")
+    own = []
+
+    def get_pool():
+        if pool is not None:
+            return pool
+        if not own:
+            own.append(RankPool(DIST_RANKS, device=device, timeout_s=300))
+        return own[0]
+
+    try:
+        for i in range(n_schedules):
+            seed = base_seed + i
+            rng = np.random.default_rng(seed)
+            target = targets[i % len(targets)]  # round-robin, faults random
+            if only is not None and target not in only:
+                continue
+            t0 = time.perf_counter()
+            detail = _TRIALS[target](seed, rng, device, work_dir, get_pool)
+            dt = time.perf_counter() - t0
+            yield csv_row(f"chaos/{target}", dt * 1e6,
+                          f"seed={seed} {detail}")
+    finally:
+        for p in own:
+            p.close()
 
 
 def main(argv=None) -> int:
@@ -252,7 +343,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--work-dir",
                     default=os.path.join(ROOT, "chiprun_out", "chaos_soak"))
+    ap.add_argument("--targets", default=None,
+                    help="comma-separated targets to run (default: all)")
     args = ap.parse_args(argv)
+    only = None if args.targets is None else tuple(args.targets.split(","))
     if torch.device(args.device).type == "cuda":
         if not torch.cuda.is_available():
             print("chaos_soak: needs an NVIDIA card (or --device cpu)",
@@ -264,7 +358,7 @@ def main(argv=None) -> int:
         print(f"# {torch.cuda.get_device_name(0)}")
     print("name,us_per_call,derived")
     for row in soak(args.schedules, args.base_seed, args.device,
-                    args.work_dir):
+                    args.work_dir, only):
         print(row)
     print(f"# chaos soak: {args.schedules} schedules, all properties held")
     return 0
