@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 20|21|22|23|24]
+    python3 chip_smoke.py [--phases 20|21|22|23|24|25]
 
-Phases (``--phases 20``, ``21``, ``22``, ``23`` or ``24``: that phase alone); any failure raises,
+Phases (``--phases 20``, ``21``, ``22``, ``23``, ``24`` or ``25``: that phase alone); any failure raises,
 so the exit code is not 0 and no result line is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
@@ -410,6 +410,28 @@ so the exit code is not 0 and no result line is printed:
     ``recovery_s`` and the segments' epoch ms. (d) ``compressed_psum`` on 4
     ranks against the exact mean (the JAX package's case within its 0.2
     bound). (e) The chaos soak's distributed schedules among its first 8.
+25. The one-card dry run held against the card, after phase 24 has
+    returned: three ``SHAPES`` cells at full width and length, each first
+    reckoned over ``meta`` tensors (``launch/specs.py:build_cell``,
+    ``launch/step_cost.py:reckon``), then built on the card from seed 0
+    and run through the same step closure: (a) gemma3-1b x long_500k
+    whole (a bfloat16 cache of 524,288 positions, one decode step at the
+    last); (b) llama3.2-1b x prefill_32k, one of its 32 sequences (flash
+    at T = 32,768 in bfloat16 in all 16 layers); (c) llama3.2-1b x
+    train_4k, one 4,096-token sequence of its 256 (bfloat16 compute,
+    remat, one ``fused_adam`` launch). For each, after a warm-up step: a
+    step with the counts set to 0 just before it, which must launch the
+    kernels as the dry run counted them, and whose peak allocation over
+    what was allocated before it must lie within max(PEAK_RTOL,
+    PEAK_SLACK) of the simulated peak; its output checked (finite logits
+    of the cell's shape, or a finite loss and new state); then
+    DRYRUN_REPS synchronised steps, their median beside the bound, the
+    roofline fraction and the MFU. (b)'s layer-0 flash call is held
+    against the plain version on its first FLASH_HEAD_ROWS rows and its
+    last FLASH_TAIL_ROWS rows over every key (each row within
+    FLASH_ROW_RTOL of its own largest value; the check must fail on zeroed
+    rows), and timed (CUDA events) beside SDPA on K/V repeated to 32 heads
+    and the bound (bf16's peak).
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -427,6 +449,7 @@ import functools
 import gc
 import hashlib
 import json
+import math
 import multiprocessing
 import os
 import pickle
@@ -510,6 +533,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     HEAD_DIMS,
     flash_attention,
+    flash_cost,
 )
 from repro_torch.kernels.fused_adam import (  # noqa: E402
     CAPACITY,
@@ -571,11 +595,15 @@ from repro_torch.training.trainer import (  # noqa: E402
     value_and_grad,
 )
 from repro_torch.launch.serve import build_engine, drive  # noqa: E402
+from repro_torch.launch.roofline import analyze as roofline_of  # noqa: E402
+from repro_torch.launch.specs import build_cell  # noqa: E402
+from repro_torch.launch.step_cost import reckon  # noqa: E402
 from repro_torch.serving.gnn_engine import GNNServingEngine  # noqa: E402
 from tools import chaos_soak  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 dense on the tensor cores
 TOL = 1e-4
 ADAM_TOL = 1e-6
 MASK_MARGIN = 1e-5
@@ -841,9 +869,9 @@ def device_ms(fn, device, reps: int, expect: dict):
     return None if prof is None else busy_ms(prof) / reps
 
 
-def _bound(nbytes: float, flop: float) -> tuple:
+def _bound(nbytes: float, flop: float, flop_per_s: float = FP32_FLOP_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flop / FP32_FLOP_PER_S * 1e3
+    t_ops = flop / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -3243,19 +3271,15 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
 
 
 def flash_bound(b, h, hkv, tq, tk, d, causal: bool, elem: int) -> dict:
-    """Least time for one flash call on these shapes: q, k, v read once and
-    the output written once, against 4·D fp32 operations (two products)
-    per visible (query, key) pair of each head — with the top-left causal
-    mask row i sees min(i + 1, Tk) keys."""
-    if causal:
-        n = min(tq, tk)
-        pairs = n * (n + 1) // 2 + (tq - n) * tk
-    else:
-        pairs = tq * tk
-    flop = 4.0 * b * h * d * pairs
-    nbytes = elem * (2 * b * h * tq * d + 2 * b * hkv * tk * d)
-    out = {"bytes": nbytes, "flop": flop}
-    out["bound_ms"], out["bound_by"] = _bound(nbytes, flop)
+    """Least time for one flash call on these shapes, from the wrapper's
+    ``flash_cost``: q, k, v read once and the output written once, against
+    4·D operations (two products) per visible (query, key) pair of each
+    head — with the top-left causal mask row i sees min(i + 1, Tk) keys —
+    at the peak of the inputs' type: bf16's for 2-byte inputs (the kernel
+    itself multiplies in fp32), fp32's for float32."""
+    out = flash_cost(b, h, hkv, tq, tk, d, causal, elem)
+    out["bound_ms"], out["bound_by"] = _bound(
+        out["bytes"], out["flop"], BF16_FLOP_PER_S if elem == 2 else FP32_FLOP_PER_S)
     return out
 
 
@@ -6646,13 +6670,294 @@ def print_streaming_summary(m: dict, card: str) -> None:
           f"(e) {m['e']['s']:.1f}s")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 25: the one-card dry run held against the card
+# ---------------------------------------------------------------------------
+
+#: (label, arch, SHAPES cell, batch run: None the cell's own): each at its
+#: full width and length
+DRYRUN_CELLS = (("a", "gemma3-1b", "long_500k", None),
+                ("b", "llama3.2-1b", "prefill_32k", 1),
+                ("c", "llama3.2-1b", "train_4k", 1))
+#: the measured peak allocation within max(PEAK_RTOL of, PEAK_SLACK) of the
+#: dry run's simulated peak (the allocator's rounding, cuBLAS's workspace)
+PEAK_RTOL, PEAK_SLACK = 0.10, 256 << 20
+#: (b): the rows of one layer's flash call held against the plain version:
+#: the first FLASH_HEAD_ROWS against their keys, the last FLASH_TAIL_ROWS
+#: against every key under the top-left mask
+FLASH_HEAD_ROWS, FLASH_TAIL_ROWS = 4096, 512
+#: (b): each query row's largest |got - want| within FLASH_ROW_RTOL of that
+#: row's largest |want|. A row of T keys averages T values of v, so its
+#: values shrink as sqrt(1/T) and an absolute limit that holds at row 0
+#: cannot see row 32,767. bf16 outputs from the same fp32 value part by at
+#: most one ulp, 2^-7 of the row's largest value: the limit is 4 of them
+FLASH_ROW_RTOL = 2.0 ** -5
+#: timed steps after the warm-up and the measured one
+DRYRUN_REPS = 3
+
+
+def step_output_check(label: str, cell, out) -> dict:
+    """A cell's step output as the repo checks its kind: a training step's
+    loss finite and new parameters and moments of the old ones' shapes; a
+    serving step's last-position logits [B, Vpad] finite."""
+    if cell.shp.kind == "train":
+        params, state, loss = out
+        same = all(a.shape == b.shape for a, b in zip(tree_leaves(params),
+                                                       tree_leaves(cell.args[0])))
+        if not (same and math.isfinite(float(loss)) and state.step == 1):
+            raise AssertionError(f"dry-run cell {label}: loss {float(loss)}, "
+                                 f"parameters of their shapes {same}")
+        return {"loss": float(loss)}
+    logits = out[0]
+    want = (cell.shp.global_batch, cell.cfg.padded_vocab())
+    if tuple(logits.shape) != want or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"dry-run cell {label}: logits {tuple(logits.shape)} "
+                             f"(want {want}), finite {bool(torch.isfinite(logits).all())}")
+    return {"logits_shape": list(want)}
+
+
+def tail_attention(q, k, v, rows: int) -> torch.Tensor:
+    """The plain version of the last ``rows`` query rows of a causal flash
+    call over every key, the mask aligned top-left (row i sees keys
+    0..i): float32 logits and softmax, the output at q's dtype."""
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    qg = q[:, :, tq - rows:].float().reshape(b, hkv, h // hkv, rows, d)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) / math.sqrt(d)
+    row = torch.arange(tq - rows, tq, device=q.device)
+    hidden = torch.arange(tk, device=q.device)[None, :] > row[:, None]
+    probs = torch.softmax(logits.masked_fill(hidden, float("-inf")), dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
+    return out.reshape(b, h, rows, d).to(q.dtype)
+
+
+def row_rel_err(have, want) -> dict:
+    """Over every (batch, head, query row) of a block: the row's largest
+    |have - want| over its largest |want|, at most (``row_rel_err``);
+    beside it the block's largest |have - want| and its largest and mean
+    |want|."""
+    want = want.float()
+    diff = (have.float() - want).abs()
+    scale = want.abs().amax(dim=-1)
+    ratio = diff.amax(dim=-1) / scale.clamp_min(torch.finfo(torch.float32).tiny)
+    return {"row_rel_err": float(ratio.max()), "max_abs_err": float(diff.max()),
+            "want_abs_max": float(scale.max()), "want_abs_mean": float(want.abs().mean())}
+
+
+def long_flash(cell, device) -> dict:
+    """(b)'s flash kernel: layer 0's call of one more prefill captured, the
+    kernel on it held against the plain version on the row blocks the plain
+    version can hold (FLASH_HEAD_ROWS against their keys, the last
+    FLASH_TAIL_ROWS against all keys), each row within FLASH_ROW_RTOL of
+    its own scale (``row_rel_err``; the check must fail on the block with
+    one row, and with every row, zeroed); its CUDA-event ms beside SDPA's
+    (K/V repeated to H heads) and the bound. The plain version of
+    the whole call would hold T x T float32 logits a head, so it has no
+    time here."""
+    table = kops._EXECUTORS["cuda"]
+    inner = table["flash"]
+    first = []
+
+    def spy(q, k, v, **kw):
+        if not first:
+            first.append((q, k, v, kw["causal"]))
+        return inner(q, k, v, **kw)
+
+    table["flash"] = spy
+    try:
+        out = cell.step(*cell.args, **cell.kwargs)
+    finally:
+        table["flash"] = inner
+    del out
+    q, k, v, causal = first.pop()
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    got = flash_attention(q, k, v, causal=causal)
+    head = min(FLASH_HEAD_ROWS, tq)
+    tail = min(FLASH_TAIL_ROWS, tq)
+    errs, blocks = {}, {}
+    for name, have, want in (
+            ("head", got[:, :, :head], flash_attention_ref(
+                q[:, :, :head], k[:, :, :head], v[:, :, :head], causal=True)),
+            ("tail", got[:, :, tq - tail:], tail_attention(q, k, v, tail))):
+        blocks[name] = row_rel_err(have, want)
+        errs[name] = blocks[name]["max_abs_err"]
+        if not blocks[name]["row_rel_err"] <= FLASH_ROW_RTOL:
+            raise AssertionError(f"flash_attention T={tq} {name} rows: {blocks[name]}, "
+                                 f"a row's error over its largest |want| > {FLASH_ROW_RTOL}")
+        one_row = have.clone()
+        one_row[:, :, -1] = 0
+        for bad in (one_row, torch.zeros_like(have)):
+            if row_rel_err(bad, want)["row_rel_err"] <= FLASH_ROW_RTOL:
+                raise AssertionError(f"flash_attention T={tq} {name} rows: the check "
+                                     "passes zeroed rows")
+        del one_row
+    del got
+    cost = flash_bound(b, h, hkv, tq, tk, d, causal, q.element_size())
+    bound_ms, bound_by = cost["bound_ms"], cost["bound_by"]
+    on_card = device.type == "cuda"
+    row = {"B": b, "H": h, "Hkv": hkv, "Tq": tq, "Tk": tk, "D": d, "dtype": str(q.dtype),
+           "causal": causal, "max_abs_err": errs, "blocks": blocks, "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "flop": cost["flop"], "bytes": cost["bytes"], "plain_ms": None,
+           "plain_why": f"the plain version's logits would take {4 * b * h * tq * tk} bytes"}
+    row["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=causal), device,
+                        reps=DRYRUN_REPS, warmup=1)
+    # SDPA on K/V repeated to H heads beforehand (its flash backend; a GQA
+    # call may take the math backend, whose T x T logits do not fit)
+    kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+    row["library_ms"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kr, vr, is_causal=causal), device,
+        reps=DRYRUN_REPS, warmup=1) if on_card else None
+    del kr, vr
+    row["library"] = ("torch.nn.functional.scaled_dot_product_attention(is_causal=True) "
+                      "on K/V repeated to H heads beforehand")
+    print(f"[dryrun] (b) flash_attention B {b}, H {h}, Hkv {hkv}, T {tq}, D {d}, "
+          f"{q.dtype}: head rows err {errs['head']:.3g} (row-relative "
+          f"{blocks['head']['row_rel_err']:.3g}, max |want| {blocks['head']['want_abs_max']:.3g}), "
+          f"tail rows err {errs['tail']:.3g} (row-relative {blocks['tail']['row_rel_err']:.3g}, "
+          f"max |want| {blocks['tail']['want_abs_max']:.3g}); "
+          f"{row['ms']:.2f} ms (SDPA {row['library_ms']}, bound {bound_ms:.2f} "
+          f"{bound_by})")
+    return row
+
+
+def dryrun_cell(label: str, arch: str, shape: str, batch, sizes: Sizes, device) -> dict:
+    """One phase-25 cell: the dry run of its shape (``launch/specs.py``
+    over ``meta`` tensors, ``launch/step_cost.py``), then the same cell on
+    the card from seed 0: a warm-up step, then a step with the counts set to
+    0 just before it (the kernels launched as the dry run counted them) and
+    its peak allocation over what was allocated before it (within
+    max(PEAK_RTOL, PEAK_SLACK) of the simulated peak), then DRYRUN_REPS
+    synchronised steps: their median beside the bound, the roofline
+    fraction and the MFU."""
+    cfg = get_config(arch)
+    kw = {"batch": batch}
+    if sizes.lm_reduced:
+        cfg = dataclasses.replace(cfg.reduced(), n_layers=6) if arch == "gemma3-1b" \
+            else cfg.reduced()
+        kw.update(batch=batch or 1)
+    t0 = time.perf_counter()
+    sim = build_cell(arch, shape, cfg=cfg, **kw)
+    out, cost = reckon(sim.step, *sim.args, **sim.kwargs)
+    del out
+    roof = roofline_of(cost, arch, shape, sim.cfg, sim.shp, sim.min_bytes)
+    sim_s = time.perf_counter() - t0
+    persistent = dict(sim.persistent)
+    del sim
+    cell = build_cell(arch, shape, cfg=cfg, device=device,
+                      generator=torch.Generator(device=device).manual_seed(0), **kw)
+    if cell.persistent != persistent:
+        raise AssertionError(f"dry-run cell {label}: the card holds {cell.persistent}, "
+                             f"the dry run {persistent}")
+    on_card = device.type == "cuda"
+
+    def run():
+        res = cell.step(*cell.args, **cell.kwargs)
+        sync(device)
+        return res
+
+    run()  # warm-up (its outputs dropped): the allocator's pools, cuBLAS's workspace
+    free_card(device)  # a collection first: reference cycles may hold its tensors
+    before = torch.cuda.memory_allocated(device) if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    res = run()
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated(device) - before if on_card else 0
+    checked = step_output_check(label, cell, res)
+    del res
+    want = {name: int(cost.launches.get(name, 0)) for name in KERNELS}
+    if on_card and launched != want:
+        raise AssertionError(f"dry-run cell {label}: launched {launched}, the dry run "
+                             f"counts {want}")
+    slack = max(PEAK_RTOL * cost.peak, PEAK_SLACK)
+    if on_card and not abs(peak - cost.peak) <= slack:
+        raise AssertionError(f"dry-run cell {label} ({arch} x {shape}): peak allocation "
+                             f"{peak} bytes, simulated {cost.peak} (slack {slack:.0f})")
+    step_s = []
+    for _ in range(DRYRUN_REPS):
+        t = time.perf_counter()
+        run()
+        step_s.append(time.perf_counter() - t)
+    roof.measured_s = float(np.median(step_s))
+    row = {"arch": arch, "shape": shape, "batch": cell.shp.global_batch,
+           "seq": cell.shp.seq_len, "kind": cell.shp.kind, "dryrun_s": sim_s,
+           "persistent_bytes": persistent, "simulated_peak_bytes": cost.peak,
+           "measured_peak_bytes": peak, "peak_ratio": peak / cost.peak if cost.peak else None,
+           "launches": launched, "counted_launches": want, "step_s": step_s,
+           "step_s_median": roof.measured_s, "check": checked,
+           "params_init": cell.n_params, "params_count": cfg.param_count(),
+           **{k: v for k, v in roof.to_dict().items() if k not in ("arch", "shape")}}
+    print(f"[dryrun] ({label}) {arch} x {shape}, batch {row['batch']} x {row['seq']}: "
+          f"peak {peak / 2**30:.3f} GiB measured, {cost.peak / 2**30:.3f} simulated; "
+          f"launches {({k: n for k, n in launched.items() if n})}; step {roof.measured_s * 1e3:.1f} ms (bound "
+          f"{roof.bound_time * 1e3:.1f} ms, {roof.dominant}; roofline fraction "
+          f"{roof.compute_roofline_fraction:.4f}, MFU {roof.mfu})")
+    if label == "b":
+        row["flash"] = long_flash(cell, device)
+    del cell
+    return row
+
+
+def dryrun_phase(sizes: Sizes, device) -> dict:
+    """Phase 25: every cell of DRYRUN_CELLS in turn, the card freed
+    between them."""
+    out = {}
+    for label, arch, shape, batch in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        out[label] = dryrun_cell(label, arch, shape, batch, sizes, device)
+        out[label]["phase_s"] = time.perf_counter() - t0
+        free_card(device)
+    return out
+
+
+def dryrun_entries(entries: list, p25: dict) -> None:
+    """Phase 25 beside its kernels' entries: each cell's launches
+    (``launches_by_path``) and the flash call at T = 32,768 (b)."""
+    by_name = {e["name"]: e for e in entries}
+    for label, row in p25.items():
+        for e in entries:
+            e["launches_by_path"][f"dryrun_{label}"] = row["launches"][e["name"]]
+            e["launches"] += row["launches"][e["name"]]
+    f = p25["b"]["flash"]
+    flash = by_name["flash_attention"]
+    flash["bf16_max_abs_err"] = max(flash.get("bf16_max_abs_err", 0.0), *f["max_abs_err"].values())
+    flash["prefill_32k"] = {
+        **{k: f[k] for k in ("ms", "bound_ms", "bound_by", "library_ms", "library",
+                             "plain_ms", "plain_why")},
+        "max_abs_err": f["max_abs_err"], "blocks": f["blocks"],
+        "shape": f"layer 0's call of llama3.2-1b x prefill_32k, one sequence: B {f['B']}, "
+                 f"H {f['H']}, Hkv {f['Hkv']}, T {f['Tq']}, D {f['D']}, causal, "
+                 f"{f['dtype']}; ms by CUDA events; held on the first {FLASH_HEAD_ROWS} "
+                 f"and the last {FLASH_TAIL_ROWS} rows"}
+
+
+def print_dryrun_summary(m: dict, card: str) -> None:
+    print(f"[summary] phase 25, the one-card dry run against the card ({card}):")
+    for label, r in m.items():
+        print(f"[summary]   ({label}) {r['arch']} x {r['shape']} (batch {r['batch']} x "
+              f"{r['seq']}): peak {r['measured_peak_bytes']:,} bytes measured, "
+              f"{r['simulated_peak_bytes']:,} simulated ({r['peak_ratio']:.4f}); step "
+              f"{r['step_s_median'] * 1e3:.2f} ms, bound {r['bound_time_s'] * 1e3:.2f} ms "
+              f"({r['dominant']}), roofline fraction {r['roofline_fraction']:.4f}, MFU "
+              f"{r['mfu']:.4f}; launches {({k: n for k, n in r['launches'].items() if n})}; "
+              f"{r['phase_s']:.1f} s")
+    f = m["b"]["flash"]
+    print(f"[summary]   (b) flash T {f['Tq']}: {f['ms']:.2f} ms, SDPA {f['library_ms']:.2f}, "
+          f"bound {f['bound_ms']:.2f} ({f['bound_by']})")
+
+
 def run(sizes: Sizes, device, phases: str = "all") -> dict:
-    """Phases 2 to 24 at ``sizes`` on ``device`` (phase 20, 21, 22, 23 or
-    24 alone where ``phases`` names it: the kernels line then holds that
+    """Phases 2 to 25 at ``sizes`` on ``device`` (phase 20, 21, 22, 23, 24
+    or 25 alone where ``phases`` names it: the kernels line then holds that
     phase's launches and numbers alone); returns the kernels line and
-    the details. Phases 20 to 24 each start after the phases before them
+    the details. Phases 20 to 25 each start after the phases before them
     have returned, so that nothing those held stays on the card."""
-    if phases in ("20", "21", "22", "23", "24"):
+    if phases in ("20", "21", "22", "23", "24", "25"):
         result = {"phase_s": {}, "kernels": [
             {"name": name, "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0}
             for name in KERNELS]}
@@ -6692,6 +6997,12 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
         streaming_entries(result["kernels"], streaming)
         streaming["a"].pop("op")
         result["streaming"] = streaming
+    if phases in ("all", "25"):
+        t0 = time.perf_counter()
+        dry = dryrun_phase(sizes, device)
+        result["phase_s"]["25"] = time.perf_counter() - t0
+        dryrun_entries(result["kernels"], dry)
+        result["dryrun"] = dry
     return result
 
 
@@ -7144,9 +7455,9 @@ DIST_LIBRARIES = ("bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "bsr_attentio
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", choices=("all", "20", "21", "22", "23", "24"),
+    ap.add_argument("--phases", choices=("all", "20", "21", "22", "23", "24", "25"),
                     default="all",
-                    help="every phase (the default), or phase 20, 21, 22, 23 or 24 "
+                    help="every phase (the default), or phase 20, 21, 22, 23, 24 or 25 "
                          "alone after building the libraries it runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -7184,6 +7495,7 @@ def main(argv=None) -> int:
     if args.phases == "all":
         print_summary(result, card)
         print_streaming_summary(result["streaming"], card)
+        print_dryrun_summary(result["dryrun"], card)
     elif args.phases == "20":
         print_moe_summary(result["moe"], card)
     elif args.phases == "21":
@@ -7192,9 +7504,11 @@ def main(argv=None) -> int:
         print_encdec_summary(result["encdec"], card)
     elif args.phases == "23":
         print_distributed_summary(result["distributed"], card)
+    elif args.phases == "25":
+        print_dryrun_summary(result["dryrun"], card)
     else:
         print_streaming_summary(result["streaming"], card)
-    print(f"[done] phases {'2-24' if args.phases == 'all' else args.phases} in "
+    print(f"[done] phases {'2-25' if args.phases == 'all' else args.phases} in "
           f"{time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -28,10 +28,25 @@ import time
 from pathlib import Path
 from typing import Sequence
 
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def via_operator(t: torch.Tensor) -> bool:
+    """Does a kernel wrapper's call on ``t`` go through its operator
+    (``torch.ops.repro_torch.*``, whose shape-only version serves it)
+    rather than straight to the kernel or its plain version? Where ``t``
+    holds no values (``meta``, a fake tensor) or a dispatch mode watches
+    the call (``launch/step_cost.py``, ``FakeTensorMode``); a plain call on
+    the card or the CPU pays no operator dispatch."""
+    return (t.device.type == "meta" or isinstance(t, FakeTensor)
+            or _get_current_dispatch_mode() is not None)
 
 
 def _nvcc() -> str:

@@ -14,6 +14,15 @@ version ``kernels/ref.py:flash_attention_ref``. No fallback: a CUDA call
 that cannot launch raises. The causal mask is aligned top-left, as the
 Pallas kernel aligns it. ``flash_attention.launches`` counts kernel
 launches.
+
+The call is also the operator ``torch.ops.repro_torch.flash_attention``
+(``torch.library.custom_op``), whose shape-only version
+(``register_fake``) serves ``meta`` and fake tensors. The wrapper takes
+it only where ``kernels/build.py:via_operator`` says (no values, or a
+dispatch mode watching): a step over value-less tensors
+(``launch/step_cost.py``) sees one operator with the card's output
+layout, and ``flash_cost`` gives its operations and bytes, while a plain
+call launches the kernel without the operator's dispatch.
 """
 from __future__ import annotations
 
@@ -22,7 +31,9 @@ import functools
 from typing import Optional
 
 import torch
+from torch import Tensor
 
+from repro_torch.kernels.build import via_operator
 from repro_torch.kernels.ref import flash_attention_ref
 
 #: head widths the kernel is instantiated for (one template each)
@@ -59,8 +70,9 @@ def _check(q, k, v):
         raise ValueError(f"{hkv} KV heads do not divide {h} query heads")
     if tq == 0 or tk == 0:
         raise ValueError("attention needs at least one query and one key")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError("flash_attention runs on cuda or cpu tensors (meta for "
+                         f"their shapes), got {q.device}")
 
 
 def _heads_per_cta(group: int) -> int:
@@ -70,6 +82,25 @@ def _heads_per_cta(group: int) -> int:
     while hp * 2 <= HEADS_PER_CTA and group % (hp * 2) == 0:
         hp *= 2
     return hp
+
+
+def flash_cost(b: int, h: int, hkv: int, tq: int, tk: int, d: int, causal: bool,
+               elem: int) -> dict:
+    """The operations and bytes of one call: 4·D operations (two
+    products) per visible (query, key) pair of each head, where with the
+    top-left causal mask row i sees min(i + 1, Tk) keys (so the count does
+    not depend on whether a plain version would materialise the logits);
+    q, k, v read once and the output written once, ``elem`` bytes a
+    value. The operations are the inputs' type's (bfloat16 for 2-byte
+    inputs): the kernel multiplies in float32 on the CUDA cores, but the
+    card could do the same work on its tensor cores."""
+    if causal:
+        n = min(tq, tk)
+        pairs = n * (n + 1) // 2 + (tq - n) * tk
+    else:
+        pairs = tq * tk
+    return {"flop": 4.0 * b * h * d * pairs,
+            "bytes": elem * (2 * b * h * tq * d + 2 * b * hkv * tk * d)}
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
@@ -101,10 +132,10 @@ def flash_attention(
     kernel's synchronous path, with the same result.
     The result is a [B, H, Tq, D] view of a [B, Tq, H, D] tensor, so
     ``transpose(1, 2)`` of it is contiguous. CPU calls run the plain
-    version and do not count as launches."""
+    version and do not count as launches; ``meta`` calls give the card's
+    output shape, dtype and strides."""
     _check(q, k, v)
-    b, h, tq, d = q.shape
-    hkv, tk = k.shape[1], k.shape[2]
+    d = q.shape[3]
     scale = sm_scale if sm_scale is not None else 1.0 / float(d) ** 0.5
     if d not in HEAD_DIMS:
         raise ValueError(f"head width D={d} is not built; widths: {HEAD_DIMS}")
@@ -115,12 +146,24 @@ def flash_attention(
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q {q.dtype}")
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, sm_scale=scale)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}'s last axis must be contiguous, stride "
-                             f"{t.stride(3)}")
+    if q.device.type == "cuda":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.stride(3) != 1:
+                raise ValueError(f"{name}'s last axis must be contiguous, stride "
+                                 f"{t.stride(3)}")
+    if via_operator(q):
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, scale)
+    return _flash_call(q, k, v, causal, scale)
+
+
+def _flash_call(q: Tensor, k: Tensor, v: Tensor, causal: bool, sm_scale: float) -> Tensor:
+    """The checked call: the plain version for CPU tensors, else one
+    launch of the kernel."""
+    if q.device.type == "cpu":  # in the kernel's output layout
+        out = flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+        return out.transpose(1, 2).contiguous().transpose(1, 2)
+    b, h, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
     async_ok = q.dtype == torch.float32 and all(map(_rows_aligned, (q, k, v)))
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     with torch.cuda.device(q.device):
@@ -128,12 +171,24 @@ def flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], b, h, hkv, tq, tk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            scale, int(causal), _heads_per_cta(h // hkv), int(async_ok),
+            sm_scale, int(causal), _heads_per_cta(h // hkv), int(async_ok),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
     return out
+
+
+_flash_op = torch.library.custom_op("repro_torch::flash_attention", _flash_call,
+                                    mutates_args=())
+
+
+@_flash_op.register_fake
+def _flash_shape(q, k, v, causal, sm_scale):
+    """The kernel's output without values: [B, H, Tq, D] at q's dtype, a
+    view of a [B, Tq, H, D] tensor."""
+    b, h, tq, d = q.shape
+    return q.new_empty((b, tq, h, d)).transpose(1, 2)
 
 
 flash_attention.launches = 0

@@ -14,6 +14,15 @@ one-leaf call. No fallback: a CUDA call that cannot launch raises. The
 bias correction is folded into ``lr_t`` by the caller, a host float, so a
 step reads nothing back from the card. Each output is a tensor of its own
 (contiguous, its leaf's shape); the inputs are not modified.
+
+The call is also the operator ``torch.ops.repro_torch.fused_adam``
+(``torch.library.custom_op``), whose shape-only version
+(``register_fake``) serves ``meta`` and fake tensors. The wrapper takes
+it only where ``kernels/build.py:via_operator`` says (no values, or a
+dispatch mode watching): a step over value-less tensors
+(``launch/step_cost.py``) sees one operator, and ``fused_adam_cost``
+gives its bytes and launches, while a plain call launches the kernel
+without the operator's dispatch.
 """
 from __future__ import annotations
 
@@ -23,7 +32,9 @@ import functools
 from typing import NamedTuple, Sequence
 
 import torch
+from torch import Tensor
 
+from repro_torch.kernels.build import via_operator
 from repro_torch.kernels.ref import fused_adam_ref
 
 #: leaves one launch carries: ``kCapacity`` in ``csrc/fused_adam.cu``
@@ -70,6 +81,17 @@ def aligned16(ptrs: Sequence[int]) -> bool:
     return not (a | b | c | d | e | f | g) & 15
 
 
+def fused_adam_cost(sizes: Sequence[int]) -> dict:
+    """The bytes, operations and launches of one step over leaves of
+    ``sizes`` float32 values: p, g, m and v read once and p, m and v
+    written once (28 bytes a value), against ~15 elementwise operations a
+    value, in one launch for every ``CAPACITY`` nonempty leaves (as
+    ``pack_tables`` packs them)."""
+    n = sum(sizes)
+    return {"bytes": 28 * n, "flop": 15.0 * n,
+            "launches": len(pack_tables(sizes, [True] * len(sizes)))}
+
+
 @functools.cache
 def _entry():
     from repro_torch.kernels.build import load_library
@@ -89,7 +111,7 @@ def _entry():
 def _check(ps, gs, ms, vs) -> torch.device:
     """The lists' device, after checking what the kernel takes: equal
     lengths, each leaf's four shapes equal, every tensor float32,
-    contiguous and on one device (cpu or cuda)."""
+    contiguous and on one device (cpu or cuda; meta for their shapes)."""
     if not (len(ps) == len(gs) == len(ms) == len(vs)):
         raise ValueError(f"ps, gs, ms, vs lengths differ: {len(ps)}, {len(gs)}, "
                          f"{len(ms)}, {len(vs)}")
@@ -108,8 +130,9 @@ def _check(ps, gs, ms, vs) -> torch.device:
     if not all(t.is_contiguous() for t in every):
         raise ValueError("fused_adam takes contiguous tensors")
     (device,) = devices
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_adam runs on cuda or cpu tensors, got {device}")
+    if device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError("fused_adam runs on cuda or cpu tensors (meta for their "
+                         f"shapes), got {device}")
     return device
 
 
@@ -128,8 +151,20 @@ def fused_adam_multi(
     """One AdamW step on every leaf ``(ps[i], gs[i], ms[i], vs[i])``;
     returns the lists ``(ps', ms', vs')``. On the card one launch for every
     ``CAPACITY`` nonempty leaves, each counted in ``fused_adam.launches``
-    (CPU calls run the plain version and count nothing)."""
+    (CPU calls run the plain version and count nothing; ``meta`` calls
+    give the outputs' shapes)."""
     device = _check(ps, gs, ms, vs)
+    if via_operator(ps[0]):
+        n = len(ps)
+        out = torch.ops.repro_torch.fused_adam(list(ps), list(gs), list(ms), list(vs),
+                                               lr_t, beta1, beta2, eps, weight_decay)
+        return out[:n], out[n:2 * n], out[2 * n:]
+    return _adam_call(device, ps, gs, ms, vs, lr_t, beta1, beta2, eps, weight_decay)
+
+
+def _adam_call(device, ps, gs, ms, vs, lr_t, beta1, beta2, eps, weight_decay):
+    """The checked call: the plain version leaf by leaf for CPU tensors,
+    else the kernel's launches; returns ``(ps', ms', vs')``."""
     if device.type == "cpu":
         out = [fused_adam_ref(p, g, m, v, lr_t, beta1, beta2, eps, weight_decay)
                for p, g, m, v in zip(ps, gs, ms, vs)]
@@ -157,6 +192,22 @@ def fused_adam_multi(
                 raise RuntimeError(f"fused_adam kernel launch failed: cudaError {err}")
             fused_adam.launches += 1
     return p_new, m_new, v_new
+
+
+@torch.library.custom_op("repro_torch::fused_adam", mutates_args=())
+def _adam_op(ps: list[Tensor], gs: list[Tensor], ms: list[Tensor], vs: list[Tensor],
+             lr_t: float, beta1: float, beta2: float, eps: float,
+             weight_decay: float) -> list[Tensor]:
+    """``_adam_call`` as an operator: ``ps' + ms' + vs'`` as one list."""
+    p_new, m_new, v_new = _adam_call(ps[0].device, ps, gs, ms, vs, lr_t, beta1, beta2,
+                                     eps, weight_decay)
+    return p_new + m_new + v_new
+
+
+@_adam_op.register_fake
+def _adam_shapes(ps, gs, ms, vs, lr_t, beta1, beta2, eps, weight_decay):
+    """The outputs without values: each leaf's p, m and v like its own."""
+    return [torch.empty_like(t) for t in (*ps, *ms, *vs)]
 
 
 def fused_adam(

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.models import loops
 from repro_torch.models.transformer import LM
 from repro_torch.models.xlstm import SLSTM_FF_MULT
 from repro_torch.training.grad import accum_add, accum_init, accum_mean
@@ -145,7 +146,7 @@ def make_train_step(model: LM, opt: Optimizer, compute_dtype=torch.bfloat16,
         acc = accum_init(params)
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
-        for i in range(microbatches):
+        for i in loops.steps(microbatches):
             mb = {k: torch.chunk(v, microbatches)[i] for k, v in batch.items()}
             loss, grads = loss_and_grads(params, mb)
             acc = accum_add(acc, tree_unflatten(params, list(grads)))

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig, SSMConfig
+from repro_torch.models import loops
 from repro_torch.models.layers import _randn, dense_init
 
 
@@ -212,10 +213,10 @@ def _chunked_ssd(decay, xdt, b_in, c_in, state0, chunk):
 
     state = state0
     entering = []  # the state *entering* each chunk
-    for k in range(nc):
+    for k in loops.steps(nc, through_grad=chunk_state.requires_grad):
         entering.append(state)
         state = state * total[:, k, :, None, None] + chunk_state[:, k]
-    entering = torch.stack(entering, dim=1)  # [B,NC,H,P,N]
+    entering = loops.stack(entering, nc, dim=1)  # [B,NC,H,P,N]
 
     # inter-chunk: y_i += C_i · (exp(cum_i) * h_entering)
     inter = (torch.einsum("bkin,bkhpn->bkihp", *_up(cc, entering))

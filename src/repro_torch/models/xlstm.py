@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.models import loops
 from repro_torch.models.layers import _randn, dense_init
 from repro_torch.models.ssm import _decay_mask, _segsum, _up
 
@@ -156,13 +157,13 @@ def _chunked_mlstm(f, i, q, k, v, c0, n0, chunk=128):
 
     cs, ns = c0, n0
     c_in, n_in = [], []  # the states *entering* each chunk
-    for j in range(nc):
+    for j in loops.steps(nc, through_grad=cstate.requires_grad):
         c_in.append(cs)
         n_in.append(ns)
         cs = cs * total[:, j, :, None, None] + cstate[:, j]
         ns = ns * total[:, j, :, None] + nstate[:, j]
-    c_in = torch.stack(c_in, dim=1)
-    n_in = torch.stack(n_in, dim=1)
+    c_in = loops.stack(c_in, nc, dim=1)
+    n_in = loops.stack(n_in, nc, dim=1)
 
     carry_w = torch.exp(cum)
     inter = torch.einsum("bkihd,bkhdv->bkihv", *_up(qc * carry_w[..., None], c_in))
@@ -237,13 +238,14 @@ class _SLSTMScan(torch.autograd.Function):
     def forward(ctx, r_gates, gates_x, c0, n0, h0, m0):
         state = (c0, n0, h0, m0)
         states, hs = [], []
-        for gx in gates_x:
+        n, xs = len(gates_x), gates_x.unbind(0)
+        for t in loops.steps(n):
             states.append(state)
-            state, h_out = _slstm_core(state, gx, _rec_preact(state[2], r_gates))
+            state, h_out = _slstm_core(state, xs[t], _rec_preact(state[2], r_gates))
             hs.append(h_out)
         ctx.save_for_backward(r_gates, gates_x,
-                              *(torch.stack(s) for s in zip(*states)))
-        return (*state, torch.stack(hs))
+                              *(loops.stack(list(s), n) for s in zip(*states)))
+        return (*state, loops.stack(hs, n))
 
     @staticmethod
     def backward(ctx, dc, dn, dh, dm, d_hs):
@@ -255,7 +257,9 @@ class _SLSTMScan(torch.autograd.Function):
         drecs = torch.empty((len(gates_x), b, h, 4 * dh_), dtype=h_all.dtype,
                             device=h_all.device)
         r_up = r_gates.to(torch.promote_types(r_gates.dtype, h_all.dtype))
-        for t in reversed(range(len(gates_x))):
+        n = len(gates_x)
+        for i in loops.steps(n):
+            t = n - 1 - i  # time runs backwards
             state = tuple(s[t].detach().requires_grad_(True) for s in states)
             gx = gates_x[t].detach().requires_grad_(True)
             rec = _rec_preact(states[2][t], r_gates).requires_grad_(True)
