@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 20|21|22|23|24|25]
+    python3 chip_smoke.py [--phases 20|21|22|23|24|25|26]
 
-Phases (``--phases 20``, ``21``, ``22``, ``23``, ``24`` or ``25``: that phase alone); any failure raises,
+Phases (``--phases 20``, ``21``, ``22``, ``23``, ``24``, ``25`` or ``26``: that phase alone); any failure raises,
 so the exit code is not 0 and no result line is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
@@ -158,8 +158,8 @@ so the exit code is not 0 and no result line is printed:
     (plain versions, plain Adam) from the same weights over the same
     batches, with phase 4's gates (the ReLU here is torch's, after the
     aggregation: ``decided_sampled_grads``): (a) SAGE-mean [128, 256,
-    256, 40], Adam 0.01, the train mask cut to 4,096 nodes (from 8,192,
-    for the command's time), 2 epochs of 4 steps, exactly 6 ``bsr_spmm`` launches a step (each layer's
+    256, 40], Adam 0.01, the train mask cut to 2,048 nodes (from 8,192,
+    for the command's time), 2 epochs of 2 steps, exactly 6 ``bsr_spmm`` launches a step (each layer's
     forward and backward product) and 1 Adam launch, and ``bsr_spmm`` on
     one batch's A and Aᵀ at the layers' widths against its plain version
     and ``torch.sparse.mm``; (b) GAT as phase 13, lr 0.002, 4 steps over
@@ -280,23 +280,23 @@ so the exit code is not 0 and no result line is printed:
     of the first step's backward that must be bitwise equal. Each part's
     peak allocation.
 21. The recurrent families, after phase 20 has returned and freed the
-    card. (a) zamba2-7b served at its published widths and depth (81
-    layers: 68 Mamba2 blocks of d_inner 7,168, 112 heads of 64, state 64,
-    chunk 128; 13 shared sites of one GQA block, 32 heads of 112, and
-    MLP 14,336; vocab 32,000; 5,736,924,992 parameters), phase 10's
-    requests and checks: exactly 13 ``flash_attention`` launches a wave
+    card. (a) zamba2-7b served at its published widths, cut to 12 of its
+    81 layers (``HYBRID_LAYERS``, for the command's time: 10 Mamba2 blocks of d_inner
+    7,168, 112 heads of 64, state 64, chunk 128; 2 shared sites of one
+    GQA block, 32 heads of 112, and MLP 14,336; vocab 32,000), phase 10's
+    requests and checks: exactly 2 ``flash_attention`` launches a wave
     (D = 112, one a shared site) and none in decode, no other kernel of
     the port; its longest prefill timed by block kind. (b) Phase 11's
     checks of the kernel at D = 112 on (a)'s 1,024-token wave (B 4, H 32,
     Hkv 32, T 1024) and on ``d128_edge_cases``' shapes at D = 112, its
     time beside the plain version's, SDPA's and the bound. (c)
-    xlstm-1.3b served at its published size (48 layers, 42 mLSTM and 6
-    sLSTM, d_model 2,048, 4 heads of 512; 1,283,330,048 parameters),
-    the same requests and checks with no kernel of the port launched; its
+    xlstm-1.3b served at its published widths, cut to 16 of its 48
+    layers (14 mLSTM and 2 sLSTM, d_model 2,048, 4 heads of 512), the
+    same requests and checks with no kernel of the port launched; its
     longest prefill timed by block kind (the sLSTM loop's share). (d) For
     both, the longest wave prefilled whole against prefilled to T - 4 and
-    decoded 4 steps: the last logits within 2e-2. (e) xlstm-1.3b trained
-    at its published size through phase 16's checks on a batch of 4 x
+    decoded 4 steps: the last logits within 2e-2. (e) (c)'s xlstm-1.3b
+    cut trained through phase 16's checks on a batch of 4 x
     ``HYBRID_TRAIN_SEQ`` tokens (256: two of its mLSTM chunks of 128, so
     the state carried from chunk to chunk runs forward and backward) for
     ``HYBRID_TRAIN_STEPS`` steps
@@ -324,10 +324,11 @@ so the exit code is not 0 and no result line is printed:
     encoder, self and cross attention; pixtral-12b's B 4, H 32, Hkv 8, T
     1,280, D 128, causal), each kind's CUDA-event ms beside the plain
     version's, SDPA's and the bound. (c) pixtral-12b at its published
-    size (40 layers, d_model 5,120, 32 heads over 8 KV heads of 128,
-    vocab 131,072; 12,247,782,400 parameters): one wave of 4 prompts of
-    1,024 text tokens after 256 patch embeddings [4, 256, 5,120], then
-    32 decode steps, the same gates, exactly 40 flash launches in the
+    widths, cut to ``PIXTRAL_SERVE_LAYERS`` (10) of its 40 layers (for time;
+    d_model 5,120, 32 heads over 8 KV heads of 128, vocab 131,072): one
+    wave of 4 prompts of 1,024 text tokens after 256 patch embeddings [4,
+    256, 5,120], then 32 decode steps, the same gates, exactly 10 flash
+    launches in the
     prefill and none in decode; a profiled prefill by kernel class. (d)
     Phase 16's checks on whisper-tiny whole (4 x 1,024 tokens with its
     frames, 10 steps) and on pixtral-12b cut to ``PIXTRAL_TRAIN_LAYERS``
@@ -346,8 +347,9 @@ so the exit code is not 0 and no result line is printed:
     aggregation is GCN's, so the same ``DistributedGraph``); (c) SAGE-mean [8710, 16, 70] on the corafull
     analog (19,793 nodes), the JAX package's ``examples/distributed_gnn.py``
     model, layer 0 on ``dist_feature_matmul_sparse``, 5 epochs. Two worker
-    processes partition, build, lower and verify each plan in fast and
-    full mode (timed) and write each rank's slices, while the three
+    processes (in the whole run started before phase 22, beside its card
+    work: ``DistHost``) partition, build, lower and verify each plan in
+    fast and full mode (timed) and write each rank's slices, while the three
     single-device cuda programs train on the card from the same weights;
     then one spawn runs the three runs on every rank. Gates per run: the
     first step's loss within 1e-4 and each gradient leaf within 1e-3
@@ -402,7 +404,8 @@ so the exit code is not 0 and no result line is printed:
     schedule (rank 1 8x slower from step 2, 6 epochs) after one
     rebalance with the state carried bitwise; losses finite and falling;
     the group's loss and gradients at the carried params within 1e-4 and
-    1e-3 norm-relative of the single-device cuda program's; in every
+    1e-3 norm-relative of the single-device cuda program's (phase 23's
+    corafull SAGE program where phase 23 ran); in every
     segment each rank's launches counted from 0 (each of the SAGE run's
     kernels launched on every rank, path ``resilient``) and rank 0's first
     step's kernel calls (on the 4-rank, the 3-rank and the rebalanced
@@ -432,6 +435,43 @@ so the exit code is not 0 and no result line is printed:
     FLASH_ROW_RTOL of its own largest value; the check must fail on zeroed
     rows), and timed (CUDA events) beside SDPA on K/V repeated to 32 heads
     and the bound (bf16's peak).
+26. Tensor parallelism over a ``model`` axis, after phase 25 has
+    returned: llama3.2-1b at full width and depth (16 layers, 1.24 B),
+    random weights from seed 0. The single-device program runs first in
+    the parent (the cuda model: phase 10's engine calls over
+    TP_NEW_TOKENS new tokens a request, phase 16's 4 x 1,024 batch for
+    TP_TRAIN_STEPS bfloat16 steps, the float32 loss and gradients of a
+    TP_F32_LAYERS-layer cut), writes its weights, last weights and the
+    cut's gradients to a file and frees the card; one ``RankPool`` of 4
+    rank processes then shares the card over gloo, each rank mapping the
+    file and cutting its shards (``tensor_parallel.shard_tree``). (a)
+    Serving at (data 1, model 4), float32, through ``ServingEngine`` on
+    every rank under the ``ShardingRules``: every call whose input tokens
+    are the single-device call's holds its last logits within 1e-4 and
+    its greedy tokens where the top-2 margin exceeds ``TOKEN_MARGIN``; the
+    four ranks' logits and tokens bitwise equal (a digest); flash launched
+    16 times a wave on every rank at 8 query heads over 2 KV heads (D 64)
+    and none in decode, no other kernel; rank 0's layer-0 call of the
+    longest wave held against the plain version and timed beside SDPA
+    and the bound. (b) Training at (data 2, model 2), bfloat16, remat,
+    fused AdamW on 2 sequences a data rank: the losses within
+    TP_LOSS_RTOL of the single-device program's at every step and falling,
+    each gathered leaf's change over the steps within TP_DELTA_RTOL of
+    the single-device program's change (norm-relative), a planted control
+    (the data ranks stepping without the gradients' mean) read above that
+    limit on some leaf, the data replicas bitwise equal and the replicated leaves of a
+    model group bitwise equal, one Adam launch a rank a step and no other
+    kernel; the float32 cut's loss within 1e-4 and each gathered gradient
+    leaf within TP_GRAD_RTOL; rank 0's Adam launch over its shards timed
+    beside the plain version, ``AdamW(fused=True)`` and the bound. (c) The
+    dry run of the ranks' steps over ``meta`` tensors (``build_cell(mesh=)``):
+    the training step's simulated peak within max(PEAK_RTOL, PEAK_SLACK)
+    of each rank's second step's peak allocation, and the collective
+    counts of the training step, a prefill and a decode step equal to
+    what each rank's ``CollectiveLog`` read. Printed: prefill ms a wave
+    and decode ms a step beside the single-device program's, a step's
+    collective counts and bytes, and the wire's ms (gloo's loopback
+    through the host, not NVLink).
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -563,7 +603,16 @@ from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.transformer import _layer_window  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.models.gnn import GNNConfig, params_from_jax  # noqa: E402
-from repro_torch.launch.mesh import RankPool, run_ranks  # noqa: E402
+from repro_torch.launch.mesh import RankPool, make_mesh, run_ranks  # noqa: E402
+from repro_torch.distributed.sharding import ShardingRules, use_rules  # noqa: E402
+from repro_torch.runtime.checkpoint import _flatten_with_paths  # noqa: E402
+from repro_torch.distributed.tensor_parallel import (  # noqa: E402
+    CollectiveLog,
+    check_tp,
+    logging_collectives,
+    mean_over_data,
+    shard_tree,
+)
 from repro_torch.runtime import (  # noqa: E402
     FaultInjector,
     FaultSpec,
@@ -585,6 +634,7 @@ from repro_torch.training.optimizer import (  # noqa: E402
     adamw,
     bias_corrected_lr,
     tree_leaves,
+    tree_map,
     tree_unflatten,
 )
 from repro_torch.training.schedule import warmup_cosine  # noqa: E402
@@ -747,7 +797,7 @@ class Sizes:
     # `sage_cut` nodes for SAGE_EPOCHS epochs, GAT over one batch for
     # GAT_STEPS steps
     sampled_batch_size: int = 1024
-    sage_cut: int = 4096  # cut from 8192 for the command's time
+    sage_cut: int = 2048  # cut from 8192 (then 4096) for the command's time
     # phase 18: sampled SAGE-mean resumed over the train mask cut to
     # `resume_cut` nodes, RESUME_EPOCHS epochs
     resume_cut: int = 4096
@@ -2414,8 +2464,10 @@ def attention_phase(prog, device, reps: int) -> dict:
             row = {"kernel": name, "operand": "A^T" if kind == "col" else "A",
                    "layer": layer, "heads": h, "Dh": hd // h,
                    "n_blocks": int(stream.blocks.shape[0])}
-            row.update(timings({"": attention_call(kind, a, columns[kind]),
-                                "plain_": lambda: plain(*a)}, device, reps))
+            row.update(timings({"": attention_call(kind, a, columns[kind])}, device, reps))
+            # the plain version's seconds-long calls once each after a
+            # warm-up (for the command's time)
+            row.update(timings({"plain_": lambda: plain(*a)}, device, 1))
             row.update(attention_bound(stream.block_rows, stream.block_cols,
                                        stream.blocks, h, hd, stream.n_rows_padded,
                                        kind))
@@ -3913,15 +3965,34 @@ d112_edge_cases = functools.partial(head_dim_edge_cases, d=112, seed=43,
                                     shapes=d128_edge_cases.keywords["shapes"])
 
 
+#: phase 21's and 22's depth cuts (for the command's time, to make
+#: room for phase 26): zamba2-7b served at 12 of its 81 layers (10 Mamba2
+#: blocks, 2 shared sites), xlstm-1.3b served and trained at 16 of its 48
+#: (14 mLSTM, 2 sLSTM), pixtral-12b served at 10 of its 40; each keeps its
+#: published widths and its block pattern's period
+HYBRID_LAYERS = {"zamba2": 12, "xlstm": 16}
+PIXTRAL_SERVE_LAYERS = 10
+
+
+def depth_cut(cfg, n_layers: int):
+    """``cfg``'s first ``n_layers`` layers (its block pattern cut alike);
+    ``cfg`` itself where it has no more."""
+    if n_layers >= cfg.n_layers:
+        return cfg
+    pattern = cfg.block_pattern[:n_layers] if cfg.block_pattern else None
+    return dataclasses.replace(cfg, n_layers=n_layers, block_pattern=pattern)
+
+
 def hybrid_configs(sizes: Sizes) -> dict:
-    """Phase 21's configurations, at their published widths and depths:
-    zamba2-7b (81 layers: 68 Mamba2 blocks, 13 shared sites) and
-    xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM); their reduced configs where
-    ``lm_reduced``."""
+    """Phase 21's configurations, at their published widths, cut to
+    ``HYBRID_LAYERS``: zamba2-7b (of 81 layers: 68 Mamba2 blocks, 13
+    shared sites) and xlstm-1.3b (of 48: 42 mLSTM, 6 sLSTM); their
+    reduced configs where ``lm_reduced``."""
     zamba, xl = get_config("zamba2-7b"), get_config("xlstm-1.3b")
     if sizes.lm_reduced:
         zamba, xl = zamba.reduced(), xl.reduced()
-    return {"zamba2": zamba, "xlstm": xl}
+    return {"zamba2": depth_cut(zamba, HYBRID_LAYERS["zamba2"]),
+            "xlstm": depth_cut(xl, HYBRID_LAYERS["xlstm"])}
 
 
 def block_times(model, params, tokens, max_seq: int, device) -> dict:
@@ -3992,7 +4063,7 @@ def chunked_vs_recurrent(name: str, model, params, tokens, max_seq: int, device)
 def hybrid_phase(sizes: Sizes, device) -> dict:
     """Phase 21, the recurrent families on the card, after everything
     earlier phases held is freed: (a) zamba2-7b served
-    (``lm_serving_phase``: flash at D = 112 at each of its 13 shared sites
+    (``lm_serving_phase``: flash at D = 112 at each of its shared sites
     a wave) and its longest prefill timed by block kind; (b) flash at D =
     112 on (a)'s wave (``flash_phase`` with ``d112_edge_cases``); (c)
     xlstm-1.3b served (no kernel of the port) and its longest prefill
@@ -4104,14 +4175,15 @@ PIXTRAL_TRAIN_STEPS = 2
 
 def encdec_configs(sizes: Sizes) -> dict:
     """Phase 22's configurations: whisper-tiny (4 encoder and 4 decoder
-    layers, 1,500 frames) and pixtral-12b (40 layers, 256 frontend
-    tokens) at their published sizes, and pixtral-12b's training cut to
+    layers, 1,500 frames) at its published size, pixtral-12b (256
+    frontend tokens) at its published widths served at
+    PIXTRAL_SERVE_LAYERS of its 40 layers, and its training cut to
     PIXTRAL_TRAIN_LAYERS layers; their reduced configs where
     ``lm_reduced``."""
     whisper, pixtral = get_config("whisper-tiny"), get_config("pixtral-12b")
     if sizes.lm_reduced:
         whisper, pixtral = whisper.reduced(), pixtral.reduced()
-    return {"whisper": whisper, "pixtral": pixtral,
+    return {"whisper": whisper, "pixtral": depth_cut(pixtral, PIXTRAL_SERVE_LAYERS),
             "pixtral_train": dataclasses.replace(pixtral, name=pixtral.name + "-train-cut",
                                                  n_layers=PIXTRAL_TRAIN_LAYERS)}
 
@@ -5752,61 +5824,89 @@ def dist_kernel_summary(rows: list) -> dict:
     return out
 
 
-def distributed_phase(sizes: Sizes, device) -> dict:
+class DistHost:
+    """Phase 23's host work: two worker processes (``dist_prepare``) that
+    partition, build and lower each graph's runs and write the ranks'
+    files, then verify the plans in full beside the ranks. ``run`` starts
+    them before phase 22 (for the command's time: they need the
+    host alone, so they run beside phase 22's card work); phase 23 alone
+    starts them itself. ``close`` joins them and removes their files."""
+
+    def __init__(self, sizes: Sizes):
+        self.t0 = time.perf_counter()
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+        self._stack = contextlib.ExitStack()
+        ctx = multiprocessing.get_context("spawn")
+        try:
+            manager = self._stack.enter_context(ctx.Manager())
+            pool = self._stack.enter_context(
+                concurrent.futures.ProcessPoolExecutor(2, mp_context=ctx))
+            self.ready = manager.Queue()
+            self.futures = {g: pool.submit(dist_prepare, sizes, g, self.work, self.ready)
+                            for g in ("arxiv", "corafull")}
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        try:
+            self._stack.close()
+        finally:
+            shutil.rmtree(self.work, ignore_errors=True)
+
+
+def distributed_phase(sizes: Sizes, device, host: Optional[DistHost] = None) -> dict:
     """Phase 23: runs (a) GCN and (b) GAT on the ogbn-arxiv analog and (c)
     SAGE-mean on the corafull analog, each on ``DIST_RANKS`` rank processes
     that share the card (gloo, ``launch/mesh.py:run_ranks``). Two worker
-    processes do the host work (``dist_prepare``) while the single-device
-    programs of the three runs train on the card (``dist_reference``);
-    once the workers have written the ranks' files, one spawn runs every
-    run on every rank (``dist_rank``) while the workers verify the plans
-    in full, and the gates hold each run to the single-device program."""
+    processes do the host work (``DistHost``, started here unless
+    ``host`` was started earlier) while the single-device programs of the
+    three runs train on the card (``dist_reference``); once the workers
+    have written the ranks' files, one spawn runs every run on every rank
+    (``dist_rank``) while the workers verify the plans in full, and the
+    gates hold each run to the single-device program."""
     t_phase = time.perf_counter()
     runs = dist_runs(sizes)
-    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    host = host or DistHost(sizes)
     try:
-        ctx = multiprocessing.get_context("spawn")
-        with ctx.Manager() as manager, concurrent.futures.ProcessPoolExecutor(
-                2, mp_context=ctx) as pool:
-            ready = manager.Queue()
-            futures = {g: pool.submit(dist_prepare, sizes, g, work, ready)
-                       for g in ("arxiv", "corafull")}
-            refs = {}
-            for graph in ("arxiv", "corafull"):
-                ds = dist_dataset(sizes, graph)
-                for run in dist_runs(sizes, graph):
-                    refs[run["name"]] = dist_reference(run, ds, device)
-                    print(f"[dist] {run['name']} on one device: plan\n"
-                          f"{refs[run['name']]['plan']}\nlosses "
-                          f"{refs[run['name']]['losses']}, epoch "
-                          f"{refs[run['name']]['epoch_ms_median']:.2f} ms")
-                del ds
-            ref_s = time.perf_counter() - t_phase
-            files = {}
-            while len(files) < len(futures):
-                try:
-                    msg = ready.get(timeout=5)
-                except queue.Empty:
-                    for f in futures.values():
-                        if f.done():
-                            f.result()  # a worker that failed raises here
-                    continue
-                files[msg["graph"]] = msg
-            host_s = time.perf_counter() - t_phase
-            specs = []
-            for run in runs:
-                p = files[run["graph"]]["runs"][run["name"]]
-                specs.append({"name": run["name"], "config": p["config"],
-                              "opt": run["opt"], "epochs": run["epochs"],
-                              "weights": refs[run["name"]]["weights"],
-                              "dist_files": p["dist_files"],
-                              "plan_files": p["plan_files"]})
-            # the workers verify the plans in full while the ranks train
-            t0 = time.perf_counter()
-            ranks = run_ranks(dist_rank, DIST_RANKS, (specs,), device=device,
-                              timeout_s=600)
-            ranks_s = time.perf_counter() - t0
-            prep = {g: f.result() for g, f in futures.items()}
+        ready, futures = host.ready, host.futures
+        refs = {}
+        for graph in ("arxiv", "corafull"):
+            ds = dist_dataset(sizes, graph)
+            for run in dist_runs(sizes, graph):
+                refs[run["name"]] = dist_reference(run, ds, device)
+                print(f"[dist] {run['name']} on one device: plan\n"
+                      f"{refs[run['name']]['plan']}\nlosses "
+                      f"{refs[run['name']]['losses']}, epoch "
+                      f"{refs[run['name']]['epoch_ms_median']:.2f} ms")
+            del ds
+        ref_s = time.perf_counter() - t_phase
+        files = {}
+        while len(files) < len(futures):
+            try:
+                msg = ready.get(timeout=5)
+            except queue.Empty:
+                for f in futures.values():
+                    if f.done():
+                        f.result()  # a worker that failed raises here
+                continue
+            files[msg["graph"]] = msg
+        host_s = time.perf_counter() - t_phase
+        specs = []
+        for run in runs:
+            p = files[run["graph"]]["runs"][run["name"]]
+            specs.append({"name": run["name"], "config": p["config"],
+                          "opt": run["opt"], "epochs": run["epochs"],
+                          "weights": refs[run["name"]]["weights"],
+                          "dist_files": p["dist_files"],
+                          "plan_files": p["plan_files"]})
+        # the workers verify the plans in full while the ranks train
+        t0 = time.perf_counter()
+        ranks = run_ranks(dist_rank, DIST_RANKS, (specs,), device=device,
+                          timeout_s=600)
+        ranks_s = time.perf_counter() - t0
+        prep = {g: f.result() for g, f in futures.items()}
+        host.close()
         for g, p in prep.items():
             print(f"[dist] {g}: {p['nodes']} nodes, partition {json.dumps(p['partition'])}"
                   f", host {json.dumps(p['host_s'])}, shapes {json.dumps(p['shapes'])}")
@@ -5816,8 +5916,9 @@ def distributed_phase(sizes: Sizes, device) -> dict:
                       f"{r['verify']['full_ms']:.1f} ms, 0 violations, beside the "
                       f"ranks):\n{r['plan']}")
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        host.close()
     out = {"runs": {}, "host_s": host_s, "ref_s": ref_s, "ranks_s": ranks_s,
+           "host_head_start_s": t_phase - host.t0,
            "prepare": {g: {k: v for k, v in p.items()
                            if k not in ("gids", "partition_result")}
                        for g, p in prep.items()},
@@ -5856,7 +5957,10 @@ def distributed_phase(sizes: Sizes, device) -> dict:
             "plan": prep_run["plan"], "verify": prep_run["verify"],
             "lower_s": prep_run["lower_s"],
             "ref_epoch_ms_alone_median": dist_alone_epoch_ms(refs[name], run["epochs"])}
-        del refs[name]["prog"]
+        prog = refs[name].pop("prog")
+        if name == "sage":  # phase 24 (c)'s single-device program (taken out before the dump)
+            out["sage_prog"] = prog
+        del prog
     out["s"] = time.perf_counter() - t_phase
     return out
 
@@ -6426,7 +6530,7 @@ def resilient_gate(name: str, run: dict, prog, device) -> dict:
     return out
 
 
-def resilience_path(sizes: Sizes, device, partition, pool) -> dict:
+def resilience_path(sizes: Sizes, device, partition, pool, prog=None) -> dict:
     """Phase 24 (c): the rank-death and straggler schedules on the JAX
     package's ``examples/distributed_gnn.py`` model (SAGE-mean [8710, 16,
     70] on the corafull analog at full scale), 4 ranks sharing the card:
@@ -6434,7 +6538,8 @@ def resilience_path(sizes: Sizes, device, partition, pool) -> dict:
     checkpoint with the NaN step skipped, the straggler run after one
     rebalance with the state carried bitwise; losses finite and falling;
     each run's carried params against the single-device program
-    (``resilient_gate``)."""
+    (``resilient_gate``; ``prog``, phase 23's of the same model and
+    weights, where given: the gate evaluates it at the carried params)."""
     ds = dist_dataset(sizes, "corafull")
     cfg = GNNConfig(kind="SAGE", layer_dims=[ds.features.shape[1], 16, ds.n_classes],
                     aggregation="mean")
@@ -6446,9 +6551,10 @@ def resilience_path(sizes: Sizes, device, partition, pool) -> dict:
         "straggler": ([FaultSpec(site="rank_slow", steps=range(2, 10_000), rank=1,
                                  factor=8.0)], STRAGGLER_EPOCHS)}
     t0 = time.perf_counter()
-    prog = (GNNProgram.load(ds, arch=cfg.kind, aggregation=cfg.aggregation)
-            .initialize_layers(list(cfg.layer_dims), "xavier", seed=0)
-            .compile(engine="cuda", device=device, fused_optimizer=True))
+    if prog is None:
+        prog = (GNNProgram.load(ds, arch=cfg.kind, aggregation=cfg.aggregation)
+                .initialize_layers(list(cfg.layer_dims), "xavier", seed=0)
+                .compile(engine="cuda", device=device, fused_optimizer=True))
     out = {"ref_build_s": time.perf_counter() - t0}
     for name, (faults, epochs) in schedules.items():
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "chiprun_out")) as tmp:
@@ -6536,13 +6642,15 @@ def soak_distributed(device, pool) -> dict:
     return {"rows": rows, "s": time.perf_counter() - t0}
 
 
-def streaming_phase(sizes: Sizes, device, partitions: Optional[dict]) -> dict:
+def streaming_phase(sizes: Sizes, device, partitions: Optional[dict],
+                    sage_prog=None) -> dict:
     """Phase 24: (a) ``streamed_path``, (b) ``stream_faults``, (c)
     ``resilience_path``, (d) ``psum_check``, (e) ``soak_distributed``,
     (c)-(e) on one ``RankPool`` of ``DIST_RANKS`` processes;
     ``partitions`` are phase 23's 4-way partitions (``hierarchical_partition
     (graph, 4)``, the ones (a) and (c) make) where it ran, else each part
-    partitions."""
+    partitions; ``sage_prog`` phase 23's single-device corafull SAGE
+    program, (c)'s reference, where it ran (else (c) builds it)."""
     t_phase = time.perf_counter()
     partitions = partitions or {}
     ds = generate_dataset(sizes.dataset, scale=sizes.scale, seed=0)
@@ -6560,7 +6668,8 @@ def streaming_phase(sizes: Sizes, device, partitions: Optional[dict]) -> dict:
     t0 = time.perf_counter()
     with RankPool(DIST_RANKS, device=device, timeout_s=600) as pool:
         out["pool_s"] = time.perf_counter() - t0
-        out["c"] = resilience_path(sizes, device, partitions.get("corafull"), pool)
+        out["c"] = resilience_path(sizes, device, partitions.get("corafull"), pool,
+                                   sage_prog)
         out["c_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out["d"] = psum_check(device, pool)
@@ -6951,13 +7060,652 @@ def print_dryrun_summary(m: dict, card: str) -> None:
           f"bound {f['bound_ms']:.2f} ({f['bound_by']})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: tensor parallelism over a model axis, data parallelism over data
+# ---------------------------------------------------------------------------
+
+#: the meshes, (data, model): (a) serving, (b) training
+TP_SERVE_MESH, TP_TRAIN_MESH = (1, 4), (2, 2)
+#: (a): new tokens a request (phase 10's 32, cut for the command's time)
+TP_NEW_TOKENS = 8
+#: (b): steps of phase 16's batch, and the float32 step's depth cut
+TP_TRAIN_STEPS = 3
+TP_F32_LAYERS = 2
+#: (b): bfloat16 losses at every step within TP_LOSS_RTOL relative of the
+#: single-device program's: the sharded program sums its row products over
+#: the model ranks in float32 after rounding each partial to bfloat16, the
+#: single-device product does not
+TP_LOSS_RTOL = 1e-2
+#: (b): each gathered leaf's change over the steps (final - initial) within
+#: TP_DELTA_RTOL of the single-device program's change, norm-relative. Adam's
+#: early steps move a weight by about lr · sign(g), so an element whose
+#: small gradient the bfloat16 gaps above flip moves the other way: on an
+#: H100 the sound run reads up to 0.102 a leaf (``wk``), and the planted
+#: control (each data rank stepping on its own rows, the gradients' mean
+#: over ``data`` skipped) up to 0.983 (0.063 on the final norm's scale); a
+#: leaf not stepped reads 1. The control must read above the limit on some
+#: leaf (PERF.md section 6)
+TP_DELTA_RTOL = 0.2
+#: the float32 step: the loss within TOL, each gathered gradient leaf within
+#: TP_GRAD_RTOL norm-relative
+TP_GRAD_RTOL = 1e-3
+
+
+def tp_cfg(sizes: Sizes):
+    cfg = get_config(sizes.lm_arch)
+    return cfg.reduced() if sizes.lm_reduced else cfg
+
+
+def tp_cut(params: dict, n_layers: int) -> dict:
+    """The first ``n_layers`` layers of a dense LM's parameters: its one
+    scanned segment's stacked leaves cut to ``[:n_layers]``, the embedding
+    and the final norm whole."""
+    (seg,) = params["segments"]
+    return {"embed": params["embed"], "final_norm": params["final_norm"],
+            "segments": [[{k: tree_map(lambda t: t[:n_layers], v) for k, v in layer.items()}
+                          for layer in seg]]}
+
+
+class TPRecordingLM(RecordingLM):
+    """``RecordingLM`` with each call's collectives (``CollectiveLog``:
+    counts and operand bytes by kind, the wire's host seconds)."""
+
+    def _call(self, kind, fn, tokens):
+        log = CollectiveLog()
+        with logging_collectives(log):
+            out = super()._call(kind, fn, tokens)
+        self.calls[-1]["collectives"] = {"counts": dict(log.counts),
+                                         "bytes": dict(log.bytes), "wire_s": log.seconds}
+        return out
+
+
+def tp_reference(cfg, sizes: Sizes, device, path: str) -> dict:
+    """The single-device program, in the parent, before the ranks start:
+    (a) the engine's calls over phase 10's requests (``RecordingLM``:
+    each call's input tokens and last logits); (b) phase 16's bfloat16
+    steps (fused AdamW, remat), its losses and last parameters; the
+    float32 loss and gradients of the TP_F32_LAYERS-layer cut. The initial
+    and last parameters and the cut's gradients go to ``path``
+    (``torch.save``; the ranks map it and cut their shards); the card is
+    freed on return."""
+    t0 = time.perf_counter()
+    model = build_model(cfg, inner="cuda", remat="layer")
+    params = model.init(torch.Generator(device=device).manual_seed(0), device=device)
+    serve = dataclasses.replace(sizes, lm_new_tokens=TP_NEW_TOKENS)
+    max_seq = sizes.lm_prompts[1] + TP_NEW_TOKENS
+    rec = RecordingLM(model, device)
+    engine = ServingEngine(rec, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
+                           device=device)
+    for r in lm_requests(serve, cfg.vocab_size):
+        engine.submit(r)
+    engine.run()  # the calls each rank is held to, and the times set beside its
+    calls = [{"kind": c["kind"], "wave": c["wave"], "tokens": c["tokens"].cpu().numpy(),
+              "logits": c["logits"].cpu().numpy(), "ms": c["s"] * 1e3} for c in rec.calls]
+    del rec, engine
+    batch = make_dummy_batch(cfg, sizes.lm_train_batch, sizes.lm_train_seq,
+                             generator=torch.Generator(device=device).manual_seed(1))
+    opt = adamw(warmup_cosine(LM_LR, LM_WARMUP, TP_TRAIN_STEPS), fused=True)
+    run = lm_train_run(model, opt, params, batch, TP_TRAIN_STEPS, device)
+    final = tree_map(lambda t: t.detach().cpu(), run["params"])
+    losses, step_ms = run["losses"], run["ms"]
+    del run
+    free_card(device)
+    cut_cfg = dataclasses.replace(cfg, n_layers=TP_F32_LAYERS)
+    cut = tp_cut(params, TP_F32_LAYERS)
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(cut)]
+    loss32, _ = build_model(cut_cfg, inner="cuda").loss(tree_unflatten(cut, leaves), batch)
+    grads32 = torch.autograd.grad(loss32, leaves)
+    torch.save({"init": tree_map(lambda t: t.detach().cpu(), params), "final": final,
+                "grads32": tree_unflatten(cut, [g.cpu() for g in grads32])}, path)
+    out = {"calls": calls, "losses": losses, "step_ms": step_ms,
+           "loss32": float(loss32.detach()),
+           "n_params": sum(t.numel() for t in tree_leaves(params)), "max_seq": max_seq,
+           "reference_s": time.perf_counter() - t0}
+    del params, cut, leaves, grads32, loss32, batch, model
+    free_card(device)
+    return out
+
+
+def tp_dryrun(cfg, sizes: Sizes, ref: dict) -> dict:
+    """(c) the dry run of the ranks' steps over ``meta`` tensors
+    (``build_cell(mesh=)``, ``reckon``): (b)'s training step at
+    TP_TRAIN_MESH (train_4k at (b)'s batch), and (a)'s longest prefill
+    and a decode step at TP_SERVE_MESH: simulated peak, collective counts,
+    bytes and the roofline's collective term."""
+    longest = max((c for c in ref["calls"] if c["kind"] == "prefill"),
+                  key=lambda c: c["tokens"].shape[1])
+    cells = {"train": ("train_4k", TP_TRAIN_MESH, sizes.lm_train_batch, sizes.lm_train_seq),
+             "prefill": ("prefill_32k", TP_SERVE_MESH, sizes.lm_slots,
+                         longest["tokens"].shape[1]),
+             "decode": ("decode_32k", TP_SERVE_MESH, sizes.lm_slots, ref["max_seq"])}
+    out = {}
+    for name, (shape, mesh, batch, seq) in cells.items():
+        t0 = time.perf_counter()
+        cell = build_cell(cfg.name, shape, cfg=cfg, batch=batch, seq_len=seq, mesh=mesh)
+        res, cost = reckon(cell.step, *cell.args, **cell.kwargs)
+        del res
+        roof = roofline_of(cost, cfg.name, shape, cell.cfg, cell.shp, cell.min_bytes,
+                           mesh=mesh)
+        out[name] = {"shape": shape, "mesh": mesh, "batch": batch, "seq": seq,
+                     "persistent_bytes": cell.persistent_bytes, "peak": cost.peak,
+                     "collective_counts": cost.collective_counts,
+                     "collective_bytes": cost.collective_bytes,
+                     "t_collective_s": roof.t_collective, "bound_s": roof.bound_time,
+                     "dominant": roof.dominant, "dryrun_s": time.perf_counter() - t0}
+        del cell
+    print("[tp] dry run " + json.dumps(out))
+    return out
+
+
+def _rank_device() -> torch.device:
+    return (torch.device("cuda", torch.cuda.current_device())
+            if torch.cuda.is_available() else torch.device("cpu"))
+
+
+def _leaf_paths(tree) -> list:
+    """Each leaf's path, in ``tree_leaves`` order."""
+    return [path for path, _ in _flatten_with_paths(tree)]
+
+
+def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
+    """(a) on one rank: the rank's shards of the initial weights, a short
+    warm-up wave, then the engine over the requests, each call recorded
+    (``TPRecordingLM``, its flash calls' head splits and each wave's
+    layer-0 inputs captured as they run) and held to the single-device
+    call with the same input tokens; rank 0 holds the longest wave's
+    layer-0 call against its plain version and times it."""
+    cfg, sizes = spec["cfg"], spec["sizes"]
+    t0 = time.perf_counter()
+    model = build_model(cfg, inner="cuda")
+    params = tree_map(lambda t: t.to(device), shard_tree(data["init"], rules, mesh.coords))
+    sync(device)
+    max_seq = spec["max_seq"]
+    serve = dataclasses.replace(sizes, lm_new_tokens=TP_NEW_TOKENS)
+    out = {"coords": mesh.coords, "load_s": time.perf_counter() - t0}
+    with use_rules(rules):
+        warm = ServingEngine(model, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
+                             device=device)
+        warm.submit(Request(rid=0, prompt=lm_requests(serve, cfg.vocab_size)[0].prompt,
+                            max_new_tokens=2))
+        warm.run()
+        rec = TPRecordingLM(model, device)
+        engine = ServingEngine(rec, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
+                               device=device)
+        for r in lm_requests(serve, cfg.vocab_size):
+            engine.submit(r)
+        # every flash call's head split, and layer 0's inputs a wave (the
+        # executor wrapped for the run: measurement only)
+        table = kops._EXECUTORS["cuda"]
+        inner, layers, firsts = table["flash"], [], []
+
+        def spy(q, k, v, **kw):
+            if len(layers) % flash_layers(cfg) == 0:
+                firsts.append((q, k, v))
+            layers.append((q.shape[1], k.shape[1], q.shape[-1]))
+            return inner(q, k, v, **kw)
+
+        table["flash"] = spy
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            done = engine.run()
+            sync(device)
+            out["wall_s"] = time.perf_counter() - t0
+            out["launches"] = counts()
+        finally:
+            table["flash"] = inner
+    by_input = {}
+    for c in spec["ref_calls"]:
+        by_input.setdefault((c["kind"], c["wave"]), []).append(c)
+    worst, held, unheld, pairs, sure_pairs = 0.0, 0, 0, 0, 0
+    h = hashlib.sha256()
+    calls = []
+    seen = defaultdict(int)
+    for c in rec.calls:
+        logits = c["logits"]
+        h.update(logits.cpu().numpy().tobytes())
+        key = (c["kind"], c["wave"])
+        i = seen[key]
+        seen[key] += 1
+        want = by_input[key][i] if i < len(by_input.get(key, [])) else None
+        calls.append({"kind": c["kind"], "wave": c["wave"], "ms": c["s"] * 1e3,
+                      "flash": c["flash"], **c["collectives"]})
+        if logits.shape != (c["tokens"].shape[0], cfg.padded_vocab()) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"rank {rank}: {c['kind']} logits {tuple(logits.shape)}")
+        if want is None or not np.array_equal(c["tokens"].cpu().numpy(), want["tokens"]):
+            unheld += 1  # its inputs parted from the single-device program's
+            continue
+        ref_logits = torch.from_numpy(want["logits"]).to(logits.device)
+        worst = max(worst, float((logits - ref_logits).abs().max()))
+        held += 1
+        top = torch.topk(ref_logits, 2, dim=-1).values
+        sure = (top[:, 0] - top[:, 1]) > TOKEN_MARGIN
+        pairs += sure.numel()
+        sure_pairs += int(sure.sum())
+        if not torch.equal(logits.argmax(-1)[sure], ref_logits.argmax(-1)[sure]):
+            raise AssertionError(f"rank {rank}: greedy tokens part from the single-device "
+                                 f"program's in a {c['kind']} of wave {c['wave']} where the "
+                                 f"top-2 margin > {TOKEN_MARGIN}")
+    for r in done:
+        h.update(np.asarray(r.output, np.int64).tobytes())
+    out.update({"calls": calls, "max_logit_diff": worst, "held": held, "unheld": unheld,
+                "token_pairs": pairs, "token_pairs_compared": sure_pairs,
+                "digest": h.hexdigest(), "outputs": [r.output for r in done],
+                "flash_heads": sorted(set(layers))})
+    if rank == 0:  # layer 0's call of the longest wave
+        q, k, v = max(firsts, key=lambda x: x[0].shape[2])
+        out["flash"] = flash_shape_rows("tensor-parallel rank 0", [("layer 0", q, k, v, True)],
+                                        device, reps=10)["tensor-parallel rank 0 layer 0"]
+    return out
+
+
+def _leaf_parts(got: list, want: list) -> list:
+    """Per leaf, the squared norms of the difference and of ``want``
+    (float64 sums over the rank's shard)."""
+    return [(float(torch.linalg.vector_norm((a.float() - b.to(a.device).float()).double()) ** 2),
+             float(torch.linalg.vector_norm(b.double()) ** 2)) for a, b in zip(got, want)]
+
+
+def _delta_parts(got: list, init: list, want: list) -> list:
+    """Per leaf, ``_leaf_parts`` of the changes: ``got - init`` against
+    ``want - init`` (float32 on ``got``'s device)."""
+    out = []
+    for a, i, b in zip(got, init, want):
+        i = i.to(a.device).float()
+        out += _leaf_parts([a.float() - i], [b.to(a.device).float() - i])
+    return out
+
+
+def _data_skipped_mesh(mesh):
+    """The planted control's mesh: the rank's model row alone, as if the
+    mesh had no data axis, so ``make_train_step`` skips the gradients'
+    mean over ``data`` and each data rank steps on its own rows."""
+    return dataclasses.replace(mesh, shape={"data": 1, "model": mesh.shape["model"]},
+                               coords={"data": 0, "model": mesh.coords["model"]},
+                               groups={k: v for k, v in mesh.groups.items() if k == "model"})
+
+
+def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
+    """(b) on one rank: phase 16's batch's rows of the rank's data rank,
+    the rank's shards of the initial weights, TP_TRAIN_STEPS bfloat16
+    steps (fused AdamW, remat) with the counts and a ``CollectiveLog`` a
+    step and the second step's peak allocation over what it started with;
+    each shard's change over the steps against the single-device
+    program's (squared norms, summed over the model ranks by the parent),
+    a digest a leaf; the same for the planted control, TP_TRAIN_STEPS
+    steps from the same shards without the gradients' mean over ``data``
+    (``_data_skipped_mesh``); the float32 loss and gradients of the
+    TP_F32_LAYERS-layer cut; rank 0 times its Adam launch over its leaves
+    (``lm_adam_row``)."""
+    cfg, sizes = spec["cfg"], spec["sizes"]
+    on_card = device.type == "cuda"
+    batch = make_dummy_batch(cfg, sizes.lm_train_batch, sizes.lm_train_seq,
+                             generator=torch.Generator(device=device).manual_seed(1))
+    per = sizes.lm_train_batch // mesh.shape["data"]
+    d = mesh.coords["data"]
+    batch = {k: v[d * per:(d + 1) * per].clone() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    params = tree_map(lambda t: t.to(device), shard_tree(data["init"], rules, mesh.coords))
+    sync(device)
+    model = build_model(cfg, inner="cuda", remat="layer")
+    opt = adamw(warmup_cosine(LM_LR, LM_WARMUP, TP_TRAIN_STEPS), fused=True)
+    step = make_train_step(model, opt)
+    out = {"coords": mesh.coords, "steps": [], "load_s": time.perf_counter() - t0}
+    with use_rules(rules):
+        state = opt.init(params)
+        for i in range(TP_TRAIN_STEPS):
+            free_card(device)
+            before = torch.cuda.memory_allocated(device) if on_card else 0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            zero_counts()
+            log = CollectiveLog()
+            sync(device)
+            t0 = time.perf_counter()
+            with logging_collectives(log):
+                params, state, loss = step(params, state, batch)
+            loss = float(loss)
+            sync(device)
+            out["steps"].append({
+                "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                "launches": counts(), "collective_counts": dict(log.counts),
+                "collective_bytes": dict(log.bytes), "wire_s": log.seconds,
+                "peak": torch.cuda.max_memory_allocated(device) - before if on_card else 0})
+        paths = _leaf_paths(params)
+        init = tree_leaves(shard_tree(data["init"], rules, mesh.coords))
+        final = tree_leaves(shard_tree(data["final"], rules, mesh.coords))
+        out["delta_parts"] = dict(zip(paths, _delta_parts(tree_leaves(params), init, final)))
+        out["digests"] = {p: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+                          for p, t in zip(paths, tree_leaves(params))}
+        out["replicated"] = {p: all(e is None for e in rules.param_spec(p, tuple(t.shape)))
+                             for p, t in zip(paths, final)}
+        del state
+        params = tree_map(lambda t: t.cpu(), params)  # the card holds one run at a time
+        free_card(device)
+    # the planted control: the same steps with each data rank on its own rows
+    t0 = time.perf_counter()
+    ctrl_rules = ShardingRules(_data_skipped_mesh(mesh), cfg)
+    ctrl = tree_map(lambda t: t.to(device), shard_tree(data["init"], ctrl_rules, mesh.coords))
+    with use_rules(ctrl_rules):
+        state = opt.init(ctrl)
+        for _ in range(TP_TRAIN_STEPS):
+            ctrl, state, _ = step(ctrl, state, batch)
+    out["control_parts"] = dict(zip(paths, _delta_parts(tree_leaves(ctrl), init, final)))
+    out["control_s"] = time.perf_counter() - t0
+    del ctrl, state, init, final
+    free_card(device)
+    with use_rules(rules):
+        cut_cfg = dataclasses.replace(cfg, n_layers=TP_F32_LAYERS)
+        cut_rules = ShardingRules(mesh, cut_cfg)
+        cut = tree_map(lambda t: t.to(device), shard_tree(
+            tp_cut(data["init"], TP_F32_LAYERS), cut_rules, mesh.coords))
+        with use_rules(cut_rules):
+            leaves = [p.detach().requires_grad_(True) for p in tree_leaves(cut)]
+            loss32, _ = build_model(cut_cfg, inner="cuda").loss(tree_unflatten(cut, leaves),
+                                                                batch)
+            grads = torch.autograd.grad(loss32, leaves)
+            *grads, loss32 = mean_over_data([*grads, loss32.detach()])
+        want = tree_leaves(shard_tree(data["grads32"], cut_rules, mesh.coords))
+        out["loss32"] = float(loss32)
+        out["grad32_parts"] = dict(zip(_leaf_paths(cut), _leaf_parts(grads, want)))
+        del cut, leaves, grads, want, loss32, batch, model, step, opt
+    if rank != 0:
+        del params
+    free_card(device)
+    torch.distributed.barrier()  # every rank's memory returned before rank 0's Adam row
+    if rank == 0:
+        out["adam"] = lm_adam_row(tree_map(lambda t: t.to(device), params), device, reps=3,
+                                  arch=f"{cfg.name} rank 0 shard")
+    return out
+
+
+def tp_warm(rank: int) -> int:
+    """A rank's first call: this script imported, its CUDA context taken."""
+    torch.zeros(1, device=_rank_device())
+    return rank
+
+
+def tp_rank(rank: int, spec: dict) -> dict:
+    """What each phase-26 rank process runs: its mesh and rules, then (a)
+    or (b) (``spec["part"]``) on the parameters that ``spec["file"]``
+    holds (mapped, each rank cutting its shards)."""
+    device = _rank_device()
+    started_s = time.perf_counter() - spec["t0"]  # the call's file read, imports included
+    cfg = spec["cfg"]
+    mesh = make_mesh(*spec["mesh"])
+    rules = ShardingRules(mesh, cfg)
+    check_tp(cfg, rules)
+    data = torch.load(spec["file"], mmap=True, weights_only=True)
+    part = tp_serve_rank if spec["part"] == "serve" else tp_train_rank
+    out = part(rank, spec, mesh, rules, data, device)
+    out["device"] = device.type
+    out["rank_s"] = time.perf_counter() - spec["t0"]
+    out["started_s"] = started_s
+    return out
+
+
+def _norm_rel(ranks: list, key: str) -> dict:
+    """Per leaf, the gathered leaf's norm-relative difference from the
+    squared norms each rank returned: a sharded leaf's parts summed over
+    one data rank's model ranks, a replicated leaf's taken once."""
+    row = [r for r in ranks if r["coords"]["data"] == 0]
+    out = {}
+    for path in row[0][key]:
+        parts = row[:1] if row[0]["replicated"][path] else row
+        diff = sum(r[key][path][0] for r in parts)
+        ref = sum(r[key][path][1] for r in parts)
+        out[path] = math.sqrt(diff / ref) if ref else math.sqrt(diff)
+    return out
+
+
+def tp_phase(sizes: Sizes, device) -> dict:
+    """Phase 26: llama3.2-1b served at (data 1, model 4) and trained at
+    (data 2, model 2) on 4 rank processes sharing the card (gloo, one
+    ``RankPool``), each against the single-device program run first in
+    the parent; the dry run of the ranks' steps held against them."""
+    t_phase = time.perf_counter()
+    cfg = tp_cfg(sizes)
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    # the rank processes start, import this script and take their CUDA
+    # contexts (``tp_warm``, from a thread) while the single-device program
+    # runs
+    pool = RankPool(4, device=device.type)
+    try:
+        spawn_s = time.perf_counter() - t_phase
+        with concurrent.futures.ThreadPoolExecutor(1) as warming:
+            warm = warming.submit(pool.run, tp_warm, 4)
+            path = os.path.join(work, "params.pt")
+            ref = tp_reference(cfg, sizes, device, path)
+            warm.result()
+        print(f"[tp] {cfg.name} on one device: {ref['n_params']:,} parameters; "
+              f"{len(ref['calls'])} engine calls, prefill "
+              f"{[round(c['ms'], 1) for c in ref['calls'] if c['kind'] == 'prefill']} ms; "
+              f"training losses {ref['losses']}; {ref['reference_s']:.1f} s")
+        dry = tp_dryrun(cfg, sizes, ref)
+        base = {"cfg": cfg, "sizes": sizes, "file": path, "max_seq": ref["max_seq"]}
+        serve = pool.run(tp_rank, 4, ({**base, "part": "serve", "mesh": TP_SERVE_MESH,
+                                       "ref_calls": ref["calls"], "t0": time.perf_counter()},))
+        train = pool.run(tp_rank, 4, ({**base, "part": "train", "mesh": TP_TRAIN_MESH,
+                                       "t0": time.perf_counter()},))
+    finally:
+        pool.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"arch": cfg.name, "n_params": ref["n_params"], "spawn_s": spawn_s,
+           "reference_s": ref["reference_s"], "dryrun": dry,
+           "serve": tp_serve_gates(cfg, sizes, serve, ref, dry),
+           "train": tp_train_gates(train, ref, dry)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("[tp] " + json.dumps({k: v for k, v in out.items() if k not in ("serve", "train")}))
+    return out
+
+
+def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict) -> dict:
+    """(a)'s gates over the four ranks' results."""
+    waves = 1 + max(c["wave"] for c in ranks[0]["calls"])
+    per_wave = flash_layers(cfg)  # every rank's wave on the card, as main() runs it
+    m = TP_SERVE_MESH[1]
+    for r in ranks:
+        if r["device"] != "cuda":
+            raise AssertionError(f"rank {r['coords']} ran on {r['device']}, not the card")
+        if r["digest"] != ranks[0]["digest"]:
+            raise AssertionError(f"rank {r['coords']}: logits or tokens not bitwise those "
+                                 "of rank 0")
+        if r["held"] == 0 or r["max_logit_diff"] > TOL:
+            raise AssertionError(f"rank {r['coords']}: logits within {r['max_logit_diff']} "
+                                 f"of the single-device program's over {r['held']} calls "
+                                 f"(limit {TOL})")
+        for c in r["calls"]:
+            want = per_wave if c["kind"] == "prefill" else 0
+            if c["flash"] != want:
+                raise AssertionError(f"rank {r['coords']}: a {c['kind']} launched flash "
+                                     f"{c['flash']} times, expected {want}")
+        if r["launches"]["flash_attention"] != per_wave * waves \
+                or sum(r["launches"].values()) != r["launches"]["flash_attention"]:
+            raise AssertionError(f"rank {r['coords']}: launches {r['launches']}")
+        heads = [(cfg.n_heads // m, cfg.n_kv_heads // m, cfg.resolved_head_dim)]
+        if r["flash_heads"] != heads:
+            raise AssertionError(f"rank {r['coords']}: flash at {r['flash_heads']}, "
+                                 f"expected {heads}")
+        for c in r["calls"]:
+            if c["counts"] != dry[c["kind"]]["collective_counts"]:
+                raise AssertionError(f"rank {r['coords']}: a {c['kind']} placed "
+                                     f"{c['counts']}, the dry run counts "
+                                     f"{dry[c['kind']]['collective_counts']}")
+    calls = ranks[0]["calls"]
+    pre = [c for c in calls if c["kind"] == "prefill"]
+    dec = [c for c in calls if c["kind"] == "decode"]
+    one = {"prefill": pre[-1], "decode": dec[len(dec) // 2]}
+    out = {"mesh": TP_SERVE_MESH, "waves": waves, "flash_per_wave": per_wave,
+           "launches": ranks[0]["launches"],
+           "launches_all_ranks": {k: sum(r["launches"][k] for r in ranks)
+                                  for k in ranks[0]["launches"]},
+           "max_logit_diff": max(r["max_logit_diff"] for r in ranks),
+           "calls_held": ranks[0]["held"], "calls_not_held": ranks[0]["unheld"],
+           "token_pairs": ranks[0]["token_pairs"],
+           "token_pairs_compared": ranks[0]["token_pairs_compared"],
+           "flash_heads": ranks[0]["flash_heads"],
+           "prefill_ms": [c["ms"] for c in pre],
+           "ref_prefill_ms": [c["ms"] for c in ref["calls"] if c["kind"] == "prefill"],
+           "decode_step_ms_median": float(np.median([c["ms"] for c in dec])),
+           "ref_decode_step_ms_median": float(np.median(
+               [c["ms"] for c in ref["calls"] if c["kind"] == "decode"])),
+           "wire_ms": {k: c["wire_s"] * 1e3 for k, c in one.items()},
+           "collective_counts": {k: c["counts"] for k, c in one.items()},
+           "collective_bytes": {k: c["bytes"] for k, c in one.items()},
+           "flash": ranks[0].get("flash"), "wall_s": ranks[0]["wall_s"],
+           "rank_s": [r["rank_s"] for r in ranks], "started_s": [r["started_s"] for r in ranks],
+           "load_s": [r["load_s"] for r in ranks]}
+    print("[tp] (a) " + json.dumps({k: v for k, v in out.items() if k != "flash"}))
+    return out
+
+
+def tp_train_gates(ranks: list, ref: dict, dry: dict) -> dict:
+    """(b)'s and (c)'s gates over the four ranks' results."""
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    if not (max(rel) <= TP_LOSS_RTOL and np.isfinite(losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"(b) losses {losses} against the single-device {ref['losses']}")
+    model = TP_TRAIN_MESH[1]
+    # the changes' readings first, printed whether or not the gates hold
+    delta_rel = _norm_rel(ranks, "delta_parts")
+    control_rel = _norm_rel(ranks, "control_parts")
+    print("[tp] (b) change readings " + json.dumps({
+        "limit": TP_DELTA_RTOL, "max": max(delta_rel.values()),
+        "control_max": max(control_rel.values()), "control_min": min(control_rel.values()),
+        "by_leaf": {p: [delta_rel[p], control_rel[p]] for p in delta_rel}}))
+    for r in ranks:
+        if r["device"] != "cuda":
+            raise AssertionError(f"rank {r['coords']} ran on {r['device']}, not the card")
+        if [s["loss"] for s in r["steps"]] != losses:
+            raise AssertionError(f"rank {r['coords']}: losses differ from rank 0's")
+        twin = ranks[r["coords"]["model"]]  # the data-0 rank of its model column
+        if r["digests"] != twin["digests"]:
+            raise AssertionError(f"rank {r['coords']}: not bitwise its data replica")
+        row0 = ranks[r["coords"]["data"] * model]
+        for path, rep in r["replicated"].items():
+            if rep and r["digests"][path] != row0["digests"][path]:
+                raise AssertionError(f"rank {r['coords']}: replicated leaf {path} differs "
+                                     "within its model group")
+        for s in r["steps"]:
+            if s["launches"]["fused_adam"] != 1 or sum(s["launches"].values()) != 1:
+                raise AssertionError(f"rank {r['coords']}: a step launched {s['launches']}")
+            if s["collective_counts"] != dry["train"]["collective_counts"]:
+                raise AssertionError(f"rank {r['coords']}: a step placed "
+                                     f"{s['collective_counts']}, the dry run counts "
+                                     f"{dry['train']['collective_counts']}")
+        peak = r["steps"][1]["peak"]
+        slack = max(PEAK_RTOL * dry["train"]["peak"], PEAK_SLACK)
+        if not abs(peak - dry["train"]["peak"]) <= slack:
+            raise AssertionError(f"rank {r['coords']}: step peak {peak} bytes, simulated "
+                                 f"{dry['train']['peak']} (slack {slack:.0f})")
+        if abs(r["loss32"] - ref["loss32"]) > TOL:
+            raise AssertionError(f"rank {r['coords']}: float32 loss {r['loss32']} against "
+                                 f"{ref['loss32']}")
+    grad_rel = _norm_rel(ranks, "grad32_parts")
+    if max(delta_rel.values()) > TP_DELTA_RTOL:
+        raise AssertionError(f"(b) the leaves' changes part by {max(delta_rel.values())} "
+                             f"(limit {TP_DELTA_RTOL})")
+    if max(control_rel.values()) <= TP_DELTA_RTOL:
+        raise AssertionError(f"(b) the planted control (no mean over data) reads "
+                             f"{max(control_rel.values())}, within the limit {TP_DELTA_RTOL}: "
+                             "the change gate cannot see it")
+    if max(grad_rel.values()) > TP_GRAD_RTOL:
+        raise AssertionError(f"(b) float32 gradients part by {max(grad_rel.values())}")
+    steps = ranks[0]["steps"]
+    out = {"mesh": TP_TRAIN_MESH, "losses": losses, "ref_losses": ref["losses"],
+           "max_rel_diff": max(rel), "delta_max_rel_diff": max(delta_rel.values()),
+           "delta_rtol": TP_DELTA_RTOL, "control_max_rel_diff": max(control_rel.values()),
+           "control_min_rel_diff": min(control_rel.values()),
+           "control_s": [r["control_s"] for r in ranks],
+           "loss32": ranks[0]["loss32"], "ref_loss32": ref["loss32"],
+           "grad32_max_rel_diff": max(grad_rel.values()),
+           "step_ms": [s["ms"] for s in steps], "ref_step_ms": ref["step_ms"],
+           "wire_ms": [s["wire_s"] * 1e3 for s in steps],
+           "collective_counts": steps[0]["collective_counts"],
+           "collective_bytes": steps[0]["collective_bytes"],
+           "peaks": [r["steps"][1]["peak"] for r in ranks],
+           "simulated_peak": dry["train"]["peak"],
+           "launches_all_ranks": {k: sum(s["launches"][k] for r in ranks for s in r["steps"])
+                                  for k in steps[0]["launches"]},
+           "adam": ranks[0].get("adam"), "rank_s": [r["rank_s"] for r in ranks],
+           "started_s": [r["started_s"] for r in ranks], "load_s": [r["load_s"] for r in ranks]}
+    print("[tp] (b) " + json.dumps({k: v for k, v in out.items() if k != "adam"}))
+    return out
+
+
+def tp_entries(entries: list, p26: dict, alone: bool) -> None:
+    """Phase 26 beside its kernels' entries: flash's launches on the four
+    serving ranks (``tp_serving``) and Adam's on the four training ranks
+    (``tp_training``), the rank-0 flash call at its head split and the
+    rank-0 Adam launch over its shards (ms, plain, SDPA or AdamW, bound).
+    Alone (``--phases 26``) the entries take their top-level numbers from
+    these."""
+    by_name = {e["name"]: e for e in entries}
+    for path, launched in (("tp_serving", p26["serve"]["launches_all_ranks"]),
+                           ("tp_training", p26["train"]["launches_all_ranks"])):
+        for e in entries:
+            e["launches_by_path"][path] = launched[e["name"]]
+            e["launches"] += launched[e["name"]]
+    keep = ("ms", "ms_by", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    f = p26["serve"]["flash"]
+    flash = by_name["flash_attention"]
+    if f is not None:
+        flash["max_abs_err"] = max(flash["max_abs_err"], f["max_abs_err"])
+        flash["tensor_parallel"] = {
+            **{k: f[k] for k in keep}, "library_enable_gqa_ms": f["library_enable_gqa_ms"],
+            "shape": f"rank 0's layer-0 call of the longest wave at (data 1, model 4): B "
+                     f"{f['B']}, H {f['H']}, Hkv {f['Hkv']}, T {f['Tq']}, D {f['D']}, "
+                     "causal, float32; 4 ranks share the card"}
+    a = p26["train"]["adam"]
+    adam = by_name["fused_adam"]
+    if a is not None:
+        adam["max_abs_err"] = max(adam["max_abs_err"], a["max_abs_err"])
+        adam["tensor_parallel"] = {
+            **{k: a[k] for k in keep}, "library": a["library"], "params": a["params"],
+            "leaves": a["leaves"],
+            "shape": f"one launch over rank 0's {a['leaves']} shards ({a['params']:,} "
+                     "values) at (data 2, model 2); CUDA events"}
+    if alone:
+        for e in (flash, adam):
+            if "tensor_parallel" in e:
+                e.update({"route": "cuda", "source": SOURCES[e["name"]][0],
+                          "replaces": SOURCES[e["name"]][1]})
+                e.update({k: e["tensor_parallel"][k] for k in keep})
+
+
+def print_tp_summary(m: dict, card: str) -> None:
+    s, t, dry = m["serve"], m["train"], m["dryrun"]
+    print(f"[summary] phase 26, tensor parallelism on 4 ranks sharing the card over gloo "
+          f"({card}; the wire is gloo's loopback, not NVLink):")
+    print(f"[summary]   (a) {m['arch']} served at (data 1, model 4): prefill "
+          f"{[round(x, 1) for x in s['prefill_ms']]} ms a wave (one device "
+          f"{[round(x, 1) for x in s['ref_prefill_ms']]}), decode "
+          f"{s['decode_step_ms_median']:.1f} ms a step (one device "
+          f"{s['ref_decode_step_ms_median']:.1f}); wire {s['wire_ms']} ms a call; "
+          f"collectives {s['collective_counts']}, bytes {s['collective_bytes']}; logits "
+          f"within {s['max_logit_diff']:.3g}; flash at {s['flash_heads']}")
+    print(f"[summary]   (b) trained at (data 2, model 2): steps "
+          f"{[round(x, 1) for x in t['step_ms']]} ms (one device "
+          f"{[round(x, 1) for x in t['ref_step_ms']]}), wire "
+          f"{[round(x, 1) for x in t['wire_ms']]} ms; losses {t['losses']} (one device "
+          f"{t['ref_losses']}); changes within {t['delta_max_rel_diff']:.3g} (limit "
+          f"{t['delta_rtol']}; the planted control {t['control_max_rel_diff']:.3g}), float32 "
+          f"gradients within {t['grad32_max_rel_diff']:.3g}; peaks {t['peaks']} bytes, "
+          f"simulated {t['simulated_peak']}")
+    print(f"[summary]   (c) dry run: collective term "
+          f"{ {k: v['t_collective_s'] for k, v in dry.items()} } s over NVLink; "
+          f"{m['phase_s']:.1f} s")
+
+
 def run(sizes: Sizes, device, phases: str = "all") -> dict:
     """Phases 2 to 25 at ``sizes`` on ``device`` (phase 20, 21, 22, 23, 24
     or 25 alone where ``phases`` names it: the kernels line then holds that
     phase's launches and numbers alone); returns the kernels line and
     the details. Phases 20 to 25 each start after the phases before them
     have returned, so that nothing those held stays on the card."""
-    if phases in ("20", "21", "22", "23", "24", "25"):
+    if phases in ("20", "21", "22", "23", "24", "25", "26"):
         result = {"phase_s": {}, "kernels": [
             {"name": name, "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0}
             for name in KERNELS]}
@@ -6975,24 +7723,32 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
         result["phase_s"]["21"] = time.perf_counter() - t0
         hybrid_entries(result["kernels"], hybrid)
         result["hybrid"] = hybrid
-    if phases in ("all", "22"):
-        t0 = time.perf_counter()
-        encdec = encdec_phase(sizes, device)
-        result["phase_s"]["22"] = time.perf_counter() - t0
-        encdec_entries(result["kernels"], encdec)
-        result["encdec"] = encdec
+    # phase 23's host workers run beside phase 22 (``DistHost``)
+    host = DistHost(sizes) if phases == "all" else None
+    try:
+        if phases in ("all", "22"):
+            t0 = time.perf_counter()
+            encdec = encdec_phase(sizes, device)
+            result["phase_s"]["22"] = time.perf_counter() - t0
+            encdec_entries(result["kernels"], encdec)
+            result["encdec"] = encdec
+    except BaseException:
+        if host is not None:
+            host.close()
+        raise
     if phases in ("all", "23"):
         t0 = time.perf_counter()
-        dist = distributed_phase(sizes, device)
+        dist = distributed_phase(sizes, device, host)
         result["phase_s"]["23"] = time.perf_counter() - t0
         distributed_entries(result["kernels"], dist, alone=phases == "23")
-        partitions = dist.pop("partitions")
+        partitions, sage_prog = dist.pop("partitions"), dist.pop("sage_prog")
         result["distributed"] = dist
     else:
-        partitions = None
+        partitions = sage_prog = None
     if phases in ("all", "24"):
         t0 = time.perf_counter()
-        streaming = streaming_phase(sizes, device, partitions)
+        streaming = streaming_phase(sizes, device, partitions, sage_prog)
+        del sage_prog
         result["phase_s"]["24"] = time.perf_counter() - t0
         streaming_entries(result["kernels"], streaming)
         streaming["a"].pop("op")
@@ -7003,6 +7759,12 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
         result["phase_s"]["25"] = time.perf_counter() - t0
         dryrun_entries(result["kernels"], dry)
         result["dryrun"] = dry
+    if phases in ("all", "26"):
+        t0 = time.perf_counter()
+        tp = tp_phase(sizes, device)
+        result["phase_s"]["26"] = time.perf_counter() - t0
+        tp_entries(result["kernels"], tp, alone=phases == "26")
+        result["tensor_parallel"] = tp
     return result
 
 
@@ -7455,9 +8217,9 @@ DIST_LIBRARIES = ("bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "bsr_attentio
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", choices=("all", "20", "21", "22", "23", "24", "25"),
+    ap.add_argument("--phases", choices=("all", "20", "21", "22", "23", "24", "25", "26"),
                     default="all",
-                    help="every phase (the default), or phase 20, 21, 22, 23, 24 or 25 "
+                    help="every phase (the default), or phase 20, 21, 22, 23, 24, 25 or 26 "
                          "alone after building the libraries it runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -7496,6 +8258,7 @@ def main(argv=None) -> int:
         print_summary(result, card)
         print_streaming_summary(result["streaming"], card)
         print_dryrun_summary(result["dryrun"], card)
+        print_tp_summary(result["tensor_parallel"], card)
     elif args.phases == "20":
         print_moe_summary(result["moe"], card)
     elif args.phases == "21":
@@ -7506,9 +8269,11 @@ def main(argv=None) -> int:
         print_distributed_summary(result["distributed"], card)
     elif args.phases == "25":
         print_dryrun_summary(result["dryrun"], card)
+    elif args.phases == "26":
+        print_tp_summary(result["tensor_parallel"], card)
     else:
         print_streaming_summary(result["streaming"], card)
-    print(f"[done] phases {'2-25' if args.phases == 'all' else args.phases} in "
+    print(f"[done] phases {'2-26' if args.phases == 'all' else args.phases} in "
           f"{time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -1,0 +1,372 @@
+"""Tensor parallelism over the mesh's ``model`` axis, data parallelism over
+``data``: the collectives the port places where GSPMD placed the JAX
+package's, and the placement of a tree on a mesh.
+
+Megatron-style, on the rules of ``distributed/sharding.py``:
+
+- ``copy_to_model``: identity forward, all-reduce of the gradient over
+  ``model`` backward. The input of every column-sharded product passes it
+  (``wq``/``wk``/``wv``, ``w_gate``/``w_up``, the unembedding).
+- ``reduce_from_model``: all-reduce over ``model`` forward, identity
+  backward. The output of every row-sharded product passes it (``wo``,
+  ``w_down``), and so do the vocabulary-sharded lookup and the cross
+  entropy's sums.
+- ``gather_from_model``: all-gather on the last axis forward, the rank's
+  slice backward: the logits that ``forward``, ``prefill`` and
+  ``decode_step`` return, whole on every rank.
+- ``mean_over_data``: each gradient leaf all-reduced over ``data`` and
+  divided by its size, between ``torch.autograd.grad`` and
+  ``opt.update``. A data rank's loss (``sharded_ce``) is its labels' sum
+  over the whole batch's label count (all-reduced over ``data``) times
+  the data size, so the mean over the data ranks is the whole batch's
+  mean, as the one-device program takes it, however the labels fall.
+
+Every collective goes through ``_communicate``: it adds the operand's
+bytes and kind to every active ``CollectiveLog`` (the counterpart of
+``hlo_analysis.py``'s collective bytes, read by ``launch/step_cost.py``
+and by the ranks), and where the mesh has no process groups (an abstract
+mesh, the dry run's) it sends nothing and returns a shape-only result.
+An axis of size 1 moves and logs nothing. Sums travel and add in float32
+(float64 for float64 operands) and round to the operand's dtype once:
+the gradients of bfloat16 products come back in bfloat16 after a float32
+sum, and gloo's bfloat16 support is never relied on. The transport is
+gloo (``launch/mesh.py``), whose all-gather takes host tensors: a CUDA
+operand is staged through the host.
+
+``check_tp`` refuses every configuration outside this slice by
+``registry.not_ported(..., DIST_ITEM)``; nothing falls back to the
+unsharded program.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as tdist
+
+from repro_torch.backends.registry import DIST_ITEM, not_ported
+from repro_torch.distributed.sharding import ShardingRules, current_rules
+from repro_torch.runtime.checkpoint import _flatten_with_paths, _unflatten
+
+def link_bytes(kind: str, nbytes: float, n: int) -> float:
+    """The bytes a rank sends one way over its links for ``kind`` of an
+    operand of ``nbytes`` among ``n`` ranks, by a ring: an all-reduce
+    2(n-1)/n of the operand (reduce-scatter, then all-gather), an
+    all-gather (n-1) times its operand, (n-1)/n of its output."""
+    return nbytes * (2 * (n - 1) / n if kind == "all-reduce" else n - 1)
+
+
+class CollectiveLog:
+    """The collectives a run placed while this log was active: their
+    count and operand bytes by kind, the bytes a rank sends over its links
+    for them (``link_bytes``, a ring's), and the host seconds spent inside
+    the transport's calls (``seconds``: gloo's calls return once the data
+    has arrived, a CUDA operand's copies to and from the host included)."""
+
+    def __init__(self):
+        self.counts: dict = defaultdict(int)
+        self.bytes: dict = defaultdict(float)
+        self.link_bytes = 0.0
+        self.seconds = 0.0
+
+    def add(self, kind: str, nbytes: int, seconds: float = 0.0, n: int = 1) -> None:
+        self.counts[kind] += 1
+        self.bytes[kind] += nbytes
+        self.link_bytes += link_bytes(kind, nbytes, n)
+        self.seconds += seconds
+
+    @property
+    def total_bytes(self) -> float:
+        return float(sum(self.bytes.values()))
+
+
+#: the active logs, for the whole process (a CUDA backward runs on a
+#: thread of its own: ``sharding._ctx``)
+_logs: list = []
+
+
+@contextlib.contextmanager
+def logging_collectives(log: CollectiveLog):
+    """Add every collective placed inside the block to ``log``."""
+    _logs.append(log)
+    try:
+        yield log
+    finally:
+        _logs.remove(log)
+
+
+def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _communicate(kind: str, t: torch.Tensor, axis: str, rules: ShardingRules,
+                 op=tdist.ReduceOp.SUM) -> torch.Tensor:
+    """``kind`` of ``t`` over the mesh axis ``axis``: an all-reduce in
+    place (``t`` returned), or an all-gather along the last axis (a new
+    tensor). Logged; shape-only where the mesh has no process groups."""
+    mesh = rules.mesh
+    n = mesh.shape[axis]
+    group = mesh.group(axis)
+    t0 = time.perf_counter()
+    if kind == "all-reduce":
+        out = t
+        if group is not None:
+            tdist.all_reduce(t, op=op, group=group)
+    elif group is None:
+        out = t.new_empty((*t.shape[:-1], n * t.shape[-1]))
+    else:
+        host = t.detach().cpu().contiguous()
+        parts = [torch.empty_like(host) for _ in range(n)]
+        tdist.all_gather(parts, host, group=group)
+        out = torch.cat(parts, dim=-1).to(t.device)
+    seconds = time.perf_counter() - t0 if group is not None else 0.0
+    for log in _logs:
+        log.add(kind, t.numel() * t.element_size(), seconds, n)
+    return out
+
+
+def _all_reduce(t: torch.Tensor, axis: str, rules: ShardingRules) -> torch.Tensor:
+    """The sum of ``t`` over ``axis`` in float32, rounded to ``t``'s dtype
+    once (``t`` is not modified)."""
+    buf = t.to(_sum_dtype(t.dtype), copy=True)
+    return _communicate("all-reduce", buf, axis, rules).to(t.dtype)
+
+
+def _model_rules() -> Optional[ShardingRules]:
+    """The active rules where their ``model`` axis has more than one rank."""
+    rules = current_rules()
+    return rules if rules is not None and rules.model_size > 1 else None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules = rules
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "model", ctx.rules), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rules):
+        return _all_reduce(x, "model", rules)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules, ctx.width = rules, x.shape[-1]
+        return _communicate("all-gather", x.contiguous(), "model", rules)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.rules.mesh.coords["model"]
+        return g.narrow(-1, m * ctx.width, ctx.width).contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward, all-reduce over ``model`` backward (``x`` without
+    a model axis)."""
+    rules = _model_rules()
+    return x if rules is None else _CopyToModel.apply(x, rules)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model ranks' ``x`` forward, identity backward."""
+    rules = _model_rules()
+    return x if rules is None else _ReduceFromModel.apply(x, rules)
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The model ranks' ``x`` concatenated on the last axis, in rank
+    order; the rank's slice of the gradient backward."""
+    rules = _model_rules()
+    return x if rules is None else _GatherFromModel.apply(x, rules)
+
+
+def mean_over_data(leaves: list) -> list:
+    """Each tensor's mean over the ``data`` ranks (no gradient flows)."""
+    rules = current_rules()
+    if rules is None or rules.data_size == 1:
+        return list(leaves)
+    axis = rules.batch_axes[-1]
+    return [_all_reduce(t, axis, rules) / rules.data_size for t in leaves]
+
+
+def model_shard(n: int) -> int:
+    """The rank's share of ``n`` heads (or columns) that the rules shard
+    over ``model``: ``n / model`` where divisible, else ``n``."""
+    rules = _model_rules()
+    if rules is None or rules._model_if_divisible(n) is None:
+        return n
+    return n // rules.model_size
+
+
+# ---------------------------------------------------------------------------
+# the vocabulary-sharded pieces
+# ---------------------------------------------------------------------------
+
+def _vocab_offset(local: int) -> int:
+    rules = _model_rules()
+    return 0 if rules is None else rules.mesh.coords["model"] * local
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The table's rows for ``tokens``, whole on every rank: over a
+    vocabulary shard, the rows of the tokens the rank holds and zero for
+    the others, summed over ``model`` (one rank adds each row, so the sum
+    is exact)."""
+    v = table.shape[0]
+    off = _vocab_offset(v)
+    if _model_rules() is None:
+        return table[tokens]
+    mine = (tokens >= off) & (tokens < off + v)
+    rows = table[(tokens - off).clamp(0, v - 1)]
+    return reduce_from_model(torch.where(mine[..., None], rows,
+                                         torch.zeros((), dtype=rows.dtype, device=rows.device)))
+
+
+def sharded_ce(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int):
+    """``_masked_ce`` of a rank under the active rules, over its vocabulary
+    shard of the logits [..., V / model]: the padded vocabulary at -1e30 at
+    the logits' dtype, labels < 0 ignored, the log-softmax in float32 from
+    the running max (all-reduced with MAX, no gradient: softmax is
+    shift-invariant) and the sum of exponentials, both over ``model``, and
+    the target's logit taken on its owning rank and summed. Returns
+    ``(loss, label count)``: the rank's summed nll over the whole batch's
+    count (all-reduced over ``data``, at least 1) times the data size, so
+    that ``mean_over_data`` of it is the whole batch's mean nll."""
+    rules = current_rules()
+    tp = rules.model_size > 1
+    v = logits.shape[-1]
+    off = rules.mesh.coords["model"] * v if tp else 0
+    col = torch.arange(off, off + v, device=logits.device)
+    if v * rules.model_size > vocab_size:
+        logits = logits.masked_fill(col >= vocab_size, -1e30)
+    lf = logits.to(_sum_dtype(logits.dtype))  # float32 (float64 stays)
+    with torch.no_grad():
+        mx = lf.amax(-1)
+        if tp:
+            mx = _communicate("all-reduce", mx, "model", rules, op=tdist.ReduceOp.MAX)
+    sumexp = reduce_from_model(torch.exp(lf - mx[..., None]).sum(-1))
+    mine = (labels >= off) & (labels < off + v)
+    picked = torch.gather(lf, -1, (labels - off).clamp(0, v - 1).long()[..., None])[..., 0]
+    target = reduce_from_model(torch.where(mine, picked, torch.zeros_like(picked)))
+    nll = torch.log(sumexp) + mx - target
+    mask = labels >= 0
+    denom = mean_over_data([mask.sum().float()])[0] * rules.data_size
+    denom = denom.clamp(min=1)
+    total = torch.where(mask, nll, torch.zeros_like(nll)).sum()
+    return total / denom * rules.data_size, denom
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+def check_tp(cfg, rules: ShardingRules) -> None:
+    """Raise ``not_ported(..., DIST_ITEM)`` for a configuration or rules
+    this slice does not run: the dense GQA family with a SwiGLU MLP (a
+    vision frontend's embeddings allowed), heads, KV heads, ``d_ff`` and
+    the padded vocabulary each divisible by the model axis, without FSDP
+    or 2D expert parallelism."""
+    why = []
+    kinds = set(cfg.blocks)
+    if cfg.moe is not None:
+        why.append("mixture-of-experts layers")
+    if cfg.mla is not None:
+        why.append("MLA")
+    if kinds & {"mamba", "shared_attn"}:
+        why.append("SSM layers")
+    if kinds & {"mlstm", "slstm"}:
+        why.append("xLSTM layers")
+    if cfg.is_encoder_decoder:
+        why.append("the encoder-decoder")
+    if cfg.activation != "swiglu":
+        why.append(f"the {cfg.activation} MLP (its replicated b_in beside a "
+                   "column-sharded w_in)")
+    m = rules.model_size
+    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff), ("the padded vocabulary", cfg.padded_vocab())):
+        if n % m:
+            why.append(f"{name} {n} not divisible by model {m}")
+    if rules.fsdp:
+        why.append("FSDP")
+    if rules.expert_parallel_2d:
+        why.append("2D expert parallelism")
+    if why:
+        raise not_ported(f"tensor parallelism for {cfg.name} ({'; '.join(why)})",
+                         DIST_ITEM)
+
+
+def _coords_of(rank: int, shape: dict) -> dict:
+    """Rank ``rank``'s coordinates on a mesh of ``shape`` (row-major: the
+    last axis varies fastest, as ``jax.make_mesh`` lays out devices)."""
+    idx = np.unravel_index(rank, tuple(shape.values()))
+    return {a: int(i) for a, i in zip(shape, idx)}
+
+
+def _index(entry, shape: dict, coords: dict) -> tuple:
+    """``(shards, this device's shard)`` of a spec entry."""
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    n, i = 1, 0
+    for a in axes:
+        n, i = n * shape[a], i * shape[a] + coords[a]
+    return n, i
+
+
+def shard_leaf(leaf: torch.Tensor, spec, shape: dict, coords: dict) -> torch.Tensor:
+    """The slice of ``leaf`` that ``NamedSharding(mesh, spec)
+    .devices_indices_map`` gives the device at ``coords``, as a tensor of
+    its own."""
+    for dim, entry in enumerate(spec or ()):
+        if entry is None:
+            continue
+        n, i = _index(entry, shape, coords)
+        size = leaf.shape[dim] // n
+        leaf = leaf.narrow(dim, i * size, size)
+    return leaf.clone()
+
+
+def shard_tree(params, rules: ShardingRules, coords: dict):
+    """Each leaf of ``params`` cut to the device at ``coords``' slice of
+    its ``param_spec``."""
+    shape = dict(rules.mesh.shape)
+    return _unflatten(params, [
+        shard_leaf(leaf, rules.param_spec(path, tuple(leaf.shape)), shape, coords)
+        if isinstance(leaf, torch.Tensor) else leaf
+        for path, leaf in _flatten_with_paths(params)])
+
+
+def gather_tree(shards: list, rules: ShardingRules, like):
+    """``shard_tree``'s inverse: the whole tree, shaped like ``like`` (the
+    whole tree or one of value-less tensors), from every rank's shards in
+    rank order."""
+    shape = dict(rules.mesh.shape)
+    per_rank = [[leaf for _, leaf in _flatten_with_paths(s)] for s in shards]
+    whole = []
+    for j, (path, leaf) in enumerate(_flatten_with_paths(like)):
+        spec = rules.param_spec(path, tuple(leaf.shape))
+        out = torch.empty(leaf.shape, dtype=per_rank[0][j].dtype)
+        for r, leaves in enumerate(per_rank):
+            coords = _coords_of(r, shape)
+            view = out
+            for dim, entry in enumerate(spec):
+                if entry is not None:
+                    n, i = _index(entry, shape, coords)
+                    size = leaf.shape[dim] // n
+                    view = view.narrow(dim, i * size, size)
+            view.copy_(leaves[j].detach().cpu())
+        whole.append(out)
+    return _unflatten(like, whole)

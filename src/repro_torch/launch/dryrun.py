@@ -1,4 +1,5 @@
-"""Dry run of every (architecture × ``SHAPES``) cell for one H100.
+"""Dry run of every (architecture × ``SHAPES``) cell for one H100, or for
+one rank of a (data × model) mesh of H100s.
 
 The single-card counterpart of ``repro/launch/dryrun.py``, which compiles
 each cell's step on a fake 256- or 512-chip TPU mesh and records its
@@ -22,10 +23,21 @@ record says:
   for deepseek-v3-671b: ROADMAP.md Queue 3, item 9), the kernels' calls,
   and the dry run's seconds.
 
+With ``--mesh DxM`` each cell is one rank's of a ``D x M`` mesh
+(``launch/specs.py``: the rank's shards, its data rank's rows): the fit is
+the rank's on its card, the roofline the mesh's (``launch/roofline.py``),
+with the collectives' bytes and counts by kind (``collective_counts``),
+the bytes a rank sends for them by a ring (``collective_link_bytes``)
+and their term over NVLink; a cell whose configuration or FSDP and
+expert-parallel choice this slice does not run is skipped with
+``tensor_parallel.check_tp``'s reason. ``--mesh 1x1`` (the default) is
+the one-card run.
+
 It needs no card, and gives the same numbers on any machine. Usage:
 
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--out dryrun_results_torch.jsonl]
+  python -m repro_torch.launch.dryrun --all --mesh 1x8
 
 Records append as JSON lines (``launch/report.py`` formats them); the exit
 code is 1 if any cell failed, as in the JAX package.
@@ -39,8 +51,9 @@ import traceback
 
 from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.configs.base import cell_is_runnable
-from repro_torch.launch.roofline import CARD, HBM_BYTES, analyze
-from repro_torch.launch.specs import build_cell
+from repro_torch.launch.roofline import HBM_BYTES, analyze, mesh_desc
+from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.launch.specs import build_cell, mesh_rules
 from repro_torch.launch.step_cost import reckon
 
 
@@ -53,26 +66,26 @@ def _reckoned(arch: str, shape: str, **kw) -> tuple:
     return cell, cost, cell.persistent_bytes + cost.peak
 
 
-def _fit_train(arch: str, shape: str) -> tuple:
+def _fit_train(arch: str, shape: str, mesh: tuple = (1, 1)) -> tuple:
     """The fewest power-of-two microbatches whose peak fits (bisected over
     the exponents: the peak falls as the microbatch shrinks), and the cell
     at it; where none fits, the cell at one sequence a microbatch, or at
     one microbatch where the persistent state alone does not fit."""
-    batch = SHAPES[shape].global_batch
-    cell, cost, total = _reckoned(arch, shape)
+    batch = SHAPES[shape].global_batch // mesh[0]  # a data rank's
+    cell, cost, total = _reckoned(arch, shape, mesh=mesh)
     if cell.persistent_bytes > HBM_BYTES:
         return cell, cost, {"fits": False, "peak_bytes": total, "microbatches": 1,
                             "why": f"persistent state alone: {cell.persistent_bytes} bytes"}
     if total <= HBM_BYTES:
         return cell, cost, {"fits": True, "peak_bytes": total, "microbatches": 1}
     lo, hi = 1, batch.bit_length() - 1  # 2**lo .. 2**hi microbatches
-    best = _reckoned(arch, shape, microbatches=2 ** hi)
+    best = _reckoned(arch, shape, microbatches=2 ** hi, mesh=mesh)
     if best[2] > HBM_BYTES:
         return best[0], best[1], {"fits": False, "peak_bytes": best[2], "microbatches": 2 ** hi,
                                   "why": f"one sequence a microbatch peaks at {best[2]} bytes"}
     while lo < hi:
         mid = (lo + hi) // 2
-        run = _reckoned(arch, shape, microbatches=2 ** mid)
+        run = _reckoned(arch, shape, microbatches=2 ** mid, mesh=mesh)
         if run[2] <= HBM_BYTES:
             best, hi = run, mid
         else:
@@ -81,36 +94,42 @@ def _fit_train(arch: str, shape: str) -> tuple:
     return cell, cost, {"fits": True, "peak_bytes": total, "microbatches": cell.microbatches}
 
 
-def _fit_serving(arch: str, shape: str) -> tuple:
+def _fit_serving(arch: str, shape: str, mesh: tuple = (1, 1)) -> tuple:
     """The cell whole, and where it does not fit, the largest batch of its
-    length that does (bisected; None where one sequence does not)."""
-    cell, cost, total = _reckoned(arch, shape)
+    length that does, in sequences a data rank (bisected; None where one
+    sequence does not)."""
+    n_data = mesh[0]
+    cell, cost, total = _reckoned(arch, shape, mesh=mesh)
     fit = {"fits": total <= HBM_BYTES, "peak_bytes": total}
     if fit["fits"]:
         return cell, cost, fit
     fit["why"] = (f"persistent state alone: {cell.persistent_bytes} bytes"
                   if cell.persistent_bytes > HBM_BYTES else f"the step peaks at {total} bytes")
-    lo, hi, best = 1, cell.shp.global_batch - 1, None
+    lo, hi, best = 1, cell.shp.global_batch // n_data - 1, None
     while lo <= hi:
         mid = (lo + hi) // 2
-        _, _, peak = _reckoned(arch, shape, batch=mid)
+        _, _, peak = _reckoned(arch, shape, batch=mid * n_data, mesh=mesh)
         if peak <= HBM_BYTES:
             best, lo = (mid, peak), mid + 1
         else:
             hi = mid - 1
-    fit["largest_batch"] = best[0] if best else None
+    fit["largest_batch"] = best[0] * n_data if best else None
     fit["largest_batch_peak_bytes"] = best[1] if best else None
     return cell, cost, fit
 
 
-def run_cell(arch: str, shape: str, verbose: bool = True) -> dict:
+def run_cell(arch: str, shape: str, verbose: bool = True, mesh: tuple = (1, 1)) -> dict:
+    """One cell's record (on a mesh, one rank's step); raises
+    ``NotImplementedError`` where ``tensor_parallel.check_tp`` refuses the
+    cell on ``mesh``."""
     t0 = time.perf_counter()
     cfg = get_config(arch)
     fitter = _fit_train if SHAPES[shape].kind == "train" else _fit_serving
-    cell, cost, fit = fitter(arch, shape)
-    roof = analyze(cost, arch, shape, cfg, SHAPES[shape], cell.min_bytes)
+    cell, cost, fit = fitter(arch, shape, mesh)
+    roof = analyze(cost, arch, shape, cfg, SHAPES[shape], cell.min_bytes, mesh=mesh)
     rec = {
-        "status": "ok", "arch": arch, "shape": shape, "mesh": CARD, "remat": "layer",
+        "status": "ok", "arch": arch, "shape": shape, "mesh": roof.mesh_desc,
+        "remat": "layer",
         "memory": {"persistent_bytes": dict(cell.persistent),
                    "persistent_total": cell.persistent_bytes,
                    "step_peak_bytes": cost.peak, **fit},
@@ -119,12 +138,17 @@ def run_cell(arch: str, shape: str, verbose: bool = True) -> dict:
         **roof.to_dict(),
         "dryrun_s": round(time.perf_counter() - t0, 2),
     }
+    if roof.chips > 1:
+        rec["mesh_shape"] = {"data": mesh[0], "model": mesh[1]}
+        rec["collective_counts"] = cost.collective_counts
+        rec["collective_link_bytes"] = roof.link_bytes
     if verbose:
         mem = rec["memory"]
         how = (f"microbatches={mem['microbatches']}" if "microbatches" in mem
                else f"largest batch={mem.get('largest_batch')}" if not mem["fits"] else "whole")
-        print(f"[dryrun] {arch} × {shape} × {CARD}: {rec['dryrun_s']:.1f}s "
+        print(f"[dryrun] {arch} × {shape} × {roof.mesh_desc}: {rec['dryrun_s']:.1f}s "
               f"flops={roof.hlo_flops:.3e} bytes={roof.hlo_bytes:.3e} "
+              f"coll={roof.collective_bytes:.3e} "
               f"dominant={roof.dominant} bound={roof.bound_time:.4g}s "
               f"peak={_fmt_bytes(mem['peak_bytes'])} fits={mem['fits']} ({how})", flush=True)
     return rec
@@ -147,7 +171,16 @@ def main(argv=None):
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="dryrun_results_torch.jsonl")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM: one rank of a data D x model M mesh (default 1x1, one card)")
     args = ap.parse_args(argv)
+    try:
+        mesh = tuple(int(v) for v in args.mesh.lower().split("x"))
+    except ValueError:
+        mesh = ()
+    if len(mesh) != 2 or min(mesh) < 1:
+        ap.error(f"--mesh takes DxM, e.g. 1x8; got {args.mesh!r}")
+    where = mesh_desc(mesh)
 
     if args.all:
         cells = [(arch, shape) for arch in sorted(ARCHS) for shape in SHAPES]
@@ -160,18 +193,23 @@ def main(argv=None):
     with open(args.out, "a") as f:
         for arch, shape in cells:
             runnable, why = cell_is_runnable(arch, shape)
+            if runnable and mesh != (1, 1):
+                try:
+                    mesh_rules(get_config(arch), SHAPES[shape], abstract_mesh(*mesh))
+                except NotImplementedError as e:  # check_tp: not in this slice
+                    runnable, why = False, str(e)
             if not runnable:
-                rec = {"status": "skipped", "arch": arch, "shape": shape, "mesh": CARD,
+                rec = {"status": "skipped", "arch": arch, "shape": shape, "mesh": where,
                        "reason": why}
                 print(f"[dryrun] SKIP {arch} × {shape}: {why}")
                 n_skip += 1
             else:
                 try:
-                    rec = run_cell(arch, shape)
+                    rec = run_cell(arch, shape, mesh=mesh)
                     n_ok += 1
                 except Exception as e:  # a failure here is a bug in the port
                     traceback.print_exc()
-                    rec = {"status": "fail", "arch": arch, "shape": shape, "mesh": CARD,
+                    rec = {"status": "fail", "arch": arch, "shape": shape, "mesh": where,
                            "error": f"{type(e).__name__}: {e}"}
                     n_fail += 1
             f.write(json.dumps(rec) + "\n")

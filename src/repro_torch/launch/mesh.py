@@ -25,9 +25,17 @@ is ROADMAP.md Queue 1, item 7 (5)). A rank that raises fails the whole call with
 traceback; a rank that dies without one fails it with its exit code. The
 group's ``timeout`` bounds every collective and wait, so a dead peer
 cannot leave the others blocked in a receive.
+
+``make_mesh(data, model)``, called inside a group of ``data x model``
+ranks, is the counterpart of the JAX package's ``make_test_mesh``: the
+``Mesh`` the sharding rules take (``distributed/sharding.py``), with the
+calling rank's coordinates and a gloo subgroup an axis;
+``abstract_mesh`` is the same mesh without ranks, for the dry run
+(``launch/specs.py``), whose collectives send nothing.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import pickle
@@ -36,7 +44,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as tdist
@@ -221,3 +229,57 @@ def run_ranks(fn: Callable, n_ranks: int, args: tuple = (), *,
     are then stopped."""
     with RankPool(n_ranks, device=device, timeout_s=timeout_s) as pool:
         return pool.run(fn, n_ranks, args)
+
+
+@dataclasses.dataclass
+class Mesh:
+    """A (data, model) mesh as the sharding rules read one (``axis_names``,
+    ``shape``), with the calling rank's ``coords`` (rank = d · model + m)
+    and its gloo subgroup an axis (``None`` on an abstract mesh or where
+    the axis has one rank)."""
+
+    shape: dict  # axis name -> size, in mesh order
+    coords: dict  # axis name -> the calling rank's index
+    groups: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+    def group(self, axis: str) -> Optional[object]:
+        return self.groups.get(axis)
+
+
+def abstract_mesh(data: int, model: int) -> Mesh:
+    """A ``data x model`` mesh without ranks, seen from rank 0."""
+    return Mesh({"data": int(data), "model": int(model)}, {"data": 0, "model": 0})
+
+
+def make_mesh(data: int, model: int) -> Mesh:
+    """The ``data x model`` mesh over the calling group's ranks (its size
+    must be ``data * model``): the rank's coordinates and one gloo subgroup
+    for its model row and one for its data column. Every rank of the group
+    calls it once, in the same order as its other collectives."""
+    world = tdist.get_world_size()
+    if world != data * model:
+        raise ValueError(f"a {data} x {model} mesh over a group of {world} ranks")
+    rank = tdist.get_rank()
+    groups = {}
+    # every rank creates every subgroup, in one order (torch.distributed's rule)
+    for d in range(data):
+        g = tdist.new_group([d * model + m for m in range(model)])
+        if model > 1 and rank // model == d:
+            groups["model"] = g
+    for m in range(model):
+        g = tdist.new_group([d * model + m for d in range(data)])
+        if data > 1 and rank % model == m:
+            groups["data"] = g
+    return Mesh({"data": data, "model": model},
+                {"data": rank // model, "model": rank % model}, groups)

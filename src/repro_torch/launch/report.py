@@ -1,9 +1,11 @@
-"""Format the one-card dry run's JSON lines into a markdown table.
+"""Format the dry run's JSON lines into a markdown table.
 
 The counterpart of ``repro/launch/report.py``: ``fmt_table`` and
 ``pick_hillclimb_cells`` over ``launch/dryrun.py``'s records, with the
-fit on one card beside the roofline terms. ``most_collective`` has
-nothing to pick on one card: no cell moves a byte across a link.
+fit on one card (a rank's, on a mesh) beside the roofline terms.
+``most_collective`` is the cell whose collective term is largest against
+its compute term, as in JAX; a run on one card, where no cell moves a
+byte across a link, has none.
 
   python -m repro_torch.launch.report dryrun_results_torch.jsonl [--pick]
 """
@@ -63,9 +65,14 @@ def fmt_table(path: str) -> str:
 def pick_hillclimb_cells(path: str) -> dict:
     cells = [r for r in _records(path).values() if r["status"] == "ok"]
     worst = min(cells, key=lambda r: r["roofline_fraction"])
-    return {"worst_fraction": (worst["arch"], worst["shape"], worst["roofline_fraction"]),
-            "most_collective": None,
-            "why_no_collective": "one card: every cell's collective term is 0"}
+    out = {"worst_fraction": (worst["arch"], worst["shape"], worst["roofline_fraction"])}
+    coll = [r for r in cells if r["t_collective_s"] > 0]
+    if not coll:
+        return {**out, "most_collective": None,
+                "why_no_collective": "one card: every cell's collective term is 0"}
+    most = max(coll, key=lambda r: r["t_collective_s"] / max(r["t_compute_s"], 1e-12))
+    return {**out, "most_collective": (most["arch"], most["shape"], most["t_collective_s"]
+                                       / max(most["t_compute_s"], 1e-12))}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
-"""Roofline of one step on one NVIDIA H100, from a reckoned step.
+"""Roofline of one step on one NVIDIA H100, or on a (data × model) mesh
+of them, from a reckoned step.
 
 The single-card counterpart of ``repro/launch/roofline.py``. The terms,
 in seconds, as there:
 
     compute    = Σ_dtype FLOPs_dtype / (chips × peak_dtype)
     memory     = bytes / (chips × HBM_bw)
-    collective = collective_bytes / (chips × link_bw)
+    collective = link_bytes / (chips × link_bw)
 
 where the FLOPs and bytes are those of the operators the eager step
 dispatches (``launch/step_cost.py``; the JAX package reads them from the
@@ -16,11 +17,25 @@ TFLOP/s, float32 ones (the port turns TF32 off, ``repro_torch/__init__.py``)
 against 67. The flash kernel's count at its inputs' dtype: it multiplies
 in float32 on the CUDA cores, but a bfloat16 call's least time is the
 tensor cores', so the gap is the kernel's. On one card ``chips = 1``
-and nothing crosses a link: the collective term is 0.
+and nothing crosses a link: the collective term is 0. On a mesh the
+reckoned step is one rank's (``launch/specs.py``), and every rank runs
+the same step, so the FLOPs, bytes and collective bytes recorded are the
+rank's times ``chips`` (the mesh's, as the JAX package's HLO counts are
+for its SPMD program) and each term is one rank's time. The collective
+bytes are the operand bytes of the collectives the rank placed
+(``distributed/tensor_parallel.py``), as the JAX package's are; the
+collective term reads the bytes a rank sends one way for them by a ring
+(``link_bytes``: 2(n-1)/n of an all-reduce's operand, (n-1)/n of an
+all-gather's output) over one GPU's one-way NVLink rate. It is the
+least time those transfers take at the link's peak, with no latency and
+no overlap counted.
 
 Hardware model: one H100 SXM at its 700 W limit, the published dense
 peaks of NVIDIA's data sheet: 989 TFLOP/s bf16, 495 TF32, 67 float32
-outside the tensor cores; 3.35 TB/s and 80 GB of HBM.
+outside the tensor cores; 3.35 TB/s and 80 GB of HBM; 450 GB/s of
+NVLink a GPU one way (fourth generation, 18 links: the data sheet's
+900 GB/s is both directions' total), where the JAX package takes
+~50 GB/s a link of ICI.
 """
 from __future__ import annotations
 
@@ -31,6 +46,7 @@ PEAK_FLOPS = 989e12  # bf16 dense, the peak MFU and the roofline fraction use
 PEAKS = {"bf16": PEAK_FLOPS, "tf32": 495e12, "fp32": 67e12}
 HBM_BW = 3.35e12  # bytes/s
 HBM_BYTES = 80e9  # the card's memory, as the fit of a cell counts it
+NVLINK_BW = 450e9  # bytes/s a GPU sends, one way, H100 SXM
 CARD = "1xH100"
 
 
@@ -46,6 +62,7 @@ class Roofline:
     collective_detail: dict
     model_flops: float  # 6·N·D (dense) / 6·N_active·D (MoE)
     flops_by_dtype: dict = dataclasses.field(default_factory=dict)
+    link_bytes: float = 0.0  # what the ranks send one way by a ring, summed
     min_bytes: float = 0.0  # the least bytes the step must move (launch/specs.py)
     measured_s: Optional[float] = None  # a step's time on the card, where measured
     t_compute: float = 0.0
@@ -56,7 +73,7 @@ class Roofline:
         self.t_compute = sum(f / (self.chips * PEAKS[c])
                              for c, f in self.flops_by_dtype.items())
         self.t_memory = self.hlo_bytes / (self.chips * HBM_BW)
-        self.t_collective = 0.0  # one card: nothing crosses a link
+        self.t_collective = self.link_bytes / (self.chips * NVLINK_BW)
 
     @property
     def dominant(self) -> str:
@@ -122,13 +139,25 @@ def model_flops_for_cell(cfg, shape_cfg) -> float:
     return 2.0 * n_active * shape_cfg.global_batch  # decode: 1 new token
 
 
+def mesh_desc(mesh: tuple) -> str:
+    """The record's name of a (data, model) mesh of H100s."""
+    data, model = mesh
+    return CARD if data * model == 1 else f"{data}x{model}xH100 (data x model)"
+
+
 def analyze(cost, arch: str, shape: str, cfg, shape_cfg, min_bytes: float,
-            measured_s: Optional[float] = None) -> Roofline:
+            measured_s: Optional[float] = None, mesh: tuple = (1, 1)) -> Roofline:
     """The roofline of a step reckoned by ``cost`` (a
-    ``launch/step_cost.py:StepCost``) on one card."""
-    return Roofline(arch=arch, shape=shape, mesh_desc=CARD, chips=1,
-                    hlo_flops=cost.total_flops(), hlo_bytes=cost.bytes,
-                    collective_bytes=0.0, collective_detail={},
+    ``launch/step_cost.py:StepCost``): one card's, or on a ``(data,
+    model)`` mesh one rank's step run on every rank, each count the
+    rank's times the chips."""
+    chips = mesh[0] * mesh[1]
+    return Roofline(arch=arch, shape=shape, mesh_desc=mesh_desc(mesh), chips=chips,
+                    hlo_flops=cost.total_flops() * chips, hlo_bytes=cost.bytes * chips,
+                    collective_bytes=cost.collective_bytes * chips,
+                    link_bytes=cost.collective_link_bytes * chips,
+                    collective_detail={k: v * chips
+                                       for k, v in cost.collective_detail.items()},
                     model_flops=model_flops_for_cell(cfg, shape_cfg),
-                    flops_by_dtype=dict(cost.flops), min_bytes=min_bytes,
-                    measured_s=measured_s)
+                    flops_by_dtype={c: f * chips for c, f in cost.flops.items()},
+                    min_bytes=min_bytes * chips, measured_s=measured_s)

@@ -1,5 +1,6 @@
-"""One (arch × ``SHAPES``) cell as one H100 runs it: its step closure, its
-inputs, and the bytes it holds and must move.
+"""One (arch × ``SHAPES``) cell as one H100 runs it, or as one rank of a
+(data × model) mesh of H100s runs it: its step closure, its inputs, and
+the bytes it holds and must move.
 
 The single-card counterpart of ``repro/launch/specs.py``, whose
 ``build_cell`` hands ``ShapeDtypeStruct`` stand-ins with their shardings to
@@ -19,9 +20,17 @@ recurrent states float32, as ``LM.init_cache`` keeps them). The steps are
 flash attention in prefill, one ``fused_adam`` call a training step. A
 decode cell takes its one step at the cache's last position.
 
-JAX's per-chip FSDP choice has no counterpart on one card; the fit on its
-80 GB is decided in ``launch/dryrun.py`` from the bytes here and the
-simulated peak of ``launch/step_cost.py``.
+On a mesh (``mesh=(data, model)``) the cell is one rank's: the JAX
+package's FSDP and 2D expert-parallel choices (``specs.py:107-121``) are
+made as there, and ``tensor_parallel.check_tp`` refuses what they switch
+on, and every configuration outside the dense slice, with its reason; the
+parameters are the rank's shards of the whole model
+(``tensor_parallel.shard_tree`` at the rank's coordinates), the batch its
+data rank's rows, the cache its KV heads, and the step runs under the
+``ShardingRules`` (``distributed/sharding.py``), whose collectives send
+nothing on the abstract mesh and are counted (``step_cost.StepCost``).
+The fit on the card's 80 GB is decided in ``launch/dryrun.py`` from the
+bytes here and the simulated peak of ``launch/step_cost.py``.
 """
 from __future__ import annotations
 
@@ -33,6 +42,9 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.configs.base import LMConfig, ShapeConfig, cell_is_runnable
+from repro_torch.distributed.sharding import ShardingRules, use_rules
+from repro_torch.distributed.tensor_parallel import check_tp, shard_tree
+from repro_torch.launch.mesh import Mesh, abstract_mesh
 from repro_torch.launch.step_cost import tensor_bytes
 from repro_torch.models.model_zoo import (
     build_model,
@@ -94,15 +106,50 @@ def _slot_bytes(cache: dict, seq: int) -> int:
     return total
 
 
+def mesh_rules(cfg: LMConfig, shp: ShapeConfig, mesh: Mesh) -> ShardingRules:
+    """The rules of a cell on ``mesh``, with the JAX package's FSDP and 2D
+    expert-parallel choices (``repro/launch/specs.py:107-121``); raises
+    ``NotImplementedError`` (``check_tp``) where this slice cannot run
+    them."""
+    model_size = mesh.shape["model"]
+    n_params = cfg.param_count()
+    if shp.kind == "train":
+        fsdp = n_params * 12 / model_size > 10e9
+    else:
+        fsdp = n_params * 2 / model_size > 8e9
+    n_dm = mesh.shape["data"] * model_size
+    ep = cfg.moe is not None and (cfg.moe.n_experts % mesh.size == 0
+                                  or cfg.moe.n_experts % n_dm == 0)
+    rules = ShardingRules(mesh, cfg, fsdp=fsdp, expert_parallel_2d=ep)
+    check_tp(cfg, rules)
+    return rules
+
+
+def _under(rules: Optional[ShardingRules], step: Callable) -> Callable:
+    """``step`` run under ``rules`` (itself without)."""
+    if rules is None:
+        return step
+
+    def ranked(*args, **kwargs):
+        with use_rules(rules):
+            return step(*args, **kwargs)
+
+    return ranked
+
+
 def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
                microbatches: int = 1, device="meta",
                generator: Optional[torch.Generator] = None,
-               cfg: Optional[LMConfig] = None, seq_len: Optional[int] = None) -> Cell:
+               cfg: Optional[LMConfig] = None, seq_len: Optional[int] = None,
+               mesh=None) -> Cell:
     """The cell ``(arch, shape)`` on ``device`` (``meta``: value-less).
     ``batch`` cuts the cell's batch (never its width or length);
-    ``microbatches`` splits a training batch. ``cfg`` and ``seq_len``
-    replace the architecture's configuration and the cell's length, for
-    reduced rehearsals on the CPU."""
+    ``microbatches`` splits a training batch (a data rank's). ``cfg`` and
+    ``seq_len`` replace the architecture's configuration and the cell's
+    length, for reduced rehearsals on the CPU. ``mesh`` (``(data,
+    model)``, or a ``launch/mesh.py:Mesh`` a rank made) gives the cell of
+    the mesh's rank: of rank 0 on an abstract mesh; ``None`` or ``(1,
+    1)`` the one-card cell."""
     runnable, why = cell_is_runnable(arch, shape)
     if not runnable:
         raise ValueError(f"cell ({arch},{shape}) skipped: {why}")
@@ -112,17 +159,27 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
         shp = dataclasses.replace(shp, global_batch=batch)
     if seq_len is not None:
         shp = dataclasses.replace(shp, seq_len=seq_len)
+    if isinstance(mesh, tuple):
+        mesh = None if mesh == (1, 1) else abstract_mesh(*mesh)
+    rules = None if mesh is None else mesh_rules(cfg, shp, mesh)
     b, seq = shp.global_batch, shp.seq_len
     model = build_model(cfg, inner="cuda", remat="layer")
     params = _values(lambda g, d: model.init(g, device=d), device, generator)
     n_params = sum(p.numel() for p in tree_leaves(params))
     inputs = _values(lambda g, d: tree_map(lambda t: t.to(d), make_dummy_batch(cfg, b, seq, g)),
                      device, generator)
+    if rules is not None:
+        n_data = mesh.shape["data"]
+        if b % n_data:
+            raise ValueError(f"a batch of {b} does not split over {n_data} data ranks")
+        b //= n_data
+        params = shard_tree(params, rules, mesh.coords)
+        inputs = tree_map(lambda t: t.narrow(0, mesh.coords["data"] * b, b).clone(), inputs)
 
     if shp.kind == "train":
         opt = adamw(LR, fused=True)
         opt_state = opt.init(params)
-        step = make_train_step(model, opt, microbatches=microbatches)
+        step = _under(rules, make_train_step(model, opt, microbatches=microbatches))
         persistent = {"params": _bytes(params), "opt_state": _bytes(opt_state),
                       "inputs": _bytes(inputs)}
         # p read and written; g written and read; m and v read and written; the loss
@@ -132,7 +189,8 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
 
     params = tree_map(lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t,
                       params)
-    cache = model.init_cache(b, seq, dtype=torch.bfloat16, device=device)
+    with use_rules(rules):
+        cache = model.init_cache(b, seq, dtype=torch.bfloat16, device=device)
     logits = b * cfg.padded_vocab() * 2  # the last position's, bfloat16
     if shp.kind == "prefill":
         tokens = inputs.pop("tokens")
@@ -141,7 +199,7 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
                       "inputs": _bytes(tokens) + _bytes(inputs)}
         # weights read once, every cache position written, inputs and logits
         min_bytes = sum(persistent.values()) + logits
-        return Cell(arch, shape, cfg, shp, make_prefill_step(model),
+        return Cell(arch, shape, cfg, shp, _under(rules, make_prefill_step(model)),
                     (params, tokens, cache), inputs, persistent, min_bytes, n_params)
 
     cache["idx"] = seq - 1  # one step at the last position
@@ -149,5 +207,5 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
     persistent = {"params": _bytes(params), "cache": _bytes(cache), "inputs": _bytes(tokens)}
     # weights and the cache read once, one slot written, the token and logits
     min_bytes = sum(persistent.values()) + _slot_bytes(cache, seq) + logits
-    return Cell(arch, shape, cfg, shp, make_decode_step(model), (params, cache, tokens), {},
-                persistent, min_bytes, n_params)
+    return Cell(arch, shape, cfg, shp, _under(rules, make_decode_step(model)),
+                (params, cache, tokens), {}, persistent, min_bytes, n_params)

@@ -20,7 +20,15 @@ over value-less (``meta``) tensors as over real ones, and counts
   for every ``CAPACITY`` nonempty leaves, as its wrapper launches);
 - the simulated peak: the largest sum of the storages the step allocated
   that are alive at once (each storage counted from the operator that
-  made it until its last tensor is freed), over what existed before.
+  made it until its last tensor is freed), over what existed before;
+- the collectives a rank's step places under sharding rules
+  (``distributed/tensor_parallel.py``), by kind: their count and operand
+  bytes, as ``hlo_analysis.py`` sums the collectives of the optimized
+  HLO (``collective_bytes``, ``collective_detail``,
+  ``collective_counts``), and the bytes a rank sends one way for them by
+  a ring (``collective_link_bytes``, ``tensor_parallel.link_bytes``). On
+  the dry run's abstract mesh they send nothing and return shape-only
+  results.
 
 With ``sample=k`` the loops of ``models/loops.py`` run their first ``k``
 steps and their counts are scaled to the trip count, as
@@ -40,6 +48,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.distributed.tensor_parallel import CollectiveLog, logging_collectives
 from repro_torch.kernels.flash_attention import flash_cost
 from repro_torch.kernels.fused_adam import fused_adam_cost
 from repro_torch.models import loops
@@ -101,17 +110,38 @@ class StepCost(TorchDispatchMode):
         self.peak = 0
         self._owned: set = set()
         self._outer = None
+        self.collectives = CollectiveLog()
+        self._logging = None
 
     # -- the mode -----------------------------------------------------------
     def __enter__(self):
         self._outer = loops._reckoning
         if self.sample:
             loops._reckoning = self
+        self._logging = logging_collectives(self.collectives)
+        self._logging.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
         loops._reckoning = self._outer
+        self._logging.__exit__(*exc)
         return super().__exit__(*exc)
+
+    @property
+    def collective_bytes(self) -> float:
+        return self.collectives.total_bytes
+
+    @property
+    def collective_detail(self) -> dict:
+        return dict(self.collectives.bytes)
+
+    @property
+    def collective_counts(self) -> dict:
+        return dict(self.collectives.counts)
+
+    @property
+    def collective_link_bytes(self) -> float:
+        return self.collectives.link_bytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -177,7 +207,9 @@ class StepCost(TorchDispatchMode):
 
     # -- sampled loops ------------------------------------------------------
     def _counts(self) -> tuple:
-        return dict(self.flops), self.bytes, dict(self.launches)
+        return (dict(self.flops), self.bytes, dict(self.launches),
+                dict(self.collectives.counts), dict(self.collectives.bytes),
+                self.collectives.link_bytes)
 
     def sampled_steps(self, n: int):
         """``loops.steps``' indices: the first ``sample`` of ``n``, their
@@ -187,13 +219,18 @@ class StepCost(TorchDispatchMode):
         yield from range(k)
         if k == n:
             return
-        flops, nbytes, launches = self._counts()
+        flops, nbytes, launches, coll_counts, coll_bytes, link = self._counts()
         scale = (n - k) / k
         for c, v in flops.items():
             self.flops[c] += (v - before[0].get(c, 0.0)) * scale
         for c, v in launches.items():
             self.launches[c] += (v - before[2].get(c, 0.0)) * scale
         self.bytes += (nbytes - before[1]) * scale
+        for c, v in coll_counts.items():  # whole: every step places as many
+            self.collectives.counts[c] += round((v - before[3].get(c, 0)) * scale)
+        for c, v in coll_bytes.items():
+            self.collectives.bytes[c] += (v - before[4].get(c, 0.0)) * scale
+        self.collectives.link_bytes += (link - before[5]) * scale
 
     def stack_sampled(self, items: list, n: int, dim: int) -> torch.Tensor:
         """``loops.stack`` of a sampled loop: the ``n``-step stack as one

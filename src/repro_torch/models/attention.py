@@ -38,6 +38,11 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import LMConfig, MLAConfig
+from repro_torch.distributed.tensor_parallel import (
+    copy_to_model,
+    model_shard,
+    reduce_from_model,
+)
 from repro_torch.kernels.ops import _executor
 from repro_torch.models.layers import apply_rope, dense_init, dot
 
@@ -120,9 +125,14 @@ def gqa_apply(
     the prefill attention's executor where the layer has no ``window``:
     ``"cuda"`` the flash kernel (its plain version for CPU tensors),
     ``"torch"`` the plain version. With ``kv_source`` the call is cross
-    attention (``_cross``) and returns ``cache`` unchanged."""
+    attention (``_cross``) and returns ``cache`` unchanged. The heads are
+    the weights' own (a rank's shard under tensor parallelism: its input
+    passes ``copy_to_model``, and ``wo``'s partial products are summed
+    over ``model``)."""
     b, t, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dh = cfg.resolved_head_dim
+    h, kv = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
+    x = copy_to_model(x)
     q = dot(x, p["wq"]).reshape(b, t, h, dh)
     if kv_source is not None:
         return _cross(p, cfg, q, kv_source, cache, inner), cache
@@ -134,7 +144,7 @@ def gqa_apply(
     if cache is None:
         mask = make_mask(positions, positions, causal=True, window=window)
         out = _attn_core(q, k, v, mask)
-        return out.reshape(b, t, h * dh) @ p["wo"], None
+        return reduce_from_model(out.reshape(b, t, h * dh) @ p["wo"]), None
 
     idx = cache["idx"]
     ck, cv = cache["k"], cache["v"]
@@ -157,7 +167,7 @@ def gqa_apply(
                          k_valid=k_valid)
         out = _attn_core(q, ck.to(q.dtype), cv.to(q.dtype), mask)
     new_cache = {"k": ck, "v": cv, "idx": idx + t}
-    return out.reshape(b, t, h * dh) @ p["wo"], new_cache
+    return reduce_from_model(out.reshape(b, t, h * dh) @ p["wo"]), new_cache
 
 
 def _cross(p: dict, cfg: LMConfig, q: torch.Tensor, src: torch.Tensor,
@@ -185,8 +195,9 @@ def _cross(p: dict, cfg: LMConfig, q: torch.Tensor, src: torch.Tensor,
 def gqa_cache_init(cfg: LMConfig, batch: int, s_max: int,
                    dtype=torch.bfloat16, lead: tuple = (), device=None) -> dict:
     """Zeroed ``k``/``v`` ``[*lead, B, S, KV, Dh]`` (the index lives at the
-    cache's root, ``LM.init_cache``)."""
-    kv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    cache's root, ``LM.init_cache``), KV the rank's heads under tensor
+    parallelism (``cache_spec``'s split)."""
+    kv, dh = model_shard(cfg.n_kv_heads), cfg.resolved_head_dim
     return {"k": torch.zeros((*lead, batch, s_max, kv, dh), dtype=dtype, device=device),
             "v": torch.zeros((*lead, batch, s_max, kv, dh), dtype=dtype, device=device)}
 

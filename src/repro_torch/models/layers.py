@@ -5,7 +5,12 @@ layouts (weights ``[d_in, d_out]``, applied as ``x @ w``), so
 ``models/transformer.py:params_from_jax`` carries the JAX package's
 weights over unchanged. Initialisers draw from an explicit
 ``torch.Generator`` on the generator's device and place the result on
-``device``.
+``device``. Under sharding rules with a ``model`` axis
+(``distributed/tensor_parallel.py``) the MLP's column products take
+``copy_to_model``'s input and its row product's output is summed over
+``model``, the lookup reads the rank's vocabulary shard (summed at
+``tokens_bsd``) and the unembedding gives the rank's vocabulary slice of
+the logits; without rules each is the one-card function.
 """
 from __future__ import annotations
 
@@ -13,6 +18,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.tensor_parallel import (
+    copy_to_model,
+    embed_rows,
+    reduce_from_model,
+)
 
 
 def _randn(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -76,10 +87,12 @@ def apply_mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
     """SwiGLU ``(silu(x·W_gate) ⊙ x·W_up)·W_down``, or GELU (tanh
     approximation, as ``jax.nn.gelu``'s default) with biases, its products
     at the promoted dtype (``dot``: whisper's encoder)."""
+    x = copy_to_model(x)
     if activation == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+        return reduce_from_model(
+            (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"])
     h = F.gelu(dot(x, p["w_in"]) + p["b_in"], approximate="tanh")
-    return dot(h, p["w_out"]) + p["b_out"]
+    return reduce_from_model(dot(h, p["w_out"])) + p["b_out"]
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +127,9 @@ def embed_init(generator: torch.Generator, vocab: int, d_model: int,
 
 
 def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """The one-hot product as a gather of the table's rows."""
-    return p["table"][tokens]
+    """The one-hot product as a gather of the table's rows (over a
+    vocabulary shard, the ranks' lookups summed: ``embed_rows``)."""
+    return embed_rows(p["table"], tokens)
 
 
 def embed_dense_path(p: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -126,4 +140,5 @@ def embed_dense_path(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["table"].T
+    """The logits over the table's rows: the rank's vocabulary slice."""
+    return copy_to_model(x) @ p["table"].T

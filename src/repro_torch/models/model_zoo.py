@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed.tensor_parallel import mean_over_data
 from repro_torch.models import loops
 from repro_torch.models.transformer import LM
 from repro_torch.models.xlstm import SLSTM_FF_MULT
@@ -121,7 +122,10 @@ def make_train_step(model: LM, opt: Optimizer, compute_dtype=torch.bfloat16,
     package. ``microbatches > 1`` splits the batch's leading axis into
     equal parts, sums their float32 gradients (``training/grad.py``'s
     accumulators) and losses in order and takes both means before the one
-    ``opt.update``."""
+    ``opt.update``. Under sharding rules with a ``data`` axis each
+    gradient leaf and the loss are then averaged over the data ranks
+    (``tensor_parallel.mean_over_data``), so ``opt`` steps each rank's own
+    shards from the same gradients on every data replica."""
 
     def cast(tree):
         return tree_map(lambda x: x.to(compute_dtype) if x.dtype == torch.float32
@@ -136,8 +140,9 @@ def make_train_step(model: LM, opt: Optimizer, compute_dtype=torch.bfloat16,
     def step(params, opt_state, batch):
         if microbatches <= 1:
             loss, grads = loss_and_grads(params, batch)
+            *grads, loss = mean_over_data([*grads, loss])
             new_params, new_opt_state = opt.update(
-                tree_unflatten(params, list(grads)), opt_state, params)
+                tree_unflatten(params, grads), opt_state, params)
             return new_params, new_opt_state, loss
         n = next(iter(batch.values())).shape[0]
         if n % microbatches:
@@ -151,8 +156,11 @@ def make_train_step(model: LM, opt: Optimizer, compute_dtype=torch.bfloat16,
             loss, grads = loss_and_grads(params, mb)
             acc = accum_add(acc, tree_unflatten(params, list(grads)))
             loss_sum = loss_sum + loss
-        new_params, new_opt_state = opt.update(accum_mean(acc), opt_state, params)
-        return new_params, new_opt_state, loss_sum * (1.0 / microbatches)
+        new_params, new_opt_state = opt.update(
+            tree_unflatten(params, mean_over_data(tree_leaves(accum_mean(acc)))),
+            opt_state, params)
+        return (new_params, new_opt_state,
+                mean_over_data([loss_sum * (1.0 / microbatches)])[0])
 
     return step
 

@@ -18,8 +18,11 @@ slots and sends each slot its one pair's gradient. No step of the path
 sums through ``index_add_``, ``scatter_add_`` or
 ``index_put_(accumulate=True)``, whose order on CUDA changes from run to
 run, so a step repeats bitwise. A pair the capacity drops points at the
-sentinel slot ``E·C``, which reads as zeros. ``shard_activation`` and
-``expert_spec`` have no counterpart on one card.
+sentinel slot ``E·C``, which reads as zeros. ``shard_activation`` marks
+the ``[E, C, D]`` buffer at the JAX package's two sites; the collectives
+of 2D expert parallelism are ROADMAP.md Queue 1, item 7 (4b), and
+``distributed/tensor_parallel.py:check_tp`` refuses MoE layers until
+then. ``expert_spec`` has no counterpart.
 
 Each stage runs inside a ``torch.profiler.record_function`` span named in
 ``SPANS``, so that a profile can put its kernels under the stage.
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.configs.base import LMConfig, MoEConfig
+from repro_torch.distributed.sharding import shard_activation
 from repro_torch.models.layers import _randn, dense_init
 
 #: the ``record_function`` spans of the stages: the router's top-k sort,
@@ -222,7 +226,8 @@ def _sorted_combine(p, tokens, gate_vals, expert_ids, m: MoEConfig):
     slot_pair, pair_slot = dispatch_maps(expert_ids, e, cap)
     x_ec = _TokensToSlots.apply(tokens, torch.div(slot_pair, k, rounding_mode="floor"),
                                 pair_slot.reshape(n_tok, k))
-    y_ec = _expert_ffn(p, x_ec.reshape(e, cap, d))
+    x_ec = shard_activation(x_ec.reshape(e, cap, d), "moe_expert")
+    y_ec = shard_activation(_expert_ffn(p, x_ec), "moe_expert")
     y_pairs = _SlotsToPairs.apply(y_ec.reshape(e * cap, d), pair_slot, slot_pair)
     y_pairs = y_pairs * gate_vals.reshape(-1, 1).to(y_pairs.dtype)
     parts = y_pairs.reshape(n_tok, k, d).unbind(1)

@@ -26,8 +26,17 @@ leaf) and the repetitions run in a Python loop over the views that one
 ``torch.unbind`` a leaf gives (``_unbind``: one stacked gradient); an
 unrolled segment is a list of per-layer dicts; each layer gets its own
 window (``_layer_window``) as a Python int, where the JAX package scans
-an int array of them. ``shard_activation`` has no counterpart on one card
-and is dropped; ``remat="layer"`` recomputes each layer of a scanned
+an int array of them. ``shard_activation`` marks the JAX package's two
+sites (``tokens_bsd`` after the token embeddings, before a vision
+frontend's embeddings join them, and ``logits``) and returns its input.
+Under sharding rules with a ``model`` axis
+(``distributed/tensor_parallel.py``) ``embed_lookup`` sums the ranks'
+vocabulary-sharded lookups, so the embeddings are whole wherever it is
+called; the logits stay the rank's vocabulary slice, ``forward``,
+``prefill`` and ``decode_step`` gather them whole on every rank and
+``loss`` takes the vocabulary-sharded cross entropy
+(``tensor_parallel.sharded_ce``, whose mean over the data ranks is the
+whole batch's), never gathering ``[B, T, V]``. ``remat="layer"`` recomputes each layer of a scanned
 segment in the backward (``torch.utils.checkpoint``), as the JAX
 package's ``jax.checkpoint`` of the scan body does, the MoE layers'
 load-balance loss included: every layer returns its ``aux`` and the
@@ -54,6 +63,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed.sharding import current_rules, shard_activation
+from repro_torch.distributed.tensor_parallel import gather_from_model, sharded_ce
 from repro_torch.kernels.ops import _executor
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -377,6 +388,7 @@ class LM:
         either)."""
         cfg = self.cfg
         x = embed_lookup(params["embed"], tokens) * float(np.sqrt(cfg.d_model))
+        x = shard_activation(x, "tokens_bsd")
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
         if positions is None:
@@ -393,6 +405,11 @@ class LM:
     def _head(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["head"]
 
+    def _logits(self, params, hidden):
+        """The logits of ``hidden``: the rank's vocabulary slice under a
+        ``model`` axis."""
+        return shard_activation(unembed(self._head(params), hidden), "logits")
+
     def forward(self, params, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None,
                 encoder_frames: Optional[torch.Tensor] = None,
@@ -404,7 +421,7 @@ class LM:
         ``aux_loss`` sums the MoE layers' (0 where there are none)."""
         hidden, aux, new_cache = self._hidden(params, tokens, cache, positions,
                                               frontend_embeds, encoder_frames)
-        logits = unembed(self._head(params), hidden)
+        logits = gather_from_model(self._logits(params, hidden))
         return logits, aux, new_cache, hidden
 
     def loss(self, params, batch: dict) -> tuple:
@@ -415,11 +432,13 @@ class LM:
         logits dropped), as the JAX package's ``LM.loss``."""
         cfg = self.cfg
         front = batch.get("frontend_embeds")
-        logits, aux, _, hidden = self.forward(params, batch["tokens"], front,
-                                              batch.get("encoder_frames"))
+        hidden, aux, _ = self._hidden(params, batch["tokens"], None, None, front,
+                                      batch.get("encoder_frames"))
+        logits = self._logits(params, hidden)
         if front is not None:
             logits = logits[:, front.shape[1]:]
-        ce, denom = _masked_ce(logits, batch["labels"], cfg.vocab_size)
+        ce_of = _masked_ce if current_rules() is None else sharded_ce
+        ce, denom = ce_of(logits, batch["labels"], cfg.vocab_size)
         total = ce + 0.01 * aux
         metrics = {"ce": ce, "aux": aux, "denom": denom}
         if cfg.mtp_depth > 0:
@@ -448,7 +467,8 @@ class LM:
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
                    device=None) -> dict:
         """Zeroed caches in the JAX package's tree (a scanned segment's
-        stacked on ``[n_reps]``): K/V at ``dtype`` for GQA layers and
+        stacked on ``[n_reps]``): K/V at ``dtype`` (the rank's KV heads
+        under tensor parallelism) for GQA layers and
         shared sites, the latent for MLA layers, and float32 states for
         the recurrent blocks (``"ssm"``, ``"xl"``, whatever ``dtype``, as
         the JAX package's); an encoder-decoder's ``enc_out`` [B,
@@ -490,14 +510,14 @@ class LM:
         positions = torch.arange(tokens.shape[1] + n_front, device=tokens.device)
         hidden, _, new_cache = self._hidden(params, tokens, cache, positions,
                                             frontend_embeds, encoder_frames)
-        return unembed(self._head(params), hidden[:, -1]), new_cache
+        return gather_from_model(self._logits(params, hidden[:, -1])), new_cache
 
     def decode_step(self, params, cache: dict, tokens: torch.Tensor):
         """One decode step: tokens [B, 1] at position ``cache["idx"]``."""
         idx = cache["idx"]
         positions = torch.arange(idx, idx + 1, device=tokens.device)
         hidden, _, new_cache = self._hidden(params, tokens, cache, positions)
-        return unembed(self._head(params), hidden[:, -1]), new_cache
+        return gather_from_model(self._logits(params, hidden[:, -1])), new_cache
 
 
 def _masked_ce(logits, labels, vocab_size: int):

@@ -246,4 +246,6 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.backends.distributed",
             "repro_torch.launch.mesh", "repro_torch.runtime.streaming",
             "repro_torch.runtime.failure", "repro_torch.runtime.elastic",
-            "repro_torch.runtime.resilience"} <= mods
+            "repro_torch.runtime.resilience",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.tensor_parallel"} <= mods

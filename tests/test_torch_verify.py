@@ -660,8 +660,9 @@ def test_distributed_checks_name_item_7():
     """The distributed checks (``split.*``, ``halo.*``) are ported with
     item 7's core (their mutations and false-positive sweep are in
     ``test_torch_distributed.py``); a single-device plan ignores
-    ``dist``; what item 7 still leaves (tensor-parallel sharding, a
-    transport other than gloo) is named by ``DIST_ITEM``."""
+    ``dist``; what item 7 still leaves (FSDP, expert parallelism and the
+    rest of the sharding rules' runtime, a transport other than gloo) is
+    named by ``DIST_ITEM``."""
     from repro_torch.backends.registry import DIST_ITEM
 
     plan, _ = _port(*_edges())
@@ -670,7 +671,7 @@ def test_distributed_checks_name_item_7():
             "split.live_shifts", "halo.schedule_paired",
             "halo.slot_unique"} <= set(INVARIANT_CATALOG)
     assert "bsr.last_in_row" not in INVARIANT_CATALOG
-    assert "item 7, parts 4 and 5" in DIST_ITEM
+    assert "item 7, parts 4b and 5" in DIST_ITEM
 
 
 def test_host_copies(monkeypatch):
