@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 20|21|22|23|24|25|26]
+    python3 chip_smoke.py [--phases 20|21|22|23|24|25|26|27]
 
-Phases (``--phases 20``, ``21``, ``22``, ``23``, ``24``, ``25`` or ``26``: that phase alone); any failure raises,
+Phases (``--phases 20``, ``21``, ``22``, ``23``, ``24``, ``25``, ``26`` or ``27``: that phase alone); any failure raises,
 so the exit code is not 0 and no result line is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
@@ -436,8 +436,8 @@ so the exit code is not 0 and no result line is printed:
     rows), and timed (CUDA events) beside SDPA on K/V repeated to 32 heads
     and the bound (bf16's peak).
 26. Tensor parallelism over a ``model`` axis, after phase 25 has
-    returned: llama3.2-1b at full width and depth (16 layers, 1.24 B),
-    random weights from seed 0. The single-device program runs first in
+    returned: llama3.2-1b at its published widths, TP_LAYERS of its 16
+    layers (cut for the command's time), random weights from seed 0. The single-device program runs first in
     the parent (the cuda model: phase 10's engine calls over
     TP_NEW_TOKENS new tokens a request, phase 16's 4 x 1,024 batch for
     TP_TRAIN_STEPS bfloat16 steps, the float32 loss and gradients of a
@@ -449,9 +449,11 @@ so the exit code is not 0 and no result line is printed:
     every rank under the ``ShardingRules``: every call whose input tokens
     are the single-device call's holds its last logits within 1e-4 and
     its greedy tokens where the top-2 margin exceeds ``TOKEN_MARGIN``; the
-    four ranks' logits and tokens bitwise equal (a digest); flash launched
-    16 times a wave on every rank at 8 query heads over 2 KV heads (D 64)
-    and none in decode, no other kernel; rank 0's layer-0 call of the
+    four ranks' logits and tokens bitwise equal (a digest); each rank's
+    cache bytes, read from its tensors, ``cache_spec``'s shard; flash
+    launched once a layer a wave on every rank, as the dry run reckons a
+    prefill, at 8 query heads over 2 KV heads (D 64) and none in decode,
+    no other kernel; rank 0's layer-0 call of the
     longest wave held against the plain version and timed beside SDPA
     and the bound. (b) Training at (data 2, model 2), bfloat16, remat,
     fused AdamW on 2 sequences a data rank: the losses within
@@ -460,7 +462,9 @@ so the exit code is not 0 and no result line is printed:
     the single-device program's change (norm-relative), a planted control
     (the data ranks stepping without the gradients' mean) read above that
     limit on some leaf, the data replicas bitwise equal and the replicated leaves of a
-    model group bitwise equal, one Adam launch a rank a step and no other
+    model group bitwise equal, each rank's parameter and Adam-state bytes
+    its rules' shards (read from its tensors, and the dry run's), one Adam
+    launch a rank a step and no other
     kernel; the float32 cut's loss within 1e-4 and each gathered gradient
     leaf within TP_GRAD_RTOL; rank 0's Adam launch over its shards timed
     beside the plain version, ``AdamW(fused=True)`` and the bound. (c) The
@@ -472,6 +476,22 @@ so the exit code is not 0 and no result line is printed:
     and decode ms a step beside the single-device program's, a step's
     collective counts and bytes, and the wire's ms (gloo's loopback
     through the host, not NVLink).
+27. FSDP and the heads the model axis splits, on phase 26's pool of
+    rank processes after it: starcoder2-3b at its published widths
+    (d_model 3,072, 24 heads over 2 KV heads of 128, d_ff 12,288,
+    LayerNorm and a GELU MLP with biases, vocabulary 49,152), FSDP_LAYERS
+    of its 30 layers, the same parts and gates as phase 26. (a) At (data
+    1, model 4) a rank holds 6 query heads and half of a KV head's
+    columns (K and V gathered over ``model`` before RoPE), and a quarter
+    of the cache's positions: flash on its 6 heads over the one KV head
+    they read in prefill, decode's partial softmaxes combined over
+    ``model``. (b) At (data 2, model 2) under FSDP (``fsdp=True``, the
+    choice ``launch/specs.py`` makes for the whole model at model 2): a
+    layer's leaves gathered over ``data`` where it runs (again in remat's
+    backward), the gradients reduce-scattered back; a rank's parameter
+    and Adam bytes a quarter of each 2-D leaf; the planted control skips
+    the reduce-scatter's sum over ``data`` (each data rank keeping its own
+    gradient's slice). (c) The dry run of the same steps, FSDP on.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -606,6 +626,7 @@ from repro_torch.models.gnn import GNNConfig, params_from_jax  # noqa: E402
 from repro_torch.launch.mesh import RankPool, make_mesh, run_ranks  # noqa: E402
 from repro_torch.distributed.sharding import ShardingRules, use_rules  # noqa: E402
 from repro_torch.runtime.checkpoint import _flatten_with_paths  # noqa: E402
+from repro_torch.distributed import fsdp as fsdp_mod  # noqa: E402
 from repro_torch.distributed.tensor_parallel import (  # noqa: E402
     CollectiveLog,
     check_tp,
@@ -7064,8 +7085,20 @@ def print_dryrun_summary(m: dict, card: str) -> None:
 # Phase 26: tensor parallelism over a model axis, data parallelism over data
 # ---------------------------------------------------------------------------
 
-#: the meshes, (data, model): (a) serving, (b) training
+#: the meshes, (data, model): (a) serving, (b) training (phases 26 and 27)
 TP_SERVE_MESH, TP_TRAIN_MESH = (1, 4), (2, 2)
+#: phase 26's depth: llama3.2-1b at TP_LAYERS of its 16 layers (its widths
+#: kept; cut from 16 in PR 31 for the command's time, now that phase 27
+#: runs the rules' collectives at a wider configuration)
+TP_LAYERS = 4
+#: phase 27: starcoder2-3b at its published widths, FSDP_LAYERS of its 30
+#: layers (cut for the command's time); FSDP on in (b), the choice
+#: ``launch/specs.py:mesh_rules`` makes for the whole model at model 2
+#: (3,180,976,128 x 12 / 2 > 10e9), which the cut keeps
+FSDP_ARCH, FSDP_LAYERS = "starcoder2-3b", 10
+#: phase 27 (b)'s depth: the first FSDP_TRAIN_LAYERS of (a)'s layers (cut
+#: for the command's time: the wire takes ~97% of an FSDP step)
+FSDP_TRAIN_LAYERS = 4
 #: (a): new tokens a request (phase 10's 32, cut for the command's time)
 TP_NEW_TOKENS = 8
 #: (b): steps of phase 16's batch, and the float32 step's depth cut
@@ -7093,17 +7126,35 @@ TP_GRAD_RTOL = 1e-3
 
 def tp_cfg(sizes: Sizes):
     cfg = get_config(sizes.lm_arch)
-    return cfg.reduced() if sizes.lm_reduced else cfg
+    return cfg.reduced() if sizes.lm_reduced else dataclasses.replace(cfg, n_layers=TP_LAYERS)
+
+
+def tp_case(sizes: Sizes, phase: str) -> dict:
+    """Phase 26's configuration (llama3.2-1b, no FSDP) or phase 27's
+    (starcoder2-3b, FSDP in training), their meshes and their names."""
+    if phase == "26":
+        cfg = tp_cfg(sizes)
+        return {"phase": "26", "cfg": cfg, "train_cfg": cfg, "fsdp": False, "tag": "tp",
+                "key": "tensor_parallel", "paths": ("tp_serving", "tp_training")}
+    cfg = get_config(FSDP_ARCH)
+    if sizes.lm_reduced:
+        cfg = train_cfg = cfg.reduced()
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=FSDP_LAYERS)
+        train_cfg = dataclasses.replace(cfg, n_layers=FSDP_TRAIN_LAYERS)
+    return {"phase": "27", "cfg": cfg, "train_cfg": train_cfg, "fsdp": True, "tag": "fsdp",
+            "key": "fsdp", "paths": ("fsdp_serving", "fsdp_training")}
 
 
 def tp_cut(params: dict, n_layers: int) -> dict:
     """The first ``n_layers`` layers of a dense LM's parameters: its one
-    scanned segment's stacked leaves cut to ``[:n_layers]``, the embedding
-    and the final norm whole."""
+    scanned segment's stacked leaves cut to ``[:n_layers]``, the embedding,
+    the head (where untied) and the final norm whole."""
     (seg,) = params["segments"]
-    return {"embed": params["embed"], "final_norm": params["final_norm"],
-            "segments": [[{k: tree_map(lambda t: t[:n_layers], v) for k, v in layer.items()}
-                          for layer in seg]]}
+    out = {k: params[k] for k in ("embed", "head", "final_norm") if k in params}
+    out["segments"] = [[{k: tree_map(lambda t: t[:n_layers], v) for k, v in layer.items()}
+                        for layer in seg]]
+    return out
 
 
 class TPRecordingLM(RecordingLM):
@@ -7119,12 +7170,13 @@ class TPRecordingLM(RecordingLM):
         return out
 
 
-def tp_reference(cfg, sizes: Sizes, device, path: str) -> dict:
+def tp_reference(cfg, sizes: Sizes, device, path: str, train_cfg=None) -> dict:
     """The single-device program, in the parent, before the ranks start:
     (a) the engine's calls over phase 10's requests (``RecordingLM``:
     each call's input tokens and last logits); (b) phase 16's bfloat16
-    steps (fused AdamW, remat), its losses and last parameters; the
-    float32 loss and gradients of the TP_F32_LAYERS-layer cut. The initial
+    steps (fused AdamW, remat) of ``train_cfg``'s layers (the first of
+    ``cfg``'s), its losses and last parameters; the float32 loss and
+    gradients of the TP_F32_LAYERS-layer cut. The initial
     and last parameters and the cut's gradients go to ``path``
     (``torch.save``; the ranks map it and cut their shards); the card is
     freed on return."""
@@ -7145,7 +7197,9 @@ def tp_reference(cfg, sizes: Sizes, device, path: str) -> dict:
     batch = make_dummy_batch(cfg, sizes.lm_train_batch, sizes.lm_train_seq,
                              generator=torch.Generator(device=device).manual_seed(1))
     opt = adamw(warmup_cosine(LM_LR, LM_WARMUP, TP_TRAIN_STEPS), fused=True)
-    run = lm_train_run(model, opt, params, batch, TP_TRAIN_STEPS, device)
+    train_cfg = train_cfg or cfg
+    run = lm_train_run(build_model(train_cfg, inner="cuda", remat="layer"), opt,
+                       tp_cut(params, train_cfg.n_layers), batch, TP_TRAIN_STEPS, device)
     final = tree_map(lambda t: t.detach().cpu(), run["params"])
     losses, step_ms = run["losses"], run["ms"]
     del run
@@ -7166,10 +7220,10 @@ def tp_reference(cfg, sizes: Sizes, device, path: str) -> dict:
     return out
 
 
-def tp_dryrun(cfg, sizes: Sizes, ref: dict) -> dict:
+def tp_dryrun(cfg, sizes: Sizes, ref: dict, fsdp: bool = False, train_cfg=None) -> dict:
     """(c) the dry run of the ranks' steps over ``meta`` tensors
-    (``build_cell(mesh=)``, ``reckon``): (b)'s training step at
-    TP_TRAIN_MESH (train_4k at (b)'s batch), and (a)'s longest prefill
+    (``build_cell(mesh=)``, ``reckon``): (b)'s training step of
+    ``train_cfg`` at TP_TRAIN_MESH (train_4k at (b)'s batch), and (a)'s longest prefill
     and a decode step at TP_SERVE_MESH: simulated peak, collective counts,
     bytes and the roofline's collective term."""
     longest = max((c for c in ref["calls"] if c["kind"] == "prefill"),
@@ -7181,20 +7235,43 @@ def tp_dryrun(cfg, sizes: Sizes, ref: dict) -> dict:
     out = {}
     for name, (shape, mesh, batch, seq) in cells.items():
         t0 = time.perf_counter()
-        cell = build_cell(cfg.name, shape, cfg=cfg, batch=batch, seq_len=seq, mesh=mesh)
+        cell = build_cell(cfg.name, shape, cfg=(train_cfg or cfg) if name == "train" else cfg,
+                          batch=batch, seq_len=seq, mesh=mesh, fsdp=fsdp and name == "train")
         res, cost = reckon(cell.step, *cell.args, **cell.kwargs)
         del res
         roof = roofline_of(cost, cfg.name, shape, cell.cfg, cell.shp, cell.min_bytes,
                            mesh=mesh)
         out[name] = {"shape": shape, "mesh": mesh, "batch": batch, "seq": seq,
                      "persistent_bytes": cell.persistent_bytes, "peak": cost.peak,
+                     "persistent": dict(cell.persistent), "launches": dict(cost.launches),
                      "collective_counts": cost.collective_counts,
                      "collective_bytes": cost.collective_bytes,
                      "t_collective_s": roof.t_collective, "bound_s": roof.bound_time,
                      "dominant": roof.dominant, "dryrun_s": time.perf_counter() - t0}
         del cell
-    print("[tp] dry run " + json.dumps(out))
+    print(f"[tp] dry run of {cfg.name} " + json.dumps(out))
     return out
+
+
+def rank_busy(fn, device) -> dict:
+    """One call of ``fn`` under a CUDA-only profiler on this rank: its
+    synchronised wall ms, the device ms its kernels, copies and memsets
+    took (``busy_ms``) and the idle share between them (1 - busy / wall);
+    the card's busy time is the ranks' sum, since they time-slice it.
+    Measurement only (None off the card)."""
+    if device.type != "cuda":
+        fn()
+        return {"busy_ms": None, "wall_ms": None, "idle_share": None}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof)
+    return {"busy_ms": busy, "wall_ms": wall, "idle_share": 1.0 - busy / wall}
 
 
 def _rank_device() -> torch.device:
@@ -7205,6 +7282,27 @@ def _rank_device() -> torch.device:
 def _leaf_paths(tree) -> list:
     """Each leaf's path, in ``tree_leaves`` order."""
     return [path for path, _ in _flatten_with_paths(tree)]
+
+
+def _spec_axes(spec) -> list:
+    """The mesh axes a spec names."""
+    return sorted({a for e in spec if e is not None
+                   for a in (e if isinstance(e, tuple) else (e,))})
+
+
+def _shard_numel(shape, spec, mesh_shape: dict) -> int:
+    """The elements of a leaf of ``shape`` that ``spec`` gives one rank."""
+    n = 1
+    for size, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        for a in (() if entry is None else entry if isinstance(entry, tuple) else (entry,)):
+            size //= mesh_shape[a]
+        n *= size
+    return n
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
 
 
 def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
@@ -7222,12 +7320,28 @@ def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
     max_seq = spec["max_seq"]
     serve = dataclasses.replace(sizes, lm_new_tokens=TP_NEW_TOKENS)
     out = {"coords": mesh.coords, "load_s": time.perf_counter() - t0}
+    # the engine's cache, as its waves make it, against cache_spec's shard
+    full = model.init_cache(sizes.lm_slots, max_seq, dtype=torch.float32, device="meta")
+    out["cache_bytes_want"] = 4 * sum(
+        _shard_numel(t.shape, rules.cache_spec(path, tuple(t.shape),
+                                               global_batch=sizes.lm_slots), mesh.shape)
+        for path, t in _flatten_with_paths(full) if isinstance(t, torch.Tensor))
     with use_rules(rules):
+        cache = model.init_cache(sizes.lm_slots, max_seq, dtype=torch.float32, device=device)
+        out["cache_bytes"] = _tensor_bytes(cache)
+        del cache
         warm = ServingEngine(model, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
                              device=device)
-        warm.submit(Request(rid=0, prompt=lm_requests(serve, cfg.vocab_size)[0].prompt,
-                            max_new_tokens=2))
+        first = lm_requests(serve, cfg.vocab_size)[0].prompt
+        warm.submit(Request(rid=0, prompt=first, max_new_tokens=2))
         warm.run()
+        # the same request again, profiled: the card's busy share of a
+        # prefill and a decode step on this rank
+        again = ServingEngine(model, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
+                              device=device)
+        again.submit(Request(rid=0, prompt=first, max_new_tokens=2))
+        out["profile"] = rank_busy(again.run, device)
+        del again
         rec = TPRecordingLM(model, device)
         engine = ServingEngine(rec, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
                                device=device)
@@ -7354,6 +7468,16 @@ def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
     out = {"coords": mesh.coords, "steps": [], "load_s": time.perf_counter() - t0}
     with use_rules(rules):
         state = opt.init(params)
+        # the rank's parameter and Adam-state bytes, from its tensors,
+        # against its rules' shards (float32, both moments)
+        specs = [(rules.param_spec(p, tuple(t.shape)), tuple(t.shape))
+                 for p, t in _flatten_with_paths(data["init"])]
+        want = 4 * sum(_shard_numel(shape, spec, mesh.shape) for spec, shape in specs)
+        fractions = [t.numel() / math.prod(shape)
+                     for t, (_, shape) in zip(tree_leaves(params), specs) if len(shape) >= 2]
+        out["bytes"] = {"params": _tensor_bytes(params), "adam": _tensor_bytes(state.m)
+                        + _tensor_bytes(state.v), "params_want": want, "adam_want": 2 * want,
+                        "fraction_2d": [min(fractions), max(fractions)]}
         for i in range(TP_TRAIN_STEPS):
             free_card(device)
             before = torch.cuda.memory_allocated(device) if on_card else 0
@@ -7364,7 +7488,13 @@ def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
             sync(device)
             t0 = time.perf_counter()
             with logging_collectives(log):
-                params, state, loss = step(params, state, batch)
+                if i == TP_TRAIN_STEPS - 1:  # the last step profiled
+                    done = []
+                    out["profile"] = rank_busy(
+                        lambda: done.append(step(params, state, batch)), device)
+                    (params, state, loss), = done
+                else:
+                    params, state, loss = step(params, state, batch)
             loss = float(loss)
             sync(device)
             out["steps"].append({
@@ -7378,38 +7508,53 @@ def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
         out["delta_parts"] = dict(zip(paths, _delta_parts(tree_leaves(params), init, final)))
         out["digests"] = {p: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
                           for p, t in zip(paths, tree_leaves(params))}
-        out["replicated"] = {p: all(e is None for e in rules.param_spec(p, tuple(t.shape)))
-                             for p, t in zip(paths, final)}
+        out["spec_axes"] = {p: _spec_axes(rules.param_spec(p, tuple(t.shape)))
+                            for p, t in zip(paths, final)}
         del state
         params = tree_map(lambda t: t.cpu(), params)  # the card holds one run at a time
         free_card(device)
-    # the planted control: the same steps with each data rank on its own rows
+    # the planted control: the same steps with each data rank on its own
+    # rows: without FSDP the gradients' mean over data skipped; under FSDP
+    # the reduce-scatter's sum over data, each rank keeping its own
+    # gradient's slice (times the data size, which the step divides out)
     t0 = time.perf_counter()
-    ctrl_rules = ShardingRules(_data_skipped_mesh(mesh), cfg)
+    ctrl_rules = (ShardingRules(mesh, cfg, fsdp=True) if rules.fsdp
+                  else ShardingRules(_data_skipped_mesh(mesh), cfg))
     ctrl = tree_map(lambda t: t.to(device), shard_tree(data["init"], ctrl_rules, mesh.coords))
-    with use_rules(ctrl_rules):
-        state = opt.init(ctrl)
-        for _ in range(TP_TRAIN_STEPS):
-            ctrl, state, _ = step(ctrl, state, batch)
+    scatter = fsdp_mod._scatter_grad
+
+    def own_slice(g, dim, axis, r):
+        size = g.shape[dim] // r.mesh.shape[axis]
+        return g.narrow(dim, r.mesh.coords[axis] * size, size) * r.mesh.shape[axis]
+
+    fsdp_mod._scatter_grad = own_slice
+    try:
+        with use_rules(ctrl_rules):
+            state = opt.init(ctrl)
+            for _ in range(TP_TRAIN_STEPS):
+                ctrl, state, _ = step(ctrl, state, batch)
+    finally:
+        fsdp_mod._scatter_grad = scatter
     out["control_parts"] = dict(zip(paths, _delta_parts(tree_leaves(ctrl), init, final)))
     out["control_s"] = time.perf_counter() - t0
     del ctrl, state, init, final
     free_card(device)
     with use_rules(rules):
         cut_cfg = dataclasses.replace(cfg, n_layers=TP_F32_LAYERS)
-        cut_rules = ShardingRules(mesh, cut_cfg)
+        cut_rules = ShardingRules(mesh, cut_cfg, fsdp=rules.fsdp)
         cut = tree_map(lambda t: t.to(device), shard_tree(
             tp_cut(data["init"], TP_F32_LAYERS), cut_rules, mesh.coords))
         with use_rules(cut_rules):
+            cut_model = build_model(cut_cfg, inner="cuda")
             leaves = [p.detach().requires_grad_(True) for p in tree_leaves(cut)]
-            loss32, _ = build_model(cut_cfg, inner="cuda").loss(tree_unflatten(cut, leaves),
-                                                                batch)
-            grads = torch.autograd.grad(loss32, leaves)
-            *grads, loss32 = mean_over_data([*grads, loss32.detach()])
+            loss32, _ = cut_model.loss(tree_unflatten(cut, leaves), batch)
+            grads = fsdp_mod.data_mean(cut_model, cut,
+                                       list(torch.autograd.grad(loss32, leaves)))
+            loss32 = mean_over_data([loss32.detach()])[0]
         want = tree_leaves(shard_tree(data["grads32"], cut_rules, mesh.coords))
         out["loss32"] = float(loss32)
         out["grad32_parts"] = dict(zip(_leaf_paths(cut), _leaf_parts(grads, want)))
-        del cut, leaves, grads, want, loss32, batch, model, step, opt
+        del cut, leaves, grads, want, loss32, batch, model, step, opt, cut_model
     if rank != 0:
         del params
     free_card(device)
@@ -7427,16 +7572,19 @@ def tp_warm(rank: int) -> int:
 
 
 def tp_rank(rank: int, spec: dict) -> dict:
-    """What each phase-26 rank process runs: its mesh and rules, then (a)
+    """What each phase-26 or phase-27 rank process runs: its mesh and rules
+    (FSDP in phase 27's training), then (a)
     or (b) (``spec["part"]``) on the parameters that ``spec["file"]``
     holds (mapped, each rank cutting its shards)."""
     device = _rank_device()
     started_s = time.perf_counter() - spec["t0"]  # the call's file read, imports included
     cfg = spec["cfg"]
     mesh = make_mesh(*spec["mesh"])
-    rules = ShardingRules(mesh, cfg)
+    rules = ShardingRules(mesh, cfg, fsdp=spec["fsdp"] and spec["part"] == "train")
     check_tp(cfg, rules)
     data = torch.load(spec["file"], mmap=True, weights_only=True)
+    if spec["part"] == "train":  # (b)'s layers: the first cfg.n_layers of (a)'s
+        data["init"] = tp_cut(data["init"], cfg.n_layers)
     part = tp_serve_rank if spec["part"] == "serve" else tp_train_rank
     out = part(rank, spec, mesh, rules, data, device)
     out["device"] = device.type
@@ -7447,70 +7595,103 @@ def tp_rank(rank: int, spec: dict) -> dict:
 
 def _norm_rel(ranks: list, key: str) -> dict:
     """Per leaf, the gathered leaf's norm-relative difference from the
-    squared norms each rank returned: a sharded leaf's parts summed over
-    one data rank's model ranks, a replicated leaf's taken once."""
-    row = [r for r in ranks if r["coords"]["data"] == 0]
+    squared norms each rank returned: a leaf's parts summed over the ranks
+    that hold its distinct shards (index 0 on every axis its spec does not
+    name), a replicated leaf's taken once."""
     out = {}
-    for path in row[0][key]:
-        parts = row[:1] if row[0]["replicated"][path] else row
+    for path in ranks[0][key]:
+        axes = ranks[0]["spec_axes"][path]
+        parts = [r for r in ranks if all(i == 0 for a, i in r["coords"].items()
+                                         if a not in axes)]
         diff = sum(r[key][path][0] for r in parts)
         ref = sum(r[key][path][1] for r in parts)
         out[path] = math.sqrt(diff / ref) if ref else math.sqrt(diff)
     return out
 
 
-def tp_phase(sizes: Sizes, device) -> dict:
-    """Phase 26: llama3.2-1b served at (data 1, model 4) and trained at
-    (data 2, model 2) on 4 rank processes sharing the card (gloo, one
-    ``RankPool``), each against the single-device program run first in
-    the parent; the dry run of the ranks' steps held against them."""
+def tp_phase(sizes: Sizes, device, case: dict, pool, warm) -> dict:
+    """Phase 26 (llama3.2-1b) or 27 (starcoder2-3b, FSDP in training),
+    ``case``: served at (data 1, model 4) and trained at (data 2, model 2)
+    on the 4 rank processes of ``pool`` sharing the card (gloo), each
+    against the single-device program run first in the parent while the
+    ranks warm (``warm``, a future); the dry run of the ranks' steps held
+    against them."""
     t_phase = time.perf_counter()
-    cfg = tp_cfg(sizes)
-    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
-    # the rank processes start, import this script and take their CUDA
-    # contexts (``tp_warm``, from a thread) while the single-device program
-    # runs
-    pool = RankPool(4, device=device.type)
+    cfg, tag = case["cfg"], case["tag"]
+    work = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
     try:
-        spawn_s = time.perf_counter() - t_phase
-        with concurrent.futures.ThreadPoolExecutor(1) as warming:
-            warm = warming.submit(pool.run, tp_warm, 4)
-            path = os.path.join(work, "params.pt")
-            ref = tp_reference(cfg, sizes, device, path)
-            warm.result()
-        print(f"[tp] {cfg.name} on one device: {ref['n_params']:,} parameters; "
+        path = os.path.join(work, "params.pt")
+        ref = tp_reference(cfg, sizes, device, path, case["train_cfg"])
+        warm.result()
+        print(f"[{tag}] {cfg.name} on one device: {ref['n_params']:,} parameters; "
               f"{len(ref['calls'])} engine calls, prefill "
               f"{[round(c['ms'], 1) for c in ref['calls'] if c['kind'] == 'prefill']} ms; "
               f"training losses {ref['losses']}; {ref['reference_s']:.1f} s")
-        dry = tp_dryrun(cfg, sizes, ref)
-        base = {"cfg": cfg, "sizes": sizes, "file": path, "max_seq": ref["max_seq"]}
+        dry = tp_dryrun(cfg, sizes, ref, fsdp=case["fsdp"], train_cfg=case["train_cfg"])
+        base = {"cfg": cfg, "sizes": sizes, "file": path, "max_seq": ref["max_seq"],
+                "fsdp": case["fsdp"]}
         serve = pool.run(tp_rank, 4, ({**base, "part": "serve", "mesh": TP_SERVE_MESH,
                                        "ref_calls": ref["calls"], "t0": time.perf_counter()},))
-        train = pool.run(tp_rank, 4, ({**base, "part": "train", "mesh": TP_TRAIN_MESH,
-                                       "t0": time.perf_counter()},))
+        train = pool.run(tp_rank, 4, ({**base, "cfg": case["train_cfg"], "part": "train",
+                                       "mesh": TP_TRAIN_MESH, "t0": time.perf_counter()},))
     finally:
-        pool.close()
         shutil.rmtree(work, ignore_errors=True)
-    out = {"arch": cfg.name, "n_params": ref["n_params"], "spawn_s": spawn_s,
-           "reference_s": ref["reference_s"], "dryrun": dry,
-           "serve": tp_serve_gates(cfg, sizes, serve, ref, dry),
-           "train": tp_train_gates(train, ref, dry)}
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "train_layers": case["train_cfg"].n_layers, "n_params": ref["n_params"],
+           "fsdp": case["fsdp"], "reference_s": ref["reference_s"], "dryrun": dry,
+           "serve": tp_serve_gates(cfg, sizes, serve, ref, dry, tag),
+           "train": tp_train_gates(train, ref, dry, tag)}
     out["phase_s"] = time.perf_counter() - t_phase
-    print("[tp] " + json.dumps({k: v for k, v in out.items() if k not in ("serve", "train")}))
+    print(f"[{tag}] " + json.dumps({k: v for k, v in out.items()
+                                    if k not in ("serve", "train")}))
     return out
 
 
-def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict) -> dict:
+def tp_phases(sizes: Sizes, device, phases: tuple) -> dict:
+    """Phases 26 and 27 (those ``phases`` names) on one ``RankPool`` of 4
+    processes: they start, import this script and take their CUDA contexts
+    (``tp_warm``, from a thread) while phase 26's single-device program
+    runs. Returns each phase's result and seconds (the spawn in the
+    first's)."""
+    out = {}
+    t0 = time.perf_counter()
+    pool = RankPool(4, device=device.type)
+    try:
+        spawn_s = time.perf_counter() - t0
+        with concurrent.futures.ThreadPoolExecutor(1) as warming:
+            warm = warming.submit(pool.run, tp_warm, 4)
+            for phase in phases:
+                res = tp_phase(sizes, device, tp_case(sizes, phase), pool, warm)
+                res["phase_s"] = time.perf_counter() - t0
+                res["spawn_s"] = spawn_s if not out else 0.0
+                out[phase] = res
+                t0 = time.perf_counter()
+    finally:
+        pool.close()
+    return out
+
+
+def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict,
+                   tag: str = "tp") -> dict:
     """(a)'s gates over the four ranks' results."""
     waves = 1 + max(c["wave"] for c in ranks[0]["calls"])
     per_wave = flash_layers(cfg)  # every rank's wave on the card, as main() runs it
+    if dry["prefill"]["launches"].get("flash_attention") != per_wave:
+        raise AssertionError(f"the dry run reckons {dry['prefill']['launches']} a prefill, "
+                             f"expected {per_wave} flash launches")
     m = TP_SERVE_MESH[1]
+    # the rank's whole query heads and the KV heads they read
+    hl = cfg.n_heads // m
+    heads = [(hl, max(1, hl // (cfg.n_heads // cfg.n_kv_heads)), cfg.resolved_head_dim)]
     for r in ranks:
         if r["device"] != "cuda":
             raise AssertionError(f"rank {r['coords']} ran on {r['device']}, not the card")
         if r["digest"] != ranks[0]["digest"]:
             raise AssertionError(f"rank {r['coords']}: logits or tokens not bitwise those "
                                  "of rank 0")
+        if r["cache_bytes"] != r["cache_bytes_want"]:
+            raise AssertionError(f"rank {r['coords']}: its cache holds {r['cache_bytes']} "
+                                 f"bytes, cache_spec's shard {r['cache_bytes_want']}")
         if r["held"] == 0 or r["max_logit_diff"] > TOL:
             raise AssertionError(f"rank {r['coords']}: logits within {r['max_logit_diff']} "
                                  f"of the single-device program's over {r['held']} calls "
@@ -7523,7 +7704,6 @@ def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict) -> dict
         if r["launches"]["flash_attention"] != per_wave * waves \
                 or sum(r["launches"].values()) != r["launches"]["flash_attention"]:
             raise AssertionError(f"rank {r['coords']}: launches {r['launches']}")
-        heads = [(cfg.n_heads // m, cfg.n_kv_heads // m, cfg.resolved_head_dim)]
         if r["flash_heads"] != heads:
             raise AssertionError(f"rank {r['coords']}: flash at {r['flash_heads']}, "
                                  f"expected {heads}")
@@ -7553,14 +7733,16 @@ def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict) -> dict
            "wire_ms": {k: c["wire_s"] * 1e3 for k, c in one.items()},
            "collective_counts": {k: c["counts"] for k, c in one.items()},
            "collective_bytes": {k: c["bytes"] for k, c in one.items()},
+           "cache_bytes": ranks[0]["cache_bytes"],
+           "profile": [r["profile"] for r in ranks],
            "flash": ranks[0].get("flash"), "wall_s": ranks[0]["wall_s"],
            "rank_s": [r["rank_s"] for r in ranks], "started_s": [r["started_s"] for r in ranks],
            "load_s": [r["load_s"] for r in ranks]}
-    print("[tp] (a) " + json.dumps({k: v for k, v in out.items() if k != "flash"}))
+    print(f"[{tag}] (a) " + json.dumps({k: v for k, v in out.items() if k != "flash"}))
     return out
 
 
-def tp_train_gates(ranks: list, ref: dict, dry: dict) -> dict:
+def tp_train_gates(ranks: list, ref: dict, dry: dict, tag: str = "tp") -> dict:
     """(b)'s and (c)'s gates over the four ranks' results."""
     losses = [s["loss"] for s in ranks[0]["steps"]]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
@@ -7571,7 +7753,7 @@ def tp_train_gates(ranks: list, ref: dict, dry: dict) -> dict:
     # the changes' readings first, printed whether or not the gates hold
     delta_rel = _norm_rel(ranks, "delta_parts")
     control_rel = _norm_rel(ranks, "control_parts")
-    print("[tp] (b) change readings " + json.dumps({
+    print(f"[{tag}] (b) change readings " + json.dumps({
         "limit": TP_DELTA_RTOL, "max": max(delta_rel.values()),
         "control_max": max(control_rel.values()), "control_min": min(control_rel.values()),
         "by_leaf": {p: [delta_rel[p], control_rel[p]] for p in delta_rel}}))
@@ -7581,13 +7763,20 @@ def tp_train_gates(ranks: list, ref: dict, dry: dict) -> dict:
         if [s["loss"] for s in r["steps"]] != losses:
             raise AssertionError(f"rank {r['coords']}: losses differ from rank 0's")
         twin = ranks[r["coords"]["model"]]  # the data-0 rank of its model column
-        if r["digests"] != twin["digests"]:
-            raise AssertionError(f"rank {r['coords']}: not bitwise its data replica")
         row0 = ranks[r["coords"]["data"] * model]
-        for path, rep in r["replicated"].items():
-            if rep and r["digests"][path] != row0["digests"][path]:
-                raise AssertionError(f"rank {r['coords']}: replicated leaf {path} differs "
-                                     "within its model group")
+        for path, axes in r["spec_axes"].items():
+            if "data" not in axes and r["digests"][path] != twin["digests"][path]:
+                raise AssertionError(f"rank {r['coords']}: {path} not bitwise its data "
+                                     "replica's")
+            if "model" not in axes and r["digests"][path] != row0["digests"][path]:
+                raise AssertionError(f"rank {r['coords']}: {path}, replicated over model, "
+                                     "differs within its model group")
+        b = r["bytes"]
+        if b["params"] != b["params_want"] or b["adam"] != b["adam_want"] \
+                or b["params"] != dry["train"]["persistent"]["params"]:
+            raise AssertionError(f"rank {r['coords']}: parameter and Adam bytes {b}, the "
+                                 f"rules' shards and the dry run's "
+                                 f"{dry['train']['persistent']['params']}")
         for s in r["steps"]:
             if s["launches"]["fused_adam"] != 1 or sum(s["launches"].values()) != 1:
                 raise AssertionError(f"rank {r['coords']}: a step launched {s['launches']}")
@@ -7626,25 +7815,31 @@ def tp_train_gates(ranks: list, ref: dict, dry: dict) -> dict:
            "collective_counts": steps[0]["collective_counts"],
            "collective_bytes": steps[0]["collective_bytes"],
            "peaks": [r["steps"][1]["peak"] for r in ranks],
+           "bytes": ranks[0]["bytes"],
+           "profile": [r["profile"] for r in ranks],
            "simulated_peak": dry["train"]["peak"],
            "launches_all_ranks": {k: sum(s["launches"][k] for r in ranks for s in r["steps"])
                                   for k in steps[0]["launches"]},
            "adam": ranks[0].get("adam"), "rank_s": [r["rank_s"] for r in ranks],
            "started_s": [r["started_s"] for r in ranks], "load_s": [r["load_s"] for r in ranks]}
-    print("[tp] (b) " + json.dumps({k: v for k, v in out.items() if k != "adam"}))
+    print(f"[{tag}] (b) " + json.dumps({k: v for k, v in out.items() if k != "adam"}))
     return out
 
 
-def tp_entries(entries: list, p26: dict, alone: bool) -> None:
-    """Phase 26 beside its kernels' entries: flash's launches on the four
-    serving ranks (``tp_serving``) and Adam's on the four training ranks
-    (``tp_training``), the rank-0 flash call at its head split and the
-    rank-0 Adam launch over its shards (ms, plain, SDPA or AdamW, bound).
-    Alone (``--phases 26``) the entries take their top-level numbers from
-    these."""
+def tp_entries(entries: list, p26: dict, alone: bool, case: dict) -> None:
+    """Phase 26 or 27 (``case``) beside its kernels' entries: flash's
+    launches on the four serving ranks (``tp_serving`` or
+    ``fsdp_serving``) and Adam's on the four training ranks
+    (``tp_training`` or ``fsdp_training``), the rank-0 flash call at its
+    head split and the rank-0 Adam launch over its shards (ms, plain, SDPA
+    or AdamW, bound), under the entry's ``tensor_parallel`` or ``fsdp``
+    key. Alone (``--phases 26`` or ``27``) the entries take their
+    top-level numbers from these."""
     by_name = {e["name"]: e for e in entries}
-    for path, launched in (("tp_serving", p26["serve"]["launches_all_ranks"]),
-                           ("tp_training", p26["train"]["launches_all_ranks"])):
+    serving, training = case["paths"]
+    key = case["key"]
+    for path, launched in ((serving, p26["serve"]["launches_all_ranks"]),
+                           (training, p26["train"]["launches_all_ranks"])):
         for e in entries:
             e["launches_by_path"][path] = launched[e["name"]]
             e["launches"] += launched[e["name"]]
@@ -7653,40 +7848,45 @@ def tp_entries(entries: list, p26: dict, alone: bool) -> None:
     flash = by_name["flash_attention"]
     if f is not None:
         flash["max_abs_err"] = max(flash["max_abs_err"], f["max_abs_err"])
-        flash["tensor_parallel"] = {
+        flash[key] = {
             **{k: f[k] for k in keep}, "library_enable_gqa_ms": f["library_enable_gqa_ms"],
-            "shape": f"rank 0's layer-0 call of the longest wave at (data 1, model 4): B "
-                     f"{f['B']}, H {f['H']}, Hkv {f['Hkv']}, T {f['Tq']}, D {f['D']}, "
-                     "causal, float32; 4 ranks share the card"}
+            "shape": f"{p26['arch']}: rank 0's layer-0 call of the longest wave at (data 1, "
+                     f"model 4): B {f['B']}, H {f['H']}, Hkv {f['Hkv']}, T {f['Tq']}, D "
+                     f"{f['D']}, causal, float32; 4 ranks share the card"}
     a = p26["train"]["adam"]
     adam = by_name["fused_adam"]
     if a is not None:
         adam["max_abs_err"] = max(adam["max_abs_err"], a["max_abs_err"])
-        adam["tensor_parallel"] = {
+        adam[key] = {
             **{k: a[k] for k in keep}, "library": a["library"], "params": a["params"],
             "leaves": a["leaves"],
-            "shape": f"one launch over rank 0's {a['leaves']} shards ({a['params']:,} "
-                     "values) at (data 2, model 2); CUDA events"}
+            "shape": f"{p26['arch']}: one launch over rank 0's {a['leaves']} shards "
+                     f"({a['params']:,} values) at (data 2, model 2)"
+                     + (", FSDP" if p26["fsdp"] else "") + "; CUDA events"}
     if alone:
         for e in (flash, adam):
-            if "tensor_parallel" in e:
+            if key in e:
                 e.update({"route": "cuda", "source": SOURCES[e["name"]][0],
                           "replaces": SOURCES[e["name"]][1]})
-                e.update({k: e["tensor_parallel"][k] for k in keep})
+                e.update({k: e[key][k] for k in keep})
 
 
-def print_tp_summary(m: dict, card: str) -> None:
+def print_tp_summary(m: dict, card: str, phase: str = "26") -> None:
     s, t, dry = m["serve"], m["train"], m["dryrun"]
-    print(f"[summary] phase 26, tensor parallelism on 4 ranks sharing the card over gloo "
+    print(f"[summary] phase {phase}, tensor parallelism"
+          + (" and FSDP" if m["fsdp"] else "") + " on 4 ranks sharing the card over gloo "
           f"({card}; the wire is gloo's loopback, not NVLink):")
-    print(f"[summary]   (a) {m['arch']} served at (data 1, model 4): prefill "
+    print(f"[summary]   (a) {m['arch']} ({m['n_layers']} layers) served at (data 1, model "
+          f"4), its cache {s['cache_bytes']} bytes a rank: prefill "
           f"{[round(x, 1) for x in s['prefill_ms']]} ms a wave (one device "
           f"{[round(x, 1) for x in s['ref_prefill_ms']]}), decode "
           f"{s['decode_step_ms_median']:.1f} ms a step (one device "
           f"{s['ref_decode_step_ms_median']:.1f}); wire {s['wire_ms']} ms a call; "
           f"collectives {s['collective_counts']}, bytes {s['collective_bytes']}; logits "
           f"within {s['max_logit_diff']:.3g}; flash at {s['flash_heads']}")
-    print(f"[summary]   (b) trained at (data 2, model 2): steps "
+    print(f"[summary]   (b) {m['train_layers']} layers trained at (data 2, model 2)"
+          + (" under FSDP" if m["fsdp"] else "") + f", {t['bytes']['params']} parameter "
+          f"and {t['bytes']['adam']} Adam bytes a rank: steps "
           f"{[round(x, 1) for x in t['step_ms']]} ms (one device "
           f"{[round(x, 1) for x in t['ref_step_ms']]}), wire "
           f"{[round(x, 1) for x in t['wire_ms']]} ms; losses {t['losses']} (one device "
@@ -7694,18 +7894,27 @@ def print_tp_summary(m: dict, card: str) -> None:
           f"{t['delta_rtol']}; the planted control {t['control_max_rel_diff']:.3g}), float32 "
           f"gradients within {t['grad32_max_rel_diff']:.3g}; peaks {t['peaks']} bytes, "
           f"simulated {t['simulated_peak']}")
+    for part, x in (("(a) a profiled prefill and decode", s), ("(b) the last step", t)):
+        prof = x["profile"]
+        if prof[0]["busy_ms"] is not None:
+            wall = max(p["wall_ms"] for p in prof)
+            busy = sum(p["busy_ms"] for p in prof)
+            print(f"[summary]   {part}: the ranks' device busy "
+                  f"{[round(p['busy_ms'], 1) for p in prof]} ms of {wall:.1f} ms; the card "
+                  f"idle {1 - busy / wall:.1%}")
     print(f"[summary]   (c) dry run: collective term "
           f"{ {k: v['t_collective_s'] for k, v in dry.items()} } s over NVLink; "
           f"{m['phase_s']:.1f} s")
 
 
 def run(sizes: Sizes, device, phases: str = "all") -> dict:
-    """Phases 2 to 25 at ``sizes`` on ``device`` (phase 20, 21, 22, 23, 24
-    or 25 alone where ``phases`` names it: the kernels line then holds that
-    phase's launches and numbers alone); returns the kernels line and
-    the details. Phases 20 to 25 each start after the phases before them
-    have returned, so that nothing those held stays on the card."""
-    if phases in ("20", "21", "22", "23", "24", "25", "26"):
+    """Phases 2 to 27 at ``sizes`` on ``device`` (phase 20, 21, 22, 23, 24,
+    25, 26 or 27 alone where ``phases`` names it: the kernels line then
+    holds that phase's launches and numbers alone); returns the kernels
+    line and the details. Phases 20 to 27 each start after the phases
+    before them have returned, so that nothing those held stays on the
+    card."""
+    if phases in ("20", "21", "22", "23", "24", "25", "26", "27"):
         result = {"phase_s": {}, "kernels": [
             {"name": name, "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0}
             for name in KERNELS]}
@@ -7759,12 +7968,13 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
         result["phase_s"]["25"] = time.perf_counter() - t0
         dryrun_entries(result["kernels"], dry)
         result["dryrun"] = dry
-    if phases in ("all", "26"):
-        t0 = time.perf_counter()
-        tp = tp_phase(sizes, device)
-        result["phase_s"]["26"] = time.perf_counter() - t0
-        tp_entries(result["kernels"], tp, alone=phases == "26")
-        result["tensor_parallel"] = tp
+    wanted = tuple(p for p in ("26", "27") if phases in ("all", p))
+    if wanted:
+        for phase, res in tp_phases(sizes, device, wanted).items():
+            case = tp_case(sizes, phase)
+            result["phase_s"][phase] = res["phase_s"]
+            tp_entries(result["kernels"], res, alone=phases == phase, case=case)
+            result[case["key"]] = res
     return result
 
 
@@ -8217,10 +8427,11 @@ DIST_LIBRARIES = ("bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "bsr_attentio
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", choices=("all", "20", "21", "22", "23", "24", "25", "26"),
+    ap.add_argument("--phases",
+                    choices=("all", "20", "21", "22", "23", "24", "25", "26", "27"),
                     default="all",
-                    help="every phase (the default), or phase 20, 21, 22, 23, 24, 25 or 26 "
-                         "alone after building the libraries it runs")
+                    help="every phase (the default), or phase 20, 21, 22, 23, 24, 25, 26 or "
+                         "27 alone after building the libraries it runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -8259,6 +8470,7 @@ def main(argv=None) -> int:
         print_streaming_summary(result["streaming"], card)
         print_dryrun_summary(result["dryrun"], card)
         print_tp_summary(result["tensor_parallel"], card)
+        print_tp_summary(result["fsdp"], card, "27")
     elif args.phases == "20":
         print_moe_summary(result["moe"], card)
     elif args.phases == "21":
@@ -8271,9 +8483,11 @@ def main(argv=None) -> int:
         print_dryrun_summary(result["dryrun"], card)
     elif args.phases == "26":
         print_tp_summary(result["tensor_parallel"], card)
+    elif args.phases == "27":
+        print_tp_summary(result["fsdp"], card, "27")
     else:
         print_streaming_summary(result["streaming"], card)
-    print(f"[done] phases {'2-26' if args.phases == 'all' else args.phases} in "
+    print(f"[done] phases {'2-27' if args.phases == 'all' else args.phases} in "
           f"{time.perf_counter() - t_all:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -78,8 +78,8 @@ class ShardingRules:
 
     ``fsdp=True`` additionally shards every parameter's largest free dim
     over the data axes (ZeRO-3 semantics: params all-gathered per use,
-    gradients reduce-scattered). The port has no runtime for it yet
-    (``tensor_parallel.check_tp`` refuses it), but its specs are JAX's.
+    gradients reduce-scattered; the port's runtime is
+    ``distributed/fsdp.py``).
     """
 
     def __init__(self, mesh, cfg=None, batch_axes=("pod", "data"),

@@ -14,12 +14,26 @@ Megatron-style, on the rules of ``distributed/sharding.py``:
 - ``gather_from_model``: all-gather on the last axis forward, the rank's
   slice backward: the logits that ``forward``, ``prefill`` and
   ``decode_step`` return, whole on every rank.
+- ``gather_model_cols``: all-gather on the last axis forward,
+  reduce-scatter backward: the query, key or value columns of heads
+  that the ``model`` axis splits below one head, gathered before RoPE
+  and the softmax, which need a head's whole ``Dh``; each rank then uses
+  them differently, so their gradient is summed over ``model``.
 - ``mean_over_data``: each gradient leaf all-reduced over ``data`` and
   divided by its size, between ``torch.autograd.grad`` and
   ``opt.update``. A data rank's loss (``sharded_ce``) is its labels' sum
   over the whole batch's label count (all-reduced over ``data``) times
   the data size, so the mean over the data ranks is the whole batch's
   mean, as the one-device program takes it, however the labels fall.
+
+A dimension that the rules leave replicated (``d_ff``, the heads or the
+padded vocabulary not divisible by ``model``) runs replicated: its
+product takes no ``copy_to_model`` and no ``reduce_from_model``
+(``model_sharded``). A replicated leaf used inside a sharded product
+(the GELU MLP's ``b_in``, a replicated ``wk``/``wv`` beside sharded
+heads) passes ``copy_to_model`` itself, so its gradient comes back whole
+and equal on every model rank. FSDP (``distributed/fsdp.py``) adds the
+all-gather over ``data`` and its reduce-scatter.
 
 Every collective goes through ``_communicate``: it adds the operand's
 bytes and kind to every active ``CollectiveLog`` (the counterpart of
@@ -33,9 +47,10 @@ sum, and gloo's bfloat16 support is never relied on. The transport is
 gloo (``launch/mesh.py``), whose all-gather takes host tensors: a CUDA
 operand is staged through the host.
 
-``check_tp`` refuses every configuration outside this slice by
-``registry.not_ported(..., DIST_ITEM)``; nothing falls back to the
-unsharded program.
+``check_tp`` refuses the families that have no runtime under the rules
+yet (MoE and 2D expert parallelism, MLA, SSM, xLSTM, the
+encoder-decoder) by ``registry.not_ported(..., DIST_ITEM)``; nothing
+falls back to the unsharded program.
 """
 from __future__ import annotations
 
@@ -55,9 +70,13 @@ from repro_torch.runtime.checkpoint import _flatten_with_paths, _unflatten
 def link_bytes(kind: str, nbytes: float, n: int) -> float:
     """The bytes a rank sends one way over its links for ``kind`` of an
     operand of ``nbytes`` among ``n`` ranks, by a ring: an all-reduce
-    2(n-1)/n of the operand (reduce-scatter, then all-gather), an
-    all-gather (n-1) times its operand, (n-1)/n of its output."""
-    return nbytes * (2 * (n - 1) / n if kind == "all-reduce" else n - 1)
+    2(n-1)/n of the operand (reduce-scatter, then all-gather), a
+    reduce-scatter (n-1)/n of it, an all-gather (n-1) times its operand,
+    (n-1)/n of its output, a pipelined broadcast or reduce about the
+    operand once."""
+    share = {"all-reduce": 2 * (n - 1) / n, "reduce-scatter": (n - 1) / n,
+             "broadcast": 1.0, "reduce": 1.0}
+    return nbytes * share.get(kind, n - 1)
 
 
 class CollectiveLog:
@@ -103,29 +122,69 @@ def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host, contiguous, 16-bit floats viewed as bytes (gloo
+    moves their bits and is never asked to know bfloat16)."""
+    host = t.detach().cpu().contiguous()
+    return host.view(torch.uint8) if host.element_size() == 2 and host.is_floating_point() \
+        else host
+
+
 def _communicate(kind: str, t: torch.Tensor, axis: str, rules: ShardingRules,
-                 op=tdist.ReduceOp.SUM) -> torch.Tensor:
+                 op=tdist.ReduceOp.SUM, dim: int = -1, root: int = 0) -> torch.Tensor:
     """``kind`` of ``t`` over the mesh axis ``axis``: an all-reduce in
-    place (``t`` returned), or an all-gather along the last axis (a new
-    tensor). Logged; shape-only where the mesh has no process groups."""
+    place (``t`` returned), an all-gather along ``dim`` (a new tensor), a
+    reduce-scatter along ``dim`` (the rank's chunk of the float32 or
+    float64 sum, at ``t``'s dtype, a new tensor: gloo has no
+    reduce-scatter, so ``t``'s chunks are summed on the host, each by a
+    reduce to the rank that keeps it, and only the rank's chunk comes
+    back, logged as the reduce-scatter the rules mean, with the
+    transport's own host seconds and the bytes of the sum's dtype), or a
+    broadcast from (a sum to) the axis's rank ``root`` in place. Logged;
+    shape-only where the mesh has no process groups."""
     mesh = rules.mesh
     n = mesh.shape[axis]
     group = mesh.group(axis)
+    dim = dim % max(t.dim(), 1)
+    nbytes = t.numel() * t.element_size()
     t0 = time.perf_counter()
-    if kind == "all-reduce":
+    if kind in ("broadcast", "reduce"):
+        out = t
+        if group is not None:
+            host = _host(t)
+            src = tdist.get_global_rank(group, root)
+            if kind == "broadcast":
+                tdist.broadcast(host, src, group=group)
+            else:
+                tdist.reduce(host, src, op=op, group=group)
+            t.copy_(host.view(t.dtype))
+    elif kind == "all-reduce":
         out = t
         if group is not None:
             tdist.all_reduce(t, op=op, group=group)
+    elif kind == "reduce-scatter":
+        # staged through the host whatever the device: the card holds no
+        # float32 copy of the whole operand, and only the chunk comes back
+        size = t.shape[dim] // n
+        if group is None:
+            out = t.new_empty((*t.shape[:dim], size, *t.shape[dim + 1:]))
+        else:
+            host = t.detach().cpu().to(_sum_dtype(t.dtype))
+            chunks = [host.narrow(dim, j * size, size).contiguous() for j in range(n)]
+            for j, chunk in enumerate(chunks):
+                tdist.reduce(chunk, tdist.get_global_rank(group, j), op=op, group=group)
+            out = chunks[mesh.coords[axis]].to(t.device, t.dtype)
+        nbytes = t.numel() * torch.finfo(_sum_dtype(t.dtype)).bits // 8
     elif group is None:
-        out = t.new_empty((*t.shape[:-1], n * t.shape[-1]))
+        out = t.new_empty((*t.shape[:dim], n * t.shape[dim], *t.shape[dim + 1:]))
     else:
-        host = t.detach().cpu().contiguous()
+        host = _host(t)
         parts = [torch.empty_like(host) for _ in range(n)]
         tdist.all_gather(parts, host, group=group)
-        out = torch.cat(parts, dim=-1).to(t.device)
+        out = torch.cat(parts, dim=dim).view(t.dtype).to(t.device)
     seconds = time.perf_counter() - t0 if group is not None else 0.0
     for log in _logs:
-        log.add(kind, t.numel() * t.element_size(), seconds, n)
+        log.add(kind, nbytes, seconds, n)
     return out
 
 
@@ -134,6 +193,13 @@ def _all_reduce(t: torch.Tensor, axis: str, rules: ShardingRules) -> torch.Tenso
     once (``t`` is not modified)."""
     buf = t.to(_sum_dtype(t.dtype), copy=True)
     return _communicate("all-reduce", buf, axis, rules).to(t.dtype)
+
+
+def _reduce_scatter(t: torch.Tensor, axis: str, rules: ShardingRules,
+                    dim: int = -1) -> torch.Tensor:
+    """The rank's chunk along ``dim`` of the sum of ``t`` over ``axis``,
+    summed in float32 and rounded to ``t``'s dtype once."""
+    return _communicate("reduce-scatter", t, axis, rules, dim=dim)
 
 
 def _model_rules() -> Optional[ShardingRules]:
@@ -175,6 +241,17 @@ class _GatherFromModel(torch.autograd.Function):
         return g.narrow(-1, m * ctx.width, ctx.width).contiguous(), None
 
 
+class _GatherModelCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules = rules
+        return _communicate("all-gather", x.contiguous(), "model", rules)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, "model", ctx.rules), None
+
+
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     """Identity forward, all-reduce over ``model`` backward (``x`` without
     a model axis)."""
@@ -195,6 +272,15 @@ def gather_from_model(x: torch.Tensor) -> torch.Tensor:
     return x if rules is None else _GatherFromModel.apply(x, rules)
 
 
+def gather_model_cols(x: torch.Tensor) -> torch.Tensor:
+    """The model ranks' ``x`` concatenated on the last axis, in rank
+    order; the gradient summed over ``model`` and the rank's slice taken
+    backward (a reduce-scatter), since each rank uses the whole
+    differently."""
+    rules = _model_rules()
+    return x if rules is None else _GatherModelCols.apply(x, rules)
+
+
 def mean_over_data(leaves: list) -> list:
     """Each tensor's mean over the ``data`` ranks (no gradient flows)."""
     rules = current_rules()
@@ -204,13 +290,48 @@ def mean_over_data(leaves: list) -> list:
     return [_all_reduce(t, axis, rules) / rules.data_size for t in leaves]
 
 
-def model_shard(n: int) -> int:
-    """The rank's share of ``n`` heads (or columns) that the rules shard
-    over ``model``: ``n / model`` where divisible, else ``n``."""
+def model_sharded(n: Optional[int]) -> bool:
+    """Whether the active rules shard a dimension of ``n`` over a
+    ``model`` axis of more than one rank (``ShardingRules._shard_dim``'s
+    test); ``n`` None: whether such an axis is active at all. False
+    without rules."""
     rules = _model_rules()
-    if rules is None or rules._model_if_divisible(n) is None:
-        return n
-    return n // rules.model_size
+    return rules is not None and (n is None or rules._model_if_divisible(n) is not None)
+
+
+def all_reduce_model(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """The float32 (float64) ``op`` (``"sum"`` or ``"max"``) of ``t`` over
+    the ``model`` ranks, no gradient: the partial softmaxes of a
+    sequence-sharded cache (``models/attention.py``)."""
+    rules = _model_rules()
+    buf = t.detach().to(_sum_dtype(t.dtype), copy=True)
+    if rules is None:
+        return buf
+    red = tdist.ReduceOp.MAX if op == "max" else tdist.ReduceOp.SUM
+    return _communicate("all-reduce", buf, "model", rules, op=red)
+
+
+def model_shard(n: int) -> int:
+    """The rank's share of a dimension of ``n`` that the rules shard over
+    ``model``: ``n / model`` where they shard it, else ``n``."""
+    return n // _model_rules().model_size if model_sharded(n) else n
+
+
+def model_coord() -> int:
+    """The rank's index on the ``model`` axis (0 without one)."""
+    rules = _model_rules()
+    return 0 if rules is None else rules.mesh.coords["model"]
+
+
+def seq_shards(n_kv_heads: int, s_max: int) -> int:
+    """How many ways ``cache_spec`` splits a K/V cache's ``s_max``
+    positions over ``model``: where the KV heads do not divide the axis and
+    the positions do (each rank then holds ``s_max / model`` positions of
+    every KV head), the axis size; else 1."""
+    rules = _model_rules()
+    if rules is None or model_sharded(n_kv_heads) or s_max % rules.model_size:
+        return 1
+    return rules.model_size
 
 
 # ---------------------------------------------------------------------------
@@ -222,14 +343,17 @@ def _vocab_offset(local: int) -> int:
     return 0 if rules is None else rules.mesh.coords["model"] * local
 
 
-def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
+               vocab: Optional[int] = None) -> torch.Tensor:
     """The table's rows for ``tokens``, whole on every rank: over a
     vocabulary shard, the rows of the tokens the rank holds and zero for
     the others, summed over ``model`` (one rank adds each row, so the sum
-    is exact)."""
+    is exact). ``vocab``, the whole table's rows, tells a replicated table
+    (not divisible by ``model``) from a shard; None: a shard under a
+    ``model`` axis."""
     v = table.shape[0]
     off = _vocab_offset(v)
-    if _model_rules() is None:
+    if _model_rules() is None or v == vocab:
         return table[tokens]
     mine = (tokens >= off) & (tokens < off + v)
     rows = table[(tokens - off).clamp(0, v - 1)]
@@ -248,8 +372,8 @@ def sharded_ce(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int):
     count (all-reduced over ``data``, at least 1) times the data size, so
     that ``mean_over_data`` of it is the whole batch's mean nll."""
     rules = current_rules()
-    tp = rules.model_size > 1
     v = logits.shape[-1]
+    tp = rules.model_size > 1 and v < -(-vocab_size // 256) * 256
     off = rules.mesh.coords["model"] * v if tp else 0
     col = torch.arange(off, off + v, device=logits.device)
     if v * rules.model_size > vocab_size:
@@ -277,10 +401,12 @@ def sharded_ce(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int):
 
 def check_tp(cfg, rules: ShardingRules) -> None:
     """Raise ``not_ported(..., DIST_ITEM)`` for a configuration or rules
-    this slice does not run: the dense GQA family with a SwiGLU MLP (a
-    vision frontend's embeddings allowed), heads, KV heads, ``d_ff`` and
-    the padded vocabulary each divisible by the model axis, without FSDP
-    or 2D expert parallelism."""
+    with no runtime under the sharding rules yet: mixture-of-experts
+    layers and 2D expert parallelism (item 7, part 4b, sub-item 2), MLA,
+    SSM and xLSTM layers and the encoder-decoder (sub-item 4). The dense
+    family (a vision frontend's embeddings allowed) runs on any mesh, FSDP
+    included, each dimension sharded or replicated as ``param_spec`` and
+    ``cache_spec`` say."""
     why = []
     kinds = set(cfg.blocks)
     if cfg.moe is not None:
@@ -293,16 +419,6 @@ def check_tp(cfg, rules: ShardingRules) -> None:
         why.append("xLSTM layers")
     if cfg.is_encoder_decoder:
         why.append("the encoder-decoder")
-    if cfg.activation != "swiglu":
-        why.append(f"the {cfg.activation} MLP (its replicated b_in beside a "
-                   "column-sharded w_in)")
-    m = rules.model_size
-    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                    ("d_ff", cfg.d_ff), ("the padded vocabulary", cfg.padded_vocab())):
-        if n % m:
-            why.append(f"{name} {n} not divisible by model {m}")
-    if rules.fsdp:
-        why.append("FSDP")
     if rules.expert_parallel_2d:
         why.append("2D expert parallelism")
     if why:

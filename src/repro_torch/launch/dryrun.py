@@ -28,10 +28,12 @@ With ``--mesh DxM`` each cell is one rank's of a ``D x M`` mesh
 the rank's on its card, the roofline the mesh's (``launch/roofline.py``),
 with the collectives' bytes and counts by kind (``collective_counts``),
 the bytes a rank sends for them by a ring (``collective_link_bytes``)
-and their term over NVLink; a cell whose configuration or FSDP and
-expert-parallel choice this slice does not run is skipped with
-``tensor_parallel.check_tp``'s reason. ``--mesh 1x1`` (the default) is
-the one-card run.
+and their term over NVLink; a cell whose configuration or expert-parallel
+choice the port has no runtime for under the rules (MoE, MLA, SSM,
+xLSTM, the encoder-decoder) is skipped with ``tensor_parallel.check_tp``'s
+reason: ``--all --mesh 1x8`` and ``--mesh 2x4`` reckon the dense family's
+16 cells (FSDP where the JAX package's rule turns it on) and skip 24.
+``--mesh 1x1`` (the default) is the one-card run.
 
 It needs no card, and gives the same numbers on any machine. Usage:
 

@@ -25,8 +25,9 @@ for its SPMD program) and each term is one rank's time. The collective
 bytes are the operand bytes of the collectives the rank placed
 (``distributed/tensor_parallel.py``), as the JAX package's are; the
 collective term reads the bytes a rank sends one way for them by a ring
-(``link_bytes``: 2(n-1)/n of an all-reduce's operand, (n-1)/n of an
-all-gather's output) over one GPU's one-way NVLink rate. It is the
+(``link_bytes``: 2(n-1)/n of an all-reduce's operand, (n-1)/n of a
+reduce-scatter's, (n-1)/n of an all-gather's output) over one GPU's
+one-way NVLink rate. It is the
 least time those transfers take at the link's peak, with no latency and
 no overlap counted.
 

@@ -22,13 +22,18 @@ decode cell takes its one step at the cache's last position.
 
 On a mesh (``mesh=(data, model)``) the cell is one rank's: the JAX
 package's FSDP and 2D expert-parallel choices (``specs.py:107-121``) are
-made as there, and ``tensor_parallel.check_tp`` refuses what they switch
-on, and every configuration outside the dense slice, with its reason; the
-parameters are the rank's shards of the whole model
-(``tensor_parallel.shard_tree`` at the rank's coordinates), the batch its
-data rank's rows, the cache its KV heads, and the step runs under the
-``ShardingRules`` (``distributed/sharding.py``), whose collectives send
-nothing on the abstract mesh and are counted (``step_cost.StepCost``).
+made as there, and ``tensor_parallel.check_tp`` refuses, with its reason,
+the families the port has no runtime for under the rules (MoE and 2D
+expert parallelism, MLA, SSM, xLSTM, the encoder-decoder); the parameters
+are the rank's shards of the whole model (``tensor_parallel.shard_tree``
+at the rank's coordinates; under FSDP a quarter of a 2-D leaf at (2, 2),
+its layer gathered where it runs), the batch its data rank's rows, the
+cache its KV heads or, where those do not divide the model axis, its
+block of positions, and the step runs under the ``ShardingRules``
+(``distributed/sharding.py``), whose collectives send nothing on the
+abstract mesh and are counted by kind (``step_cost.StepCost``):
+all-reduces, all-gathers over ``model`` and FSDP's over ``data``, and
+reduce-scatters.
 The fit on the card's 80 GB is decided in ``launch/dryrun.py`` from the
 bytes here and the simulated peak of ``launch/step_cost.py``.
 """
@@ -106,16 +111,18 @@ def _slot_bytes(cache: dict, seq: int) -> int:
     return total
 
 
-def mesh_rules(cfg: LMConfig, shp: ShapeConfig, mesh: Mesh) -> ShardingRules:
+def mesh_rules(cfg: LMConfig, shp: ShapeConfig, mesh: Mesh,
+               fsdp: Optional[bool] = None) -> ShardingRules:
     """The rules of a cell on ``mesh``, with the JAX package's FSDP and 2D
-    expert-parallel choices (``repro/launch/specs.py:107-121``); raises
-    ``NotImplementedError`` (``check_tp``) where this slice cannot run
-    them."""
+    expert-parallel choices (``repro/launch/specs.py:107-121``; ``fsdp``
+    given: that choice instead, as a reduced or depth-cut rehearsal of a
+    configuration keeps the whole one's); raises ``NotImplementedError``
+    (``check_tp``) where the port has no runtime for them."""
     model_size = mesh.shape["model"]
     n_params = cfg.param_count()
-    if shp.kind == "train":
+    if fsdp is None and shp.kind == "train":
         fsdp = n_params * 12 / model_size > 10e9
-    else:
+    elif fsdp is None:
         fsdp = n_params * 2 / model_size > 8e9
     n_dm = mesh.shape["data"] * model_size
     ep = cfg.moe is not None and (cfg.moe.n_experts % mesh.size == 0
@@ -141,7 +148,7 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
                microbatches: int = 1, device="meta",
                generator: Optional[torch.Generator] = None,
                cfg: Optional[LMConfig] = None, seq_len: Optional[int] = None,
-               mesh=None) -> Cell:
+               mesh=None, fsdp: Optional[bool] = None) -> Cell:
     """The cell ``(arch, shape)`` on ``device`` (``meta``: value-less).
     ``batch`` cuts the cell's batch (never its width or length);
     ``microbatches`` splits a training batch (a data rank's). ``cfg`` and
@@ -149,7 +156,10 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
     length, for reduced rehearsals on the CPU. ``mesh`` (``(data,
     model)``, or a ``launch/mesh.py:Mesh`` a rank made) gives the cell of
     the mesh's rank: of rank 0 on an abstract mesh; ``None`` or ``(1,
-    1)`` the one-card cell."""
+    1)`` the one-card cell. ``fsdp`` overrides the JAX package's FSDP
+    choice (``mesh_rules``). A batch the data ranks do not divide is
+    replicated over them, as ``ShardingRules.batch_spec`` replicates it
+    (long_500k's one sequence)."""
     runnable, why = cell_is_runnable(arch, shape)
     if not runnable:
         raise ValueError(f"cell ({arch},{shape}) skipped: {why}")
@@ -161,7 +171,7 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
         shp = dataclasses.replace(shp, seq_len=seq_len)
     if isinstance(mesh, tuple):
         mesh = None if mesh == (1, 1) else abstract_mesh(*mesh)
-    rules = None if mesh is None else mesh_rules(cfg, shp, mesh)
+    rules = None if mesh is None else mesh_rules(cfg, shp, mesh, fsdp)
     b, seq = shp.global_batch, shp.seq_len
     model = build_model(cfg, inner="cuda", remat="layer")
     params = _values(lambda g, d: model.init(g, device=d), device, generator)
@@ -169,12 +179,11 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
     inputs = _values(lambda g, d: tree_map(lambda t: t.to(d), make_dummy_batch(cfg, b, seq, g)),
                      device, generator)
     if rules is not None:
-        n_data = mesh.shape["data"]
-        if b % n_data:
-            raise ValueError(f"a batch of {b} does not split over {n_data} data ranks")
-        b //= n_data
         params = shard_tree(params, rules, mesh.coords)
-        inputs = tree_map(lambda t: t.narrow(0, mesh.coords["data"] * b, b).clone(), inputs)
+        if rules.batch_spec(b) is not None:
+            b //= rules.data_size
+            inputs = tree_map(lambda t: t.narrow(0, mesh.coords["data"] * b, b).clone(),
+                              inputs)
 
     if shp.kind == "train":
         opt = adamw(LR, fused=True)

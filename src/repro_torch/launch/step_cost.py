@@ -25,10 +25,13 @@ over value-less (``meta``) tensors as over real ones, and counts
   (``distributed/tensor_parallel.py``), by kind: their count and operand
   bytes, as ``hlo_analysis.py`` sums the collectives of the optimized
   HLO (``collective_bytes``, ``collective_detail``,
-  ``collective_counts``), and the bytes a rank sends one way for them by
-  a ring (``collective_link_bytes``, ``tensor_parallel.link_bytes``). On
-  the dry run's abstract mesh they send nothing and return shape-only
-  results.
+  ``collective_counts``: all-reduces, all-gathers over ``model`` and
+  FSDP's over ``data``, reduce-scatters), and the bytes a rank sends one
+  way for them by a ring (``collective_link_bytes``,
+  ``tensor_parallel.link_bytes``). On the dry run's abstract mesh they
+  send nothing and return shape-only results; a rank's FSDP shards, the
+  layer it gathers at the peak and its block of a sequence-sharded cache
+  are what the step holds, as on the card.
 
 With ``sample=k`` the loops of ``models/loops.py`` run their first ``k``
 steps and their counts are scaled to the trip count, as

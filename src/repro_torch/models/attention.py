@@ -32,6 +32,7 @@ key width (nope + rope) differs from its value width, so it always takes
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -39,9 +40,13 @@ import torch
 
 from repro_torch.configs.base import LMConfig, MLAConfig
 from repro_torch.distributed.tensor_parallel import (
+    all_reduce_model,
     copy_to_model,
+    gather_model_cols,
+    model_coord,
     model_shard,
     reduce_from_model,
+    seq_shards,
 )
 from repro_torch.kernels.ops import _executor
 from repro_torch.models.layers import apply_rope, dense_init, dot
@@ -109,6 +114,53 @@ def gqa_init(generator: torch.Generator, cfg: LMConfig, lead: tuple = (),
             "wo": dense_init(generator, h * dh, d, lead, device)}
 
 
+@dataclasses.dataclass(frozen=True)
+class _Split:
+    """A rank's share of a GQA layer's heads under the active rules."""
+
+    tp: bool  # wq / wo are the rank's column / row shard over ``model``
+    lo: int  # the whole query heads [lo, hi) the rank attends for
+    hi: int
+    c0: int  # the rank's first wq column, counted from head lo's first
+    width: int  # the rank's wq columns
+    q_gather: bool  # those columns split a head: q gathered over ``model``
+    kv_lo: int  # the KV heads [kv_lo, kv_hi) those query heads read
+    kv_hi: int
+    k_local: bool  # wk's columns are exactly those KV heads
+    k_rep: bool  # wk / wv replicated beside sharded heads
+
+
+def _split(cfg: LMConfig, p: dict) -> _Split:
+    """The rank's heads, read from its ``wq`` and ``wk`` columns (the
+    shards ``param_spec`` gives it): whole heads where ``H·Dh / model``
+    covers them, else the heads its columns touch."""
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    w, wk = p["wq"].shape[-1], p["wk"].shape[-1]
+    if w == h * dh:
+        return _Split(False, 0, h, 0, w, False, 0, kv, True, wk == kv * dh)
+    g = h // kv
+    start = model_coord() * w
+    lo, hi = start // dh, -(-(start + w) // dh)
+    kv_lo, kv_hi = lo // g, (hi - 1) // g + 1
+    k_rep = wk == kv * dh
+    k_local = not k_rep and model_coord() * wk == kv_lo * dh and wk == (kv_hi - kv_lo) * dh
+    return _Split(True, lo, hi, start - lo * dh, w, start % dh != 0 or w % dh != 0,
+                  kv_lo, kv_hi, k_local, k_rep)
+
+
+def _select_kv(k: torch.Tensor, sp: _Split, g: int) -> torch.Tensor:
+    """The KV heads the rank's query heads read, from ``k`` [B, S, KV, Dh]
+    holding every KV head, laid out so that ``_attn_core`` and flash pair
+    them as GQA does: a slice where the heads fall in equal groups, else
+    one KV head a query head."""
+    want = [hh // g for hh in range(sp.lo, sp.hi)]
+    n = sp.kv_hi - sp.kv_lo
+    hl = sp.hi - sp.lo
+    if hl % n == 0 and want == [sp.kv_lo + i // (hl // n) for i in range(hl)]:
+        return k[:, :, sp.kv_lo:sp.kv_hi]
+    return k[:, :, want]
+
+
 def gqa_apply(
     p: dict,
     cfg: LMConfig,
@@ -125,49 +177,122 @@ def gqa_apply(
     the prefill attention's executor where the layer has no ``window``:
     ``"cuda"`` the flash kernel (its plain version for CPU tensors),
     ``"torch"`` the plain version. With ``kv_source`` the call is cross
-    attention (``_cross``) and returns ``cache`` unchanged. The heads are
-    the weights' own (a rank's shard under tensor parallelism: its input
-    passes ``copy_to_model``, and ``wo``'s partial products are summed
-    over ``model``)."""
+    attention (``_cross``) and returns ``cache`` unchanged.
+
+    Under tensor parallelism the heads are the rank's shard (``_split``):
+    its input passes ``copy_to_model`` and ``wo``'s partial products are
+    summed over ``model``. Where its ``wq`` columns split a head, the
+    rank gathers q over ``model`` and attends for the whole heads its
+    columns touch, keeping its own columns of their output; where its
+    ``wk`` columns are not whole KV heads, K and V are gathered whole
+    (RoPE and the softmax need a head's whole ``Dh``). A cache whose KV
+    heads do not divide the model axis holds ``S / model`` positions of
+    every KV head (``seq_shards`` of them, the rank's the ``model_coord``-th
+    block): a rank writes only the positions it owns; a prefill from
+    position 0 without a window runs flash on the rank's query heads
+    against the fresh K and V, every other call attends for every head
+    over the rank's positions, masked at global positions, and the
+    partial softmaxes (max, sum, output) combine over ``model`` in
+    float32 (``_attn_partials``)."""
     b, t, _ = x.shape
     dh = cfg.resolved_head_dim
-    h, kv = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
-    x = copy_to_model(x)
-    q = dot(x, p["wq"]).reshape(b, t, h, dh)
     if kv_source is not None:
+        q = dot(copy_to_model(x), p["wq"]).reshape(b, t, -1, dh)
         return _cross(p, cfg, q, kv_source, cache, inner), cache
-    k = (x @ p["wk"]).reshape(b, t, kv, dh)
-    v = (x @ p["wv"]).reshape(b, t, kv, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    sp = _split(cfg, p)
+    g = cfg.n_heads // cfg.n_kv_heads
+    hl = sp.hi - sp.lo
+    xin = copy_to_model(x) if sp.tp else x
+    q_cols = dot(xin, p["wq"])
+    wk, wv = p["wk"], p["wv"]
+    if sp.tp and sp.k_rep:  # a replicated leaf inside the sharded product
+        wk, wv = copy_to_model(wk), copy_to_model(wv)
+    k, v = xin @ wk, xin @ wv
+    if sp.tp and not sp.k_local and not sp.k_rep:
+        k, v = gather_model_cols(k), gather_model_cols(v)
+    k = apply_rope(k.reshape(b, t, -1, dh), positions, cfg.rope_theta)
+    v = v.reshape(b, t, -1, dh)
+
+    def own_q():
+        cols = gather_model_cols(q_cols)[..., sp.lo * dh:sp.hi * dh] if sp.q_gather \
+            else q_cols
+        return apply_rope(cols.reshape(b, t, hl, dh), positions, cfg.rope_theta)
+
+    def kv_of(kk):
+        return kk if sp.k_local else _select_kv(kk, sp, g)
+
+    def finish(out):  # [B, T, hl, Dh] -> [B, T, D]
+        out = out.reshape(b, t, hl * dh)
+        if sp.tp and out.shape[-1] != sp.width:
+            out = out[..., sp.c0:sp.c0 + sp.width]
+        out = out @ p["wo"]
+        return reduce_from_model(out) if sp.tp else out
 
     if cache is None:
         mask = make_mask(positions, positions, causal=True, window=window)
-        out = _attn_core(q, k, v, mask)
-        return reduce_from_model(out.reshape(b, t, h * dh) @ p["wo"]), None
+        return finish(_attn_core(own_q(), kv_of(k), kv_of(v), mask)), None
 
     idx = cache["idx"]
     ck, cv = cache["k"], cache["v"]
-    s_max = ck.shape[1]
+    shards = cache.get("seq_shards", 1)
+    s_local = ck.shape[1]
+    s_max = s_local * shards
     if idx + t > s_max:
         raise ValueError(f"the cache holds {s_max} positions; {idx} are filled "
                          f"and {t} more do not fit")
-    ck[:, idx:idx + t] = k.to(ck.dtype)
-    cv[:, idx:idx + t] = v.to(cv.dtype)
+    off = model_coord() * s_local if shards > 1 else 0
+    lo, hi = max(idx, off), min(idx + t, off + s_local)
+    if lo < hi:  # the fresh positions this rank holds
+        ck[:, lo - off:hi - off] = k[:, lo - idx:hi - idx].to(ck.dtype)
+        cv[:, lo - off:hi - off] = v[:, lo - idx:hi - idx].to(cv.dtype)
+    new_cache = {"k": ck, "v": cv, "idx": idx + t}
+    if shards > 1:
+        new_cache["seq_shards"] = shards
     if idx == 0 and t > 1 and not window:
         # the keys as the cache holds them, at q's dtype (as JAX reads them)
-        kc, vc = (c[:, :t].to(q.dtype) for c in (ck, cv))
+        if shards > 1:
+            kc, vc = (c.to(ck.dtype).to(q_cols.dtype) for c in (k, v))
+        else:
+            kc, vc = (c[:, :t].to(q_cols.dtype) for c in (ck, cv))
         out = _executor(inner, "flash")(
-            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            own_q().transpose(1, 2), kv_of(kc).transpose(1, 2), kv_of(vc).transpose(1, 2),
             causal=True).transpose(1, 2)
-    else:
-        k_pos = torch.arange(s_max, device=x.device)
-        k_valid = (k_pos < idx + t)[None, :].expand(b, s_max)
-        mask = make_mask(positions, k_pos, causal=True, window=window,
-                         k_valid=k_valid)
-        out = _attn_core(q, ck.to(q.dtype), cv.to(q.dtype), mask)
-    new_cache = {"k": ck, "v": cv, "idx": idx + t}
-    return reduce_from_model(out.reshape(b, t, h * dh) @ p["wo"]), new_cache
+        return finish(out), new_cache
+    k_pos = off + torch.arange(s_local, device=x.device)
+    k_valid = (k_pos < idx + t)[None, :].expand(b, s_local)
+    mask = make_mask(positions, k_pos, causal=True, window=window, k_valid=k_valid)
+    if shards == 1:
+        out = _attn_core(own_q(), kv_of(ck.to(q_cols.dtype)), kv_of(cv.to(q_cols.dtype)),
+                         mask)
+        return finish(out), new_cache
+    q_all = gather_model_cols(q_cols) if sp.tp else q_cols
+    q_all = apply_rope(q_all.reshape(b, t, -1, dh), positions, cfg.rope_theta)
+    out = _attn_partials(q_all, ck.to(q_all.dtype), cv.to(q_all.dtype), mask)
+    return finish(out[:, :, sp.lo:sp.hi]), new_cache
+
+
+def _attn_partials(q, k, v, mask) -> torch.Tensor:
+    """``_attn_core`` over keys split across the ``model`` ranks (each
+    rank's ``k``/``v`` [B, S_local, KV, Dh] and its block of the additive
+    mask): the logits in float32, their max over every rank's keys
+    (all-reduced with MAX, floored at ``NEG_INF`` so a rank whose keys are
+    all hidden adds nothing), then each rank's sum of exponentials and its
+    probability-weighted values, summed over ``model`` in float32 (the
+    online-softmax rule of the flash kernel, its blocks on the ranks); the
+    output at q's dtype. No gradient flows (serving)."""
+    b, tq, h, dh = q.shape
+    kv = k.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, tq, kv, h // kv, dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    logits = logits + mask[:, :, None, :, :]
+    mx = all_reduce_model(logits.amax(-1).clamp(min=NEG_INF), "max")
+    e = torch.exp(logits - mx[..., None])
+    part = torch.cat([torch.einsum("bkgqs,bskd->bqkgd", e, v.float()),
+                      e.sum(-1).permute(0, 3, 1, 2)[..., None]], -1)
+    part = all_reduce_model(part)
+    out = part[..., :-1] / part[..., -1:]
+    return out.reshape(b, tq, h, v.shape[-1]).to(q.dtype)
 
 
 def _cross(p: dict, cfg: LMConfig, q: torch.Tensor, src: torch.Tensor,
@@ -195,11 +320,14 @@ def _cross(p: dict, cfg: LMConfig, q: torch.Tensor, src: torch.Tensor,
 def gqa_cache_init(cfg: LMConfig, batch: int, s_max: int,
                    dtype=torch.bfloat16, lead: tuple = (), device=None) -> dict:
     """Zeroed ``k``/``v`` ``[*lead, B, S, KV, Dh]`` (the index lives at the
-    cache's root, ``LM.init_cache``), KV the rank's heads under tensor
-    parallelism (``cache_spec``'s split)."""
+    cache's root, ``LM.init_cache``), as ``cache_spec`` splits them under
+    tensor parallelism: KV the rank's heads where they divide the model
+    axis, else S the rank's ``S / model`` positions where those divide it
+    (``seq_shards``)."""
     kv, dh = model_shard(cfg.n_kv_heads), cfg.resolved_head_dim
-    return {"k": torch.zeros((*lead, batch, s_max, kv, dh), dtype=dtype, device=device),
-            "v": torch.zeros((*lead, batch, s_max, kv, dh), dtype=dtype, device=device)}
+    s = s_max // seq_shards(cfg.n_kv_heads, s_max)
+    return {"k": torch.zeros((*lead, batch, s, kv, dh), dtype=dtype, device=device),
+            "v": torch.zeros((*lead, batch, s, kv, dh), dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------

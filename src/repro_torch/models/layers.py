@@ -15,6 +15,7 @@ the logits; without rules each is the one-card function.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +23,8 @@ import torch.nn.functional as F
 from repro_torch.distributed.tensor_parallel import (
     copy_to_model,
     embed_rows,
+    model_coord,
+    model_sharded,
     reduce_from_model,
 )
 
@@ -83,15 +86,31 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
-def apply_mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+def apply_mlp(p: dict, x: torch.Tensor, activation: str,
+              d_ff: Optional[int] = None) -> torch.Tensor:
     """SwiGLU ``(silu(x·W_gate) ⊙ x·W_up)·W_down``, or GELU (tanh
     approximation, as ``jax.nn.gelu``'s default) with biases, its products
-    at the promoted dtype (``dot``: whisper's encoder)."""
+    at the promoted dtype (``dot``: whisper's encoder). Where the rules
+    shard ``d_ff`` (the whole width; None: wherever a ``model`` axis is
+    active) the weights are the rank's shards: the input passes
+    ``copy_to_model``, the rank adds its columns of the replicated
+    ``b_in`` (through ``copy_to_model``, so its gradient comes back whole
+    on every model rank), the row product is summed over ``model`` and
+    ``b_out`` added once after it; else the MLP runs replicated."""
+    if not model_sharded(d_ff):
+        if activation == "swiglu":
+            return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+        h = F.gelu(dot(x, p["w_in"]) + p["b_in"], approximate="tanh")
+        return dot(h, p["w_out"]) + p["b_out"]
     x = copy_to_model(x)
     if activation == "swiglu":
         return reduce_from_model(
             (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"])
-    h = F.gelu(dot(x, p["w_in"]) + p["b_in"], approximate="tanh")
+    cols = p["w_in"].shape[-1]
+    b_in = p["b_in"]
+    if b_in.shape[-1] != cols:
+        b_in = copy_to_model(b_in).narrow(-1, model_coord() * cols, cols)
+    h = F.gelu(dot(x, p["w_in"]) + b_in, approximate="tanh")
     return reduce_from_model(dot(h, p["w_out"])) + p["b_out"]
 
 
@@ -126,10 +145,11 @@ def embed_init(generator: torch.Generator, vocab: int, d_model: int,
     return {"table": _randn(generator, (vocab, d_model), device) * 0.02}
 
 
-def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+def embed_lookup(p: dict, tokens: torch.Tensor, vocab: Optional[int] = None) -> torch.Tensor:
     """The one-hot product as a gather of the table's rows (over a
-    vocabulary shard, the ranks' lookups summed: ``embed_rows``)."""
-    return embed_rows(p["table"], tokens)
+    vocabulary shard, the ranks' lookups summed: ``embed_rows``; ``vocab``
+    the whole table's rows)."""
+    return embed_rows(p["table"], tokens, vocab)
 
 
 def embed_dense_path(p: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -139,6 +159,10 @@ def embed_dense_path(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return onehot @ p["table"]
 
 
-def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The logits over the table's rows: the rank's vocabulary slice."""
-    return copy_to_model(x) @ p["table"].T
+def unembed(p: dict, x: torch.Tensor, vocab: Optional[int] = None) -> torch.Tensor:
+    """The logits over the table's rows: the rank's vocabulary slice where
+    the table is a shard (fewer rows than ``vocab``; None: a shard wherever
+    a ``model`` axis is active), else all of them."""
+    if model_sharded(None) and p["table"].shape[0] != vocab:
+        x = copy_to_model(x)
+    return x @ p["table"].T

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed.fsdp import data_mean
 from repro_torch.distributed.tensor_parallel import mean_over_data
 from repro_torch.models import loops
 from repro_torch.models.transformer import LM
@@ -124,8 +125,10 @@ def make_train_step(model: LM, opt: Optimizer, compute_dtype=torch.bfloat16,
     accumulators) and losses in order and takes both means before the one
     ``opt.update``. Under sharding rules with a ``data`` axis each
     gradient leaf and the loss are then averaged over the data ranks
-    (``tensor_parallel.mean_over_data``), so ``opt`` steps each rank's own
-    shards from the same gradients on every data replica."""
+    (``tensor_parallel.mean_over_data``; an FSDP leaf's gradient, already
+    reduce-scattered over ``data``, divided by its size:
+    ``fsdp.data_mean``), so ``opt`` steps each rank's own shards from the
+    same gradients on every data replica."""
 
     def cast(tree):
         return tree_map(lambda x: x.to(compute_dtype) if x.dtype == torch.float32
@@ -140,7 +143,8 @@ def make_train_step(model: LM, opt: Optimizer, compute_dtype=torch.bfloat16,
     def step(params, opt_state, batch):
         if microbatches <= 1:
             loss, grads = loss_and_grads(params, batch)
-            *grads, loss = mean_over_data([*grads, loss])
+            grads = data_mean(model, params, list(grads))
+            loss = mean_over_data([loss])[0]
             new_params, new_opt_state = opt.update(
                 tree_unflatten(params, grads), opt_state, params)
             return new_params, new_opt_state, loss
@@ -157,7 +161,7 @@ def make_train_step(model: LM, opt: Optimizer, compute_dtype=torch.bfloat16,
             acc = accum_add(acc, tree_unflatten(params, list(grads)))
             loss_sum = loss_sum + loss
         new_params, new_opt_state = opt.update(
-            tree_unflatten(params, mean_over_data(tree_leaves(accum_mean(acc)))),
+            tree_unflatten(params, data_mean(model, params, tree_leaves(accum_mean(acc)))),
             opt_state, params)
         return (new_params, new_opt_state,
                 mean_over_data([loss_sum * (1.0 / microbatches)])[0])

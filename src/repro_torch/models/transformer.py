@@ -36,7 +36,11 @@ called; the logits stay the rank's vocabulary slice, ``forward``,
 ``prefill`` and ``decode_step`` gather them whole on every rank and
 ``loss`` takes the vocabulary-sharded cross entropy
 (``tensor_parallel.sharded_ce``, whose mean over the data ranks is the
-whole batch's), never gathering ``[B, T, V]``. ``remat="layer"`` recomputes each layer of a scanned
+whole batch's), never gathering ``[B, T, V]``; a vocabulary the model
+axis does not divide stays whole on every rank. Under FSDP rules
+(``distributed/fsdp.py``) each layer's leaves, the embedding and the head
+are gathered over ``data`` where they are read, a layer's inside its
+``checkpoint``. ``remat="layer"`` recomputes each layer of a scanned
 segment in the backward (``torch.utils.checkpoint``), as the JAX
 package's ``jax.checkpoint`` of the scan body does, the MoE layers'
 load-balance loss included: every layer returns its ``aux`` and the
@@ -63,8 +67,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed import fsdp
 from repro_torch.distributed.sharding import current_rules, shard_activation
-from repro_torch.distributed.tensor_parallel import gather_from_model, sharded_ce
+from repro_torch.distributed.tensor_parallel import (
+    gather_from_model,
+    model_sharded,
+    seq_shards,
+    sharded_ce,
+)
 from repro_torch.kernels.ops import _executor
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -217,8 +227,14 @@ def _apply_layer(p, cfg: LMConfig, kind: str, x, positions, window: int, cache,
     if "router" in p["ffn"]:
         f, aux = moe_mod.moe_apply(p["ffn"], cfg, h2)
     else:
-        f, aux = apply_mlp(p["ffn"], h2, cfg.activation), None
+        f, aux = apply_mlp(p["ffn"], h2, cfg.activation, cfg.d_ff), None
     return x + f, new_cache, aux
+
+
+def _gathered(lp, where):
+    """A layer's leaves with its FSDP leaves gathered (``where``: the plan,
+    the layer's path and whether it is a scanned repetition)."""
+    return lp if where is None else fsdp.gather(lp, where[0], where[1], where[2])
 
 
 def _index(tree, r: int):
@@ -320,17 +336,20 @@ class LM:
                                   inner=self.inner)
             x = x + a
             x = x + apply_mlp(lp["ffn"], apply_norm(cfg.norm, lp["norm2"], x),
-                              cfg.activation)
+                              cfg.activation, cfg.d_ff)
         return apply_norm(cfg.norm, params["encoder"]["final_norm"], x)
 
-    def _run_segments(self, params, x, positions, cache, enc_out=None):
+    def _run_segments(self, params, x, positions, cache, enc_out=None, plan=None):
         """Returns ``(x, aux, new_cache)``: ``aux`` the float32 sum of the
         MoE layers' load-balance losses, in layer order; every attention
-        layer cross-attends to ``enc_out`` where it is given."""
+        layer cross-attends to ``enc_out`` where it is given. Under an FSDP
+        ``plan`` each layer's leaves are gathered over ``data`` where the
+        layer runs, inside its ``checkpoint`` (``distributed/fsdp.py``)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         shared = params.get("shared_attn")
         cache_idx = None if cache is None else cache["idx"]
+        shards = 1 if cache is None else cache.get("seq_shards", 1)
         new_segs = None if cache is None else []
         for si, seg in enumerate(self.segments):
             seg_p = params["segments"][si]
@@ -339,28 +358,34 @@ class LM:
             remat = (self.remat == "layer" and seg.mode == "scan" and cache is None
                      and torch.is_grad_enabled())
             period = len(seg.kinds)
-            if seg.mode == "scan":
-                seg_p = [_unbind(p, reps) for p in seg_p]
+            scan = seg.mode == "scan"
+            if scan:
+                seg_p = [_unbind(p, reps) if plan is None
+                         else fsdp.unbind(p, reps, plan, f"segments/{si}/{j}")
+                         for j, p in enumerate(seg_p)]
             for r in range(reps):
                 for j, kind in enumerate(seg.kinds):
                     window = _layer_window(cfg, seg.layer_ids[r * period + j])
-                    lp = seg_p[j] if seg.mode == "unroll" else seg_p[j][r]
+                    lp = seg_p[j][r] if scan else seg_p[j]
+                    where = None if plan is None else (plan, f"segments/{si}/{j}", scan)
                     if remat:
                         x, layer_aux = checkpoint(self._layer_out, lp, kind, x,
-                                                  positions, window, shared, enc_out,
+                                                  positions, window, shared, enc_out, where,
                                                   use_reentrant=False)
                     else:
                         lc = None
                         if seg_c is not None:
                             key = CACHE_KEYS[kind]
                             lc = seg_c[j][key]
-                            if seg.mode == "scan":
+                            if scan:
                                 lc = _index(lc, r)
                             if key == "attn":
                                 lc = {**lc, "idx": cache_idx}
-                        x, _, layer_aux = _apply_layer(lp, cfg, kind, x, positions,
-                                                       window, lc, self.inner, shared,
-                                                       enc_out)
+                                if shards > 1:
+                                    lc["seq_shards"] = shards
+                        x, _, layer_aux = _apply_layer(_gathered(lp, where), cfg, kind, x,
+                                                       positions, window, lc, self.inner,
+                                                       shared, enc_out)
                     if layer_aux is not None:
                         aux = aux + layer_aux
             if new_segs is not None:
@@ -368,15 +393,18 @@ class LM:
         new_cache = None
         if cache is not None:
             new_cache = {"idx": cache_idx + x.shape[1], "segments": new_segs}
+            if shards > 1:
+                new_cache["seq_shards"] = shards
             if enc_out is not None:
                 new_cache["enc_out"] = enc_out
         return x, aux, new_cache
 
-    def _layer_out(self, lp, kind: str, x, positions, window: int, shared, enc_out):
+    def _layer_out(self, lp, kind: str, x, positions, window: int, shared, enc_out,
+                   where=None):
         """An uncached layer's output and its aux (None but for an MoE
-        FFN), the unit ``remat`` recomputes."""
-        x, _, aux = _apply_layer(lp, self.cfg, kind, x, positions, window, None,
-                                 self.inner, shared, enc_out)
+        FFN), the unit ``remat`` recomputes (its FSDP gathers with it)."""
+        x, _, aux = _apply_layer(_gathered(lp, where), self.cfg, kind, x, positions,
+                                 window, None, self.inner, shared, enc_out)
         return x, aux
 
     def _hidden(self, params, tokens, cache, positions, frontend_embeds=None,
@@ -387,7 +415,9 @@ class LM:
         ``encoder_frames``, else to the cache's ``enc_out`` (none without
         either)."""
         cfg = self.cfg
-        x = embed_lookup(params["embed"], tokens) * float(np.sqrt(cfg.d_model))
+        plan = fsdp.plan(self)
+        embed = fsdp.gather(params["embed"], plan, "embed")
+        x = embed_lookup(embed, tokens, cfg.padded_vocab()) * float(np.sqrt(cfg.d_model))
         x = shard_activation(x, "tokens_bsd")
         if frontend_embeds is not None:
             x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
@@ -399,16 +429,24 @@ class LM:
                 enc_out = self.encode(params, encoder_frames, cache)
             elif cache is not None and "enc_out" in cache:
                 enc_out = cache["enc_out"]
-        x, aux, new_cache = self._run_segments(params, x, positions, cache, enc_out)
+        x, aux, new_cache = self._run_segments(params, x, positions, cache, enc_out, plan)
         return apply_norm(cfg.norm, params["final_norm"], x), aux, new_cache
 
     def _head(self, params):
-        return params["embed"] if self.cfg.tie_embeddings else params["head"]
+        """The unembedding's table, gathered over ``data`` under FSDP."""
+        key = "embed" if self.cfg.tie_embeddings else "head"
+        return fsdp.gather(params[key], fsdp.plan(self), key)
 
     def _logits(self, params, hidden):
-        """The logits of ``hidden``: the rank's vocabulary slice under a
-        ``model`` axis."""
-        return shard_activation(unembed(self._head(params), hidden), "logits")
+        """The logits of ``hidden``: the rank's vocabulary slice where the
+        rules shard the vocabulary over ``model``."""
+        return shard_activation(unembed(self._head(params), hidden, self.cfg.padded_vocab()),
+                                "logits")
+
+    def _whole(self, logits):
+        """Logits gathered whole over ``model`` where they are a slice."""
+        return gather_from_model(logits) if model_sharded(self.cfg.padded_vocab()) \
+            else logits
 
     def forward(self, params, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None,
@@ -421,7 +459,7 @@ class LM:
         ``aux_loss`` sums the MoE layers' (0 where there are none)."""
         hidden, aux, new_cache = self._hidden(params, tokens, cache, positions,
                                               frontend_embeds, encoder_frames)
-        logits = gather_from_model(self._logits(params, hidden))
+        logits = self._whole(self._logits(params, hidden))
         return logits, aux, new_cache, hidden
 
     def loss(self, params, batch: dict) -> tuple:
@@ -472,7 +510,10 @@ class LM:
         shared sites, the latent for MLA layers, and float32 states for
         the recurrent blocks (``"ssm"``, ``"xl"``, whatever ``dtype``, as
         the JAX package's); an encoder-decoder's ``enc_out`` [B,
-        encoder_seq, D] at ``dtype``; ``idx = 0``, on ``device``."""
+        encoder_seq, D] at ``dtype``; ``idx = 0``, on ``device``. Where
+        the rules split the K/V caches by position (KV heads the model
+        axis does not divide), ``seq_shards`` at the root says into how
+        many blocks, each rank holding its own."""
         device = resolve_device(device)
         cfg = self.cfg
 
@@ -493,6 +534,9 @@ class LM:
             lead = () if seg.mode == "unroll" else (seg.n_reps,)
             segs.append([layer_cache(kind, lead) for kind in seg.kinds])
         cache = {"idx": 0, "segments": segs}
+        shards = seq_shards(cfg.n_kv_heads, s_max)
+        if shards > 1 and any(kind in ("attn", "shared_attn") for kind in cfg.blocks):
+            cache["seq_shards"] = shards  # each rank holds s_max / shards positions
         if cfg.is_encoder_decoder:
             cache["enc_out"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
                                            dtype=dtype, device=device)
@@ -510,14 +554,14 @@ class LM:
         positions = torch.arange(tokens.shape[1] + n_front, device=tokens.device)
         hidden, _, new_cache = self._hidden(params, tokens, cache, positions,
                                             frontend_embeds, encoder_frames)
-        return gather_from_model(self._logits(params, hidden[:, -1])), new_cache
+        return self._whole(self._logits(params, hidden[:, -1])), new_cache
 
     def decode_step(self, params, cache: dict, tokens: torch.Tensor):
         """One decode step: tokens [B, 1] at position ``cache["idx"]``."""
         idx = cache["idx"]
         positions = torch.arange(idx, idx + 1, device=tokens.device)
         hidden, _, new_cache = self._hidden(params, tokens, cache, positions)
-        return gather_from_model(self._logits(params, hidden[:, -1])), new_cache
+        return self._whole(self._logits(params, hidden[:, -1])), new_cache
 
 
 def _masked_ce(logits, labels, vocab_size: int):

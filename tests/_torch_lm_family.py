@@ -214,9 +214,9 @@ def xla_rounded():
     def add(h, b):
         return _XlaBiasAdd.apply(h, b) if h.dtype == b.dtype != torch.float32 else h + b
 
-    def mlp(p, x, activation):
+    def mlp(p, x, activation, d_ff=None):  # one device: d_ff shards nothing
         if activation == "swiglu":
-            return apply_mlp(p, x, activation)
+            return apply_mlp(p, x, activation, d_ff)
         h = fn.gelu(add(tlayers.dot(x, p["w_in"]), p["b_in"]), approximate="tanh")
         return add(tlayers.dot(h, p["w_out"]), p["b_out"])
 

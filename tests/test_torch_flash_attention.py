@@ -204,7 +204,11 @@ def _cuda():
     (1, 2, 2, 40, 72, 32, True), (1, 2, 2, 72, 40, 32, True),
     (2, 8, 2, 130, 130, 64, True), (1, 4, 1, 1, 70, 128, False),
     (1, 4, 4, 1000, 1000, 64, True), (2, 4, 2, 65, 129, 128, False),
-    (1, 4, 1, 100, 100, 256, True), (2, 4, 1, 65, 129, 256, False)])
+    (1, 4, 1, 100, 100, 256, True), (2, 4, 1, 65, 129, 256, False),
+    # the ranks of tensor parallelism: starcoder2-3b at model 4 (6 query
+    # heads over one KV head) and 8 (3), gemma3-1b's global layer at model 4
+    (2, 6, 1, 260, 260, 128, True), (2, 3, 1, 130, 130, 128, True),
+    (2, 1, 1, 130, 130, 256, True)])
 def test_cuda_kernel_matches_plain(b, h, hkv, tq, tk, d, causal):
     """fp32 within 2e-5, one launch, a repeat bitwise equal; bf16 copies
     within 5e-2."""

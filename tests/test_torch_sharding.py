@@ -245,28 +245,33 @@ def _refused(cfg, mesh, **kw):
 
 
 def test_check_tp_refuses_outside_the_slice_by_name():
+    """The dense family runs on every mesh and under every rules
+    ``launch/specs.py`` builds, FSDP included; the families without a
+    runtime under the rules are refused by name."""
     for arch, mesh in (("llama3.2-1b", (1, 4)), ("llama3.2-1b", (2, 2)),
                        ("llama3.2-1b", (1, 8)), ("pixtral-12b", (1, 8)),
-                       ("llama3.2-1b", (1, 1))):
+                       ("llama3.2-1b", (1, 1)), ("gemma3-1b", (1, 4)),
+                       ("gemma3-1b", (1, 8)), ("granite-34b", (1, 4)),
+                       ("starcoder2-3b", (1, 4)), ("llama3.2-1b", (1, 3))):
         check_tp(get_config(arch), ShardingRules(abstract_mesh(*mesh), get_config(arch)))
     cases = {"dbrx-132b": ["mixture-of-experts"],
              "deepseek-v3-671b": ["mixture-of-experts", "MLA"],
              "zamba2-7b": ["SSM layers"], "xlstm-1.3b": ["xLSTM layers"],
-             "whisper-tiny": ["the encoder-decoder", "gelu MLP"],
-             "gemma3-1b": ["gelu MLP", "n_kv_heads 1 not divisible by model 4"],
-             "granite-34b": ["n_kv_heads 1 not divisible by model 4"],
-             "starcoder2-3b": ["gelu MLP", "n_kv_heads 2 not divisible by model 4"]}
+             "whisper-tiny": ["the encoder-decoder"]}
     for arch, names in cases.items():
         msg = _refused(get_config(arch), (1, 4))
         assert all(n in msg for n in names), (arch, msg)
     llama = get_config("llama3.2-1b")
-    assert "FSDP" in _refused(llama, (2, 2), fsdp=True)
+    check_tp(llama, ShardingRules(abstract_mesh(2, 2), llama, fsdp=True))
     assert "2D expert parallelism" in _refused(llama, (2, 2), expert_parallel_2d=True)
-    assert "n_heads 32 not divisible by model 3" in _refused(llama, (1, 3))
-    # the JAX package's FSDP rule turns on for pixtral-12b's training at model 8
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        mesh_rules(get_config("pixtral-12b"), SHAPES["train_4k"], abstract_mesh(1, 8))
-    mesh_rules(get_config("pixtral-12b"), SHAPES["prefill_32k"], abstract_mesh(1, 8))
+    # the JAX package's FSDP rule turns on for pixtral-12b's training at
+    # model 8, and for starcoder2-3b's at model 2; granite-34b serves with it
+    for arch, shape, mesh in (("pixtral-12b", "train_4k", (1, 8)),
+                              ("starcoder2-3b", "train_4k", (2, 2)),
+                              ("granite-34b", "decode_32k", (2, 4))):
+        assert mesh_rules(get_config(arch), SHAPES[shape], abstract_mesh(*mesh)).fsdp
+    assert not mesh_rules(get_config("pixtral-12b"), SHAPES["prefill_32k"],
+                          abstract_mesh(1, 8)).fsdp
 
 
 def test_shard_activation_without_rules_returns_its_input():

@@ -19,7 +19,14 @@ perturbed on every rank at once); the serving engine's tokens equal on
 every rank and to the one-device engine's; and the dry run's rank step on
 the reduced cell at (1, 4) (``build_cell(mesh=)`` over ``meta``): its
 persistent bytes the rank's shards' and its collective counts what the
-rank's ``CollectiveLog`` read. One ``RankPool`` runs the three meshes.
+rank's ``CollectiveLog`` read.
+
+The rest of the dense family at the same meshes (``tests/_torch_tp_family.py``):
+reduced starcoder2-3b (a KV head split in half at model 4), gemma3-1b (one
+KV head, a sliding window, the cache sharded by position) and its 2-query-head
+variant (query heads split below one head at model 4), each held on its
+logits, cached prefill and decode, loss and gathered gradients, AdamW step
+and the rules' shapes. One ``RankPool`` runs every mesh of the file.
 """
 import dataclasses
 import types
@@ -28,6 +35,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_tp_family as fam  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.distributed.sharding import ShardingRules, use_rules  # noqa: E402
@@ -236,11 +245,53 @@ def ref():
 
 
 @pytest.fixture(scope="module")
-def runs(ref):
-    """mesh -> every rank's results, from one pool of 4 CPU ranks."""
-    with RankPool(4, device="cpu") as pool:
-        return {dm: pool.run(_rank, dm[0] * dm[1], (dm, ref.params, ref.grads))
-                for dm in MESHES}
+def pool():
+    """One pool of 4 CPU ranks for the file's meshes."""
+    with RankPool(4, device="cpu") as p:
+        yield p
+
+
+@pytest.fixture(scope="module")
+def runs(ref, pool):
+    """mesh -> every rank's results."""
+    return {dm: pool.run(_rank, dm[0] * dm[1], (dm, ref.params, ref.grads))
+            for dm in MESHES}
+
+
+@pytest.fixture(scope="module")
+def dense_ref():
+    pytest.importorskip("jax")
+    return {name: fam.reference(name) for name in fam.NAMES}
+
+
+@pytest.fixture(scope="module")
+def dense_runs(dense_ref, pool):
+    """(configuration, mesh) -> every rank's results."""
+    return fam.run_meshes(pool, dense_ref, MESHES, fsdp=False)
+
+
+DENSE = [(name, dm) for name in fam.NAMES for dm in MESHES]
+
+
+@pytest.mark.parametrize("name,dm", DENSE)
+def test_dense_family_logits_prefill_and_decode(dense_ref, dense_runs, name, dm):
+    fam.check_logits(dense_runs[(name, dm)], dense_ref[name], dm)
+
+
+@pytest.mark.parametrize("name,dm", DENSE)
+def test_dense_family_loss_and_gathered_gradients(dense_ref, dense_runs, name, dm):
+    fam.check_grads(dense_runs[(name, dm)], dense_ref[name], dm, fam.rules_of(name, dm, False))
+
+
+@pytest.mark.parametrize("name,dm", DENSE)
+def test_dense_family_adamw_step(dense_ref, dense_runs, name, dm):
+    fam.check_adam(dense_runs[(name, dm)], dense_ref[name], dm, fam.rules_of(name, dm, False))
+
+
+@pytest.mark.parametrize("name,dm", DENSE)
+def test_dense_family_shapes_follow_the_rules(dense_ref, dense_runs, name, dm):
+    fam.check_shapes(dense_runs[(name, dm)], dense_ref[name], fam.rules_of(name, dm, False),
+                     name)
 
 
 def _rules(dm):
@@ -353,22 +404,22 @@ def test_dryrun_rank_step_matches_the_ranks(runs):
 
 def test_dryrun_mesh_records(tmp_path):
     """``dryrun --mesh 1x8`` reckons llama3.2-1b's decode cell with a
-    collective term over NVLink and skips gemma3-1b's with ``check_tp``'s
-    reason; the report names the most collective cell; ``--mesh 1x1`` is
+    collective term over NVLink and skips whisper-tiny's with
+    ``check_tp``'s reason; the report names the most collective cell; ``--mesh 1x1`` is
     the one-card record, without the mesh's keys."""
     from repro_torch.launch import dryrun, report
 
     mesh_out, card_out = tmp_path / "mesh.jsonl", tmp_path / "card.jsonl"
-    for arch in ("llama3.2-1b", "gemma3-1b"):
+    for arch in ("llama3.2-1b", "whisper-tiny"):
         dryrun.main(["--arch", arch, "--shape", "decode_32k", "--mesh", "1x8",
                      "--out", str(mesh_out)])
     dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k", "--out", str(card_out)])
     ok, skipped = [report._records(str(mesh_out))[(a, "decode_32k")]
-                   for a in ("llama3.2-1b", "gemma3-1b")]
+                   for a in ("llama3.2-1b", "whisper-tiny")]
     assert ok["status"] == "ok" and ok["chips"] == 8 and ok["t_collective_s"] > 0
     assert ok["mesh_shape"] == {"data": 1, "model": 8}
     assert ok["collective_counts"] == {"all-reduce": 33, "all-gather": 1}
-    assert skipped["status"] == "skipped" and "n_kv_heads 1" in skipped["reason"]
+    assert skipped["status"] == "skipped" and "the encoder-decoder" in skipped["reason"]
     assert report.pick_hillclimb_cells(str(mesh_out))["most_collective"][:2] == (
         "llama3.2-1b", "decode_32k")
     card = report._records(str(card_out))[("llama3.2-1b", "decode_32k")]
