@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 20|21|22|23|24|25|26|27]
+    python3 chip_smoke.py [--phases 20|21|22|23|24|25|26|27|28]
 
-Phases (``--phases 20``, ``21``, ``22``, ``23``, ``24``, ``25``, ``26`` or ``27``: that phase alone); any failure raises,
+Phases (``--phases 20``, ``21``, ``22``, ``23``, ``24``, ``25``, ``26``, ``27`` or ``28``: that phase alone); any failure raises,
 so the exit code is not 0 and no result line is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
@@ -441,10 +441,13 @@ so the exit code is not 0 and no result line is printed:
     the parent (the cuda model: phase 10's engine calls over
     TP_NEW_TOKENS new tokens a request, phase 16's 4 x 1,024 batch for
     TP_TRAIN_STEPS bfloat16 steps, the float32 loss and gradients of a
-    TP_F32_LAYERS-layer cut), writes its weights, last weights and the
-    cut's gradients to a file and frees the card; one ``RankPool`` of 4
-    rank processes then shares the card over gloo, each rank mapping the
-    file and cutting its shards (``tensor_parallel.shard_tree``). (a)
+    TP_F32_LAYERS-layer cut), writes its weights to a file and frees the
+    card, and writes its last weights and the cut's gradients to a second
+    file while the ranks serve and step (``SavedBehind``); one
+    ``RankPool`` of 4 rank processes (in the whole run started beside
+    phase 25, so that their imports and CUDA contexts are ready) then
+    shares the card over gloo, each rank mapping the files and cutting its
+    shards (``tensor_parallel.shard_tree``; ``RankData``). (a)
     Serving at (data 1, model 4), float32, through ``ServingEngine`` on
     every rank under the ``ShardingRules``: every call whose input tokens
     are the single-device call's holds its last logits within 1e-4 and
@@ -492,6 +495,29 @@ so the exit code is not 0 and no result line is printed:
     and Adam bytes a quarter of each 2-D leaf; the planted control skips
     the reduce-scatter's sum over ``data`` (each data rank keeping its own
     gradient's slice). (c) The dry run of the same steps, FSDP on.
+28. The mixture of experts under the rules, on the same pool of rank
+    processes after phase 27, with 2D expert parallelism (the choice
+    ``launch/specs.py`` makes: 16 experts over (data, model)). (a)
+    dbrx-132b at phase 20's depth cut (its published widths, 2 of 40
+    layers) served at (data 1, model 4): 12 query heads over 2 KV heads
+    of 128 and 4 experts a rank; phase 20 (a)'s recorded calls are the
+    single-device program's (run alone, the phase records its own); the
+    ranks draw the seed-0 weights on the card one at a time and keep
+    their shards (no file holds the 31 GB tree); phase 26's gates, and
+    the routing rule of ``ROUTE_MARGIN`` against the single-device
+    calls, and each rank's expert bytes its rules' shard. (b) A width cut
+    (d_model 2,048, 16 heads over 8 KV heads of 128, vocabulary 32,768,
+    EP_TRAIN_LAYERS layers; the 16 experts, top-4, the expert width
+    10,752 and the capacity factor 1.25 as published) trained at (data 2,
+    model 2) under FSDP, the tokens' rows crossing ``data`` by
+    all-to-all (``models/moe.py``); phase 26's gates, the float32 step
+    the whole cut, and the planted control averaging the expert leaves'
+    gradients over ``data`` as if each data rank held the same experts.
+    The single-device training run writes only its last weights and
+    float32 gradients, behind the ranks; each rank draws its initial
+    weights itself. (c)
+    The dry run of the ranks' steps, the all-to-alls among their
+    collectives.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -519,11 +545,14 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import warnings
 from collections import defaultdict
 from typing import Optional
+
+T_START = time.perf_counter()  # before torch and the repo are imported
 
 import numpy as np
 import torch
@@ -3158,7 +3187,17 @@ def flash_layers(cfg) -> int:
                for i, kind in enumerate(cfg.blocks)) * (2 if cfg.is_encoder_decoder else 1)
 
 
-def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
+def host_calls(rec: "RecordingLM") -> list:
+    """A ``RecordingLM``'s calls on the host: each call's kind, wave, input
+    tokens and last logits (numpy), host ms, and its MoE routing (expert
+    ids and top-k margins a layer)."""
+    return [{"kind": c["kind"], "wave": c["wave"], "tokens": c["tokens"].cpu().numpy(),
+             "logits": c["logits"].cpu().numpy(), "ms": c["s"] * 1e3,
+             "routes": [(ids.cpu(), margin.cpu()) for ids, margin in c["routes"]]}
+            for c in rec.calls]
+
+
+def lm_serving_phase(cfg, sizes: Sizes, device, keep_calls: bool = False) -> dict:
     """Phases 10, 15, 20 and 21, LM serving: ``ServingEngine`` over the
     ``cuda`` model (prefill attention on the flash kernel in the GQA layers
     without a window) at the configuration's full width, random weights
@@ -3340,7 +3379,7 @@ def lm_serving_phase(cfg, sizes: Sizes, device) -> dict:
     del filled
     print("[lm] " + json.dumps(out))
     return {"summary": out, "model": model, "params": params, "tokens": longest["tokens"],
-            "max_seq": max_seq}
+            "max_seq": max_seq, "calls": host_calls(rec) if keep_calls else None}
 
 
 def flash_bound(b, h, hkv, tq, tk, d, causal: bool, elem: int) -> dict:
@@ -3888,7 +3927,7 @@ def moe_phase(sizes: Sizes, device) -> dict:
     cfgs = moe_configs(sizes)
     phase_s = {}
     t0 = time.perf_counter()
-    dbrx = lm_serving_phase(cfgs["dbrx"], sizes, device)
+    dbrx = lm_serving_phase(cfgs["dbrx"], sizes, device, keep_calls=True)
     phase_s["20a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     dbrx_flash = flash_phase(dbrx, device, reps=10, edge_cases=d128_edge_cases)
@@ -3915,7 +3954,9 @@ def moe_phase(sizes: Sizes, device) -> dict:
           + f"; seconds: {json.dumps(phase_s)}")
     return {"dbrx": dbrx["summary"], "dbrx_flash": dbrx_flash,
             "deepseek": ds["summary"], "train": train, "held_before_bytes": held,
-            "peaks": peaks, "phase_s": phase_s}
+            "peaks": peaks, "phase_s": phase_s,
+            # (a)'s single-device calls, phase 28 (a)'s reference
+            "dbrx_calls": {"calls": dbrx["calls"], "max_seq": dbrx["max_seq"]}}
 
 
 def moe_entries(entries: list, p20: dict) -> None:
@@ -7088,17 +7129,19 @@ def print_dryrun_summary(m: dict, card: str) -> None:
 #: the meshes, (data, model): (a) serving, (b) training (phases 26 and 27)
 TP_SERVE_MESH, TP_TRAIN_MESH = (1, 4), (2, 2)
 #: phase 26's depth: llama3.2-1b at TP_LAYERS of its 16 layers (its widths
-#: kept; cut from 16 in PR 31 for the command's time, now that phase 27
-#: runs the rules' collectives at a wider configuration)
-TP_LAYERS = 4
+#: kept; cut for the command's time, now that phases 27 and 28 run the
+#: rules' collectives at wider configurations; PERF.md section 4 keeps
+#: the cuts)
+TP_LAYERS = 2
 #: phase 27: starcoder2-3b at its published widths, FSDP_LAYERS of its 30
-#: layers (cut for the command's time); FSDP on in (b), the choice
-#: ``launch/specs.py:mesh_rules`` makes for the whole model at model 2
-#: (3,180,976,128 x 12 / 2 > 10e9), which the cut keeps
-FSDP_ARCH, FSDP_LAYERS = "starcoder2-3b", 10
+#: layers (cut for the command's time; PERF.md section 4); FSDP on in
+#: (b), the choice ``launch/specs.py:mesh_rules`` makes for the whole model
+#: at model 2 (3,180,976,128 x 12 / 2 > 10e9), which the cut keeps
+FSDP_ARCH, FSDP_LAYERS = "starcoder2-3b", 4
 #: phase 27 (b)'s depth: the first FSDP_TRAIN_LAYERS of (a)'s layers (cut
-#: for the command's time: the wire takes ~97% of an FSDP step)
-FSDP_TRAIN_LAYERS = 4
+#: for the command's time: the wire takes ~97% of an FSDP step; now the
+#: float32 step's depth)
+FSDP_TRAIN_LAYERS = 2
 #: (a): new tokens a request (phase 10's 32, cut for the command's time)
 TP_NEW_TOKENS = 8
 #: (b): steps of phase 16's batch, and the float32 step's depth cut
@@ -7122,6 +7165,20 @@ TP_DELTA_RTOL = 0.2
 #: the float32 step: the loss within TOL, each gathered gradient leaf within
 #: TP_GRAD_RTOL norm-relative
 TP_GRAD_RTOL = 1e-3
+#: phase 28: dbrx-132b served at phase 20's depth cut (its published widths,
+#: 2 of its 40 layers); trained at a width cut (EP_TRAIN: d_model, heads and
+#: vocabulary cut; the 16 experts, top-4, the expert width 10,752 and the
+#: capacity factor 1.25 as published, since they set the all-to-all's
+#: shape) of EP_TRAIN_LAYERS layers: 2,264,924,160 parameters, FSDP on by
+#: ``launch/specs.py:mesh_rules`` at model 2 (x 12 / 2 > 10e9)
+EP_ARCH = "dbrx-132b"
+EP_TRAIN = dict(d_model=2048, n_heads=16, n_kv_heads=8, vocab_size=32768)
+EP_TRAIN_LAYERS = 2
+#: (b)'s peak learning rate, a tenth of phase 16's LM_LR: at LM_LR the cut
+#: memorises the one batch within 3 steps (loss 10.84 -> 6.22 -> 0.36 on
+#: one device), where the third loss of the sound ranks read 1.95e-2
+#: relative off while the float32 gates held at 1e-7 (PERF.md section 6)
+EP_LR = 3e-5
 
 
 def tp_cfg(sizes: Sizes):
@@ -7130,8 +7187,21 @@ def tp_cfg(sizes: Sizes):
 
 
 def tp_case(sizes: Sizes, phase: str) -> dict:
-    """Phase 26's configuration (llama3.2-1b, no FSDP) or phase 27's
-    (starcoder2-3b, FSDP in training), their meshes and their names."""
+    """Phase 26's configuration (llama3.2-1b, no FSDP), phase 27's
+    (starcoder2-3b, FSDP in training) or phase 28's (dbrx-132b served, its
+    width cut trained under FSDP, both with 2D expert parallelism: the
+    ranks draw their weights from seed 0 themselves, ``draw``), their
+    meshes and their names."""
+    if phase == "28":
+        base = get_config(EP_ARCH)
+        cfg = moe_configs(sizes)["dbrx"]
+        train_cfg = (dataclasses.replace(base.reduced(), n_layers=EP_TRAIN_LAYERS)
+                     if sizes.lm_reduced else
+                     dataclasses.replace(base, name=base.name + "-train-cut",
+                                         n_layers=EP_TRAIN_LAYERS, **EP_TRAIN))
+        return {"phase": "28", "cfg": cfg, "train_cfg": train_cfg, "fsdp": True, "tag": "ep",
+                "key": "expert_parallel", "paths": ("ep_serving", "ep_training"),
+                "draw": True, "ep2d": True, "lr": EP_LR}
     if phase == "26":
         cfg = tp_cfg(sizes)
         return {"phase": "26", "cfg": cfg, "train_cfg": cfg, "fsdp": False, "tag": "tp",
@@ -7157,9 +7227,72 @@ def tp_cut(params: dict, n_layers: int) -> dict:
     return out
 
 
+#: how long a rank waits for the single-device program's reference file
+TP_REF_WAIT_S = 600.0
+
+
+class SavedBehind:
+    """``torch.save(obj, path)`` on a thread of the parent, so that the
+    ranks serve and step while it is written; the file appears whole
+    (written beside, then renamed), or ``path + ".failed"`` does.
+    ``join`` re-raises the writer's error; ``seconds`` is its write."""
+
+    def __init__(self, obj, path: str):
+        self.path, self.seconds, self.error = path, None, None
+        self._thread = threading.Thread(target=self._write, args=(obj,), daemon=True)
+        self._thread.start()
+
+    def _write(self, obj) -> None:
+        t0 = time.perf_counter()
+        try:
+            torch.save(obj, self.path + ".part")
+            os.replace(self.path + ".part", self.path)
+        except BaseException as e:  # the ranks stop waiting, the parent raises
+            self.error = e
+            open(self.path + ".failed", "w").close()
+        self.seconds = time.perf_counter() - t0
+
+    def join(self) -> float:
+        self._thread.join()
+        if self.error is not None:
+            raise RuntimeError(f"writing {self.path} failed") from self.error
+        return self.seconds
+
+
+class RankData:
+    """A rank's view of the single-device program's files: ``init`` (the
+    initial parameters, mapped at once where the phase has them) and, from
+    the file ``SavedBehind`` writes, ``final`` and ``grads32``, mapped at
+    their first read, after waiting for the file (``wait_s``)."""
+
+    def __init__(self, init_path: Optional[str], ref_path: str):
+        self._known = ({} if init_path is None else
+                       torch.load(init_path, mmap=True, weights_only=True))
+        self._ref_path, self._ref, self.wait_s = ref_path, None, 0.0
+
+    def __getitem__(self, key):
+        if key in self._known:
+            return self._known[key]
+        if self._ref is None:
+            t0 = time.perf_counter()
+            while not os.path.exists(self._ref_path):
+                if os.path.exists(self._ref_path + ".failed"):
+                    raise RuntimeError(f"the parent could not write {self._ref_path}")
+                if time.perf_counter() - t0 > TP_REF_WAIT_S:
+                    raise TimeoutError(f"{self._ref_path} not written in {TP_REF_WAIT_S} s")
+                time.sleep(0.05)
+            self.wait_s = time.perf_counter() - t0
+            self._ref = torch.load(self._ref_path, mmap=True, weights_only=True)
+        return self._ref[key]
+
+    def __setitem__(self, key, value) -> None:
+        self._known[key] = value
+
+
 class TPRecordingLM(RecordingLM):
     """``RecordingLM`` with each call's collectives (``CollectiveLog``:
-    counts and operand bytes by kind, the wire's host seconds)."""
+    counts and operand bytes by kind, the wire's host seconds), and its
+    MoE routing under a ``RoutingLog``."""
 
     def _call(self, kind, fn, tokens):
         log = CollectiveLog()
@@ -7170,16 +7303,17 @@ class TPRecordingLM(RecordingLM):
         return out
 
 
-def tp_reference(cfg, sizes: Sizes, device, path: str, train_cfg=None) -> dict:
+def tp_reference(cfg, sizes: Sizes, device, work: str, train_cfg=None) -> dict:
     """The single-device program, in the parent, before the ranks start:
     (a) the engine's calls over phase 10's requests (``RecordingLM``:
     each call's input tokens and last logits); (b) phase 16's bfloat16
     steps (fused AdamW, remat) of ``train_cfg``'s layers (the first of
     ``cfg``'s), its losses and last parameters; the float32 loss and
-    gradients of the TP_F32_LAYERS-layer cut. The initial
-    and last parameters and the cut's gradients go to ``path``
-    (``torch.save``; the ranks map it and cut their shards); the card is
-    freed on return."""
+    gradients of the TP_F32_LAYERS-layer cut. The initial parameters go
+    to ``work/init.pt`` (``torch.save``; the ranks map it and cut their
+    shards), the last ones and the cut's gradients to ``work/ref.pt``
+    behind the ranks (``SavedBehind``: they read it after their steps);
+    the card is freed on return."""
     t0 = time.perf_counter()
     model = build_model(cfg, inner="cuda", remat="layer")
     params = model.init(torch.Generator(device=device).manual_seed(0), device=device)
@@ -7209,15 +7343,118 @@ def tp_reference(cfg, sizes: Sizes, device, path: str, train_cfg=None) -> dict:
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(cut)]
     loss32, _ = build_model(cut_cfg, inner="cuda").loss(tree_unflatten(cut, leaves), batch)
     grads32 = torch.autograd.grad(loss32, leaves)
-    torch.save({"init": tree_map(lambda t: t.detach().cpu(), params), "final": final,
-                "grads32": tree_unflatten(cut, [g.cpu() for g in grads32])}, path)
+    files = (os.path.join(work, "init.pt"), os.path.join(work, "ref.pt"))
+    torch.save({"init": tree_map(lambda t: t.detach().cpu(), params)}, files[0])
+    saver = SavedBehind({"final": final,
+                         "grads32": tree_unflatten(cut, [g.cpu() for g in grads32])}, files[1])
     out = {"calls": calls, "losses": losses, "step_ms": step_ms,
            "loss32": float(loss32.detach()),
            "n_params": sum(t.numel() for t in tree_leaves(params)), "max_seq": max_seq,
-           "reference_s": time.perf_counter() - t0}
+           "files": files, "saver": saver, "reference_s": time.perf_counter() - t0}
     del params, cut, leaves, grads32, loss32, batch, model
     free_card(device)
     return out
+
+
+def f32_layers(cfg) -> int:
+    """The float32 step's depth: the first TP_F32_LAYERS of ``cfg``'s."""
+    return min(TP_F32_LAYERS, cfg.n_layers)
+
+
+def ep_reference(cfg, train_cfg, sizes: Sizes, device, work: str, p20=None) -> dict:
+    """Phase 28's single-device program, in the parent, before the ranks
+    start: (a) phase 20 (a)'s recorded calls of the same configuration
+    (``p20``: each call's tokens, last logits and routing), or, run alone,
+    the engine over phase 10's requests at TP_NEW_TOKENS, recorded the same
+    way (``RoutingLog``); (b) ``tp_reference``'s training run of
+    ``train_cfg`` from its own seed-0 weights, whose last parameters and
+    float32 gradients go to ``work/ref.pt`` behind the ranks
+    (``SavedBehind``); the ranks draw the initial weights themselves (no
+    file holds the whole tree)."""
+    t0 = time.perf_counter()
+    if p20 is None:
+        model = build_model(cfg, inner="cuda", remat="layer")
+        params = model.init(torch.Generator(device=device).manual_seed(0), device=device)
+        serve = dataclasses.replace(sizes, lm_new_tokens=TP_NEW_TOKENS)
+        max_seq = sizes.lm_prompts[1] + TP_NEW_TOKENS
+        routing = RoutingLog()
+        rec = RecordingLM(model, device, routing)
+        engine = ServingEngine(rec, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
+                               device=device)
+        for r in lm_requests(serve, cfg.vocab_size):
+            engine.submit(r)
+        with routing:
+            engine.run()
+        calls = host_calls(rec)
+        n_serve = sum(t.numel() for t in tree_leaves(params))
+        del rec, engine, params, model, routing
+        free_card(device)
+    else:
+        calls, max_seq = p20["calls"], p20["max_seq"]
+        n_serve = None
+    model = build_model(train_cfg, inner="cuda", remat="layer")
+    params = model.init(torch.Generator(device=device).manual_seed(0), device=device)
+    batch = make_dummy_batch(train_cfg, sizes.lm_train_batch, sizes.lm_train_seq,
+                             generator=torch.Generator(device=device).manual_seed(1))
+    opt = adamw(warmup_cosine(EP_LR, LM_WARMUP, TP_TRAIN_STEPS), fused=True)
+    run = lm_train_run(model, opt, params, batch, TP_TRAIN_STEPS, device)
+    final = tree_map(lambda t: t.detach().cpu(), run["params"])
+    losses, step_ms = run["losses"], run["ms"]
+    del run
+    free_card(device)
+    cut_cfg = dataclasses.replace(train_cfg, n_layers=f32_layers(train_cfg))
+    cut = tp_cut(params, cut_cfg.n_layers)
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(cut)]
+    # the loss alone: its metrics' graph would hold the leaves
+    loss32 = build_model(cut_cfg, inner="cuda").loss(tree_unflatten(cut, leaves), batch)[0]
+    grads32 = torch.autograd.grad(loss32, leaves)
+    grads32 = tree_unflatten(cut, [g.cpu() for g in grads32])
+    loss32 = float(loss32.detach())
+    n_train = sum(t.numel() for t in tree_leaves(params))
+    del params, cut, leaves, batch, model
+    free_card(device)
+    held = torch.cuda.memory_reserved(device) if device.type == "cuda" else 0
+    print(f"[ep] the parent holds {held} bytes on the card before the ranks' training")
+    files = (None, os.path.join(work, "ref.pt"))
+    saver = SavedBehind({"final": final, "grads32": grads32}, files[1])
+    return {"calls": calls, "losses": losses, "step_ms": step_ms, "loss32": loss32,
+            "n_params": n_serve, "n_train_params": n_train, "max_seq": max_seq,
+            "files": files, "saver": saver, "reused_phase_20": p20 is not None,
+            "parent_reserved_bytes": held, "reference_s": time.perf_counter() - t0}
+
+
+def drawn_shards(cfg, rules, mesh, device, serial: bool) -> tuple:
+    """``(the rank's shards, every leaf's whole shape)`` of ``cfg``'s
+    weights from seed 0, drawn whole on the card as the single-device
+    program draws them and cut (``shard_tree``); where ``serial``, one rank
+    at a time, so that the card holds one whole tree at once."""
+    world = torch.distributed.get_world_size()
+    rank = torch.distributed.get_rank()
+    shards = shapes = None
+    for turn in range(world if serial else 1):
+        if not serial or rank == turn:
+            full = build_model(cfg, inner="cuda").init(
+                torch.Generator(device=device).manual_seed(0), device=device)
+            shapes = {path: tuple(t.shape) for path, t in _flatten_with_paths(full)}
+            shards = shard_tree(full, rules, mesh.coords)
+            del full
+            free_card(device)
+        if serial:
+            torch.distributed.barrier()
+    return shards, shapes
+
+
+def expert_bytes(params, shapes: dict, rules, mesh) -> dict:
+    """The bytes of a rank's expert leaves (``we_gate``, ``we_up``,
+    ``we_down``), read from its tensors, beside their ``param_spec``
+    shards' (float32)."""
+    have = want = 0
+    for path, t in _flatten_with_paths(params):
+        if path.split("/")[-1] in ("we_gate", "we_up", "we_down"):
+            have += t.numel() * t.element_size()
+            want += 4 * _shard_numel(shapes[path], rules.param_spec(path, shapes[path]),
+                                     mesh.shape)
+    return {"have": have, "want": want}
 
 
 def tp_dryrun(cfg, sizes: Sizes, ref: dict, fsdp: bool = False, train_cfg=None) -> dict:
@@ -7315,11 +7552,16 @@ def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
     cfg, sizes = spec["cfg"], spec["sizes"]
     t0 = time.perf_counter()
     model = build_model(cfg, inner="cuda")
-    params = tree_map(lambda t: t.to(device), shard_tree(data["init"], rules, mesh.coords))
+    if spec.get("draw"):
+        params, shapes = drawn_shards(cfg, rules, mesh, device, serial=True)
+    else:
+        params = tree_map(lambda t: t.to(device), shard_tree(data["init"], rules, mesh.coords))
     sync(device)
     max_seq = spec["max_seq"]
     serve = dataclasses.replace(sizes, lm_new_tokens=TP_NEW_TOKENS)
     out = {"coords": mesh.coords, "load_s": time.perf_counter() - t0}
+    if cfg.moe is not None:
+        out["expert_bytes"] = expert_bytes(params, shapes, rules, mesh)
     # the engine's cache, as its waves make it, against cache_spec's shard
     full = model.init_cache(sizes.lm_slots, max_seq, dtype=torch.float32, device="meta")
     out["cache_bytes_want"] = 4 * sum(
@@ -7342,7 +7584,8 @@ def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
         again.submit(Request(rid=0, prompt=first, max_new_tokens=2))
         out["profile"] = rank_busy(again.run, device)
         del again
-        rec = TPRecordingLM(model, device)
+        routing = RoutingLog() if cfg.moe is not None else None
+        rec = TPRecordingLM(model, device, routing)
         engine = ServingEngine(rec, params, batch_slots=sizes.lm_slots, max_seq=max_seq,
                                device=device)
         for r in lm_requests(serve, cfg.vocab_size):
@@ -7360,12 +7603,13 @@ def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
 
         table["flash"] = spy
         try:
-            zero_counts()
-            t0 = time.perf_counter()
-            done = engine.run()
-            sync(device)
-            out["wall_s"] = time.perf_counter() - t0
-            out["launches"] = counts()
+            with routing or contextlib.nullcontext():
+                zero_counts()
+                t0 = time.perf_counter()
+                done = engine.run()
+                sync(device)
+                out["wall_s"] = time.perf_counter() - t0
+                out["launches"] = counts()
         finally:
             table["flash"] = inner
     by_input = {}
@@ -7373,7 +7617,7 @@ def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
         by_input.setdefault((c["kind"], c["wave"]), []).append(c)
     worst, held, unheld, pairs, sure_pairs = 0.0, 0, 0, 0, 0
     h = hashlib.sha256()
-    calls = []
+    calls, parted, parted_waves = [], [], set()
     seen = defaultdict(int)
     for c in rec.calls:
         logits = c["logits"]
@@ -7390,6 +7634,16 @@ def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
         if want is None or not np.array_equal(c["tokens"].cpu().numpy(), want["tokens"]):
             unheld += 1  # its inputs parted from the single-device program's
             continue
+        if routing is not None and c["wave"] not in parted_waves:
+            margins = routes_parted([(ids.cpu(), m.cpu()) for ids, m in c["routes"]],
+                                    want["routes"])
+            if margins:  # the caches differ from here: the wave is held no further
+                parted.append({"wave": c["wave"], "kind": c["kind"], "tokens": len(margins),
+                               "max_margin": max(margins)})
+                parted_waves.add(c["wave"])
+        if c["wave"] in parted_waves:
+            unheld += 1
+            continue
         ref_logits = torch.from_numpy(want["logits"]).to(logits.device)
         worst = max(worst, float((logits - ref_logits).abs().max()))
         held += 1
@@ -7404,6 +7658,7 @@ def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
     for r in done:
         h.update(np.asarray(r.output, np.int64).tobytes())
     out.update({"calls": calls, "max_logit_diff": worst, "held": held, "unheld": unheld,
+                "routing_parted": parted,
                 "token_pairs": pairs, "token_pairs_compared": sure_pairs,
                 "digest": h.hexdigest(), "outputs": [r.output for r in done],
                 "flash_heads": sorted(set(layers))})
@@ -7449,9 +7704,13 @@ def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
     program's (squared norms, summed over the model ranks by the parent),
     a digest a leaf; the same for the planted control, TP_TRAIN_STEPS
     steps from the same shards without the gradients' mean over ``data``
-    (``_data_skipped_mesh``); the float32 loss and gradients of the
-    TP_F32_LAYERS-layer cut; rank 0 times its Adam launch over its leaves
-    (``lm_adam_row``)."""
+    (``_data_skipped_mesh``; under FSDP the reduce-scatter's sum skipped;
+    with the experts over ``data``, their gradients averaged over it);
+    the float32 loss and gradients of the TP_F32_LAYERS-layer cut; rank 0
+    times its Adam launch over its leaves (``lm_adam_row``). Where
+    ``spec["draw"]`` the rank draws the seed-0 weights itself
+    (``drawn_shards``) and keeps its initial shards for the changes, the
+    control and the float32 step."""
     cfg, sizes = spec["cfg"], spec["sizes"]
     on_card = device.type == "cuda"
     batch = make_dummy_batch(cfg, sizes.lm_train_batch, sizes.lm_train_seq,
@@ -7460,18 +7719,24 @@ def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
     d = mesh.coords["data"]
     batch = {k: v[d * per:(d + 1) * per].clone() for k, v in batch.items()}
     t0 = time.perf_counter()
-    params = tree_map(lambda t: t.to(device), shard_tree(data["init"], rules, mesh.coords))
+    if spec.get("draw"):  # the rank's own draw, kept on the host for the changes,
+        # the control and the float32 step (on the card it would hold a
+        # second copy of the shards through the steps)
+        params, shapes = drawn_shards(cfg, rules, mesh, device, serial=False)
+        start = tree_map(lambda t: t.cpu(), params)
+    else:
+        params = tree_map(lambda t: t.to(device), shard_tree(data["init"], rules, mesh.coords))
+        shapes = {p: tuple(t.shape) for p, t in _flatten_with_paths(data["init"])}
     sync(device)
     model = build_model(cfg, inner="cuda", remat="layer")
-    opt = adamw(warmup_cosine(LM_LR, LM_WARMUP, TP_TRAIN_STEPS), fused=True)
+    opt = adamw(warmup_cosine(spec.get("lr", LM_LR), LM_WARMUP, TP_TRAIN_STEPS), fused=True)
     step = make_train_step(model, opt)
     out = {"coords": mesh.coords, "steps": [], "load_s": time.perf_counter() - t0}
     with use_rules(rules):
         state = opt.init(params)
         # the rank's parameter and Adam-state bytes, from its tensors,
         # against its rules' shards (float32, both moments)
-        specs = [(rules.param_spec(p, tuple(t.shape)), tuple(t.shape))
-                 for p, t in _flatten_with_paths(data["init"])]
+        specs = [(rules.param_spec(p, shape), shape) for p, shape in shapes.items()]
         want = 4 * sum(_shard_numel(shape, spec, mesh.shape) for spec, shape in specs)
         fractions = [t.numel() / math.prod(shape)
                      for t, (_, shape) in zip(tree_leaves(params), specs) if len(shape) >= 2]
@@ -7493,6 +7758,7 @@ def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
                     out["profile"] = rank_busy(
                         lambda: done.append(step(params, state, batch)), device)
                     (params, state, loss), = done
+                    done.clear()  # the state is freed with its name below
                 else:
                     params, state, loss = step(params, state, batch)
             loss = float(loss)
@@ -7502,8 +7768,10 @@ def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
                 "launches": counts(), "collective_counts": dict(log.counts),
                 "collective_bytes": dict(log.bytes), "wire_s": log.seconds,
                 "peak": torch.cuda.max_memory_allocated(device) - before if on_card else 0})
+        t0 = time.perf_counter()
         paths = _leaf_paths(params)
-        init = tree_leaves(shard_tree(data["init"], rules, mesh.coords))
+        init = (tree_leaves(start) if spec.get("draw")
+                else tree_leaves(shard_tree(data["init"], rules, mesh.coords)))
         final = tree_leaves(shard_tree(data["final"], rules, mesh.coords))
         out["delta_parts"] = dict(zip(paths, _delta_parts(tree_leaves(params), init, final)))
         out["digests"] = {p: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
@@ -7513,37 +7781,51 @@ def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
         del state
         params = tree_map(lambda t: t.cpu(), params)  # the card holds one run at a time
         free_card(device)
+        out["readings_s"] = time.perf_counter() - t0  # the reference's wait in it
     # the planted control: the same steps with each data rank on its own
     # rows: without FSDP the gradients' mean over data skipped; under FSDP
     # the reduce-scatter's sum over data, each rank keeping its own
-    # gradient's slice (times the data size, which the step divides out)
+    # gradient's slice (times the data size, which the step divides out);
+    # with the experts over data, their gradients averaged over data as if
+    # each data rank held the same experts (the rest stepped soundly)
     t0 = time.perf_counter()
-    ctrl_rules = (ShardingRules(mesh, cfg, fsdp=True) if rules.fsdp
-                  else ShardingRules(_data_skipped_mesh(mesh), cfg))
-    ctrl = tree_map(lambda t: t.to(device), shard_tree(data["init"], ctrl_rules, mesh.coords))
-    scatter = fsdp_mod._scatter_grad
+    scatter, experts = fsdp_mod._scatter_grad, fsdp_mod.expert_leaves
+    if rules.expert_parallel_2d:
+        ctrl_rules, ctrl = rules, tree_map(lambda t: t.to(device), start)
+        fsdp_mod.expert_leaves = lambda model: frozenset()
+    else:
+        ctrl_rules = (ShardingRules(mesh, cfg, fsdp=True) if rules.fsdp
+                      else ShardingRules(_data_skipped_mesh(mesh), cfg))
+        ctrl = tree_map(lambda t: t.to(device),
+                        shard_tree(data["init"], ctrl_rules, mesh.coords))
 
-    def own_slice(g, dim, axis, r):
-        size = g.shape[dim] // r.mesh.shape[axis]
-        return g.narrow(dim, r.mesh.coords[axis] * size, size) * r.mesh.shape[axis]
+        def own_slice(g, dim, axis, r):
+            size = g.shape[dim] // r.mesh.shape[axis]
+            return g.narrow(dim, r.mesh.coords[axis] * size, size) * r.mesh.shape[axis]
 
-    fsdp_mod._scatter_grad = own_slice
+        fsdp_mod._scatter_grad = own_slice
     try:
         with use_rules(ctrl_rules):
             state = opt.init(ctrl)
             for _ in range(TP_TRAIN_STEPS):
                 ctrl, state, _ = step(ctrl, state, batch)
     finally:
-        fsdp_mod._scatter_grad = scatter
+        fsdp_mod._scatter_grad, fsdp_mod.expert_leaves = scatter, experts
     out["control_parts"] = dict(zip(paths, _delta_parts(tree_leaves(ctrl), init, final)))
     out["control_s"] = time.perf_counter() - t0
     del ctrl, state, init, final
     free_card(device)
+    t0 = time.perf_counter()
     with use_rules(rules):
-        cut_cfg = dataclasses.replace(cfg, n_layers=TP_F32_LAYERS)
-        cut_rules = ShardingRules(mesh, cut_cfg, fsdp=rules.fsdp)
-        cut = tree_map(lambda t: t.to(device), shard_tree(
-            tp_cut(data["init"], TP_F32_LAYERS), cut_rules, mesh.coords))
+        cut_cfg = dataclasses.replace(cfg, n_layers=f32_layers(cfg))
+        cut_rules = ShardingRules(mesh, cut_cfg, fsdp=rules.fsdp,
+                                  expert_parallel_2d=rules.expert_parallel_2d)
+        if spec.get("draw"):  # the cut is the whole of (b)'s depth
+            assert cut_cfg.n_layers == cfg.n_layers
+            cut = tree_map(lambda t: t.to(device), start)
+        else:
+            cut = tree_map(lambda t: t.to(device), shard_tree(
+                tp_cut(data["init"], cut_cfg.n_layers), cut_rules, mesh.coords))
         with use_rules(cut_rules):
             cut_model = build_model(cut_cfg, inner="cuda")
             leaves = [p.detach().requires_grad_(True) for p in tree_leaves(cut)]
@@ -7555,6 +7837,8 @@ def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
         out["loss32"] = float(loss32)
         out["grad32_parts"] = dict(zip(_leaf_paths(cut), _leaf_parts(grads, want)))
         del cut, leaves, grads, want, loss32, batch, model, step, opt, cut_model
+        start = None
+    out["f32_s"] = time.perf_counter() - t0
     if rank != 0:
         del params
     free_card(device)
@@ -7574,19 +7858,23 @@ def tp_warm(rank: int) -> int:
 def tp_rank(rank: int, spec: dict) -> dict:
     """What each phase-26 or phase-27 rank process runs: its mesh and rules
     (FSDP in phase 27's training), then (a)
-    or (b) (``spec["part"]``) on the parameters that ``spec["file"]``
-    holds (mapped, each rank cutting its shards)."""
+    or (b) (``spec["part"]``) on the parameters that ``spec["files"]``
+    hold (mapped, each rank cutting its shards; ``RankData``)."""
     device = _rank_device()
     started_s = time.perf_counter() - spec["t0"]  # the call's file read, imports included
     cfg = spec["cfg"]
     mesh = make_mesh(*spec["mesh"])
-    rules = ShardingRules(mesh, cfg, fsdp=spec["fsdp"] and spec["part"] == "train")
+    rules = ShardingRules(mesh, cfg, fsdp=spec["fsdp"] and spec["part"] == "train",
+                          expert_parallel_2d=spec.get("ep2d", False))
     check_tp(cfg, rules)
-    data = torch.load(spec["file"], mmap=True, weights_only=True)
-    if spec["part"] == "train":  # (b)'s layers: the first cfg.n_layers of (a)'s
+    data = RankData(*spec["files"])
+    if spec["part"] == "train" and not spec["draw"]:  # (b)'s layers: the first of (a)'s
         data["init"] = tp_cut(data["init"], cfg.n_layers)
     part = tp_serve_rank if spec["part"] == "serve" else tp_train_rank
     out = part(rank, spec, mesh, rules, data, device)
+    out["ref_wait_s"] = data.wait_s
+    del data
+    free_card(device)  # the pool's processes outlive the part: return what it held
     out["device"] = device.type
     out["rank_s"] = time.perf_counter() - spec["t0"]
     out["started_s"] = started_s
@@ -7609,36 +7897,52 @@ def _norm_rel(ranks: list, key: str) -> dict:
     return out
 
 
-def tp_phase(sizes: Sizes, device, case: dict, pool, warm) -> dict:
+def tp_phase(sizes: Sizes, device, case: dict, pool, warm, p20=None) -> dict:
     """Phase 26 (llama3.2-1b) or 27 (starcoder2-3b, FSDP in training),
     ``case``: served at (data 1, model 4) and trained at (data 2, model 2)
     on the 4 rank processes of ``pool`` sharing the card (gloo), each
     against the single-device program run first in the parent while the
     ranks warm (``warm``, a future); the dry run of the ranks' steps held
-    against them."""
+    against them. Phase 28 (``case["draw"]``) takes ``ep_reference``'s
+    single-device program (phase 20 (a)'s calls, ``p20``, where it ran)."""
     t_phase = time.perf_counter()
     cfg, tag = case["cfg"], case["tag"]
     work = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
+    ref = {}
     try:
-        path = os.path.join(work, "params.pt")
-        ref = tp_reference(cfg, sizes, device, path, case["train_cfg"])
+        if case.get("draw"):
+            ref = ep_reference(cfg, case["train_cfg"], sizes, device, work, p20)
+        else:
+            ref = tp_reference(cfg, sizes, device, work, case["train_cfg"])
+        free_card(device)  # the card is the ranks' from here
         warm.result()
-        print(f"[{tag}] {cfg.name} on one device: {ref['n_params']:,} parameters; "
+        print(f"[{tag}] {cfg.name} on one device: {ref['n_params'] or 0:,} parameters; "
               f"{len(ref['calls'])} engine calls, prefill "
               f"{[round(c['ms'], 1) for c in ref['calls'] if c['kind'] == 'prefill']} ms; "
               f"training losses {ref['losses']}; {ref['reference_s']:.1f} s")
         dry = tp_dryrun(cfg, sizes, ref, fsdp=case["fsdp"], train_cfg=case["train_cfg"])
-        base = {"cfg": cfg, "sizes": sizes, "file": path, "max_seq": ref["max_seq"],
-                "fsdp": case["fsdp"]}
+        base = {"cfg": cfg, "sizes": sizes, "files": ref["files"], "max_seq": ref["max_seq"],
+                "fsdp": case["fsdp"], "draw": case.get("draw", False),
+                "ep2d": case.get("ep2d", False)}
         serve = pool.run(tp_rank, 4, ({**base, "part": "serve", "mesh": TP_SERVE_MESH,
                                        "ref_calls": ref["calls"], "t0": time.perf_counter()},))
         train = pool.run(tp_rank, 4, ({**base, "cfg": case["train_cfg"], "part": "train",
-                                       "mesh": TP_TRAIN_MESH, "t0": time.perf_counter()},))
+                                       "mesh": TP_TRAIN_MESH, "lr": case.get("lr", LM_LR),
+                                       "t0": time.perf_counter()},))
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        try:
+            if "saver" in ref:
+                ref["save_s"] = ref["saver"].join()
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
            "train_layers": case["train_cfg"].n_layers, "n_params": ref["n_params"],
-           "fsdp": case["fsdp"], "reference_s": ref["reference_s"], "dryrun": dry,
+           "train_arch": case["train_cfg"].name, "fsdp": case["fsdp"],
+           "ep2d": case.get("ep2d", False), "reference_s": ref["reference_s"],
+           "reference": {k: ref[k] for k in ("save_s", "reused_phase_20", "n_train_params",
+                                             "parent_reserved_bytes") if k in ref},
+           "ref_wait_s": [r["ref_wait_s"] for r in train],
+           "dryrun": dry,
            "serve": tp_serve_gates(cfg, sizes, serve, ref, dry, tag),
            "train": tp_train_gates(train, ref, dry, tag)}
     out["phase_s"] = time.perf_counter() - t_phase
@@ -7647,27 +7951,39 @@ def tp_phase(sizes: Sizes, device, case: dict, pool, warm) -> dict:
     return out
 
 
-def tp_phases(sizes: Sizes, device, phases: tuple) -> dict:
-    """Phases 26 and 27 (those ``phases`` names) on one ``RankPool`` of 4
-    processes: they start, import this script and take their CUDA contexts
-    (``tp_warm``, from a thread) while phase 26's single-device program
-    runs. Returns each phase's result and seconds (the spawn in the
-    first's)."""
-    out = {}
+@contextlib.contextmanager
+def tp_pool(device):
+    """The 4 rank processes of phases 26-28 (``RankPool``), started at
+    once: they import this script and take their CUDA contexts
+    (``tp_warm``) on a thread. Yields ``(pool, the warm-up's future, the
+    spawn's seconds)``; closes the pool."""
     t0 = time.perf_counter()
     pool = RankPool(4, device=device.type)
     try:
         spawn_s = time.perf_counter() - t0
         with concurrent.futures.ThreadPoolExecutor(1) as warming:
-            warm = warming.submit(pool.run, tp_warm, 4)
-            for phase in phases:
-                res = tp_phase(sizes, device, tp_case(sizes, phase), pool, warm)
-                res["phase_s"] = time.perf_counter() - t0
-                res["spawn_s"] = spawn_s if not out else 0.0
-                out[phase] = res
-                t0 = time.perf_counter()
+            yield pool, warming.submit(pool.run, tp_warm, 4), spawn_s
     finally:
         pool.close()
+
+
+def tp_phases(sizes: Sizes, device, phases: tuple, p20=None, started=None) -> dict:
+    """Phases 26, 27 and 28 (those ``phases`` names) on one ``tp_pool``,
+    ``started`` (in the whole run, beside phase 25) or started here, warming
+    while the first phase's single-device program runs (phase 28's
+    reference reuses phase 20 (a)'s calls, ``p20``, where given). Returns
+    each phase's result and seconds (the spawn in the first's)."""
+    out = {}
+    t0 = time.perf_counter()
+    with contextlib.nullcontext(started) if started else tp_pool(device) as (pool, warm,
+                                                                             spawn_s):
+        for phase in phases:
+            res = tp_phase(sizes, device, tp_case(sizes, phase), pool, warm,
+                           p20 if phase == "28" else None)
+            res["phase_s"] = time.perf_counter() - t0
+            res["spawn_s"] = spawn_s if not out else 0.0
+            out[phase] = res
+            t0 = time.perf_counter()
     return out
 
 
@@ -7692,6 +8008,14 @@ def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict,
         if r["cache_bytes"] != r["cache_bytes_want"]:
             raise AssertionError(f"rank {r['coords']}: its cache holds {r['cache_bytes']} "
                                  f"bytes, cache_spec's shard {r['cache_bytes_want']}")
+        if "expert_bytes" in r and r["expert_bytes"]["have"] != r["expert_bytes"]["want"]:
+            raise AssertionError(f"rank {r['coords']}: expert bytes {r['expert_bytes']}, "
+                                 "not its rules' shard")
+        margin = max((p["max_margin"] for p in r["routing_parted"]), default=0.0)
+        if margin > ROUTE_MARGIN:
+            raise AssertionError(f"rank {r['coords']}: MoE routing parted from the "
+                                 f"single-device program's at a top-k margin of {margin} > "
+                                 f"{ROUTE_MARGIN}: {r['routing_parted']}")
         if r["held"] == 0 or r["max_logit_diff"] > TOL:
             raise AssertionError(f"rank {r['coords']}: logits within {r['max_logit_diff']} "
                                  f"of the single-device program's over {r['held']} calls "
@@ -7734,6 +8058,8 @@ def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict,
            "collective_counts": {k: c["counts"] for k, c in one.items()},
            "collective_bytes": {k: c["bytes"] for k, c in one.items()},
            "cache_bytes": ranks[0]["cache_bytes"],
+           "expert_bytes": [r.get("expert_bytes") for r in ranks],
+           "routing_parted": [r["routing_parted"] for r in ranks],
            "profile": [r["profile"] for r in ranks],
            "flash": ranks[0].get("flash"), "wall_s": ranks[0]["wall_s"],
            "rank_s": [r["rank_s"] for r in ranks], "started_s": [r["started_s"] for r in ranks],
@@ -7746,17 +8072,21 @@ def tp_train_gates(ranks: list, ref: dict, dry: dict, tag: str = "tp") -> dict:
     """(b)'s and (c)'s gates over the four ranks' results."""
     losses = [s["loss"] for s in ranks[0]["steps"]]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    model = TP_TRAIN_MESH[1]
+    # the readings first, printed whether or not the gates hold
+    delta_rel = _norm_rel(ranks, "delta_parts")
+    control_rel = _norm_rel(ranks, "control_parts")
+    grad_rel = _norm_rel(ranks, "grad32_parts")
+    print(f"[{tag}] (b) readings " + json.dumps({
+        "losses": losses, "ref_losses": ref["losses"], "loss_rel": rel,
+        "loss32": ranks[0]["loss32"],
+        "ref_loss32": ref["loss32"], "grad32_max": max(grad_rel.values()),
+        "limit": TP_DELTA_RTOL, "max": max(delta_rel.values()),
+        "control_max": max(control_rel.values()), "control_min": min(control_rel.values()),
+        "by_leaf": {p: [delta_rel[p], control_rel[p], grad_rel.get(p)] for p in delta_rel}}))
     if not (max(rel) <= TP_LOSS_RTOL and np.isfinite(losses).all()
             and losses[-1] < losses[0]):
         raise AssertionError(f"(b) losses {losses} against the single-device {ref['losses']}")
-    model = TP_TRAIN_MESH[1]
-    # the changes' readings first, printed whether or not the gates hold
-    delta_rel = _norm_rel(ranks, "delta_parts")
-    control_rel = _norm_rel(ranks, "control_parts")
-    print(f"[{tag}] (b) change readings " + json.dumps({
-        "limit": TP_DELTA_RTOL, "max": max(delta_rel.values()),
-        "control_max": max(control_rel.values()), "control_min": min(control_rel.values()),
-        "by_leaf": {p: [delta_rel[p], control_rel[p]] for p in delta_rel}}))
     for r in ranks:
         if r["device"] != "cuda":
             raise AssertionError(f"rank {r['coords']} ran on {r['device']}, not the card")
@@ -7792,7 +8122,6 @@ def tp_train_gates(ranks: list, ref: dict, dry: dict, tag: str = "tp") -> dict:
         if abs(r["loss32"] - ref["loss32"]) > TOL:
             raise AssertionError(f"rank {r['coords']}: float32 loss {r['loss32']} against "
                                  f"{ref['loss32']}")
-    grad_rel = _norm_rel(ranks, "grad32_parts")
     if max(delta_rel.values()) > TP_DELTA_RTOL:
         raise AssertionError(f"(b) the leaves' changes part by {max(delta_rel.values())} "
                              f"(limit {TP_DELTA_RTOL})")
@@ -7821,7 +8150,8 @@ def tp_train_gates(ranks: list, ref: dict, dry: dict, tag: str = "tp") -> dict:
            "launches_all_ranks": {k: sum(s["launches"][k] for r in ranks for s in r["steps"])
                                   for k in steps[0]["launches"]},
            "adam": ranks[0].get("adam"), "rank_s": [r["rank_s"] for r in ranks],
-           "started_s": [r["started_s"] for r in ranks], "load_s": [r["load_s"] for r in ranks]}
+           "started_s": [r["started_s"] for r in ranks], "load_s": [r["load_s"] for r in ranks],
+           "readings_s": [r["readings_s"] for r in ranks], "f32_s": [r["f32_s"] for r in ranks]}
     print(f"[{tag}] (b) " + json.dumps({k: v for k, v in out.items() if k != "adam"}))
     return out
 
@@ -7860,9 +8190,11 @@ def tp_entries(entries: list, p26: dict, alone: bool, case: dict) -> None:
         adam[key] = {
             **{k: a[k] for k in keep}, "library": a["library"], "params": a["params"],
             "leaves": a["leaves"],
-            "shape": f"{p26['arch']}: one launch over rank 0's {a['leaves']} shards "
+            "shape": f"{p26['train_arch']}: one launch over rank 0's {a['leaves']} shards "
                      f"({a['params']:,} values) at (data 2, model 2)"
-                     + (", FSDP" if p26["fsdp"] else "") + "; CUDA events"}
+                     + (", FSDP" if p26["fsdp"] else "")
+                     + (", its experts over (data, model)" if p26["ep2d"] else "")
+                     + "; CUDA events"}
     if alone:
         for e in (flash, adam):
             if key in e:
@@ -7874,7 +8206,9 @@ def tp_entries(entries: list, p26: dict, alone: bool, case: dict) -> None:
 def print_tp_summary(m: dict, card: str, phase: str = "26") -> None:
     s, t, dry = m["serve"], m["train"], m["dryrun"]
     print(f"[summary] phase {phase}, tensor parallelism"
-          + (" and FSDP" if m["fsdp"] else "") + " on 4 ranks sharing the card over gloo "
+          + (" and FSDP" if m["fsdp"] else "")
+          + (", the experts over (data, model)" if m["ep2d"] else "")
+          + " on 4 ranks sharing the card over gloo "
           f"({card}; the wire is gloo's loopback, not NVLink):")
     print(f"[summary]   (a) {m['arch']} ({m['n_layers']} layers) served at (data 1, model "
           f"4), its cache {s['cache_bytes']} bytes a rank: prefill "
@@ -7884,7 +8218,13 @@ def print_tp_summary(m: dict, card: str, phase: str = "26") -> None:
           f"{s['ref_decode_step_ms_median']:.1f}); wire {s['wire_ms']} ms a call; "
           f"collectives {s['collective_counts']}, bytes {s['collective_bytes']}; logits "
           f"within {s['max_logit_diff']:.3g}; flash at {s['flash_heads']}")
-    print(f"[summary]   (b) {m['train_layers']} layers trained at (data 2, model 2)"
+    if m["ep2d"]:
+        print(f"[summary]   (a) expert bytes a rank {s['expert_bytes'][0]}; MoE routing "
+              f"parted in {sum(len(p) for p in s['routing_parted'])} calls over the ranks; "
+              f"{s['calls_held']} calls held, {s['calls_not_held']} not; the reference "
+              f"{m['reference']}")
+    print(f"[summary]   (b) {m['train_arch']}: {m['train_layers']} layers trained at "
+          "(data 2, model 2)"
           + (" under FSDP" if m["fsdp"] else "") + f", {t['bytes']['params']} parameter "
           f"and {t['bytes']['adam']} Adam bytes a rank: steps "
           f"{[round(x, 1) for x in t['step_ms']]} ms (one device "
@@ -7908,23 +8248,25 @@ def print_tp_summary(m: dict, card: str, phase: str = "26") -> None:
 
 
 def run(sizes: Sizes, device, phases: str = "all") -> dict:
-    """Phases 2 to 27 at ``sizes`` on ``device`` (phase 20, 21, 22, 23, 24,
-    25, 26 or 27 alone where ``phases`` names it: the kernels line then
+    """Phases 2 to 28 at ``sizes`` on ``device`` (phase 20, 21, 22, 23, 24,
+    25, 26, 27 or 28 alone where ``phases`` names it: the kernels line then
     holds that phase's launches and numbers alone); returns the kernels
-    line and the details. Phases 20 to 27 each start after the phases
+    line and the details. Phases 20 to 28 each start after the phases
     before them have returned, so that nothing those held stays on the
-    card."""
-    if phases in ("20", "21", "22", "23", "24", "25", "26", "27"):
+    card; phase 20 (a)'s recorded calls stay on the host for phase 28."""
+    if phases in ("20", "21", "22", "23", "24", "25", "26", "27", "28"):
         result = {"phase_s": {}, "kernels": [
             {"name": name, "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0}
             for name in KERNELS]}
     else:
         result = phases_2_to_19(sizes, device)
+    p20 = None
     if phases in ("all", "20"):
         t0 = time.perf_counter()
         moe = moe_phase(sizes, device)
         result["phase_s"]["20"] = time.perf_counter() - t0
         moe_entries(result["kernels"], moe)
+        p20 = moe.pop("dbrx_calls")
         result["moe"] = moe
     if phases in ("all", "21"):
         t0 = time.perf_counter()
@@ -7962,19 +8304,25 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
         streaming_entries(result["kernels"], streaming)
         streaming["a"].pop("op")
         result["streaming"] = streaming
-    if phases in ("all", "25"):
+    wanted = tuple(p for p in ("26", "27", "28") if phases in ("all", p))
+    with contextlib.ExitStack() as stack:
+        # in the whole run the ranks of phases 26-28 start and warm beside
+        # phase 25, which holds the card alone (their contexts idle on it)
+        started = stack.enter_context(tp_pool(device)) if phases == "all" else None
+        if phases in ("all", "25"):
+            t0 = time.perf_counter()
+            dry = dryrun_phase(sizes, device)
+            result["phase_s"]["25"] = time.perf_counter() - t0
+            dryrun_entries(result["kernels"], dry)
+            result["dryrun"] = dry
+        if wanted:
+            for phase, res in tp_phases(sizes, device, wanted, p20, started).items():
+                case = tp_case(sizes, phase)
+                result["phase_s"][phase] = res["phase_s"]
+                tp_entries(result["kernels"], res, alone=phases == phase, case=case)
+                result[case["key"]] = res
         t0 = time.perf_counter()
-        dry = dryrun_phase(sizes, device)
-        result["phase_s"]["25"] = time.perf_counter() - t0
-        dryrun_entries(result["kernels"], dry)
-        result["dryrun"] = dry
-    wanted = tuple(p for p in ("26", "27") if phases in ("all", p))
-    if wanted:
-        for phase, res in tp_phases(sizes, device, wanted).items():
-            case = tp_case(sizes, phase)
-            result["phase_s"][phase] = res["phase_s"]
-            tp_entries(result["kernels"], res, alone=phases == phase, case=case)
-            result[case["key"]] = res
+    result["pool_close_s"] = time.perf_counter() - t0
     return result
 
 
@@ -8428,10 +8776,10 @@ DIST_LIBRARIES = ("bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "bsr_attentio
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    choices=("all", "20", "21", "22", "23", "24", "25", "26", "27"),
+                    choices=("all", "20", "21", "22", "23", "24", "25", "26", "27", "28"),
                     default="all",
-                    help="every phase (the default), or phase 20, 21, 22, 23, 24, 25, 26 or "
-                         "27 alone after building the libraries it runs")
+                    help="every phase (the default), or phase 20, 21, 22, 23, 24, 25, 26, "
+                         "27 or 28 alone after building the libraries it runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -8471,6 +8819,7 @@ def main(argv=None) -> int:
         print_dryrun_summary(result["dryrun"], card)
         print_tp_summary(result["tensor_parallel"], card)
         print_tp_summary(result["fsdp"], card, "27")
+        print_tp_summary(result["expert_parallel"], card, "28")
     elif args.phases == "20":
         print_moe_summary(result["moe"], card)
     elif args.phases == "21":
@@ -8485,16 +8834,22 @@ def main(argv=None) -> int:
         print_tp_summary(result["tensor_parallel"], card)
     elif args.phases == "27":
         print_tp_summary(result["fsdp"], card, "27")
+    elif args.phases == "28":
+        print_tp_summary(result["expert_parallel"], card, "28")
     else:
         print_streaming_summary(result["streaming"], card)
-    print(f"[done] phases {'2-27' if args.phases == 'all' else args.phases} in "
-          f"{time.perf_counter() - t_all:.1f}s: "
+    # before the build (imports, the card's query), the phases, the script
+    seconds = {"start": t0 - T_START, "phases": time.perf_counter() - t_all,
+               "script": time.perf_counter() - T_START}
+    print(f"[done] phases {'2-28' if args.phases == 'all' else args.phases} in "
+          f"{seconds['phases']:.1f}s (the script so far {seconds['script']:.1f}s, its "
+          f"start {seconds['start']:.1f}s): "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
-        json.dump({"card": card, "clocks": clocks, "build_s": built, **result}, fh,
-                  indent=1)
+        json.dump({"card": card, "clocks": clocks, "build_s": built, "seconds": seconds,
+                   **result}, fh, indent=1)
     print(card)
     print(json.dumps({"kernels": result["kernels"]}))
     print(json.dumps({"ok": True, "device": {

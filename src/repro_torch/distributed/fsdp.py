@@ -20,7 +20,12 @@ rank holds that shard of the leaf, and of its AdamW state, and
   data axis still take;
 - the optimizer steps the rank's shards (one ``fused_adam`` launch a
   rank a step); in serving the weights are gathered a layer at a time and
-  nothing is reduced.
+  nothing is reduced;
+- under 2D expert parallelism the experts lie over ``(data, model)``
+  and stay resident (``expert_leaves``): no gather, and their gradients,
+  which the tokens' all-to-all already brought every data rank's share
+  of, are divided by the data size alone (``data_mean``), with or without
+  FSDP.
 
 Where the rules put the data axis on a scanned segment's stacked layer
 axis (a leaf whose other dimensions are all sharded or do not divide),
@@ -53,10 +58,12 @@ from repro_torch.runtime.checkpoint import _flatten_with_paths
 
 
 def _data_axis(entry, rules: ShardingRules) -> Optional[str]:
-    """The data axis a spec entry names (None where it names none)."""
+    """The data axis a spec entry names for FSDP (None where it names none,
+    or names it beside ``model``: 2D expert parallelism's experts, which
+    stay resident, no extra FSDP axis on them)."""
     axes = entry if isinstance(entry, tuple) else (entry,)
     data = [a for a in axes if a in rules.batch_axes]
-    if not data:
+    if not data or (rules.model_axis is not None and rules.model_axis in axes):
         return None
     if len(axes) > 1:
         raise not_ported(f"FSDP over the axes {axes} at once", DIST_ITEM)
@@ -204,15 +211,39 @@ def gather(tree, fsdp: Optional[Plan], prefix: str, stacked: bool = False):
     return _map(tree, one)
 
 
+def expert_leaves(model) -> frozenset:
+    """The paths of the leaves whose experts the active rules spread over
+    ``data`` (2D expert parallelism: each data rank holds other experts),
+    memoised on the model a rules layout; empty without a data axis."""
+    rules = current_rules()
+    if rules is None or rules.data_size == 1 or not rules.expert_parallel_2d:
+        return frozenset()
+    key = (tuple(rules.mesh.shape.items()), rules.batch_axes)
+    memo = model.__dict__.setdefault("_expert_leaves", {})
+    if key not in memo:
+        out = set()
+        for path, shape in _full_shapes(model).items():
+            for entry in rules.param_spec(path, shape):
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                if rules.model_axis in axes and set(axes) & set(rules.batch_axes):
+                    out.add(path)
+        memo[key] = frozenset(out)
+    return memo[key]
+
+
 def data_mean(model, params, grads: list) -> list:
     """Each gradient leaf's mean over the data ranks: an FSDP leaf's
-    reduce-scattered sum divided by the data size, every other leaf by
+    reduce-scattered sum divided by the data size, and so an expert leaf
+    spread over ``data`` (its gradient already holds every data rank's
+    tokens, through the all-to-all's backward; a mean over ``data`` would
+    mix other experts' gradients into it), every other leaf by
     ``mean_over_data`` (``grads`` in ``tree_leaves(params)`` order)."""
     fsdp = plan(model)
-    if fsdp is None:
+    divided = set(expert_leaves(model)) | (set(fsdp.dims) if fsdp is not None else set())
+    if not divided:
         return mean_over_data(grads)
-    sharded = [path in fsdp.dims for path, _ in _flatten_with_paths(params)]
+    sharded = [path in divided for path, _ in _flatten_with_paths(params)]
     rest = iter(mean_over_data([g for g, s in zip(grads, sharded) if not s]))
-    n = fsdp.rules.data_size
+    n = current_rules().data_size
     return [g / n if s else next(rest) for g, s in zip(grads, sharded)]
 

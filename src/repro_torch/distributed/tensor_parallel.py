@@ -25,6 +25,15 @@ Megatron-style, on the rules of ``distributed/sharding.py``:
   over the whole batch's label count (all-reduced over ``data``) times
   the data size, so the mean over the data ranks is the whole batch's
   mean, as the one-device program takes it, however the labels fall.
+- ``all_to_all_data``: block ``j`` of ``[n, ...]`` to data rank ``j``,
+  block ``i`` of the result from data rank ``i``; its backward is the
+  same exchange of the gradient. The mixture of experts moves its tokens'
+  rows to the data ranks that hold their experts with it
+  (``models/moe.py``); ``gather_data_rows`` (all-gather on the first
+  axis, reduce-scatter back), ``scatter_data_rows`` (its transpose) and
+  ``sum_over_data`` (an all-reduce whose backward scales by the data
+  size, for a quantity every data rank then uses whole) serve its
+  routing and its load-balance loss.
 
 A dimension that the rules leave replicated (``d_ff``, the heads or the
 padded vocabulary not divisible by ``model``) runs replicated: its
@@ -48,9 +57,9 @@ gloo (``launch/mesh.py``), whose all-gather takes host tensors: a CUDA
 operand is staged through the host.
 
 ``check_tp`` refuses the families that have no runtime under the rules
-yet (MoE and 2D expert parallelism, MLA, SSM, xLSTM, the
-encoder-decoder) by ``registry.not_ported(..., DIST_ITEM)``; nothing
-falls back to the unsharded program.
+yet (MLA, SSM, xLSTM, the encoder-decoder) by
+``registry.not_ported(..., DIST_ITEM)``; nothing falls back to the
+unsharded program.
 """
 from __future__ import annotations
 
@@ -73,9 +82,10 @@ def link_bytes(kind: str, nbytes: float, n: int) -> float:
     2(n-1)/n of the operand (reduce-scatter, then all-gather), a
     reduce-scatter (n-1)/n of it, an all-gather (n-1) times its operand,
     (n-1)/n of its output, a pipelined broadcast or reduce about the
-    operand once."""
+    operand once, an all-to-all the (n-1)/n of its operand bound for the
+    other ranks."""
     share = {"all-reduce": 2 * (n - 1) / n, "reduce-scatter": (n - 1) / n,
-             "broadcast": 1.0, "reduce": 1.0}
+             "all-to-all": (n - 1) / n, "broadcast": 1.0, "reduce": 1.0}
     return nbytes * share.get(kind, n - 1)
 
 
@@ -139,9 +149,13 @@ def _communicate(kind: str, t: torch.Tensor, axis: str, rules: ShardingRules,
     reduce-scatter, so ``t``'s chunks are summed on the host, each by a
     reduce to the rank that keeps it, and only the rank's chunk comes
     back, logged as the reduce-scatter the rules mean, with the
-    transport's own host seconds and the bytes of the sum's dtype), or a
-    broadcast from (a sum to) the axis's rank ``root`` in place. Logged;
-    shape-only where the mesh has no process groups."""
+    transport's own host seconds and the bytes of the sum's dtype), an
+    all-to-all of ``t``'s equal blocks along its first axis (a new tensor:
+    block ``j`` sent to the axis's rank ``j``, block ``i`` received from
+    rank ``i``, staged through the host), or a broadcast from (a sum to)
+    the axis's rank ``root`` in place. Logged; shape-only where the mesh
+    has no process groups (an all-gather of integers zeros, so that the
+    indices it stands for stay in range)."""
     mesh = rules.mesh
     n = mesh.shape[axis]
     group = mesh.group(axis)
@@ -175,8 +189,17 @@ def _communicate(kind: str, t: torch.Tensor, axis: str, rules: ShardingRules,
                 tdist.reduce(chunk, tdist.get_global_rank(group, j), op=op, group=group)
             out = chunks[mesh.coords[axis]].to(t.device, t.dtype)
         nbytes = t.numel() * torch.finfo(_sum_dtype(t.dtype)).bits // 8
+    elif kind == "all-to-all":
+        if group is None:
+            out = t.new_empty(t.shape)
+        else:
+            host = _host(t)
+            recv = torch.empty_like(host)
+            tdist.all_to_all_single(recv, host, group=group)
+            out = recv.view(t.dtype).to(t.device)
     elif group is None:
-        out = t.new_empty((*t.shape[:dim], n * t.shape[dim], *t.shape[dim + 1:]))
+        shape = (*t.shape[:dim], n * t.shape[dim], *t.shape[dim + 1:])
+        out = t.new_empty(shape) if t.is_floating_point() else t.new_zeros(shape)
     else:
         host = _host(t)
         parts = [torch.empty_like(host) for _ in range(n)]
@@ -279,6 +302,98 @@ def gather_model_cols(x: torch.Tensor) -> torch.Tensor:
     differently."""
     rules = _model_rules()
     return x if rules is None else _GatherModelCols.apply(x, rules)
+
+
+def _data_rules() -> Optional[ShardingRules]:
+    """The active rules where their data axis has more than one rank."""
+    rules = current_rules()
+    return rules if rules is not None and rules.data_size > 1 else None
+
+
+def _data_axis_of(rules: ShardingRules) -> str:
+    return rules.batch_axes[-1]
+
+
+class _AllToAllData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules = rules
+        return _communicate("all-to-all", x.contiguous(), _data_axis_of(rules), rules)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _communicate("all-to-all", g.contiguous(), _data_axis_of(ctx.rules),
+                            ctx.rules), None
+
+
+class _GatherDataRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules = rules
+        return _communicate("all-gather", x.contiguous(), _data_axis_of(rules), rules, dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, _data_axis_of(ctx.rules), ctx.rules, dim=0), None
+
+
+class _ScatterDataRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules = rules
+        return _reduce_scatter(x.contiguous(), _data_axis_of(rules), rules, dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _communicate("all-gather", g.contiguous(), _data_axis_of(ctx.rules),
+                            ctx.rules, dim=0), None
+
+
+class _SumOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.n = rules.data_size
+        return _all_reduce(x, _data_axis_of(rules), rules)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None
+
+
+def all_to_all_data(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [n, ...], n the data size: block ``j`` goes to data rank
+    ``j``, and block ``i`` of the result came from data rank ``i``; the
+    gradient goes back the same way. ``x`` itself without a data axis."""
+    rules = _data_rules()
+    return x if rules is None else _AllToAllData.apply(x, rules)
+
+
+def gather_data_rows(x: torch.Tensor) -> torch.Tensor:
+    """The data ranks' ``x`` concatenated on the first axis, in rank order;
+    the gradient summed over ``data`` and the rank's rows taken backward.
+    An integer ``x`` (no gradient) is gathered alike."""
+    rules = _data_rules()
+    if rules is None:
+        return x
+    if not x.is_floating_point():
+        return _communicate("all-gather", x.contiguous(), _data_axis_of(rules), rules, dim=0)
+    return _GatherDataRows.apply(x, rules)
+
+
+def scatter_data_rows(x: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of the sum of the data ranks' ``x`` (float32, at
+    ``x``'s dtype once); the gradient all-gathered backward."""
+    rules = _data_rules()
+    return x if rules is None else _ScatterDataRows.apply(x, rules)
+
+
+def sum_over_data(x: torch.Tensor) -> torch.Tensor:
+    """The data ranks' ``x`` summed (float32). Every data rank then uses
+    the sum whole in a loss that ``mean_over_data`` averages, so each
+    rank's gradient of its own ``x`` is the data size times the sum's
+    (what an all-reduce of the identical gradients would give)."""
+    rules = _data_rules()
+    return x if rules is None else _SumOverData.apply(x, rules)
 
 
 def mean_over_data(leaves: list) -> list:
@@ -400,17 +515,14 @@ def sharded_ce(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int):
 # ---------------------------------------------------------------------------
 
 def check_tp(cfg, rules: ShardingRules) -> None:
-    """Raise ``not_ported(..., DIST_ITEM)`` for a configuration or rules
-    with no runtime under the sharding rules yet: mixture-of-experts
-    layers and 2D expert parallelism (item 7, part 4b, sub-item 2), MLA,
-    SSM and xLSTM layers and the encoder-decoder (sub-item 4). The dense
-    family (a vision frontend's embeddings allowed) runs on any mesh, FSDP
-    included, each dimension sharded or replicated as ``param_spec`` and
-    ``cache_spec`` say."""
+    """Raise ``not_ported(..., DIST_ITEM)`` for a configuration with no
+    runtime under the sharding rules yet: MLA, SSM and xLSTM layers and
+    the encoder-decoder (item 7, part 4b, sub-item 4). The dense family (a
+    vision frontend's embeddings allowed) and the mixture of experts run
+    on any mesh, FSDP and 2D expert parallelism included, each dimension
+    sharded or replicated as ``param_spec`` and ``cache_spec`` say."""
     why = []
     kinds = set(cfg.blocks)
-    if cfg.moe is not None:
-        why.append("mixture-of-experts layers")
     if cfg.mla is not None:
         why.append("MLA")
     if kinds & {"mamba", "shared_attn"}:
@@ -419,8 +531,6 @@ def check_tp(cfg, rules: ShardingRules) -> None:
         why.append("xLSTM layers")
     if cfg.is_encoder_decoder:
         why.append("the encoder-decoder")
-    if rules.expert_parallel_2d:
-        why.append("2D expert parallelism")
     if why:
         raise not_ported(f"tensor parallelism for {cfg.name} ({'; '.join(why)})",
                          DIST_ITEM)

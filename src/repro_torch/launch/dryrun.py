@@ -28,18 +28,26 @@ With ``--mesh DxM`` each cell is one rank's of a ``D x M`` mesh
 the rank's on its card, the roofline the mesh's (``launch/roofline.py``),
 with the collectives' bytes and counts by kind (``collective_counts``),
 the bytes a rank sends for them by a ring (``collective_link_bytes``)
-and their term over NVLink; a cell whose configuration or expert-parallel
-choice the port has no runtime for under the rules (MoE, MLA, SSM,
-xLSTM, the encoder-decoder) is skipped with ``tensor_parallel.check_tp``'s
-reason: ``--all --mesh 1x8`` and ``--mesh 2x4`` reckon the dense family's
-16 cells (FSDP where the JAX package's rule turns it on) and skip 24.
-``--mesh 1x1`` (the default) is the one-card run.
+and their term over NVLink; a cell whose configuration the port has no
+runtime for under the rules yet (MLA, SSM, xLSTM, the encoder-decoder)
+is skipped with ``tensor_parallel.check_tp``'s reason: ``--all --mesh
+1x8`` and ``--mesh 2x4`` reckon the dense family's 16 cells (FSDP where
+the JAX package's rule turns it on) and dbrx-132b's 3, its experts over
+``(data, model)`` (at ``2x4`` its tokens' all-to-alls over ``data``
+among the collectives), and skip 21. ``--mesh 1x1`` (the default) is the one-card run.
+
+The JAX dry run's knobs: ``--remat {layer,none}``, ``--ssm-chunk N``
+(the SSD and mLSTM chunk), ``--ep2d`` (2D expert parallelism forced on
+a mesh), ``--microbatches N`` (a training cell at N microbatches instead
+of the fewest that fit) and ``--moe-impl {,sorted,dense}``; each record
+carries the knobs it ran with (``knobs``).
 
 It needs no card, and gives the same numbers on any machine. Usage:
 
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--out dryrun_results_torch.jsonl]
   python -m repro_torch.launch.dryrun --all --mesh 1x8
+  python -m repro_torch.launch.dryrun --arch dbrx-132b --shape train_4k --mesh 2x4 --moe-impl dense
 
 Records append as JSON lines (``launch/report.py`` formats them); the exit
 code is 1 if any cell failed, as in the JAX package.
@@ -68,26 +76,35 @@ def _reckoned(arch: str, shape: str, **kw) -> tuple:
     return cell, cost, cell.persistent_bytes + cost.peak
 
 
-def _fit_train(arch: str, shape: str, mesh: tuple = (1, 1)) -> tuple:
+def _fit_train(arch: str, shape: str, mesh: tuple = (1, 1), microbatches: int = 0,
+               **knobs) -> tuple:
     """The fewest power-of-two microbatches whose peak fits (bisected over
     the exponents: the peak falls as the microbatch shrinks), and the cell
     at it; where none fits, the cell at one sequence a microbatch, or at
-    one microbatch where the persistent state alone does not fit."""
+    one microbatch where the persistent state alone does not fit.
+    ``microbatches`` given: the cell at that many, fitting or not."""
+    if microbatches:
+        cell, cost, total = _reckoned(arch, shape, mesh=mesh, microbatches=microbatches,
+                                      **knobs)
+        fit = {"fits": total <= HBM_BYTES, "peak_bytes": total, "microbatches": microbatches}
+        if not fit["fits"]:
+            fit["why"] = f"{microbatches} microbatches peak at {total} bytes"
+        return cell, cost, fit
     batch = SHAPES[shape].global_batch // mesh[0]  # a data rank's
-    cell, cost, total = _reckoned(arch, shape, mesh=mesh)
+    cell, cost, total = _reckoned(arch, shape, mesh=mesh, **knobs)
     if cell.persistent_bytes > HBM_BYTES:
         return cell, cost, {"fits": False, "peak_bytes": total, "microbatches": 1,
                             "why": f"persistent state alone: {cell.persistent_bytes} bytes"}
     if total <= HBM_BYTES:
         return cell, cost, {"fits": True, "peak_bytes": total, "microbatches": 1}
     lo, hi = 1, batch.bit_length() - 1  # 2**lo .. 2**hi microbatches
-    best = _reckoned(arch, shape, microbatches=2 ** hi, mesh=mesh)
+    best = _reckoned(arch, shape, microbatches=2 ** hi, mesh=mesh, **knobs)
     if best[2] > HBM_BYTES:
         return best[0], best[1], {"fits": False, "peak_bytes": best[2], "microbatches": 2 ** hi,
                                   "why": f"one sequence a microbatch peaks at {best[2]} bytes"}
     while lo < hi:
         mid = (lo + hi) // 2
-        run = _reckoned(arch, shape, microbatches=2 ** mid, mesh=mesh)
+        run = _reckoned(arch, shape, microbatches=2 ** mid, mesh=mesh, **knobs)
         if run[2] <= HBM_BYTES:
             best, hi = run, mid
         else:
@@ -96,12 +113,13 @@ def _fit_train(arch: str, shape: str, mesh: tuple = (1, 1)) -> tuple:
     return cell, cost, {"fits": True, "peak_bytes": total, "microbatches": cell.microbatches}
 
 
-def _fit_serving(arch: str, shape: str, mesh: tuple = (1, 1)) -> tuple:
+def _fit_serving(arch: str, shape: str, mesh: tuple = (1, 1), microbatches: int = 0,
+                 **knobs) -> tuple:
     """The cell whole, and where it does not fit, the largest batch of its
     length that does, in sequences a data rank (bisected; None where one
-    sequence does not)."""
+    sequence does not). ``microbatches`` has no meaning here."""
     n_data = mesh[0]
-    cell, cost, total = _reckoned(arch, shape, mesh=mesh)
+    cell, cost, total = _reckoned(arch, shape, mesh=mesh, **knobs)
     fit = {"fits": total <= HBM_BYTES, "peak_bytes": total}
     if fit["fits"]:
         return cell, cost, fit
@@ -110,7 +128,7 @@ def _fit_serving(arch: str, shape: str, mesh: tuple = (1, 1)) -> tuple:
     lo, hi, best = 1, cell.shp.global_batch // n_data - 1, None
     while lo <= hi:
         mid = (lo + hi) // 2
-        _, _, peak = _reckoned(arch, shape, batch=mid * n_data, mesh=mesh)
+        _, _, peak = _reckoned(arch, shape, batch=mid * n_data, mesh=mesh, **knobs)
         if peak <= HBM_BYTES:
             best, lo = (mid, peak), mid + 1
         else:
@@ -120,18 +138,21 @@ def _fit_serving(arch: str, shape: str, mesh: tuple = (1, 1)) -> tuple:
     return cell, cost, fit
 
 
-def run_cell(arch: str, shape: str, verbose: bool = True, mesh: tuple = (1, 1)) -> dict:
-    """One cell's record (on a mesh, one rank's step); raises
-    ``NotImplementedError`` where ``tensor_parallel.check_tp`` refuses the
-    cell on ``mesh``."""
+def run_cell(arch: str, shape: str, verbose: bool = True, mesh: tuple = (1, 1),
+             **knobs) -> dict:
+    """One cell's record (on a mesh, one rank's step) at the dry run's
+    ``knobs`` (``remat``, ``ssm_chunk``, ``expert_parallel_2d``,
+    ``microbatches``, ``moe_impl``); raises ``NotImplementedError`` where
+    ``tensor_parallel.check_tp`` refuses the cell on ``mesh``."""
     t0 = time.perf_counter()
-    cfg = get_config(arch)
     fitter = _fit_train if SHAPES[shape].kind == "train" else _fit_serving
-    cell, cost, fit = fitter(arch, shape, mesh)
+    cell, cost, fit = fitter(arch, shape, mesh, **knobs)
+    cfg = cell.cfg
     roof = analyze(cost, arch, shape, cfg, SHAPES[shape], cell.min_bytes, mesh=mesh)
     rec = {
         "status": "ok", "arch": arch, "shape": shape, "mesh": roof.mesh_desc,
-        "remat": "layer",
+        "remat": cell.knobs["remat"],
+        "knobs": {**cell.knobs, "microbatches": cell.microbatches},
         "memory": {"persistent_bytes": dict(cell.persistent),
                    "persistent_total": cell.persistent_bytes,
                    "step_peak_bytes": cost.peak, **fit},
@@ -175,7 +196,18 @@ def main(argv=None):
     ap.add_argument("--out", default="dryrun_results_torch.jsonl")
     ap.add_argument("--mesh", default="1x1",
                     help="DxM: one rank of a data D x model M mesh (default 1x1, one card)")
+    ap.add_argument("--remat", default="layer", choices=["layer", "none"])
+    ap.add_argument("--ssm-chunk", type=int, default=0,
+                    help="the SSD and mLSTM chunk length (0: the configuration's)")
+    ap.add_argument("--ep2d", action="store_true",
+                    help="2D expert parallelism (experts over data x model) on a mesh")
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="a training cell's microbatches (0: the fewest that fit)")
+    ap.add_argument("--moe-impl", default="", choices=["", "sorted", "dense"])
     args = ap.parse_args(argv)
+    knobs = {"remat": args.remat, "ssm_chunk": args.ssm_chunk,
+             "expert_parallel_2d": args.ep2d, "microbatches": args.microbatches,
+             "moe_impl": args.moe_impl}
     try:
         mesh = tuple(int(v) for v in args.mesh.lower().split("x"))
     except ValueError:
@@ -197,7 +229,8 @@ def main(argv=None):
             runnable, why = cell_is_runnable(arch, shape)
             if runnable and mesh != (1, 1):
                 try:
-                    mesh_rules(get_config(arch), SHAPES[shape], abstract_mesh(*mesh))
+                    mesh_rules(get_config(arch), SHAPES[shape], abstract_mesh(*mesh),
+                               expert_parallel_2d=args.ep2d)
                 except NotImplementedError as e:  # check_tp: not in this slice
                     runnable, why = False, str(e)
             if not runnable:
@@ -207,7 +240,7 @@ def main(argv=None):
                 n_skip += 1
             else:
                 try:
-                    rec = run_cell(arch, shape, mesh=mesh)
+                    rec = run_cell(arch, shape, mesh=mesh, **knobs)
                     n_ok += 1
                 except Exception as e:  # a failure here is a bug in the port
                     traceback.print_exc()

@@ -20,11 +20,18 @@ recurrent states float32, as ``LM.init_cache`` keeps them). The steps are
 flash attention in prefill, one ``fused_adam`` call a training step. A
 decode cell takes its one step at the cache's last position.
 
+The JAX dry run's knobs (``repro/launch/specs.py:82-101,153-154``) are
+applied as there: ``remat`` to ``build_model``, ``ssm_chunk`` and
+``moe_impl`` by ``dataclasses.replace`` on ``cfg.ssm.chunk`` and
+``cfg.moe.impl``, ``expert_parallel_2d`` forcing 2D expert parallelism on
+a mesh; ``microbatches`` splits a training batch.
+
 On a mesh (``mesh=(data, model)``) the cell is one rank's: the JAX
 package's FSDP and 2D expert-parallel choices (``specs.py:107-121``) are
 made as there, and ``tensor_parallel.check_tp`` refuses, with its reason,
-the families the port has no runtime for under the rules (MoE and 2D
-expert parallelism, MLA, SSM, xLSTM, the encoder-decoder); the parameters
+the families the port has no runtime for under the rules yet (MLA, SSM,
+xLSTM, the encoder-decoder); a mixture of experts runs with its experts
+over ``(data, model)`` or over ``model`` (``models/moe.py``); the parameters
 are the rank's shards of the whole model (``tensor_parallel.shard_tree``
 at the rank's coordinates; under FSDP a quarter of a 2-D leaf at (2, 2),
 its layer gathered where it runs), the batch its data rank's rows, the
@@ -32,8 +39,8 @@ cache its KV heads or, where those do not divide the model axis, its
 block of positions, and the step runs under the ``ShardingRules``
 (``distributed/sharding.py``), whose collectives send nothing on the
 abstract mesh and are counted by kind (``step_cost.StepCost``):
-all-reduces, all-gathers over ``model`` and FSDP's over ``data``, and
-reduce-scatters.
+all-reduces, all-gathers over ``model`` and FSDP's over ``data``,
+reduce-scatters, and the experts' all-to-alls over ``data``.
 The fit on the card's 80 GB is decided in ``launch/dryrun.py`` from the
 bytes here and the simulated peak of ``launch/step_cost.py``.
 """
@@ -77,6 +84,7 @@ class Cell:
     min_bytes: float  # the least bytes the step must move
     n_params: int  # the initialised parameters
     microbatches: int = 1
+    knobs: dict = dataclasses.field(default_factory=dict)  # the dry run's, as run
 
     @property
     def persistent_bytes(self) -> int:
@@ -112,12 +120,15 @@ def _slot_bytes(cache: dict, seq: int) -> int:
 
 
 def mesh_rules(cfg: LMConfig, shp: ShapeConfig, mesh: Mesh,
-               fsdp: Optional[bool] = None) -> ShardingRules:
+               fsdp: Optional[bool] = None,
+               expert_parallel_2d: bool = False) -> ShardingRules:
     """The rules of a cell on ``mesh``, with the JAX package's FSDP and 2D
     expert-parallel choices (``repro/launch/specs.py:107-121``; ``fsdp``
     given: that choice instead, as a reduced or depth-cut rehearsal of a
-    configuration keeps the whole one's); raises ``NotImplementedError``
-    (``check_tp``) where the port has no runtime for them."""
+    configuration keeps the whole one's; ``expert_parallel_2d`` forces 2D
+    expert parallelism on, as the JAX dry run's ``--ep2d``); raises
+    ``NotImplementedError`` (``check_tp``) where the port has no runtime
+    for them."""
     model_size = mesh.shape["model"]
     n_params = cfg.param_count()
     if fsdp is None and shp.kind == "train":
@@ -125,8 +136,9 @@ def mesh_rules(cfg: LMConfig, shp: ShapeConfig, mesh: Mesh,
     elif fsdp is None:
         fsdp = n_params * 2 / model_size > 8e9
     n_dm = mesh.shape["data"] * model_size
-    ep = cfg.moe is not None and (cfg.moe.n_experts % mesh.size == 0
-                                  or cfg.moe.n_experts % n_dm == 0)
+    ep = expert_parallel_2d or (cfg.moe is not None
+                                and (cfg.moe.n_experts % mesh.size == 0
+                                     or cfg.moe.n_experts % n_dm == 0))
     rules = ShardingRules(mesh, cfg, fsdp=fsdp, expert_parallel_2d=ep)
     check_tp(cfg, rules)
     return rules
@@ -148,7 +160,9 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
                microbatches: int = 1, device="meta",
                generator: Optional[torch.Generator] = None,
                cfg: Optional[LMConfig] = None, seq_len: Optional[int] = None,
-               mesh=None, fsdp: Optional[bool] = None) -> Cell:
+               mesh=None, fsdp: Optional[bool] = None, remat: str = "layer",
+               ssm_chunk: int = 0, expert_parallel_2d: bool = False,
+               moe_impl: str = "") -> Cell:
     """The cell ``(arch, shape)`` on ``device`` (``meta``: value-less).
     ``batch`` cuts the cell's batch (never its width or length);
     ``microbatches`` splits a training batch (a data rank's). ``cfg`` and
@@ -159,11 +173,19 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
     1)`` the one-card cell. ``fsdp`` overrides the JAX package's FSDP
     choice (``mesh_rules``). A batch the data ranks do not divide is
     replicated over them, as ``ShardingRules.batch_spec`` replicates it
-    (long_500k's one sequence)."""
+    (long_500k's one sequence). ``remat``, ``ssm_chunk``,
+    ``expert_parallel_2d`` and ``moe_impl`` are the JAX dry run's knobs
+    (0 and "" leave the configuration's own)."""
     runnable, why = cell_is_runnable(arch, shape)
     if not runnable:
         raise ValueError(f"cell ({arch},{shape}) skipped: {why}")
     cfg = cfg or get_config(arch)
+    if ssm_chunk and cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=ssm_chunk))
+    if moe_impl and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl=moe_impl))
+    knobs = {"remat": remat, "ssm_chunk": ssm_chunk, "ep2d": expert_parallel_2d,
+             "microbatches": microbatches, "moe_impl": moe_impl}
     shp = SHAPES[shape]
     if batch is not None:
         shp = dataclasses.replace(shp, global_batch=batch)
@@ -171,9 +193,9 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
         shp = dataclasses.replace(shp, seq_len=seq_len)
     if isinstance(mesh, tuple):
         mesh = None if mesh == (1, 1) else abstract_mesh(*mesh)
-    rules = None if mesh is None else mesh_rules(cfg, shp, mesh, fsdp)
+    rules = None if mesh is None else mesh_rules(cfg, shp, mesh, fsdp, expert_parallel_2d)
     b, seq = shp.global_batch, shp.seq_len
-    model = build_model(cfg, inner="cuda", remat="layer")
+    model = build_model(cfg, inner="cuda", remat=remat)
     params = _values(lambda g, d: model.init(g, device=d), device, generator)
     n_params = sum(p.numel() for p in tree_leaves(params))
     inputs = _values(lambda g, d: tree_map(lambda t: t.to(d), make_dummy_batch(cfg, b, seq, g)),
@@ -194,7 +216,7 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
         # p read and written; g written and read; m and v read and written; the loss
         min_bytes = 8 * persistent["params"] + persistent["inputs"] + 4
         return Cell(arch, shape, cfg, shp, step, (params, opt_state, inputs), {},
-                    persistent, min_bytes, n_params, microbatches)
+                    persistent, min_bytes, n_params, microbatches, knobs)
 
     params = tree_map(lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t,
                       params)
@@ -209,7 +231,8 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
         # weights read once, every cache position written, inputs and logits
         min_bytes = sum(persistent.values()) + logits
         return Cell(arch, shape, cfg, shp, _under(rules, make_prefill_step(model)),
-                    (params, tokens, cache), inputs, persistent, min_bytes, n_params)
+                    (params, tokens, cache), inputs, persistent, min_bytes, n_params,
+                    knobs=knobs)
 
     cache["idx"] = seq - 1  # one step at the last position
     tokens = torch.zeros((b, 1), dtype=torch.int64, device=device)
@@ -217,4 +240,4 @@ def build_cell(arch: str, shape: str, *, batch: Optional[int] = None,
     # weights and the cache read once, one slot written, the token and logits
     min_bytes = sum(persistent.values()) + _slot_bytes(cache, seq) + logits
     return Cell(arch, shape, cfg, shp, _under(rules, make_decode_step(model)),
-                (params, cache, tokens), {}, persistent, min_bytes, n_params)
+                (params, cache, tokens), {}, persistent, min_bytes, n_params, knobs=knobs)

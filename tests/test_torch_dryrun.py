@@ -369,3 +369,93 @@ def test_cli_decode_cell_at_full_width(tmp_path, capsys):
     assert picked["worst_fraction"][:2] == ("llama3.2-1b", "decode_32k")
     assert picked["most_collective"] is None
     assert "1 ok, 0 skipped, 0 FAILED" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The JAX dry run's knobs
+# ---------------------------------------------------------------------------
+
+KNOB_CELLS = [("zamba2-7b", "decode_32k", dict(ssm_chunk=64)),
+              ("xlstm-1.3b", "prefill_32k", dict(ssm_chunk=32, moe_impl="dense")),
+              ("dbrx-132b", "prefill_32k", dict(moe_impl="dense")),
+              ("deepseek-v3-671b", "decode_32k", dict(moe_impl="sorted")),
+              ("llama3.2-1b", "train_4k", dict(remat="none", ssm_chunk=64, moe_impl="dense"))]
+
+
+@pytest.mark.parametrize("arch,shape,knobs", KNOB_CELLS,
+                         ids=[f"{a}-{s}" for a, s, _ in KNOB_CELLS])
+def test_knobs_give_jax_configs(arch, shape, knobs):
+    """``--ssm-chunk`` and ``--moe-impl`` give the configuration JAX's
+    ``build_cell`` gives (``dataclasses.replace`` where the family has the
+    field, the configuration untouched where not); ``--remat`` and the
+    rest ride on the cell's record."""
+    from repro.launch.specs import build_cell as jax_build_cell
+
+    mesh = jax.make_mesh((1, 1), ("data", "model"))
+    want = jax_build_cell(arch, shape, mesh, **knobs).cfg
+    cell = build_cell(arch, shape, device="meta", **knobs)
+    assert dataclasses.asdict(cell.cfg) == dataclasses.asdict(want)
+    assert cell.knobs == {"remat": knobs.get("remat", "layer"),
+                          "ssm_chunk": knobs.get("ssm_chunk", 0), "ep2d": False,
+                          "microbatches": 1, "moe_impl": knobs.get("moe_impl", "")}
+
+
+def test_remat_knob_reaches_the_model():
+    """``remat="none"`` keeps every layer's activations for the backward:
+    the reduced train step's simulated peak rises over ``"layer"``'s."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), n_layers=4)
+    peaks = {}
+    for remat in ("layer", "none"):
+        cell = build_cell("llama3.2-1b", "train_4k", cfg=cfg, batch=2, seq_len=64,
+                          device="meta", remat=remat)
+        peaks[remat] = reckon(cell.step, *cell.args)[1].peak
+    assert peaks["none"] > peaks["layer"]
+
+
+def test_microbatches_knob_overrides_the_bisection(monkeypatch):
+    """``--microbatches N`` reckons the training cell once, at N, where the
+    fit would bisect over the powers of two."""
+    calls = []
+
+    def fake(arch, shape, **kw):
+        calls.append(kw)
+        cell = dataclasses.make_dataclass("C", ["persistent_bytes", "microbatches"])(
+            10, kw.get("microbatches", 1))
+        return cell, None, 10 + HBM_BYTES * 2 // kw.get("microbatches", 1)
+
+    monkeypatch.setattr(dryrun, "_reckoned", fake)
+    cell, _, fit = dryrun._fit_train("llama3.2-1b", "train_4k", (1, 1), microbatches=4,
+                                     remat="none")
+    assert calls == [{"mesh": (1, 1), "microbatches": 4, "remat": "none"}]
+    assert fit == {"fits": True, "peak_bytes": 10 + HBM_BYTES // 2, "microbatches": 4}
+    calls.clear()
+    dryrun._fit_train("llama3.2-1b", "train_4k", (1, 1))
+    assert len(calls) > 2 and calls[0] == {"mesh": (1, 1)}
+
+
+def test_cli_knobs_and_expert_parallel_mesh(tmp_path):
+    """``--mesh 2x4`` reckons a dbrx-132b cell, its experts over (data,
+    model), with the tokens' all-to-alls among its collectives at
+    (n-1)/n of their operand; the record carries the knobs; deepseek-v3-671b
+    is skipped for MLA alone; ``--ep2d`` on llama3.2-1b changes nothing of
+    a dense model's rank step."""
+    out = tmp_path / "mesh.jsonl"
+    dryrun.main(["--arch", "dbrx-132b", "--shape", "decode_32k", "--mesh", "2x4",
+                 "--moe-impl", "sorted", "--out", str(out)])
+    dryrun.main(["--arch", "deepseek-v3-671b", "--shape", "decode_32k", "--mesh", "2x4",
+                 "--out", str(out)])
+    dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k", "--mesh", "2x4",
+                 "--ep2d", "--remat", "none", "--out", str(out)])
+    dbrx, ds, llama = (json.loads(line) for line in out.read_text().splitlines())
+    assert dbrx["status"] == "ok" and dbrx["mesh_shape"] == {"data": 2, "model": 4}
+    assert dbrx["knobs"] == {"remat": "layer", "ssm_chunk": 0, "ep2d": False,
+                             "microbatches": 1, "moe_impl": "sorted"}
+    cfg = get_config("dbrx-132b")
+    # a layer's dispatch and combine, and its ids gathered over data
+    assert dbrx["collective_counts"]["all-to-all"] == 2 * cfg.n_layers
+    a2a = dbrx["collective_detail"]["all-to-all"]
+    assert a2a > 0 and dbrx["collective_link_bytes"] > 0
+    assert ds["status"] == "skipped" and "MLA" in ds["reason"]
+    assert "mixture-of-experts" not in ds["reason"]
+    assert llama["status"] == "ok" and llama["knobs"]["ep2d"] is True
+    assert llama["remat"] == "none" and "all-to-all" not in llama["collective_counts"]

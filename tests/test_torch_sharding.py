@@ -245,25 +245,35 @@ def _refused(cfg, mesh, **kw):
 
 
 def test_check_tp_refuses_outside_the_slice_by_name():
-    """The dense family runs on every mesh and under every rules
-    ``launch/specs.py`` builds, FSDP included; the families without a
-    runtime under the rules are refused by name."""
+    """The dense family and the mixture of experts run on every mesh and
+    under every rules ``launch/specs.py`` builds, FSDP and 2D expert
+    parallelism included; the families without a runtime under the rules
+    are refused by name."""
     for arch, mesh in (("llama3.2-1b", (1, 4)), ("llama3.2-1b", (2, 2)),
                        ("llama3.2-1b", (1, 8)), ("pixtral-12b", (1, 8)),
                        ("llama3.2-1b", (1, 1)), ("gemma3-1b", (1, 4)),
                        ("gemma3-1b", (1, 8)), ("granite-34b", (1, 4)),
                        ("starcoder2-3b", (1, 4)), ("llama3.2-1b", (1, 3))):
         check_tp(get_config(arch), ShardingRules(abstract_mesh(*mesh), get_config(arch)))
-    cases = {"dbrx-132b": ["mixture-of-experts"],
-             "deepseek-v3-671b": ["mixture-of-experts", "MLA"],
+    # dbrx-132b's 16 experts over (data, model) where they divide it (2D),
+    # over model alone where not (1D), FSDP or not
+    dbrx = get_config("dbrx-132b")
+    for mesh, ep in (((1, 4), True), ((2, 2), True), ((1, 8), True), ((2, 4), True),
+                     ((1, 4), False), ((2, 2), False), ((3, 2), True), ((1, 3), True)):
+        for fsdp in (False, True):
+            check_tp(dbrx, ShardingRules(abstract_mesh(*mesh), dbrx, fsdp=fsdp,
+                                         expert_parallel_2d=ep))
+    cases = {"deepseek-v3-671b": ["MLA"],
              "zamba2-7b": ["SSM layers"], "xlstm-1.3b": ["xLSTM layers"],
              "whisper-tiny": ["the encoder-decoder"]}
     for arch, names in cases.items():
         msg = _refused(get_config(arch), (1, 4))
         assert all(n in msg for n in names), (arch, msg)
+    assert "mixture-of-experts" not in _refused(get_config("deepseek-v3-671b"), (2, 2),
+                                                expert_parallel_2d=True)
     llama = get_config("llama3.2-1b")
     check_tp(llama, ShardingRules(abstract_mesh(2, 2), llama, fsdp=True))
-    assert "2D expert parallelism" in _refused(llama, (2, 2), expert_parallel_2d=True)
+    check_tp(llama, ShardingRules(abstract_mesh(2, 2), llama, expert_parallel_2d=True))
     # the JAX package's FSDP rule turns on for pixtral-12b's training at
     # model 8, and for starcoder2-3b's at model 2; granite-34b serves with it
     for arch, shape, mesh in (("pixtral-12b", "train_4k", (1, 8)),

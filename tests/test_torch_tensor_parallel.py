@@ -428,10 +428,12 @@ def test_dryrun_mesh_records(tmp_path):
 
 
 @pytest.mark.parametrize("kind,n,share", [("all-reduce", 1, 0.0), ("all-reduce", 2, 1.0),
-                                          ("all-reduce", 8, 1.75), ("all-gather", 4, 3.0)])
+                                          ("all-reduce", 8, 1.75), ("all-gather", 4, 3.0),
+                                          ("all-to-all", 4, 0.75), ("all-to-all", 2, 0.5)])
 def test_link_bytes_of_a_ring(kind, n, share):
     """What a rank sends one way by a ring: 2(n-1)/n of an all-reduce's
-    operand, n-1 times an all-gather's; ``CollectiveLog`` sums it."""
+    operand, n-1 times an all-gather's, (n-1)/n of an all-to-all's (the
+    blocks bound for the other ranks); ``CollectiveLog`` sums it."""
     assert link_bytes(kind, 1000.0, n) == pytest.approx(1000.0 * share)
     log = CollectiveLog()
     log.add(kind, 1000, n=n)
