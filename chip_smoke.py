@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/H100 port on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases 20|21|22|23|24|25|26|27|28]
+    python3 chip_smoke.py [--phases 20|21|22|23|24|25|26|27|28|29]
 
-Phases (``--phases 20``, ``21``, ``22``, ``23``, ``24``, ``25``, ``26``, ``27`` or ``28``: that phase alone); any failure raises,
+Phases (``--phases 20``, ``21``, ``22``, ``23``, ``24``, ``25``, ``26``, ``27``, ``28`` or ``29``: that phase alone); any failure raises,
 so the exit code is not 0 and no result line is printed:
 
 1. Card and build: the card's name and power limit (nvidia-smi), then the
@@ -518,6 +518,37 @@ so the exit code is not 0 and no result line is printed:
     weights itself. (c)
     The dry run of the ranks' steps, the all-to-alls among their
     collectives.
+29. MLA and the encoder-decoder under the rules, on the same pool after
+    phase 28. (a) deepseek-v3-671b at phase 20's depth cut (published
+    widths, one dense and one MoE layer of 256 experts, ``mtp_depth`` 0)
+    served at (data 1, model 4), float32: a rank attends 32 of the 128 MLA
+    heads (its ``wq_b`` and ``wkv_b`` columns, ``wo`` rows), holds 64
+    experts and a quarter of the latent cache's positions, which it
+    all-gathers over ``model`` before ``wkv_b`` at every call; phase 20
+    (c)'s recorded calls are the single-device program's (run alone, the
+    phase records its own); each rank draws the seed-0 weights leaf by
+    leaf in ``LM.init``'s order (``drawn_shards``: its shards and one
+    whole leaf at most, one rank at a time; the whole tree is 55.8 GB);
+    phase 26's gates and phase 28's routing rule, each rank's latent and
+    expert bytes its rules' shards. (b) phase 20 (d)'s width cut (MTP
+    depth 1 in its loss) trained at (data 2, model 2) under FSDP, its 32
+    experts over (data, model), with phase 28 (b)'s gates and control;
+    the float32 step the whole cut. (c) whisper-tiny whole, its own
+    single-device program first: served at (1, 4) (a rank's 96 ``wq``
+    columns touch 2 of its 6 heads: the query and K/V columns gathered
+    over ``model``; the self attention's cache split by position)
+    through the engine over phase 10's requests, text alone, and through
+    phase 22 (a)'s frames wave (4 x 1,024 tokens after 1,500 frames,
+    TP_NEW_TOKENS decode steps): flash a layer of each kind a prefill on
+    every rank (4 encoder, 4 self, 4 cross), rank 0's layer-0 encoder
+    call and first cross call held against the plain version and timed
+    beside SDPA and the bound; trained at (2, 2) with phase 26 (b)'s
+    gates (two Adam launches a rank a step: its 72 leaves fill two tables
+    of ``CAPACITY``, as the dry run reckons), the float32 step the whole
+    model. (d) The dry run of each
+    rank step (phase 26 (c)'s gates); the prefill cell's bfloat16 cross
+    attention takes the masked core beside float32 frames, so it reckons
+    4 fewer flash launches than the float32 ranks launch.
 
 The card's clocks, temperature and power draw are printed before and
 after the phases. The last lines are the card's name and power limit,
@@ -557,6 +588,7 @@ T_START = time.perf_counter()  # before torch and the repo are imported
 import numpy as np
 import torch
 from torch.autograd import DeviceType
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -647,6 +679,7 @@ from repro_torch.models.model_zoo import (  # noqa: E402
     make_prefill_step,
     make_train_step,
 )
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.transformer import _layer_window  # noqa: E402
@@ -661,6 +694,7 @@ from repro_torch.distributed.tensor_parallel import (  # noqa: E402
     check_tp,
     logging_collectives,
     mean_over_data,
+    shard_leaf,
     shard_tree,
 )
 from repro_torch.runtime import (  # noqa: E402
@@ -3935,7 +3969,7 @@ def moe_phase(sizes: Sizes, device) -> dict:
     del dbrx["model"], dbrx["params"], dbrx["tokens"]
     free_card(device)
     t0 = time.perf_counter()
-    ds = lm_serving_phase(cfgs["deepseek"], sizes, device)
+    ds = lm_serving_phase(cfgs["deepseek"], sizes, device, keep_calls=True)
     ds["summary"]["latent_cache"] = latent_cache_bytes(ds["model"], cfgs["deepseek"],
                                                        sizes, device)
     print(f"[moe] deepseek latent cache: {json.dumps(ds['summary']['latent_cache'])}")
@@ -3955,8 +3989,10 @@ def moe_phase(sizes: Sizes, device) -> dict:
     return {"dbrx": dbrx["summary"], "dbrx_flash": dbrx_flash,
             "deepseek": ds["summary"], "train": train, "held_before_bytes": held,
             "peaks": peaks, "phase_s": phase_s,
-            # (a)'s single-device calls, phase 28 (a)'s reference
-            "dbrx_calls": {"calls": dbrx["calls"], "max_seq": dbrx["max_seq"]}}
+            # (a)'s and (c)'s single-device calls, phase 28 (a)'s and 29 (a)'s
+            # references
+            "dbrx_calls": {"calls": dbrx["calls"], "max_seq": dbrx["max_seq"]},
+            "deepseek_calls": {"calls": ds["calls"], "max_seq": ds["max_seq"]}}
 
 
 def moe_entries(entries: list, p20: dict) -> None:
@@ -4273,28 +4309,47 @@ def frontend_inputs(cfg, batch: int, device) -> dict:
 
 
 def drive_wave(model, params, tokens, inputs: dict, max_seq: int, steps: int, device,
-               feed: "list | None" = None) -> list:
+               feed: "list | None" = None, flash_spy: "list | None" = None) -> list:
     """One wave through ``make_prefill_step`` (the prompt ``tokens`` with
     ``inputs``) and ``steps`` greedy steps of ``make_decode_step`` (the
     argmax, or ``feed``'s tokens: the other program's): per call its
-    kind, token input, last-position logits, synchronised seconds and
-    flash launches."""
+    kind, token input, last-position logits, synchronised seconds, flash
+    launches and collectives (``CollectiveLog``: counts, operand bytes,
+    the wire's seconds; none without rules). ``flash_spy`` (a list)
+    receives the prefill's flash inputs (q, k, v, causal) in launch
+    order."""
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     cache = model.init_cache(tokens.shape[0], max_seq, dtype=torch.float32, device=device)
     calls = []
+    table = kops._EXECUTORS["cuda"]
+    inner = table["flash"]
+
+    def spy(q, k, v, **kw):
+        flash_spy.append((q, k, v, kw["causal"]))
+        return inner(q, k, v, **kw)
 
     def call(kind, fn, toks):
+        log = CollectiveLog()
         sync(device)
         before = flash_attention.launches
         t0 = time.perf_counter()
-        logits, new_cache = fn()
+        with logging_collectives(log):
+            logits, new_cache = fn()
         sync(device)
         calls.append({"kind": kind, "tokens": toks, "logits": logits.clone(),
                       "s": time.perf_counter() - t0,
-                      "flash": flash_attention.launches - before})
+                      "flash": flash_attention.launches - before,
+                      "counts": dict(log.counts), "bytes": dict(log.bytes),
+                      "wire_s": log.seconds})
         return logits, new_cache
 
-    logits, cache = call("prefill", lambda: prefill(params, tokens, cache, **inputs), tokens)
+    if flash_spy is not None:
+        table["flash"] = spy
+    try:
+        logits, cache = call("prefill", lambda: prefill(params, tokens, cache, **inputs),
+                             tokens)
+    finally:
+        table["flash"] = inner
     for i in range(steps):
         cur = logits.argmax(-1)[:, None] if feed is None else feed[i]
         logits, cache = call("decode", lambda: decode(params, cache, cur), cur)
@@ -7137,7 +7192,7 @@ TP_LAYERS = 2
 #: layers (cut for the command's time; PERF.md section 4); FSDP on in
 #: (b), the choice ``launch/specs.py:mesh_rules`` makes for the whole model
 #: at model 2 (3,180,976,128 x 12 / 2 > 10e9), which the cut keeps
-FSDP_ARCH, FSDP_LAYERS = "starcoder2-3b", 4
+FSDP_ARCH, FSDP_LAYERS = "starcoder2-3b", 2
 #: phase 27 (b)'s depth: the first FSDP_TRAIN_LAYERS of (a)'s layers (cut
 #: for the command's time: the wire takes ~97% of an FSDP step; now the
 #: float32 step's depth)
@@ -7170,7 +7225,9 @@ TP_GRAD_RTOL = 1e-3
 #: vocabulary cut; the 16 experts, top-4, the expert width 10,752 and the
 #: capacity factor 1.25 as published, since they set the all-to-all's
 #: shape) of EP_TRAIN_LAYERS layers: 2,264,924,160 parameters, FSDP on by
-#: ``launch/specs.py:mesh_rules`` at model 2 (x 12 / 2 > 10e9)
+#: ``launch/specs.py:mesh_rules`` at model 2 (x 12 / 2 > 10e9). One layer
+#: is no cut: outside a scanned segment it runs without remat, and its
+#: one-device step peaked at 57.85 GB (ROADMAP Queue 3, item 14)
 EP_ARCH = "dbrx-132b"
 EP_TRAIN = dict(d_model=2048, n_heads=16, n_kv_heads=8, vocab_size=32768)
 EP_TRAIN_LAYERS = 2
@@ -7179,6 +7236,11 @@ EP_TRAIN_LAYERS = 2
 #: one device), where the third loss of the sound ranks read 1.95e-2
 #: relative off while the float32 gates held at 1e-7 (PERF.md section 6)
 EP_LR = 3e-5
+#: phase 29: deepseek-v3-671b served at phase 20's depth cut and its width
+#: cut trained (``moe_configs``, both with the experts over (data, model):
+#: 256 and 32 divide 4), then whisper-tiny whole (ED_ARCH) served and
+#: trained, on the same ranks
+ED_ARCH = "whisper-tiny"
 
 
 def tp_cfg(sizes: Sizes):
@@ -7202,6 +7264,17 @@ def tp_case(sizes: Sizes, phase: str) -> dict:
         return {"phase": "28", "cfg": cfg, "train_cfg": train_cfg, "fsdp": True, "tag": "ep",
                 "key": "expert_parallel", "paths": ("ep_serving", "ep_training"),
                 "draw": True, "ep2d": True, "lr": EP_LR}
+    if phase == "29":  # MLA: the ranks draw the seed-0 weights themselves
+        cfgs = moe_configs(sizes)
+        return {"phase": "29", "cfg": cfgs["deepseek"], "train_cfg": cfgs["train"],
+                "fsdp": True, "tag": "mla", "key": "mla_parallel",
+                "paths": ("mla_serving", "mla_training"), "draw": True, "ep2d": True,
+                "lr": EP_LR}
+    if phase == "29w":  # the encoder-decoder, no FSDP (mesh_rules' choice)
+        cfg = get_config(ED_ARCH)
+        cfg = cfg.reduced() if sizes.lm_reduced else cfg
+        return {"phase": "29", "cfg": cfg, "train_cfg": cfg, "fsdp": False, "tag": "encdec",
+                "key": "encdec_parallel", "paths": ("encdec_serving", "encdec_training")}
     if phase == "26":
         cfg = tp_cfg(sizes)
         return {"phase": "26", "cfg": cfg, "train_cfg": cfg, "fsdp": False, "tag": "tp",
@@ -7218,10 +7291,11 @@ def tp_case(sizes: Sizes, phase: str) -> dict:
 
 def tp_cut(params: dict, n_layers: int) -> dict:
     """The first ``n_layers`` layers of a dense LM's parameters: its one
-    scanned segment's stacked leaves cut to ``[:n_layers]``, the embedding,
-    the head (where untied) and the final norm whole."""
+    scanned segment's stacked leaves cut to ``[:n_layers]``, every other
+    leaf (the embedding, the head where untied, the final norm, an
+    encoder) whole."""
     (seg,) = params["segments"]
-    out = {k: params[k] for k in ("embed", "head", "final_norm") if k in params}
+    out = {k: v for k, v in params.items() if k != "segments"}
     out["segments"] = [[{k: tree_map(lambda t: t[:n_layers], v) for k, v in layer.items()}
                         for layer in seg]]
     return out
@@ -7303,6 +7377,17 @@ class TPRecordingLM(RecordingLM):
         return out
 
 
+def frames_wave(model, params, sizes: Sizes, max_seq: int, device,
+                flash_spy=None) -> list:
+    """Phase 22 (a)'s wave (``frontend_wave``'s prompts and stub frames)
+    at TP_NEW_TOKENS decode steps, through ``drive_wave``."""
+    b, t = sizes.lm_slots, sizes.lm_prompts[1]
+    tokens = torch.randint(0, model.cfg.vocab_size, (b, t), device=device,
+                           generator=torch.Generator(device=device).manual_seed(6))
+    return drive_wave(model, params, tokens, frontend_inputs(model.cfg, b, device), max_seq,
+                      TP_NEW_TOKENS, device, flash_spy=flash_spy)
+
+
 def tp_reference(cfg, sizes: Sizes, device, work: str, train_cfg=None) -> dict:
     """The single-device program, in the parent, before the ranks start:
     (a) the engine's calls over phase 10's requests (``RecordingLM``:
@@ -7328,6 +7413,11 @@ def tp_reference(cfg, sizes: Sizes, device, work: str, train_cfg=None) -> dict:
     calls = [{"kind": c["kind"], "wave": c["wave"], "tokens": c["tokens"].cpu().numpy(),
               "logits": c["logits"].cpu().numpy(), "ms": c["s"] * 1e3} for c in rec.calls]
     del rec, engine
+    wave = None
+    if cfg.is_encoder_decoder:  # phase 22's frames wave, each rank's second traffic
+        wave = [{"kind": c["kind"], "tokens": c["tokens"].cpu().numpy(),
+                 "logits": c["logits"].cpu().numpy(), "ms": c["s"] * 1e3}
+                for c in frames_wave(model, params, sizes, max_seq, device)]
     batch = make_dummy_batch(cfg, sizes.lm_train_batch, sizes.lm_train_seq,
                              generator=torch.Generator(device=device).manual_seed(1))
     opt = adamw(warmup_cosine(LM_LR, LM_WARMUP, TP_TRAIN_STEPS), fused=True)
@@ -7338,8 +7428,8 @@ def tp_reference(cfg, sizes: Sizes, device, work: str, train_cfg=None) -> dict:
     losses, step_ms = run["losses"], run["ms"]
     del run
     free_card(device)
-    cut_cfg = dataclasses.replace(cfg, n_layers=TP_F32_LAYERS)
-    cut = tp_cut(params, TP_F32_LAYERS)
+    cut_cfg = dataclasses.replace(cfg, n_layers=f32_layers(cfg))
+    cut = tp_cut(params, cut_cfg.n_layers)
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(cut)]
     loss32, _ = build_model(cut_cfg, inner="cuda").loss(tree_unflatten(cut, leaves), batch)
     grads32 = torch.autograd.grad(loss32, leaves)
@@ -7347,7 +7437,7 @@ def tp_reference(cfg, sizes: Sizes, device, work: str, train_cfg=None) -> dict:
     torch.save({"init": tree_map(lambda t: t.detach().cpu(), params)}, files[0])
     saver = SavedBehind({"final": final,
                          "grads32": tree_unflatten(cut, [g.cpu() for g in grads32])}, files[1])
-    out = {"calls": calls, "losses": losses, "step_ms": step_ms,
+    out = {"calls": calls, "wave_calls": wave, "losses": losses, "step_ms": step_ms,
            "loss32": float(loss32.detach()),
            "n_params": sum(t.numel() for t in tree_leaves(params)), "max_seq": max_seq,
            "files": files, "saver": saver, "reference_s": time.perf_counter() - t0}
@@ -7357,13 +7447,17 @@ def tp_reference(cfg, sizes: Sizes, device, work: str, train_cfg=None) -> dict:
 
 
 def f32_layers(cfg) -> int:
-    """The float32 step's depth: the first TP_F32_LAYERS of ``cfg``'s."""
+    """The float32 step's depth: the first TP_F32_LAYERS of ``cfg``'s, or
+    the whole of an MLA cut (a dense layer, then a scanned segment) and of
+    an encoder-decoder."""
+    if cfg.mla is not None or cfg.is_encoder_decoder:
+        return cfg.n_layers
     return min(TP_F32_LAYERS, cfg.n_layers)
 
 
 def ep_reference(cfg, train_cfg, sizes: Sizes, device, work: str, p20=None) -> dict:
-    """Phase 28's single-device program, in the parent, before the ranks
-    start: (a) phase 20 (a)'s recorded calls of the same configuration
+    """Phase 28's and 29's single-device program, in the parent, before
+    the ranks start: (a) phase 20 (a)'s or (c)'s recorded calls of the same configuration
     (``p20``: each call's tokens, last logits and routing), or, run alone,
     the engine over phase 10's requests at TP_NEW_TOKENS, recorded the same
     way (``RoutingLog``); (b) ``tp_reference``'s training run of
@@ -7392,18 +7486,25 @@ def ep_reference(cfg, train_cfg, sizes: Sizes, device, work: str, p20=None) -> d
     else:
         calls, max_seq = p20["calls"], p20["max_seq"]
         n_serve = None
+    on_card = device.type == "cuda"
+    before = torch.cuda.memory_allocated(device) if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
     model = build_model(train_cfg, inner="cuda", remat="layer")
     params = model.init(torch.Generator(device=device).manual_seed(0), device=device)
     batch = make_dummy_batch(train_cfg, sizes.lm_train_batch, sizes.lm_train_seq,
                              generator=torch.Generator(device=device).manual_seed(1))
     opt = adamw(warmup_cosine(EP_LR, LM_WARMUP, TP_TRAIN_STEPS), fused=True)
     run = lm_train_run(model, opt, params, batch, TP_TRAIN_STEPS, device)
+    if on_card:
+        print(f"[ep] {train_cfg.name} on one device: {before} bytes allocated before its "
+              f"training run, the run's peak {torch.cuda.max_memory_allocated(device)}")
     final = tree_map(lambda t: t.detach().cpu(), run["params"])
     losses, step_ms = run["losses"], run["ms"]
     del run
     free_card(device)
     cut_cfg = dataclasses.replace(train_cfg, n_layers=f32_layers(train_cfg))
-    cut = tp_cut(params, cut_cfg.n_layers)
+    cut = params if cut_cfg.n_layers == train_cfg.n_layers else tp_cut(params, cut_cfg.n_layers)
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(cut)]
     # the loss alone: its metrics' graph would hold the leaves
     loss32 = build_model(cut_cfg, inner="cuda").loss(tree_unflatten(cut, leaves), batch)[0]
@@ -7414,34 +7515,105 @@ def ep_reference(cfg, train_cfg, sizes: Sizes, device, work: str, p20=None) -> d
     del params, cut, leaves, batch, model
     free_card(device)
     held = torch.cuda.memory_reserved(device) if device.type == "cuda" else 0
-    print(f"[ep] the parent holds {held} bytes on the card before the ranks' training")
+    live = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    print(f"[ep] the parent holds {held} bytes on the card ({live} allocated) before the "
+          "ranks start")
     files = (None, os.path.join(work, "ref.pt"))
     saver = SavedBehind({"final": final, "grads32": grads32}, files[1])
-    return {"calls": calls, "losses": losses, "step_ms": step_ms, "loss32": loss32,
-            "n_params": n_serve, "n_train_params": n_train, "max_seq": max_seq,
+    return {"calls": calls, "wave_calls": None, "losses": losses, "step_ms": step_ms,
+            "loss32": loss32, "n_params": n_serve, "n_train_params": n_train, "max_seq": max_seq,
             "files": files, "saver": saver, "reused_phase_20": p20 is not None,
             "parent_reserved_bytes": held, "reference_s": time.perf_counter() - t0}
 
 
+#: the leaves ``LM.init`` does not draw from its generator (ones and zeros)
+UNDRAWN = ("scale", "bias", "b_in", "b_out")
+
+
+def _init_order(tree, path: str = ""):
+    """``(path, leaf)`` in the order ``LM.init`` made them: its dicts'
+    insertion order (``_flatten_with_paths`` sorts the keys)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _init_order(v, f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _init_order(v, f"{path}/{i}" if path else str(i))
+    else:
+        yield path, tree
+
+
+def init_plan(cfg) -> tuple:
+    """``(the whole tree of value-less leaves, [(path, shape, drawn)] in
+    LM.init's order)`` from an init under ``FakeTensorMode``, checked
+    against the shapes its ``_randn`` calls drew, in order: the plan of a
+    leaf-by-leaf draw that consumes the generator as ``LM.init`` does."""
+    draws, real = [], layers_mod._randn
+
+    def recorded(generator, shape, device):
+        draws.append(tuple(shape))
+        return real(generator, shape, device)
+
+    layers_mod._randn = moe_mod._randn = recorded
+    try:
+        with FakeTensorMode():
+            fake = build_model(cfg, inner="cuda").init(torch.Generator().manual_seed(0),
+                                                       device="cpu")
+    finally:
+        layers_mod._randn = moe_mod._randn = real
+    order = [(path, tuple(t.shape), path.split("/")[-1] not in UNDRAWN)
+             for path, t in _init_order(fake)]
+    if [shape for _, shape, drawn in order if drawn] != draws:
+        raise AssertionError(f"{cfg.name}: LM.init's draws are not its drawn leaves in order")
+    return fake, order
+
+
 def drawn_shards(cfg, rules, mesh, device, serial: bool) -> tuple:
     """``(the rank's shards, every leaf's whole shape)`` of ``cfg``'s
-    weights from seed 0, drawn whole on the card as the single-device
-    program draws them and cut (``shard_tree``); where ``serial``, one rank
-    at a time, so that the card holds one whole tree at once."""
+    weights from seed 0, bitwise the single-device program's: the leaves
+    drawn one at a time on the card in ``LM.init``'s order from one
+    generator seeded 0 (``init_plan``), each scaled as ``LM.init`` scales
+    it and cut to the rank's ``param_spec`` shard before the next is drawn,
+    so that a rank holds its shards and one whole leaf at most; where
+    ``serial``, one rank at a time. The rank's peak allocation over the
+    draw (``draw_peak``: its shards and the largest leaf) and its seconds
+    go to ``drawn_shards.last``."""
     world = torch.distributed.get_world_size()
     rank = torch.distributed.get_rank()
-    shards = shapes = None
+    on_card = device.type == "cuda"
+    fake, order = init_plan(cfg)
+    shape_of = dict(mesh.shape)
+    shards, peak, seconds = {}, 0, 0.0
     for turn in range(world if serial else 1):
         if not serial or rank == turn:
-            full = build_model(cfg, inner="cuda").init(
-                torch.Generator(device=device).manual_seed(0), device=device)
-            shapes = {path: tuple(t.shape) for path, t in _flatten_with_paths(full)}
-            shards = shard_tree(full, rules, mesh.coords)
-            del full
-            free_card(device)
+            t0 = time.perf_counter()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            gen = torch.Generator(device=device).manual_seed(0)
+            for path, shape, drawn in order:
+                name = path.split("/")[-1]
+                if not drawn:
+                    leaf = (torch.ones if name == "scale" else torch.zeros)(shape, device=device)
+                else:
+                    leaf = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+                    if name == "table":  # embed_init
+                        leaf = leaf * 0.02
+                    elif name in ("we_gate", "we_up", "we_down"):  # moe_init's experts
+                        leaf.mul_(1.0 / math.sqrt(shape[-2]))
+                    else:  # dense_init
+                        leaf = leaf * (1.0 / math.sqrt(shape[-2]))
+                shards[path] = shard_leaf(leaf, rules.param_spec(path, shape), shape_of,
+                                          mesh.coords)
+                del leaf
+            sync(device)
+            peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+            free_card(device)  # the drawn leaves' blocks back to the card for the next rank
+            seconds = time.perf_counter() - t0
         if serial:
             torch.distributed.barrier()
-    return shards, shapes
+    drawn_shards.last = {"draw_peak": peak, "draw_s": seconds, "serial": serial}
+    shapes = {path: shape for path, shape, _ in order}
+    return fsdp_mod._map(fake, lambda path, _: shards[path]), shapes
 
 
 def expert_bytes(params, shapes: dict, rules, mesh) -> dict:
@@ -7548,18 +7720,23 @@ def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
     (``TPRecordingLM``, its flash calls' head splits and each wave's
     layer-0 inputs captured as they run) and held to the single-device
     call with the same input tokens; rank 0 holds the longest wave's
-    layer-0 call against its plain version and times it."""
+    layer-0 call against its plain version and times it. An
+    encoder-decoder then runs phase 22's frames wave (``frames_wave``),
+    held the same way, and rank 0 times its first encoder and cross
+    calls."""
     cfg, sizes = spec["cfg"], spec["sizes"]
     t0 = time.perf_counter()
     model = build_model(cfg, inner="cuda")
+    out = {"coords": mesh.coords}
     if spec.get("draw"):
         params, shapes = drawn_shards(cfg, rules, mesh, device, serial=True)
+        out["draw"] = {**drawn_shards.last, "shard_bytes": _tensor_bytes(params)}
     else:
         params = tree_map(lambda t: t.to(device), shard_tree(data["init"], rules, mesh.coords))
     sync(device)
     max_seq = spec["max_seq"]
     serve = dataclasses.replace(sizes, lm_new_tokens=TP_NEW_TOKENS)
-    out = {"coords": mesh.coords, "load_s": time.perf_counter() - t0}
+    out["load_s"] = time.perf_counter() - t0
     if cfg.moe is not None:
         out["expert_bytes"] = expert_bytes(params, shapes, rules, mesh)
     # the engine's cache, as its waves make it, against cache_spec's shard
@@ -7612,36 +7789,50 @@ def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
                 out["launches"] = counts()
         finally:
             table["flash"] = inner
+        wave, spied = [], ([] if rank == 0 else None)
+        if cfg.is_encoder_decoder:  # phase 22's frames wave, counts from 0
+            zero_counts()
+            wave = frames_wave(model, params, sizes, max_seq, device, flash_spy=spied)
+            out["wave_launches"] = counts()
     by_input = {}
     for c in spec["ref_calls"]:
         by_input.setdefault((c["kind"], c["wave"]), []).append(c)
     worst, held, unheld, pairs, sure_pairs = 0.0, 0, 0, 0, 0
     h = hashlib.sha256()
-    calls, parted, parted_waves = [], [], set()
+    calls, wave_calls, parted, parted_waves = [], [], [], set()
     seen = defaultdict(int)
+    # the engine's calls, each held to the single-device call with the same
+    # kind, wave and index, then the frames wave's, call by call
+    todo = []
     for c in rec.calls:
-        logits = c["logits"]
-        h.update(logits.cpu().numpy().tobytes())
         key = (c["kind"], c["wave"])
         i = seen[key]
         seen[key] += 1
-        want = by_input[key][i] if i < len(by_input.get(key, [])) else None
+        todo.append((c, by_input[key][i] if i < len(by_input.get(key, [])) else None,
+                     f"a {c['kind']} of wave {c['wave']}"))
         calls.append({"kind": c["kind"], "wave": c["wave"], "ms": c["s"] * 1e3,
                       "flash": c["flash"], **c["collectives"]})
+    for c, want in zip(wave, spec.get("wave_calls") or []):
+        todo.append((c, want, f"the frames wave's {c['kind']}"))
+        wave_calls.append({"kind": c["kind"], "ms": c["s"] * 1e3, "flash": c["flash"],
+                           "counts": c["counts"], "bytes": c["bytes"], "wire_s": c["wire_s"]})
+    for c, want, where in todo:
+        logits = c["logits"]
+        h.update(logits.cpu().numpy().tobytes())
         if logits.shape != (c["tokens"].shape[0], cfg.padded_vocab()) \
                 or not torch.isfinite(logits).all():
-            raise AssertionError(f"rank {rank}: {c['kind']} logits {tuple(logits.shape)}")
+            raise AssertionError(f"rank {rank}: {where}: logits {tuple(logits.shape)}")
         if want is None or not np.array_equal(c["tokens"].cpu().numpy(), want["tokens"]):
             unheld += 1  # its inputs parted from the single-device program's
             continue
-        if routing is not None and c["wave"] not in parted_waves:
+        if c.get("routes") and c["wave"] not in parted_waves:
             margins = routes_parted([(ids.cpu(), m.cpu()) for ids, m in c["routes"]],
                                     want["routes"])
             if margins:  # the caches differ from here: the wave is held no further
                 parted.append({"wave": c["wave"], "kind": c["kind"], "tokens": len(margins),
                                "max_margin": max(margins)})
                 parted_waves.add(c["wave"])
-        if c["wave"] in parted_waves:
+        if c.get("wave") in parted_waves:
             unheld += 1
             continue
         ref_logits = torch.from_numpy(want["logits"]).to(logits.device)
@@ -7653,19 +7844,26 @@ def tp_serve_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
         sure_pairs += int(sure.sum())
         if not torch.equal(logits.argmax(-1)[sure], ref_logits.argmax(-1)[sure]):
             raise AssertionError(f"rank {rank}: greedy tokens part from the single-device "
-                                 f"program's in a {c['kind']} of wave {c['wave']} where the "
-                                 f"top-2 margin > {TOKEN_MARGIN}")
+                                 f"program's in {where} where the top-2 margin > "
+                                 f"{TOKEN_MARGIN}")
     for r in done:
         h.update(np.asarray(r.output, np.int64).tobytes())
-    out.update({"calls": calls, "max_logit_diff": worst, "held": held, "unheld": unheld,
+    out.update({"calls": calls, "wave_calls": wave_calls,
+                "max_logit_diff": worst, "held": held, "unheld": unheld,
                 "routing_parted": parted,
                 "token_pairs": pairs, "token_pairs_compared": sure_pairs,
                 "digest": h.hexdigest(), "outputs": [r.output for r in done],
                 "flash_heads": sorted(set(layers))})
-    if rank == 0:  # layer 0's call of the longest wave
+    if rank == 0 and firsts:  # layer 0's call of the longest wave
         q, k, v = max(firsts, key=lambda x: x[0].shape[2])
         out["flash"] = flash_shape_rows("tensor-parallel rank 0", [("layer 0", q, k, v, True)],
                                         device, reps=10)["tensor-parallel rank 0 layer 0"]
+    if rank == 0 and wave:  # the frames wave's layer-0 encoder call and first cross call
+        named = whisper_flash_kinds(cfg, spied)
+        picked = [next(x for x in named if x[0] == kind) for kind in ("encoder", "cross")]
+        out["flash_wave"] = flash_shape_rows("tensor-parallel rank 0 wave", picked, device,
+                                             reps=10)
+        del named, picked
     return out
 
 
@@ -7776,8 +7974,7 @@ def tp_train_rank(rank: int, spec: dict, mesh, rules, data, device) -> dict:
         out["delta_parts"] = dict(zip(paths, _delta_parts(tree_leaves(params), init, final)))
         out["digests"] = {p: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
                           for p, t in zip(paths, tree_leaves(params))}
-        out["spec_axes"] = {p: _spec_axes(rules.param_spec(p, tuple(t.shape)))
-                            for p, t in zip(paths, final)}
+        out["spec_axes"] = {p: _spec_axes(rules.param_spec(p, shapes[p])) for p in paths}
         del state
         params = tree_map(lambda t: t.cpu(), params)  # the card holds one run at a time
         free_card(device)
@@ -7925,7 +8122,9 @@ def tp_phase(sizes: Sizes, device, case: dict, pool, warm, p20=None) -> dict:
                 "fsdp": case["fsdp"], "draw": case.get("draw", False),
                 "ep2d": case.get("ep2d", False)}
         serve = pool.run(tp_rank, 4, ({**base, "part": "serve", "mesh": TP_SERVE_MESH,
-                                       "ref_calls": ref["calls"], "t0": time.perf_counter()},))
+                                       "ref_calls": ref["calls"],
+                                       "wave_calls": ref.get("wave_calls"),
+                                       "t0": time.perf_counter()},))
         train = pool.run(tp_rank, 4, ({**base, "cfg": case["train_cfg"], "part": "train",
                                        "mesh": TP_TRAIN_MESH, "lr": case.get("lr", LM_LR),
                                        "t0": time.perf_counter()},))
@@ -7968,18 +8167,21 @@ def tp_pool(device):
 
 
 def tp_phases(sizes: Sizes, device, phases: tuple, p20=None, started=None) -> dict:
-    """Phases 26, 27 and 28 (those ``phases`` names) on one ``tp_pool``,
-    ``started`` (in the whole run, beside phase 25) or started here, warming
-    while the first phase's single-device program runs (phase 28's
-    reference reuses phase 20 (a)'s calls, ``p20``, where given). Returns
-    each phase's result and seconds (the spawn in the first's)."""
+    """Phases 26, 27, 28 and 29 (those ``phases`` names; 29 as its two
+    cases, ``"29"`` deepseek-v3-671b and ``"29w"`` whisper-tiny) on one
+    ``tp_pool``, ``started`` (in the whole run, beside phase 25) or started
+    here, warming while the first phase's single-device program runs
+    (phase 28's and 29's references reuse phase 20 (a)'s and (c)'s calls,
+    ``p20["dbrx"]`` and ``p20["deepseek"]``, where given). Returns each
+    case's result and seconds (the spawn in the first's)."""
     out = {}
     t0 = time.perf_counter()
     with contextlib.nullcontext(started) if started else tp_pool(device) as (pool, warm,
                                                                              spawn_s):
-        for phase in phases:
+        p20 = p20 or {}
+        for phase in [q for p in phases for q in (("29", "29w") if p == "29" else (p,))]:
             res = tp_phase(sizes, device, tp_case(sizes, phase), pool, warm,
-                           p20 if phase == "28" else None)
+                           {"28": p20.get("dbrx"), "29": p20.get("deepseek")}.get(phase))
             res["phase_s"] = time.perf_counter() - t0
             res["spawn_s"] = spawn_s if not out else 0.0
             out[phase] = res
@@ -7992,14 +8194,19 @@ def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict,
     """(a)'s gates over the four ranks' results."""
     waves = 1 + max(c["wave"] for c in ranks[0]["calls"])
     per_wave = flash_layers(cfg)  # every rank's wave on the card, as main() runs it
-    if dry["prefill"]["launches"].get("flash_attention") != per_wave:
+    frames = cfg.is_encoder_decoder  # the dry run's prefill cell takes the frames
+    per_cell = prefill_flash_launches(cfg, frames)
+    # the dry run's serving cells are bfloat16 beside float32 frames: their
+    # cross attention meets a bfloat16 q and float32 K/V and takes the
+    # masked core (the JAX package's promotion), where the float32 ranks'
+    # takes flash
+    dry_flash = per_cell - (cfg.n_layers if frames else 0)
+    if dry["prefill"]["launches"].get("flash_attention", 0) != dry_flash:
         raise AssertionError(f"the dry run reckons {dry['prefill']['launches']} a prefill, "
-                             f"expected {per_wave} flash launches")
+                             f"expected {dry_flash} flash launches")
     m = TP_SERVE_MESH[1]
-    # the rank's whole query heads and the KV heads they read
-    hl = cfg.n_heads // m
-    heads = [(hl, max(1, hl // (cfg.n_heads // cfg.n_kv_heads)), cfg.resolved_head_dim)]
     for r in ranks:
+        heads = rank_flash_heads(cfg, m, r["coords"]["model"])
         if r["device"] != "cuda":
             raise AssertionError(f"rank {r['coords']} ran on {r['device']}, not the card")
         if r["digest"] != ranks[0]["digest"]:
@@ -8031,11 +8238,24 @@ def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict,
         if r["flash_heads"] != heads:
             raise AssertionError(f"rank {r['coords']}: flash at {r['flash_heads']}, "
                                  f"expected {heads}")
-        for c in r["calls"]:
+        # the engine's text-alone prefill has no cell where the cell takes frames
+        for c in [c for c in r["calls"] if not (frames and c["kind"] == "prefill")] \
+                + r["wave_calls"]:
             if c["counts"] != dry[c["kind"]]["collective_counts"]:
                 raise AssertionError(f"rank {r['coords']}: a {c['kind']} placed "
                                      f"{c['counts']}, the dry run counts "
                                      f"{dry[c['kind']]['collective_counts']}")
+        if frames:
+            for c in r["wave_calls"]:
+                want = per_cell if c["kind"] == "prefill" else 0
+                if c["flash"] != want:
+                    raise AssertionError(f"rank {r['coords']}: the frames wave's {c['kind']} "
+                                         f"launched flash {c['flash']} times, expected {want}")
+            w = r["wave_launches"]
+            if w["flash_attention"] != per_cell or sum(w.values()) != per_cell:
+                raise AssertionError(f"rank {r['coords']}: the frames wave launched {w}")
+            if len(r["wave_calls"]) != 1 + TP_NEW_TOKENS:
+                raise AssertionError(f"rank {r['coords']}: {len(r['wave_calls'])} wave calls")
     calls = ranks[0]["calls"]
     pre = [c for c in calls if c["kind"] == "prefill"]
     dec = [c for c in calls if c["kind"] == "decode"]
@@ -8044,6 +8264,8 @@ def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict,
            "launches": ranks[0]["launches"],
            "launches_all_ranks": {k: sum(r["launches"][k] for r in ranks)
                                   for k in ranks[0]["launches"]},
+           "wave_launches_all_ranks": {k: sum(r["wave_launches"][k] for r in ranks)
+                                       for k in ranks[0]["wave_launches"]} if frames else None,
            "max_logit_diff": max(r["max_logit_diff"] for r in ranks),
            "calls_held": ranks[0]["held"], "calls_not_held": ranks[0]["unheld"],
            "token_pairs": ranks[0]["token_pairs"],
@@ -8061,11 +8283,70 @@ def tp_serve_gates(cfg, sizes: Sizes, ranks: list, ref: dict, dry: dict,
            "expert_bytes": [r.get("expert_bytes") for r in ranks],
            "routing_parted": [r["routing_parted"] for r in ranks],
            "profile": [r["profile"] for r in ranks],
-           "flash": ranks[0].get("flash"), "wall_s": ranks[0]["wall_s"],
+           "flash": ranks[0].get("flash"), "flash_wave": ranks[0].get("flash_wave"),
+           "wave": _wave_summary(ranks[0], ref) if frames else None,
+           "latent": _latent_summary(cfg, sizes, ranks[0], ref) if cfg.mla else None,
+           "draw": [r.get("draw") for r in ranks], "wall_s": ranks[0]["wall_s"],
            "rank_s": [r["rank_s"] for r in ranks], "started_s": [r["started_s"] for r in ranks],
            "load_s": [r["load_s"] for r in ranks]}
-    print(f"[{tag}] (a) " + json.dumps({k: v for k, v in out.items() if k != "flash"}))
+    print(f"[{tag}] (a) " + json.dumps({k: v for k, v in out.items()
+                                        if k not in ("flash", "flash_wave")}))
     return out
+
+
+def rank_flash_heads(cfg, m: int, coord: int) -> list:
+    """The (query heads, KV heads, D) of every flash call on the rank at
+    ``coord`` of a model axis of ``m`` (``models/attention.py:_split``:
+    the heads its ``wq`` columns touch, the KV heads they read, one a query
+    head where they do not fall in equal groups); none for MLA."""
+    if cfg.mla is not None:
+        return []
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    g = h // cfg.n_kv_heads
+    w = h * dh // m if (h * dh) % m == 0 else h * dh
+    start = coord * w if w != h * dh else 0
+    lo, hi = start // dh, -(-(start + w) // dh)
+    kv_lo, kv_hi = lo // g, (hi - 1) // g + 1
+    n, hl = kv_hi - kv_lo, hi - lo
+    grouped = hl % n == 0 and [hh // g for hh in range(lo, hi)] == [
+        kv_lo + i // (hl // n) for i in range(hl)]
+    return [(hl, n if grouped else hl, dh)]
+
+
+def _wave_summary(r: dict, ref: dict) -> dict:
+    """Rank 0's frames wave beside the single-device program's: prefill ms,
+    decode ms a step (median), and a call's collectives and wire ms."""
+    pre = [c for c in r["wave_calls"] if c["kind"] == "prefill"]
+    dec = [c for c in r["wave_calls"] if c["kind"] == "decode"]
+    ref_dec = [c["ms"] for c in ref["wave_calls"] if c["kind"] == "decode"]
+    return {"prefill_ms": pre[0]["ms"], "ref_prefill_ms": ref["wave_calls"][0]["ms"],
+            "decode_step_ms_median": float(np.median([c["ms"] for c in dec])),
+            "ref_decode_step_ms_median": float(np.median(ref_dec)),
+            "wire_ms": {"prefill": pre[0]["wire_s"] * 1e3,
+                        "decode": dec[len(dec) // 2]["wire_s"] * 1e3},
+            "collective_counts": {"prefill": pre[0]["counts"],
+                                  "decode": dec[len(dec) // 2]["counts"]},
+            "collective_bytes": {"prefill": pre[0]["bytes"],
+                                 "decode": dec[len(dec) // 2]["bytes"]},
+            "flash": pre[0]["flash"]}
+
+
+def _latent_summary(cfg, sizes: Sizes, r: dict, ref: dict) -> dict:
+    """MLA's latent all-gathers a decode step on rank 0: the operand bytes
+    its log read for all-gathers, beside the latent's share reckoned from
+    the cache (the rank's block of positions a layer) and the logits'
+    all-gather."""
+    m = cfg.mla
+    dec = [c for c in r["calls"] if c["kind"] == "decode"]
+    one = dec[len(dec) // 2]
+    block = sizes.lm_slots * (ref["max_seq"] // TP_SERVE_MESH[1]) * (
+        m.kv_lora_rank + m.qk_rope_head_dim) * 4
+    logits = sizes.lm_slots * cfg.padded_vocab() // TP_SERVE_MESH[1] * 4
+    return {"all_gather_bytes": one["bytes"].get("all-gather", 0.0),
+            "all_gathers": one["counts"].get("all-gather", 0),
+            "latent_block_bytes": block, "latent_bytes_reckoned": cfg.n_layers * block,
+            "latent_gathered_bytes": cfg.n_layers * block * TP_SERVE_MESH[1],
+            "logits_bytes": logits}
 
 
 def tp_train_gates(ranks: list, ref: dict, dry: dict, tag: str = "tp") -> dict:
@@ -8073,6 +8354,10 @@ def tp_train_gates(ranks: list, ref: dict, dry: dict, tag: str = "tp") -> dict:
     losses = [s["loss"] for s in ranks[0]["steps"]]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
     model = TP_TRAIN_MESH[1]
+    adam_launches = -(-len(ranks[0]["digests"]) // CAPACITY)
+    if dry["train"]["launches"].get("fused_adam") != adam_launches:
+        raise AssertionError(f"the dry run reckons {dry['train']['launches']} a step, "
+                             f"expected {adam_launches} fused_adam launches")
     # the readings first, printed whether or not the gates hold
     delta_rel = _norm_rel(ranks, "delta_parts")
     control_rel = _norm_rel(ranks, "control_parts")
@@ -8107,9 +8392,11 @@ def tp_train_gates(ranks: list, ref: dict, dry: dict, tag: str = "tp") -> dict:
             raise AssertionError(f"rank {r['coords']}: parameter and Adam bytes {b}, the "
                                  f"rules' shards and the dry run's "
                                  f"{dry['train']['persistent']['params']}")
-        for s in r["steps"]:
-            if s["launches"]["fused_adam"] != 1 or sum(s["launches"].values()) != 1:
-                raise AssertionError(f"rank {r['coords']}: a step launched {s['launches']}")
+        for s in r["steps"]:  # one a step, or one a CAPACITY of leaves (whisper's 72)
+            if s["launches"]["fused_adam"] != adam_launches \
+                    or sum(s["launches"].values()) != adam_launches:
+                raise AssertionError(f"rank {r['coords']}: a step launched {s['launches']}, "
+                                     f"expected {adam_launches} fused_adam launches")
             if s["collective_counts"] != dry["train"]["collective_counts"]:
                 raise AssertionError(f"rank {r['coords']}: a step placed "
                                      f"{s['collective_counts']}, the dry run counts "
@@ -8168,8 +8455,11 @@ def tp_entries(entries: list, p26: dict, alone: bool, case: dict) -> None:
     by_name = {e["name"]: e for e in entries}
     serving, training = case["paths"]
     key = case["key"]
-    for path, launched in ((serving, p26["serve"]["launches_all_ranks"]),
-                           (training, p26["train"]["launches_all_ranks"])):
+    paths = [(serving, p26["serve"]["launches_all_ranks"]),
+             (training, p26["train"]["launches_all_ranks"])]
+    if p26["serve"].get("wave_launches_all_ranks"):
+        paths.append((serving + "_frames_wave", p26["serve"]["wave_launches_all_ranks"]))
+    for path, launched in paths:
         for e in entries:
             e["launches_by_path"][path] = launched[e["name"]]
             e["launches"] += launched[e["name"]]
@@ -8183,6 +8473,16 @@ def tp_entries(entries: list, p26: dict, alone: bool, case: dict) -> None:
             "shape": f"{p26['arch']}: rank 0's layer-0 call of the longest wave at (data 1, "
                      f"model 4): B {f['B']}, H {f['H']}, Hkv {f['Hkv']}, T {f['Tq']}, D "
                      f"{f['D']}, causal, float32; 4 ranks share the card"}
+    for label, row in (p26["serve"].get("flash_wave") or {}).items():
+        flash["max_abs_err"] = max(flash["max_abs_err"], row["max_abs_err"])
+        flash[key][label.split()[-1]] = {
+            **{k: row[k] for k in keep}, "library_enable_gqa_ms": row["library_enable_gqa_ms"],
+            "max_abs_err": row["max_abs_err"],
+            "shape": f"{p26['arch']}: rank 0's first {label.split()[-1]} call of the frames "
+                     f"wave at (data 1, model 4): B {row['B']}, H {row['H']}, Hkv "
+                     f"{row['Hkv']}, Tq {row['Tq']}, Tk {row['Tk']}, D {row['D']}, "
+                     f"{'causal' if row['causal'] else 'non-causal'}, float32; 4 ranks "
+                     "share the card"}
     a = p26["train"]["adam"]
     adam = by_name["fused_adam"]
     if a is not None:
@@ -8190,7 +8490,10 @@ def tp_entries(entries: list, p26: dict, alone: bool, case: dict) -> None:
         adam[key] = {
             **{k: a[k] for k in keep}, "library": a["library"], "params": a["params"],
             "leaves": a["leaves"],
-            "shape": f"{p26['train_arch']}: one launch over rank 0's {a['leaves']} shards "
+            "shape": f"{p26['train_arch']}: "
+                     + ("one launch" if a["leaves"] <= CAPACITY else
+                        f"{-(-a['leaves'] // CAPACITY)} launches")
+                     + f" over rank 0's {a['leaves']} shards "
                      f"({a['params']:,} values) at (data 2, model 2)"
                      + (", FSDP" if p26["fsdp"] else "")
                      + (", its experts over (data, model)" if p26["ep2d"] else "")
@@ -8218,6 +8521,25 @@ def print_tp_summary(m: dict, card: str, phase: str = "26") -> None:
           f"{s['ref_decode_step_ms_median']:.1f}); wire {s['wire_ms']} ms a call; "
           f"collectives {s['collective_counts']}, bytes {s['collective_bytes']}; logits "
           f"within {s['max_logit_diff']:.3g}; flash at {s['flash_heads']}")
+    if s.get("wave"):
+        w = s["wave"]
+        print(f"[summary]   (a) the frames wave: prefill {w['prefill_ms']:.1f} ms (one device "
+              f"{w['ref_prefill_ms']:.1f}), decode {w['decode_step_ms_median']:.1f} ms a step "
+              f"(one device {w['ref_decode_step_ms_median']:.1f}), flash {w['flash']} a "
+              f"prefill a rank; wire {w['wire_ms']} ms; collectives "
+              f"{w['collective_counts']}, bytes {w['collective_bytes']}")
+    if s.get("latent"):
+        print(f"[summary]   (a) MLA's latent a decode step: {json.dumps(s['latent'])}")
+    if s.get("draw") and s["draw"][0]:
+        held = 0
+        card_peak = 0
+        for d in s["draw"]:  # serial: the ranks before it hold their shards
+            card_peak = max(card_peak, held + d["draw_peak"])
+            held += d["shard_bytes"]
+        print(f"[summary]   (a) the leaf-by-leaf draw: rank peaks "
+              f"{[d['draw_peak'] for d in s['draw']]} bytes, shards "
+              f"{[d['shard_bytes'] for d in s['draw']]}, the card's peak over the ranks "
+              f"{card_peak} bytes; {[round(d['draw_s'], 2) for d in s['draw']]} s")
     if m["ep2d"]:
         print(f"[summary]   (a) expert bytes a rank {s['expert_bytes'][0]}; MoE routing "
               f"parted in {sum(len(p) for p in s['routing_parted'])} calls over the ranks; "
@@ -8248,13 +8570,14 @@ def print_tp_summary(m: dict, card: str, phase: str = "26") -> None:
 
 
 def run(sizes: Sizes, device, phases: str = "all") -> dict:
-    """Phases 2 to 28 at ``sizes`` on ``device`` (phase 20, 21, 22, 23, 24,
-    25, 26, 27 or 28 alone where ``phases`` names it: the kernels line then
-    holds that phase's launches and numbers alone); returns the kernels
-    line and the details. Phases 20 to 28 each start after the phases
-    before them have returned, so that nothing those held stays on the
-    card; phase 20 (a)'s recorded calls stay on the host for phase 28."""
-    if phases in ("20", "21", "22", "23", "24", "25", "26", "27", "28"):
+    """Phases 2 to 29 at ``sizes`` on ``device`` (phase 20, 21, 22, 23, 24,
+    25, 26, 27, 28 or 29 alone where ``phases`` names it: the kernels line
+    then holds that phase's launches and numbers alone); returns the
+    kernels line and the details. Phases 20 to 29 each start after the
+    phases before them have returned, so that nothing those held stays on
+    the card; phase 20 (a)'s and (c)'s recorded calls stay on the host for
+    phases 28 and 29."""
+    if phases in ("20", "21", "22", "23", "24", "25", "26", "27", "28", "29"):
         result = {"phase_s": {}, "kernels": [
             {"name": name, "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0}
             for name in KERNELS]}
@@ -8266,7 +8589,7 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
         moe = moe_phase(sizes, device)
         result["phase_s"]["20"] = time.perf_counter() - t0
         moe_entries(result["kernels"], moe)
-        p20 = moe.pop("dbrx_calls")
+        p20 = {"dbrx": moe.pop("dbrx_calls"), "deepseek": moe.pop("deepseek_calls")}
         result["moe"] = moe
     if phases in ("all", "21"):
         t0 = time.perf_counter()
@@ -8304,7 +8627,7 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
         streaming_entries(result["kernels"], streaming)
         streaming["a"].pop("op")
         result["streaming"] = streaming
-    wanted = tuple(p for p in ("26", "27", "28") if phases in ("all", p))
+    wanted = tuple(p for p in ("26", "27", "28", "29") if phases in ("all", p))
     with contextlib.ExitStack() as stack:
         # in the whole run the ranks of phases 26-28 start and warm beside
         # phase 25, which holds the card alone (their contexts idle on it)
@@ -8319,7 +8642,7 @@ def run(sizes: Sizes, device, phases: str = "all") -> dict:
             for phase, res in tp_phases(sizes, device, wanted, p20, started).items():
                 case = tp_case(sizes, phase)
                 result["phase_s"][phase] = res["phase_s"]
-                tp_entries(result["kernels"], res, alone=phases == phase, case=case)
+                tp_entries(result["kernels"], res, alone=phases == case["phase"], case=case)
                 result[case["key"]] = res
         t0 = time.perf_counter()
     result["pool_close_s"] = time.perf_counter() - t0
@@ -8776,10 +9099,11 @@ DIST_LIBRARIES = ("bsr_spmm", "bsr_spmm_fused", "bsr_spmm_masked", "bsr_attentio
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    choices=("all", "20", "21", "22", "23", "24", "25", "26", "27", "28"),
+                    choices=("all", "20", "21", "22", "23", "24", "25", "26", "27", "28",
+                             "29"),
                     default="all",
                     help="every phase (the default), or phase 20, 21, 22, 23, 24, 25, 26, "
-                         "27 or 28 alone after building the libraries it runs")
+                         "27, 28 or 29 alone after building the libraries it runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -8820,6 +9144,8 @@ def main(argv=None) -> int:
         print_tp_summary(result["tensor_parallel"], card)
         print_tp_summary(result["fsdp"], card, "27")
         print_tp_summary(result["expert_parallel"], card, "28")
+        print_tp_summary(result["mla_parallel"], card, "29")
+        print_tp_summary(result["encdec_parallel"], card, "29")
     elif args.phases == "20":
         print_moe_summary(result["moe"], card)
     elif args.phases == "21":
@@ -8836,12 +9162,15 @@ def main(argv=None) -> int:
         print_tp_summary(result["fsdp"], card, "27")
     elif args.phases == "28":
         print_tp_summary(result["expert_parallel"], card, "28")
+    elif args.phases == "29":
+        print_tp_summary(result["mla_parallel"], card, "29")
+        print_tp_summary(result["encdec_parallel"], card, "29")
     else:
         print_streaming_summary(result["streaming"], card)
     # before the build (imports, the card's query), the phases, the script
     seconds = {"start": t0 - T_START, "phases": time.perf_counter() - t_all,
                "script": time.perf_counter() - T_START}
-    print(f"[done] phases {'2-28' if args.phases == 'all' else args.phases} in "
+    print(f"[done] phases {'2-29' if args.phases == 'all' else args.phases} in "
           f"{seconds['phases']:.1f}s (the script so far {seconds['script']:.1f}s, its "
           f"start {seconds['start']:.1f}s): "
           + ", ".join(f"{k} {v:.1f}s" for k, v in result["phase_s"].items()))

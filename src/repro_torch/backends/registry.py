@@ -51,9 +51,9 @@ DIST_OP_VOCABULARY = (
     "dist_feature_matmul_sparse",
 )
 
-#: what item 7 still leaves: (4b) MLA, SSM, xLSTM and encoder-decoder
-#: layers under the sharding rules (sub-item 4); (5) a transport other than
-#: gloo (NCCL, CUDA IPC)
+#: what item 7 still leaves: (4b) SSM and xLSTM layers under the sharding
+#: rules (sub-item 4), and MLA heads split below one head over ``model``;
+#: (5) a transport other than gloo (NCCL, CUDA IPC)
 DIST_ITEM = "ROADMAP.md Queue 1, item 7, parts 4b and 5 (distributed)"
 
 

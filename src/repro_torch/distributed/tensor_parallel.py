@@ -34,6 +34,14 @@ Megatron-style, on the rules of ``distributed/sharding.py``:
   ``sum_over_data`` (an all-reduce whose backward scales by the data
   size, for a quantity every data rank then uses whole) serve its
   routing and its load-balance loss.
+- ``gather_model_positions``: all-gather on the positions' axis over
+  ``model``, no gradient (serving): MLA's latent cache, which
+  ``cache_spec`` splits by position over ``model`` (each rank writes the
+  positions it owns), gathered whole before ``wkv_b`` rebuilds the
+  rank's heads' keys and values from it. The latent is ``kv_lora_rank +
+  qk_rope_head_dim`` wide (576 at deepseek-v3-671b's widths), so this
+  moves ``B·S·576`` values a layer a call, where all-gathering ``wkv_b``
+  (the other exact placement) would move its ``512 x 32,768`` a layer.
 
 A dimension that the rules leave replicated (``d_ff``, the heads or the
 padded vocabulary not divisible by ``model``) runs replicated: its
@@ -57,9 +65,9 @@ gloo (``launch/mesh.py``), whose all-gather takes host tensors: a CUDA
 operand is staged through the host.
 
 ``check_tp`` refuses the families that have no runtime under the rules
-yet (MLA, SSM, xLSTM, the encoder-decoder) by
-``registry.not_ported(..., DIST_ITEM)``; nothing falls back to the
-unsharded program.
+yet (SSM and xLSTM layers), and an MLA whose heads a model axis would
+split below one head, by ``registry.not_ported(..., DIST_ITEM)``;
+nothing falls back to the unsharded program.
 """
 from __future__ import annotations
 
@@ -438,6 +446,24 @@ def model_coord() -> int:
     return 0 if rules is None else rules.mesh.coords["model"]
 
 
+def latent_shards(s_max: int) -> int:
+    """How many ways ``cache_spec`` splits MLA's latent cache's ``s_max``
+    positions over ``model``: the axis size where the positions divide it
+    (each rank then holds ``s_max / model`` of them), else 1."""
+    rules = _model_rules()
+    return 1 if rules is None or s_max % rules.model_size else rules.model_size
+
+
+def gather_model_positions(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The model ranks' ``x`` concatenated along ``dim`` in rank order (the
+    ``model_coord``-th block of positions each), no gradient: a
+    position-split cache made whole. ``x`` itself without a model axis."""
+    rules = _model_rules()
+    if rules is None:
+        return x
+    return _communicate("all-gather", x.detach().contiguous(), "model", rules, dim=dim)
+
+
 def seq_shards(n_kv_heads: int, s_max: int) -> int:
     """How many ways ``cache_spec`` splits a K/V cache's ``s_max``
     positions over ``model``: where the KV heads do not divide the axis and
@@ -516,21 +542,28 @@ def sharded_ce(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int):
 
 def check_tp(cfg, rules: ShardingRules) -> None:
     """Raise ``not_ported(..., DIST_ITEM)`` for a configuration with no
-    runtime under the sharding rules yet: MLA, SSM and xLSTM layers and
-    the encoder-decoder (item 7, part 4b, sub-item 4). The dense family (a
-    vision frontend's embeddings allowed) and the mixture of experts run
-    on any mesh, FSDP and 2D expert parallelism included, each dimension
-    sharded or replicated as ``param_spec`` and ``cache_spec`` say."""
+    runtime under the sharding rules yet: SSM and xLSTM layers (item 7,
+    part 4b, sub-item 4), and MLA whose heads the model axis would split
+    below one head (``wq_b``, ``wkv_b`` and ``wo`` sharded, but the heads
+    not divisible by ``model``; no ``SHAPES`` mesh does this). The dense
+    family (a vision frontend's embeddings allowed), the mixture of
+    experts, MLA and the encoder-decoder run on any other mesh, FSDP and
+    2D expert parallelism included, each dimension sharded or replicated
+    as ``param_spec`` and ``cache_spec`` say."""
     why = []
     kinds = set(cfg.blocks)
-    if cfg.mla is not None:
-        why.append("MLA")
+    if cfg.mla is not None and rules.model_size > 1:
+        m, h = cfg.mla, cfg.n_heads
+        widths = (h * (m.qk_nope_head_dim + m.qk_rope_head_dim),
+                  h * (m.qk_nope_head_dim + m.v_head_dim), h * m.v_head_dim)
+        sharded = [rules._model_if_divisible(w) is not None for w in widths]
+        if any(sharded) and not (all(sharded) and h % rules.model_size == 0):
+            why.append(f"MLA's {h} heads split below one head over model "
+                       f"{rules.model_size}")
     if kinds & {"mamba", "shared_attn"}:
         why.append("SSM layers")
     if kinds & {"mlstm", "slstm"}:
         why.append("xLSTM layers")
-    if cfg.is_encoder_decoder:
-        why.append("the encoder-decoder")
     if why:
         raise not_ported(f"tensor parallelism for {cfg.name} ({'; '.join(why)})",
                          DIST_ITEM)

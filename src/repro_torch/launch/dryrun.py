@@ -29,12 +29,14 @@ the rank's on its card, the roofline the mesh's (``launch/roofline.py``),
 with the collectives' bytes and counts by kind (``collective_counts``),
 the bytes a rank sends for them by a ring (``collective_link_bytes``)
 and their term over NVLink; a cell whose configuration the port has no
-runtime for under the rules yet (MLA, SSM, xLSTM, the encoder-decoder)
-is skipped with ``tensor_parallel.check_tp``'s reason: ``--all --mesh
-1x8`` and ``--mesh 2x4`` reckon the dense family's 16 cells (FSDP where
-the JAX package's rule turns it on) and dbrx-132b's 3, its experts over
-``(data, model)`` (at ``2x4`` its tokens' all-to-alls over ``data``
-among the collectives), and skip 21. ``--mesh 1x1`` (the default) is the one-card run.
+runtime for under the rules yet (SSM and xLSTM layers) is skipped with
+``tensor_parallel.check_tp``'s reason: ``--all --mesh 1x8`` and ``--mesh
+2x4`` reckon the dense family's 16 cells (FSDP where the JAX package's
+rule turns it on), dbrx-132b's 3 and deepseek-v3-671b's 3, their experts
+over ``(data, model)`` (at ``2x4`` the tokens' all-to-alls over ``data``
+among the collectives; deepseek's latent all-gathered over ``model``),
+and whisper-tiny's 3, and skip 15 (zamba2-7b's 4, xlstm-1.3b's 4 and the
+7 cells no mesh runs). ``--mesh 1x1`` (the default) is the one-card run.
 
 The JAX dry run's knobs: ``--remat {layer,none}``, ``--ssm-chunk N``
 (the SSD and mLSTM chunk), ``--ep2d`` (2D expert parallelism forced on

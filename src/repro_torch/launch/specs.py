@@ -29,9 +29,11 @@ a mesh; ``microbatches`` splits a training batch.
 On a mesh (``mesh=(data, model)``) the cell is one rank's: the JAX
 package's FSDP and 2D expert-parallel choices (``specs.py:107-121``) are
 made as there, and ``tensor_parallel.check_tp`` refuses, with its reason,
-the families the port has no runtime for under the rules yet (MLA, SSM,
-xLSTM, the encoder-decoder); a mixture of experts runs with its experts
-over ``(data, model)`` or over ``model`` (``models/moe.py``); the parameters
+the families the port has no runtime for under the rules yet (SSM and
+xLSTM layers); a mixture of experts runs with its experts over ``(data,
+model)`` or over ``model`` (``models/moe.py``), MLA on the rank's heads
+with its latent cache split by position, the encoder-decoder on the
+rank's heads and ``d_ff`` columns; the parameters
 are the rank's shards of the whole model (``tensor_parallel.shard_tree``
 at the rank's coordinates; under FSDP a quarter of a 2-D leaf at (2, 2),
 its layer gathered where it runs), the batch its data rank's rows, the
@@ -39,8 +41,9 @@ cache its KV heads or, where those do not divide the model axis, its
 block of positions, and the step runs under the ``ShardingRules``
 (``distributed/sharding.py``), whose collectives send nothing on the
 abstract mesh and are counted by kind (``step_cost.StepCost``):
-all-reduces, all-gathers over ``model`` and FSDP's over ``data``,
-reduce-scatters, and the experts' all-to-alls over ``data``.
+all-reduces, all-gathers over ``model`` (MLA's latent positions among
+them) and FSDP's over ``data``, reduce-scatters, and the experts'
+all-to-alls over ``data``.
 The fit on the card's 80 GB is decided in ``launch/dryrun.py`` from the
 bytes here and the simulated peak of ``launch/step_cost.py``.
 """

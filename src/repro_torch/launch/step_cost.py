@@ -42,6 +42,7 @@ the skipped steps' tensors as alive, as they are where every step runs.
 """
 from __future__ import annotations
 
+import gc
 import weakref
 from collections import defaultdict
 
@@ -255,7 +256,12 @@ class StepCost(TorchDispatchMode):
 def reckon(step, *args, sample: int = 1, **kwargs) -> tuple:
     """``step(*args, **kwargs)`` under a fresh ``StepCost``; returns
     ``(its output, the StepCost)``. The output is dropped by the caller
-    when it wants the peak of the step alone."""
+    when it wants the peak of the step alone. The garbage collector runs
+    first: tensors a step leaves in reference cycles outlive their last
+    use until a collection, which then falls at the same point of every
+    reckoning of the step (where it fell before depended on what the
+    process had allocated since the last one, and moved the peak)."""
+    gc.collect()
     cost = StepCost(sample=sample)
     with cost:
         out = step(*args, **kwargs)

@@ -28,7 +28,11 @@ attention (``mla_apply``) caches only the compressed latent ``[B, S,
 kv_lora_rank + qk_rope_head_dim]``, written in place the same way, and
 rebuilds K and V from it through ``wkv_b`` at every call; its query and
 key width (nope + rope) differs from its value width, so it always takes
-``_attn_core``.
+``_attn_core``. Under the sharding rules MLA attends for the heads of
+the rank's ``wq_b`` and ``wkv_b`` columns, and its latent cache holds the
+rank's block of positions (``mla_apply``); cross attention takes the
+query heads and the KV heads of the rank's ``wq``/``wk``/``wv`` columns
+as self attention does (``_cross``).
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ from repro_torch.distributed.tensor_parallel import (
     all_reduce_model,
     copy_to_model,
     gather_model_cols,
+    gather_model_positions,
+    latent_shards,
     model_coord,
     model_shard,
     reduce_from_model,
@@ -161,6 +167,29 @@ def _select_kv(k: torch.Tensor, sp: _Split, g: int) -> torch.Tensor:
     return k[:, :, want]
 
 
+def _kv_cols(p: dict, sp: _Split, src: torch.Tensor) -> tuple:
+    """K and V columns of ``src`` through the rank's ``wk``/``wv``: every KV
+    head where its columns are not whole heads (gathered over ``model``:
+    RoPE and the softmax need a head's whole ``Dh``), a replicated leaf
+    beside sharded heads passing ``copy_to_model``."""
+    wk, wv = p["wk"], p["wv"]
+    if sp.tp and sp.k_rep:  # a replicated leaf inside the sharded product
+        wk, wv = copy_to_model(wk), copy_to_model(wv)
+    k, v = dot(src, wk), dot(src, wv)
+    if sp.tp and not sp.k_local and not sp.k_rep:
+        k, v = gather_model_cols(k), gather_model_cols(v)
+    return k, v
+
+
+def _out_proj(p: dict, sp: _Split, out: torch.Tensor) -> torch.Tensor:
+    """``out`` [B, T, hl·Dh] through ``wo``: the rank's own columns of the
+    heads it attended for, its rows of ``wo``, summed over ``model``."""
+    if sp.tp and out.shape[-1] != sp.width:
+        out = out[..., sp.c0:sp.c0 + sp.width]
+    out = dot(out, p["wo"])
+    return reduce_from_model(out) if sp.tp else out
+
+
 def gqa_apply(
     p: dict,
     cfg: LMConfig,
@@ -197,19 +226,13 @@ def gqa_apply(
     b, t, _ = x.shape
     dh = cfg.resolved_head_dim
     if kv_source is not None:
-        q = dot(copy_to_model(x), p["wq"]).reshape(b, t, -1, dh)
-        return _cross(p, cfg, q, kv_source, cache, inner), cache
+        return _cross(p, cfg, x, kv_source, cache, inner), cache
     sp = _split(cfg, p)
     g = cfg.n_heads // cfg.n_kv_heads
     hl = sp.hi - sp.lo
     xin = copy_to_model(x) if sp.tp else x
     q_cols = dot(xin, p["wq"])
-    wk, wv = p["wk"], p["wv"]
-    if sp.tp and sp.k_rep:  # a replicated leaf inside the sharded product
-        wk, wv = copy_to_model(wk), copy_to_model(wv)
-    k, v = xin @ wk, xin @ wv
-    if sp.tp and not sp.k_local and not sp.k_rep:
-        k, v = gather_model_cols(k), gather_model_cols(v)
+    k, v = _kv_cols(p, sp, xin)
     k = apply_rope(k.reshape(b, t, -1, dh), positions, cfg.rope_theta)
     v = v.reshape(b, t, -1, dh)
 
@@ -222,11 +245,7 @@ def gqa_apply(
         return kk if sp.k_local else _select_kv(kk, sp, g)
 
     def finish(out):  # [B, T, hl, Dh] -> [B, T, D]
-        out = out.reshape(b, t, hl * dh)
-        if sp.tp and out.shape[-1] != sp.width:
-            out = out[..., sp.c0:sp.c0 + sp.width]
-        out = out @ p["wo"]
-        return reduce_from_model(out) if sp.tp else out
+        return _out_proj(p, sp, out.reshape(b, t, hl * dh))
 
     if cache is None:
         mask = make_mask(positions, positions, causal=True, window=window)
@@ -295,18 +314,36 @@ def _attn_partials(q, k, v, mask) -> torch.Tensor:
     return out.reshape(b, tq, h, v.shape[-1]).to(q.dtype)
 
 
-def _cross(p: dict, cfg: LMConfig, q: torch.Tensor, src: torch.Tensor,
+def _cross(p: dict, cfg: LMConfig, x: torch.Tensor, src: torch.Tensor,
            cache: Optional[dict], inner: str) -> torch.Tensor:
-    """Cross attention of ``q`` [B, T, H, Dh] over ``src`` [B, Tk, D]: no
-    RoPE, every key visible. A serving call of more than one query whose
-    q, k and v share a dtype runs ``inner``'s flash with ``causal=False``;
-    decode, the uncached forward and loss, and bfloat16 queries against
-    float32 memory (bfloat16 training) take ``_attn_core`` with a zero
-    mask, whose promotions are the JAX package's."""
-    b, t, h, dh = q.shape
-    tk, kv = src.shape[1], cfg.n_kv_heads
-    k = dot(src, p["wk"]).reshape(b, tk, kv, dh)
-    v = dot(src, p["wv"]).reshape(b, tk, kv, dh)
+    """Cross attention of ``x`` [B, T, D] over ``src`` [B, Tk, D] (the
+    encoder's own input in its layers): no RoPE, every key visible. A
+    serving call of more than one query whose q, k and v share a dtype
+    runs ``inner``'s flash with ``causal=False``; decode, the uncached
+    forward and loss, and bfloat16 queries against float32 memory
+    (bfloat16 training) take ``_attn_core`` with a zero mask, whose
+    promotions are the JAX package's. Under the rules the heads are the
+    rank's (``_split``), as in ``gqa_apply``: ``x`` and ``src`` pass
+    ``copy_to_model`` (once where they are one tensor), q is gathered over
+    ``model`` where the rank's ``wq`` columns split a head, K and V where
+    its ``wk`` columns are not whole KV heads, and ``wo``'s partial
+    products are summed over ``model``. K and V are recomputed from
+    ``src`` at every call, as in the JAX package."""
+    b, t, _ = x.shape
+    tk, dh = src.shape[1], cfg.resolved_head_dim
+    sp = _split(cfg, p)
+    g = cfg.n_heads // cfg.n_kv_heads
+    hl = sp.hi - sp.lo
+    xin = copy_to_model(x) if sp.tp else x
+    src_in = xin if src is x else copy_to_model(src) if sp.tp else src
+    q = dot(xin, p["wq"])
+    k, v = _kv_cols(p, sp, src_in)
+    if sp.q_gather:
+        q = gather_model_cols(q)[..., sp.lo * dh:sp.hi * dh]
+    q = q.reshape(b, t, hl, dh)
+    k, v = k.reshape(b, tk, -1, dh), v.reshape(b, tk, -1, dh)
+    if not sp.k_local:
+        k, v = _select_kv(k, sp, g), _select_kv(v, sp, g)
     if cache is not None and t > 1 and q.dtype == k.dtype:
         out = _executor(inner, "flash")(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -314,7 +351,7 @@ def _cross(p: dict, cfg: LMConfig, q: torch.Tensor, src: torch.Tensor,
     else:
         mask = torch.zeros((1, 1, t, tk), dtype=torch.float32, device=q.device)
         out = _attn_core(q, k, v, mask)
-    return dot(out.reshape(b, t, h * dh), p["wo"])
+    return _out_proj(p, sp, out.reshape(b, t, hl * dh))
 
 
 def gqa_cache_init(cfg: LMConfig, batch: int, s_max: int,
@@ -348,6 +385,14 @@ def mla_init(generator: torch.Generator, cfg: LMConfig, lead: tuple = (),
             "wo": dense_init(generator, h * m.v_head_dim, d, lead, device)}
 
 
+def _mla_heads(cfg: LMConfig, p: dict) -> int:
+    """The heads of the rank's ``wq_b`` columns: all of them where the
+    rules leave it whole, else ``n_heads / model`` (``check_tp`` refuses a
+    split below one head)."""
+    m = cfg.mla
+    return p["wq_b"].shape[-1] // (m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
 def mla_apply(
     p: dict,
     cfg: LMConfig,
@@ -360,13 +405,26 @@ def mla_apply(
     latent ``x @ wkv_a``, RoPE on its rope part (one head shared by all);
     K and V rebuilt from the latent (read at x's dtype, as the JAX package
     reads its cache) through ``wkv_b``; the mask over every cache slot,
-    causal and valid below ``idx + t``."""
+    causal and valid below ``idx + t``.
+
+    Under the rules the rank attends for the heads of its ``wq_b`` and
+    ``wkv_b`` columns (``wo`` its rows of them, summed over ``model``);
+    ``wq_a`` and ``wkv_a`` are replicated, so the query latent and the KV
+    latent (both parts: the rope part is every head's key too) pass
+    ``copy_to_model`` before the sharded products. A latent cache split
+    by position (``seq_shards`` of ``s_max / model`` positions, the rank's
+    the ``model_coord``-th block) takes the fresh positions the rank owns,
+    and is gathered whole over ``model`` (``gather_model_positions``)
+    before ``wkv_b``: every head needs every position's latent."""
     m: MLAConfig = cfg.mla
     b, t, _ = x.shape
-    h = cfg.n_heads
+    hl = _mla_heads(cfg, p)
+    tp = hl != cfg.n_heads
     r, nope, rope_d, vdim = (m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim,
                              m.v_head_dim)
-    q = ((x @ p["wq_a"]) @ p["wq_b"]).reshape(b, t, h, nope + rope_d)
+    q_lat = x @ p["wq_a"]
+    q = ((copy_to_model(q_lat) if tp else q_lat) @ p["wq_b"]).reshape(
+        b, t, hl, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -377,33 +435,50 @@ def mla_apply(
 
     if cache is None:
         latent, k_pos, k_valid = latent_new, positions, None
+        if tp:
+            latent = copy_to_model(latent)
     else:
         idx = cache["idx"]
-        latent = cache["latent"]
-        s_max = latent.shape[1]
+        local = cache["latent"]
+        shards = cache.get("seq_shards", 1)
+        s_local = local.shape[1]
+        s_max = s_local * shards
         if idx + t > s_max:
             raise ValueError(f"the cache holds {s_max} positions; {idx} are filled "
                              f"and {t} more do not fit")
-        latent[:, idx:idx + t] = latent_new.to(latent.dtype)
+        off = model_coord() * s_local if shards > 1 else 0
+        lo, hi = max(idx, off), min(idx + t, off + s_local)
+        if lo < hi:  # the fresh positions this rank holds
+            local[:, lo - off:hi - off] = latent_new[:, lo - idx:hi - idx].to(local.dtype)
+        latent = gather_model_positions(local) if shards > 1 else local
         k_pos = torch.arange(s_max, device=x.device)
         k_valid = (k_pos < idx + t)[None, :].expand(b, s_max)
 
     s = latent.shape[1]
-    kv = (latent[..., :r].to(x.dtype) @ p["wkv_b"]).reshape(b, s, h, nope + vdim)
+    kv = (latent[..., :r].to(x.dtype) @ p["wkv_b"]).reshape(b, s, hl, nope + vdim)
     k_nope, v = kv[..., :nope], kv[..., nope:]
-    k_rope = latent[..., r:].to(x.dtype)[:, :, None, :].expand(b, s, h, rope_d)
+    k_rope = latent[..., r:].to(x.dtype)[:, :, None, :].expand(b, s, hl, rope_d)
     qk = torch.cat([q_nope, q_rope], -1)
     kk = torch.cat([k_nope, k_rope], -1)
     mask = make_mask(positions, k_pos, causal=True, k_valid=k_valid)
-    out = _attn_core(qk, kk, v, mask).reshape(b, t, h * vdim) @ p["wo"]
-    new_cache = None if cache is None else {"latent": latent, "idx": idx + t}
+    out = _attn_core(qk, kk, v, mask).reshape(b, t, hl * vdim) @ p["wo"]
+    if tp:
+        out = reduce_from_model(out)
+    if cache is None:
+        return out, None
+    new_cache = {"latent": local, "idx": idx + t}
+    if shards > 1:
+        new_cache["seq_shards"] = shards
     return out, new_cache
 
 
 def mla_cache_init(cfg: LMConfig, batch: int, s_max: int, dtype=torch.bfloat16,
                    lead: tuple = (), device=None) -> dict:
     """A zeroed latent ``[*lead, B, S, kv_lora_rank + qk_rope_head_dim]``
-    (the index lives at the cache's root, ``LM.init_cache``)."""
+    (the index lives at the cache's root, ``LM.init_cache``): under the
+    rules the rank's ``S / model`` positions where they divide the model
+    axis (``latent_shards``), as ``cache_spec`` splits it."""
     m: MLAConfig = cfg.mla
-    return {"latent": torch.zeros((*lead, batch, s_max, m.kv_lora_rank + m.qk_rope_head_dim),
+    s = s_max // latent_shards(s_max)
+    return {"latent": torch.zeros((*lead, batch, s, m.kv_lora_rank + m.qk_rope_head_dim),
                                   dtype=dtype, device=device)}

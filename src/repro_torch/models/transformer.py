@@ -71,6 +71,7 @@ from repro_torch.distributed import fsdp
 from repro_torch.distributed.sharding import current_rules, shard_activation
 from repro_torch.distributed.tensor_parallel import (
     gather_from_model,
+    latent_shards,
     model_sharded,
     seq_shards,
     sharded_ce,
@@ -326,11 +327,16 @@ class LM:
         bidirectional attention (cross attention of the frames over
         themselves, no RoPE, as in the JAX package) and an MLP, then the
         final norm. ``cache`` only says that the call serves a prefill,
-        where the attention is the flash kernel (``attention._cross``)."""
+        where the attention is the flash kernel (``attention._cross``).
+        Under the rules each layer runs on the rank's heads and ``d_ff``
+        columns, its leaves gathered over ``data`` where FSDP shards
+        them."""
         cfg = self.cfg
+        plan = fsdp.plan(self)
         x = frames
         pos = torch.arange(x.shape[1], device=x.device)
-        for lp in params["encoder"]["layers"]:
+        for i, lp in enumerate(params["encoder"]["layers"]):
+            lp = fsdp.gather(lp, plan, f"encoder/layers/{i}")
             h = apply_norm(cfg.norm, lp["norm1"], x)
             a, _ = attn.gqa_apply(lp["attn"], cfg, h, pos, cache=cache, kv_source=h,
                                   inner=self.inner)
@@ -490,16 +496,25 @@ class LM:
         final hidden state, normed, beside the embedding of token t + 1,
         projected and run through ``params["mtp"]["block"]`` (its aux
         dropped, as the JAX package drops it), predicts token t + 2 (the
-        label at t + 1)."""
+        label at t + 1). Under the rules the block runs on the rank's heads
+        and experts, ``proj`` (in no rule's list) replicated, the
+        embedding, the head and the block's leaves gathered over ``data``
+        where FSDP shards them, and the loss is the vocabulary-sharded
+        cross entropy, the whole batch's mean over the data ranks."""
         cfg = self.cfg
-        mp = params["mtp"]
-        nxt = embed_lookup(params["embed"], tokens[:, 1:]) * float(np.sqrt(cfg.d_model))
+        plan = fsdp.plan(self)
+        mp = fsdp.gather(params["mtp"], plan, "mtp")
+        embed = fsdp.gather(params["embed"], plan, "embed")
+        nxt = embed_lookup(embed, tokens[:, 1:], cfg.padded_vocab()) \
+            * float(np.sqrt(cfg.d_model))
         z = torch.cat([apply_norm(cfg.norm, mp["norm"], hidden[:, :-1]), nxt], -1)
         z = z @ mp["proj"]
         pos = torch.arange(z.shape[1], device=z.device)
         z, _, _ = _apply_layer(mp["block"], cfg, "attn", z, pos, 0, None, self.inner)
-        logits2 = unembed(self._head(params), apply_norm(cfg.norm, params["final_norm"], z))
-        ce, _ = _masked_ce(logits2, labels[:, 1:], cfg.vocab_size)
+        logits2 = unembed(self._head(params), apply_norm(cfg.norm, params["final_norm"], z),
+                          cfg.padded_vocab())
+        ce_of = _masked_ce if current_rules() is None else sharded_ce
+        ce, _ = ce_of(logits2, labels[:, 1:], cfg.vocab_size)
         return ce
 
     def init_cache(self, batch: int, s_max: int, dtype=torch.bfloat16,
@@ -510,10 +525,12 @@ class LM:
         shared sites, the latent for MLA layers, and float32 states for
         the recurrent blocks (``"ssm"``, ``"xl"``, whatever ``dtype``, as
         the JAX package's); an encoder-decoder's ``enc_out`` [B,
-        encoder_seq, D] at ``dtype``; ``idx = 0``, on ``device``. Where
-        the rules split the K/V caches by position (KV heads the model
-        axis does not divide), ``seq_shards`` at the root says into how
-        many blocks, each rank holding its own."""
+        encoder_seq, D] at ``dtype`` (the rank's batch, whole over
+        ``model``); ``idx = 0``, on ``device``. Where the rules split the
+        K/V caches by position (KV heads the model axis does not divide)
+        or MLA's latent (whose positions they split wherever ``model``
+        divides them), ``seq_shards`` at the root says into how many
+        blocks, each rank holding its own."""
         device = resolve_device(device)
         cfg = self.cfg
 
@@ -534,7 +551,7 @@ class LM:
             lead = () if seg.mode == "unroll" else (seg.n_reps,)
             segs.append([layer_cache(kind, lead) for kind in seg.kinds])
         cache = {"idx": 0, "segments": segs}
-        shards = seq_shards(cfg.n_kv_heads, s_max)
+        shards = latent_shards(s_max) if cfg.mla else seq_shards(cfg.n_kv_heads, s_max)
         if shards > 1 and any(kind in ("attn", "shared_attn") for kind in cfg.blocks):
             cache["seq_shards"] = shards  # each rank holds s_max / shards positions
         if cfg.is_encoder_decoder:

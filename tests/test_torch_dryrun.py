@@ -436,13 +436,13 @@ def test_microbatches_knob_overrides_the_bisection(monkeypatch):
 def test_cli_knobs_and_expert_parallel_mesh(tmp_path):
     """``--mesh 2x4`` reckons a dbrx-132b cell, its experts over (data,
     model), with the tokens' all-to-alls among its collectives at
-    (n-1)/n of their operand; the record carries the knobs; deepseek-v3-671b
-    is skipped for MLA alone; ``--ep2d`` on llama3.2-1b changes nothing of
-    a dense model's rank step."""
+    (n-1)/n of their operand; the record carries the knobs; zamba2-7b is
+    skipped for its SSM layers alone; ``--ep2d`` on llama3.2-1b changes
+    nothing of a dense model's rank step."""
     out = tmp_path / "mesh.jsonl"
     dryrun.main(["--arch", "dbrx-132b", "--shape", "decode_32k", "--mesh", "2x4",
                  "--moe-impl", "sorted", "--out", str(out)])
-    dryrun.main(["--arch", "deepseek-v3-671b", "--shape", "decode_32k", "--mesh", "2x4",
+    dryrun.main(["--arch", "zamba2-7b", "--shape", "decode_32k", "--mesh", "2x4",
                  "--out", str(out)])
     dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k", "--mesh", "2x4",
                  "--ep2d", "--remat", "none", "--out", str(out)])
@@ -455,7 +455,7 @@ def test_cli_knobs_and_expert_parallel_mesh(tmp_path):
     assert dbrx["collective_counts"]["all-to-all"] == 2 * cfg.n_layers
     a2a = dbrx["collective_detail"]["all-to-all"]
     assert a2a > 0 and dbrx["collective_link_bytes"] > 0
-    assert ds["status"] == "skipped" and "MLA" in ds["reason"]
-    assert "mixture-of-experts" not in ds["reason"]
+    assert ds["status"] == "skipped" and "SSM layers" in ds["reason"]
+    assert "MLA" not in ds["reason"] and "mixture-of-experts" not in ds["reason"]
     assert llama["status"] == "ok" and llama["knobs"]["ep2d"] is True
     assert llama["remat"] == "none" and "all-to-all" not in llama["collective_counts"]

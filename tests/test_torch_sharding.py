@@ -9,9 +9,10 @@ kind's, on the meshes (1, 4), (2, 2), (16, 16) and (2, 16, 16) (JAX's
 ``AbstractMesh``; the port's ``launch/mesh.py:Mesh``), with ``fsdp`` and
 ``expert_parallel_2d`` each on and off. The slices run in a subprocess
 with 8 host devices, as ``tests/test_distributed.py`` runs its meshes.
-``check_tp`` refuses every configuration outside the dense slice, by
-name.
+``check_tp`` refuses the SSM and xLSTM configurations alone, by name,
+and an MLA whose heads a model axis would split below one head.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -245,32 +246,36 @@ def _refused(cfg, mesh, **kw):
 
 
 def test_check_tp_refuses_outside_the_slice_by_name():
-    """The dense family and the mixture of experts run on every mesh and
-    under every rules ``launch/specs.py`` builds, FSDP and 2D expert
-    parallelism included; the families without a runtime under the rules
-    are refused by name."""
+    """The dense family, the mixture of experts, MLA and the encoder-decoder
+    run on every mesh and under every rules ``launch/specs.py`` builds,
+    FSDP and 2D expert parallelism included; the families without a
+    runtime under the rules are refused by name."""
     for arch, mesh in (("llama3.2-1b", (1, 4)), ("llama3.2-1b", (2, 2)),
                        ("llama3.2-1b", (1, 8)), ("pixtral-12b", (1, 8)),
                        ("llama3.2-1b", (1, 1)), ("gemma3-1b", (1, 4)),
                        ("gemma3-1b", (1, 8)), ("granite-34b", (1, 4)),
-                       ("starcoder2-3b", (1, 4)), ("llama3.2-1b", (1, 3))):
+                       ("starcoder2-3b", (1, 4)), ("llama3.2-1b", (1, 3)),
+                       ("whisper-tiny", (1, 4)), ("whisper-tiny", (1, 8)),
+                       ("whisper-tiny", (2, 2)), ("deepseek-v3-671b", (1, 4)),
+                       ("deepseek-v3-671b", (1, 8)), ("deepseek-v3-671b", (3, 2))):
         check_tp(get_config(arch), ShardingRules(abstract_mesh(*mesh), get_config(arch)))
     # dbrx-132b's 16 experts over (data, model) where they divide it (2D),
-    # over model alone where not (1D), FSDP or not
-    dbrx = get_config("dbrx-132b")
-    for mesh, ep in (((1, 4), True), ((2, 2), True), ((1, 8), True), ((2, 4), True),
-                     ((1, 4), False), ((2, 2), False), ((3, 2), True), ((1, 3), True)):
-        for fsdp in (False, True):
-            check_tp(dbrx, ShardingRules(abstract_mesh(*mesh), dbrx, fsdp=fsdp,
-                                         expert_parallel_2d=ep))
-    cases = {"deepseek-v3-671b": ["MLA"],
-             "zamba2-7b": ["SSM layers"], "xlstm-1.3b": ["xLSTM layers"],
-             "whisper-tiny": ["the encoder-decoder"]}
+    # over model alone where not (1D), FSDP or not; deepseek-v3-671b's 256
+    # the same, its MLA heads whole on every rank
+    for arch in ("dbrx-132b", "deepseek-v3-671b"):
+        cfg = get_config(arch)
+        for mesh, ep in (((1, 4), True), ((2, 2), True), ((1, 8), True), ((2, 4), True),
+                         ((1, 4), False), ((2, 2), False), ((3, 2), True), ((1, 3), True)):
+            if arch == "deepseek-v3-671b" and mesh[1] == 3:
+                continue  # 3 splits its MLA heads (REFUSED)
+            for fsdp in (False, True):
+                check_tp(cfg, ShardingRules(abstract_mesh(*mesh), cfg, fsdp=fsdp,
+                                            expert_parallel_2d=ep))
+    cases = {"zamba2-7b": ["SSM layers"], "xlstm-1.3b": ["xLSTM layers"]}
     for arch, names in cases.items():
         msg = _refused(get_config(arch), (1, 4))
         assert all(n in msg for n in names), (arch, msg)
-    assert "mixture-of-experts" not in _refused(get_config("deepseek-v3-671b"), (2, 2),
-                                                expert_parallel_2d=True)
+    assert "MLA" not in _refused(get_config("zamba2-7b"), (2, 2), expert_parallel_2d=True)
     llama = get_config("llama3.2-1b")
     check_tp(llama, ShardingRules(abstract_mesh(2, 2), llama, fsdp=True))
     check_tp(llama, ShardingRules(abstract_mesh(2, 2), llama, expert_parallel_2d=True))
@@ -278,10 +283,41 @@ def test_check_tp_refuses_outside_the_slice_by_name():
     # model 8, and for starcoder2-3b's at model 2; granite-34b serves with it
     for arch, shape, mesh in (("pixtral-12b", "train_4k", (1, 8)),
                               ("starcoder2-3b", "train_4k", (2, 2)),
-                              ("granite-34b", "decode_32k", (2, 4))):
+                              ("granite-34b", "decode_32k", (2, 4)),
+                              ("deepseek-v3-671b", "train_4k", (2, 2))):
         assert mesh_rules(get_config(arch), SHAPES[shape], abstract_mesh(*mesh)).fsdp
     assert not mesh_rules(get_config("pixtral-12b"), SHAPES["prefill_32k"],
                           abstract_mesh(1, 8)).fsdp
+
+
+#: (architecture, mesh, rules' options, the reason's words): what check_tp
+#: still refuses, one case each
+REFUSED = [("zamba2-7b", (1, 4), {}, "SSM layers"),
+           ("zamba2-7b", (2, 4), {"fsdp": True}, "SSM layers"),
+           ("zamba2-7b", (1, 8), {}, "SSM layers"),
+           ("xlstm-1.3b", (1, 4), {}, "xLSTM layers"),
+           ("xlstm-1.3b", (2, 2), {"fsdp": True}, "xLSTM layers"),
+           ("xlstm-1.3b", (1, 8), {}, "xLSTM layers"),
+           ("deepseek-6h", (1, 4), {}, "MLA's 6 heads split below one head over model 4"),
+           ("deepseek-v3-671b", (1, 3), {},
+            "MLA's 128 heads split below one head over model 3")]
+
+
+@pytest.mark.parametrize("arch,mesh,kw,why", REFUSED,
+                         ids=[f"{a}-{d}x{m}" + ("-fsdp" if kw else "")
+                              for a, (d, m), kw, _ in REFUSED])
+def test_check_tp_refuses_ssm_xlstm_and_split_mla_heads(arch, mesh, kw, why):
+    """SSM and xLSTM layers have no runtime under the rules yet; an MLA of
+    6 heads at model 4 (its ``wq_b``, ``wkv_b`` and ``wo`` widths divide 4,
+    its heads do not) would split a head, and so would deepseek-v3-671b at
+    model 3 (its ``wq_b`` sharded, its ``wkv_b`` not), which no ``SHAPES``
+    mesh does."""
+    if arch == "deepseek-6h":
+        cfg = dataclasses.replace(get_config("deepseek-v3-671b").reduced(), n_heads=6,
+                                  n_kv_heads=6)
+    else:
+        cfg = get_config(arch)
+    assert why in _refused(cfg, mesh, **kw)
 
 
 def test_shard_activation_without_rules_returns_its_input():

@@ -404,22 +404,22 @@ def test_dryrun_rank_step_matches_the_ranks(runs):
 
 def test_dryrun_mesh_records(tmp_path):
     """``dryrun --mesh 1x8`` reckons llama3.2-1b's decode cell with a
-    collective term over NVLink and skips whisper-tiny's with
+    collective term over NVLink and skips xlstm-1.3b's with
     ``check_tp``'s reason; the report names the most collective cell; ``--mesh 1x1`` is
     the one-card record, without the mesh's keys."""
     from repro_torch.launch import dryrun, report
 
     mesh_out, card_out = tmp_path / "mesh.jsonl", tmp_path / "card.jsonl"
-    for arch in ("llama3.2-1b", "whisper-tiny"):
+    for arch in ("llama3.2-1b", "xlstm-1.3b"):
         dryrun.main(["--arch", arch, "--shape", "decode_32k", "--mesh", "1x8",
                      "--out", str(mesh_out)])
     dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k", "--out", str(card_out)])
     ok, skipped = [report._records(str(mesh_out))[(a, "decode_32k")]
-                   for a in ("llama3.2-1b", "whisper-tiny")]
+                   for a in ("llama3.2-1b", "xlstm-1.3b")]
     assert ok["status"] == "ok" and ok["chips"] == 8 and ok["t_collective_s"] > 0
     assert ok["mesh_shape"] == {"data": 1, "model": 8}
     assert ok["collective_counts"] == {"all-reduce": 33, "all-gather": 1}
-    assert skipped["status"] == "skipped" and "the encoder-decoder" in skipped["reason"]
+    assert skipped["status"] == "skipped" and "xLSTM layers" in skipped["reason"]
     assert report.pick_hillclimb_cells(str(mesh_out))["most_collective"][:2] == (
         "llama3.2-1b", "decode_32k")
     card = report._records(str(card_out))[("llama3.2-1b", "decode_32k")]
